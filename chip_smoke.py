@@ -1,0 +1,472 @@
+#!/usr/bin/env python3
+"""Drive flowerdiff_torch's sampling path on one CUDA card and check it.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and the script exits nonzero without a result):
+  1. build the CUDA kernels from src/flowerdiff_torch/kernels/csrc;
+  2. hold each kernel against its plain PyTorch twin on the card, at the
+     flagship shapes of the sampling path (B = 16 and 128 rows: the 8- and
+     64-image buckets doubled for classifier-free guidance), with LayerNorm
+     affines and biases large enough that a kernel leaving any one out would
+     fail, and time both;
+  3. check the reverse-step noise against the closed-form variance of the
+     zero-eps recursion (B = 128, latent 256, T = 1000);
+  4. hold the kernel sampler against the plain f32 model on a short
+     schedule at flagship width, at both buckets (no step noise, fixed x_init);
+  5. profile 50 guided sampler steps (torch.profiler): wall against device
+     time a step, and the kernels that take it;
+  6. run SamplingService at flagship width (seeded weights, z-score stats,
+     CFG 7.0, x0 clip 3.0, 1000 steps, buckets 8 and 64) on three requests,
+     with the kernel launch counts read around them, then time the decode
+     of one 64 bucket;
+  7. print the card's name and power limit, a `kernels` JSON line, and as
+     the last line {"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+_ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(_ROOT / "src"))
+
+from flowerdiff_torch.diffusion import linear_schedule  # noqa: E402
+from flowerdiff_torch.diffusion.api import (  # noqa: E402
+    DiffusionSampler,
+    FusedDiffusionSampler,
+)
+from flowerdiff_torch.kernels import _build  # noqa: E402
+from flowerdiff_torch.kernels.denoiser_apply import (  # noqa: E402
+    head_weights,
+    stage_weights,
+)
+from flowerdiff_torch.kernels.full_sampler import (  # noqa: E402
+    prepare_fused_sampler,
+    reverse_step,
+    reverse_step_plain,
+)
+from flowerdiff_torch.kernels.latent_stage import (  # noqa: E402
+    LN_EPS,
+    bind_head,
+    bind_stage,
+    fused_head,
+    fused_head_plain,
+    fused_stage,
+    fused_stage_plain,
+)
+from flowerdiff_torch.serving import SamplingService  # noqa: E402
+from flowerdiff_torch.utils.weights import (  # noqa: E402
+    denoiser_from_params,
+    init_numpy_params,
+    vae_from_params,
+)
+
+# H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit).
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12
+
+FLAGSHIP = dict(latent_dim=256, hidden_dims=(256, 512, 1024, 512, 256),
+                time_emb_dim=256, num_classes=102, shared_cond_proj=True,
+                global_skip=False)
+VAE = dict(latent_dim=256, channels=(64, 128, 256, 512), head_width=512, base_size=8)
+GUIDANCE, CLIP = 7.0, 3.0
+ROWS = 128  # a 64-image bucket, doubled for CFG
+BUCKET_ROWS = (16, ROWS)  # the rows of the 8 and 64 buckets
+STATS = _ROOT / "artifacts" / "flagship_r5b" / "run" / "latent_stats.npz"
+# Kernel vs twin, relative to max|twin|. The twin rounds the same activations
+# to bf16, but its f32 sums run in another order, so a value near a rounding
+# boundary can land one bf16 ulp away and carry on through later products.
+# The readings at the unperturbed flagship weights were 1.4e-3 (stage) and
+# 8e-5 (head, with its t/c products) of max|twin|.
+STAGE_TOL = 5e-3
+HEAD_TOL = 5e-4
+NOISE_TOL = 1e-4   # reverse_step vs twin, absolute: same Philox bits, f32 libm
+
+
+def cuda_ms(fn, iters: int = 50) -> float:
+    """Device time of one call: `iters` calls captured in a CUDA graph and
+    replayed between CUDA events, so host launch overhead is left out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def eager_ms(fn, iters: int = 50) -> float:
+    """Wall time of one eager call (launch overhead included), synchronised."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def bound_ms(n_bytes: float, flops: float, peak_flops: float):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak_flops
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def max_err(a, b) -> float:
+    return float((a - b).abs().max())
+
+
+def phase_build():
+    t0 = time.perf_counter()
+    reports = _build.build_all()
+    print(f"[build] {len(reports)} libraries in {time.perf_counter() - t0:.1f} s")
+    for name, text in reports.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}")
+
+
+def perturbed(weights: dict, gen) -> dict:
+    """The kernel operands with LayerNorm scales 1 + 0.2 z and every other f32
+    vector 0.5 z, so that leaving any one of them out of a kernel moves its
+    output far past the limit (`held` checks this)."""
+    out = {}
+    for name, w in weights.items():
+        if w is None or w.dtype != torch.float32:
+            out[name] = w
+        else:
+            z = torch.randn(w.shape, generator=gen, device=w.device)
+            out[name] = 1 + 0.2 * z if name.startswith("g") else 0.5 * z
+    return out
+
+
+def held(what: str, got, ref, rel_tol: float, dropped: dict):
+    """Assert |got - ref| <= rel_tol * max|ref|, and that each twin output in
+    `dropped` (the twin with one term left out) is more than twice the limit
+    away from ref, so that a kernel that left that term out would fail.
+    Returns (err, limit, the term whose loss moves the output least)."""
+    assert torch.isfinite(got).all(), f"{what}: non-finite output"
+    tol = rel_tol * float(ref.abs().max())
+    err = max_err(got, ref)
+    assert err <= tol, f"{what}: err {err} > {rel_tol} x max|twin| = {tol}"
+    moves = {term: max_err(d, ref) for term, d in dropped.items()}
+    weakest = min(moves, key=moves.get)
+    assert moves[weakest] > 2 * tol, (
+        f"{what}: leaving out {weakest} moves the twin only {moves[weakest]}, "
+        f"within twice the limit {tol}")
+    return err, tol, f"{weakest} {moves[weakest]:.3g}"
+
+
+def phase_kernels(model, prep, gen):
+    """Each kernel against its twin at the main path's shapes: both buckets'
+    row counts, with perturbed LN affines and biases. The JSON row takes the
+    128-row (64 bucket) times, the worst error over both row counts."""
+    dev = torch.device("cuda")
+    t = 500
+    hidden, lat = FLAGSHIP["hidden_dims"], FLAGSHIP["latent_dim"]
+    st = {"name": "fused_stage", "route": "cuda",
+          "source": "src/flowerdiff_torch/kernels/csrc/latent_stage.cu",
+          "replaces": "src/flowerdiff/kernels/latent_stage.py:45",
+          "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+          "bound_by": "bytes", "library_ms": None}
+    hd_row = {"name": "fused_head", "route": "cuda",
+              "source": "src/flowerdiff_torch/kernels/csrc/latent_stage.cu",
+              "replaces": "src/flowerdiff/kernels/latent_stage.py:99",
+              "max_abs_err": 0.0, "library_ms": None}
+    rv_row = {"name": "reverse_step", "route": "cuda",
+              "source": "src/flowerdiff_torch/kernels/csrc/reverse_step.cu",
+              "replaces": "src/flowerdiff/kernels/full_sampler.py:81",
+              "max_abs_err": 0.0, "library_ms": None}
+    stage_w = [perturbed(stage_weights(model, i), gen) for i in range(len(hidden) - 1)]
+    head_w = perturbed(head_weights(model), gen)
+    for rows in BUCKET_ROWS:
+        for i, s in enumerate(stage_w):
+            d, dout = hidden[i], hidden[i + 1]
+            run = bind_stage(**s)
+            h = torch.randn((rows, d), generator=gen, device=dev)
+            tc = torch.randn((rows, d), generator=gen, device=dev) * 0.5
+            row = prep["tadds"][i][t]
+
+            def twin(h=h, tc=tc, row=row, **drop):
+                w = {**s, **drop}
+                return fused_stage_plain(h, tc, **w, row_add=row, eps=LN_EPS)
+
+            ref = twin()
+            dropped = {"tc": twin(tc=None), "row_add": twin(row=None)}
+            for name in ("bb", "g1", "b1", "g2", "b2", "bv", "bo", "bd"):
+                dropped[name] = twin(**{name: (torch.ones_like if name.startswith("g")
+                                               else torch.zeros_like)(s[name])})
+            err, tol, weakest = held(f"stage {d}->{dout} B={rows}", run(h, tc, row), ref,
+                                     STAGE_TOL, dropped)
+            ms = cuda_ms(lambda: run(h, tc, row))
+            plain = cuda_ms(twin)
+            eager = eager_ms(lambda: run(h, tc, row))
+            n_bytes = (4 * (2 * rows * d + d + 7 * d + dout + rows * dout)
+                       + 2 * (3 * d * d + d * dout))
+            b_ms, b_by = bound_ms(n_bytes, 2 * rows * d * (3 * d + dout), BF16_FLOP_PER_S)
+            print(f"[kernels] fused_stage {d}->{dout} B={rows}: max_abs_err {err:.3e} "
+                  f"(tol {tol:.3e}; least move of a left-out term: {weakest}) "
+                  f"ms {ms:.4f} plain_ms {plain:.4f} bound_ms {b_ms:.5f} ({b_by}) "
+                  f"eager_ms {eager:.4f}")
+            st["max_abs_err"] = max(st["max_abs_err"], err)
+            if rows == ROWS:
+                st["ms"] += ms
+                st["plain_ms"] += plain
+                st["bound_ms"] += b_ms
+                st["bound_by"] = b_by
+
+        dl = hidden[-1]
+        te = FLAGSHIP["time_emb_dim"]
+        h = torch.randn((rows, dl), generator=gen, device=dev)
+        rows_add = torch.randn((rows, dl), generator=gen, device=dev) * 0.5
+        tb = torch.randn((rows, te), generator=gen, device=dev)
+        cb = torch.randn((rows, te), generator=gen, device=dev)
+        row = prep["tadd_final"][t]
+        # the sampler's form: table adds, no products
+        w_adds = {**head_w, "wt": None, "bt": None, "wc": None, "bc": None}
+        run_adds = bind_head(**w_adds)
+        # every input at once: make_fast_denoiser's products and the table adds
+        run_all = bind_head(**head_w)
+
+        def htwin(w=head_w, tb=tb, cb=cb, row=row, ra=rows_add, **drop):
+            w = {**w, **drop}
+            return fused_head_plain(h, tb, cb, **w, row_add=row, rows_add=ra, eps=LN_EPS)
+
+        ref = htwin(w_adds, None, None)
+        dropped = {"row_add": htwin(w_adds, None, None, None),
+                   "rows_add": htwin(w_adds, None, None, row, None)}
+        for name in ("g", "b", "bf"):
+            dropped[name] = htwin(w_adds, None, None, **{name: (
+                torch.ones_like if name == "g" else torch.zeros_like)(head_w[name])})
+        err_a, tol_a, weak_a = held(f"head (table adds) B={rows}",
+                                    run_adds(h, None, None, row, rows_add), ref,
+                                    HEAD_TOL, dropped)
+        ref = htwin()
+        dropped = {"t_base": htwin(tb=None), "c_base": htwin(cb=None),
+                   "bt": htwin(bt=torch.zeros_like(head_w["bt"])),
+                   "bc": htwin(bc=torch.zeros_like(head_w["bc"]))}
+        err_f, tol_f, weak_f = held(f"head (t, c products) B={rows}",
+                                    run_all(h, tb, cb, row, rows_add), ref,
+                                    HEAD_TOL, dropped)
+        ms = cuda_ms(lambda: run_adds(h, None, None, row, rows_add))
+        plain = cuda_ms(lambda: htwin(w_adds, None, None))
+        eager = eager_ms(lambda: run_adds(h, None, None, row, rows_add))
+        n_bytes = 4 * (2 * rows * dl + 3 * dl + lat + rows * lat) + 2 * dl * lat
+        b_ms, b_by = bound_ms(n_bytes, 2 * rows * dl * lat, BF16_FLOP_PER_S)
+        print(f"[kernels] fused_head {dl}->{lat} B={rows}: max_abs_err {err_a:.3e} "
+              f"(tol {tol_a:.3e}; least move: {weak_a}), with t/c products {err_f:.3e} "
+              f"(tol {tol_f:.3e}; least move: {weak_f}) ms {ms:.4f} plain_ms {plain:.4f} "
+              f"bound_ms {b_ms:.5f} ({b_by}) eager_ms {eager:.4f}")
+        hd_row["max_abs_err"] = max(hd_row["max_abs_err"], err_a, err_f)
+        if rows == ROWS:
+            hd_row.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+
+        b = rows // 2
+        eps = torch.randn((rows, lat), generator=gen, device=dev)
+        x = torch.randn((b, lat), generator=gen, device=dev)
+        kw = dict(guidance_scale=GUIDANCE, clip_x0=CLIP, stochastic=True, key=(12345, 678))
+        coefs = prep["coefs"][t]
+        err = max_err(reverse_step(eps, x, t, coefs, **kw),
+                      reverse_step_plain(eps, x, t, coefs, **kw))
+        assert err <= NOISE_TOL, f"reverse_step B={b}: err {err} > {NOISE_TOL}"
+        ms = cuda_ms(lambda: reverse_step(eps, x, t, coefs, **kw))
+        plain = cuda_ms(lambda: reverse_step_plain(eps, x, t, coefs, **kw))
+        eager = eager_ms(lambda: reverse_step(eps, x, t, coefs, **kw))
+        b_ms, b_by = bound_ms(4 * (rows * lat + 2 * b * lat), 60 * b * lat, F32_FLOP_PER_S)
+        print(f"[kernels] reverse_step B={b} (eps {rows} rows): max_abs_err {err:.3e} "
+              f"(tol {NOISE_TOL:.0e}) ms {ms:.4f} plain_ms {plain:.4f} "
+              f"bound_ms {b_ms:.5f} ({b_by}) eager_ms {eager:.4f}")
+        rv_row["max_abs_err"] = max(rv_row["max_abs_err"], err)
+        if rows == ROWS:
+            rv_row.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+    return [st, hd_row, rv_row]
+
+
+def phase_noise(sched):
+    """Zero eps, x_init = 0: x_{t-1} = x_t / sqrt(a_t) + sqrt(b_t) z_t, so
+    the variance follows v <- v / a_t + b_t (no noise at t = 0)."""
+    dev = torch.device("cuda")
+    lat = FLAGSHIP["latent_dim"]
+    x = torch.zeros((ROWS, lat), device=dev)
+    eps = torch.zeros_like(x)
+    coefs = list(zip(sched.alpha.tolist(), sched.alpha_bar.tolist(), sched.beta.tolist()))
+    for t in range(sched.n_steps - 1, -1, -1):
+        x = reverse_step(eps, x, t, coefs[t], stochastic=True, key=(2024, 7))
+    v = 0.0
+    for t in range(sched.n_steps - 1, 0, -1):
+        v = v / float(sched.alpha[t]) + float(sched.beta[t])
+    v = v / float(sched.alpha[0])
+    var, mean = float(x.var()), float(x.mean())
+    print(f"[noise] B={ROWS} L={lat} T={sched.n_steps}: var {var:.5f} closed form "
+          f"{v:.5f} mean {mean:.5f}")
+    assert abs(var - v) <= 0.05 * v, "noise variance off the closed form"
+    # five standard errors of the mean of ROWS * lat draws
+    assert abs(mean) <= 5.0 * (v / x.numel()) ** 0.5, "noise mean off zero"
+
+
+def phase_short_parity(model, gen):
+    """Kernel sampler vs the plain f32 model, 20 steps, no step noise, at
+    both buckets."""
+    sched = linear_schedule(20)
+    dev = torch.device("cuda")
+    kw = dict(clip_x0=CLIP, guidance_scale=GUIDANCE, device=dev)
+    fused = FusedDiffusionSampler(model, sched, (FLAGSHIP["latent_dim"],), **kw)
+    plain = DiffusionSampler(model, sched, (FLAGSHIP["latent_dim"],), **kw)
+    for rows in BUCKET_ROWS:
+        b = rows // 2
+        cls = torch.arange(b, device=dev) % FLAGSHIP["num_classes"]
+        x0 = torch.randn((b, FLAGSHIP["latent_dim"]), generator=gen, device=dev)
+        got = fused.sample(b, cls, x_init=x0, stochastic=False)
+        ref = plain.sample(b, cls, x_init=x0, stochastic=False)
+        err, scale = max_err(got, ref), float(ref.abs().max())
+        print(f"[parity] kernel sampler vs f32 model, B={b}, T=20, CFG {GUIDANCE}, "
+              f"clip {CLIP}: max_abs_err {err:.4e} (max|ref| {scale:.3f}, "
+              f"tol {3e-2 * scale:.4e})")
+        assert err <= 3e-2 * scale, f"B={b}: kernel sampler disagrees with the f32 model"
+
+
+def phase_profile(model):
+    """Host vs device time of the kernel sampler: one guided 50-step call at
+    the 64 bucket under torch.profiler (CUPTI). Its wall time and device
+    busy time come from that one call; a bare call's wall time is printed
+    beside it, to show what the profiler adds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sched = linear_schedule(50)
+    sampler = FusedDiffusionSampler(model, sched, (FLAGSHIP["latent_dim"],), clip_x0=CLIP,
+                                    guidance_scale=GUIDANCE, device="cuda")
+    cls = torch.arange(ROWS // 2, device="cuda") % FLAGSHIP["num_classes"]
+    sampler.sample(ROWS // 2, cls)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sampler.sample(ROWS // 2, cls)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sampler.sample(ROWS // 2, cls)
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+    # device-side events only: an aten op's row repeats its kernels' time
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    assert kernels, "the profiler recorded no kernel on the card"
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    steps = sched.n_steps
+    print(f"[profile] 50 guided steps at bucket 64, one profiled call: wall "
+          f"{wall_prof * 1e3:.2f} ms ({wall_prof * 1e6 / steps:.1f} us a step); device "
+          f"busy {busy_us / 1e3:.2f} ms ({busy_us / steps:.1f} us a step), idle share "
+          f"{1 - busy_us / 1e6 / wall_prof:.3f}; the same call bare: wall "
+          f"{wall * 1e3:.2f} ms ({wall * 1e6 / steps:.1f} us a step)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"[profile]   {e.self_device_time_total / steps:8.2f} us/step "
+              f"x{e.count // steps:<3d} {e.key[:90]}")
+
+
+def counts():
+    return {"fused_stage": fused_stage.launches, "fused_head": fused_head.launches,
+            "reverse_step": reverse_step.launches}
+
+
+def phase_service(model, vae, stats):
+    svc = SamplingService(model, vae, buckets=(8, 64), latent_stats=stats,
+                          clip_x0=CLIP, guidance_scale=GUIDANCE, device="cuda")
+    assert svc.request_plan(70) == [64, 8] and svc.request_plan(50) == [64]
+    svc.sample_classes([0], 1, seed=99)          # warm the 8 bucket
+    svc.sample_classes(range(8), 8, seed=98)     # warm the 64 bucket
+    requests = [
+        ("sample_classes(range(10), 5)", lambda: svc.sample_classes(range(10), 5, seed=0), 50),
+        ("sample(3)", lambda: svc.sample(np.array([3, 17, 101]), seed=1), 3),
+        ("sample(70)", lambda: svc.sample(np.arange(70) % 102, seed=2), 70),
+    ]
+    bucket_calls = sum(len(svc.request_plan(n)) for _, _, n in requests)
+    steps = svc.sched.n_steps
+    fused_stage.launches = fused_head.launches = reverse_step.launches = 0
+    results = []
+    for name, fn, n in requests:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imgs = fn()
+        dt = time.perf_counter() - t0
+        assert imgs.dtype == np.uint8 and imgs.shape == (n, 64, 64, 3), (name, imgs.shape)
+        assert imgs.std() > 0, f"{name}: constant images"
+        results.append((name, n, dt))
+    got = counts()
+    for name, n, dt in results:
+        print(f"[service] {name}: plan {svc.request_plan(n)} latency {dt * 1e3:.1f} ms "
+              f"{n / dt:.2f} images/s")
+    stages = len(FLAGSHIP["hidden_dims"]) - 1
+    want = {"fused_stage": stages * steps * bucket_calls,
+            "fused_head": steps * bucket_calls, "reverse_step": steps * bucket_calls}
+    print(f"[service] launches {got} expected {want}")
+    assert got == want, "the main path did not run through the kernels as expected"
+    # the decoder's share of a request: decode + quantise of one 64 bucket
+    latents = np.random.default_rng(0).standard_normal((50, FLAGSHIP["latent_dim"]))
+    svc.decode_latents(latents)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    imgs = svc.decode_latents(latents)
+    dt = time.perf_counter() - t0
+    assert imgs.shape == (50, 64, 64, 3)
+    print(f"[service] decode_latents(50): plan {svc.request_plan(50)} {dt * 1e3:.2f} ms")
+    return got
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    phase_build()
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = denoiser_from_params(init_numpy_params("denoiser", seed=0, **FLAGSHIP),
+                                 device="cuda", **FLAGSHIP)
+    vae = vae_from_params(init_numpy_params("vae", seed=1, **VAE), device="cuda", **VAE)
+    sched = linear_schedule(1000)
+    prep = prepare_fused_sampler(model, sched.to("cuda"))
+
+    kernel_rows = phase_kernels(model, prep, gen)
+    phase_noise(sched)
+    phase_short_parity(model, gen)
+    phase_profile(model)
+    stats = np.load(STATS)
+    launches = phase_service(model, vae, (stats["mean"], stats["std"]))
+    for row in kernel_rows:
+        row["launches"] = launches[row["name"]]
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip()
+    print(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(smi)
+    print(json.dumps({"kernels": kernel_rows}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,16 @@
+"""flowerdiff_torch: the PyTorch + CUDA (Hopper) port of flowerdiff.
+
+The JAX package `flowerdiff` is the reference; this package reproduces its
+class-conditional latent sampling path (denoiser, DDPM sampler, VAE decode,
+bucketed serving) in PyTorch, with the Pallas TPU kernels of that path
+rewritten as hand-written CUDA C++ kernels for sm_90a
+(`flowerdiff_torch.kernels`).
+
+Importing this package imports `torch` only. Kernel libraries are compiled
+and loaded on first launch, so the package imports on a CPU-only machine.
+Entry points run on the card (`device="cuda"`) unless the caller passes
+`device="cpu"`; without a card and without that argument they raise.
+"""
+from flowerdiff_torch.utils.device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,243 @@
+"""The ancestral reverse process on the kernels (port of
+flowerdiff/kernels/full_sampler.py).
+
+The Pallas kernel `_make_kernel` runs all T steps in one TPU kernel with
+every weight resident in VMEM. The first Hopper design is a host loop over
+the T steps; each step runs
+
+  1. the latent projection (torch.matmul, as the reference leaves it to XLA);
+  2. the stage kernels (`fused_stage`), time adds read as one row of a
+     precomputed (T, d) table, condition adds as precomputed (rows, d);
+  3. the head kernel (`fused_head`);
+  4. the `reverse_step` kernel: CFG from the doubled batch, x0 clipping,
+     the posterior mean and the step noise, drawn in the kernel by
+     Philox4x32-10 + Box-Muller.
+
+The time path (sinusoid -> time MLP -> per-stage projections) is computed
+once per sampler as (T, d) tables, and the condition path once per request,
+as `full_sampler.py:200-226,280-291` do outside their kernel. Semantics follow
+the model (not the TPU kernel's shortcuts): the CFG null rows keep the
+projection biases, the v2 global skip is applied, LayerNorm eps is 1e-6.
+
+A single-launch design (a CUDA graph of the step, then a persistent kernel
+with the ~12.7 MB of bf16 weights L2-resident) is later performance work.
+
+`reverse_step` launches the kernel for CUDA tensors and runs its plain twin,
+`reverse_step_plain` (the same Philox stream in PyTorch integer ops), for
+CPU tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from flowerdiff_torch.diffusion.schedule import DiffusionSchedule
+from flowerdiff_torch.kernels import _build
+from flowerdiff_torch.kernels.denoiser_apply import head_weights, stage_weights
+from flowerdiff_torch.kernels.latent_stage import bind_head, bind_stage
+from flowerdiff_torch.models.latent_unet import ConditionalLatentDenoiser
+
+_M32 = 0xFFFFFFFF
+_TWO_PI_F32 = float(np.float32(2.0 * math.pi))  # the kernel's f32 constant
+
+
+# ---------------------------------------------------------------------------
+# Philox4x32-10 in PyTorch integer ops (the twin of the kernel's generator)
+
+def _mulhilo(a: int, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) 32-bit halves of a * b for a 32-bit constant and a tensor of
+    32-bit values held in int64, without overflowing int64."""
+    p_lo = a * (b & 0xFFFF)          # < 2**48
+    p_hi = a * (b >> 16)             # < 2**48
+    lo = (((p_hi & 0xFFFF) << 16) + p_lo) & _M32
+    hi = ((p_hi + (p_lo >> 16)) >> 16) & _M32
+    return hi, lo
+
+
+def philox4x32_10(c0: torch.Tensor, c1: int, c2: int, c3: int,
+                  key0: int, key1: int):
+    """Philox4x32-10 on counters (c0[i], c1, c2, c3) under key (key0, key1);
+    returns four int64 tensors of 32-bit outputs."""
+    c = [c0.to(torch.int64), torch.full_like(c0, c1, dtype=torch.int64),
+         torch.full_like(c0, c2, dtype=torch.int64),
+         torch.full_like(c0, c3, dtype=torch.int64)]
+    k0, k1 = key0 & _M32, key1 & _M32
+    for rnd in range(10):
+        if rnd:
+            k0 = (k0 + 0x9E3779B9) & _M32
+            k1 = (k1 + 0xBB67AE85) & _M32
+        hi0, lo0 = _mulhilo(0xD2511F53, c[0])
+        hi1, lo1 = _mulhilo(0xCD9E8D57, c[2])
+        c = [hi1 ^ c[1] ^ k0, lo1, hi0 ^ c[3] ^ k1, lo0]
+    return c
+
+
+def philox_normal(n: int, step: int, key: Tuple[int, int], device=None) -> torch.Tensor:
+    """The n standard normals the kernel draws at `step`: group g gives
+    elements 4g..4g+3 by Box-Muller on its four Philox outputs."""
+    groups = (n + 3) // 4
+    g = torch.arange(groups, dtype=torch.int64, device=device)
+    r = philox4x32_10(g, step, 0, 0, key[0], key[1])
+    zs = []
+    for a, b in ((r[0], r[1]), (r[2], r[3])):
+        u1 = ((a >> 8) + 1).to(torch.float32) * 2.0**-24
+        u2 = (b >> 8).to(torch.float32) * 2.0**-24
+        rad = torch.sqrt(-2.0 * torch.log(u1))
+        th = u2 * _TWO_PI_F32
+        zs.append((rad * torch.cos(th), rad * torch.sin(th)))
+    z = torch.stack([zs[0][0], zs[0][1], zs[1][0], zs[1][1]], dim=1)
+    return z.reshape(-1)[:n]
+
+
+# ---------------------------------------------------------------------------
+# The reverse-step kernel and its twin
+
+def reverse_step_plain(eps, x, t: int, coefs: Tuple[float, float, float], *,
+                       guidance_scale: Optional[float] = None,
+                       clip_x0: Optional[float] = None, stochastic: bool = True,
+                       key: Tuple[int, int] = (0, 0)):
+    # Scalar coefficients in f32, as the kernel forms them; a Python float
+    # holding an f32 value multiplies an f32 tensor in f32.
+    a, ab, beta = (np.float32(v) for v in coefs)
+    one = np.float32(1.0)
+    sq1mab, sqab = np.sqrt(one - ab), np.sqrt(ab)
+    e = eps
+    if guidance_scale is not None:
+        e_c, e_u = eps[: x.shape[0]], eps[x.shape[0]:]
+        e = e_u + float(np.float32(guidance_scale)) * (e_c - e_u)
+    if clip_x0 is not None:
+        x0 = (x - float(sq1mab) * e) / float(sqab)
+        x0 = torch.clamp(x0, -clip_x0, clip_x0)
+        e = (x - float(sqab) * x0) / float(sq1mab)
+    mean = (x - float((one - a) / sq1mab) * e) / float(np.sqrt(a))
+    if stochastic and t > 0:
+        z = philox_normal(x.numel(), t, key, device=x.device).reshape(x.shape)
+        mean = mean + float(np.sqrt(beta)) * z
+    return mean
+
+
+def _reverse_fn():
+    fn = _build.load("reverse_step").fd_reverse_step_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float]
+                       + [ctypes.c_int, ctypes.c_float] + [ctypes.c_float] * 3
+                       + [ctypes.c_int] * 2 + [ctypes.c_uint] * 2 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def reverse_step(eps, x, t: int, coefs: Tuple[float, float, float], *,
+                 guidance_scale: Optional[float] = None,
+                 clip_x0: Optional[float] = None, stochastic: bool = True,
+                 key: Tuple[int, int] = (0, 0)):
+    """x_{t-1} from x_t (B, L) f32 and eps: (B, L) f32, or (2B, L) with the
+    conditional rows first when guidance_scale is set. coefs: the schedule's
+    (alpha_t, alpha_bar_t, beta_t); key: the Philox key of the request."""
+    if not x.is_cuda:
+        return reverse_step_plain(eps, x, t, coefs, guidance_scale=guidance_scale,
+                                  clip_x0=clip_x0, stochastic=stochastic, key=key)
+    guided = guidance_scale is not None
+    rows = x.shape[0] * (2 if guided else 1)
+    if x.dtype != torch.float32 or eps.dtype != torch.float32:
+        raise ValueError("reverse_step takes float32 eps and x")
+    if x.ndim != 2 or tuple(eps.shape) != (rows, x.shape[1]):
+        raise ValueError(f"eps has shape {tuple(eps.shape)}, expected {(rows, x.shape[1])}")
+    if eps.device != x.device or not (x.is_contiguous() and eps.is_contiguous()):
+        raise ValueError("eps and x must be contiguous and on one device")
+    out = torch.empty_like(x)
+    a, ab, beta = coefs
+    code = _reverse_fn()(
+        eps.data_ptr(), x.data_ptr(), out.data_ptr(), x.numel(), int(guided),
+        float(guidance_scale or 0.0), int(clip_x0 is not None), float(clip_x0 or 0.0),
+        float(a), float(ab), float(beta), int(t), int(stochastic),
+        key[0] & _M32, key[1] & _M32, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(code, "reverse_step")
+    reverse_step.launches += 1
+    return out
+
+
+reverse_step.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The sampler
+
+@torch.no_grad()
+def prepare_fused_sampler(model: ConditionalLatentDenoiser,
+                          sched: DiffusionSchedule) -> Dict:
+    """One-time prep on the model's device: the stage and head kernels bound
+    to their weights (bf16 (out, in), checked once), the (T, d) time-add
+    tables of every stage and of the head, and the schedule coefficients as
+    Python floats."""
+    model = model.eval()
+    dev = model.latent_proj.weight.device
+    n_steps = sched.n_steps
+    t_base_all = model.time_emb(torch.arange(n_steps, device=dev))
+    return {
+        "model": model,
+        "stages": [bind_stage(**stage_weights(model, i)) for i in range(model.n_stages)],
+        "head": bind_head(**head_weights(model)),
+        "tadds": [model.stage("time_proj", i)(t_base_all).contiguous()
+                  for i in range(model.n_stages)],
+        "tadd_final": model.final_time_proj(t_base_all).contiguous(),
+        "coefs": list(zip(sched.alpha.tolist(), sched.alpha_bar.tolist(),
+                          sched.beta.tolist())),
+        "n_steps": n_steps,
+    }
+
+
+def _cond_adds(prep: Dict, cond, color, guided: bool):
+    """Per-request condition adds: rows (B, d) per stage and for the head;
+    with guidance, the null-condition rows (the projection biases) follow."""
+    model = prep["model"]
+    c_base = model.embed_condition(cond, color)
+    projs = [model.cond_proj(i) for i in range(model.n_stages)] + [model.final_cond_proj]
+    adds = []
+    for proj in projs:
+        rows = proj(c_base)
+        if guided:
+            rows = torch.cat([rows, proj.bias.expand_as(rows)])
+        adds.append(rows.contiguous())
+    return adds[:-1], adds[-1]
+
+
+@torch.no_grad()
+def fused_sample(prep: Dict, batch: int, cond: torch.Tensor,
+                 color: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None,
+                 x_init: Optional[torch.Tensor] = None, stochastic: bool = True,
+                 clip_x0: Optional[float] = None,
+                 guidance_scale: Optional[float] = None) -> torch.Tensor:
+    """Full ancestral sampling on the kernels. The generator draws x_init
+    (unless given) and the request's Philox key."""
+    model = prep["model"]
+    dev = model.latent_proj.weight.device
+    cond = cond.to(dev)
+    color = None if color is None else color.to(dev)
+    if x_init is None:
+        x = torch.randn((batch, model.latent_dim), generator=generator, device=dev)
+    else:
+        x = x_init.to(device=dev, dtype=torch.float32).contiguous()
+    key = torch.randint(0, 2**31 - 1, (2,), generator=generator,
+                        device=generator.device if generator is not None else "cpu").tolist()
+    guided = guidance_scale is not None
+    stage_adds, final_add = _cond_adds(prep, cond, color, guided)
+    head = prep["head"]
+    wl, bl = model.latent_proj.weight, model.latent_proj.bias
+    for t in range(prep["n_steps"] - 1, -1, -1):
+        h = torch.addmm(bl, x, wl.t())
+        if guided:
+            h = torch.cat([h, h])
+        for i, stage in enumerate(prep["stages"]):
+            h = stage(h, stage_adds[i], row_add=prep["tadds"][i][t])
+        eps = head(h, row_add=prep["tadd_final"][t], rows_add=final_add)
+        if model.global_skip:
+            skip = torch.sigmoid(model.residual_weight) * model.final(x)
+            eps = eps + (torch.cat([skip, skip]) if guided else skip)
+        x = reverse_step(eps, x, t, prep["coefs"][t], guidance_scale=guidance_scale,
+                         clip_x0=clip_x0, stochastic=stochastic, key=key)
+    return x

@@ -1,0 +1,159 @@
+"""Production sampling service (port of `SamplingService` in
+flowerdiff/serving.py).
+
+One `SamplingService` holds the denoiser behind a `FusedDiffusionSampler`
+(the kernel path), optionally z-score denormalisation, and the VAE decoder.
+A request of N class labels is cut into bucket-sized chunks (`request_plan`):
+full top-bucket chunks plus one ladder bucket for the tail, each padded with
+class 0 and sliced back on the host. Each chunk runs
+
+    sample (1000 ancestral steps, CFG, x0 clip) -> denormalise -> decode
+    -> round(clip(img, 0, 1) * 255) as uint8
+
+and the service returns (N, 64, 64, 3) uint8 images as numpy.
+
+Unlike the reference service, `guidance_scale` is a constructor argument
+and reaches the sampler. Chunk i of a request draws from a generator seeded
+by (seed, i), so a result is reproducible for a given (seed, request).
+
+Not ported yet: `service_from_run`, `sample_async` double buffering,
+`warmup`, `animate`, DDIM serving, `decode_bf16`, `PixelSamplingService`.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from flowerdiff_torch.diffusion.api import FusedDiffusionSampler, NormalizedSampler
+from flowerdiff_torch.diffusion.schedule import DiffusionSchedule, linear_schedule
+from flowerdiff_torch.utils.device import resolve_device
+
+DEFAULT_BUCKETS = (8, 16, 32, 64, 128, 256, 512)
+
+
+def quantize_uint8(img: torch.Tensor) -> torch.Tensor:
+    """[0, 1] floats -> uint8, rounding half to even like jnp.round."""
+    return torch.round(torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8)
+
+
+class SamplingService:
+    def __init__(
+        self,
+        model,
+        vae,
+        sched: Optional[DiffusionSchedule] = None,
+        buckets: Tuple[int, ...] = DEFAULT_BUCKETS,
+        latent_stats=None,
+        clip_x0: Optional[float] = None,
+        guidance_scale: Optional[float] = None,
+        device=None,
+    ):
+        """model: the port's ConditionalLatentDenoiser; vae: the port's
+        FlowerVAE (decode half). latent_stats: (mean, std) per-dim arrays
+        when the model was trained on z-scored latents. clip_x0: the
+        x0-thresholding bound; guidance_scale: classifier-free guidance."""
+        self.device = resolve_device(device)
+        self.buckets = tuple(sorted(buckets))
+        if not self.buckets:
+            raise ValueError("need at least one bucket size")
+        self.sched = sched or linear_schedule()
+        self.model = model.to(self.device).eval()
+        self.vae = vae.to(self.device).eval()
+        self.sampler = FusedDiffusionSampler(
+            self.model, self.sched, (model.latent_dim,), clip_x0=clip_x0,
+            guidance_scale=guidance_scale, device=self.device)
+        if latent_stats is not None:
+            self.sampler = NormalizedSampler(self.sampler, *latent_stats)
+
+    def bucket_size(self, n: int) -> int:
+        """Smallest bucket >= n."""
+        for b in self.buckets:
+            if n <= b:
+                return b
+        raise ValueError(
+            f"{n} exceeds the largest bucket {self.buckets[-1]}; "
+            "oversize requests are chunked via request_plan()")
+
+    def request_plan(self, n: int) -> list:
+        """Bucket sizes for an n-image request: full top-bucket chunks plus
+        one ladder bucket for the tail."""
+        top = self.buckets[-1]
+        plan = [top] * (n // top)
+        rest = n % top
+        if rest:
+            plan.append(self.bucket_size(rest))
+        return plan or [self.buckets[0]]
+
+    @staticmethod
+    def _pad(arr: np.ndarray, target: int) -> np.ndarray:
+        n = arr.shape[0]
+        if n == target:
+            return arr
+        return np.concatenate([arr, np.zeros((target - n,) + arr.shape[1:], arr.dtype)])
+
+    def _generator(self, seed: int, chunk: int) -> torch.Generator:
+        state = np.random.SeedSequence([seed, chunk]).generate_state(1, np.uint64)[0]
+        return torch.Generator(device=self.device).manual_seed(int(state) >> 1)
+
+    def _decode(self, latents: torch.Tensor) -> torch.Tensor:
+        return quantize_uint8(self.vae.decode(latents))
+
+    @torch.no_grad()
+    def sample(self, classes, seed: int = 0, colors=None, decode: bool = True,
+               x_init=None, stochastic: bool = True) -> np.ndarray:
+        """One image (or latent, decode=False) per entry of `classes`
+        (and `colors` for v3). Returns (N, 64, 64, 3) uint8 images or
+        (N, latent) float32 latents. x_init (N, latent) and stochastic=False
+        fix the starting state and drop the step noise (for checks against a
+        reference)."""
+        classes = np.asarray(classes, np.int64).reshape(-1)
+        if colors is not None:
+            colors = np.asarray(colors, np.int64).reshape(-1)
+        if x_init is not None:
+            x_init = np.asarray(x_init, np.float32)
+        n = classes.shape[0]
+        outs = []
+        start = 0
+        for i, b in enumerate(self.request_plan(n)):
+            take = min(b, n - start)
+            part = slice(start, start + take)
+            cond = [torch.from_numpy(self._pad(classes[part], b)).to(self.device)]
+            if colors is not None:
+                cond.append(torch.from_numpy(self._pad(colors[part], b)).to(self.device))
+            x0 = None
+            if x_init is not None:
+                x0 = torch.from_numpy(self._pad(x_init[part], b)).to(self.device)
+            lat = self.sampler.sample(b, *cond, generator=self._generator(seed, i),
+                                      x_init=x0, stochastic=stochastic)
+            out = self._decode(lat) if decode else lat
+            outs.append(out.cpu().numpy()[:take])
+            start += take
+        return outs[0] if len(outs) == 1 else np.concatenate(outs)
+
+    def sample_latents(self, classes, seed: int = 0, colors=None) -> np.ndarray:
+        return self.sample(classes, seed, colors, decode=False)
+
+    @torch.no_grad()
+    def decode_latents(self, latents) -> np.ndarray:
+        """(N, latent) raw VAE latents -> (N, 64, 64, 3) uint8 images, in
+        bucket-sized chunks."""
+        latents = np.asarray(latents, np.float32)
+        n = latents.shape[0]
+        outs = []
+        start = 0
+        for b in self.request_plan(n):
+            take = min(b, n - start)
+            chunk = torch.from_numpy(self._pad(latents[start:start + take], b))
+            outs.append(self._decode(chunk.to(self.device)).cpu().numpy()[:take])
+            start += take
+        return outs[0] if len(outs) == 1 else np.concatenate(outs)
+
+    def sample_classes(self, class_ids: Sequence[int], n_per_class: int,
+                       seed: int = 0, colors: Optional[Sequence[int]] = None) -> np.ndarray:
+        """Decoded (N, 64, 64, 3) uint8 images, one row block per class."""
+        classes = np.repeat(np.asarray(class_ids, np.int64), n_per_class)
+        color_arr = (np.repeat(np.asarray(colors, np.int64), n_per_class)
+                     if colors is not None else None)
+        return self.sample(classes, seed, color_arr)

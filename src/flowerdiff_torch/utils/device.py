@@ -1,0 +1,19 @@
+"""Device selection shared by the port's entry points."""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """The device an entry point runs on: `cuda` unless the caller names
+    another. Raises when CUDA is asked for (explicitly or by default) and
+    no card is present; the port has no silent CPU path."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "flowerdiff_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain PyTorch path"
+        )
+    return dev
