@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive flowerdiff_torch's sampling path on one CUDA card and check it.
+"""Drive flowerdiff_torch's sampling and training paths on one CUDA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -20,11 +21,22 @@ Phases (any failure raises and the script exits nonzero without a result):
      CFG 7.0, x0 clip 3.0, 1000 steps, buckets 8 and 64) on three requests,
      with the kernel launch counts read around them, then time the decode
      of one 64 bucket;
-  7. print the card's name and power limit, a `kernels` JSON line, and as
+  7. hold the train-step kernel (forward + backward of the latent-DDPM
+     objective) against torch autograd on its plain twin at flagship width,
+     B = 64, with dropout masks, a condition mask with zeros and perturbed
+     biases and LN affines, in both lanes (f32, bf16), with and without the
+     v2 skip; check that leaving out any one term would show; time the step;
+  8. train the flagship latent DDPM for 10 epochs (150 steps) on a K = 8
+     pool of cached latents of 1020 synthetic images through
+     `LatentDiffusionTrainer.run_epochs_fused`, with the train-step kernel
+     and, from the same seed, with eager autograd; compare the loss curves;
+     then sample from the EMA weights through the kernel sampler and decode;
+  9. print the card's name and power limit, a `kernels` JSON line, and as
      the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -37,12 +49,14 @@ import torch
 _ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(_ROOT / "src"))
 
+from flowerdiff_torch.data import DeviceDataset, synthetic_flowers  # noqa: E402
 from flowerdiff_torch.diffusion import linear_schedule  # noqa: E402
 from flowerdiff_torch.diffusion.api import (  # noqa: E402
     DiffusionSampler,
     FusedDiffusionSampler,
 )
 from flowerdiff_torch.kernels import _build  # noqa: E402
+from flowerdiff_torch.kernels import train_step as ts  # noqa: E402
 from flowerdiff_torch.kernels.denoiser_apply import (  # noqa: E402
     head_weights,
     stage_weights,
@@ -62,6 +76,11 @@ from flowerdiff_torch.kernels.latent_stage import (  # noqa: E402
     fused_stage_plain,
 )
 from flowerdiff_torch.serving import SamplingService  # noqa: E402
+from flowerdiff_torch.train.fused import make_latent_cache_builder  # noqa: E402
+from flowerdiff_torch.train.latent_ddpm import (  # noqa: E402
+    LatentDiffusionConfig,
+    LatentDiffusionTrainer,
+)
 from flowerdiff_torch.utils.weights import (  # noqa: E402
     denoiser_from_params,
     init_numpy_params,
@@ -89,6 +108,25 @@ STATS = _ROOT / "artifacts" / "flagship_r5b" / "run" / "latent_stats.npz"
 STAGE_TOL = 5e-3
 HEAD_TOL = 5e-4
 NOISE_TOL = 1e-4   # reverse_step vs twin, absolute: same Philox bits, f32 libm
+# Train-step kernel vs autograd on its twin, per gradient leaf. f32 lane: the
+# reference tests' own limits (elementwise). bf16 lane: relative to the
+# leaf's largest twin gradient; kernel and twin round the same operands and
+# the same dX / dW to bf16, but the kernel's tensor-core products also round
+# the incoming gradient to bf16, which the twin keeps in f32, so a rounded
+# gradient can land one bf16 ulp away: 2^-9 / 0.25 = 7.8e-3 of the largest
+# value at the bottom of its binade, which is the reading. The limit is two
+# such ulps.
+TRAIN_F32_RTOL, TRAIN_F32_ATOL = 5e-4, 1e-6
+TRAIN_BF16_REL = 1.5e-2
+TRAIN_BATCH = 64
+TRAIN = dict(dropout_rate=0.3, cond_dropout=0.1, ema_decay=0.999, latent_cache=8,
+             cache_refresh_epochs=50, normalize_latents=True, lr=1e-3, weight_decay=1e-5,
+             grad_clip=1.0, t0=10, t_mult=2, steps_per_epoch=1020 // TRAIN_BATCH,
+             encode_dtype="bfloat16", clip_denoised=CLIP, guidance_scale=GUIDANCE)
+# bf16-lane kernel run vs the eager f32 run from the same seed: relative
+# difference of the per-step losses over the first epoch (the weights drift
+# apart by bf16 rounding from the first step on); the reading was 2.7e-4
+TRAIN_CURVE_REL = 2e-3
 
 
 def cuda_ms(fn, iters: int = 50) -> float:
@@ -347,9 +385,6 @@ def phase_profile(model):
     the 64 bucket under torch.profiler (CUPTI). Its wall time and device
     busy time come from that one call; a bare call's wall time is printed
     beside it, to show what the profiler adds."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     sched = linear_schedule(50)
     sampler = FusedDiffusionSampler(model, sched, (FLAGSHIP["latent_dim"],), clip_x0=CLIP,
                                     guidance_scale=GUIDANCE, device="cuda")
@@ -360,16 +395,7 @@ def phase_profile(model):
     sampler.sample(ROWS // 2, cls)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sampler.sample(ROWS // 2, cls)
-        torch.cuda.synchronize()
-        wall_prof = time.perf_counter() - t0
-    # device-side events only: an aten op's row repeats its kernels' time
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    assert kernels, "the profiler recorded no kernel on the card"
+    wall_prof, kernels = device_profile(lambda: sampler.sample(ROWS // 2, cls))
     busy_us = sum(e.self_device_time_total for e in kernels)
     steps = sched.n_steps
     print(f"[profile] 50 guided steps at bucket 64, one profiled call: wall "
@@ -380,6 +406,25 @@ def phase_profile(model):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[profile]   {e.self_device_time_total / steps:8.2f} us/step "
               f"x{e.count // steps:<3d} {e.key[:90]}")
+
+
+def device_profile(fn):
+    """Run fn() once under torch.profiler: (wall seconds, device-side kernel
+    rows). Only DeviceType.CUDA rows count: an aten op's row repeats its
+    kernels' time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    assert kernels, "the profiler recorded no kernel on the card"
+    return wall, kernels
 
 
 def counts():
@@ -431,6 +476,288 @@ def phase_service(model, vae, stats):
     return got
 
 
+def _perturb_module(model, gen):
+    """Biases and LN shifts z, LN scales 1 + 0.2 z, in place: values at which
+    a dropped vector shows (`perturbed` does the same for the stage and head
+    operands; the shifts are twice as large here, because a bias in front of
+    the 1024-wide LayerNorm moves the gradients least of all terms)."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.ndim != 1:
+                continue
+            z = torch.randn(p.shape, generator=gen, device=p.device)
+            is_scale = name.endswith(".weight")  # a 1-D weight is a LayerNorm scale
+            p.copy_(1 + 0.2 * z if is_scale else z)
+
+
+def _train_case(model, gen):
+    """One step's inputs at B = 64: draws at dropout 0.3, and a condition
+    keep-mask with every fourth row zero."""
+    dev = torch.device("cuda")
+    sched = linear_schedule(1000).to(dev)
+    z = torch.randn((TRAIN_BATCH, FLAGSHIP["latent_dim"]), generator=gen, device=dev)
+    labels = torch.randint(0, FLAGSHIP["num_classes"], (TRAIN_BATCH,), generator=gen, device=dev)
+    t, eps, _, masks = ts.draw_step_inputs(model, 1000, 0.0, z, gen)
+    keep = (torch.arange(TRAIN_BATCH, device=dev) % 4 != 0).float()
+    data = ts.step_data(sched, z, labels, t, eps, keep,
+                        ts.sinusoid_freqs(FLAGSHIP["time_emb_dim"], dev))
+    return data, masks
+
+
+def _moved(grads, ref):
+    """The largest change of any gradient leaf, relative to the leaf's max."""
+    return max(float((grads[k] - ref[k]).abs().max() / (ref[k].abs().max() + 1e-30))
+               for k in ref)
+
+
+def train_step_counts(named, batch):
+    """(bytes, flops) one step must move and do: every weight read once and
+    every gradient written once in f32, the batch's inputs and masks read
+    once; per weight matrix the forward product, dW, and dX where the input
+    itself needs a gradient (not for the three first layers)."""
+    w_bytes = sum(4 * v.numel() for v in named.values())
+    hidden = [named["wl"].shape[0]] + [named[k].shape[0] for k in named if k.endswith(".wd")]
+    lat, te = named["wl"].shape[1], named["wt2"].shape[0]
+    io = 4 * batch * (2 * lat + 5 + 2 * sum(hidden[:-1])) + 4 * (te // 2) + 4
+    flops = 0
+    for k, v in named.items():
+        if v.ndim == 2 and k != "table":
+            flops += 2 * batch * v.numel() * (2 if k in ("wl", "wt1", "wc1") else 3)
+    flops += 2 * batch * named["wc1"].numel()  # wc1's dX feeds the table's gradient
+    return 2 * w_bytes + io, flops
+
+
+def phase_train_kernel(gen):
+    """The train-step kernel against autograd on its twin at flagship width,
+    and its time beside the eager autograd steps and the bound."""
+    row = {"name": "train_step", "route": "cuda",
+           "source": "src/flowerdiff_torch/kernels/csrc/train_step.cu",
+           "replaces": "src/flowerdiff/kernels/train_step.py:267",
+           "max_abs_err": 0.0, "library_ms": None}
+    worst_bf16 = 0.0
+    for skip in (False, True):
+        kw = dict(FLAGSHIP, global_skip=skip)
+        model = denoiser_from_params(init_numpy_params("denoiser", seed=3, **kw),
+                                     device="cuda", **kw)
+        _perturb_module(model, gen)
+        named = dict(ts.weights_spec(model))
+        assert len(named) == 76
+        data, masks = _train_case(model, gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            lane = "f32" if dtype == torch.float32 else "bf16"
+            run = ts.bind_train_step(named, TRAIN_BATCH, dtype=dtype, global_skip=skip)
+            before = ts.kernel_loss_and_grads.launches
+            loss, grads = run(data, masks)
+            torch.cuda.synchronize()
+            assert ts.kernel_loss_and_grads.launches == before + 1
+            ref_loss, ref = ts.twin_loss_and_grads(named, data, masks, dtype=dtype,
+                                                   global_skip=skip)
+            assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads.values())
+            worst_rel, worst_abs, worst_leaf = 0.0, 0.0, ""
+            for k, r in ref.items():
+                err = (grads[k].reshape(r.shape) - r).abs()
+                if dtype == torch.float32:
+                    over = float((err - (TRAIN_F32_ATOL + TRAIN_F32_RTOL * r.abs())).max())
+                    assert over <= 0, f"train_step f32 skip={skip}: leaf {k} over by {over}"
+                rel = float(err.max() / (r.abs().max() + 1e-30))
+                if rel > worst_rel:
+                    worst_rel, worst_leaf = rel, k
+                worst_abs = max(worst_abs, float(err.max()))
+            loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+            if dtype == torch.bfloat16:
+                assert worst_rel <= TRAIN_BF16_REL, (
+                    f"train_step bf16 skip={skip}: leaf {worst_leaf} off by {worst_rel} "
+                    f"x max|twin grad| > {TRAIN_BF16_REL}")
+                assert loss_rel <= TRAIN_BF16_REL
+                worst_bf16 = max(worst_bf16, worst_rel)
+                row["max_abs_err"] = max(row["max_abs_err"], worst_abs)
+            else:
+                assert loss_rel <= 1e-5, f"train_step f32 loss off by {loss_rel}"
+            # q and k of every stage: exactly zero; rw: zero without the skip
+            tree = ts.grads_to_tree(grads, model)
+            assert all(not g.any() for n, g in tree.items() if ".q." in n or ".k." in n)
+            assert bool(tree["residual_weight"].any()) == skip
+            ms = cuda_ms(lambda: run(data, masks), iters=20)
+            print(f"[train_kernel] skip={skip} {lane}: loss {float(loss):.6f} (twin "
+                  f"{float(ref_loss):.6f}, rel {loss_rel:.2e}); worst leaf {worst_leaf} "
+                  f"{worst_rel:.3e} x max|twin grad| (abs {worst_abs:.3e}); ms {ms:.4f}")
+            if not skip:
+                row["ms" if dtype == torch.bfloat16 else "f32_lane_ms"] = ms
+
+        if skip:
+            continue
+        # leaving out any one term moves some gradient past twice the limit
+        _, ref = ts.twin_loss_and_grads(named, data, masks, dtype=torch.float32)
+
+        def variant(weights=None, masks_=None, data_=None):
+            w = dict(named, **(weights or {}))
+            return ts.twin_loss_and_grads(w, data_ or data, masks_ or masks,
+                                          dtype=torch.float32)[1]
+
+        moves = {"cond_mask": _moved(variant(data_=dict(
+            data, cond_mask=torch.ones_like(data["cond_mask"]))), ref)}
+        for i, m in enumerate(masks):
+            ones = list(masks)
+            ones[i] = torch.ones_like(m)
+            moves[f"mask {i}"] = _moved(variant(masks_=ones), ref)
+        for k, v in named.items():
+            if v.ndim != 1:
+                continue
+            if k.endswith(".bt"):  # a kernel using bt once: forward of bt / 2, half the gradient
+                g = variant({k: 0.5 * v})
+                g[k] = 0.5 * g[k]
+                moves[f"2*{k}"] = _moved(g, ref)
+            moves[k] = _moved(variant({k: (torch.ones_like if k.split(".")[-1].startswith("g")
+                                           else torch.zeros_like)(v)}), ref)
+        weakest = min(moves, key=moves.get)
+        print(f"[train_kernel] {len(moves)} left-out terms; the least move of any: {weakest} "
+              f"{moves[weakest]:.3g} x max|grad| (limit {TRAIN_BF16_REL})")
+        assert moves[weakest] > 2 * TRAIN_BF16_REL, (
+            f"leaving out {weakest} moves the gradients only {moves[weakest]}")
+
+        # the eager autograd steps beside the kernel (wall time, synchronised)
+        def twin_step():
+            return ts.twin_loss_and_grads(named, data, masks, dtype=torch.bfloat16)
+
+        twin_ms = cuda_ms(twin_step, iters=5)
+        twin_eager = eager_ms(twin_step, iters=10)
+        params = list(model.parameters())
+        pairs = list(zip(masks[0::2], masks[1::2]))
+        x_t = data["sa"] * data["z"] + data["s1a"] * data["eps"]
+        t_int, labels = data["t_f"][:, 0].long(), data["labels"].long()
+
+        def module_step():
+            for q in params:
+                q.requires_grad_(True)
+            out = model.train()(x_t, t_int, labels, cond_mask=data["cond_mask"][:, 0],
+                                masks=pairs)
+            loss = torch.sqrt(((data["eps"] - out) ** 2).sum(dim=1) + 1e-8).mean()
+            return torch.autograd.grad(loss, params, allow_unused=True)
+
+        module_eager = eager_ms(module_step, iters=10)
+        n_bytes, flops = train_step_counts(named, TRAIN_BATCH)
+        b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOP_PER_S)
+        eager_kernel = eager_ms(lambda: run(data, masks), iters=20)
+        print(f"[train_kernel] B={TRAIN_BATCH} flagship: kernel bf16 {row['ms']:.4f} ms, f32 "
+              f"lane {row['f32_lane_ms']:.4f} ms (CUDA graph), {eager_kernel:.4f} ms eager; "
+              f"autograd on the twin {twin_ms:.4f} ms (CUDA graph) / {twin_eager:.4f} ms eager; "
+              f"autograd on the f32 module {module_eager:.4f} ms eager; bound {b_ms:.5f} ms "
+              f"({b_by}: {n_bytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+        n_prof = 10
+        _, kernels = device_profile(lambda: [run(data, masks) for _ in range(n_prof)])
+        busy = sum(e.self_device_time_total for e in kernels) / n_prof
+        print(f"[train_kernel] profile of {n_prof} bf16 steps: "
+              f"{sum(e.count for e in kernels) // n_prof} launches and {busy:.1f} us busy a step")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+            print(f"[train_kernel]   {e.self_device_time_total / n_prof:8.1f} us/step "
+                  f"x{e.count // n_prof:<3d} {e.key[:80]}")
+        row.update(plain_ms=twin_ms, bound_ms=b_ms, bound_by=b_by,
+                   eager_autograd_twin_ms=twin_eager, eager_autograd_module_ms=module_eager)
+    row["max_rel_err"] = worst_bf16
+    return row
+
+
+def phase_train(vae, stats):
+    """The flagship latent-DDPM trainer on cached latents, 10 epochs, with
+    the train-step kernel and with eager autograd from the same seed."""
+    dev = torch.device("cuda")
+    images, labels = synthetic_flowers(1020, FLAGSHIP["num_classes"], 64, seed=0)
+    dataset = DeviceDataset(images, labels, augment=False)
+    epochs, steps = 10, TRAIN["steps_per_epoch"]
+
+    def config(train_kernel, lane="bfloat16"):
+        return LatentDiffusionConfig(train_kernel=train_kernel, train_kernel_dtype=lane,
+                                     **FLAGSHIP, **TRAIN)
+
+    # the K = 8 pool alone: its build time, and bf16 against f32 convolutions
+    cfg = config(False)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    tstats = tuple(torch.as_tensor(s, dtype=torch.float32, device=dev) for s in stats)
+    build = make_latent_cache_builder(vae, cfg, augment=False)
+    build(dataset.images, gen, tstats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pool = build(dataset.images, gen, tstats)
+    torch.cuda.synchronize()
+    pool_ms = (time.perf_counter() - t0) * 1e3
+    pool32 = make_latent_cache_builder(vae, dataclasses.replace(cfg, encode_dtype=None),
+                                       augment=False)(dataset.images, gen, tstats)
+    assert pool.shape == (8, 1020, FLAGSHIP["latent_dim"]) and pool.dtype == torch.float32
+    assert torch.isfinite(pool).all()
+    d_mean = float((pool.mean(dim=(0, 1)) - pool32.mean(dim=(0, 1))).abs().max())
+    d_std = float((pool.std(dim=(0, 1)) / pool32.std(dim=(0, 1)) - 1).abs().max())
+    print(f"[train] pool (8, 1020, 256) built in {pool_ms:.1f} ms (bf16 encoder); per-dim "
+          f"mean within {d_mean:.3f} and std within {d_std:.3f} (relative) of the f32 "
+          f"encoder's pool; pool std {float(pool.std()):.3f}")
+    assert d_mean < 0.1 * float(pool32.std()) and d_std < 0.1
+
+    runs = {}
+    for name, kernel, lane, n_epochs in (("kernel bf16", True, "bfloat16", epochs),
+                                         ("eager autograd", False, "bfloat16", epochs),
+                                         ("kernel f32", True, "float32", 1)):
+        trainer = LatentDiffusionTrainer(config(kernel, lane), vae, seed=4, latent_stats=stats)
+        gen = torch.Generator(device=dev).manual_seed(12)
+        fused_stage.launches = fused_head.launches = reverse_step.launches = 0
+        ts.kernel_loss_and_grads.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = trainer.run_epochs_fused(dataset, n_epochs, vae, gen, batch_size=TRAIN_BATCH)
+        dt = time.perf_counter() - t0
+        launches = ts.kernel_loss_and_grads.launches
+        assert len(losses) == n_epochs and np.all(np.isfinite(trainer.last_step_losses))
+        assert launches == (n_epochs * steps if kernel else 0), (name, launches)
+        assert trainer.state.step == n_epochs * steps and trainer._pool_builds == 1
+        runs[name] = (trainer, losses, trainer.last_step_losses, launches)
+        print(f"[train] {name}: {n_epochs} epochs x {steps} steps in {dt * 1e3:.1f} ms, pool "
+              f"build included ({(dt * 1e3 - pool_ms) / (n_epochs * steps):.3f} ms a step "
+              f"without it); train-step launches {launches}; epoch losses "
+              f"{[round(v, 4) for v in losses]}")
+    k_steps, e_steps, f_steps = (runs[n][2] for n in ("kernel bf16", "eager autograd",
+                                                      "kernel f32"))
+    rel_bf16 = float(np.max(np.abs(k_steps[:steps] - e_steps[:steps]) / e_steps[:steps]))
+    rel_f32 = float(np.max(np.abs(f_steps - e_steps[:steps]) / e_steps[:steps]))
+    print(f"[train] first {steps} steps against eager autograd: bf16 lane within "
+          f"{rel_bf16:.3e} (limit {TRAIN_CURVE_REL}), f32 lane within {rel_f32:.3e} "
+          f"(limit 1e-4)")
+    assert rel_bf16 <= TRAIN_CURVE_REL and rel_f32 <= 1e-4
+    for name in ("kernel bf16", "eager autograd"):
+        losses = runs[name][1]
+        assert losses[-1] < losses[0], f"{name}: the loss did not fall: {losses}"
+
+    # host against device: one more epoch of each body under the profiler
+    for name in ("kernel bf16", "eager autograd"):
+        trainer = runs[name][0]
+        gen = torch.Generator(device=dev).manual_seed(14)
+        wall, kernels = device_profile(lambda: trainer.run_epochs_fused(
+            dataset, 1, vae, gen, batch_size=TRAIN_BATCH))
+        busy = sum(e.self_device_time_total for e in kernels) / 1e6
+        print(f"[train] {name}, one profiled epoch: wall {wall * 1e3 / steps:.3f} ms a step, "
+              f"device busy {busy * 1e3 / steps:.3f} ms a step, idle share "
+              f"{1 - busy / wall:.3f}")
+
+    # train and serve meet: the EMA weights through the kernel sampler, then the decoder
+    trainer = runs["kernel bf16"][0]
+    live = dict(zip(trainer.state.names, trainer.state.params))
+    ema = trainer.sampling_params
+    assert any(not torch.equal(ema[k], live[k]) for k in live), "EMA equals the live weights"
+    sampler = trainer.sampler(fused=True)
+    cls = torch.arange(16, device=dev) % FLAGSHIP["num_classes"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    z = sampler.sample(16, cls, generator=torch.Generator(device=dev).manual_seed(13))
+    with torch.no_grad():
+        imgs = vae.decode(z)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    assert z.shape == (16, FLAGSHIP["latent_dim"]) and torch.isfinite(z).all()
+    assert imgs.shape == (16, 64, 64, 3) and torch.isfinite(imgs).all()
+    n_t = trainer.sched.n_steps
+    assert counts() == {"fused_stage": 4 * n_t, "fused_head": n_t, "reverse_step": n_t}
+    print(f"[train] sampler(fused=True) on the EMA weights: 16 images, {n_t} guided steps "
+          f"(CFG {GUIDANCE}, clip {CLIP}) + decode in {dt * 1e3:.1f} ms; launches {counts()}")
+    return runs["kernel bf16"][3]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -455,6 +782,9 @@ def main() -> int:
     launches = phase_service(model, vae, (stats["mean"], stats["std"]))
     for row in kernel_rows:
         row["launches"] = launches[row["name"]]
+    train_row = phase_train_kernel(gen)
+    train_row["launches"] = phase_train(vae, (stats["mean"], stats["std"]))
+    kernel_rows.append(train_row)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

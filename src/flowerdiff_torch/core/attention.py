@@ -3,11 +3,14 @@
 The reference packs q, k, v into one Dense; here they are three Linears (the
 weight bridge splits the packed kernel). The denoiser runs this on a
 length-1 sequence, where softmax over one key is 1 and the module reduces to
-out(v(x)) — the identity the stage kernel exploits. Attention dropout is
-train-time only and waits for the training slice.
+out(v(x)) — the identity the stage kernel exploits. Dropout acts on the
+attention weights in train mode (`nn.Dropout`), or through an injected
+per-(sample, head) mask, which for one key is a mask on `v`.
 `SpatialSelfAttention2D` is not on the sampling path and is not ported yet.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -16,7 +19,7 @@ from torch import nn
 class MultiHeadSelfAttention(nn.Module):
     """Self-attention over (B, S, D) with `num_heads` heads, q=k=v=x."""
 
-    def __init__(self, dim: int, num_heads: int = 8):
+    def __init__(self, dim: int, num_heads: int = 8, dropout_rate: float = 0.0):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"dim {dim} is not a multiple of {num_heads} heads")
@@ -26,8 +29,13 @@ class MultiHeadSelfAttention(nn.Module):
         self.k = nn.Linear(dim, dim)
         self.v = nn.Linear(dim, dim)
         self.out = nn.Linear(dim, dim)
+        self.attn_drop = nn.Dropout(dropout_rate)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                head_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """head_mask: optional (B, heads) multiplier of the attention weights
+        (a dropout mask already scaled by 1 / (1 - rate)); it takes the place
+        of the module's own dropout draw."""
         batch, seq, dim = x.shape
         hd = dim // self.num_heads
 
@@ -37,5 +45,9 @@ class MultiHeadSelfAttention(nn.Module):
         q, k, v = heads(self.q(x)), heads(self.k(x)), heads(self.v(x))
         logits = torch.einsum("bhsd,bhtd->bhst", q, k) * hd**-0.5
         weights = torch.softmax(logits, dim=-1)
+        if head_mask is not None:
+            weights = weights * head_mask[:, :, None, None].to(weights.dtype)
+        else:
+            weights = self.attn_drop(weights)
         out = torch.einsum("bhst,bhtd->bhsd", weights, v)
         return self.out(out.transpose(1, 2).reshape(batch, seq, dim))

@@ -1,11 +1,12 @@
 """DDPM forward/reverse step math (port of flowerdiff/diffusion/ddpm.py).
 
 `t` is a (B,) integer tensor; coefficients broadcast over trailing dims.
-`ddpm_eps_loss` belongs to the training slice and is not ported yet.
+`ddpm_eps_loss` draws t and eps from a `torch.Generator`, or takes them from
+the caller, which is how it is held against the reference.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -52,3 +53,26 @@ def p_sample(sched: DiffusionSchedule, xt: torch.Tensor, t: torch.Tensor,
     sigma = torch.sqrt(_bcast(sched.beta[t], xt))
     keep = _bcast((t > 0).to(xt.dtype), xt)
     return mean + sigma * noise * keep
+
+
+def ddpm_eps_loss(sched: DiffusionSchedule, eps_fn: Callable[..., torch.Tensor],
+                  generator: Optional[torch.Generator], x0: torch.Tensor,
+                  *cond: torch.Tensor, distance: str = "euclidean",
+                  t: Optional[torch.Tensor] = None,
+                  eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Uniform-t epsilon-prediction loss. distance='euclidean' is the latent
+    pipeline's per-sample L2 distance, 'mse' the pixel pipeline's MSE.
+    t (B,) and eps (like x0) are drawn from `generator` unless given."""
+    from flowerdiff_torch.losses.distances import euclidean_distance_loss
+
+    if t is None:
+        t = torch.randint(0, sched.n_steps, (x0.shape[0],), generator=generator,
+                          device=x0.device)
+    if eps is None:
+        eps = torch.randn(x0.shape, generator=generator, device=x0.device, dtype=x0.dtype)
+    eps_theta = eps_fn(q_sample(sched, x0, t, eps), t, *cond)
+    if distance == "euclidean":
+        return euclidean_distance_loss(eps, eps_theta)
+    if distance == "mse":
+        return ((eps - eps_theta) ** 2).mean()
+    raise ValueError(f"unknown distance {distance!r}")

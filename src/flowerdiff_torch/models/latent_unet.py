@@ -5,8 +5,8 @@ An MLP hourglass over flat latents:
   latent_proj: latent -> hidden[0]
   per stage i:
      h += time_proj_i(t_emb) + cond_proj_i(c_emb)   (time_proj_i under shared_cond_proj)
-     h += swish(LayerNorm(block_fc_i(h)))
-     h += attn_i(LayerNorm(h))                     # length-1 sequence
+     h += swish(Dropout(LayerNorm(block_fc_i(h))))
+     h += attn_i(LayerNorm(h))                     # length-1 sequence, weight dropout
      h  = downsample_i(h)
   final: LayerNorm(h + final_time_proj(t) + final_cond_proj(c)) -> final
 
@@ -17,12 +17,15 @@ Quirks kept from the reference, config-gated:
   - `global_skip` (v2): out += sigmoid(residual_weight) * final(x).
   - flax LayerNorm epsilon, 1e-6.
 
-Evaluation mode only: dropout is a training-time op and comes with the
-training slice. This f32 module is the oracle the kernel path is held to.
+Dropout (rate `dropout_rate`, on the block's LayerNorm output before the
+swish and on the attention weights) acts in train mode only. `forward` also
+takes injected masks in its place, so that one set of masks can go through
+this module, the train-step twin and the train-step kernel. This f32 module
+is the oracle the kernel paths are held to.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -48,6 +51,7 @@ class ConditionalLatentDenoiser(nn.Module):
         num_colors: Optional[int] = None,
         shared_cond_proj: bool = True,
         global_skip: bool = False,
+        dropout_rate: float = 0.3,
     ):
         super().__init__()
         self.latent_dim = latent_dim
@@ -57,6 +61,7 @@ class ConditionalLatentDenoiser(nn.Module):
         self.num_colors = num_colors
         self.shared_cond_proj = shared_cond_proj
         self.global_skip = global_skip
+        self.dropout_rate = dropout_rate
         hidden = self.hidden_dims
         self.n_stages = len(hidden) - 1
 
@@ -75,7 +80,9 @@ class ConditionalLatentDenoiser(nn.Module):
             self.add_module(f"block_fc_{i}", nn.Linear(d, d))
             self.add_module(f"block_ln_{i}", nn.LayerNorm(d, eps=LN_EPS))
             self.add_module(f"stage_ln_{i}", nn.LayerNorm(d, eps=LN_EPS))
-            self.add_module(f"attn_{i}", MultiHeadSelfAttention(d, num_heads=8))
+            self.add_module(f"block_drop_{i}", nn.Dropout(dropout_rate))
+            self.add_module(f"attn_{i}", MultiHeadSelfAttention(
+                d, num_heads=8, dropout_rate=dropout_rate))
             self.add_module(f"downsample_{i}", nn.Linear(d, hidden[i + 1]))
         self.final_time_proj = nn.Linear(time_emb_dim, hidden[-1])
         self.final_cond_proj = nn.Linear(time_emb_dim, hidden[-1])
@@ -105,9 +112,14 @@ class ConditionalLatentDenoiser(nn.Module):
         cond: torch.Tensor,
         color: Optional[torch.Tensor] = None,
         cond_mask: Optional[torch.Tensor] = None,
+        masks: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None,
     ) -> torch.Tensor:
         """cond_mask: optional (B,) 0/1 floats; 0 zeroes that row's condition
-        embedding (the null condition of classifier-free guidance)."""
+        embedding (the null condition of classifier-free guidance).
+        masks: optional injected dropout masks, one (m_blk, m_attn) pair a
+        stage, both (B, d_i) and already scaled by 1 / (1 - rate); m_attn
+        holds one value a (sample, head), repeated over the head's d_i / 8
+        columns. They take the place of the module's own dropout draws."""
         t_base = self.time_emb(t)
         c_base = self.embed_condition(cond, color)
         if cond_mask is not None:
@@ -117,9 +129,16 @@ class ConditionalLatentDenoiser(nn.Module):
         for i in range(self.n_stages):
             h = h + self.stage("time_proj", i)(t_base) + self.cond_proj(i)(c_base)
             blk = self.stage("block_ln", i)(self.stage("block_fc", i)(h))
+            if masks is not None:
+                m_blk, m_attn = masks[i]
+                blk = blk * m_blk
+                head_mask = m_attn[:, ::m_attn.shape[1] // self.stage("attn", i).num_heads]
+            else:
+                blk = self.stage("block_drop", i)(blk)
+                head_mask = None
             h = h + swish(blk)
             h_norm = self.stage("stage_ln", i)(h)
-            h = h + self.stage("attn", i)(h_norm[:, None, :])[:, 0, :]
+            h = h + self.stage("attn", i)(h_norm[:, None, :], head_mask)[:, 0, :]
             h = self.stage("downsample", i)(h)
 
         h = h + self.final_time_proj(t_base) + self.final_cond_proj(c_base)

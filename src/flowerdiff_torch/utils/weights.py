@@ -13,6 +13,13 @@ Layout rules (the port's own copy of the reference's conversion rules):
   Embed / LayerNorm / GroupNorm      -> weight (scale) and bias
   decoder fc2 output rows + fc2_ln   -> permuted HWC-major -> CHW-major, since
                                         the port reshapes fc2's output NCHW
+  encoder mu_fc1 / logvar_fc1 input  -> permuted the same way, since the port
+                                        flattens the conv features NCHW
+
+`state_dict_to_flax` is the inverse map for the denoiser: a module, or any
+dict keyed like its state dict (gradients, EMA weights), back to a flax-named
+numpy tree in flax layouts, so that it can be held against the reference's
+trees leaf by leaf.
 
 `init_numpy_params` builds a full flax-named tree from a seed, without JAX:
 kaiming-normal kernels (std sqrt(2 / 1.04 / fan_in)), LayerNorm scales of 1,
@@ -98,17 +105,67 @@ def load_denoiser(model: ConditionalLatentDenoiser, tree: Dict[str, Any]) -> Con
 
 
 def load_vae(vae: FlowerVAE, tree: Dict[str, Any]) -> FlowerVAE:
-    """Load the decoder half of a FlowerVAE tree (other submodules ignored)."""
-    dec_tree = _unwrap(tree)["decoder"]
-    sd = flax_to_state_dict(dec_tree, "decoder.")
+    """Load the decoder of a FlowerVAE tree and, where the tree holds one,
+    the encoder (the classifier head is ignored). Without an encoder in the
+    tree the module's encoder keeps its weights."""
+    params = _unwrap(tree)
+    sd = flax_to_state_dict(params["decoder"], "decoder.")
     dec = vae.decoder
     idx = torch.from_numpy(hwc_to_chw_index(dec.channels[-1], dec.base_size,
                                             dec.base_size))
     for key in ("decoder.fc2.weight", "decoder.fc2.bias",
                 "decoder.fc2_ln.weight", "decoder.fc2_ln.bias"):
         sd[key] = sd[key][idx].contiguous()
+    if "encoder" in params:
+        sd.update(flax_to_state_dict(params["encoder"], "encoder."))
+        for key in ("encoder.mu_fc1.weight", "encoder.logvar_fc1.weight"):
+            sd[key] = sd[key][:, idx].contiguous()
+    else:
+        sd.update({k: v for k, v in vae.state_dict().items() if k.startswith("encoder.")})
     vae.load_state_dict(sd, strict=True)
     return vae
+
+
+def state_dict_to_flax(source) -> Dict[str, Any]:
+    """A ConditionalLatentDenoiser, or a dict keyed like its state dict, as a
+    flax-named numpy tree in flax layouts (the inverse of
+    `flax_to_state_dict` for the denoiser): Linear weights transposed to
+    (in, out) kernels, q/k/v packed into one `qkv` Dense, LayerNorm weight ->
+    scale, Embedding weight -> embedding."""
+    sd = source.state_dict() if isinstance(source, torch.nn.Module) else source
+    flat = {k: np.asarray(v.detach().cpu().numpy() if torch.is_tensor(v) else v, np.float32)
+            for k, v in sd.items()}
+    tree: Dict[str, Any] = {}
+
+    def put(path, value):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+
+    for key, value in flat.items():
+        parts = key.split(".")
+        if len(parts) == 1:  # a bare parameter, e.g. residual_weight
+            put(parts, value)
+        elif parts[-2] in ("k", "v") and parts[0].startswith("attn_"):
+            continue  # packed with q below
+        elif parts[-2] == "q" and parts[0].startswith("attn_"):
+            qkv = [flat[".".join(parts[:-2] + [p, parts[-1]])] for p in "qkv"]
+            if parts[-1] == "weight":
+                put(parts[:-2] + ["qkv", "kernel"], np.concatenate([w.T for w in qkv], axis=1))
+            else:
+                put(parts[:-2] + ["qkv", "bias"], np.concatenate(qkv))
+        elif parts[-1] == "bias":
+            put(parts, value)
+        elif "embedding" in parts[-2]:
+            put(parts[:-1] + ["embedding"], value)
+        elif value.ndim == 2:
+            put(parts[:-1] + ["kernel"], value.T)
+        elif value.ndim == 1:
+            put(parts[:-1] + ["scale"], value)
+        else:
+            raise ValueError(f"state_dict_to_flax: no rule for {key} {value.shape}")
+    return tree
 
 
 def denoiser_from_params(tree: Dict[str, Any], device=None, **config) -> ConditionalLatentDenoiser:
@@ -230,15 +287,34 @@ def _decoder_tree(ini: _Init, latent_dim: int = 256, in_channels: int = 3,
     return {"decoder": p}
 
 
+def _encoder_tree(ini: _Init, latent_dim: int = 256, in_channels: int = 3,
+                  channels: Sequence[int] = (64, 128, 256, 512),
+                  head_width: int = 512, base_size: int = 8):
+    ch = tuple(channels)
+    p: Dict[str, Any] = {"stem_conv": ini.conv(3, in_channels, ch[0]),
+                         "stem_ln": ini.ln2d(ch[0])}
+    for i in range(1, len(ch)):
+        p[f"down{i}_conv"] = ini.conv(4, ch[i - 1], ch[i])
+        p[f"down{i}_ln"] = ini.ln2d(ch[i])
+        p[f"res{i}"] = ini.res_block(ch[i])
+    flat = ch[-1] * base_size**2
+    for name in ("mu", "logvar"):
+        p[f"{name}_fc1"] = ini.dense(flat, head_width)
+        p[f"{name}_ln"] = ini.norm(head_width)
+        p[f"{name}_fc2"] = ini.dense(head_width, latent_dim)
+    return {"encoder": p}
+
+
 def init_numpy_params(kind: str, seed: int = 0, bias_std: float = 0.05,
                       **config) -> Dict[str, Any]:
     """A seeded flax-named numpy tree, `{"params": {...}}`.
 
     kind: "denoiser" (ConditionalLatentDenoiser config keywords) or "vae"
-    (FlowerVAE config keywords; the tree holds the decoder)."""
+    (FlowerVAE config keywords; the tree holds the decoder and, drawn after
+    it, the encoder)."""
     ini = _Init(seed, bias_std)
     if kind == "denoiser":
         return {"params": _denoiser_tree(ini, **config)}
     if kind == "vae":
-        return {"params": _decoder_tree(ini, **config)}
+        return {"params": {**_decoder_tree(ini, **config), **_encoder_tree(ini, **config)}}
     raise ValueError(f"unknown kind {kind!r}; choose 'denoiser' or 'vae'")

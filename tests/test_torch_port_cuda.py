@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from flowerdiff_torch.kernels.full_sampler import reverse_step, reverse_step_plain
+from flowerdiff_torch.kernels import train_step as ts
 from flowerdiff_torch.kernels.latent_stage import (
     bind_head,
     bind_stage,
@@ -16,6 +17,7 @@ from flowerdiff_torch.kernels.latent_stage import (
     fused_stage,
     fused_stage_plain,
 )
+from flowerdiff_torch.utils.weights import denoiser_from_params, init_numpy_params
 
 pytestmark = pytest.mark.cuda
 
@@ -101,3 +103,117 @@ def test_wrappers_reject_bad_cuda_inputs(gen):
         reverse_step(_r(gen, 4, d), h, 3, (0.9, 0.5, 0.1), guidance_scale=2.0)
     with pytest.raises(ValueError):
         reverse_step(_r(gen, d, 4).t(), h, 3, (0.9, 0.5, 0.1))
+
+
+# ---------------------------------------------------------------------------
+# The train-step kernels (csrc/train_step.cu)
+
+def _bf(x):
+    return x.to(torch.bfloat16).float()
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("rows,k,n", [(1, 32, 32), (13, 96, 40), (64, 256, 512), (67, 100, 36)])
+def test_product_three_forms_match_f32_references(gen, exact, rows, k, n):
+    """Y = X W^T + b, dX = dY W, dW = dY^T X with db = colsum(dY), at odd row
+    counts and ragged tiles. Exact lane: f32 sums in another order, rtol
+    1e-5 of the largest value. bf16 lane: the references round the same
+    operands to bf16, and the dX / dW outputs are rounded to bf16 after the
+    sum (one bf16 ulp = 2^-8 relative, plus the summation order)."""
+    x, w, b = _r(gen, rows, k), _r(gen, n, k, scale=k ** -0.5), _r(gen, n)
+    dy, mul, res = _r(gen, rows, n), _r(gen, rows, n), _r(gen, rows, n)
+    rnd = (lambda t: t) if exact else _bf
+    tol = 1e-5 if exact else 2.0 ** -7
+
+    def close(got, ref):
+        assert got.shape == ref.shape
+        assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+
+    close(ts.linear_forward(x, w, b, exact=exact, scale=2.0, mul=mul, res=res),
+          (rnd(x) @ rnd(w).t() + 2.0 * b) * mul + res)
+    res_x = _r(gen, rows, k)
+    close(ts.linear_dx(dy, w, exact=exact, res=res_x), rnd(rnd(dy) @ rnd(w)) + res_x)
+    dw, db = ts.linear_dw(dy, x, exact=exact, scale=2.0)
+    close(dw, rnd(rnd(dy).t() @ rnd(x)))
+    close(db, 2.0 * dy.sum(dim=0))
+
+
+@pytest.mark.parametrize("rows,d", [(5, 48), (64, 1024), (3, 1000)])
+@pytest.mark.parametrize("block", [False, True])
+def test_layernorm_kernels_match_autograd(gen, rows, d, block):
+    """LayerNorm forward (mean, rstd saved) and backward with dgamma / dbeta
+    reduced over the rows, against torch.nn.functional.layer_norm under
+    autograd; `block` adds the dropout mask, the swish and the residual of
+    the stage's first half. f32 throughout: 1e-4 of the largest value."""
+    x = _r(gen, rows, d, scale=2.0) + 0.5
+    g = (1 + _r(gen, d, scale=0.2)).requires_grad_(True)
+    b = _r(gen, d, scale=0.5).requires_grad_(True)
+    dy, res = _r(gen, rows, d), _r(gen, rows, d)
+    mask = (torch.rand((rows, d), generator=gen, device="cuda") >= 0.3).float() / 0.7
+    xr = x.clone().requires_grad_(True)
+    y_ref = torch.nn.functional.layer_norm(xr, (d,), g, b, ts.LN_EPS)
+    if block:
+        y_ref = y_ref * mask
+        y_ref = y_ref * torch.sigmoid(y_ref) + res
+    dx_ref, dg_ref, db_ref = torch.autograd.grad(y_ref, (xr, g, b), dy)
+    kw = dict(mask=mask, swish=True) if block else {}
+    y, mean, rstd = ts.layernorm_forward(x, g.detach(), b.detach(), res=res if block else None,
+                                         **kw)
+    dx, dg, db = ts.layernorm_backward(dy, x, mean, rstd, g.detach(), b.detach(), res=res, **kw)
+    for got, ref in ((y, y_ref.detach()), (dx, dx_ref + res), (dg, dg_ref), (db, db_ref)):
+        assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+def _step_case(gen, global_skip, batch=9):
+    kw = dict(latent_dim=64, hidden_dims=(64, 128, 64), time_emb_dim=32, num_classes=7,
+              global_skip=global_skip)
+    model = denoiser_from_params(init_numpy_params("denoiser", seed=2, bias_std=0.3, **kw),
+                                 device="cuda", **kw)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "_ln_" in name or "final_norm" in name:
+                p.add_(0.2 * torch.randn(p.shape, generator=gen, device="cuda"))
+    rate = 0.3
+    masks = []
+    for d in kw["hidden_dims"][:-1]:
+        mb = (torch.rand((batch, d), generator=gen, device="cuda") >= rate).float() / (1 - rate)
+        ma = (torch.rand((batch, 8), generator=gen, device="cuda") >= rate).float() / (1 - rate)
+        masks += [mb, ma.repeat_interleave(d // 8, dim=1)]
+    abar = torch.rand((batch, 1), generator=gen, device="cuda") * 0.9 + 0.05
+    data = {"z": _r(gen, batch, 64), "eps": _r(gen, batch, 64),
+            "t_f": torch.randint(0, 1000, (batch, 1), generator=gen, device="cuda").float(),
+            "sa": abar.sqrt(), "s1a": (1 - abar).sqrt(),
+            "labels": (torch.arange(batch, device="cuda") % 5).to(torch.int32),
+            "cond_mask": (torch.arange(batch, device="cuda") % 3 != 0).float()[:, None],
+            "freqs": ts.sinusoid_freqs(32, "cuda")}
+    return model, data, masks
+
+
+@pytest.mark.parametrize("global_skip", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-4), (torch.bfloat16, 3e-2)])
+def test_train_step_kernel_matches_twin(gen, global_skip, dtype, tol):
+    """Loss and every gradient leaf of the kernel sequence against autograd
+    on the plain twin, with dropout masks, a condition mask with zeros,
+    nonzero biases and perturbed LN affines, at an odd batch. Limits per
+    leaf, relative to max|twin grad|: 5e-4 in the f32 lane (summation
+    order), 3e-2 in the bf16 lane (the kernel also rounds the incoming
+    gradient to bf16, which the twin keeps in f32)."""
+    model, data, masks = _step_case(gen, global_skip)
+    named = dict(ts.weights_spec(model))
+    before = ts.kernel_loss_and_grads.launches
+    loss, grads = ts.kernel_loss_and_grads(named, data, masks, dtype=dtype,
+                                           global_skip=global_skip)
+    assert ts.kernel_loss_and_grads.launches == before + 1
+    cpu = {k: v.detach().cpu() for k, v in named.items()}
+    ref_loss, ref = ts.kernel_loss_and_grads(
+        cpu, {k: v.cpu() for k, v in data.items()}, [m.cpu() for m in masks], dtype=dtype,
+        global_skip=global_skip)
+    assert abs(float(loss) - float(ref_loss)) <= tol * abs(float(ref_loss))
+    for name, g in grads.items():
+        r = ref[name].cuda()
+        scale = float(r.abs().max())
+        assert float((g - r).abs().max()) <= tol * scale + 1e-9, name
+    tree = ts.grads_to_tree(grads, model)
+    for name, g in tree.items():
+        if ".q." in name or ".k." in name:
+            assert not g.any(), name

@@ -5,6 +5,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -48,6 +49,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from flowerdiff_torch.diffusion.api import DiffusionSampler, FusedDiffusionSampler
     from flowerdiff_torch.models import ConditionalLatentDenoiser, FlowerVAE
     from flowerdiff_torch.serving import SamplingService
+    from flowerdiff_torch.data import DeviceDataset
+    from flowerdiff_torch.train.latent_ddpm import (
+        LatentDiffusionConfig,
+        LatentDiffusionTrainer,
+        create_latent_diffusion_state,
+    )
     from flowerdiff_torch.utils.weights import denoiser_from_params, init_numpy_params
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -55,7 +62,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     model = ConditionalLatentDenoiser(**kw)
     vae = FlowerVAE(latent_dim=16, channels=(8, 16), head_width=16)
     sched = linear_schedule(3)
+    cfg = LatentDiffusionConfig(hidden_dims=(16, 16), **{k: v for k, v in kw.items()
+                                                         if k != "hidden_dims"})
     calls = [
+        lambda: LatentDiffusionTrainer(cfg, vae),
+        lambda: create_latent_diffusion_state(0, cfg),
+        lambda: DeviceDataset(np.zeros((2, 8, 8, 3), np.uint8), np.zeros(2)),
         lambda: resolve_device(),
         lambda: DiffusionSampler(model, sched, (16,)),
         lambda: FusedDiffusionSampler(model, sched, (16,)),
@@ -66,3 +78,40 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_unported_training_paths_raise_rather_than_run_something_else():
+    """Augmentation and the uncached fused epochs wait for the data
+    pipeline's augmentation program: asking for either raises and names it;
+    nothing trains silently without augmentation."""
+    from flowerdiff_torch.data import DeviceDataset
+    from flowerdiff_torch.models import FlowerVAE
+    from flowerdiff_torch.train import fused
+    from flowerdiff_torch.train.latent_ddpm import LatentDiffusionConfig, LatentDiffusionTrainer
+
+    kw = dict(latent_dim=16, hidden_dims=(16, 16), time_emb_dim=16, num_classes=3)
+    vae = FlowerVAE(latent_dim=16, channels=(8, 16), head_width=16)
+    imgs, labels = np.zeros((4, 16, 16, 3), np.uint8), np.zeros(4, np.int64)
+    augmented = DeviceDataset(imgs, labels, device="cpu")  # augment defaults to True
+    assert augmented.augment_enabled
+    cached = LatentDiffusionTrainer(LatentDiffusionConfig(latent_cache=2, **kw), vae, device="cpu")
+    with pytest.raises(NotImplementedError, match="VAE-GAN slice"):
+        cached.run_epochs_fused(augmented, 1, None, None, batch_size=2)
+    assert cached.state.step == 0 and cached._z_pool is None
+    with pytest.raises(NotImplementedError, match="VAE-GAN slice"):
+        fused.make_latent_cache_builder(vae, cached.cfg, augment=True)
+    plain = DeviceDataset(imgs, labels, augment=False, device="cpu")
+    uncached = LatentDiffusionTrainer(LatentDiffusionConfig(**kw), vae, device="cpu")
+    with pytest.raises(NotImplementedError, match="latent_cache"):
+        uncached.run_epochs_fused(plain, 1, None, None, batch_size=2)
+    with pytest.raises(NotImplementedError, match="augmentation"):
+        fused.make_fused_latent_epochs(uncached.model, vae, uncached.sched, uncached.cfg)
+    v3 = dict(kw, shared_cond_proj=False, num_colors=2)
+    trainer = LatentDiffusionTrainer(
+        LatentDiffusionConfig(latent_cache=1, train_kernel=True, **v3), vae, device="cpu")
+    with pytest.raises(ValueError, match="v1/v2"):
+        trainer.run_epochs_fused(DeviceDataset(imgs, labels, colors=labels, augment=False,
+                                               device="cpu"), 1, None, None, batch_size=2)
+    with pytest.raises(NotImplementedError, match="ancestral"):
+        LatentDiffusionTrainer(LatentDiffusionConfig(sampler="ddim", **kw), vae,
+                               device="cpu").sampler()
