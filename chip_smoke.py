@@ -31,7 +31,18 @@ Phases (any failure raises and the script exits nonzero without a result):
      `LatentDiffusionTrainer.run_epochs_fused`, with the train-step kernel
      and, from the same seed, with eager autograd; compare the loss curves;
      then sample from the EMA weights through the kernel sampler and decode;
-  9. print the card's name and power limit, a `kernels` JSON line, and as
+  9. drive the whole-epoch train kernel (`make_mega_epoch_fn`: 15 steps of 64
+     with draws, forward, backward, clip and AdamW from one library call) at
+     flagship width on latents gathered from the K = 8 pool: hold an epoch
+     against its plain twin on the same draws from a state 15 steps in, in
+     the injected and the stochastic lane, both compute lanes, both moment
+     types, with hyperparameters at which the clip, the decay, the bias
+     corrections, the falling learning rate and the q/k decay each count,
+     and show that a twin epoch without any one of them would fail; check
+     the draws' distribution and bit-equal reruns; train 150 steps and
+     sample from the EMA weights; time an epoch beside the per-step kernel
+     body;
+ 10. print the card's name and power limit, a `kernels` JSON line, and as
      the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -41,6 +52,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -56,6 +68,7 @@ from flowerdiff_torch.diffusion.api import (  # noqa: E402
     FusedDiffusionSampler,
 )
 from flowerdiff_torch.kernels import _build  # noqa: E402
+from flowerdiff_torch.kernels import train_epoch as te  # noqa: E402
 from flowerdiff_torch.kernels import train_step as ts  # noqa: E402
 from flowerdiff_torch.kernels.denoiser_apply import (  # noqa: E402
     head_weights,
@@ -76,7 +89,11 @@ from flowerdiff_torch.kernels.latent_stage import (  # noqa: E402
     fused_stage_plain,
 )
 from flowerdiff_torch.serving import SamplingService  # noqa: E402
-from flowerdiff_torch.train.fused import make_latent_cache_builder  # noqa: E402
+from flowerdiff_torch.train.fused import (  # noqa: E402
+    epoch_rows,
+    make_fused_cached_epochs,
+    make_latent_cache_builder,
+)
 from flowerdiff_torch.train.latent_ddpm import (  # noqa: E402
     LatentDiffusionConfig,
     LatentDiffusionTrainer,
@@ -127,6 +144,31 @@ TRAIN = dict(dropout_rate=0.3, cond_dropout=0.1, ema_decay=0.999, latent_cache=8
 # difference of the per-step losses over the first epoch (the weights drift
 # apart by bf16 rounding from the first step on); the reading was 2.7e-4
 TRAIN_CURVE_REL = 2e-3
+# The epoch kernel vs its twin after one epoch of 15 steps. f32 lane: the
+# reference's own limits at this width (tests/test_train_epoch_kernel.py:
+# losses rtol 1e-4; weights and first moments rtol 2e-3 / atol 5e-4, the
+# absolute part for the few elements whose second moment is near zero, where
+# Adam's division amplifies the summation order). q and k take the same f32
+# factor on both sides: rtol 1e-6. bf16 lane: losses and moments relative to
+# the largest value, as TRAIN_BF16_REL (the moments sum up to 15 gradients
+# that are each a bf16 ulp apart, and bf16 storage adds an ulp a step); a
+# weight whose gradient is near zero may take Adam's step of size lr in the
+# other direction, so one weight may be off by 2 sum(lr) and the limit is on
+# a leaf's mean, 5% of sum(lr).
+EPOCH_STEPS = 15
+EPOCH_LOSS_RTOL = 1e-4
+EPOCH_W_RTOL, EPOCH_W_ATOL = 2e-3, 5e-4
+EPOCH_NU_ATOL = 1e-7
+EPOCH_QK_RTOL = 1e-6
+EPOCH_BF16_LOSS_REL = TRAIN_BF16_REL
+EPOCH_BF16_MOMENT_REL = 4e-2
+EPOCH_BF16_W_MEAN = 0.05
+# Hyperparameters at which every term of the optimizer counts (the flagship's
+# weight decay of 1e-5 moves a weight by 1e-8 of itself a step, and its clip
+# of 1.0 may not bind): a decay of lr wd = 1e-3 a step, a clip far below the
+# gradient norm, an SGDR period of one epoch so the rate falls from lr to
+# ~0 within the epoch, and a start at step 15, where bc2 = 0.016.
+EPOCH_HARD = dict(weight_decay=1.0, grad_clip=0.1, t0=1, t_mult=1, ema_decay=0.9)
 
 
 def cuda_ms(fn, iters: int = 50) -> float:
@@ -531,7 +573,7 @@ def phase_train_kernel(gen):
     """The train-step kernel against autograd on its twin at flagship width,
     and its time beside the eager autograd steps and the bound."""
     row = {"name": "train_step", "route": "cuda",
-           "source": "src/flowerdiff_torch/kernels/csrc/train_step.cu",
+           "source": "src/flowerdiff_torch/kernels/csrc/train_step.cuh",
            "replaces": "src/flowerdiff/kernels/train_step.py:267",
            "max_abs_err": 0.0, "library_ms": None}
     worst_bf16 = 0.0
@@ -755,7 +797,361 @@ def phase_train(vae, stats):
     assert counts() == {"fused_stage": 4 * n_t, "fused_head": n_t, "reverse_step": n_t}
     print(f"[train] sampler(fused=True) on the EMA weights: 16 images, {n_t} guided steps "
           f"(CFG {GUIDANCE}, clip {CLIP}) + decode in {dt * 1e3:.1f} ms; launches {counts()}")
-    return runs["kernel bf16"][3]
+    return runs["kernel bf16"][3], pool, dataset
+
+
+def _state_snapshot(state):
+    lists = (state.params, state.mu, state.nu, state.ema or [])
+    return [[t.clone() for t in lst] for lst in lists], state.step
+
+
+def _state_restore(state, snapshot):
+    saved, step = snapshot
+    for lst, keep in zip((state.params, state.mu, state.nu, state.ema or []), saved):
+        for t, k in zip(lst, keep):
+            t.copy_(k)
+    state.step = step
+
+
+def _over(got, ref, rtol, atol):
+    """The largest |got - ref| / (atol + rtol |ref|) over a list of tensors:
+    above 1 some element is outside the limit."""
+    return max(float(((g - r).abs() / (atol + rtol * r.abs())).max())
+               for g, r in zip(got, ref))
+
+
+def _epoch_readings(got_losses, got, ref_losses, ref, sum_lr):
+    """Kernel state against twin state after one epoch, in units of the
+    limits (a value above 1 is a failure): f32 limits and bf16 limits."""
+    qk = [j for j, n in enumerate(ref.names) if ".q." in n or ".k." in n]
+    rest = [j for j in range(len(ref.names)) if j not in qk]
+
+    def pick(lst, idx):
+        return [lst[j] for j in idx]
+
+    def by_slot(lst):
+        return {j: lst[j] for j in rest}
+
+    loss_rel = float(((got_losses - ref_losses).abs() / ref_losses.abs()).max())
+    w_got, w_ref = pick(got.params, rest), pick(ref.params, rest)
+    f32 = {"loss": loss_rel / EPOCH_LOSS_RTOL,
+           "w": _over(w_got, w_ref, EPOCH_W_RTOL, EPOCH_W_ATOL),
+           "mu": _over(pick(got.mu, rest), pick(ref.mu, rest), EPOCH_W_RTOL, EPOCH_W_ATOL),
+           "nu": _over(pick(got.nu, rest), pick(ref.nu, rest), EPOCH_W_RTOL, EPOCH_NU_ATOL),
+           "q, k": _over(pick(got.params, qk), pick(ref.params, qk), EPOCH_QK_RTOL, 0.0)}
+    if ref.ema is not None:
+        f32["ema"] = _over(pick(got.ema, rest), pick(ref.ema, rest), EPOCH_W_RTOL, EPOCH_W_ATOL)
+    w_mean = max(float((g - r).abs().mean()) for g, r in zip(w_got, w_ref))
+    w_max = max(float((g - r).abs().max()) for g, r in zip(w_got, w_ref))
+    bf16 = {"loss": loss_rel / EPOCH_BF16_LOSS_REL,
+            "mu": _moved(by_slot(got.mu), by_slot(ref.mu)) / EPOCH_BF16_MOMENT_REL,
+            "nu": _moved(by_slot(got.nu), by_slot(ref.nu)) / EPOCH_BF16_MOMENT_REL,
+            "w mean": w_mean / (EPOCH_BF16_W_MEAN * sum_lr),
+            "w max": w_max / (2 * sum_lr + 1e-6),
+            "q, k": f32["q, k"]}
+    return f32, bf16, w_max
+
+
+def _gather_rows(pool, dataset, seed, epochs, gen):
+    """z_rows (T, B, L) and labels (T, B) for `epochs` epochs: each sample a
+    uniformly drawn slot of the K-slot pool, as the cached trainer gathers."""
+    idx, steps = epoch_rows(seed, dataset.n, TRAIN_BATCH, epochs)
+    assert steps == EPOCH_STEPS
+    idx = torch.from_numpy(idx).to(pool.device)
+    slot = torch.randint(0, pool.shape[0], idx.shape, generator=gen, device=pool.device)
+    z = pool.reshape(-1, pool.shape[-1])[slot * dataset.n + idx]
+    return z, dataset.labels[idx]
+
+
+def _check_draws(draws, n_steps, rate, cond_dropout):
+    """The distribution of one epoch's draws (960 samples): every bound is
+    five standard errors of the statistic under the intended distribution."""
+    t, eps, keep, masks = draws
+    n = t.numel()
+    assert float(t.min()) >= 0 and float(t.max()) <= n_steps - 1 and torch.equal(t, t.floor())
+    var_u = (n_steps ** 2 - 1) / 12.0
+    t_mean, t_var = float(t.mean()), float(t.var())
+    assert abs(t_mean - (n_steps - 1) / 2) <= 5 * (var_u / n) ** 0.5, t_mean
+    assert abs(t_var - var_u) <= 5 * var_u * (0.8 / n) ** 0.5, t_var  # kurtosis 1.8
+    e_mean, e_var = float(eps.mean()), float(eps.var())
+    assert abs(e_mean) <= 5 * eps.numel() ** -0.5, e_mean
+    assert abs(e_var - 1) <= 5 * (2 / eps.numel()) ** 0.5, e_var
+    assert torch.isfinite(eps).all() and float(eps.abs().max()) < 6.0
+    k_rate = float(keep.mean())
+    assert set(keep.unique().tolist()) <= {0.0, 1.0}
+    assert abs(k_rate - (1 - cond_dropout)) <= 5 * (cond_dropout * (1 - cond_dropout) / n) ** 0.5
+    rates = []
+    for j, m in enumerate(masks):
+        steps, rows, d = m.shape
+        scale = 1.0 / (1.0 - rate)
+        assert bool(((m == 0) | ((m - scale).abs() < 1e-6)).all()), f"mask {j}: other values"
+        draws_n = m.numel()
+        if j % 2:  # one draw a (sample, head), repeated over the head's columns
+            heads = m.reshape(steps, rows, 8, d // 8)
+            assert torch.equal(heads, heads[..., :1].expand_as(heads)), f"mask {j}: heads"
+            draws_n = steps * rows * 8
+        r = float((m > 0).float().mean())
+        assert abs(r - (1 - rate)) <= 5 * (rate * (1 - rate) / draws_n) ** 0.5, (j, r)
+        rates.append(round(r, 4))
+        flat = m.reshape(steps, -1)
+        same = (flat[:, None] == flat[None]).all(dim=-1)
+        assert int(same.sum()) == steps, f"mask {j}: two steps share a mask"
+    print(f"[train_epoch] draws of one epoch ({n} samples): t mean {t_mean:.1f} var {t_var:.0f} "
+          f"(uniform: {(n_steps - 1) / 2}, {var_u:.0f}); eps mean {e_mean:.5f} var {e_var:.5f} "
+          f"max |eps| {float(eps.abs().max()):.2f}; cond keep rate {k_rate:.4f}; mask keep "
+          f"rates {rates}; all inside five standard errors, mask values 0 or 1/(1-rate), "
+          f"attention masks constant over a head, no two steps share a mask")
+
+
+def epoch_counts(named, batch, steps, bf16_moments):
+    """(bytes, flops) an epoch must move and do: a step, the train step's
+    (`train_step_counts`) plus w, m and v read once and written once; nothing
+    holds ~31 MB each of them on the chip between two steps."""
+    step_bytes, step_flops = train_step_counts(named, batch)
+    n = sum(v.numel() for v in named.values())
+    opt = 2 * n * (4 + 2 * (2 if bf16_moments else 4))
+    return steps * (step_bytes + opt), steps * step_flops, opt
+
+
+def phase_train_epoch(vae, stats, pool, dataset):
+    """The whole-epoch train kernel at flagship width, S = 15 steps of B = 64."""
+    dev = torch.device("cuda")
+    steps, batch = EPOCH_STEPS, TRAIN_BATCH
+    row = {"name": "train_epoch", "route": "cuda",
+           "source": "src/flowerdiff_torch/kernels/csrc/train_epoch.cu",
+           "replaces": "src/flowerdiff/kernels/train_epoch.py:91",
+           "max_abs_err": 0.0, "library_ms": None}
+    gen = torch.Generator(device=dev).manual_seed(21)
+    z_all, labels_all = _gather_rows(pool, dataset, 5, 12, gen)
+    z_rows, labels = z_all[:steps], labels_all[:steps]
+    hard = LatentDiffusionConfig(**{**FLAGSHIP, **TRAIN, **EPOCH_HARD})
+    trainers = {k: LatentDiffusionTrainer(hard, vae, seed=6, latent_stats=stats)
+                for k in ("kernel", "twin")}
+    ks, ts_ = trainers["kernel"].state, trainers["twin"].state
+    model, sched = trainers["kernel"].model, trainers["kernel"].sched
+
+    # the start: 15 steps in, with moments of unclipped gradients
+    warm = dataclasses.replace(hard, grad_clip=1e9)
+    te.make_mega_epoch_fn(model, warm, steps, batch, dtype=torch.float32)(
+        ks, sched, z_rows, labels, 31)
+    torch.cuda.synchronize()
+    start = _state_snapshot(ks)
+    assert ks.step == steps
+    tables = te.epoch_tables(ks.schedule, ks.step, steps)
+    sum_lr = float(tables[0].sum())
+    assert tables[0].max() > 5 * tables[0].min() and tables[2].max() < 0.05
+    seed = 77
+    draws = te.epoch_draws(model, hard, sched, steps, batch, seed, ks.step)
+    _check_draws(draws, sched.n_steps, hard.dropout_rate, hard.cond_dropout)
+    other = te.epoch_draws(model, hard, sched, steps, batch, seed + 1, ks.step)
+    assert not torch.equal(other[1], draws[1]) and not torch.equal(other[3][0], draws[3][0])
+
+    failures = []
+    for lane, moments in ((torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+                          (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)):
+        tag = (f"{'f32' if lane == torch.float32 else 'bf16'} lane, "
+               f"{'f32' if moments == torch.float32 else 'bf16'} moments")
+        _state_restore(ts_, start)
+        ref_losses, ref_gnorms = te.mega_epoch_plain(ts_, sched, z_rows, labels, draws,
+                                                     dtype=lane, moments_dtype=moments)
+        injected = te.make_mega_epoch_fn(model, hard, steps, batch, dtype=lane,
+                                         stochastic=False, moments_dtype=moments)
+        _state_restore(ks, start)
+        losses = injected(ks, sched, z_rows, labels, draws=draws)
+        torch.cuda.synchronize()
+        assert injected.launches == 1 and injected.steps == steps and ks.step == 2 * steps
+        assert torch.isfinite(losses).all()
+        f32, bf16, w_max = _epoch_readings(losses, ks, ref_losses, ts_, sum_lr)
+        readings = f32 if lane == torch.float32 else bf16
+        if lane == torch.float32 and moments == torch.bfloat16:
+            # f32 products: the f32 limits hold, but stored moments may land a bf16 ulp apart
+            readings = dict(f32, mu=bf16["mu"], nu=bf16["nu"])
+        after_injected = _state_snapshot(ks)
+        # the stochastic lane draws the same bits itself: the same epoch, bit for bit
+        drawing = te.make_mega_epoch_fn(model, hard, steps, batch, dtype=lane,
+                                        moments_dtype=moments)
+        again = []
+        for s in (seed, seed, seed + 1):
+            _state_restore(ks, start)
+            again.append((drawing(ks, sched, z_rows, labels, s).clone(), _state_snapshot(ks)))
+        torch.cuda.synchronize()
+        assert drawing.launches == 3
+        same_bits = all(torch.equal(a, b) for a, b in zip(
+            [losses] + after_injected[0][0], [again[0][0]] + again[0][1][0][0]))
+        rerun_bits = all(torch.equal(a, b) for a, b in zip(
+            [again[0][0]] + again[0][1][0][0] + again[0][1][0][1],
+            [again[1][0]] + again[1][1][0][0] + again[1][1][0][1]))
+        other_seed = not torch.equal(again[0][0], again[2][0])
+        worst = max(readings, key=readings.get)
+        print(f"[train_epoch] {tag}: losses {float(losses[0]):.5f} .. {float(losses[-1]):.5f} "
+              f"(twin {float(ref_losses[0]):.5f} .. {float(ref_losses[-1]):.5f}); gradient norm "
+              f"{float(injected.gnorms.min()):.3f} .. {float(injected.gnorms.max()):.3f} "
+              f"(twin {float(ref_gnorms.min()):.3f} .. {float(ref_gnorms.max()):.3f}, clip "
+              f"{hard.grad_clip}); in units of the limits "
+              f"{ {k: round(v, 4) for k, v in readings.items()} }; max |dw| {w_max:.3e}; "
+              f"stochastic lane equals the injected lane bit for bit: {same_bits}; same seed "
+              f"twice bit-equal: {rerun_bits}; another seed differs: {other_seed}")
+        if float(injected.gnorms.min()) <= 2 * hard.grad_clip:
+            failures.append(f"{tag}: the clip does not bind")
+        if readings[worst] > 1.0:
+            failures.append(f"{tag}: {worst} at {readings[worst]:.3f} of its limit")
+        if not (same_bits and rerun_bits and other_seed):
+            failures.append(f"{tag}: bits {same_bits} {rerun_bits} {other_seed}")
+        if lane == torch.bfloat16 and moments == torch.bfloat16:
+            row["max_abs_err"] = w_max
+            row["max_rel_err"] = bf16["mu"] * EPOCH_BF16_MOMENT_REL
+    assert not failures, failures
+
+    # that the limits mean something: a twin epoch without one term, against
+    # the twin epoch with it (f32 lane, f32 moments), in units of both limits
+    def twin_epoch(cfg=None, tables_=None):
+        _state_restore(ts_, start)
+        out = te.mega_epoch_plain(ts_, sched, z_rows, labels, draws, dtype=torch.float32,
+                                  cfg=cfg, tables=tables_)[0]
+        return out, types.SimpleNamespace(
+            names=ts_.names, ema=None, **{k: [t.clone() for t in getattr(ts_, k)]
+                                          for k in ("params", "mu", "nu")})
+
+    ref_losses, ref = twin_epoch()
+    ones = np.ones(steps, np.float32)
+    variants = {
+        "the clip": dict(cfg=dataclasses.replace(hard, grad_clip=float("inf"))),
+        "the decay": dict(cfg=dataclasses.replace(hard, weight_decay=0.0)),
+        "the bias corrections": dict(tables_=np.stack([tables[0], ones, ones])),
+        "the falling lr": dict(tables_=np.stack([ones * tables[0, 0], tables[1], tables[2]])),
+    }
+    moves = {}
+    for what, kw in variants.items():
+        v_losses, got = twin_epoch(**kw)
+        f32, bf16, _ = _epoch_readings(v_losses, got, ref_losses, ref, sum_lr)
+        f32.pop("q, k"), bf16.pop("q, k"), bf16.pop("w max")
+        moves[what] = (max(f32.values()), max(bf16.values()))
+    # without the q/k decay q and k stay where they started
+    qk = [j for j, n in enumerate(ref.names) if ".q." in n or ".k." in n]
+    qk_move = _over([start[0][0][j] for j in qk], [ref.params[j] for j in qk], EPOCH_QK_RTOL, 0.0)
+    moves["the q/k decay"] = (qk_move, qk_move)
+    print(f"[train_epoch] a twin epoch without one term, in units of the (f32, bf16) limits: "
+          f"{ {k: (round(a, 2), round(b, 2)) for k, (a, b) in moves.items()} }")
+    weakest = min(moves, key=lambda k: min(moves[k]))
+    assert min(moves[weakest]) > 2.0, (
+        f"leaving out {weakest} moves the twin only {moves[weakest]} of the limits")
+
+    # the main path: 10 stochastic epochs at the flagship recipe, then sampling
+    cfg = LatentDiffusionConfig(**FLAGSHIP, **TRAIN)
+    trainer = LatentDiffusionTrainer(cfg, vae, seed=4, latent_stats=stats)
+    epoch_fn = te.make_mega_epoch_fn(trainer.model, cfg, steps, batch)  # bf16, bf16 moments
+    epochs = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [epoch_fn(trainer.state, trainer.sched, z_all[e * steps:(e + 1) * steps],
+                       labels_all[e * steps:(e + 1) * steps], 12) for e in range(epochs)]
+    losses = torch.stack(losses).cpu().numpy()
+    dt = time.perf_counter() - t0
+    means = losses.mean(axis=1)
+    assert np.all(np.isfinite(losses)) and means[-1] < means[0], means
+    assert trainer.state.step == epochs * steps
+    assert epoch_fn.launches == epochs and epoch_fn.steps == epochs * steps
+    live = dict(zip(trainer.state.names, trainer.state.params))
+    ema = trainer.sampling_params
+    assert any(not torch.equal(ema[k], live[k]) for k in live), "EMA equals the live weights"
+    row["launches"] = epoch_fn.launches
+    print(f"[train_epoch] main path: {epochs} stochastic epochs x {steps} steps (bf16 lane, bf16 "
+          f"moments, EMA {cfg.ema_decay}) in {dt * 1e3:.1f} ms; epoch launches "
+          f"{epoch_fn.launches}, train steps enqueued {epoch_fn.steps}; epoch losses "
+          f"{[round(float(v), 4) for v in means]}")
+    fused_stage.launches = fused_head.launches = reverse_step.launches = 0
+    sampler = trainer.sampler(fused=True)
+    cls = torch.arange(16, device=dev) % FLAGSHIP["num_classes"]
+    z = sampler.sample(16, cls, generator=torch.Generator(device=dev).manual_seed(13))
+    with torch.no_grad():
+        imgs = vae.decode(z)
+    torch.cuda.synchronize()
+    n_t = trainer.sched.n_steps
+    assert z.shape == (16, FLAGSHIP["latent_dim"]) and torch.isfinite(z).all()
+    assert imgs.shape == (16, 64, 64, 3) and torch.isfinite(imgs).all()
+    assert counts() == {"fused_stage": 4 * n_t, "fused_head": n_t, "reverse_step": n_t}
+    print(f"[train_epoch] sampler(fused=True) on the EMA weights: 16 images, {n_t} guided "
+          f"steps + decode; launches {counts()}")
+
+    # times: the epoch kernel beside the per-step kernel body, same shapes,
+    # in the order body, epoch, epoch, body
+    body_cfg = dataclasses.replace(cfg, train_kernel=True)
+    body_trainer = LatentDiffusionTrainer(body_cfg, vae, seed=4, latent_stats=stats)
+    body = make_fused_cached_epochs(body_trainer.model, body_cfg, steps_per_epoch=steps)
+    idx = torch.from_numpy(epoch_rows(9, dataset.n, batch, 5)[0]).to(dev)
+    bgen = torch.Generator(device=dev).manual_seed(15)
+
+    def run_body():
+        return body(body_trainer.state, body_trainer.sched, pool, dataset.labels, None, idx, bgen)
+
+    def run_epochs():
+        return [epoch_fn(trainer.state, trainer.sched, z_all[e * steps:(e + 1) * steps],
+                         labels_all[e * steps:(e + 1) * steps], 12) for e in range(5)]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        start_ev, end_ev = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start_ev.record()
+        fn()
+        end_ev.record()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / 5, start_ev.elapsed_time(end_ev) / 5
+
+    run_body()
+    walls = {"body": [], "epoch": []}
+    events = {"body": [], "epoch": []}
+    for which in ("body", "epoch", "epoch", "body"):
+        wall, ev = timed(run_body if which == "body" else run_epochs)
+        walls[which].append(wall)
+        events[which].append(ev)
+    # the same epoch with f32 moments (AdamW moves 4 more bytes a weight each way)
+    epoch_f32m = te.make_mega_epoch_fn(trainer.model, cfg, steps, batch,
+                                       moments_dtype=torch.float32)
+    f32m_ms = [timed(lambda: [epoch_f32m(trainer.state, trainer.sched, z_all[:steps],
+                                         labels_all[:steps], 12) for _ in range(5)])[1]
+               for _ in range(2)][1]
+    wall_prof, kernels = device_profile(lambda: epoch_fn(
+        trainer.state, trainer.sched, z_all[:steps], labels_all[:steps], 12))
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    n_launch = sum(e.count for e in kernels)
+    named = dict(ts.weights_spec(trainer.model))
+    n_bytes, flops, opt_bytes = epoch_counts(named, batch, steps, bf16_moments=True)
+    b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOP_PER_S)
+    ep_ms = float(np.mean(events["epoch"]))
+    print(f"[train_epoch] an epoch of {steps} steps, B={batch}, bf16 lane, bf16 moments: "
+          f"{ep_ms:.3f} ms between CUDA events ({ep_ms / steps:.4f} ms a step; runs "
+          f"{[round(v, 3) for v in events['epoch']]}), wall {np.mean(walls['epoch']):.3f} ms "
+          f"({np.mean(walls['epoch']) / steps:.4f} ms a step; runs "
+          f"{[round(v, 3) for v in walls['epoch']]}); with f32 moments {f32m_ms:.3f} ms "
+          f"between CUDA events; the per-step kernel body "
+          f"(make_fused_cached_epochs) in the same call: wall "
+          f"{np.mean(walls['body']):.3f} ms an epoch ({np.mean(walls['body']) / steps:.4f} ms "
+          f"a step; runs {[round(v, 3) for v in walls['body']]}); bound {b_ms:.5f} ms an "
+          f"epoch ({b_by}: {n_bytes / 1e6:.2f} MB, of which the optimizer's w, m, v in and "
+          f"out {opt_bytes / 1e6:.2f} MB a step; {flops / 1e9:.3f} GFLOP)")
+    print(f"[train_epoch] one profiled epoch: wall {wall_prof * 1e3:.3f} ms, device busy "
+          f"{busy:.3f} ms ({busy / steps:.4f} ms a step), idle share "
+          f"{1 - busy / 1e3 / wall_prof:.3f}, {n_launch} launches")
+    own = ("draws_kernel", "sumsq_kernel", "norm_kernel", "adamw_kernel", "moments_cast_kernel",
+           "blend_kernel", "sched_kernel")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
+        if any(k in e.key for k in own):
+            print(f"[train_epoch]   {e.self_device_time_total / e.count:8.1f} us x{e.count:<4d} "
+                  f"{e.key[:80]}")
+    step_us = sum(e.self_device_time_total for e in kernels
+                  if not any(k in e.key for k in own) and "Memcpy" not in e.key)
+    print(f"[train_epoch]   the train step's kernels: {step_us / steps:.1f} us a step")
+
+    # the twin's epoch, eager (autograd, ~600 ops a step: the host sets its time)
+    _state_restore(ts_, start)
+    twin_ms = timed(lambda: te.mega_epoch_plain(ts_, sched, z_rows, labels, draws))[1] * 5
+    row.update(ms=ep_ms, plain_ms=twin_ms, bound_ms=b_ms, bound_by=b_by,
+               ms_a_step=ep_ms / steps, f32_moments_ms=f32m_ms,
+               wall_ms=float(np.mean(walls["epoch"])),
+               per_step_body_wall_ms=float(np.mean(walls["body"])))
+    print(f"[train_epoch] the twin's epoch, eager: {twin_ms:.1f} ms")
+    return row
 
 
 def main() -> int:
@@ -783,8 +1179,9 @@ def main() -> int:
     for row in kernel_rows:
         row["launches"] = launches[row["name"]]
     train_row = phase_train_kernel(gen)
-    train_row["launches"] = phase_train(vae, (stats["mean"], stats["std"]))
+    train_row["launches"], pool, dataset = phase_train(vae, (stats["mean"], stats["std"]))
     kernel_rows.append(train_row)
+    kernel_rows.append(phase_train_epoch(vae, (stats["mean"], stats["std"]), pool, dataset))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

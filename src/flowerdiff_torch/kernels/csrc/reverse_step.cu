@@ -20,28 +20,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "philox.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ void philox4x32_10(uint32_t (&c)[4], uint32_t k0, uint32_t k1) {
-  const uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
-  const uint32_t W0 = 0x9E3779B9u, W1 = 0xBB67AE85u;
-#pragma unroll
-  for (int round = 0; round < 10; ++round) {
-    if (round > 0) {
-      k0 += W0;
-      k1 += W1;
-    }
-    const uint32_t hi0 = __umulhi(M0, c[0]), lo0 = M0 * c[0];
-    const uint32_t hi1 = __umulhi(M1, c[2]), lo1 = M1 * c[2];
-    const uint32_t n0 = hi1 ^ c[1] ^ k0, n2 = hi0 ^ c[3] ^ k1;
-    c[0] = n0;
-    c[1] = lo1;
-    c[2] = n2;
-    c[3] = lo0;
-  }
-}
 
 // Box-Muller on two 32-bit draws: u1 in (0, 1], u2 in [0, 1), 24 bits each.
 __device__ __forceinline__ void box_muller(uint32_t a, uint32_t b, float* z0, float* z1) {
@@ -66,7 +49,7 @@ reverse_step_kernel(const float* __restrict__ eps, const float* __restrict__ x,
   const bool noisy = stochastic && t > 0;
   if (noisy) {
     uint32_t c[4] = {group, (uint32_t)t, 0u, 0u};
-    philox4x32_10(c, key0, key1);
+    fd::philox4x32_10(c, key0, key1);
     box_muller(c[0], c[1], &z[0], &z[1]);
     box_muller(c[2], c[3], &z[2], &z[3]);
   }

@@ -1,625 +1,7 @@
-// Forward + backward of the latent-DDPM training objective for sm_90a.
-//
-// Replaces the Pallas kernel `_make_kernel` of flowerdiff/kernels/train_step.py
-// (reached through `_kernel_loss_and_grads`): q_sample, the sinusoid and the
-// time MLP, the class-table lookup and the class MLP with the condition
-// keep-mask, `latent_proj`, every hourglass stage with its two dropout
-// masks, the head, the optional v2 skip, the euclidean epsilon-loss, and one
-// f32 gradient per weight leaf. The TPU kernel derives its backward with
-// `jax.vjp` inside the kernel; here the backward is written out by hand.
-//
-// Bound on the card: at 64 rows the step reads every f32 weight once and
-// writes an f32 gradient of the same size, and does three products a weight
-// over 64 rows: tens of flops a byte, far below the card's ~295 bf16 flops a
-// byte, so the ideal step is bound by weight and gradient bytes.
-//
-// Design: the TPU kernel is one program because its weights and activations
-// stay in VMEM; at ~29 MB of f32 weights against 50 MB of L2 that reason has
-// no counterpart here, so `fd_train_step_launch` enqueues a sequence of
-// small kernels on the caller's stream (it captures into a CUDA graph):
-//
-//   * one tiled product `gemm_kernel<T>`, C[m][n] = sum_k A(m,k) B(n,k), with
-//     both operands addressed through (row, k) strides, which gives the three
-//     forms of a Linear in PyTorch's (out, in) layout: Y = X W^T + b,
-//     dX = dY W, and dW = dY^T X with db = colsum(dY). T = bf16: operands are
-//     rounded to bf16 as they are staged in shared memory and multiplied on
-//     the tensor cores (`mma.sync` m16n8k16, f32 accumulators). T = float:
-//     plain f32 FMA tiles (the exact lane, and the `final` product and v2 skip
-//     in both lanes). The dW form reduces over the rows of the batch only,
-//     so every output tile is independent: no split-K, no atomics.
-//   * row kernels, one block a row: q_sample + sinusoid, LayerNorm forward
-//     (saving mean and rstd) with the dropout mask, swish and residual fused
-//     in, LayerNorm backward, the loss with its seed gradient;
-//   * column kernels that reduce over the rows in order (LayerNorm dgamma and
-//     dbeta, bias gradients, the class-table gradient as an ordered sum per
-//     class), so a step repeats bit for bit.
-//
-// bf16 lane and gradients: the reference's vjp passes through the casts of
-// each product's operands, so dX and dW of a cast operand are rounded to
-// bf16; the epilogue does the same. The incoming gradient dY is an operand
-// of the tensor-core product here and so is rounded to bf16 too, which the
-// reference leaves in f32: that difference is inside the bf16 lane's limit.
-#include <stdint.h>
-
-#include <type_traits>
-
-#include "rows.cuh"
-
-namespace {
-
-using fd::warp_sum;
-
-constexpr int TM = 64, TN = 32;           // product tile; its depth TK is a template argument
-constexpr int kGemmThreads = 128;         // 4 warps, 16 rows of the tile each
-constexpr int kRowThreads = 256;
-
-struct Epilogue {
-  const float* bias;   // [N] or null: + bias_scale * bias[n]
-  float bias_scale;
-  int round_bf16;      // round (acc + bias) to bf16 (a gradient through a cast)
-  const float* mul;    // [M][N] or null: then * mul[m][n]
-  const float* res;    // [M][N] or null: then + res[m][n] (may alias C)
-  float* colsum;       // [M] or null: colsum[m] = colsum_scale * sum_k A(m, k), in f32
-  float colsum_scale;
-};
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-template <typename T>
-__device__ __forceinline__ T to_operand(float v);
-template <>
-__device__ __forceinline__ float to_operand<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 to_operand<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-__device__ __forceinline__ void emit(float* C, int M, int N, int m, int n, float acc,
-                                     const Epilogue& ep) {
-  if (m >= M || n >= N) return;
-  float v = acc;
-  if (ep.bias) v += ep.bias_scale * ep.bias[n];
-  if (ep.round_bf16) v = round_bf16(v);
-  const size_t i = (size_t)m * N + n;
-  if (ep.mul) v *= ep.mul[i];
-  if (ep.res) v += ep.res[i];
-  C[i] = v;
-}
-
-// C[m][n] = epilogue(sum_k A(m, k) * B(n, k)), A(m, k) = A[m * a_sm + k * a_sk],
-// B(n, k) = B[n * b_sn + k * b_sk], C row-major (M, N). One of each stride
-// pair is 1; tiles are read along that dimension. The next tile's global
-// loads are issued before the current tile's products. Every product here
-// is bound by the latency of its chain of k steps, not by bytes or flops,
-// so a deeper tile shortens it: TK = 64 in the bf16 lane (48 loads in
-// flight a thread, 16 steps for K = 1024, one step for the dW form). At
-// TK = 128 the prefetch arrays no longer stay in registers and the step is
-// twice as slow as at TK = 32.
-template <typename T, int TK>
-__global__ void __launch_bounds__(kGemmThreads)
-gemm_kernel(const float* A, long a_sm, long a_sk, const float* B, long b_sn, long b_sk,
-            float* C, int M, int N, int K, Epilogue ep) {
-  constexpr bool kExact = std::is_same<T, float>::value;
-  constexpr int PAD = kExact ? 1 : 8;
-  constexpr int LD = TK + PAD;
-  __shared__ __align__(16) T As[TM * LD];
-  __shared__ __align__(16) T Bs[TN * LD];
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
-
-  if (ep.colsum && blockIdx.x == 0 && tid < TM && m0 + tid < M) {
-    const float* a = A + (size_t)(m0 + tid) * a_sm;
-    float s = 0.f;
-    for (int k = 0; k < K; ++k) s += a[(size_t)k * a_sk];
-    ep.colsum[m0 + tid] = ep.colsum_scale * s;
-  }
-
-  constexpr int NA = TM * TK / kGemmThreads, NB = TN * TK / kGemmThreads;
-  float ra[NA], rb[NB];
-  const bool a_kfast = a_sk == 1, b_kfast = b_sk == 1;
-
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < NA; ++i) {
-      const int e = i * kGemmThreads + tid;
-      const int r = a_kfast ? e / TK : e % TM, c = a_kfast ? e % TK : e / TM;
-      const int m = m0 + r, k = k0 + c;
-      ra[i] = (m < M && k < K) ? A[(size_t)m * a_sm + (size_t)k * a_sk] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < NB; ++i) {
-      const int e = i * kGemmThreads + tid;
-      const int r = b_kfast ? e / TK : e % TN, c = b_kfast ? e % TK : e / TN;
-      const int n = n0 + r, k = k0 + c;
-      rb[i] = (n < N && k < K) ? B[(size_t)n * b_sn + (size_t)k * b_sk] : 0.f;
-    }
-  };
-  auto stage = [&]() {
-#pragma unroll
-    for (int i = 0; i < NA; ++i) {
-      const int e = i * kGemmThreads + tid;
-      const int r = a_kfast ? e / TK : e % TM, c = a_kfast ? e % TK : e / TM;
-      As[r * LD + c] = to_operand<T>(ra[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < NB; ++i) {
-      const int e = i * kGemmThreads + tid;
-      const int r = b_kfast ? e / TK : e % TN, c = b_kfast ? e % TK : e / TN;
-      Bs[r * LD + c] = to_operand<T>(rb[i]);
-    }
-  };
-
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;   // tensor-core fragment coordinates
-  const int ty = tid >> 3, tx = tid & 7;   // f32 lane: a 4 x 4 patch a thread
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  fetch(0);
-  for (int k0 = 0; k0 < K; k0 += TK) {
-    stage();
-    __syncthreads();
-    if (k0 + TK < K) fetch(k0 + TK);
-    if constexpr (kExact) {
-#pragma unroll 8
-      for (int k = 0; k < TK; ++k) {
-        float a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = As[(4 * ty + i) * LD + k];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = Bs[(4 * tx + j) * LD + k];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-    } else {
-      // acc[j] is the n8 tile j of this warp's 16 rows
-      const T* a_lo = As + (16 * warp + g) * LD + 2 * t;
-      const T* a_hi = a_lo + 8 * LD;
-#pragma unroll
-      for (int kk = 0; kk < TK; kk += 16) {
-        const uint32_t a0 = *reinterpret_cast<const uint32_t*>(a_lo + kk);
-        const uint32_t a1 = *reinterpret_cast<const uint32_t*>(a_hi + kk);
-        const uint32_t a2 = *reinterpret_cast<const uint32_t*>(a_lo + kk + 8);
-        const uint32_t a3 = *reinterpret_cast<const uint32_t*>(a_hi + kk + 8);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const T* b = Bs + (8 * j + g) * LD + kk + 2 * t;
-          fd::mma_bf16(acc[j], a0, a1, a2, a3, *reinterpret_cast<const uint32_t*>(b),
-                       *reinterpret_cast<const uint32_t*>(b + 8));
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  if constexpr (kExact) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        emit(C, M, N, m0 + 4 * ty + i, n0 + 4 * tx + j, acc[i][j], ep);
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + 16 * warp + g, n = n0 + 8 * j + 2 * t;
-      emit(C, M, N, m, n, acc[j][0], ep);
-      emit(C, M, N, m, n + 1, acc[j][1], ep);
-      emit(C, M, N, m + 8, n, acc[j][2], ep);
-      emit(C, M, N, m + 8, n + 1, acc[j][3], ep);
-    }
-  }
-}
-
-// Sum over the block, the warps' partial sums added in order. `red` holds
-// one float a warp.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float s = 0.f;
-  for (int i = 0; i < (int)(blockDim.x >> 5); ++i) s += red[i];
-  __syncthreads();
-  return s;
-}
-
-__device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
-
-// x_t = sa z + s1a eps; sin_emb = [sin(t f), cos(t f)]. One block a row.
-__global__ void prep_kernel(const float* z, const float* eps, const float* sa,
-                            const float* s1a, const float* t_f, const float* freqs,
-                            float* x_t, float* sin_emb, int latent, int half) {
-  const int r = blockIdx.x;
-  const float a = sa[r], b = s1a[r], tf = t_f[r];
-  for (int j = threadIdx.x; j < latent; j += blockDim.x)
-    x_t[(size_t)r * latent + j] = a * z[(size_t)r * latent + j] + b * eps[(size_t)r * latent + j];
-  for (int j = threadIdx.x; j < half; j += blockDim.x) {
-    const float arg = tf * freqs[j];
-    sin_emb[(size_t)r * 2 * half + j] = sinf(arg);
-    sin_emb[(size_t)r * 2 * half + half + j] = cosf(arg);
-  }
-}
-
-// e_c[r] = table[label[r]], rounded to bf16 in the bf16 lane (the reference
-// reads the table through a bf16 one-hot product).
-__global__ void gather_kernel(const float* table, const int* labels, float* e_c, int width,
-                              int round) {
-  const int r = blockIdx.x;
-  const float* src = table + (size_t)labels[r] * width;
-  for (int j = threadIdx.x; j < width; j += blockDim.x) {
-    const float v = src[j];
-    e_c[(size_t)r * width + j] = round ? round_bf16(v) : v;
-  }
-}
-
-// dtable[c] = sum over the rows with label c, in row order; one block a class.
-__global__ void table_grad_kernel(const float* d_ec, const int* labels, float* dtable,
-                                  int B, int width, int round) {
-  const int c = blockIdx.x;
-  for (int j = threadIdx.x; j < width; j += blockDim.x) {
-    float s = 0.f;
-    for (int r = 0; r < B; ++r)
-      if (labels[r] == c) s += d_ec[(size_t)r * width + j];
-    dtable[(size_t)c * width + j] = round ? round_bf16(s) : s;
-  }
-}
-
-__global__ void swish_kernel(const float* a, float* s, size_t n) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) s[i] = a[i] * sigmoidf(a[i]);
-}
-
-// da = ds * swish'(a)
-__global__ void swish_bwd_kernel(const float* ds, const float* a, float* da, size_t n) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) {
-    const float sg = sigmoidf(a[i]);
-    da[i] = ds[i] * sg * (1.f + a[i] * (1.f - sg));
-  }
-}
-
-// c_base = c2 * cond_mask[row]; tc = t_base + c_base
-__global__ void cond_kernel(const float* c2, const float* t_base, const float* cond_mask,
-                            float* c_base, float* tc, size_t n, int width) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) {
-    const float c = c2[i] * cond_mask[i / width];
-    c_base[i] = c;
-    tc[i] = t_base[i] + c;
-  }
-}
-
-// d_t += d_tc; d_c2 = (d_c + d_tc) * cond_mask[row]
-__global__ void cond_bwd_kernel(float* d_t, const float* d_c, const float* d_tc,
-                                const float* cond_mask, float* d_c2, size_t n, int width) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) {
-    d_t[i] += d_tc[i];
-    d_c2[i] = (d_c[i] + d_tc[i]) * cond_mask[i / width];
-  }
-}
-
-// y = f(LN(x) * g + b), f(v) = [v * mask] -> [swish] -> [+ res]; saves the
-// row's mean and rstd. One block a row, two-pass mean and centred square.
-__global__ void __launch_bounds__(kRowThreads)
-ln_fwd_kernel(const float* x, const float* g, const float* b, const float* mask,
-              int swish, const float* res, float* y, float* mean_out, float* rstd_out,
-              int d, float eps) {
-  __shared__ float red[kRowThreads / 32];
-  const size_t row = (size_t)blockIdx.x * d;
-  float s = 0.f;
-  for (int j = threadIdx.x; j < d; j += blockDim.x) s += x[row + j];
-  const float mean = block_sum(s, red) / d;
-  float v = 0.f;
-  for (int j = threadIdx.x; j < d; j += blockDim.x) {
-    const float c = x[row + j] - mean;
-    v += c * c;
-  }
-  const float rstd = rsqrtf(block_sum(v, red) / d + eps);
-  if (threadIdx.x == 0) {
-    mean_out[blockIdx.x] = mean;
-    rstd_out[blockIdx.x] = rstd;
-  }
-  for (int j = threadIdx.x; j < d; j += blockDim.x) {
-    float o = (x[row + j] - mean) * rstd * g[j] + b[j];
-    if (mask) o *= mask[row + j];
-    if (swish) o = o * sigmoidf(o);
-    if (res) o += res[row + j];
-    y[row + j] = o;
-  }
-}
-
-// Backward of ln_fwd_kernel for one row. dy_in is the gradient of the
-// kernel's output (without its residual). Writes dyhat, the gradient of
-// LN's affine output (dy_in through swish and the mask), for the column
-// reduction, and dx = rstd * (w - mean(w) - xhat * mean(w * xhat)),
-// w = dyhat * g, plus `res` where given.
-__global__ void __launch_bounds__(kRowThreads)
-ln_bwd_kernel(const float* dy_in, const float* x, const float* mean_in, const float* rstd_in,
-              const float* g, const float* b, const float* mask, int swish,
-              const float* res, float* dyhat, float* dx, int d) {
-  __shared__ float red[kRowThreads / 32];
-  const size_t row = (size_t)blockIdx.x * d;
-  const float mean = mean_in[blockIdx.x], rstd = rstd_in[blockIdx.x];
-  float s1 = 0.f, s2 = 0.f;
-  for (int j = threadIdx.x; j < d; j += blockDim.x) {
-    const float xhat = (x[row + j] - mean) * rstd;
-    float dy = dy_in[row + j];
-    if (swish) {
-      float o = xhat * g[j] + b[j];
-      if (mask) o *= mask[row + j];
-      const float sg = sigmoidf(o);
-      dy *= sg * (1.f + o * (1.f - sg));
-    }
-    if (mask) dy *= mask[row + j];
-    dyhat[row + j] = dy;
-    const float w = dy * g[j];
-    s1 += w;
-    s2 += w * xhat;
-  }
-  const float c1 = block_sum(s1, red) / d;
-  const float c2 = block_sum(s2, red) / d;
-  for (int j = threadIdx.x; j < d; j += blockDim.x) {
-    const float xhat = (x[row + j] - mean) * rstd;
-    float o = rstd * (dyhat[row + j] * g[j] - c1 - xhat * c2);
-    if (res) o += res[row + j];
-    dx[row + j] = o;
-  }
-}
-
-// dgamma[j] = sum_r dyhat[r][j] * xhat[r][j], dbeta[j] = sum_r dyhat[r][j],
-// over the rows in order; one thread a column.
-__global__ void ln_param_grad_kernel(const float* dyhat, const float* x, const float* mean,
-                                     const float* rstd, float* dgamma, float* dbeta, int B,
-                                     int d) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= d) return;
-  float dg = 0.f, db = 0.f;
-  for (int r = 0; r < B; ++r) {
-    const float dy = dyhat[(size_t)r * d + j];
-    dg += dy * (x[(size_t)r * d + j] - mean[r]) * rstd[r];
-    db += dy;
-  }
-  dgamma[j] = dg;
-  dbeta[j] = db;
-}
-
-// The loss and its seed gradient, one block for the whole batch.
-//   o = out + s * skipv (s = sigmoid(rw) under the v2 skip, else no skip)
-//   dist_r = sqrt(sum_j (eps - o)^2 + 1e-8); loss = mean_r dist_r
-//   dout = -(eps - o) / (B * dist_r)
-//   d bf2 = (1 + s) * colsum(dout); d rw = s (1 - s) * sum(dout * skipv)
-//   hsk = hnf + s * x_t, so that d wf = dout^T hsk covers both uses of `final`
-__global__ void __launch_bounds__(kRowThreads)
-loss_kernel(const float* out, const float* skipv, const float* eps, const float* rw,
-            const float* hnf, const float* x_t, float* dout, float* rowbuf, float* hsk,
-            float* loss, float* dbf2, float* drw, int B, int latent, int skip) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
-  const float s = skip ? sigmoidf(rw[0]) : 0.f;
-  for (int r = warp; r < B; r += nwarps) {
-    const size_t row = (size_t)r * latent;
-    float ss = 0.f;
-    for (int j = lane; j < latent; j += 32) {
-      float o = out[row + j];
-      if (skip) o += s * skipv[row + j];
-      const float diff = eps[row + j] - o;
-      ss += diff * diff;
-    }
-    const float dist = sqrtf(warp_sum(ss) + 1e-8f);
-    const float inv = 1.f / ((float)B * dist);
-    float dot = 0.f;
-    for (int j = lane; j < latent; j += 32) {
-      float o = out[row + j];
-      if (skip) o += s * skipv[row + j];
-      const float dv = -(eps[row + j] - o) * inv;
-      dout[row + j] = dv;
-      if (skip) {
-        dot += dv * skipv[row + j];
-        hsk[row + j] = hnf[row + j] + s * x_t[row + j];
-      }
-    }
-    dot = warp_sum(dot);
-    if (lane == 0) {
-      rowbuf[r] = dist;
-      rowbuf[B + r] = dot;
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float l = 0.f, dr = 0.f;
-    for (int r = 0; r < B; ++r) {
-      l += rowbuf[r];
-      dr += rowbuf[B + r];
-    }
-    loss[0] = l / (float)B;
-    drw[0] = skip ? s * (1.f - s) * dr : 0.f;
-  }
-  for (int j = threadIdx.x; j < latent; j += blockDim.x) {
-    float c = 0.f;
-    for (int r = 0; r < B; ++r) c += dout[(size_t)r * latent + j];
-    dbf2[j] = (1.f + s) * c;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Host side: the sequence of launches.
-
-struct Run {
-  cudaStream_t stream;
-  bool exact;  // the f32 lane
-  cudaError_t err;
-
-  void note() {
-    const cudaError_t e = cudaGetLastError();
-    if (err == cudaSuccess) err = e;
-  }
-
-  void gemm(bool f32, const float* A, long a_sm, long a_sk, const float* B, long b_sn,
-            long b_sk, float* C, int M, int N, int K, const Epilogue& ep) {
-    const dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM);
-    if (f32)
-      gemm_kernel<float, 32><<<grid, kGemmThreads, 0, stream>>>(A, a_sm, a_sk, B, b_sn, b_sk,
-                                                                C, M, N, K, ep);
-    else
-      gemm_kernel<__nv_bfloat16, 64><<<grid, kGemmThreads, 0, stream>>>(
-          A, a_sm, a_sk, B, b_sn, b_sk, C, M, N, K, ep);
-    note();
-  }
-
-  // Y (rows, out) = (X (rows, in) W^T + scale * bias) [* mul] [+ res]; W (out, in)
-  void fwd(const float* X, const float* W, const float* bias, float* Y, int rows, int in,
-           int out, float scale = 1.f, const float* mul = nullptr, const float* res = nullptr,
-           bool f32 = false) {
-    gemm(f32 || exact, X, in, 1, W, in, 1, Y, rows, out, in,
-         Epilogue{bias, scale, 0, mul, res, nullptr, 0.f});
-  }
-
-  // dX (rows, in) = round(dY (rows, out) W) [* mul] [+ res]
-  void dx(const float* dY, const float* W, float* dX, int rows, int in, int out,
-          const float* mul = nullptr, const float* res = nullptr, bool f32 = false) {
-    const bool e = f32 || exact;
-    gemm(e, dY, out, 1, W, 1, in, dX, rows, in, out,
-         Epilogue{nullptr, 0.f, e ? 0 : 1, mul, res, nullptr, 0.f});
-  }
-
-  // dW (out, in) = round(dY^T X), db (out) = scale * colsum(dY)
-  void dw(const float* dY, const float* X, float* dW, float* db, int rows, int in, int out,
-          float scale = 1.f, bool f32 = false) {
-    const bool e = f32 || exact;
-    gemm(e, dY, 1, out, X, 1, in, dW, out, in, rows,
-         Epilogue{nullptr, 0.f, e ? 0 : 1, nullptr, nullptr, db, scale});
-  }
-
-  void ln_fwd(const float* x, const float* g, const float* b, const float* mask, int swish,
-              const float* res, float* y, float* mean, float* rstd, int rows, int d,
-              float eps) {
-    ln_fwd_kernel<<<rows, kRowThreads, 0, stream>>>(x, g, b, mask, swish, res, y, mean, rstd,
-                                                    d, eps);
-    note();
-  }
-
-  // dx and the affine's gradients; dyhat is scratch of x's shape
-  void ln_bwd(const float* dy, const float* x, const float* mean, const float* rstd,
-              const float* g, const float* b, const float* mask, int swish, const float* res,
-              float* dyhat, float* dx_out, float* dgamma, float* dbeta, int rows, int d) {
-    ln_bwd_kernel<<<rows, kRowThreads, 0, stream>>>(dy, x, mean, rstd, g, b, mask, swish, res,
-                                                    dyhat, dx_out, d);
-    note();
-    ln_param_grad_kernel<<<(d + 127) / 128, 128, 0, stream>>>(dyhat, x, mean, rstd, dgamma,
-                                                              dbeta, rows, d);
-    note();
-  }
-
-  static unsigned blocks(size_t n) { return (unsigned)((n + 255) / 256); }
-};
-
-constexpr int kMaxStages = 16;
-
-struct Dims {
-  int B, latent, te, classes, n_stages;
-  int hidden[kMaxStages + 1];
-};
-
-bool read_dims(const int* dims, Dims* d) {
-  d->B = dims[0];
-  d->latent = dims[1];
-  d->te = dims[2];
-  d->classes = dims[3];
-  d->n_stages = dims[4];
-  if (d->n_stages < 1 || d->n_stages > kMaxStages || d->B < 1 || d->te % 2) return false;
-  for (int i = 0; i <= d->n_stages; ++i) d->hidden[i] = dims[5 + i];
-  return true;
-}
-
-struct StageBufs {
-  float *h_a, *u, *mean1, *rstd1, *h_b, *mean2, *rstd2, *hn, *v, *h_c;
-};
-
-struct Workspace {
-  float *x_t, *sin_emb, *a1, *s1, *t_base, *e_c, *c1, *sc, *c2, *c_base, *tc;
-  float* hin[kMaxStages + 1];  // the input of each stage; hin[n] is the head's
-  StageBufs st[kMaxStages];
-  float *hf, *meanf, *rstdf, *hnf, *out, *skipv, *hsk, *dout, *rowbuf;
-  float *d_t, *d_c, *d_tc, *d_c2, *d_wide, *d_mlp, *d_ec;
-  float *G[2], *T[5];
-  size_t floats;
-};
-
-// Carve the workspace out of `base` (null: only count).
-void layout(const Dims& d, float* base, Workspace* w) {
-  size_t n = 0;
-  auto take = [&](size_t k) {
-    float* p = base ? base + n : nullptr;
-    n += (k + 3) / 4 * 4;
-    return p;
-  };
-  const size_t B = d.B, te = d.te, L = d.latent;
-  w->x_t = take(B * L);
-  w->sin_emb = take(B * te);
-  w->a1 = take(B * 2 * te);
-  w->s1 = take(B * 2 * te);
-  w->t_base = take(B * te);
-  w->e_c = take(B * te);
-  w->c1 = take(B * te);
-  w->sc = take(B * te);
-  w->c2 = take(B * te);
-  w->c_base = take(B * te);
-  w->tc = take(B * te);
-  size_t dmax = L;
-  for (int i = 0; i <= d.n_stages; ++i) {
-    w->hin[i] = take(B * d.hidden[i]);
-    if ((size_t)d.hidden[i] > dmax) dmax = d.hidden[i];
-  }
-  for (int i = 0; i < d.n_stages; ++i) {
-    const size_t k = B * d.hidden[i];
-    StageBufs& s = w->st[i];
-    s.h_a = take(k);
-    s.u = take(k);
-    s.mean1 = take(B);
-    s.rstd1 = take(B);
-    s.h_b = take(k);
-    s.mean2 = take(B);
-    s.rstd2 = take(B);
-    s.hn = take(k);
-    s.v = take(k);
-    s.h_c = take(k);
-  }
-  const size_t dl = d.hidden[d.n_stages];
-  w->hf = take(B * dl);
-  w->meanf = take(B);
-  w->rstdf = take(B);
-  w->hnf = take(B * dl);
-  w->out = take(B * L);
-  w->skipv = take(B * L);
-  w->hsk = take(B * dl);
-  w->dout = take(B * L);
-  w->rowbuf = take(2 * B);
-  w->d_t = take(B * te);
-  w->d_c = take(B * te);
-  w->d_tc = take(B * te);
-  w->d_c2 = take(B * te);
-  w->d_wide = take(B * 2 * te);
-  w->d_mlp = take(B * 2 * te);
-  w->d_ec = take(B * te);
-  for (float*& p : w->G) p = take(B * dmax);
-  for (float*& p : w->T) p = take(B * dmax);
-  w->floats = n;
-}
-
-// Indices into the weight and gradient pointer arrays (the order of
-// `weights_spec` in kernels/train_step.py).
-enum { WT1, BT1, WT2, BT2, TABLE, WC1, BC1, WC2, BC2, WL, BL, kHeadLeaves };
-enum { S_WT, S_BT, S_WB, S_BB, S_G1, S_B1, S_G2, S_B2, S_WV, S_BV, S_WO, S_BO, S_WD, S_BD,
-       kStageLeaves };
-enum { WTF, BTF, WCF, BCF, GF, BF, WF, BF2, RW, kTailLeaves };
-
-}  // namespace
+// The train step's C interface: `fd_train_step_launch` and, for tests, the
+// product and the LayerNorm kernels alone. The kernels and the sequence of
+// launches are in train_step.cuh, which train_epoch.cu shares.
+#include "train_step.cuh"
 
 extern "C" long long fd_train_step_workspace_floats(const int* dims) {
   Dims d;
@@ -629,10 +11,8 @@ extern "C" long long fd_train_step_workspace_floats(const int* dims) {
   return (long long)w.floats;
 }
 
-// weights, grads: 11 + 14 * n_stages + 9 pointers to f32 tensors, matrices in
-// PyTorch's (out, in) layout; data: z, t_f, sa, s1a, eps, labels (int32),
-// cond_mask, freqs; masks: block and attention mask of each stage, (B, d_i);
-// dims: B, latent, time_emb, classes, n_stages, hidden[0..n_stages].
+// dims: B, latent, time_emb, classes, n_stages, hidden[0..n_stages]; the other
+// arguments as `train_step_enqueue` takes them.
 extern "C" int fd_train_step_launch(const void* const* weights, void* const* grads,
                                     const void* const* data, const void* const* masks,
                                     void* workspace, void* loss, const int* dims,
@@ -640,130 +20,8 @@ extern "C" int fd_train_step_launch(const void* const* weights, void* const* gra
                                     void* stream) {
   Dims d;
   if (!read_dims(dims, &d)) return (int)cudaErrorInvalidValue;
-  const int n = d.n_stages, B = d.B, te = d.te, L = d.latent, dl = d.hidden[n];
-  if (global_skip && dl != L) return (int)cudaErrorInvalidValue;
-  Workspace w;
-  layout(d, (float*)workspace, &w);
-  auto W = [&](int i) { return (const float*)weights[i]; };
-  auto G = [&](int i) { return (float*)grads[i]; };
-  const int tail = kHeadLeaves + kStageLeaves * n;
-  const float* z = (const float*)data[0];
-  const float* t_f = (const float*)data[1];
-  const float* sa = (const float*)data[2];
-  const float* s1a = (const float*)data[3];
-  const float* eps = (const float*)data[4];
-  const int* labels = (const int*)data[5];
-  const float* cond_mask = (const float*)data[6];
-  const float* freqs = (const float*)data[7];
-
-  Run run{(cudaStream_t)stream, f32_lane != 0, cudaSuccess};
-  cudaStream_t st = run.stream;
-  const int round = f32_lane ? 0 : 1;
-  const size_t nte = (size_t)B * te;
-
-  // ---- forward
-  prep_kernel<<<B, 128, 0, st>>>(z, eps, sa, s1a, t_f, freqs, w.x_t, w.sin_emb, L, te / 2);
-  run.note();
-  run.fwd(w.sin_emb, W(WT1), W(BT1), w.a1, B, te, 2 * te);
-  swish_kernel<<<Run::blocks(2 * nte), 256, 0, st>>>(w.a1, w.s1, 2 * nte);
-  run.note();
-  run.fwd(w.s1, W(WT2), W(BT2), w.t_base, B, 2 * te, te);
-  gather_kernel<<<B, 128, 0, st>>>(W(TABLE), labels, w.e_c, te, round);
-  run.note();
-  run.fwd(w.e_c, W(WC1), W(BC1), w.c1, B, te, te);
-  swish_kernel<<<Run::blocks(nte), 256, 0, st>>>(w.c1, w.sc, nte);
-  run.note();
-  run.fwd(w.sc, W(WC2), W(BC2), w.c2, B, te, te);
-  cond_kernel<<<Run::blocks(nte), 256, 0, st>>>(w.c2, w.t_base, cond_mask, w.c_base, w.tc,
-                                                nte, te);
-  run.note();
-  run.fwd(w.x_t, W(WL), W(BL), w.hin[0], B, L, d.hidden[0]);
-  for (int i = 0; i < n; ++i) {
-    const int s0 = kHeadLeaves + kStageLeaves * i, di = d.hidden[i], dn = d.hidden[i + 1];
-    const StageBufs& s = w.st[i];
-    const float* m_blk = (const float*)masks[2 * i];
-    const float* m_attn = (const float*)masks[2 * i + 1];
-    // h_a = h + (t_base + c_base) Wt^T + 2 bt: the class embedding goes
-    // through the time projection, bias and all
-    run.fwd(w.tc, W(s0 + S_WT), W(s0 + S_BT), s.h_a, B, te, di, 2.f, nullptr, w.hin[i]);
-    run.fwd(s.h_a, W(s0 + S_WB), W(s0 + S_BB), s.u, B, di, di);
-    // h_b = h_a + swish(mask * LN1(u)): the mask before the swish
-    run.ln_fwd(s.u, W(s0 + S_G1), W(s0 + S_B1), m_blk, 1, s.h_a, s.h_b, s.mean1, s.rstd1, B,
-               di, ln_eps);
-    run.ln_fwd(s.h_b, W(s0 + S_G2), W(s0 + S_B2), nullptr, 0, nullptr, s.hn, s.mean2,
-               s.rstd2, B, di, ln_eps);
-    run.fwd(s.hn, W(s0 + S_WV), W(s0 + S_BV), s.v, B, di, di, 1.f, m_attn);
-    run.fwd(s.v, W(s0 + S_WO), W(s0 + S_BO), s.h_c, B, di, di, 1.f, nullptr, s.h_b);
-    run.fwd(s.h_c, W(s0 + S_WD), W(s0 + S_BD), w.hin[i + 1], B, di, dn);
-  }
-  run.fwd(w.t_base, W(tail + WTF), W(tail + BTF), w.hf, B, te, dl, 1.f, nullptr, w.hin[n]);
-  run.fwd(w.c_base, W(tail + WCF), W(tail + BCF), w.hf, B, te, dl, 1.f, nullptr, w.hf);
-  run.ln_fwd(w.hf, W(tail + GF), W(tail + BF), nullptr, 0, nullptr, w.hnf, w.meanf, w.rstdf,
-             B, dl, ln_eps);
-  run.fwd(w.hnf, W(tail + WF), W(tail + BF2), w.out, B, dl, L, 1.f, nullptr, nullptr, true);
-  if (global_skip)
-    run.fwd(w.x_t, W(tail + WF), W(tail + BF2), w.skipv, B, L, L, 1.f, nullptr, nullptr, true);
-  loss_kernel<<<1, kRowThreads, 0, st>>>(w.out, w.skipv, eps, W(tail + RW), w.hnf, w.x_t,
-                                         w.dout, w.rowbuf, w.hsk, (float*)loss,
-                                         G(tail + BF2), G(tail + RW), B, L, global_skip);
-  run.note();
-
-  // ---- backward
-  run.dw(w.dout, global_skip ? w.hsk : w.hnf, G(tail + WF), nullptr, B, dl, L, 1.f, true);
-  run.dx(w.dout, W(tail + WF), w.T[0], B, dl, L, nullptr, nullptr, true);
-  float* gcur = w.G[0];
-  float* gnext = w.G[1];
-  run.ln_bwd(w.T[0], w.hf, w.meanf, w.rstdf, W(tail + GF), W(tail + BF), nullptr, 0, nullptr,
-             w.T[1], gcur, G(tail + GF), G(tail + BF), B, dl);
-  run.dw(gcur, w.t_base, G(tail + WTF), G(tail + BTF), B, te, dl);
-  run.dw(gcur, w.c_base, G(tail + WCF), G(tail + BCF), B, te, dl);
-  run.dx(gcur, W(tail + WTF), w.d_t, B, te, dl);
-  run.dx(gcur, W(tail + WCF), w.d_c, B, te, dl);
-  for (int i = n - 1; i >= 0; --i) {
-    const int s0 = kHeadLeaves + kStageLeaves * i, di = d.hidden[i], dn = d.hidden[i + 1];
-    const StageBufs& s = w.st[i];
-    const float* m_blk = (const float*)masks[2 * i];
-    const float* m_attn = (const float*)masks[2 * i + 1];
-    float *g_hc = w.T[0], *d_v = w.T[1], *d_hn = w.T[2], *dyhat = w.T[3], *g_hb = w.T[4];
-    run.dw(gcur, s.h_c, G(s0 + S_WD), G(s0 + S_BD), B, di, dn);
-    run.dx(gcur, W(s0 + S_WD), g_hc, B, di, dn);
-    run.dw(g_hc, s.v, G(s0 + S_WO), G(s0 + S_BO), B, di, di);
-    run.dx(g_hc, W(s0 + S_WO), d_v, B, di, di, m_attn);
-    run.dw(d_v, s.hn, G(s0 + S_WV), G(s0 + S_BV), B, di, di);
-    run.dx(d_v, W(s0 + S_WV), d_hn, B, di, di);
-    run.ln_bwd(d_hn, s.h_b, s.mean2, s.rstd2, W(s0 + S_G2), W(s0 + S_B2), nullptr, 0, g_hc,
-               dyhat, g_hb, G(s0 + S_G2), G(s0 + S_B2), B, di);
-    float* d_u = w.T[2];  // d_hn is spent
-    run.ln_bwd(g_hb, s.u, s.mean1, s.rstd1, W(s0 + S_G1), W(s0 + S_B1), m_blk, 1, nullptr,
-               dyhat, d_u, G(s0 + S_G1), G(s0 + S_B1), B, di);
-    run.dw(d_u, s.h_a, G(s0 + S_WB), G(s0 + S_BB), B, di, di);
-    run.dx(d_u, W(s0 + S_WB), gnext, B, di, di, nullptr, g_hb);  // d h_a
-    run.dw(gnext, w.tc, G(s0 + S_WT), G(s0 + S_BT), B, te, di, 2.f);
-    run.dx(gnext, W(s0 + S_WT), w.d_tc, B, te, di, nullptr, i == n - 1 ? nullptr : w.d_tc);
-    float* swap = gcur;
-    gcur = gnext;
-    gnext = swap;
-  }
-  run.dw(gcur, w.x_t, G(WL), G(BL), B, L, d.hidden[0]);
-  cond_bwd_kernel<<<Run::blocks(nte), 256, 0, st>>>(w.d_t, w.d_c, w.d_tc, cond_mask, w.d_c2,
-                                                    nte, te);
-  run.note();
-  // time MLP
-  run.dw(w.d_t, w.s1, G(WT2), G(BT2), B, 2 * te, te);
-  run.dx(w.d_t, W(WT2), w.d_wide, B, 2 * te, te);
-  swish_bwd_kernel<<<Run::blocks(2 * nte), 256, 0, st>>>(w.d_wide, w.a1, w.d_mlp, 2 * nte);
-  run.note();
-  run.dw(w.d_mlp, w.sin_emb, G(WT1), G(BT1), B, te, 2 * te);
-  // class MLP and table
-  run.dw(w.d_c2, w.sc, G(WC2), G(BC2), B, te, te);
-  run.dx(w.d_c2, W(WC2), w.d_wide, B, te, te);
-  swish_bwd_kernel<<<Run::blocks(nte), 256, 0, st>>>(w.d_wide, w.c1, w.d_mlp, nte);
-  run.note();
-  run.dw(w.d_mlp, w.e_c, G(WC1), G(BC1), B, te, te);
-  run.dx(w.d_mlp, W(WC1), w.d_ec, B, te, te);
-  table_grad_kernel<<<d.classes, 128, 0, st>>>(w.d_ec, labels, G(TABLE), B, te, round);
-  run.note();
-  return (int)run.err;
+  return (int)train_step_enqueue(weights, grads, data, masks, workspace, loss, d, f32_lane,
+                                 global_skip, ln_eps, (cudaStream_t)stream);
 }
 
 // The product alone, for tests: C (M, N) = epilogue(sum_k A(m, k) B(n, k)).

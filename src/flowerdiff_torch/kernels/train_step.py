@@ -3,11 +3,12 @@ with a plain twin (port of flowerdiff/kernels/train_step.py).
 
 Replaces the Pallas kernel `_make_kernel` (reached through
 `_kernel_loss_and_grads`), which runs `forward_loss` and its whole vjp in one
-TPU program. On the card `csrc/train_step.cu` computes the same loss and one
+TPU program. On the card `csrc/train_step.cuh` computes the same loss and one
 f32 gradient per weight leaf with hand-written forward and backward kernels
 (see the note at the top of that file: bound by weight and gradient bytes;
 one tiled product in three forms plus row and column kernels, enqueued on
-the caller's stream by `fd_train_step_launch`).
+the caller's stream by `fd_train_step_launch` of `csrc/train_step.cu`, and
+step after step by the epoch kernel, kernels/train_epoch.py).
 
 The objective (`forward_loss_plain`, the twin, same names as the
 reference's `_weights_spec`):
@@ -324,7 +325,10 @@ def bind_train_step(w_named: Dict[str, torch.Tensor], batch: int, *,
         kernel_loss_and_grads.launches += 1
         return loss, named_grads
 
-    run.keep = (weights, grads, workspace, dims, w_ptrs, g_ptrs)  # live as long as run
+    # what a launch reads, alive as long as run; the epoch kernel
+    # (kernels/train_epoch.py) enqueues the same step on the same tensors
+    run.weights, run.grads, run.workspace, run.dims = weights, grads, workspace, dims
+    run.w_ptrs, run.g_ptrs = w_ptrs, g_ptrs
     return run
 
 

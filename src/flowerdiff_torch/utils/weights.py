@@ -168,6 +168,27 @@ def state_dict_to_flax(source) -> Dict[str, Any]:
     return tree
 
 
+def load_adam_moments(state, mu: Dict[str, Any], nu: Dict[str, Any], count: int) -> None:
+    """Adam's moments and step count into a train state (anything with
+    `names`, `mu`, `nu`, `step`, as `LatentTrainState`), in place, from
+    flax-named numpy trees laid out like the weights (optax's `mu` / `nu`,
+    the packed `qkv` included)."""
+    for dst, tree in ((state.mu, mu), (state.nu, nu)):
+        flat = flax_to_state_dict(tree)
+        if set(flat) != set(state.names):
+            raise ValueError("the moment tree's leaves are not the state's parameters")
+        for name, t in zip(state.names, dst):
+            t.copy_(flat[name].reshape(t.shape))
+    state.step = int(count)
+
+
+def adam_moments_to_flax(state):
+    """(mu, nu, count) of a train state as flax-named numpy trees: the
+    inverse of `load_adam_moments`."""
+    return (state_dict_to_flax(dict(zip(state.names, state.mu))),
+            state_dict_to_flax(dict(zip(state.names, state.nu))), int(state.step))
+
+
 def denoiser_from_params(tree: Dict[str, Any], device=None, **config) -> ConditionalLatentDenoiser:
     """ConditionalLatentDenoiser(**config) holding `tree`'s weights, in eval
     mode on `device` (default cuda)."""

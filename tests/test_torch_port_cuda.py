@@ -106,7 +106,7 @@ def test_wrappers_reject_bad_cuda_inputs(gen):
 
 
 # ---------------------------------------------------------------------------
-# The train-step kernels (csrc/train_step.cu)
+# The train-step kernels (csrc/train_step.cuh, bound by csrc/train_step.cu)
 
 def _bf(x):
     return x.to(torch.bfloat16).float()
@@ -217,3 +217,161 @@ def test_train_step_kernel_matches_twin(gen, global_skip, dtype, tol):
     for name, g in tree.items():
         if ".q." in name or ".k." in name:
             assert not g.any(), name
+
+
+# ---------------------------------------------------------------------------
+# The epoch kernels (csrc/train_epoch.cu)
+
+_EPOCH_NET = dict(latent_dim=64, hidden_dims=(64, 128, 64), time_emb_dim=32, num_classes=7)
+
+
+def _epoch_case(**cfg_over):
+    from flowerdiff_torch.train.latent_ddpm import (
+        LatentDiffusionConfig,
+        create_latent_diffusion_state,
+    )
+
+    cfg = LatentDiffusionConfig(**{**_EPOCH_NET, "n_steps": 50, "steps_per_epoch": 3,
+                                   "dropout_rate": 0.3, "cond_dropout": 0.25, **cfg_over})
+    state, model, sched = create_latent_diffusion_state(3, cfg, device="cuda")
+    return cfg, state, model, sched
+
+
+def test_draws_kernel_ranges_structure_and_bits(gen):
+    """The draws kernel against its PyTorch twin (the same Philox words:
+    timesteps, keep-mask and dropout masks equal, eps to 1e-5: libm), the
+    masks' values and head structure, and that a step's bits depend on the
+    seed and on the step."""
+    from flowerdiff_torch.kernels import train_epoch as te
+
+    cfg, state, model, sched = _epoch_case()
+    steps, batch, rate = 3, 13, 0.3
+    before = te.epoch_draws.launches
+    t, eps, keep, masks = te.epoch_draws(model, cfg, sched, steps, batch, 99, 5)
+    assert te.epoch_draws.launches == before + steps
+    assert t.shape == (steps, batch) and eps.shape == (steps, batch, 64)
+    assert float(t.min()) >= 0 and float(t.max()) <= 49 and torch.equal(t, t.floor())
+    assert set(keep.unique().tolist()) <= {0.0, 1.0}
+    for i in range(steps):
+        rt, reps, rkeep, rmasks = te.step_draws_plain(model, 50, cfg.cond_dropout, batch, 99,
+                                                      5 + i, "cuda")
+        assert torch.equal(t[i], rt) and torch.equal(keep[i], rkeep)
+        assert float((eps[i] - reps).abs().max()) <= 1e-5
+        assert all(torch.equal(m[i], r) for m, r in zip(masks, rmasks))
+    for j, m in enumerate(masks):
+        d = _EPOCH_NET["hidden_dims"][j // 2]
+        assert m.shape == (steps, batch, d)
+        assert bool(((m == 0) | ((m - 1 / (1 - rate)).abs() < 1e-6)).all())
+        if j % 2:  # one draw a (sample, head), repeated over the head's columns
+            heads = m.reshape(steps, batch, 8, d // 8)
+            assert torch.equal(heads, heads[..., :1].expand_as(heads))
+        assert not torch.equal(m[0], m[1])
+    again = te.epoch_draws(model, cfg, sched, steps, batch, 99, 5)
+    assert torch.equal(again[1], eps) and all(torch.equal(a, b) for a, b in zip(again[3], masks))
+    other_seed = te.epoch_draws(model, cfg, sched, steps, batch, 100, 5)
+    next_step = te.epoch_draws(model, cfg, sched, steps, batch, 99, 6)
+    assert not torch.equal(other_seed[1], eps) and not torch.equal(next_step[1], eps)
+    assert torch.equal(next_step[1][0], eps[1])  # step 6 is step 6 whichever epoch holds it
+    # rate 0 and cond_dropout 0: ones, no draws
+    cfg0, _, model0, _ = _epoch_case(dropout_rate=0.0, cond_dropout=0.0)
+    _, _, keep0, masks0 = te.epoch_draws(model0, cfg0, sched, 1, batch, 1, 0)
+    assert bool((keep0 == 1).all()) and all(bool((m == 1).all()) for m in masks0)
+
+
+@pytest.mark.parametrize("sizes", [(1,), (4097, 3, 8192), (100003, 1, 77, 4096)])
+def test_norm_kernels_match_vector_norm(gen, sizes):
+    """Per-chunk partial sums and the ordered final sum at odd leaf sizes,
+    against torch.linalg.vector_norm over the concatenation: f32 sums in
+    another order, 1e-5 relative; the same input gives the same bits."""
+    from flowerdiff_torch.kernels import train_epoch as te
+
+    grads = [_r(gen, n, scale=3.0) for n in sizes]
+    got = te.grad_norm(grads)
+    ref = torch.linalg.vector_norm(torch.cat(grads))
+    assert abs(float(got) - float(ref)) <= 1e-5 * float(ref)
+    assert torch.equal(te.grad_norm(grads), got)
+
+
+@pytest.mark.parametrize("moments", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("clip", [0.1, 1e9])
+def test_adamw_kernel_matches_the_formulas(gen, moments, clip):
+    """Clip scale, moments, bias corrections, decoupled decay and the update
+    on a few odd-sized leaves, against the formulas in PyTorch ops: f32
+    arithmetic in another contraction, rtol 1e-5 / atol 1e-7 on w, 1e-6 of
+    the largest value on the moments; stored bf16 moments may land one bf16
+    ulp apart."""
+    from flowerdiff_torch.kernels import train_epoch as te
+
+    sizes = (5, 4096, 10001)
+    w = [_r(gen, n) for n in sizes]
+    g = [_r(gen, n, scale=0.3) for n in sizes]
+    m = [_r(gen, n, scale=0.01, dtype=moments) for n in sizes]
+    v = [(torch.rand(n, generator=gen, device="cuda") * 1e-3 + 1e-6).to(moments) for n in sizes]
+    lr, bc1, bc2, wd = 1e-2, 0.19, 0.002, 0.1
+    gnorm = torch.linalg.vector_norm(torch.cat(g))
+    cscale = min(1.0, clip / float(gnorm))
+    assert (cscale < 1.0) == (clip == 0.1)
+    want = []
+    for wi, gi, mi, vi in zip(w, g, m, v):
+        gs = gi * cscale
+        m_new = 0.9 * mi.float() + 0.1 * gs
+        v_new = 0.999 * vi.float() + 0.001 * gs * gs
+        upd = (m_new / bc1) / (torch.sqrt(v_new / bc2) + 1e-8) + wd * wi
+        want.append((wi - lr * upd, m_new, v_new))
+    te.adamw_update(w, g, m, v, gnorm, lr, bc1, bc2, grad_clip=clip, weight_decay=wd)
+    mtol = 1e-6 if moments == torch.float32 else 2.0 ** -7
+    for wi, mi, vi, (rw, rm, rv) in zip(w, m, v, want):
+        assert mi.dtype == moments and vi.dtype == moments
+        assert float((wi - rw).abs().max()) <= 1e-7 + 1e-5 * float(rw.abs().max())
+        for got, ref in ((mi.float(), rm), (vi.float(), rv)):  # 1e-6 of the largest: fma
+            assert bool(((got - ref).abs() <= mtol * ref.abs() + 1e-6 * ref.abs().max()).all())
+
+
+@pytest.mark.parametrize("lane,moments", [(torch.float32, torch.float32),
+                                          (torch.float32, torch.bfloat16),
+                                          (torch.bfloat16, torch.bfloat16)])
+def test_epoch_kernel_matches_twin_at_small_width(gen, lane, moments):
+    """One stochastic epoch of 3 steps at an odd batch against
+    `mega_epoch_plain` on the fetched draws, from a state two epochs in
+    (nonzero moments, step 6), with an EMA and a decay that shows. f32 lane:
+    losses rtol 1e-4, weights and mu rtol 2e-3 / atol 2e-5. bf16 lane: losses
+    rtol 1e-2, moments 4e-2 of the leaf's largest, weights within 2 lr a
+    step. The same seed twice gives the same bits."""
+    from flowerdiff_torch.kernels import train_epoch as te
+
+    steps, batch = 3, 9
+    z = _r(gen, steps, batch, 64)
+    labels = torch.randint(0, 7, (steps, batch), generator=gen, device="cuda")
+    runs = []
+    for kind in ("kernel", "twin", "kernel"):
+        cfg, state, model, sched = _epoch_case(weight_decay=0.5, ema_decay=0.9, t0=1)
+        fn = te.make_mega_epoch_fn(model, cfg, steps, batch, dtype=lane, moments_dtype=moments)
+        for e in range(2):  # the warm-up epochs run through the kernel for all three
+            fn(state, sched, z, labels, 7)
+        assert state.step == 6 and fn.launches == 2 and fn.steps == 6
+        if kind == "kernel":
+            losses = fn(state, sched, z, labels, 7)
+            assert fn.launches == 3 and float(fn.gnorms.min()) > 0
+        else:
+            draws = te.epoch_draws(model, cfg, sched, steps, batch, 7, 6)
+            losses, _ = te.mega_epoch_plain(state, sched, z, labels, draws, dtype=lane,
+                                            moments_dtype=moments)
+        torch.cuda.synchronize()
+        assert state.step == 9
+        runs.append((losses, state))
+    (lk, sk), (lt, st), (lk2, sk2) = runs
+    assert torch.equal(lk, lk2) and all(torch.equal(a, b) for a, b in zip(sk.params, sk2.params))
+    exact = lane == torch.float32
+    assert float(((lk - lt).abs() / lt.abs()).max()) <= (1e-4 if exact else 1e-2)
+    for name, a, b, ma, mb, ea, eb in zip(sk.names, sk.params, st.params, sk.mu, st.mu, sk.ema,
+                                          st.ema):
+        if exact:
+            mtol = 2e-3 if moments == torch.float32 else 2.0 ** -7
+            assert bool(((a - b).abs() <= 2e-5 + 2e-3 * b.abs()).all()), name
+            assert bool(((ea - eb).abs() <= 2e-5 + 2e-3 * eb.abs()).all()), name
+            assert bool(((ma - mb).abs() <= 2e-5 + mtol * mb.abs()).all()), name
+        else:
+            assert float((a - b).abs().max()) <= 2 * cfg.lr * steps + 1e-6, name
+            assert float((ma - mb).abs().max()) <= 4e-2 * float(mb.abs().max()) + 1e-12, name
+    q = sk.names.index("attn_0.q.weight")
+    assert torch.equal(sk.params[q], st.params[q])  # the same f32 factor on both sides

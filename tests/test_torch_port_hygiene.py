@@ -115,3 +115,23 @@ def test_unported_training_paths_raise_rather_than_run_something_else():
     with pytest.raises(NotImplementedError, match="ancestral"):
         LatentDiffusionTrainer(LatentDiffusionConfig(sampler="ddim", **kw), vae,
                                device="cpu").sampler()
+
+
+def test_every_cuda_source_is_built_and_keeps_a_plain_c_interface():
+    """Each csrc/*.cu is a library `_build` knows, with `extern "C"` entry
+    points; no source or shared header pulls in PyTorch's headers, which
+    would turn a build of seconds into one of minutes."""
+    from flowerdiff_torch.kernels import _build
+
+    sources = sorted(_build.CSRC.glob("*.cu"))
+    assert sorted(p.stem for p in sources) == sorted(_build.SOURCES)
+    headers = sorted(_build.CSRC.glob("*.cuh"))
+    assert {p.name for p in headers} >= {"rows.cuh", "philox.cuh", "train_step.cuh"}
+    for path in sources + headers:
+        text = path.read_text()
+        assert "torch/" not in text and "ATen" not in text, path.name
+        if path.suffix == ".cu":
+            assert 'extern "C"' in text, path.name
+    # the epoch library enqueues the train step's own sequence, not a copy of it
+    assert '#include "train_step.cuh"' in (_build.CSRC / "train_epoch.cu").read_text()
+    assert "train_step_enqueue(" in (_build.CSRC / "train_step.cu").read_text()
