@@ -87,6 +87,7 @@ from flowerdiff_torch.kernels.latent_stage import (  # noqa: E402
     fused_head_plain,
     fused_stage,
     fused_stage_plain,
+    stage_max_clusters,
 )
 from flowerdiff_torch.serving import SamplingService  # noqa: E402
 from flowerdiff_torch.train.fused import (  # noqa: E402
@@ -98,6 +99,7 @@ from flowerdiff_torch.train.latent_ddpm import (  # noqa: E402
     LatentDiffusionConfig,
     LatentDiffusionTrainer,
 )
+from flowerdiff_torch.utils.timing import cuda_ms  # noqa: E402
 from flowerdiff_torch.utils.weights import (  # noqa: E402
     denoiser_from_params,
     init_numpy_params,
@@ -169,28 +171,6 @@ EPOCH_BF16_W_MEAN = 0.05
 # gradient norm, an SGDR period of one epoch so the rate falls from lr to
 # ~0 within the epoch, and a start at step 15, where bc2 = 0.016.
 EPOCH_HARD = dict(weight_decay=1.0, grad_clip=0.1, t0=1, t_mult=1, ema_decay=0.9)
-
-
-def cuda_ms(fn, iters: int = 50) -> float:
-    """Device time of one call: `iters` calls captured in a CUDA graph and
-    replayed between CUDA events, so host launch overhead is left out."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()  # warm up outside the capture
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def eager_ms(fn, iters: int = 50) -> float:
@@ -280,6 +260,14 @@ def phase_kernels(model, prep, gen):
         for i, s in enumerate(stage_w):
             d, dout = hidden[i], hidden[i + 1]
             run = bind_stage(**s)
+            plan = run.plan_for(rows)
+            ring = run.plan_for(16)  # 16 rows: a plan of the ring kernel
+            fit = {c: stage_max_clusters(c, ring.smem) for c in (8, 16)}
+            kind = f"slots {plan.slots}, chunk {plan.chunk}" if plan.slots else "whole rows"
+            print(f"[kernels] stage plan {d}->{dout} B={rows}: cluster {plan.cluster}, "
+                  f"{kind}, smem {plan.smem} B; cudaOccupancyMaxActiveClusters of the "
+                  f"ring kernel at {ring.smem} B: cluster 8 -> {fit[8]}, cluster 16 -> "
+                  f"{fit[16]}")
             h = torch.randn((rows, d), generator=gen, device=dev)
             tc = torch.randn((rows, d), generator=gen, device=dev) * 0.5
             row = prep["tadds"][i][t]

@@ -14,10 +14,22 @@ and the head: out = LN(h + row_add + rows_add + t_base @ Wt + bt
 weights are bf16 in PyTorch's Linear layout (out, in), everything else f32.
 
 Bound on the card: weight bytes (see the note in csrc/latent_stage.cu).
-LayerNorm needs whole rows: a stage runs on clusters of 8 blocks that share
-16 rows, each block computing 1/8 of every product's columns on the tensor
-cores and the blocks exchanging slices through distributed shared memory;
-the head gives each block 16 whole rows.
+LayerNorm needs whole rows: a stage runs on clusters of blocks (16 for the
+1024-wide stage, else 8) that share 16 rows, each block owning a column
+slice of the rows and of every product's output, computed on the tensor
+cores from weights streamed through a ring of shared-memory slots; the
+blocks exchange LayerNorm statistics and operand slices through distributed
+shared memory. Where the card cannot run the wide stage's clusters of 16
+for all the row tiles at once (`stage_max_clusters`), the stage runs on the
+whole-row kernel instead: clusters of 8 in which every block holds the 16
+whole rows and reads its weight columns from global memory. The head gives
+each block 16 whole rows. `stage_plan` makes a stage launch's plan (cluster
+size, ring slots, chunk depth, shared memory) on the host: `bind_stage`
+makes the one or two it can need once.
+
+`bind_stage` also packs the stage's four weights once into the kernel's
+layout (`pack_stage_weight`: whole-row pieces cut into k-chunks with padded
+rows), so that each chunk the kernel streams is one bulk copy a piece.
 
 `bind_stage` / `bind_head` fix a kernel's weights (checked once) and return
 the per-call launcher; for CPU weights they return the plain twin
@@ -28,7 +40,7 @@ launch adds one to `fused_stage.launches` / `fused_head.launches`.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -111,6 +123,124 @@ def _check_max(name: str, n: int, most: int) -> None:
 _F32, _BF16 = torch.float32, torch.bfloat16
 
 
+# The stage kernel's launch plan. Its shared memory holds, besides the ring:
+# the block's column slices of h and of a product's output (16 rows, f32),
+# two bf16 operands of 16 full rows (padded by 8 elements), two sets of row
+# statistics, the split-K partials and the ring's mbarriers.
+SMEM_LIMIT = 232_448   # bytes of shared memory a block may have on the H100
+MAX_CLUSTER = 16       # non-portable cluster size
+PIECES = 16            # row pieces of a packed weight: one bulk copy each a chunk
+MAX_SLOTS = 8
+MAX_D = 1024           # a thread holds at most 16 float4s of the 16 rows
+MAX_SLICE = 256        # columns a block computes: four n8 tiles a warp
+ROWS, WARPS = 16, 8
+SLOT_PAD, OPERAND_PAD, BARRIER_BYTES = 16, 8, 128
+MAX_CLUSTER_STATS = 16  # the statistics' room: (mean, m2) of 16 rows a block
+# Clusters of 16 pay only where a block of a cluster of 8 would stream more
+# than this many weight bytes (the 1024-wide stage: PERF.md, PR 5).
+_WIDE_STAGE_BYTES = 1 << 19
+# Chunk depths, deepest first: a chunk carries a fixed cost, so the deepest
+# whose two slots fit.
+_CHUNKS = (256, 128, 64)
+# The whole-row kernel (csrc/latent_stage.cu::stage_rows_kernel): clusters of
+# 8, split-K partials of 16 x 64 floats, operand rows padded by 32 elements.
+_ROWS_CLUSTER, _ROWS_RED_FLOATS, _ROWS_PAD = 8, ROWS * 64, 32
+
+
+class StagePlan(NamedTuple):
+    cluster: int   # blocks sharing 16 rows, each computing 1/cluster of the columns
+    slots: int     # shared-memory slots of the weight ring; 0: the whole-row kernel
+    chunk: int     # k's of a chunk: one bulk copy of 2 * chunk bytes a weight row (0: none)
+    smem: int      # dynamic shared memory of a block, bytes
+
+    def slot_row_bytes(self) -> int:
+        return 2 * self.chunk + SLOT_PAD
+
+
+def _stage_smem(d: int, dout: int, cluster: int, slots: int, chunk: int) -> int:
+    """Mirrors csrc/latent_stage.cu::stage_smem_bytes."""
+    sd, sm = d // cluster, max(d, dout) // cluster
+    return (BARRIER_BYTES + slots * sm * (2 * chunk + SLOT_PAD) + 4 * 2 * ROWS * sd
+            + 2 * 2 * ROWS * (d + OPERAND_PAD) + 8 * 2 * MAX_CLUSTER_STATS * ROWS
+            + 4 * WARPS * ROWS * 8)
+
+
+def _rows_plan(d: int, dout: int) -> StagePlan:
+    """The whole-row kernel's plan, or ValueError."""
+    _check_width("d_out", dout, 8 * _ROWS_CLUSTER)
+    sm = max(d, dout) // _ROWS_CLUSTER
+    smem = 4 * (ROWS * (2 * d + 2 * sm) + _ROWS_RED_FLOATS) + 2 * ROWS * (d + _ROWS_PAD)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"stage {d} -> {dout}: the whole-row kernel's {smem} bytes "
+                         f"of shared memory are above {SMEM_LIMIT}")
+    return StagePlan(_ROWS_CLUSTER, 0, 0, smem)
+
+
+def stage_plan(d: int, dout: int, rows: int = ROWS,
+               wave16: Optional[int] = None) -> StagePlan:
+    """The stage kernel's launch plan for widths d -> dout at `rows` rows,
+    or ValueError. `wave16`: how many clusters of 16 stage blocks the card
+    runs at once (`stage_max_clusters`); None: as many as the rows need.
+
+    Cluster size min(16, d / 8, dout / 8) rounded down to a power of two,
+    then 8 instead of 16 unless the stage is wide (_WIDE_STAGE_BYTES). A
+    wide stage whose row tiles do not all fit in one wave of clusters of 16
+    runs on the whole-row kernel (its plan has no slots): there the ring on
+    clusters of 8, or on clusters of 16 of 32 rows, was slower (PERF.md, PR
+    5). Chunks of 256 k's (fewer where d is not a multiple of 256, or where
+    two slots of 256 do not fit); as many ring slots (at most 8, at most the
+    stage's 4 d / chunk chunks) as fit beside the fixed buffers."""
+    if d <= 0 or dout <= 0 or d % 64:
+        raise ValueError(f"d width {d} must be a positive multiple of 64")
+    if dout % PIECES:
+        raise ValueError(f"d_out width {dout} must be a multiple of {PIECES}")
+    _check_max("d", d, MAX_D)
+    cluster = 1 << (min(MAX_CLUSTER, d // 8, max(dout // 8, 1)).bit_length() - 1)
+    if cluster == 16 and (3 * d + dout) * d * 2 // 8 <= _WIDE_STAGE_BYTES:
+        cluster = 8
+    if cluster == 16 and wave16 is not None and -(-rows // ROWS) > wave16:
+        return _rows_plan(d, dout)
+    for name, n in (("d", d), ("d_out", dout)):
+        if n % (8 * cluster):
+            raise ValueError(f"{name} width {n} must be a multiple of 8 x the "
+                             f"cluster size {cluster}")
+        _check_max(f"{name} / cluster", n // cluster, MAX_SLICE)
+    for chunk in _CHUNKS:
+        if d % chunk:
+            continue
+        fixed = _stage_smem(d, dout, cluster, 0, chunk)
+        slot = max(d, dout) // cluster * (2 * chunk + SLOT_PAD)
+        slots = min(MAX_SLOTS, 4 * d // chunk, (SMEM_LIMIT - fixed) // slot)
+        if slots >= 2:
+            return StagePlan(cluster, slots, chunk,
+                             _stage_smem(d, dout, cluster, slots, chunk))
+    raise ValueError(f"stage {d} -> {dout}: two ring slots do not fit in "
+                     f"{SMEM_LIMIT} bytes of shared memory")
+
+
+def pack_stage_weight(w: torch.Tensor, chunk: int) -> torch.Tensor:
+    """An (N, K) bf16 weight in the stage kernel's packed layout: (PIECES,
+    K / chunk, N / PIECES, chunk + 8). Piece j holds rows [j N / PIECES,
+    (j + 1) N / PIECES); [j, kc] is their k's [kc chunk, (kc + 1) chunk), each
+    row padded with 8 zeros (16 bytes, the ring slot's row padding), so that
+    a block's chunk of a product is one contiguous run of bytes a piece and
+    one bulk copy fills its part of a slot."""
+    n, k = w.shape
+    packed = w.reshape(PIECES, n // PIECES, k // chunk, chunk).permute(0, 2, 1, 3)
+    return torch.nn.functional.pad(packed, (0, SLOT_PAD // 2)).contiguous()
+
+
+def stage_max_clusters(cluster: int, smem: int) -> int:
+    """cudaOccupancyMaxActiveClusters for stage blocks of `smem` bytes on
+    clusters of `cluster`: how many such clusters the card runs at once."""
+    fn = _build.load("latent_stage").fd_stage_max_clusters
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    count = ctypes.c_int(0)
+    _build.check(fn(cluster, smem, ctypes.byref(count)), "cudaOccupancyMaxActiveClusters")
+    return count.value
+
+
 def _fn(symbol: str, n_ptr: int, n_int: int):
     lib = _build.load("latent_stage")
     fn = getattr(lib, symbol)
@@ -137,10 +267,11 @@ def bind_stage(wb, bb, g1, b1, g2, b2, wv, bv, wo, bo, wd, bd, *,
             h, tc, *weights, row_add=row_add, eps=eps)
     dev = wb.device
     d, dout = wb.shape[1], wd.shape[0]
-    _check_width("d", d, 64)  # 8-column tiles over a cluster of 8 blocks
-    _check_width("d_out", dout, 64)
-    _check_max("d", d, 1024)  # the block's shared memory holds 16 rows of 2 x d f32
-    _check_max("d_out", dout, 4096)
+    plans, edge = [stage_plan(d, dout)], None
+    if plans[0].cluster == 16:  # one plan for the rows one wave takes, one for more
+        wave = stage_max_clusters(16, plans[0].smem)
+        edge = ROWS * wave
+        plans.append(stage_plan(d, dout, edge + 1, wave))
     for name, w in (("wb", wb), ("wv", wv), ("wo", wo)):
         _check(name, w, (d, d), _BF16, dev)
     _check("wd", wd, (dout, d), _BF16, dev)
@@ -148,8 +279,17 @@ def bind_stage(wb, bb, g1, b1, g2, b2, wv, bv, wo, bo, wd, bd, *,
                     ("bv", bv), ("bo", bo)):
         _check(name, v, (d,), _F32, dev)
     _check("bd", bd, (dout,), _F32, dev)
-    ptrs = [w.data_ptr() for w in weights]
-    fn = _fn("fd_stage_launch", 16, 3)
+    launch_weights, ptrs = {}, {}
+    for chunk in {plan.chunk for plan in plans}:  # chunk 0: the weights as they are
+        pw = {name: pack_stage_weight(w, chunk) if chunk else w
+              for name, w in (("wb", wb), ("wv", wv), ("wo", wo), ("wd", wd))}
+        launch_weights[chunk] = (pw["wb"], bb, g1, b1, g2, b2, pw["wv"], bv,
+                                 pw["wo"], bo, pw["wd"], bd)
+        ptrs[chunk] = [w.data_ptr() for w in launch_weights[chunk]]
+
+    def plan_for(rows: int) -> StagePlan:
+        return plans[0] if edge is None or rows <= edge else plans[1]
+    fn = _fn("fd_stage_launch", 16, 7)
 
     def run(h, tc=None, row_add=None):
         bsz = h.shape[0]
@@ -157,13 +297,15 @@ def bind_stage(wb, bb, g1, b1, g2, b2, wv, bv, wo, bo, wd, bd, *,
         _check("tc", tc, (bsz, d), _F32, dev)
         _check("row_add", row_add, (d,), _F32, dev)
         out = torch.empty((bsz, dout), dtype=_F32, device=dev)
-        code = fn(h.data_ptr(), _ptr(row_add), _ptr(tc), *ptrs, out.data_ptr(),
-                  bsz, d, dout, float(eps), _stream(dev))
+        plan = plan_for(bsz)
+        code = fn(h.data_ptr(), _ptr(row_add), _ptr(tc), *ptrs[plan.chunk], out.data_ptr(),
+                  bsz, d, dout, *plan, float(eps), _stream(dev))
         _build.check(code, "fused_stage")
         fused_stage.launches += 1
         return out
 
-    run.weights = weights  # the tensors behind `ptrs` live as long as run
+    run.weights = launch_weights  # the tensors behind `ptrs` live as long as run
+    run.plan_for = plan_for
     return run
 
 

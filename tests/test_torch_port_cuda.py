@@ -16,6 +16,7 @@ from flowerdiff_torch.kernels.latent_stage import (
     fused_head_plain,
     fused_stage,
     fused_stage_plain,
+    stage_max_clusters,
 )
 from flowerdiff_torch.utils.weights import denoiser_from_params, init_numpy_params
 
@@ -34,14 +35,30 @@ def _r(gen, *shape, scale=1.0, dtype=torch.float32):
     return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
 
 
-@pytest.mark.parametrize("b,d,d_out", [(1, 64, 64), (13, 128, 256), (32, 256, 64)])
-def test_stage_kernel_matches_twin(gen, b, d, d_out):
+def _stage_args(gen, b, d, d_out):
     w = dict(scale=d ** -0.5, dtype=torch.bfloat16)
-    args = (_r(gen, b, d), _r(gen, b, d), _r(gen, d, d, **w), _r(gen, d, scale=0.1),
+    return (_r(gen, b, d), _r(gen, b, d), _r(gen, d, d, **w), _r(gen, d, scale=0.1),
             1 + _r(gen, d, scale=0.1), _r(gen, d, scale=0.1), 1 + _r(gen, d, scale=0.1),
             _r(gen, d, scale=0.1), _r(gen, d, d, **w), _r(gen, d, scale=0.1),
             _r(gen, d, d, **w), _r(gen, d, scale=0.1), _r(gen, d_out, d, **w),
             _r(gen, d_out, scale=0.1))
+
+
+# The denoiser's four stages at flagship width, hidden (256, 512, 1024, 512, 256)
+FLAGSHIP_STAGES = [(256, 512), (512, 1024), (1024, 512), (512, 256)]
+
+
+# Products with idle warps: (1024, 768) on clusters of 16 (16 rows; the
+# whole-row kernel at 128), (512, 1536) on clusters of 8 with chunks of 128
+# k's and more chunks than ring slots.
+IDLE_WARP_STAGES = [(16, 1024, 768), (128, 1024, 768), (128, 512, 1536)]
+
+
+@pytest.mark.parametrize("b,d,d_out", [(1, 64, 64), (13, 128, 256), (32, 256, 64)]
+                         + [(b, d, o) for d, o in FLAGSHIP_STAGES for b in (1, 16, 100, 128)]
+                         + IDLE_WARP_STAGES)
+def test_stage_kernel_matches_twin(gen, b, d, d_out):
+    args = _stage_args(gen, b, d, d_out)
     row = _r(gen, d)
     run = bind_stage(*args[2:])
     before = fused_stage.launches
@@ -50,6 +67,26 @@ def test_stage_kernel_matches_twin(gen, b, d, d_out):
     ref = fused_stage_plain(*args, row_add=row)
     assert float((got - ref).abs().max()) <= 2e-2 * float(ref.abs().max())
     assert torch.equal(fused_stage(*args, row_add=row), got)
+
+
+@pytest.mark.parametrize("b", [16, 100])
+def test_stage_kernel_is_deterministic(gen, b):
+    """No atomics: the same call twice gives the same bits."""
+    args = _stage_args(gen, b, 1024, 512)
+    row = _r(gen, 1024)
+    run = bind_stage(*args[2:])
+    assert torch.equal(run(args[0], args[1], row), run(args[0], args[1], row))
+
+
+def test_stage_plan_follows_the_cards_occupancy(gen):
+    """The wide stage runs on the ring's clusters of 16 up to the rows that
+    one wave of them takes on this card, and on the whole-row kernel above."""
+    run = bind_stage(*_stage_args(gen, 1, 1024, 512)[2:])
+    ring = run.plan_for(16)
+    wave = stage_max_clusters(16, ring.smem)
+    assert ring.cluster == 16 and ring.slots >= 2 and wave >= 1
+    assert run.plan_for(16 * wave) == ring
+    assert run.plan_for(16 * wave + 1).slots == 0
 
 
 def test_head_kernel_matches_twin(gen):

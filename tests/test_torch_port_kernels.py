@@ -23,9 +23,13 @@ from flowerdiff_torch.kernels.full_sampler import (
 )
 from flowerdiff_torch.kernels.latent_stage import (
     bind_head,
+    PIECES,
+    SMEM_LIMIT,
     bind_stage,
     fused_head,
     fused_stage,
+    pack_stage_weight,
+    stage_plan,
 )
 from flowerdiff_torch.utils.weights import denoiser_from_params, init_numpy_params
 
@@ -96,6 +100,199 @@ def test_bound_stage_and_head_equal_unbound():
     adds = dict(row_add=torch.from_numpy(_mk(rng, d)), rows_add=torch.from_numpy(_mk(rng, 4, d)))
     np.testing.assert_array_equal(bind_head(*ht[3:])(ht[0], ht[1], ht[2], **adds).numpy(),
                                   fused_head(*ht, **adds).numpy())
+
+
+# The stage kernel's launch plans: the flagship's four stages, hidden
+# (256, 512, 1024, 512, 256), and the card tests' other stage shapes.
+FLAGSHIP_STAGES = [(256, 512), (512, 1024), (1024, 512), (512, 256)]
+CARD_TEST_STAGES = [(64, 64), (128, 256), (256, 64), (1024, 768), (512, 1536)]
+# cudaOccupancyMaxActiveClusters for clusters of 16 stage blocks on the
+# H100 SXM (chip_smoke.py prints it)
+H100_WAVE16 = 7
+
+
+@pytest.mark.parametrize("rows", [16, 128])
+@pytest.mark.parametrize("d,d_out", FLAGSHIP_STAGES + CARD_TEST_STAGES)
+def test_stage_plan_fits_the_kernel(d, d_out, rows):
+    plan = stage_plan(d, d_out, rows, H100_WAVE16)
+    assert plan.smem <= SMEM_LIMIT == 232_448
+    assert plan.cluster in (1, 2, 4, 8, 16)
+    assert stage_plan(d, d_out, rows) == stage_plan(d, d_out, 16)  # no limit: one wave
+    # clusters of 16 only for the wide stages, and only where 16-row tiles
+    # fit in one wave of them; else the whole-row kernel on clusters of 8
+    if d == 1024 and rows == 128:
+        sm = max(d, d_out) // 8
+        whole = 4 * (16 * (2 * d + 2 * sm) + 16 * 64) + 2 * 16 * (d + 32)
+        assert plan == (8, 0, 0, whole) and d_out % 64 == 0
+        return
+    assert plan.cluster == (16 if d == 1024 else 8)
+    for n in (d, d_out):  # each block's column slice is whole n8 tiles
+        assert n % plan.cluster == 0 and (n // plan.cluster) % 8 == 0
+    assert plan.slots >= 2
+    assert d % plan.chunk == 0 and plan.chunk % 16 == 0  # whole k16 steps
+    # A block's chunk of a product is one bulk copy a piece of its packed
+    # weight (PIECES / cluster pieces): piece j's rows, k's from kc chunk, at
+    # byte ((j nk + kc) R) stride of the packed tensor, R = N / PIECES rows of
+    # stride slot_row_bytes, into a slot after the mbarriers.
+    stride, nk = plan.slot_row_bytes(), d // plan.chunk
+    slot_rows = max(d, d_out) // plan.cluster
+    assert stride % 16 == 0 and stride >= 2 * plan.chunk
+    for n in (d, d_out):
+        piece = n // PIECES * stride
+        assert piece % 16 == 0 and (PIECES // plan.cluster) * piece <= slot_rows * stride
+        for j in range(PIECES):
+            for kc in range(nk):
+                assert (j * nk + kc) * piece % 16 == 0
+        for slot in range(plan.slots):
+            for j in range(PIECES // plan.cluster):
+                assert (128 + slot * slot_rows * stride + j * piece) % 16 == 0
+    # ldmatrix reads eight rows at once: rows 16 bytes apart modulo 128
+    # bytes hit eight different bank groups, in a slot and in the operand.
+    assert stride % 128 == 16 and 2 * (d + 8) % 128 == 16
+    # the ring and the fixed buffers add up to the plan's shared memory
+    sd = d // plan.cluster
+    fixed = 128 + 2 * 4 * 16 * sd + 2 * 2 * 16 * (d + 8) + 2 * 8 * 16 * 16 + 4 * 8 * 16 * 8
+    assert plan.smem == fixed + plan.slots * slot_rows * stride
+
+
+def _ring_readers(plan, ncols):
+    """Which of the 8 compute warps read the ring in a product of `ncols`
+    columns a block: the split of csrc/latent_stage.cu::ring_gemm (n8 tiles,
+    1, 2 or 4 a warp; below 8 tiles, `wpt` warps a tile split the k steps)."""
+    tiles, steps = ncols // 8, plan.chunk // 16
+    tpw = 1 if tiles <= 8 else 2 if tiles <= 16 else 4
+    wpt = min(8 // tiles, steps) if tiles < 8 else 1
+    return [(w // wpt) * tpw < tiles for w in range(8)]
+
+
+def _ring_faults(plan, d, d_out, idle_waits=True):
+    """Play the weight ring of csrc/latent_stage.cu::Ring for one launch and
+    return what went wrong: a read of a slot that a refill had overwritten,
+    or a wait that never ends. Chunk q of the 4 d / chunk lives in slot q %
+    slots; a copy lands at once; `full` completes a phase at each copy,
+    `empty` at each 8th arrival; a wait on parity P passes once the phase of
+    parity P has completed, as mbarrier.try_wait.parity does. The compute
+    warps that read nothing run first, the producer next, the readers last:
+    the order in which an early arrival does harm. `idle_waits` False plays
+    warps that read nothing arriving without waiting for the chunk."""
+    nk, slots = d // plan.chunk, plan.slots
+    total = 4 * nk
+    cols = [d // plan.cluster] * 3 + [d_out // plan.cluster]
+    full, empty, arrived, held = [0] * slots, [0] * slots, [0] * slots, [None] * slots
+    faults = []
+
+    def warp(w):
+        for p in range(4):
+            reads = _ring_readers(plan, cols[p])[w]
+            for q in range(p * nk, (p + 1) * nk):
+                if reads or idle_waits:
+                    yield "wait_full", q
+                if reads:
+                    yield "read", q
+                yield "arrive", q
+            yield "sync", p
+
+    def producer():
+        for q in range(min(slots, total)):
+            yield "issue", q
+        for p in range(4):
+            for q in range(p * nk, (p + 1) * nk):
+                if q + slots < total:
+                    yield "wait_empty", q
+                    yield "issue", q + slots
+            yield "sync", p
+
+    threads = [warp(w) for w in range(8)] + [producer()]
+    pending = [next(t) for t in threads]
+
+    def step(i):  # run thread i's next operation unless it must wait
+        op, q = pending[i]
+        s, parity = q % slots, (q // slots) & 1
+        if op == "wait_full" and full[s] & 1 == parity:
+            return False
+        elif op == "wait_empty" and empty[s] & 1 == parity:
+            return False
+        elif op == "issue":
+            held[s] = q
+            full[s] += 1
+        elif op == "read" and held[s] != q:
+            faults.append(f"chunk {q} overwritten by chunk {held[s]} before it was read")
+        elif op == "arrive":
+            arrived[s] += 1
+            if arrived[s] == 8:
+                arrived[s], empty[s] = 0, empty[s] + 1
+        pending[i] = next(threads[i], None)
+        return True
+
+    while any(pending):
+        if all(op == "sync" for op, _ in pending):  # the block barrier after a product
+            pending = [next(t, None) for t in threads]
+            continue
+        live = [i for i, (op, _) in enumerate(pending) if op != "sync"]
+        order = ([i for i in live if i < 8 and pending[i][0] != "read"] + [8]
+                 + [i for i in live if pending[i][0] == "read"])
+        if not any(i in live and step(i) for i in order):
+            return faults + [f"waits forever at {[pending[i] for i in live]}"]
+    return faults
+
+
+def _accepted_plans():
+    """Every (d, d_out) the stage kernel takes, planned at 16 and at 128 rows
+    on the H100 SXM; one of each distinct ring protocol (slots, chunks a
+    product, reading warps of each product) of the plans that use the ring."""
+    seen = {}
+    for d in range(64, 1025, 64):
+        for d_out in range(16, 4097, 16):
+            for rows in (16, 128):
+                try:
+                    plan = stage_plan(d, d_out, rows, H100_WAVE16)
+                except ValueError:
+                    continue
+                if not plan.slots:  # the whole-row kernel: no ring
+                    continue
+                cols = [d // plan.cluster] * 3 + [d_out // plan.cluster]
+                key = (plan.slots, d // plan.chunk,
+                       tuple(tuple(_ring_readers(plan, n)) for n in cols))
+                seen.setdefault(key, (plan, d, d_out))
+    return list(seen.values())
+
+
+def test_stage_ring_never_overwrites_a_chunk_being_read():
+    plans = _accepted_plans()
+    assert len(plans) > 10
+    for plan, d, d_out in plans:
+        assert _ring_faults(plan, d, d_out) == [], (plan, d, d_out)
+    # Idle warps that arrive without waiting would let a refill overwrite a
+    # chunk still being read where a product has idle warps and more chunks
+    # than slots: the card tests' (512, 1536) at 128 rows is such a plan.
+    plan = stage_plan(512, 1536, 128, H100_WAVE16)
+    readers = _ring_readers(plan, 1536 // plan.cluster)
+    assert not all(readers) and 512 // plan.chunk > plan.slots
+    assert _ring_faults(plan, 512, 1536, idle_waits=False) != []
+
+
+@pytest.mark.parametrize("chunk", [64, 128])
+def test_pack_stage_weight_layout(chunk):
+    """Piece j, chunk kc of the packed weight holds rows j R .. (j + 1) R and
+    k's kc chunk .. (kc + 1) chunk of the (out, in) weight, each row followed
+    by 8 zeros; the bytes of a (piece, chunk) are contiguous."""
+    n, k = 96, 256
+    w = torch.from_numpy(_mk(np.random.default_rng(7), n, k)).to(torch.bfloat16)
+    packed = pack_stage_weight(w, chunk)
+    r = n // PIECES
+    assert packed.shape == (PIECES, k // chunk, r, chunk + 8) and packed.is_contiguous()
+    for j in range(PIECES):
+        for kc in range(k // chunk):
+            assert torch.equal(packed[j, kc, :, :chunk],
+                               w[j * r:(j + 1) * r, kc * chunk:(kc + 1) * chunk])
+    assert not packed[..., chunk:].any()
+
+
+@pytest.mark.parametrize("d,d_out", [(96, 64), (2048, 512), (64, 4096), (256, 100),
+                                     (1024, 4), (0, 64)])
+def test_stage_plan_rejects_widths_the_kernel_cannot_take(d, d_out):
+    with pytest.raises(ValueError):
+        stage_plan(d, d_out)
 
 
 def test_plain_fused_head_matches_pallas_interpret():
