@@ -8,9 +8,10 @@ Phases (any failure raises and the script exits nonzero without a result):
   1. build the CUDA kernels from src/flowerdiff_torch/kernels/csrc;
   2. hold each kernel against its plain PyTorch twin on the card, at the
      flagship shapes of the sampling path (B = 16 and 128 rows: the 8- and
-     64-image buckets doubled for classifier-free guidance), with LayerNorm
-     affines and biases large enough that a kernel leaving any one out would
-     fail, and time both;
+     64-image buckets doubled for classifier-free guidance; the latent
+     projection guided and not, with and without the v2 skip), with
+     LayerNorm affines and biases large enough that a kernel leaving any one
+     out would fail, and time both;
   3. check the reverse-step noise against the closed-form variance of the
      zero-eps recursion (B = 128, latent 256, T = 1000);
   4. hold the kernel sampler against the plain f32 model on a short
@@ -18,9 +19,10 @@ Phases (any failure raises and the script exits nonzero without a result):
   5. profile 50 guided sampler steps (torch.profiler): wall against device
      time a step, and the kernels that take it;
   6. run SamplingService at flagship width (seeded weights, z-score stats,
-     CFG 7.0, x0 clip 3.0, 1000 steps, buckets 8 and 64) on three requests,
-     with the kernel launch counts read around them, then time the decode
-     of one 64 bucket;
+     CFG 7.0, x0 clip 3.0, 1000 steps, buckets 8 and 64, uint8 images) on
+     three requests, with the kernel launch counts read around them (a step:
+     one projection, four stages, one head, one reverse step), then time the
+     decode of one 64 bucket;
   7. hold the train-step kernel (forward + backward of the latent-DDPM
      objective) against torch autograd on its plain twin at flagship width,
      B = 64, with dropout masks, a condition mask with zeros and perturbed
@@ -75,6 +77,9 @@ from flowerdiff_torch.kernels.denoiser_apply import (  # noqa: E402
     stage_weights,
 )
 from flowerdiff_torch.kernels.full_sampler import (  # noqa: E402
+    bind_latent_proj,
+    latent_proj,
+    latent_proj_plain,
     prepare_fused_sampler,
     reverse_step,
     reverse_step_plain,
@@ -127,6 +132,9 @@ STATS = _ROOT / "artifacts" / "flagship_r5b" / "run" / "latent_stats.npz"
 STAGE_TOL = 5e-3
 HEAD_TOL = 5e-4
 NOISE_TOL = 1e-4   # reverse_step vs twin, absolute: same Philox bits, f32 libm
+# latent_proj vs twin, relative to max|twin|: both multiply the same bf16
+# values exactly in f32 and add them in another order
+PROJ_TOL = 1e-4
 # Train-step kernel vs autograd on its twin, per gradient leaf. f32 lane: the
 # reference tests' own limits (elementwise). bf16 lane: relative to the
 # leaf's largest twin gradient; kernel and twin round the same operands and
@@ -254,8 +262,15 @@ def phase_kernels(model, prep, gen):
               "source": "src/flowerdiff_torch/kernels/csrc/reverse_step.cu",
               "replaces": "src/flowerdiff/kernels/full_sampler.py:81",
               "max_abs_err": 0.0, "library_ms": None}
+    pj_row = {"name": "latent_proj", "route": "cuda",
+              "source": "src/flowerdiff_torch/kernels/csrc/latent_proj.cu",
+              "replaces": "src/flowerdiff/kernels/full_sampler.py:118",
+              "max_abs_err": 0.0, "library_ms": None}
     stage_w = [perturbed(stage_weights(model, i), gen) for i in range(len(hidden) - 1)]
     head_w = perturbed(head_weights(model), gen)
+    # the projection's inputs from a generator of their own, so that the
+    # later phases draw what they drew before it was checked here
+    pgen = torch.Generator(device=dev).manual_seed(7)
     for rows in BUCKET_ROWS:
         for i, s in enumerate(stage_w):
             d, dout = hidden[i], hidden[i + 1]
@@ -364,7 +379,67 @@ def phase_kernels(model, prep, gen):
         rv_row["max_abs_err"] = max(rv_row["max_abs_err"], err)
         if rows == ROWS:
             rv_row.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
-    return [st, hd_row, rv_row]
+
+        # the step's projection: guided (both halves of the stage input) and
+        # not, with and without the v2 skip (the flagship is v1: no skip)
+        hid = hidden[0]
+        wl = prep["proj"].weights[0]
+        bl = torch.randn((hid,), generator=pgen, device=dev) * 0.5
+        skip_w = dict(wf=head_w["wf"], bf=torch.randn((lat,), generator=pgen, device=dev) * 0.5,
+                      rw=torch.tensor(0.3, device=dev))
+        skip_rw_dropped = dict(skip_w, rw=torch.tensor(30.0, device=dev))  # sigmoid -> 1
+        for guided in (True, False):
+            copies = 2 if guided else 1
+            b = rows // copies
+            x = torch.randn((b, lat), generator=pgen, device=dev)
+            for with_skip in (False, True):
+                kw = skip_w if with_skip else {}
+                run = bind_latent_proj(wl, bl, **kw)
+                h, skip = run(x, copies)
+                ref_h, ref_skip = latent_proj_plain(x, wl, bl, copies=copies, **kw)
+                tag = f"B={b} rows {rows} guided={guided} skip={with_skip}"
+                if guided:
+                    assert torch.equal(h[:b], h[b:]), f"latent_proj {tag}: the two copies differ"
+                dropped = {"bl": latent_proj_plain(x, wl, torch.zeros_like(bl),
+                                                   copies=copies)[0]}
+                err, tol, weakest = held(f"latent_proj h {tag}", h, ref_h, PROJ_TOL, dropped)
+                pj_row["max_abs_err"] = max(pj_row["max_abs_err"], err)
+                line = (f"[kernels] latent_proj {tag}: h max_abs_err {err:.3e} (tol {tol:.3e}; "
+                        f"least move: {weakest})")
+                if with_skip:
+                    dropped = {"bf": latent_proj_plain(x, wl, bl, copies=copies, **dict(
+                                   skip_w, bf=torch.zeros_like(skip_w["bf"])))[1],
+                               "sigmoid(rw)": latent_proj_plain(x, wl, bl, copies=copies,
+                                                                **skip_rw_dropped)[1]}
+                    err, tol, weakest = held(f"latent_proj skip {tag}", skip, ref_skip,
+                                             PROJ_TOL, dropped)
+                    pj_row["max_abs_err"] = max(pj_row["max_abs_err"], err)
+                    line += f"; skip max_abs_err {err:.3e} (tol {tol:.3e}; least move: {weakest})"
+                ms = cuda_ms(lambda: run(x, copies))
+                plain = cuda_ms(lambda: latent_proj_plain(x, wl, bl, copies=copies, **kw))
+                n_bytes = 4 * (b * lat + hid + copies * b * hid) + 2 * hid * lat
+                flops = 2 * b * lat * hid
+                if with_skip:
+                    n_bytes += 2 * lat * lat + 4 * (lat + 1 + b * lat)
+                    flops += 2 * b * lat * lat
+                b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOP_PER_S)
+                wl32 = wl.float()
+                addmm = cuda_ms(lambda: torch.addmm(bl, x, wl32.t()))
+                # the library yardstick, never on the path: h's product on
+                # bf16 copies of the operands, one copy (the least work of
+                # the function), and both copies in one batched call
+                xb, blb = x.to(torch.bfloat16), bl.to(torch.bfloat16)
+                lib = cuda_ms(lambda: torch.addmm(blb, xb, wl.t()))
+                lib2 = cuda_ms(lambda: torch.baddbmm(blb, xb.expand(copies, b, lat),
+                                                     wl.t().expand(copies, lat, hid)))
+                print(f"{line} ms {ms:.4f} plain_ms {plain:.4f} bound_ms {b_ms:.5f} ({b_by}) "
+                      f"library_ms {lib:.4f} (bf16 torch.addmm, one copy of h, no skip; "
+                      f"{copies} copies by torch.baddbmm {lib2:.4f}); the replaced eager "
+                      f"torch.addmm (f32, one copy, no skip) {addmm:.4f}")
+                if rows == ROWS and guided and not with_skip:
+                    pj_row.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                                  library_ms=lib)
+    return [st, hd_row, rv_row, pj_row]
 
 
 def phase_noise(sched):
@@ -459,12 +534,26 @@ def device_profile(fn):
 
 def counts():
     return {"fused_stage": fused_stage.launches, "fused_head": fused_head.launches,
-            "reverse_step": reverse_step.launches}
+            "reverse_step": reverse_step.launches, "latent_proj": latent_proj.launches}
+
+
+def reset_counts():
+    fused_stage.launches = fused_head.launches = reverse_step.launches = 0
+    latent_proj.launches = 0
+
+
+def sampler_counts(n_steps, calls=1):
+    """The launches of `calls` sampler calls of n_steps steps: a step is one
+    projection, four stages, one head and one reverse step."""
+    stages = len(FLAGSHIP["hidden_dims"]) - 1
+    return {"fused_stage": stages * n_steps * calls, "fused_head": n_steps * calls,
+            "reverse_step": n_steps * calls, "latent_proj": n_steps * calls}
 
 
 def phase_service(model, vae, stats):
     svc = SamplingService(model, vae, buckets=(8, 64), latent_stats=stats,
-                          clip_x0=CLIP, guidance_scale=GUIDANCE, device="cuda")
+                          clip_x0=CLIP, guidance_scale=GUIDANCE, quantize_uint8=True,
+                          device="cuda")
     assert svc.request_plan(70) == [64, 8] and svc.request_plan(50) == [64]
     svc.sample_classes([0], 1, seed=99)          # warm the 8 bucket
     svc.sample_classes(range(8), 8, seed=98)     # warm the 64 bucket
@@ -475,7 +564,7 @@ def phase_service(model, vae, stats):
     ]
     bucket_calls = sum(len(svc.request_plan(n)) for _, _, n in requests)
     steps = svc.sched.n_steps
-    fused_stage.launches = fused_head.launches = reverse_step.launches = 0
+    reset_counts()
     results = []
     for name, fn, n in requests:
         torch.cuda.synchronize()
@@ -489,9 +578,7 @@ def phase_service(model, vae, stats):
     for name, n, dt in results:
         print(f"[service] {name}: plan {svc.request_plan(n)} latency {dt * 1e3:.1f} ms "
               f"{n / dt:.2f} images/s")
-    stages = len(FLAGSHIP["hidden_dims"]) - 1
-    want = {"fused_stage": stages * steps * bucket_calls,
-            "fused_head": steps * bucket_calls, "reverse_step": steps * bucket_calls}
+    want = sampler_counts(steps, bucket_calls)
     print(f"[service] launches {got} expected {want}")
     assert got == want, "the main path did not run through the kernels as expected"
     # the decoder's share of a request: decode + quantise of one 64 bucket
@@ -727,7 +814,7 @@ def phase_train(vae, stats):
                                          ("kernel f32", True, "float32", 1)):
         trainer = LatentDiffusionTrainer(config(kernel, lane), vae, seed=4, latent_stats=stats)
         gen = torch.Generator(device=dev).manual_seed(12)
-        fused_stage.launches = fused_head.launches = reverse_step.launches = 0
+        reset_counts()
         ts.kernel_loss_and_grads.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -782,7 +869,7 @@ def phase_train(vae, stats):
     assert z.shape == (16, FLAGSHIP["latent_dim"]) and torch.isfinite(z).all()
     assert imgs.shape == (16, 64, 64, 3) and torch.isfinite(imgs).all()
     n_t = trainer.sched.n_steps
-    assert counts() == {"fused_stage": 4 * n_t, "fused_head": n_t, "reverse_step": n_t}
+    assert counts() == sampler_counts(n_t), counts()
     print(f"[train] sampler(fused=True) on the EMA weights: 16 images, {n_t} guided steps "
           f"(CFG {GUIDANCE}, clip {CLIP}) + decode in {dt * 1e3:.1f} ms; launches {counts()}")
     return runs["kernel bf16"][3], pool, dataset
@@ -1047,7 +1134,7 @@ def phase_train_epoch(vae, stats, pool, dataset):
           f"moments, EMA {cfg.ema_decay}) in {dt * 1e3:.1f} ms; epoch launches "
           f"{epoch_fn.launches}, train steps enqueued {epoch_fn.steps}; epoch losses "
           f"{[round(float(v), 4) for v in means]}")
-    fused_stage.launches = fused_head.launches = reverse_step.launches = 0
+    reset_counts()
     sampler = trainer.sampler(fused=True)
     cls = torch.arange(16, device=dev) % FLAGSHIP["num_classes"]
     z = sampler.sample(16, cls, generator=torch.Generator(device=dev).manual_seed(13))
@@ -1057,7 +1144,7 @@ def phase_train_epoch(vae, stats, pool, dataset):
     n_t = trainer.sched.n_steps
     assert z.shape == (16, FLAGSHIP["latent_dim"]) and torch.isfinite(z).all()
     assert imgs.shape == (16, 64, 64, 3) and torch.isfinite(imgs).all()
-    assert counts() == {"fused_stage": 4 * n_t, "fused_head": n_t, "reverse_step": n_t}
+    assert counts() == sampler_counts(n_t), counts()
     print(f"[train_epoch] sampler(fused=True) on the EMA weights: 16 images, {n_t} guided "
           f"steps + decode; launches {counts()}")
 

@@ -4,6 +4,8 @@
 // flowerdiff/kernels/full_sampler.py (its in-kernel step), applied
 // elementwise over the (B, L) latent state:
 //
+//   eps += skip                                            (v2 global skip, optional; to
+//                                                            both halves when guided)
 //   eps  = guided ? eps_u + s * (eps_c - eps_u) : eps      (CFG from the doubled batch)
 //   eps  = clip_eps_for_x0(eps)                            (x0 clamp to [-c, c], optional)
 //   mean = (x - (1 - a) / sqrt(1 - abar) * eps) / sqrt(a)
@@ -38,10 +40,10 @@ __device__ __forceinline__ void box_muller(uint32_t a, uint32_t b, float* z0, fl
 }
 
 __global__ void __launch_bounds__(kThreads)
-reverse_step_kernel(const float* __restrict__ eps, const float* __restrict__ x,
-                    float* __restrict__ out, int n, int guided, float scale,
-                    int clip, float clip_val, float a, float ab, float beta, int t,
-                    int stochastic, uint32_t key0, uint32_t key1) {
+reverse_step_kernel(const float* __restrict__ eps, const float* __restrict__ skip,
+                    const float* __restrict__ x, float* __restrict__ out, int n, int guided,
+                    float scale, int clip, float clip_val, float a, float ab, float beta,
+                    int t, int stochastic, uint32_t key0, uint32_t key1) {
   const uint32_t group = blockIdx.x * blockDim.x + threadIdx.x;
   const int base = (int)group * 4;
   if (base >= n) return;
@@ -60,8 +62,10 @@ reverse_step_kernel(const float* __restrict__ eps, const float* __restrict__ x,
     if (i >= n) break;
     const float xv = x[i];
     float e = eps[i];
+    if (skip) e += skip[i];
     if (guided) {
-      const float eu = eps[n + i];
+      float eu = eps[n + i];
+      if (skip) eu += skip[i];
       e = eu + scale * (e - eu);
     }
     if (clip) {
@@ -77,14 +81,17 @@ reverse_step_kernel(const float* __restrict__ eps, const float* __restrict__ x,
 
 }  // namespace
 
-extern "C" int fd_reverse_step_launch(const void* eps, const void* x, void* out, int n,
-                                      int guided, float scale, int clip, float clip_val,
-                                      float a, float ab, float beta, int t, int stochastic,
-                                      unsigned int key0, unsigned int key1, void* stream) {
+// skip: null, or (B, L) f32 added to eps (to both halves when guided).
+extern "C" int fd_reverse_step_launch(const void* eps, const void* skip, const void* x,
+                                      void* out, int n, int guided, float scale, int clip,
+                                      float clip_val, float a, float ab, float beta, int t,
+                                      int stochastic, unsigned int key0, unsigned int key1,
+                                      void* stream) {
   const int groups = (n + 3) / 4;
   const dim3 grid((groups + kThreads - 1) / kThreads);
   reverse_step_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)eps, (const float*)x, (float*)out, n, guided, scale, clip, clip_val,
+      (const float*)eps, (const float*)skip, (const float*)x, (float*)out, n, guided, scale,
+      clip, clip_val,
       a, ab, beta, t, stochastic, key0, key1);
   return (int)cudaGetLastError();
 }

@@ -38,6 +38,13 @@ extern "C" int fd_gemm_launch(const void* A, long long a_sm, long long a_sk, con
   return (int)run.err;
 }
 
+// The split-K plan of the bf16 lane's Y and dX forms over K (`splitk_plan`).
+extern "C" int fd_splitk_plan(int K, int* s, int* kc) {
+  if (K < 1) return (int)cudaErrorInvalidValue;
+  splitk_plan(K, s, kc);
+  return 0;
+}
+
 // LayerNorm forward and backward alone, for tests (see ln_fwd_kernel).
 extern "C" int fd_ln_fwd_launch(const void* x, const void* g, const void* b, const void* mask,
                                 int swish, const void* res, void* y, void* mean, void* rstd,

@@ -18,15 +18,30 @@
 // no counterpart here, so `fd_train_step_launch` enqueues a sequence of
 // small kernels on the caller's stream (it captures into a CUDA graph):
 //
-//   * one tiled product `gemm_kernel<T>`, C[m][n] = sum_k A(m,k) B(n,k), with
-//     both operands addressed through (row, k) strides, which gives the three
-//     forms of a Linear in PyTorch's (out, in) layout: Y = X W^T + b,
-//     dX = dY W, and dW = dY^T X with db = colsum(dY). T = bf16: operands are
-//     rounded to bf16 as they are staged in shared memory and multiplied on
-//     the tensor cores (`mma.sync` m16n8k16, f32 accumulators). T = float:
-//     plain f32 FMA tiles (the exact lane, and the `final` product and v2 skip
-//     in both lanes). The dW form reduces over the rows of the batch only,
-//     so every output tile is independent: no split-K, no atomics.
+//   * the product C[m][n] = sum_k A(m,k) B(n,k), both operands addressed
+//     through (row, k) strides, which gives the three forms of a Linear in
+//     PyTorch's (out, in) layout: Y = X W^T + b, dX = dY W, and dW = dY^T X
+//     with db = colsum(dY). Two kernels:
+//     - `splitk_gemm_kernel`, the bf16 lane's Y and dX forms (A read along
+//       k): M = 64 rows and K up to 1024, so one row of 64 x 32 tiles gives
+//       16-32 blocks, each on a chain of K / 64 dependent k steps. Here each
+//       output tile is a cluster of up to 8 blocks, each block summing its
+//       slice of K (one or two 64-deep tiles, copied with `cp.async` into a
+//       two-deep shared-memory ring, rounded to bf16 as the fragments are
+//       built, `mma.sync` m16n8k16 with f32 accumulators). Each block
+//       finishes 64 / s of the tile's rows: the others store their partial
+//       rows into its shared memory (distributed shared memory, one cluster
+//       barrier after the stores; the barrier that lets them store is
+//       hidden behind the k loop), it adds the s partials in rank order and
+//       runs the epilogue (bias, the bf16 rounding of dX, mul, res) once on
+//       the whole sum. No atomics and one launch: a product repeats bit for
+//       bit. (Reading the partials remotely after a barrier, then a second
+//       barrier before leaving, was 0.1-0.65 us a product slower.)
+//     - `gemm_kernel<T>`, one block a 64 x 32 tile over the whole of K: the
+//       dW form in the bf16 lane (it reduces over the 64 batch rows only, so
+//       every tile is independent and has one k step), and every form of
+//       the exact lane and of the three f32 products of the bf16 lane (the
+//       `final` product and the v2 skip), with T = float FMA tiles.
 //   * row kernels, one block a row: q_sample + sinusoid, LayerNorm forward
 //     (saving mean and rstd) with the dropout mask, swish and residual fused
 //     in, LayerNorm backward, the loss with its seed gradient;
@@ -45,11 +60,15 @@
 #pragma once
 #include <stdint.h>
 
+#include <atomic>
+#include <cooperative_groups.h>
 #include <type_traits>
 
 #include "rows.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 using fd::warp_sum;
 
@@ -95,12 +114,11 @@ __device__ __forceinline__ void emit(float* C, int M, int N, int m, int n, float
 // C[m][n] = epilogue(sum_k A(m, k) * B(n, k)), A(m, k) = A[m * a_sm + k * a_sk],
 // B(n, k) = B[n * b_sn + k * b_sk], C row-major (M, N). One of each stride
 // pair is 1; tiles are read along that dimension. The next tile's global
-// loads are started before the current tile's products. Every product here
-// is bound by the latency of its chain of k steps, not by bytes or flops,
-// so a deeper tile shortens it: TK = 64 in the bf16 lane (48 loads in
-// flight a thread, 16 steps for K = 1024, one step for the dW form). At
-// TK = 128 the prefetch arrays no longer stay in registers and the step is
-// twice as slow as at TK = 32.
+// loads are started before the current tile's products. A product is bound
+// by the latency of its chain of k steps, not by bytes or flops, so a deeper
+// tile shortens it: TK = 64 in the bf16 lane, where this kernel takes the dW
+// form only (one step: K is the 64 rows of the batch). At TK = 128 the
+// prefetch arrays no longer stay in registers.
 template <typename T, int TK>
 __global__ void __launch_bounds__(kGemmThreads)
 gemm_kernel(const float* A, long a_sm, long a_sk, const float* B, long b_sn, long b_sk,
@@ -218,6 +236,191 @@ gemm_kernel(const float* A, long a_sm, long a_sk, const float* B, long b_sn, lon
       emit(C, M, N, m + 8, n, acc[j][2], ep);
       emit(C, M, N, m + 8, n + 1, acc[j][3], ep);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The split-K product of the bf16 lane (see the note at the top).
+
+constexpr int kSplitTK = 64;              // k's a tile
+constexpr int kMaxSplit = 8;              // blocks a cluster: the portable maximum
+constexpr int kSplitLDA = kSplitTK + 8;   // f32 stride of a k-fast tile row (A, and B of Y)
+constexpr int kSplitLDB = TN + 4;         // f32 stride of an n-fast tile row (B of dX)
+constexpr int kSplitLDP = TN + 8;         // f32 stride of a row of the partial tile
+constexpr int kSplitA = TM * kSplitLDA;   // floats of an A tile
+constexpr int kSplitB = TN * kSplitLDA > kSplitTK * kSplitLDB ? TN * kSplitLDA
+                                                              : kSplitTK * kSplitLDB;
+constexpr int kSplitStage = kSplitA + kSplitB;
+// a ring of two tiles, then the slots of the cluster's sum: row rr of this
+// block's share of the output tile from block q at row q * (TM / s) + rr
+constexpr size_t kSplitSmem = sizeof(float) * (2 * kSplitStage + TM * kSplitLDP);
+
+// The plan of a product over K: clusters of *s blocks, *s the largest power
+// of two up to kMaxSplit that leaves each block at least one tile (K = 1024:
+// 8 blocks of two tiles; K = 512: 8 of one; K = 256: 4); block r sums k in
+// [r * *kc, r * *kc + *kc), *kc a multiple of kSplitTK (the last blocks'
+// slices may be short or empty). `fd_splitk_plan` exports it.
+inline void splitk_plan(int K, int* s, int* kc) {
+  const int tiles = (K + kSplitTK - 1) / kSplitTK;
+  *s = 1;
+  while (*s < kMaxSplit && 2 * *s <= tiles) *s *= 2;
+  *kc = (tiles + *s - 1) / *s * kSplitTK;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, bypassing L1.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+// 4 bytes global -> shared, or a zero where !valid (src is then not read).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// Four consecutive floats along a row of a tile: one 16-byte copy where all
+// four lie inside the bounds and the source is 16-byte aligned, else four
+// 4-byte copies with zeros outside (`n_valid` of the four are inside).
+__device__ __forceinline__ void cp_async_quad(float* dst, const float* src, int n_valid,
+                                              const float* any_valid_address) {
+  if (n_valid == 4 && ((uintptr_t)src & 15) == 0) {
+    cp_async16(dst, src);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      cp_async4(dst + j, j < n_valid ? src + j : any_valid_address, j < n_valid);
+  }
+}
+
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // cvt.rn.bf16x2.f32
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t bf16x2(float2 v) { return bf16x2(v.x, v.y); }
+
+// C = epilogue(sum_k A(m, k) B(n, k)) with A read along k (a_sk = 1) and B
+// read along k (b_sk = 1: the Y form, B = W) or along n (b_sn = 1: the dX
+// form, B(n, k) = W[k][n]). Launched as clusters of s blocks along x:
+// blockIdx.x = n_tile * s + rank, blockIdx.y = m_tile; block `rank` sums
+// k in [rank * kc, rank * kc + kc), kc a multiple of kSplitTK.
+template <bool kBAlongK>
+__global__ void __launch_bounds__(kGemmThreads)
+splitk_gemm_kernel(const float* __restrict__ A, long a_sm, const float* __restrict__ B,
+                   long b_stride, float* C, int M, int N, int K, int kc, Epilogue ep) {
+  extern __shared__ __align__(16) float sk_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int s = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * TM, n0 = (blockIdx.x / s) * TN;
+  const int kb = rank * kc, ke = min(K, kb + kc);
+  const int n_tiles = ke > kb ? (ke - kb + kSplitTK - 1) / kSplitTK : 0;
+  // a block may write into another's shared memory only once that one has
+  // started: arrive now, wait before the first remote store
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  // tile i of this block's slice into ring slot `slot`: 8 quads of A and 4
+  // of B a thread
+  auto load = [&](int i, int slot) {
+    float* As = sk_smem + slot * kSplitStage;
+    float* Bs = As + kSplitA;
+    const int k0 = kb + i * kSplitTK;
+#pragma unroll
+    for (int q = 0; q < TM * kSplitTK / 4 / kGemmThreads; ++q) {
+      const int e = q * kGemmThreads + tid;
+      const int r = e / (kSplitTK / 4), c = (e % (kSplitTK / 4)) * 4;
+      const int m = m0 + r, k = k0 + c;
+      const int nv = m < M ? max(0, min(4, ke - k)) : 0;
+      cp_async_quad(As + r * kSplitLDA + c, A + (size_t)m * a_sm + k, nv, A);
+    }
+#pragma unroll
+    for (int q = 0; q < TN * kSplitTK / 4 / kGemmThreads; ++q) {
+      const int e = q * kGemmThreads + tid;
+      if constexpr (kBAlongK) {  // Bs[n][k]
+        const int r = e / (kSplitTK / 4), c = (e % (kSplitTK / 4)) * 4;
+        const int n = n0 + r, k = k0 + c;
+        const int nv = n < N ? max(0, min(4, ke - k)) : 0;
+        cp_async_quad(Bs + r * kSplitLDA + c, B + (size_t)n * b_stride + k, nv, B);
+      } else {  // Bs[k][n]
+        const int r = e / (TN / 4), c = (e % (TN / 4)) * 4;
+        const int k = k0 + r, n = n0 + c;
+        const int nv = k < ke ? max(0, min(4, N - n)) : 0;
+        cp_async_quad(Bs + r * kSplitLDB + c, B + (size_t)k * b_stride + n, nv, B);
+      }
+    }
+  };
+
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;  // tensor-core fragment coordinates
+  float acc[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+
+  if (n_tiles > 0) load(0, 0);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + 1 < n_tiles) load(i + 1, (i + 1) & 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // tile i has landed
+    __syncthreads();
+    const float* As = sk_smem + (i & 1) * kSplitStage;
+    const float* Bs = As + kSplitA;
+    const float* a_lo = As + (16 * warp + g) * kSplitLDA + 2 * t;
+    const float* a_hi = a_lo + 8 * kSplitLDA;
+#pragma unroll
+    for (int kk = 0; kk < kSplitTK; kk += 16) {
+      const uint32_t a0 = bf16x2(*reinterpret_cast<const float2*>(a_lo + kk));
+      const uint32_t a1 = bf16x2(*reinterpret_cast<const float2*>(a_hi + kk));
+      const uint32_t a2 = bf16x2(*reinterpret_cast<const float2*>(a_lo + kk + 8));
+      const uint32_t a3 = bf16x2(*reinterpret_cast<const float2*>(a_hi + kk + 8));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = 8 * j + g;
+        uint32_t b0, b1;
+        if constexpr (kBAlongK) {
+          const float* b = Bs + n * kSplitLDA + kk + 2 * t;
+          b0 = bf16x2(*reinterpret_cast<const float2*>(b));
+          b1 = bf16x2(*reinterpret_cast<const float2*>(b + 8));
+        } else {
+          const float* b = Bs + (kk + 2 * t) * kSplitLDB + n;
+          b0 = bf16x2(b[0], b[kSplitLDB]);
+          b1 = bf16x2(b[8 * kSplitLDB], b[9 * kSplitLDB]);
+        }
+        fd::mma_bf16(acc[j], a0, a1, a2, a3, b0, b1);
+      }
+    }
+    __syncthreads();  // slot i & 1 is refilled by the next iteration
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+
+  // each row of this block's partial tile into the slot of the block that
+  // finishes that row, then the cluster's sum in rank order
+  float* R = sk_smem + 2 * kSplitStage;
+  const int rows = TM / s;
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = 16 * warp + g + 8 * half;
+    float* dst = cluster.map_shared_rank(R, r / rows) + (rank * rows + r % rows) * kSplitLDP;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float2*>(dst + 8 * j + 2 * t) =
+          make_float2(acc[j][2 * half], acc[j][2 * half + 1]);
+  }
+  cluster.sync();  // every slot is written and visible; no remote access follows
+  for (int e = tid; e < rows * TN; e += kGemmThreads) {
+    const int rr = e / TN, c = e % TN;
+    float v = 0.f;
+    for (int q = 0; q < s; ++q) v += R[(q * rows + rr) * kSplitLDP + c];
+    emit(C, M, N, m0 + rank * rows + rr, n0 + c, v, ep);
   }
 }
 
@@ -459,13 +662,66 @@ struct Run {
   bool exact;  // the f32 lane
   cudaError_t err;
 
-  void note() {
+  // The first error of the sequence: a refused launch's own code, else the
+  // launch's cudaGetLastError.
+  void note(cudaError_t launch = cudaSuccess) {
     const cudaError_t e = cudaGetLastError();
-    if (err == cudaSuccess) err = e;
+    if (err == cudaSuccess) err = launch != cudaSuccess ? launch : e;
   }
 
+  // The bf16 lane's Y and dX forms: clusters of s blocks (`splitk_plan`).
+  void splitk(const float* A, long a_sm, const float* B, long b_sn, long b_sk, float* C,
+              int M, int N, int K, const Epilogue& ep) {
+    // the shared memory above 48 KB, set once a device (bit d: device d)
+    static std::atomic<unsigned long long> configured{0};
+    if (ep.colsum || (b_sn != 1 && b_sk != 1) || M < 1 || N < 1 || K < 1) {
+      note(cudaErrorInvalidValue);
+      return;
+    }
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess && (dev >= 64 || !(configured.load() >> dev & 1ull))) {
+      e = cudaFuncSetAttribute(splitk_gemm_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSplitSmem);
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(splitk_gemm_kernel<false>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSplitSmem);
+      if (e == cudaSuccess && dev < 64) configured.fetch_or(1ull << dev);
+    }
+    if (e != cudaSuccess) {
+      note(e);
+      return;
+    }
+    int s, kc;
+    splitk_plan(K, &s, &kc);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)((N + TN - 1) / TN * s), (unsigned)((M + TM - 1) / TM));
+    cfg.blockDim = dim3(kGemmThreads);
+    cfg.dynamicSmemBytes = kSplitSmem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = s;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    if (b_sk == 1)
+      note(cudaLaunchKernelEx(&cfg, splitk_gemm_kernel<true>, A, a_sm, B, b_sn, C, M, N, K, kc,
+                              ep));
+    else
+      note(cudaLaunchKernelEx(&cfg, splitk_gemm_kernel<false>, A, a_sm, B, b_sk, C, M, N, K,
+                              kc, ep));
+  }
+
+  // The bf16 lane's forms with A read along k go to `splitk`; the dW form
+  // (A read along m) and the f32 products to `gemm_kernel`.
   void gemm(bool f32, const float* A, long a_sm, long a_sk, const float* B, long b_sn,
             long b_sk, float* C, int M, int N, int K, const Epilogue& ep) {
+    if (!f32 && a_sk == 1) {
+      splitk(A, a_sm, B, b_sn, b_sk, C, M, N, K, ep);
+      return;
+    }
     const dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM);
     if (f32)
       gemm_kernel<float, 32><<<grid, kGemmThreads, 0, stream>>>(A, a_sm, a_sk, B, b_sn, b_sk,

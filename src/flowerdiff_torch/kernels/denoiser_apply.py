@@ -5,8 +5,11 @@ flowerdiff/kernels/denoiser_apply.py).
 precision, with every stage run by `fused_stage` and the head by
 `fused_head`. Only the v-slice of attention is needed (one key), so q and k
 are never read. Embeddings, the per-stage condition projections, the
-latent projection and the v2 skip stay PyTorch ops, as the reference leaves
-them to XLA.
+latent projection and the v2 skip stay PyTorch ops, as the reference's
+`make_fast_denoiser` leaves them to XLA (its `:118` and `:142`). The full
+sampler's Pallas kernel computes the projection in its own body
+(flowerdiff/kernels/full_sampler.py:118); the port's sampler step runs it,
+and the skip, in the `latent_proj` kernel (full_sampler.py).
 """
 from __future__ import annotations
 

@@ -2,16 +2,20 @@
 flowerdiff/kernels/full_sampler.py).
 
 The Pallas kernel `_make_kernel` runs all T steps in one TPU kernel with
-every weight resident in VMEM. The first Hopper design is a host loop over
-the T steps; each step runs
+every weight resident in VMEM, the latent projection `h = x Wl + bl`
+(`full_sampler.py:118`) included. The first Hopper design is a host loop
+over the T steps; each step launches the port's own kernels and nothing
+else:
 
-  1. the latent projection (torch.matmul, as the reference leaves it to XLA);
+  1. the `latent_proj` kernel (csrc/latent_proj.cu): h = bf16(x) Wl^T + bl,
+     written to both halves of the stage input when guided (the CFG copy),
+     and for a v2 model the global skip sigmoid(rw) (bf16(x) Wf^T + bf);
   2. the stage kernels (`fused_stage`), time adds read as one row of a
      precomputed (T, d) table, condition adds as precomputed (rows, d);
   3. the head kernel (`fused_head`);
-  4. the `reverse_step` kernel: CFG from the doubled batch, x0 clipping,
-     the posterior mean and the step noise, drawn in the kernel by
-     Philox4x32-10 + Box-Muller.
+  4. the `reverse_step` kernel: the skip added to eps, CFG from the doubled
+     batch, x0 clipping, the posterior mean and the step noise, drawn in
+     the kernel by Philox4x32-10 + Box-Muller.
 
 The time path (sinusoid -> time MLP -> per-stage projections) is computed
 once per sampler as (T, d) tables, and the condition path once per request,
@@ -22,9 +26,9 @@ projection biases, the v2 global skip is applied, LayerNorm eps is 1e-6.
 A single-launch design (a CUDA graph of the step, then a persistent kernel
 with the ~12.7 MB of bf16 weights L2-resident) is later performance work.
 
-`reverse_step` launches the kernel for CUDA tensors and runs its plain twin,
-`reverse_step_plain` (the same Philox stream in PyTorch integer ops), for
-CPU tensors.
+`reverse_step` and `bind_latent_proj` launch their kernels for CUDA tensors
+and run their plain twins, `reverse_step_plain` (the same Philox stream in
+PyTorch integer ops) and `latent_proj_plain`, for CPU tensors.
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ import torch
 
 from flowerdiff_torch.diffusion.schedule import DiffusionSchedule
 from flowerdiff_torch.kernels import _build
-from flowerdiff_torch.kernels.denoiser_apply import head_weights, stage_weights
+from flowerdiff_torch.kernels.denoiser_apply import _b, _w, head_weights, stage_weights
 from flowerdiff_torch.kernels.latent_stage import bind_head, bind_stage
 from flowerdiff_torch.models.latent_unet import ConditionalLatentDenoiser
 
@@ -99,12 +103,14 @@ def philox_normal(n: int, step: int, key: Tuple[int, int], device=None) -> torch
 def reverse_step_plain(eps, x, t: int, coefs: Tuple[float, float, float], *,
                        guidance_scale: Optional[float] = None,
                        clip_x0: Optional[float] = None, stochastic: bool = True,
-                       key: Tuple[int, int] = (0, 0)):
+                       key: Tuple[int, int] = (0, 0), skip=None):
     # Scalar coefficients in f32, as the kernel forms them; a Python float
     # holding an f32 value multiplies an f32 tensor in f32.
     a, ab, beta = (np.float32(v) for v in coefs)
     one = np.float32(1.0)
     sq1mab, sqab = np.sqrt(one - ab), np.sqrt(ab)
+    if skip is not None:
+        eps = eps + (torch.cat([skip, skip]) if guidance_scale is not None else skip)
     e = eps
     if guidance_scale is not None:
         e_c, e_u = eps[: x.shape[0]], eps[x.shape[0]:]
@@ -123,7 +129,7 @@ def reverse_step_plain(eps, x, t: int, coefs: Tuple[float, float, float], *,
 def _reverse_fn():
     fn = _build.load("reverse_step").fd_reverse_step_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float]
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float]
                        + [ctypes.c_int, ctypes.c_float] + [ctypes.c_float] * 3
                        + [ctypes.c_int] * 2 + [ctypes.c_uint] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -133,13 +139,15 @@ def _reverse_fn():
 def reverse_step(eps, x, t: int, coefs: Tuple[float, float, float], *,
                  guidance_scale: Optional[float] = None,
                  clip_x0: Optional[float] = None, stochastic: bool = True,
-                 key: Tuple[int, int] = (0, 0)):
+                 key: Tuple[int, int] = (0, 0), skip=None):
     """x_{t-1} from x_t (B, L) f32 and eps: (B, L) f32, or (2B, L) with the
     conditional rows first when guidance_scale is set. coefs: the schedule's
-    (alpha_t, alpha_bar_t, beta_t); key: the Philox key of the request."""
+    (alpha_t, alpha_bar_t, beta_t); key: the Philox key of the request;
+    skip: None or (B, L) f32, the v2 global skip, added to eps (to both
+    halves when guided) before the guidance."""
     if not x.is_cuda:
         return reverse_step_plain(eps, x, t, coefs, guidance_scale=guidance_scale,
-                                  clip_x0=clip_x0, stochastic=stochastic, key=key)
+                                  clip_x0=clip_x0, stochastic=stochastic, key=key, skip=skip)
     guided = guidance_scale is not None
     rows = x.shape[0] * (2 if guided else 1)
     if x.dtype != torch.float32 or eps.dtype != torch.float32:
@@ -148,12 +156,16 @@ def reverse_step(eps, x, t: int, coefs: Tuple[float, float, float], *,
         raise ValueError(f"eps has shape {tuple(eps.shape)}, expected {(rows, x.shape[1])}")
     if eps.device != x.device or not (x.is_contiguous() and eps.is_contiguous()):
         raise ValueError("eps and x must be contiguous and on one device")
+    if skip is not None and (skip.dtype != torch.float32 or skip.shape != x.shape
+                             or skip.device != x.device or not skip.is_contiguous()):
+        raise ValueError("skip must be a contiguous float32 tensor shaped and placed like x")
     out = torch.empty_like(x)
     a, ab, beta = coefs
     code = _reverse_fn()(
-        eps.data_ptr(), x.data_ptr(), out.data_ptr(), x.numel(), int(guided),
-        float(guidance_scale or 0.0), int(clip_x0 is not None), float(clip_x0 or 0.0),
-        float(a), float(ab), float(beta), int(t), int(stochastic),
+        eps.data_ptr(), None if skip is None else skip.data_ptr(), x.data_ptr(),
+        out.data_ptr(), x.numel(), int(guided), float(guidance_scale or 0.0),
+        int(clip_x0 is not None), float(clip_x0 or 0.0), float(a), float(ab), float(beta),
+        int(t), int(stochastic),
         key[0] & _M32, key[1] & _M32, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "reverse_step")
     reverse_step.launches += 1
@@ -164,21 +176,100 @@ reverse_step.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# The latent-projection kernel and its twin
+
+def latent_proj_plain(x, wl, bl, *, copies: int = 1, wf=None, bf=None, rw=None):
+    """(h, skip) of one step: h = bf16(x) Wl^T + bl, repeated `copies` times
+    along the rows (2 when guided: the CFG copy); skip = sigmoid(rw)
+    (bf16(x) Wf^T + bf) with Wf given (the v2 model), else None. x (B, L)
+    f32; Wl (H, L) and Wf (L, L) bf16; f32 sums, as the reference's `_mm`."""
+    xb = x.to(torch.bfloat16).float()
+    h = xb @ wl.float().t() + bl
+    if copies > 1:
+        h = h.repeat(copies, 1)
+    skip = None
+    if wf is not None:
+        skip = torch.sigmoid(rw.reshape(())) * (xb @ wf.float().t() + bf)
+    return h, skip
+
+
+def bind_latent_proj(wl, bl, wf=None, bf=None, rw=None):
+    """The `latent_proj` kernel with its weights fixed: returns run(x, copies)
+    -> (h, skip) as `latent_proj_plain` computes them (wf, bf and rw: the v2
+    skip, all given or none). Weights are checked once; for CPU weights
+    `run` is the plain twin. Each launch adds one to `latent_proj.launches`."""
+    if (wf is None) != (bf is None) or (wf is None) != (rw is None):
+        raise ValueError("wf, bf and rw go together (the v2 skip)")
+    if not wl.is_cuda:
+        def plain(x, copies=1):
+            return latent_proj_plain(x, wl, bl, copies=copies, wf=wf, bf=bf, rw=rw)
+        return plain
+    dev = wl.device
+    hid, lat = wl.shape
+    if lat % 8 or lat > 1024:
+        raise ValueError(f"latent width {lat}: the kernel takes multiples of 8 up to 1024")
+    want = [("wl", wl, (hid, lat), torch.bfloat16), ("bl", bl, (hid,), torch.float32)]
+    if wf is not None:
+        want += [("wf", wf, (lat, lat), torch.bfloat16), ("bf", bf, (lat,), torch.float32),
+                 ("rw", rw, (), torch.float32)]
+    for name, w, shape, dtype in want:
+        if (tuple(w.shape) != shape or w.dtype != dtype or w.device != dev
+                or not w.is_contiguous()):
+            raise ValueError(f"{name}: expected a contiguous {dtype} tensor of shape {shape} "
+                             f"on {dev}, got {w.dtype} {tuple(w.shape)} on {w.device}")
+    weights = (wl, bl, wf, bf, rw)
+    ptrs = [None if w is None else w.data_ptr() for w in weights]
+    fn = _build.load("latent_proj").fd_latent_proj_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+    def run(x, copies=1):
+        b = x.shape[0]
+        if (x.dtype != torch.float32 or tuple(x.shape) != (b, lat) or x.device != dev
+                or not x.is_contiguous()):
+            raise ValueError(f"x: expected a contiguous float32 (B, {lat}) tensor on {dev}")
+        h = torch.empty((copies * b, hid), dtype=torch.float32, device=dev)
+        skip = None if wf is None else torch.empty((b, lat), dtype=torch.float32, device=dev)
+        code = fn(x.data_ptr(), *ptrs, h.data_ptr(), None if skip is None else skip.data_ptr(),
+                  b, lat, hid, copies, torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(code, "latent_proj")
+        latent_proj.launches += 1
+        return h, skip
+
+    run.weights = weights  # the tensors behind `ptrs` live as long as run
+    return run
+
+
+def latent_proj(x, wl, bl, *, copies: int = 1, wf=None, bf=None, rw=None):
+    """A one-off `bind_latent_proj(wl, bl, wf, bf, rw)(x, copies)`."""
+    return bind_latent_proj(wl, bl, wf, bf, rw)(x, copies)
+
+
+latent_proj.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # The sampler
 
 @torch.no_grad()
 def prepare_fused_sampler(model: ConditionalLatentDenoiser,
                           sched: DiffusionSchedule) -> Dict:
-    """One-time prep on the model's device: the stage and head kernels bound
-    to their weights (bf16 (out, in), checked once), the (T, d) time-add
-    tables of every stage and of the head, and the schedule coefficients as
-    Python floats."""
+    """One-time prep on the model's device: the projection, stage and head
+    kernels bound to their weights (bf16 (out, in), checked once), the (T, d)
+    time-add tables of every stage and of the head, and the schedule
+    coefficients as Python floats."""
     model = model.eval()
     dev = model.latent_proj.weight.device
     n_steps = sched.n_steps
     t_base_all = model.time_emb(torch.arange(n_steps, device=dev))
+    skip = {}
+    if model.global_skip:
+        skip = dict(wf=_w(model.final), bf=_b(model.final),
+                    rw=model.residual_weight.detach().float().contiguous())
     return {
         "model": model,
+        "proj": bind_latent_proj(_w(model.latent_proj), _b(model.latent_proj), **skip),
         "stages": [bind_stage(**stage_weights(model, i)) for i in range(model.n_stages)],
         "head": bind_head(**head_weights(model)),
         "tadds": [model.stage("time_proj", i)(t_base_all).contiguous()
@@ -226,18 +317,13 @@ def fused_sample(prep: Dict, batch: int, cond: torch.Tensor,
                         device=generator.device if generator is not None else "cpu").tolist()
     guided = guidance_scale is not None
     stage_adds, final_add = _cond_adds(prep, cond, color, guided)
-    head = prep["head"]
-    wl, bl = model.latent_proj.weight, model.latent_proj.bias
+    proj, head = prep["proj"], prep["head"]
+    copies = 2 if guided else 1
     for t in range(prep["n_steps"] - 1, -1, -1):
-        h = torch.addmm(bl, x, wl.t())
-        if guided:
-            h = torch.cat([h, h])
+        h, skip = proj(x, copies)
         for i, stage in enumerate(prep["stages"]):
             h = stage(h, stage_adds[i], row_add=prep["tadds"][i][t])
         eps = head(h, row_add=prep["tadd_final"][t], rows_add=final_add)
-        if model.global_skip:
-            skip = torch.sigmoid(model.residual_weight) * model.final(x)
-            eps = eps + (torch.cat([skip, skip]) if guided else skip)
         x = reverse_step(eps, x, t, prep["coefs"][t], guidance_scale=guidance_scale,
-                         clip_x0=clip_x0, stochastic=stochastic, key=key)
+                         clip_x0=clip_x0, stochastic=stochastic, key=key, skip=skip)
     return x

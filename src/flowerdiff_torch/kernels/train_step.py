@@ -194,6 +194,8 @@ def _lib():
         lib.fd_gemm_launch.argtypes = ([vp, ll, ll, vp, ll, ll, vp, ci, ci, ci, vp, cf, ci,
                                         vp, vp, vp, cf, ci, vp])
         lib.fd_gemm_launch.restype = ci
+        lib.fd_splitk_plan.argtypes = [ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
+        lib.fd_splitk_plan.restype = ci
         lib.fd_ln_fwd_launch.argtypes = [vp] * 4 + [ci, vp, vp, vp, vp, ci, ci, cf, vp]
         lib.fd_ln_fwd_launch.restype = ci
         lib.fd_ln_bwd_launch.argtypes = [vp] * 7 + [ci] + [vp] * 5 + [ci, ci, vp]
@@ -343,6 +345,16 @@ def kernel_loss_and_grads(w_named: Dict[str, torch.Tensor], data: Dict,
 
 
 kernel_loss_and_grads.launches = 0
+
+
+def splitk_plan(k: int) -> Tuple[int, int]:
+    """(s, kc) of the bf16 lane's Y and dX products over K = k, as the
+    library plans them (`splitk_plan` in csrc/train_step.cuh): clusters of s
+    blocks, block r summing k in [r kc, r kc + kc) and finishing rows
+    [r 64 / s, (r + 1) 64 / s) of the 64-row output tile."""
+    s, kc = ctypes.c_int(), ctypes.c_int()
+    _build.check(_lib().fd_splitk_plan(k, ctypes.byref(s), ctypes.byref(kc)), "splitk plan")
+    return s.value, kc.value
 
 
 # The three forms of the product and the LayerNorm kernels, alone (tests).

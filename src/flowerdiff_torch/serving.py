@@ -8,9 +8,10 @@ full top-bucket chunks plus one ladder bucket for the tail, each padded with
 class 0 and sliced back on the host. Each chunk runs
 
     sample (1000 ancestral steps, CFG, x0 clip) -> denormalise -> decode
-    -> round(clip(img, 0, 1) * 255) as uint8
+    [-> round(clip(img, 0, 1) * 255) as uint8 with quantize_uint8=True]
 
-and the service returns (N, 64, 64, 3) uint8 images as numpy.
+and the service returns (N, 64, 64, 3) images as numpy: float32 by default,
+as the reference does, or uint8 when the service quantizes.
 
 Unlike the reference service, `guidance_scale` is a constructor argument
 and reaches the sampler. Chunk i of a request draws from a generator seeded
@@ -48,13 +49,18 @@ class SamplingService:
         latent_stats=None,
         clip_x0: Optional[float] = None,
         guidance_scale: Optional[float] = None,
+        quantize_uint8: bool = False,
         device=None,
     ):
         """model: the port's ConditionalLatentDenoiser; vae: the port's
         FlowerVAE (decode half). latent_stats: (mean, std) per-dim arrays
         when the model was trained on z-scored latents. clip_x0: the
-        x0-thresholding bound; guidance_scale: classifier-free guidance."""
+        x0-thresholding bound; guidance_scale: classifier-free guidance.
+        quantize_uint8: return uint8 images (rounded half to even on the
+        device, a quarter of the bytes to the host) instead of the decoder's
+        float32 output."""
         self.device = resolve_device(device)
+        self.quantize_uint8 = quantize_uint8
         self.buckets = tuple(sorted(buckets))
         if not self.buckets:
             raise ValueError("need at least one bucket size")
@@ -98,16 +104,17 @@ class SamplingService:
         return torch.Generator(device=self.device).manual_seed(int(state) >> 1)
 
     def _decode(self, latents: torch.Tensor) -> torch.Tensor:
-        return quantize_uint8(self.vae.decode(latents))
+        img = self.vae.decode(latents)
+        return quantize_uint8(img) if self.quantize_uint8 else img
 
     @torch.no_grad()
     def sample(self, classes, seed: int = 0, colors=None, decode: bool = True,
                x_init=None, stochastic: bool = True) -> np.ndarray:
         """One image (or latent, decode=False) per entry of `classes`
-        (and `colors` for v3). Returns (N, 64, 64, 3) uint8 images or
-        (N, latent) float32 latents. x_init (N, latent) and stochastic=False
-        fix the starting state and drop the step noise (for checks against a
-        reference)."""
+        (and `colors` for v3). Returns (N, 64, 64, 3) images (float32, or
+        uint8 with quantize_uint8) or (N, latent) float32 latents. x_init
+        (N, latent) and stochastic=False fix the starting state and drop the
+        step noise (for checks against a reference)."""
         classes = np.asarray(classes, np.int64).reshape(-1)
         if colors is not None:
             colors = np.asarray(colors, np.int64).reshape(-1)
@@ -137,8 +144,8 @@ class SamplingService:
 
     @torch.no_grad()
     def decode_latents(self, latents) -> np.ndarray:
-        """(N, latent) raw VAE latents -> (N, 64, 64, 3) uint8 images, in
-        bucket-sized chunks."""
+        """(N, latent) raw VAE latents -> (N, 64, 64, 3) images (float32,
+        or uint8 with quantize_uint8), in bucket-sized chunks."""
         latents = np.asarray(latents, np.float32)
         n = latents.shape[0]
         outs = []
@@ -152,7 +159,7 @@ class SamplingService:
 
     def sample_classes(self, class_ids: Sequence[int], n_per_class: int,
                        seed: int = 0, colors: Optional[Sequence[int]] = None) -> np.ndarray:
-        """Decoded (N, 64, 64, 3) uint8 images, one row block per class."""
+        """Decoded (N, 64, 64, 3) images, one row block per class."""
         classes = np.repeat(np.asarray(class_ids, np.int64), n_per_class)
         color_arr = (np.repeat(np.asarray(colors, np.int64), n_per_class)
                      if colors is not None else None)

@@ -1,0 +1,218 @@
+#!/usr/bin/env python3
+"""Time the train step's product of several source trees on one CUDA card, in
+turns, so that two versions are compared on the same card in one run.
+
+    python3 src/flowerdiff_torch/tools/gemm_ab.py [--rounds 2] TREE [TREE ...]
+
+Each TREE is a directory inside this checkout that holds src/flowerdiff_torch:
+"." for the working tree, or an earlier commit unpacked into the git-ignored
+build/ (`mkdir -p build/parent && git archive HEAD~1 src/flowerdiff_torch |
+tar -x -C build/parent`). Round r runs the trees in order, the next round in
+reverse order (A B B A for two trees and two rounds), each in a fresh process
+that builds its own kernel library.
+
+A process times the bf16 lane's product (`linear_forward`, `linear_dx` and
+`linear_dw` of kernels/train_step.py, through `fd_gemm_launch`) at every
+(form, M, N, K) of the flagship train step, hidden (256, 512, 1024, 512, 256),
+time embedding 256, latent 256, B = 64, with `cuda_ms`, the timer of
+chip_smoke.py (utils/timing.py of this checkout). Beside each shape it times
+`torch.matmul` on bf16 copies of the same operands in the same timer, the
+library yardstick (never on the port's path). Then the whole bf16 train step
+(`bind_train_step`, 119 launches) in the same timer, and an epoch of the
+epoch kernel (`make_mega_epoch_fn`, S = 15, bf16 lane and moments) between
+CUDA events around five epochs.
+
+Prints one line a (tree, round, shape), then the card's name and power limit
+and per tree the mean a shape, the sum over a step's 79 bf16 products (each
+shape times its count), the yardstick's sum, the step and the epoch.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+HIDDEN = (256, 512, 1024, 512, 256)
+TE = LATENT = 256
+BATCH = 64
+EPOCH_STEPS = 15
+_PORT = Path(__file__).resolve().parents[1]
+_ROOT = _PORT.parents[1]
+
+
+def step_products(hidden=HIDDEN, te=TE, latent=LATENT, batch=BATCH):
+    """{(form, M, N, K): count} of the bf16 products of one train step, in
+    the order csrc/train_step.cuh enqueues them: a Linear (in -> out) gives
+    fwd (B, out, in), dW (out, in, B) and, where its input needs a gradient,
+    dX (B, in, out). The `final` product and the v2 skip are f32."""
+    layers = [(te, 2 * te, False), (2 * te, te, True), (te, te, True), (te, te, True),
+              (latent, hidden[0], False)]
+    for i in range(len(hidden) - 1):
+        d, dn = hidden[i], hidden[i + 1]
+        layers += [(te, d, True), (d, d, True), (d, d, True), (d, d, True), (d, dn, True)]
+    layers += [(te, hidden[-1], True)] * 2
+    counts = {}
+    for k_in, n_out, needs_dx in layers:
+        shapes = [("fwd", batch, n_out, k_in), ("dw", n_out, k_in, batch)]
+        if needs_dx:
+            shapes.append(("dx", batch, k_in, n_out))
+        for s in shapes:
+            counts[s] = counts.get(s, 0) + 1
+    return counts
+
+
+def _cuda_ms():
+    """cuda_ms of this checkout, loaded by path: the tree timed may predate it."""
+    spec = importlib.util.spec_from_file_location("_fd_timing", _PORT / "utils" / "timing.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.cuda_ms
+
+
+def _emit(**rec):
+    print(json.dumps(rec), flush=True)
+
+
+def child(tree: Path) -> None:
+    sys.path.insert(0, str(tree / "src"))
+    import torch
+    from flowerdiff_torch.kernels import train_epoch as te
+    from flowerdiff_torch.kernels import train_step as ts
+    from flowerdiff_torch.train.latent_ddpm import (LatentDiffusionConfig,
+                                                    create_latent_diffusion_state)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda_ms = _cuda_ms()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    def bf(t):
+        return t.to(torch.bfloat16).float()
+
+    for (form, m, n, k), count in step_products().items():
+        if form == "fwd":  # Y (B, out) = X (B, in) W^T + b: M = B, N = out, K = in
+            x, w, b = r(m, k), r(n, k, scale=k ** -0.5), r(n)
+            fn = lambda: ts.linear_forward(x, w, b, exact=False)  # noqa: E731
+            ref = bf(x) @ bf(w).t() + b
+            x16, w16 = x.to(torch.bfloat16), w.to(torch.bfloat16)
+            lib = lambda: torch.matmul(x16, w16.t())  # noqa: E731
+            got = fn()
+        elif form == "dx":  # dX (B, in) = dY (B, out) W: M = B, N = in, K = out
+            dy, w = r(m, k), r(k, n, scale=n ** -0.5)
+            fn = lambda: ts.linear_dx(dy, w, exact=False)  # noqa: E731
+            ref = bf(bf(dy) @ bf(w))
+            dy16, w16 = dy.to(torch.bfloat16), w.to(torch.bfloat16)
+            lib = lambda: torch.matmul(dy16, w16)  # noqa: E731
+            got = fn()
+        else:  # dW (out, in) = dY^T X: M = out, N = in, K = B
+            dy, x = r(k, m), r(k, n)
+            fn = lambda: ts.linear_dw(dy, x, exact=False)  # noqa: E731
+            ref = bf(bf(dy).t() @ bf(x))
+            dy16, x16 = dy.to(torch.bfloat16), x.to(torch.bfloat16)
+            lib = lambda: torch.matmul(dy16.t(), x16)  # noqa: E731
+            got = fn()[0]
+        err = float((got - ref).abs().max()) / float(ref.abs().max())
+        same = bool(torch.equal(got, fn() if form != "dw" else fn()[0]))
+        _emit(kind="product", form=form, m=m, n=n, k=k, count=count, ms=cuda_ms(fn),
+              library_ms=cuda_ms(lib), rel_err=err, repeat_bit_equal=same)
+
+    flagship = dict(latent_dim=LATENT, hidden_dims=HIDDEN, time_emb_dim=TE, num_classes=102,
+                    shared_cond_proj=True, global_skip=False)
+    cfg = LatentDiffusionConfig(**flagship, dropout_rate=0.3, cond_dropout=0.1,
+                                steps_per_epoch=EPOCH_STEPS, ema_decay=0.999)
+    state, model, sched = create_latent_diffusion_state(4, cfg, "cuda")
+    named = dict(ts.weights_spec(model))
+    run = ts.bind_train_step(named, BATCH, dtype=torch.bfloat16)
+    z = r(BATCH, LATENT)
+    labels = torch.randint(0, 102, (BATCH,), generator=gen, device="cuda")
+    t, eps, keep, masks = ts.draw_step_inputs(model, 1000, 0.1, z, gen)
+    data = ts.step_data(sched, z, labels, t, eps, keep, ts.sinusoid_freqs(TE, "cuda"))
+    _emit(kind="step", ms=cuda_ms(lambda: run(data, masks), iters=20))
+
+    epoch_fn = te.make_mega_epoch_fn(model, cfg, EPOCH_STEPS, BATCH)
+    z_rows = r(EPOCH_STEPS, BATCH, LATENT)
+    rows_labels = torch.randint(0, 102, (EPOCH_STEPS, BATCH), generator=gen, device="cuda")
+    epoch_fn(state, sched, z_rows, rows_labels, 1)
+    runs = []
+    for _ in range(3):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        for e in range(5):
+            epoch_fn(state, sched, z_rows, rows_labels, 2 + e)
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) / 5)
+    _emit(kind="epoch", ms=min(runs), runs=runs)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("trees", nargs="+")
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    trees = [Path(t).resolve() for t in args.trees]
+    for tree in trees:
+        if tree != _ROOT and _ROOT not in tree.parents:
+            raise SystemExit(f"{tree} is not inside the checkout {_ROOT}")
+    if args.child:
+        child(trees[0])
+        return 0
+    results = {}
+    for rnd in range(args.rounds):
+        order = args.trees if rnd % 2 == 0 else list(reversed(args.trees))
+        for tree in order:
+            out = subprocess.run([sys.executable, __file__, "--child", tree],
+                                 capture_output=True, text=True, timeout=900)
+            if out.returncode:
+                print(out.stdout + out.stderr, file=sys.stderr)
+                raise SystemExit(f"tree {tree} failed (exit {out.returncode})")
+            for line in out.stdout.splitlines():
+                if not line.startswith("{"):
+                    continue
+                rec = json.loads(line)
+                if rec["kind"] == "product":
+                    key = (rec["form"], rec["m"], rec["n"], rec["k"])
+                    print(f"[gemm_ab] tree {tree} round {rnd} {rec['form']} M={rec['m']} "
+                          f"N={rec['n']} K={rec['k']} x{rec['count']}: ms {rec['ms']:.5f} "
+                          f"torch.matmul bf16 {rec['library_ms']:.5f} rel_err "
+                          f"{rec['rel_err']:.2e} repeat bit-equal {rec['repeat_bit_equal']}")
+                else:
+                    key = (rec["kind"],)
+                    print(f"[gemm_ab] tree {tree} round {rnd} {rec['kind']}: ms {rec['ms']:.4f}"
+                          + (f" runs {[round(v, 4) for v in rec['runs']]}" if "runs" in rec
+                             else ""))
+                results.setdefault(tree, {}).setdefault(key, []).append(rec)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(f"[gemm_ab] card: {smi}")
+    for tree, by_key in results.items():
+        total = lib_total = 0.0
+        n_products = 0
+        for key, recs in by_key.items():
+            ms = sum(x["ms"] for x in recs) / len(recs)
+            if key[0] in ("step", "epoch"):
+                print(f"[gemm_ab] tree {tree} {key[0]}: mean ms {ms:.4f} "
+                      f"{[round(x['ms'], 4) for x in recs]}")
+                continue
+            lib = sum(x["library_ms"] for x in recs) / len(recs)
+            count = recs[0]["count"]
+            total += count * ms
+            lib_total += count * lib
+            n_products += count
+            print(f"[gemm_ab] tree {tree} {key[0]} M={key[1]} N={key[2]} K={key[3]} "
+                  f"x{count}: mean ms {ms:.5f} {[round(x['ms'], 5) for x in recs]} "
+                  f"torch.matmul bf16 {lib:.5f}")
+        print(f"[gemm_ab] tree {tree}: sum over a step's {n_products} bf16 products "
+              f"{total:.4f} ms; torch.matmul bf16 yardstick sum {lib_total:.4f} ms")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,7 +7,13 @@ Widths are small multiples of 8; chip_smoke.py covers the flagship shapes.
 import pytest
 import torch
 
-from flowerdiff_torch.kernels.full_sampler import reverse_step, reverse_step_plain
+from flowerdiff_torch.kernels.full_sampler import (
+    bind_latent_proj,
+    latent_proj,
+    latent_proj_plain,
+    reverse_step,
+    reverse_step_plain,
+)
 from flowerdiff_torch.kernels import train_step as ts
 from flowerdiff_torch.kernels.latent_stage import (
     bind_head,
@@ -21,6 +27,13 @@ from flowerdiff_torch.kernels.latent_stage import (
 from flowerdiff_torch.utils.weights import denoiser_from_params, init_numpy_params
 
 pytestmark = pytest.mark.cuda
+
+# (s, kc) of the bf16 lane's split-K product over K: clusters of s blocks,
+# block r summing k in [r kc, r kc + kc). The library's plan
+# (`test_splitk_plan_at_the_flagship`); test_torch_port_faults.py models the
+# order of the sum with it on the CPU.
+SPLITK_PLAN = {1024: (8, 128), 512: (8, 64), 256: (4, 64), 1000: (8, 128), 200: (4, 64),
+               96: (2, 64), 64: (1, 64), 36: (1, 64)}
 
 
 @pytest.fixture
@@ -107,16 +120,55 @@ def test_head_kernel_matches_twin(gen):
         assert torch.equal(fused_head(*a, **kw), got)
 
 
+@pytest.mark.parametrize("with_skip", [False, True])
 @pytest.mark.parametrize("guided", [False, True])
-def test_reverse_step_kernel_matches_twin(gen, guided):
+def test_reverse_step_kernel_matches_twin(gen, guided, with_skip):
     b, lat = 5, 24
     x = _r(gen, b, lat)
     eps = _r(gen, 2 * b if guided else b, lat)
-    kw = dict(guidance_scale=4.0 if guided else None, clip_x0=1.5, key=(7, 8))
+    skip = _r(gen, b, lat) if with_skip else None
+    kw = dict(guidance_scale=4.0 if guided else None, clip_x0=1.5, key=(7, 8), skip=skip)
     for t in (0, 1, 400):
         got = reverse_step(eps, x, t, (0.99, 0.5, 0.01), **kw)
         ref = reverse_step_plain(eps, x, t, (0.99, 0.5, 0.01), **kw)
         assert float((got - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("with_skip", [False, True])
+@pytest.mark.parametrize("guided", [False, True])
+@pytest.mark.parametrize("rows", [16, 128])
+def test_latent_proj_kernel_matches_twin(gen, rows, guided, with_skip):
+    """The step's projection at the flagship's 256 x 256 and at both
+    buckets' stage rows (x has half the rows when guided), with and without
+    the v2 skip. Both sides multiply the same bf16 values exactly in f32 and
+    sum in another order: 1e-4 of the largest value (rounding x to bf16 or
+    not moves it by ~1e-3)."""
+    lat, hid = 256, 256
+    b = rows // 2 if guided else rows
+    bf = torch.bfloat16
+    x = _r(gen, b, lat)
+    wl, bl = _r(gen, hid, lat, scale=lat ** -0.5, dtype=bf), _r(gen, hid, scale=0.5)
+    skip_w = {}
+    if with_skip:
+        skip_w = dict(wf=_r(gen, lat, lat, scale=lat ** -0.5, dtype=bf), bf=_r(gen, lat, scale=0.5),
+                      rw=_r(gen, 1, scale=0.5).reshape(()))
+    copies = 2 if guided else 1
+    run = bind_latent_proj(wl, bl, **skip_w)
+    before = latent_proj.launches
+    h, skip = run(x, copies)
+    assert latent_proj.launches == before + 1
+    ref_h, ref_skip = latent_proj_plain(x, wl, bl, copies=copies, **skip_w)
+    assert h.shape == (rows, hid)
+    assert float((h - ref_h).abs().max()) <= 1e-4 * float(ref_h.abs().max())
+    if guided:
+        assert torch.equal(h[:b], h[b:])
+    if with_skip:
+        assert skip.shape == (b, lat)
+        assert float((skip - ref_skip).abs().max()) <= 1e-4 * float(ref_skip.abs().max())
+    else:
+        assert skip is None and ref_skip is None
+    again = latent_proj(x, wl, bl, copies=copies, **skip_w)
+    assert torch.equal(again[0], h)
 
 
 def test_wrappers_reject_bad_cuda_inputs(gen):
@@ -150,13 +202,17 @@ def _bf(x):
 
 
 @pytest.mark.parametrize("exact", [True, False])
-@pytest.mark.parametrize("rows,k,n", [(1, 32, 32), (13, 96, 40), (64, 256, 512), (67, 100, 36)])
+@pytest.mark.parametrize("rows,k,n", [(1, 32, 32), (13, 96, 40), (64, 256, 512), (67, 100, 36),
+                                      (64, 1024, 1024), (64, 1024, 512), (64, 1000, 36),
+                                      (64, 200, 1000)])
 def test_product_three_forms_match_f32_references(gen, exact, rows, k, n):
     """Y = X W^T + b, dX = dY W, dW = dY^T X with db = colsum(dY), at odd row
-    counts and ragged tiles. Exact lane: f32 sums in another order, rtol
-    1e-5 of the largest value. bf16 lane: the references round the same
-    operands to bf16, and the dX / dW outputs are rounded to bf16 after the
-    sum (one bf16 ulp = 2^-8 relative, plus the summation order)."""
+    counts and ragged tiles, the flagship's widest shapes, and K that is not
+    a multiple of the split or of the 64-deep tile (Y at K = 1000 or 200, dX
+    at K = 36 or 40). Exact lane: f32 sums in another order, rtol 1e-5 of
+    the largest value. bf16 lane: the references round the same operands to
+    bf16, and the dX / dW outputs are rounded to bf16 after the whole sum
+    (one bf16 ulp = 2^-8 relative, plus the summation order)."""
     x, w, b = _r(gen, rows, k), _r(gen, n, k, scale=k ** -0.5), _r(gen, n)
     dy, mul, res = _r(gen, rows, n), _r(gen, rows, n), _r(gen, rows, n)
     rnd = (lambda t: t) if exact else _bf
@@ -173,6 +229,28 @@ def test_product_three_forms_match_f32_references(gen, exact, rows, k, n):
     dw, db = ts.linear_dw(dy, x, exact=exact, scale=2.0)
     close(dw, rnd(rnd(dy).t() @ rnd(x)))
     close(db, 2.0 * dy.sum(dim=0))
+
+
+@pytest.mark.parametrize("rows,k,n", [(64, 1024, 1024), (64, 1024, 512), (64, 256, 512),
+                                      (64, 256, 256), (13, 96, 40)])
+def test_product_is_bit_equal_on_repeat(gen, rows, k, n):
+    """Each form twice on the same inputs gives the same bits: the bf16
+    lane's split-K partials are added in rank order, with no atomics."""
+    x, w, b = _r(gen, rows, k), _r(gen, n, k, scale=k ** -0.5), _r(gen, n)
+    dy, res = _r(gen, rows, n), _r(gen, rows, k)
+    for fn in (lambda: ts.linear_forward(x, w, b, exact=False, scale=2.0),
+               lambda: ts.linear_dx(dy, w, exact=False, res=res),
+               lambda: ts.linear_dw(dy, x, exact=False)[0]):
+        first = fn()
+        torch.cuda.synchronize()
+        assert torch.equal(first, fn())
+
+
+def test_splitk_plan_at_the_flagship(gen):
+    """K = 1024: clusters of 8 blocks of two tiles (N = 1024: 256 blocks);
+    K = 512: 8 of one; K = 256: 4 of one; K = 64 would be one block; and the
+    ragged K of `test_product_three_forms_match_f32_references`."""
+    assert {k: ts.splitk_plan(k) for k in SPLITK_PLAN} == SPLITK_PLAN
 
 
 @pytest.mark.parametrize("rows,d", [(5, 48), (64, 1024), (3, 1000)])
