@@ -9,9 +9,11 @@ Phases (any failure raises and the script exits nonzero without a result):
   2. hold each kernel against its plain PyTorch twin on the card, at the
      flagship shapes of the sampling path (B = 16 and 128 rows: the 8- and
      64-image buckets doubled for classifier-free guidance; the latent
-     projection guided and not, with and without the v2 skip), with
-     LayerNorm affines and biases large enough that a kernel leaving any one
-     out would fail, and time both;
+     projection guided and not, with and without the v2 skip; the head in
+     the sampler's table form on its column-tile kernel and with the t/c
+     products on the whole-row kernel), with LayerNorm affines and biases
+     large enough that a kernel leaving any one out would fail, and time
+     both, beside each kernel's library yardstick;
   3. check the reverse-step noise against the closed-form variance of the
      zero-eps recursion (B = 128, latent 256, T = 1000);
   4. hold the kernel sampler against the plain f32 model on a short
@@ -255,7 +257,7 @@ def phase_kernels(model, prep, gen):
           "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
           "bound_by": "bytes", "library_ms": None}
     hd_row = {"name": "fused_head", "route": "cuda",
-              "source": "src/flowerdiff_torch/kernels/csrc/latent_stage.cu",
+              "source": "src/flowerdiff_torch/kernels/csrc/latent_head.cu",
               "replaces": "src/flowerdiff/kernels/latent_stage.py:99",
               "max_abs_err": 0.0, "library_ms": None}
     rv_row = {"name": "reverse_step", "route": "cuda",
@@ -338,9 +340,13 @@ def phase_kernels(model, prep, gen):
         for name in ("g", "b", "bf"):
             dropped[name] = htwin(w_adds, None, None, **{name: (
                 torch.ones_like if name == "g" else torch.zeros_like)(head_w[name])})
+        # the table form runs the column-tile kernel, the form with
+        # products the whole-row kernel (fused_head.product_launches)
+        products = fused_head.product_launches
         err_a, tol_a, weak_a = held(f"head (table adds) B={rows}",
                                     run_adds(h, None, None, row, rows_add), ref,
                                     HEAD_TOL, dropped)
+        assert fused_head.product_launches == products, "table form ran the whole-row kernel"
         ref = htwin()
         dropped = {"t_base": htwin(tb=None), "c_base": htwin(cb=None),
                    "bt": htwin(bt=torch.zeros_like(head_w["bt"])),
@@ -348,15 +354,27 @@ def phase_kernels(model, prep, gen):
         err_f, tol_f, weak_f = held(f"head (t, c products) B={rows}",
                                     run_all(h, tb, cb, row, rows_add), ref,
                                     HEAD_TOL, dropped)
+        assert fused_head.product_launches == products + 1, "products not on the whole-row kernel"
         ms = cuda_ms(lambda: run_adds(h, None, None, row, rows_add))
         plain = cuda_ms(lambda: htwin(w_adds, None, None))
         eager = eager_ms(lambda: run_adds(h, None, None, row, rows_add))
+        ms_f = cuda_ms(lambda: run_all(h, tb, cb, row, rows_add))
+        # the yardstick, never on the path: no single PyTorch call computes
+        # the head, so two (LayerNorm, then the bf16 product) on bf16 copies
+        # of the summed rows; library_ms stays null in the kernels line
+        hb = (h + row + rows_add).to(torch.bfloat16)
+        gb, bb, bfb = (head_w[n].to(torch.bfloat16) for n in ("g", "b", "bf"))
+        two_calls = cuda_ms(lambda: torch.addmm(bfb, torch.nn.functional.layer_norm(
+            hb, (dl,), gb, bb, LN_EPS), head_w["wf"].t()))
         n_bytes = 4 * (2 * rows * dl + 3 * dl + lat + rows * lat) + 2 * dl * lat
         b_ms, b_by = bound_ms(n_bytes, 2 * rows * dl * lat, BF16_FLOP_PER_S)
         print(f"[kernels] fused_head {dl}->{lat} B={rows}: max_abs_err {err_a:.3e} "
               f"(tol {tol_a:.3e}; least move: {weak_a}), with t/c products {err_f:.3e} "
               f"(tol {tol_f:.3e}; least move: {weak_f}) ms {ms:.4f} plain_ms {plain:.4f} "
-              f"bound_ms {b_ms:.5f} ({b_by}) eager_ms {eager:.4f}")
+              f"bound_ms {b_ms:.5f} ({b_by}) eager_ms {eager:.4f}; with t/c products "
+              f"(whole-row kernel) ms {ms_f:.4f}")
+        print(f"[kernels] fused_head yardstick B={rows}: two calls, F.layer_norm then bf16 "
+              f"torch.addmm, on bf16 copies of the summed rows: ms {two_calls:.4f}")
         hd_row["max_abs_err"] = max(hd_row["max_abs_err"], err_a, err_f)
         if rows == ROWS:
             hd_row.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
@@ -534,19 +552,22 @@ def device_profile(fn):
 
 def counts():
     return {"fused_stage": fused_stage.launches, "fused_head": fused_head.launches,
+            "fused_head_products": fused_head.product_launches,
             "reverse_step": reverse_step.launches, "latent_proj": latent_proj.launches}
 
 
 def reset_counts():
     fused_stage.launches = fused_head.launches = reverse_step.launches = 0
-    latent_proj.launches = 0
+    fused_head.product_launches = latent_proj.launches = 0
 
 
 def sampler_counts(n_steps, calls=1):
     """The launches of `calls` sampler calls of n_steps steps: a step is one
-    projection, four stages, one head and one reverse step."""
+    projection, four stages, one head (the column-tile kernel: none of the
+    head's product form) and one reverse step."""
     stages = len(FLAGSHIP["hidden_dims"]) - 1
     return {"fused_stage": stages * n_steps * calls, "fused_head": n_steps * calls,
+            "fused_head_products": 0,
             "reverse_step": n_steps * calls, "latent_proj": n_steps * calls}
 
 

@@ -1,0 +1,201 @@
+// The denoiser head of the sampler's step, for sm_90a: column tiles.
+//
+// Replaces the Pallas kernel `_head_kernel` of
+// flowerdiff/kernels/latent_stage.py in the form the port's sampler step
+// launches (kernels/full_sampler.py): the time and condition projections are
+// folded into tables before the loop, so
+//
+//   out = bf16(LN(h + row_add + rows_add)) @ Wf^T + bf
+//
+// with h, rows_add (B, dl) f32, row_add (dl) f32, Wf (latent, dl) bf16 in
+// PyTorch's (out, in) layout. The form with the t_base / c_base products
+// (make_fast_denoiser) needs whole product rows before its LayerNorm and stays
+// on csrc/latent_stage.cu::head_kernel; `bind_head` picks the kernel by form.
+//
+// Bound on the card: at 128 rows and 256 -> 256 the launch moves ~0.4 MB
+// (h and rows_add in, out, 128 KB of Wf): ~0.16 us at 3.35 TB/s. What is
+// left is latency, and the design spreads it over the card: a block owns 16
+// rows and 16 output columns, so the grid is ceil(B / 16) x latent / 16 (8 x
+// 16 = 128 blocks at 128 rows; 32 columns a block, 64 blocks, ran 7% slower
+// on an H100). Each block computes the LayerNorm of its 16 rows itself (a
+// row is at most 512 wide; recomputing it in every column block costs less
+// than any exchange between blocks) and reads only its 16-row slice of Wf
+// (8 KB at dl = 256). The weight fragments do not depend
+// on the rows, so each lane issues its loads of them first, straight into
+// registers, then its row loads: every load of the block is in flight before
+// the first result is used. A warp holds two whole rows for the LayerNorm
+// (two-pass mean and centred square over warp shuffles) and writes them
+// rounded to bf16 into a shared operand; after one barrier the 8 warps split
+// K into 32-wide chunks (warp w: chunks w, w + 8), each two `mma.sync`
+// m16n8k16 steps a n8 tile, and their partial tiles are added in warp order
+// (no atomics: a repeat gives the same bits) before the bias and the store.
+#include "rows.cuh"
+
+namespace {
+
+using fd::kPad;
+using fd::kRows;
+using fd::kThreads;
+using fd::kWarps;
+constexpr int kCols = 16;           // output columns a block: two n8 tiles
+constexpr int kNTiles = kCols / 8;
+constexpr int kChunk = 32;          // k's of a chunk: two m16n8k16 steps
+constexpr int kMaxDl = 512;
+constexpr int kRowsPerWarp = kRows / kWarps;
+
+// V: float4s of a row a lane holds (dl <= 128 V); a warp's k chunks: V / 2.
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+head_cols_kernel(const float* __restrict__ h, const float* __restrict__ row_add,
+                 const float* __restrict__ rows_add, const float* __restrict__ g,
+                 const float* __restrict__ b, const __nv_bfloat16* __restrict__ wf,
+                 const float* __restrict__ bf, float* __restrict__ out, int B, int dl,
+                 int latent, float eps) {
+  constexpr int C = V / 2;
+  __shared__ __align__(16) __nv_bfloat16 Q[kRows * (kMaxDl + kPad)];
+  __shared__ __align__(16) float red[kWarps][kRows * kCols];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * kCols, row0 = blockIdx.y * kRows;
+  const int q = dl / 4, lda = dl + kPad;
+
+  // 1. the block's slice of Wf, as this lane's fragments of its k chunks
+  uint4 wq[C][kNTiles];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int k = (warp + kWarps * c) * kChunk + 8 * t;
+#pragma unroll
+    for (int i = 0; i < kNTiles; ++i) {
+      const int n = n0 + 8 * i + gq;
+      wq[c][i] = make_uint4(0u, 0u, 0u, 0u);
+      if (k < dl && n < latent)
+        wq[c][i] = __ldg(reinterpret_cast<const uint4*>(wf + (size_t)n * dl + k));
+    }
+  }
+  // 2. the warp's two rows (rows warp and warp + 8 of the tile), the adds and
+  // the LayerNorm affine: float4 c = lane + 32 j of each
+  float4 xr[kRowsPerWarp][V], ra[kRowsPerWarp][V], r1[V], gv[V], bv[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int c = lane + 32 * j;
+    const bool in = c < q;
+#pragma unroll
+    for (int s = 0; s < kRowsPerWarp; ++s) {
+      const int row = row0 + warp + kWarps * s;
+      const bool live = in && row < B;
+      xr[s][j] = live ? fd::ldg4(h + (size_t)row * dl + 4 * c) : make_float4(0.f, 0.f, 0.f, 0.f);
+      ra[s][j] = live && rows_add ? fd::ldg4(rows_add + (size_t)row * dl + 4 * c)
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    r1[j] = in && row_add ? fd::ldg4(row_add + 4 * c) : make_float4(0.f, 0.f, 0.f, 0.f);
+    gv[j] = in ? fd::ldg4(g + 4 * c) : make_float4(0.f, 0.f, 0.f, 0.f);
+    bv[j] = in ? fd::ldg4(b + 4 * c) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  // 3. LayerNorm of each row (biased variance, two passes), bf16 into Q
+#pragma unroll
+  for (int s = 0; s < kRowsPerWarp; ++s) {
+    const int r = warp + kWarps * s;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      if (lane + 32 * j < q) {
+        xr[s][j] = fd::add4(fd::add4(xr[s][j], r1[j]), ra[s][j]);
+        sum += (xr[s][j].x + xr[s][j].y) + (xr[s][j].z + xr[s][j].w);
+      }
+    }
+    const float mean = fd::warp_sum(sum) / dl;
+    float var = 0.f;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      if (lane + 32 * j < q) {
+        const float d0 = xr[s][j].x - mean, d1 = xr[s][j].y - mean, d2 = xr[s][j].z - mean,
+                    d3 = xr[s][j].w - mean;
+        var += (d0 * d0 + d1 * d1) + (d2 * d2 + d3 * d3);
+      }
+    }
+    const float rstd = rsqrtf(fd::warp_sum(var) / dl + eps);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int c = lane + 32 * j;
+      if (c < q) {
+        const float4 v = xr[s][j];
+        __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(Q + r * lda + 4 * c);
+        d[0] = __floats2bfloat162_rn((v.x - mean) * rstd * gv[j].x + bv[j].x,
+                                     (v.y - mean) * rstd * gv[j].y + bv[j].y);
+        d[1] = __floats2bfloat162_rn((v.z - mean) * rstd * gv[j].z + bv[j].z,
+                                     (v.w - mean) * rstd * gv[j].w + bv[j].w);
+      }
+    }
+  }
+  __syncthreads();
+
+  // 4. the warp's k chunks of the 16 x kCols product (fragments as fd::gemm_tc)
+  float acc[kNTiles][4];
+#pragma unroll
+  for (int i = 0; i < kNTiles; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int k = (warp + kWarps * c) * kChunk;
+    if (k >= dl) break;
+    const uint4 alo = fd::lds128(Q + gq * lda + k + 8 * t);
+    const uint4 ahi = fd::lds128(Q + (gq + 8) * lda + k + 8 * t);
+#pragma unroll
+    for (int i = 0; i < kNTiles; ++i) {
+      fd::mma_bf16(acc[i], alo.x, ahi.x, alo.y, ahi.y, wq[c][i].x, wq[c][i].y);
+      fd::mma_bf16(acc[i], alo.z, ahi.z, alo.w, ahi.w, wq[c][i].z, wq[c][i].w);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kNTiles; ++i) {
+    const int n = 8 * i + 2 * t;
+    *reinterpret_cast<float2*>(&red[warp][gq * kCols + n]) = make_float2(acc[i][0], acc[i][1]);
+    *reinterpret_cast<float2*>(&red[warp][(gq + 8) * kCols + n]) =
+        make_float2(acc[i][2], acc[i][3]);
+  }
+  __syncthreads();
+
+  // 5. the partials in warp order, the bias, the store
+  for (int e = tid; e < kRows * kCols; e += kThreads) {
+    const int r = e / kCols, col = n0 + e % kCols, row = row0 + r;
+    if (row >= B || col >= latent) continue;
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) v += red[w][e];
+    out[(size_t)row * latent + col] = v + bf[col];
+  }
+}
+
+// The launch floor of the same grid: no loads, no work.
+__global__ void __launch_bounds__(kThreads) empty_kernel() {}
+
+dim3 head_grid(int B, int latent) {
+  return dim3((latent + kCols - 1) / kCols, (B + kRows - 1) / kRows);
+}
+
+}  // namespace
+
+// h (B, dl), rows_add (B, dl) and row_add (dl) f32, either add may be null;
+// g, b (dl), bf (latent) f32; wf (latent, dl) bf16 -> out (B, latent) f32.
+// dl: a multiple of 32, at most 512; latent: a multiple of 8.
+extern "C" int fd_head_cols_launch(const void* h, const void* row_add, const void* rows_add,
+                                   const void* g, const void* b, const void* wf,
+                                   const void* bf, void* out, int B, int dl, int latent,
+                                   float eps, void* stream) {
+  if (B < 1 || dl < kChunk || dl % kChunk || dl > kMaxDl || latent < 8 || latent % 8)
+    return (int)cudaErrorInvalidValue;
+  decltype(&head_cols_kernel<2>) kernel = dl <= 256 ? &head_cols_kernel<2>
+                                                    : &head_cols_kernel<4>;
+  kernel<<<head_grid(B, latent), kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)h, (const float*)row_add, (const float*)rows_add, (const float*)g,
+      (const float*)b, (const __nv_bfloat16*)wf, (const float*)bf, (float*)out, B, dl, latent,
+      eps);
+  return (int)cudaGetLastError();
+}
+
+// An empty kernel on the grid and block of fd_head_cols_launch (measurement
+// only: the floor of the launch in any timer).
+extern "C" int fd_head_cols_empty_launch(int B, int latent, void* stream) {
+  empty_kernel<<<head_grid(B, latent), kThreads, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}

@@ -52,8 +52,10 @@
 // loops stay rolled and the product is one function called from four places.
 // No atomics: split-K partial sums and statistics are added in a fixed order.
 //
-// Head design: one block owns 16 whole rows and all columns (the head's
-// products are at most 512 wide).
+// Head design (the form with the t_base / c_base products, which are added
+// to whole rows before the LayerNorm): one block owns 16 whole rows and all
+// columns (the head's products are at most 512 wide). The sampler's form,
+// with its adds from tables, runs on csrc/latent_head.cu's column tiles.
 #include <cooperative_groups.h>
 
 #include "rows.cuh"

@@ -1,7 +1,8 @@
 """Fused latent-denoiser stage and head: CUDA kernels with plain twins.
 
 Replaces the Pallas kernels `_stage_kernel` and `_head_kernel` of
-flowerdiff/kernels/latent_stage.py (csrc/latent_stage.cu). One stage at
+flowerdiff/kernels/latent_stage.py (csrc/latent_stage.cu, and for the
+sampler's form of the head csrc/latent_head.cu). One stage at
 inference, where attention over one key is out(v(x)):
 
     h   = h + row_add + tc
@@ -22,10 +23,15 @@ blocks exchange LayerNorm statistics and operand slices through distributed
 shared memory. Where the card cannot run the wide stage's clusters of 16
 for all the row tiles at once (`stage_max_clusters`), the stage runs on the
 whole-row kernel instead: clusters of 8 in which every block holds the 16
-whole rows and reads its weight columns from global memory. The head gives
-each block 16 whole rows. `stage_plan` makes a stage launch's plan (cluster
-size, ring slots, chunk depth, shared memory) on the host: `bind_stage`
-makes the one or two it can need once.
+whole rows and reads its weight columns from global memory. The head has
+two kernels, chosen by form at each call: with no t_base or c_base (the
+sampler's step, whose time and condition adds come from tables) a block
+owns 16 rows and 16 output columns and computes its rows' LayerNorm itself
+(csrc/latent_head.cu); with either product, which must be added to whole
+rows before the LayerNorm, a block owns 16 whole rows and all the columns
+(csrc/latent_stage.cu::head_kernel). `stage_plan` makes a stage launch's
+plan (cluster size, ring slots, chunk depth, shared memory) on the host:
+`bind_stage` makes the one or two it can need once.
 
 `bind_stage` also packs the stage's four weights once into the kernel's
 layout (`pack_stage_weight`: whole-row pieces cut into k-chunks with padded
@@ -35,7 +41,8 @@ rows), so that each chunk the kernel streams is one bulk copy a piece.
 the per-call launcher; for CPU weights they return the plain twin
 (`fused_stage_plain` / `fused_head_plain`, same arithmetic in PyTorch ops).
 `fused_stage` / `fused_head` are one-off calls through them. Each kernel
-launch adds one to `fused_stage.launches` / `fused_head.launches`.
+launch adds one to `fused_stage.launches` / `fused_head.launches`; a launch
+of the head's product form also adds one to `fused_head.product_launches`.
 """
 from __future__ import annotations
 
@@ -241,9 +248,8 @@ def stage_max_clusters(cluster: int, smem: int) -> int:
     return count.value
 
 
-def _fn(symbol: str, n_ptr: int, n_int: int):
-    lib = _build.load("latent_stage")
-    fn = getattr(lib, symbol)
+def _fn(symbol: str, n_ptr: int, n_int: int, lib: str = "latent_stage"):
+    fn = getattr(_build.load(lib), symbol)
     if fn.argtypes is None:  # first use: declare the C signature
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + [ctypes.c_float, ctypes.c_void_p])
@@ -326,7 +332,10 @@ def bind_head(wt, bt, wc, bc, g, b, wf, bf, *, eps: float = LN_EPS):
     """`fused_head` with its weights fixed: returns run(h, t_base=None,
     c_base=None, row_add=None, rows_add=None); wt/bt and wc/bc may be None
     when the calls pass no t_base or c_base. Weights are checked once, as in
-    `bind_stage`. For CPU weights `run` is the plain twin."""
+    `bind_stage`. A call with neither base runs the column-tile kernel
+    (csrc/latent_head.cu), a call with either the whole-row kernel
+    (csrc/latent_stage.cu::head_kernel). For CPU weights `run` is the plain
+    twin."""
     if not wf.is_cuda:
         def plain(h, t_base=None, c_base=None, row_add=None, rows_add=None):
             return fused_head_plain(h, t_base, c_base, wt, bt, wc, bc, g, b, wf, bf,
@@ -339,7 +348,9 @@ def bind_head(wt, bt, wc, bc, g, b, wf, bf, *, eps: float = LN_EPS):
     _check_width("d_emb", de, 32)
     _check_width("latent", latent)
     for name, n in (("d_last", dl), ("d_emb", de), ("latent", latent)):
-        _check_max(name, n, 512)  # one block computes all columns
+        # the whole-row kernel: one block all columns; the column kernel: a
+        # warp holds two rows of d_last in registers
+        _check_max(name, n, 512)
     for w, bias, tag in ((wt, bt, "t"), (wc, bc, "c")):
         if w is not None:
             _check(f"w{tag}", w, (dl, de), _BF16, dev)
@@ -350,7 +361,8 @@ def bind_head(wt, bt, wc, bc, g, b, wf, bf, *, eps: float = LN_EPS):
     _check("bf", bf, (latent,), _F32, dev)
     weights = (wt, bt, wc, bc, g, b, wf, bf)
     ptrs = [_ptr(w) for w in weights]
-    fn = _fn("fd_head_launch", 14, 4)
+    fn_rows = _fn("fd_head_launch", 14, 4)
+    fn_cols = _fn("fd_head_cols_launch", 8, 3, lib="latent_head")
 
     def run(h, t_base=None, c_base=None, row_add=None, rows_add=None):
         bsz = h.shape[0]
@@ -363,12 +375,18 @@ def bind_head(wt, bt, wc, bc, g, b, wf, bf, *, eps: float = LN_EPS):
             _check(f"{tag}_base", base, (bsz, de), _F32, dev)
         use_t, use_c = t_base is not None, c_base is not None
         out = torch.empty((bsz, latent), dtype=_F32, device=dev)
-        code = fn(h.data_ptr(), _ptr(row_add), _ptr(rows_add),
-                  _ptr(t_base), ptrs[0] if use_t else None, ptrs[1] if use_t else None,
-                  _ptr(c_base), ptrs[2] if use_c else None, ptrs[3] if use_c else None,
-                  *ptrs[4:], out.data_ptr(), bsz, dl, de, latent, float(eps),
-                  _stream(dev))
-        _build.check(code, "fused_head")
+        if use_t or use_c:
+            code = fn_rows(h.data_ptr(), _ptr(row_add), _ptr(rows_add),
+                           _ptr(t_base), ptrs[0] if use_t else None, ptrs[1] if use_t else None,
+                           _ptr(c_base), ptrs[2] if use_c else None, ptrs[3] if use_c else None,
+                           *ptrs[4:], out.data_ptr(), bsz, dl, de, latent, float(eps),
+                           _stream(dev))
+            _build.check(code, "fused_head (products)")
+            fused_head.product_launches += 1
+        else:
+            code = fn_cols(h.data_ptr(), _ptr(row_add), _ptr(rows_add), *ptrs[4:],
+                           out.data_ptr(), bsz, dl, latent, float(eps), _stream(dev))
+            _build.check(code, "fused_head")
         fused_head.launches += 1
         return out
 
@@ -390,3 +408,4 @@ def fused_head(h, t_base, c_base, wt, bt, wc, bc, g, b, wf, bf,
 
 
 fused_head.launches = 0
+fused_head.product_launches = 0

@@ -102,18 +102,27 @@ def test_stage_plan_follows_the_cards_occupancy(gen):
     assert run.plan_for(16 * wave + 1).slots == 0
 
 
-def test_head_kernel_matches_twin(gen):
-    b, dl, de, lat = 9, 64, 32, 128
+@pytest.mark.parametrize("b,dl,de,lat", [(9, 64, 32, 128), (128, 256, 256, 256)])
+def test_head_kernel_matches_twin(gen, b, dl, de, lat):
+    """Every form of the head: with both base products, one of them, or
+    none (the sampler's table form), with and without the adds. A call with
+    either product runs the whole-row kernel and counts in
+    fused_head.product_launches; a call with neither runs the column-tile
+    kernel; both count in fused_head.launches."""
     w = dict(scale=0.1, dtype=torch.bfloat16)
     args = (_r(gen, b, dl), _r(gen, b, de), _r(gen, b, de), _r(gen, dl, de, **w),
             _r(gen, dl), _r(gen, dl, de, **w), _r(gen, dl), 1 + _r(gen, dl, scale=0.1),
             _r(gen, dl), _r(gen, lat, dl, **w), _r(gen, lat))
     no_products = args[:1] + (None,) * 6 + args[7:]
+    t_only = args[:2] + (None,) + args[3:5] + (None, None) + args[7:]
+    c_only = args[:1] + (None,) + args[2:3] + (None, None) + args[5:]
     adds = dict(row_add=_r(gen, dl), rows_add=_r(gen, b, dl))
-    for a, kw in ((args, {}), (args, adds), (no_products, adds)):
-        before = fused_head.launches
+    for a, kw, product in ((args, {}, 1), (args, adds, 1), (t_only, adds, 1),
+                           (c_only, adds, 1), (no_products, adds, 0)):
+        before, products = fused_head.launches, fused_head.product_launches
         got = bind_head(*a[3:])(a[0], a[1], a[2], **kw)
         assert fused_head.launches == before + 1
+        assert fused_head.product_launches == products + product
         ref = fused_head_plain(*a, **kw)
         assert got.shape == (b, lat)
         assert float((got - ref).abs().max()) <= 2e-2 * float(ref.abs().max())
@@ -171,6 +180,84 @@ def test_latent_proj_kernel_matches_twin(gen, rows, guided, with_skip):
     assert torch.equal(again[0], h)
 
 
+# The sampler's step at both buckets and at the batch sizes between: B
+# latents give 2B stage rows under guidance (2, 6, 16 and 128), ragged row
+# tiles of 16 included.
+STEP_BATCHES = [1, 3, 8, 64]
+
+
+def _proj_case(gen, b, lat, hid, with_skip):
+    bf = torch.bfloat16
+    x = _r(gen, b, lat)
+    wl, bl = _r(gen, hid, lat, scale=lat ** -0.5, dtype=bf), _r(gen, hid, scale=0.5)
+    skip_w = {}
+    if with_skip:
+        skip_w = dict(wf=_r(gen, lat, lat, scale=lat ** -0.5, dtype=bf),
+                      bf=_r(gen, lat, scale=0.5), rw=_r(gen, 1, scale=0.5).reshape(()))
+    return x, wl, bl, skip_w
+
+
+@pytest.mark.parametrize("with_skip", [False, True])
+@pytest.mark.parametrize("guided", [False, True])
+@pytest.mark.parametrize("b,lat,hid", [(b, 256, 256) for b in STEP_BATCHES]
+                         + [(3, 24, 40), (5, 200, 100), (64, 520, 256), (8, 1024, 72)])
+def test_latent_proj_tiles_match_twin_and_repeat(gen, b, lat, hid, guided, with_skip):
+    """The projection's 16 x 16 tiles at every batch of the step (ragged row
+    tiles), and at widths with ragged column tiles (H not a multiple of 16),
+    ragged k chunks (L not a multiple of 32) and two or four k chunks a warp
+    (L above 256 or 512); limits as test_latent_proj_kernel_matches_twin.
+    The same call twice gives the same bits."""
+    x, wl, bl, skip_w = _proj_case(gen, b, lat, hid, with_skip)
+    copies = 2 if guided else 1
+    run = bind_latent_proj(wl, bl, **skip_w)
+    h, skip = run(x, copies)
+    ref_h, ref_skip = latent_proj_plain(x, wl, bl, copies=copies, **skip_w)
+    assert h.shape == (copies * b, hid)
+    assert float((h - ref_h).abs().max()) <= 1e-4 * float(ref_h.abs().max())
+    if guided:
+        assert torch.equal(h[:b], h[b:])
+    if with_skip:
+        assert float((skip - ref_skip).abs().max()) <= 1e-4 * float(ref_skip.abs().max())
+    h2, skip2 = run(x, copies)
+    assert torch.equal(h2, h) and (skip is None or torch.equal(skip2, skip))
+
+
+def _head_case(gen, rows, dl, lat, de=32):
+    w = dict(scale=dl ** -0.5, dtype=torch.bfloat16)
+    weights = dict(wt=_r(gen, dl, de, **w), bt=_r(gen, dl, scale=0.5),
+                   wc=_r(gen, dl, de, **w), bc=_r(gen, dl, scale=0.5),
+                   g=1 + _r(gen, dl, scale=0.2), b=_r(gen, dl, scale=0.5),
+                   wf=_r(gen, lat, dl, **w), bf=_r(gen, lat, scale=0.5))
+    return _r(gen, rows, dl), _r(gen, dl), _r(gen, rows, dl, scale=0.5), weights
+
+
+@pytest.mark.parametrize("guided", [False, True])
+@pytest.mark.parametrize("b,dl,lat", [(b, 256, 256) for b in STEP_BATCHES]
+                         + [(3, 96, 40), (8, 512, 264), (64, 32, 8)])
+def test_head_table_form_tiles_match_twin_and_repeat(gen, b, dl, lat, guided):
+    """The sampler's head (no base products; time row and condition rows as
+    adds) on the column-tile kernel: 16 rows x 16 columns a block, at every
+    batch of the step and at widths with a ragged column tile (latent not a
+    multiple of 16) and two k chunks a warp (d_last 512). The limit of the
+    head's card tests, 2e-2 of max|twin|: the LayerNorm output is rounded to
+    bf16 on both sides, and a value at a rounding boundary can land one ulp
+    away. Each add left out moves the twin past it; a repeat is bit-equal."""
+    rows = 2 * b if guided else b
+    h, row_add, rows_add, w = _head_case(gen, rows, dl, lat)
+    run = bind_head(**w)
+    before, products = fused_head.launches, fused_head.product_launches
+    got = run(h, row_add=row_add, rows_add=rows_add)
+    assert fused_head.launches == before + 1 and fused_head.product_launches == products
+    ref = fused_head_plain(h, None, None, **w, row_add=row_add, rows_add=rows_add)
+    assert got.shape == (rows, lat)
+    tol = 2e-2 * float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= tol
+    for drop in (dict(row_add=row_add), dict(rows_add=rows_add)):
+        moved = fused_head_plain(h, None, None, **w, **drop)
+        assert float((moved - ref).abs().max()) > 2 * tol
+    assert torch.equal(run(h, row_add=row_add, rows_add=rows_add), got)
+
+
 def test_wrappers_reject_bad_cuda_inputs(gen):
     d, bf = 64, torch.bfloat16
     vec = _r(gen, d)
@@ -192,6 +279,15 @@ def test_wrappers_reject_bad_cuda_inputs(gen):
         reverse_step(_r(gen, 4, d), h, 3, (0.9, 0.5, 0.1), guidance_scale=2.0)
     with pytest.raises(ValueError):
         reverse_step(_r(gen, d, 4).t(), h, 3, (0.9, 0.5, 0.1))
+    # the projection's widths: L a multiple of 8, at most 1024
+    for lat in (12, 1032):
+        with pytest.raises(ValueError, match="latent width"):
+            bind_latent_proj(_r(gen, 16, lat, dtype=bf), _r(gen, 16))
+    # the head's: d_last a multiple of 32 and at most 512, latent a multiple of 8
+    for dl, lat in ((48, 64), (544, 64), (64, 12)):
+        hw = _head_case(gen, 4, dl, lat)[3]
+        with pytest.raises(ValueError, match="width"):
+            bind_head(**{**hw, "wt": None, "bt": None, "wc": None, "bc": None})
 
 
 # ---------------------------------------------------------------------------
