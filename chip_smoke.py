@@ -18,13 +18,20 @@ Phases (any failure raises and the script exits nonzero without a result):
      zero-eps recursion (B = 128, latent 256, T = 1000);
   4. hold the kernel sampler against the plain f32 model on a short
      schedule at flagship width, at both buckets (no step noise, fixed x_init);
-  5. profile 50 guided sampler steps (torch.profiler): wall against device
-     time a step, and the kernels that take it;
+  5. profile one guided 50-step sampler call at the 64 bucket as a CUDA-graph
+     replay and one through the host loop (`fused_sample`, torch.profiler):
+     wall against device time a step, idle share, and the kernels that take
+     it;
   6. run SamplingService at flagship width (seeded weights, z-score stats,
-     CFG 7.0, x0 clip 3.0, 1000 steps, buckets 8 and 64, uint8 images) on
-     three requests, with the kernel launch counts read around them (a step:
-     one projection, four stages, one head, one reverse step), then time the
-     decode of one 64 bucket;
+     CFG 7.0, x0 clip 3.0, 1000 steps, buckets 8 and 64, uint8 images):
+     `warmup` captures each bucket's graph (capture time and pool bytes
+     printed); each bucket's full 1000-step stochastic result must equal the
+     host loop's bit for bit from the same seed; three requests, with the
+     kernel launch counts read around them (a step: one projection, four
+     stages, one head, one reverse step; a replay adds what its graph
+     captured) and checked against one profiled replay's kernel rows by
+     name; one replayed bucket call timed at each bucket beside its bound;
+     then the decode of one 64 bucket;
   7. hold the train-step kernel (forward + backward of the latent-DDPM
      objective) against torch autograd on its plain twin at flagship width,
      B = 64, with dropout masks, a condition mask with zeros and perturbed
@@ -53,6 +60,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -80,6 +88,10 @@ from flowerdiff_torch.kernels.denoiser_apply import (  # noqa: E402
 )
 from flowerdiff_torch.kernels.full_sampler import (  # noqa: E402
     bind_latent_proj,
+    draw_request,
+    fused_sample,
+    key_tensor,
+    launch_counts,
     latent_proj,
     latent_proj_plain,
     prepare_fused_sampler,
@@ -383,13 +395,17 @@ def phase_kernels(model, prep, gen):
         eps = torch.randn((rows, lat), generator=gen, device=dev)
         x = torch.randn((b, lat), generator=gen, device=dev)
         kw = dict(guidance_scale=GUIDANCE, clip_x0=CLIP, stochastic=True, key=(12345, 678))
+        # the key as the sampler passes it: two words in device memory
+        dev_kw = dict(kw, key=key_tensor(kw["key"], dev))
         coefs = prep["coefs"][t]
-        err = max_err(reverse_step(eps, x, t, coefs, **kw),
-                      reverse_step_plain(eps, x, t, coefs, **kw))
+        got = reverse_step(eps, x, t, coefs, **kw)
+        err = max_err(got, reverse_step_plain(eps, x, t, coefs, **kw))
         assert err <= NOISE_TOL, f"reverse_step B={b}: err {err} > {NOISE_TOL}"
-        ms = cuda_ms(lambda: reverse_step(eps, x, t, coefs, **kw))
+        assert torch.equal(reverse_step(eps, x, t, coefs, **dev_kw), got), (
+            f"reverse_step B={b}: the key in device memory draws other noise than the ints")
+        ms = cuda_ms(lambda: reverse_step(eps, x, t, coefs, **dev_kw))
         plain = cuda_ms(lambda: reverse_step_plain(eps, x, t, coefs, **kw))
-        eager = eager_ms(lambda: reverse_step(eps, x, t, coefs, **kw))
+        eager = eager_ms(lambda: reverse_step(eps, x, t, coefs, **dev_kw))
         b_ms, b_by = bound_ms(4 * (rows * lat + 2 * b * lat), 60 * b * lat, F32_FLOP_PER_S)
         print(f"[kernels] reverse_step B={b} (eps {rows} rows): max_abs_err {err:.3e} "
               f"(tol {NOISE_TOL:.0e}) ms {ms:.4f} plain_ms {plain:.4f} "
@@ -468,8 +484,9 @@ def phase_noise(sched):
     x = torch.zeros((ROWS, lat), device=dev)
     eps = torch.zeros_like(x)
     coefs = list(zip(sched.alpha.tolist(), sched.alpha_bar.tolist(), sched.beta.tolist()))
+    key = key_tensor((2024, 7), dev)
     for t in range(sched.n_steps - 1, -1, -1):
-        x = reverse_step(eps, x, t, coefs[t], stochastic=True, key=(2024, 7))
+        x = reverse_step(eps, x, t, coefs[t], stochastic=True, key=key)
     v = 0.0
     for t in range(sched.n_steps - 1, 0, -1):
         v = v / float(sched.alpha[t]) + float(sched.beta[t])
@@ -505,30 +522,38 @@ def phase_short_parity(model, gen):
 
 def phase_profile(model):
     """Host vs device time of the kernel sampler: one guided 50-step call at
-    the 64 bucket under torch.profiler (CUPTI). Its wall time and device
-    busy time come from that one call; a bare call's wall time is printed
-    beside it, to show what the profiler adds."""
+    the 64 bucket as a replay of its CUDA graph, and one through the host
+    loop (`fused_sample`, the parent's path), each under torch.profiler
+    (CUPTI). Each call's wall time and device busy time come from that one
+    call; a bare call's wall time is printed beside it, to show what the
+    profiler adds."""
     sched = linear_schedule(50)
     sampler = FusedDiffusionSampler(model, sched, (FLAGSHIP["latent_dim"],), clip_x0=CLIP,
                                     guidance_scale=GUIDANCE, device="cuda")
     cls = torch.arange(ROWS // 2, device="cuda") % FLAGSHIP["num_classes"]
-    sampler.sample(ROWS // 2, cls)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sampler.sample(ROWS // 2, cls)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    wall_prof, kernels = device_profile(lambda: sampler.sample(ROWS // 2, cls))
-    busy_us = sum(e.self_device_time_total for e in kernels)
     steps = sched.n_steps
-    print(f"[profile] 50 guided steps at bucket 64, one profiled call: wall "
-          f"{wall_prof * 1e3:.2f} ms ({wall_prof * 1e6 / steps:.1f} us a step); device "
-          f"busy {busy_us / 1e3:.2f} ms ({busy_us / steps:.1f} us a step), idle share "
-          f"{1 - busy_us / 1e6 / wall_prof:.3f}; the same call bare: wall "
-          f"{wall * 1e3:.2f} ms ({wall * 1e6 / steps:.1f} us a step)")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"[profile]   {e.self_device_time_total / steps:8.2f} us/step "
-              f"x{e.count // steps:<3d} {e.key[:90]}")
+    calls = {
+        "graph replay": lambda: sampler.sample(ROWS // 2, cls),
+        "host loop": lambda: fused_sample(sampler._prep, ROWS // 2, cls, clip_x0=CLIP,
+                                          guidance_scale=GUIDANCE),
+    }
+    for name, fn in calls.items():
+        fn()  # the replay's first call captures its graph
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        wall_prof, kernels = device_profile(fn)
+        busy_us = sum(e.self_device_time_total for e in kernels)
+        print(f"[profile] {name}: 50 guided steps at bucket 64, one profiled call: wall "
+              f"{wall_prof * 1e3:.2f} ms ({wall_prof * 1e6 / steps:.1f} us a step); device "
+              f"busy {busy_us / 1e3:.2f} ms ({busy_us / steps:.1f} us a step), idle share "
+              f"{1 - busy_us / 1e6 / wall_prof:.3f}; the same call bare: wall "
+              f"{wall * 1e3:.2f} ms ({wall * 1e6 / steps:.1f} us a step)")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+            print(f"[profile]   {e.self_device_time_total / steps:8.2f} us/step "
+                  f"x{e.count // steps:<3d} {e.key[:90]}")
 
 
 def device_profile(fn):
@@ -550,10 +575,10 @@ def device_profile(fn):
     return wall, kernels
 
 
-def counts():
-    return {"fused_stage": fused_stage.launches, "fused_head": fused_head.launches,
-            "fused_head_products": fused_head.product_launches,
-            "reverse_step": reverse_step.launches, "latent_proj": latent_proj.launches}
+def fused_replays(sampler) -> int:
+    """Graph replays of a FusedDiffusionSampler (or of the one a
+    NormalizedSampler wraps)."""
+    return sum(g.replays for g in getattr(sampler, "_inner", sampler).graphs.values())
 
 
 def reset_counts():
@@ -571,20 +596,87 @@ def sampler_counts(n_steps, calls=1):
             "reverse_step": n_steps * calls, "latent_proj": n_steps * calls}
 
 
+# The step's kernels in a profiler's rows, by name: the stage's two kernels
+# (ring and whole-row) count as fused_stage, the head's whole-row kernel as
+# its product form.
+PROFILE_NAMES = {"latent_proj_kernel": "latent_proj", "stage_kernel": "fused_stage",
+                 "stage_rows_kernel": "fused_stage", "head_cols_kernel": "fused_head",
+                 "head_kernel": "fused_head_products", "reverse_step_kernel": "reverse_step"}
+
+
+def profiled_launches(kernels):
+    """The step's kernel launches in a profile's device rows, by counter
+    name (fused_head also counts its product form, as its counter does)."""
+    got = dict.fromkeys(sampler_counts(0), 0)
+    for e in kernels:
+        found = re.search(r"::(\w+)(?:<[^>]*>)?\(", e.key)
+        name = found.group(1) if found else None
+        if name in PROFILE_NAMES:
+            got[PROFILE_NAMES[name]] += e.count
+            if name == "head_kernel":
+                got["fused_head"] += e.count
+    return got
+
+
+def sampler_bound_ms(prep, batch: int, guided: bool = True):
+    """The least time of a bucket call's T steps on the card, as one
+    function: every weight, time table, condition row and x read once and
+    x written once (bytes), against the T steps' bf16 products at the bf16
+    peak plus the reverse steps' ~60 f32 operations an element at the f32
+    peak (operations)."""
+    model = prep["model"]
+    rows, lat, steps = batch * (2 if guided else 1), model.latent_dim, prep["n_steps"]
+    hidden = FLAGSHIP["hidden_dims"]
+    # the kernels' matrices in bf16, their vectors in f32 (the time and
+    # condition paths' parameters counted too: a slight over-count)
+    weights = sum(w.numel() * (2 if w.ndim == 2 else 4) for w in model.parameters())
+    tables = sum(t.numel() * 4 for t in prep["tadds"]) + prep["tadd_final"].numel() * 4
+    adds = 4 * rows * sum(hidden)
+    n_bytes = weights + tables + adds + 2 * 4 * batch * lat
+    flops = 2 * batch * lat * hidden[0] + 2 * rows * hidden[-1] * lat
+    for d, dout in zip(hidden[:-1], hidden[1:]):
+        flops += 2 * rows * d * (3 * d + dout)
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = steps * (flops / BF16_FLOP_PER_S + 60 * batch * lat / F32_FLOP_PER_S)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def phase_service(model, vae, stats):
     svc = SamplingService(model, vae, buckets=(8, 64), latent_stats=stats,
                           clip_x0=CLIP, guidance_scale=GUIDANCE, quantize_uint8=True,
                           device="cuda")
     assert svc.request_plan(70) == [64, 8] and svc.request_plan(50) == [64]
-    svc.sample_classes([0], 1, seed=99)          # warm the 8 bucket
-    svc.sample_classes(range(8), 8, seed=98)     # warm the 64 bucket
+    steps = svc.sched.n_steps
+    inner = svc.sampler._inner
+    svc.warmup()  # captures the 8 and the 64 bucket's graphs
+    graphs = {key[0]: g for key, g in inner.graphs.items()}
+    assert sorted(graphs) == [8, 64], sorted(inner.graphs)
+    for b, g in sorted(graphs.items()):
+        print(f"[graph] bucket {b} ({2 * b} rows, {steps} steps): eager run "
+              f"{g.warm_s * 1e3:.1f} ms, capture + instantiate {g.capture_s * 1e3:.1f} ms, "
+              f"graph pool {g.pool_bytes} bytes; launches a replay {g.captured}")
+        assert g.captured == sampler_counts(steps), g.captured
+
+    # the graph against its oracle: the host loop, the same seed, every step
+    # stochastic, bit for bit
+    for b in sorted(graphs):
+        cls = torch.arange(b, device="cuda") % FLAGSHIP["num_classes"]
+        got = inner.sample(b, cls, generator=torch.Generator(device="cuda").manual_seed(5))
+        ref = fused_sample(inner._prep, b, cls,
+                           generator=torch.Generator(device="cuda").manual_seed(5),
+                           clip_x0=CLIP, guidance_scale=GUIDANCE)
+        same = torch.equal(got, ref)
+        print(f"[graph] bucket {b}: {steps} stochastic guided steps, replay against the host "
+              f"loop from one seed: bit-equal {same} (max_abs_err {max_err(got, ref):.3e})")
+        assert same, f"bucket {b}: the graph replay differs from the host loop"
+
     requests = [
         ("sample_classes(range(10), 5)", lambda: svc.sample_classes(range(10), 5, seed=0), 50),
         ("sample(3)", lambda: svc.sample(np.array([3, 17, 101]), seed=1), 3),
         ("sample(70)", lambda: svc.sample(np.arange(70) % 102, seed=2), 70),
     ]
     bucket_calls = sum(len(svc.request_plan(n)) for _, _, n in requests)
-    steps = svc.sched.n_steps
+    replays = sum(g.replays for g in graphs.values())
     reset_counts()
     results = []
     for name, fn, n in requests:
@@ -595,13 +687,58 @@ def phase_service(model, vae, stats):
         assert imgs.dtype == np.uint8 and imgs.shape == (n, 64, 64, 3), (name, imgs.shape)
         assert imgs.std() > 0, f"{name}: constant images"
         results.append((name, n, dt))
-    got = counts()
+    got = launch_counts()
+    replays = sum(g.replays for g in graphs.values()) - replays
     for name, n, dt in results:
         print(f"[service] {name}: plan {svc.request_plan(n)} latency {dt * 1e3:.1f} ms "
               f"{n / dt:.2f} images/s")
     want = sampler_counts(steps, bucket_calls)
-    print(f"[service] launches {got} expected {want}")
+    print(f"[service] launches {got} expected {want}; graph replays {replays} for "
+          f"{bucket_calls} bucket calls")
     assert got == want, "the main path did not run through the kernels as expected"
+    assert replays == bucket_calls, "a bucket call did not replay its graph"
+
+    # what a replay launches, read by the profiler: one 64-bucket call
+    cls = torch.arange(64, device="cuda") % FLAGSHIP["num_classes"]
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    wall, kernels = device_profile(lambda: inner.sample(64, cls, generator=gen))
+    seen = profiled_launches(kernels)
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    print(f"[graph] one profiled replayed call at bucket 64: kernels by name {seen}; wall "
+          f"{wall * 1e3:.2f} ms ({wall * 1e6 / steps:.1f} us a step), device busy "
+          f"{busy_us / 1e3:.2f} ms ({busy_us / steps:.1f} us a step), idle share "
+          f"{1 - busy_us / 1e6 / wall:.3f}")
+    assert seen == graphs[64].captured, "the profiled replay ran other kernels than captured"
+
+    # one replayed bucket call: the replay alone between CUDA events, and the
+    # whole call (draws, condition rows, copies in, replay, clone) by the
+    # host clock, beside the bound of the T steps
+    calls = {}
+    for b, g in sorted(graphs.items()):
+        cls = torch.arange(b, device="cuda") % FLAGSHIP["num_classes"]
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        inputs = draw_request(inner._prep, b, cls, None, gen, None, guided=True)
+        ev, wall = [], []
+        for _ in range(5):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            start.record()
+            g(inputs)
+            end.record()
+            torch.cuda.synchronize()
+            ev.append(start.elapsed_time(end))
+            t0 = time.perf_counter()
+            inner.sample(b, cls, generator=gen)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        b_ms, b_by = sampler_bound_ms(inner._prep, b)
+        calls[b] = dict(replay_ms=float(np.median(ev)), call_wall_ms=float(np.median(wall)),
+                        bound_ms=b_ms, bound_by=b_by)
+        print(f"[graph] bucket {b}: one replay of {steps} steps {np.median(ev):.3f} ms between "
+              f"CUDA events (runs {[round(v, 3) for v in ev]}), the whole bucket call "
+              f"{np.median(wall):.3f} ms wall (runs {[round(v, 3) for v in wall]}); bound "
+              f"{b_ms:.4f} ms ({b_by}; weights read once)")
+
     # the decoder's share of a request: decode + quantise of one 64 bucket
     latents = np.random.default_rng(0).standard_normal((50, FLAGSHIP["latent_dim"]))
     svc.decode_latents(latents)
@@ -611,7 +748,7 @@ def phase_service(model, vae, stats):
     dt = time.perf_counter() - t0
     assert imgs.shape == (50, 64, 64, 3)
     print(f"[service] decode_latents(50): plan {svc.request_plan(50)} {dt * 1e3:.2f} ms")
-    return got
+    return got, calls
 
 
 def _perturb_module(model, gen):
@@ -890,9 +1027,13 @@ def phase_train(vae, stats):
     assert z.shape == (16, FLAGSHIP["latent_dim"]) and torch.isfinite(z).all()
     assert imgs.shape == (16, 64, 64, 3) and torch.isfinite(imgs).all()
     n_t = trainer.sched.n_steps
-    assert counts() == sampler_counts(n_t), counts()
+    # the first call of a fresh sampler: the eager run before its capture,
+    # then one replay
+    assert launch_counts() == sampler_counts(n_t, calls=2), launch_counts()
+    assert fused_replays(sampler) == 1
     print(f"[train] sampler(fused=True) on the EMA weights: 16 images, {n_t} guided steps "
-          f"(CFG {GUIDANCE}, clip {CLIP}) + decode in {dt * 1e3:.1f} ms; launches {counts()}")
+          f"(CFG {GUIDANCE}, clip {CLIP}) + decode in {dt * 1e3:.1f} ms (the capture of its graph "
+          f"included); launches {launch_counts()}")
     return runs["kernel bf16"][3], pool, dataset
 
 
@@ -1165,9 +1306,10 @@ def phase_train_epoch(vae, stats, pool, dataset):
     n_t = trainer.sched.n_steps
     assert z.shape == (16, FLAGSHIP["latent_dim"]) and torch.isfinite(z).all()
     assert imgs.shape == (16, 64, 64, 3) and torch.isfinite(imgs).all()
-    assert counts() == sampler_counts(n_t), counts()
+    assert launch_counts() == sampler_counts(n_t, calls=2), launch_counts()  # eager run + replay
+    assert fused_replays(sampler) == 1
     print(f"[train_epoch] sampler(fused=True) on the EMA weights: 16 images, {n_t} guided "
-          f"steps + decode; launches {counts()}")
+          f"steps + decode; launches {launch_counts()}")
 
     # times: the epoch kernel beside the per-step kernel body, same shapes,
     # in the order body, epoch, epoch, body
@@ -1271,9 +1413,11 @@ def main() -> int:
     phase_short_parity(model, gen)
     phase_profile(model)
     stats = np.load(STATS)
-    launches = phase_service(model, vae, (stats["mean"], stats["std"]))
+    launches, calls = phase_service(model, vae, (stats["mean"], stats["std"]))
     for row in kernel_rows:
         row["launches"] = launches[row["name"]]
+        if row["name"] == "reverse_step":  # kernel 3: the whole reverse process
+            row["bucket_call"] = {str(b): c for b, c in calls.items()}
     train_row = phase_train_kernel(gen)
     train_row["launches"], pool, dataset = phase_train(vae, (stats["mean"], stats["std"]))
     kernel_rows.append(train_row)

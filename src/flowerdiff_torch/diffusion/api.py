@@ -14,12 +14,17 @@ trajectory and masked samplers are not ported yet.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from flowerdiff_torch.diffusion.sampler import sample as _sample_impl
-from flowerdiff_torch.kernels.full_sampler import fused_sample, prepare_fused_sampler
+from flowerdiff_torch.kernels.full_sampler import (
+    SamplerGraph,
+    draw_request,
+    prepare_fused_sampler,
+    run_steps,
+)
 from flowerdiff_torch.diffusion.schedule import DiffusionSchedule
 from flowerdiff_torch.utils.device import resolve_device
 
@@ -74,8 +79,14 @@ class DiffusionSampler:
 
 class FusedDiffusionSampler(DiffusionSampler):
     """DiffusionSampler whose `sample` runs the kernel path: per step the
-    stage kernels, the head kernel and the reverse-step kernel
-    (kernels/full_sampler.py). Latent pipeline only."""
+    projection, stage, head and reverse-step kernels
+    (kernels/full_sampler.py). Latent pipeline only.
+
+    On a CUDA device every call is one replay of a captured CUDA graph of
+    the T steps (`SamplerGraph`), captured at the first call of each
+    (batch, guided, clip_x0, stochastic, has_color) and kept in `graphs`;
+    a failed capture raises. On the CPU the same loop runs the kernels'
+    plain twins."""
 
     def __init__(self, model, sched: DiffusionSchedule, event_shape: Tuple[int, ...],
                  clip_x0: Optional[float] = None,
@@ -83,6 +94,7 @@ class FusedDiffusionSampler(DiffusionSampler):
         super().__init__(model, sched, event_shape, clip_x0=clip_x0,
                          guidance_scale=guidance_scale, device=device)
         self._prep = prepare_fused_sampler(self.model, self.sched)
+        self.graphs: Dict[tuple, SamplerGraph] = {}
 
     @torch.no_grad()
     def sample(self, batch: int, *cond: torch.Tensor,
@@ -90,10 +102,17 @@ class FusedDiffusionSampler(DiffusionSampler):
                x_init: Optional[torch.Tensor] = None,
                stochastic: bool = True) -> torch.Tensor:
         color = cond[1] if len(cond) > 1 else None
-        return fused_sample(
-            self._prep, batch, cond[0], color=color, generator=generator,
-            x_init=x_init, stochastic=stochastic, clip_x0=self.clip_x0,
-            guidance_scale=self.guidance_scale)
+        guided = self.guidance_scale is not None
+        inputs = draw_request(self._prep, batch, cond[0], color, generator, x_init, guided)
+        kw = dict(stochastic=stochastic, clip_x0=self.clip_x0,
+                  guidance_scale=self.guidance_scale)
+        if self.device.type != "cuda":
+            return run_steps(self._prep, inputs, **kw)
+        key = (batch, guided, self.clip_x0, stochastic, color is not None)
+        graph = self.graphs.get(key)
+        if graph is None:
+            graph = self.graphs[key] = SamplerGraph(self._prep, inputs, **kw)
+        return graph(inputs)
 
 
 class NormalizedSampler:

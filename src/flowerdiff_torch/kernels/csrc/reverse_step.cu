@@ -11,10 +11,13 @@
 //   mean = (x - (1 - a) / sqrt(1 - abar) * eps) / sqrt(a)
 //   out  = mean + sqrt(beta) * z   where t > 0 and stochastic
 //
-// z is drawn here: Philox4x32-10 keyed by the request seed, counter
-// (group index, t, 0, 0), one call per 4 consecutive elements, through
-// Box-Muller. The TPU kernel drew from the core's own generator; the stream
-// differs by design, the distribution does not.
+// z is drawn here: Philox4x32-10 keyed by the request's key, two 32-bit
+// words read from device memory (as the TPU kernel reads its seed from an
+// input ref), counter (group index, t, 0, 0), one call per 4 consecutive
+// elements, through Box-Muller. With the key in memory a CUDA graph of the
+// step loop serves any request: a replay reads the key its caller copied in.
+// The TPU kernel drew from the core's own generator; the stream differs by
+// design, the distribution does not.
 //
 // Bound on the card: bytes (3 f32 reads / writes an element, a few dozen
 // flops); at the sampler's 64 x 256 state the launch itself dominates.
@@ -43,7 +46,7 @@ __global__ void __launch_bounds__(kThreads)
 reverse_step_kernel(const float* __restrict__ eps, const float* __restrict__ skip,
                     const float* __restrict__ x, float* __restrict__ out, int n, int guided,
                     float scale, int clip, float clip_val, float a, float ab, float beta,
-                    int t, int stochastic, uint32_t key0, uint32_t key1) {
+                    int t, int stochastic, const uint32_t* __restrict__ key) {
   const uint32_t group = blockIdx.x * blockDim.x + threadIdx.x;
   const int base = (int)group * 4;
   if (base >= n) return;
@@ -51,7 +54,7 @@ reverse_step_kernel(const float* __restrict__ eps, const float* __restrict__ ski
   const bool noisy = stochastic && t > 0;
   if (noisy) {
     uint32_t c[4] = {group, (uint32_t)t, 0u, 0u};
-    fd::philox4x32_10(c, key0, key1);
+    fd::philox4x32_10(c, key[0], key[1]);
     box_muller(c[0], c[1], &z[0], &z[1]);
     box_muller(c[2], c[3], &z[2], &z[3]);
   }
@@ -81,17 +84,17 @@ reverse_step_kernel(const float* __restrict__ eps, const float* __restrict__ ski
 
 }  // namespace
 
-// skip: null, or (B, L) f32 added to eps (to both halves when guided).
+// skip: null, or (B, L) f32 added to eps (to both halves when guided);
+// key: two 32-bit words in device memory, the Philox key.
 extern "C" int fd_reverse_step_launch(const void* eps, const void* skip, const void* x,
                                       void* out, int n, int guided, float scale, int clip,
                                       float clip_val, float a, float ab, float beta, int t,
-                                      int stochastic, unsigned int key0, unsigned int key1,
-                                      void* stream) {
+                                      int stochastic, const void* key, void* stream) {
   const int groups = (n + 3) / 4;
   const dim3 grid((groups + kThreads - 1) / kThreads);
   reverse_step_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)eps, (const float*)skip, (const float*)x, (float*)out, n, guided, scale,
       clip, clip_val,
-      a, ab, beta, t, stochastic, key0, key1);
+      a, ab, beta, t, stochastic, (const uint32_t*)key);
   return (int)cudaGetLastError();
 }

@@ -3,9 +3,8 @@ flowerdiff/kernels/full_sampler.py).
 
 The Pallas kernel `_make_kernel` runs all T steps in one TPU kernel with
 every weight resident in VMEM, the latent projection `h = x Wl + bl`
-(`full_sampler.py:118`) included. The first Hopper design is a host loop
-over the T steps; each step launches the port's own kernels and nothing
-else:
+(`full_sampler.py:118`) included. On Hopper each step launches the port's
+own kernels and nothing else:
 
   1. the `latent_proj` kernel (csrc/latent_proj.cu): h = bf16(x) Wl^T + bl,
      written to both halves of the stage input when guided (the CFG copy),
@@ -15,16 +14,23 @@ else:
   3. the head kernel (`fused_head`);
   4. the `reverse_step` kernel: the skip added to eps, CFG from the doubled
      batch, x0 clipping, the posterior mean and the step noise, drawn in
-     the kernel by Philox4x32-10 + Box-Muller.
+     the kernel by Philox4x32-10 + Box-Muller from a key in device memory.
+
+and the T steps' launches run as one launch structure: `SamplerGraph`
+captures `run_steps` once per (batch, guidance, clip, stochastic) as a CUDA
+graph and replays it for every request, as the TPU kernel runs its
+`fori_loop` in one launch. `fused_sample` is the same loop issued from the
+host (7 launches a step): the graph's oracle and the CPU's path.
 
 The time path (sinusoid -> time MLP -> per-stage projections) is computed
-once per sampler as (T, d) tables, and the condition path once per request,
-as `full_sampler.py:200-226,280-291` do outside their kernel. Semantics follow
+once per sampler as (T, d) tables, and the condition path once per request
+(`draw_request`, with x_init and the Philox key), as
+`full_sampler.py:200-226,280-291` do outside their kernel. Semantics follow
 the model (not the TPU kernel's shortcuts): the CFG null rows keep the
 projection biases, the v2 global skip is applied, LayerNorm eps is 1e-6.
 
-A single-launch design (a CUDA graph of the step, then a persistent kernel
-with the ~12.7 MB of bf16 weights L2-resident) is later performance work.
+A persistent kernel (one grid-synchronised launch with the ~12.7 MB of
+bf16 weights L2-resident) is later performance work.
 
 `reverse_step` and `bind_latent_proj` launch their kernels for CUDA tensors
 and run their plain twins, `reverse_step_plain` (the same Philox stream in
@@ -34,7 +40,8 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional, Tuple
+import time
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,7 +49,7 @@ import torch
 from flowerdiff_torch.diffusion.schedule import DiffusionSchedule
 from flowerdiff_torch.kernels import _build
 from flowerdiff_torch.kernels.denoiser_apply import _b, _w, head_weights, stage_weights
-from flowerdiff_torch.kernels.latent_stage import bind_head, bind_stage
+from flowerdiff_torch.kernels.latent_stage import bind_head, bind_stage, fused_head, fused_stage
 from flowerdiff_torch.models.latent_unet import ConditionalLatentDenoiser
 
 _M32 = 0xFFFFFFFF
@@ -100,10 +107,27 @@ def philox_normal(n: int, step: int, key: Tuple[int, int], device=None) -> torch
 # ---------------------------------------------------------------------------
 # The reverse-step kernel and its twin
 
+def _key_ints(key) -> Tuple[int, int]:
+    """The Philox key as two 32-bit ints, from a pair of ints or a (2,)
+    integer tensor (whose words the kernel reads as uint32)."""
+    if isinstance(key, torch.Tensor):
+        key = key.tolist()
+    return int(key[0]) & _M32, int(key[1]) & _M32
+
+
+def key_tensor(key, device) -> torch.Tensor:
+    """A Philox key (two ints, or a (2,) integer tensor) as the (2,) int32
+    tensor on `device` that the kernel reads: each word's 32 bits."""
+    if isinstance(key, torch.Tensor):
+        return key.to(device=device, dtype=torch.int32)
+    words = [k - (1 << 32) if k >= 1 << 31 else k for k in _key_ints(key)]
+    return torch.tensor(words, dtype=torch.int32, device=device)
+
+
 def reverse_step_plain(eps, x, t: int, coefs: Tuple[float, float, float], *,
                        guidance_scale: Optional[float] = None,
                        clip_x0: Optional[float] = None, stochastic: bool = True,
-                       key: Tuple[int, int] = (0, 0), skip=None):
+                       key=(0, 0), skip=None):
     # Scalar coefficients in f32, as the kernel forms them; a Python float
     # holding an f32 value multiplies an f32 tensor in f32.
     a, ab, beta = (np.float32(v) for v in coefs)
@@ -121,7 +145,7 @@ def reverse_step_plain(eps, x, t: int, coefs: Tuple[float, float, float], *,
         e = (x - float(sqab) * x0) / float(sq1mab)
     mean = (x - float((one - a) / sq1mab) * e) / float(np.sqrt(a))
     if stochastic and t > 0:
-        z = philox_normal(x.numel(), t, key, device=x.device).reshape(x.shape)
+        z = philox_normal(x.numel(), t, _key_ints(key), device=x.device).reshape(x.shape)
         mean = mean + float(np.sqrt(beta)) * z
     return mean
 
@@ -131,7 +155,7 @@ def _reverse_fn():
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float]
                        + [ctypes.c_int, ctypes.c_float] + [ctypes.c_float] * 3
-                       + [ctypes.c_int] * 2 + [ctypes.c_uint] * 2 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
     return fn
 
@@ -139,15 +163,19 @@ def _reverse_fn():
 def reverse_step(eps, x, t: int, coefs: Tuple[float, float, float], *,
                  guidance_scale: Optional[float] = None,
                  clip_x0: Optional[float] = None, stochastic: bool = True,
-                 key: Tuple[int, int] = (0, 0), skip=None):
+                 key=(0, 0), skip=None, out=None):
     """x_{t-1} from x_t (B, L) f32 and eps: (B, L) f32, or (2B, L) with the
     conditional rows first when guidance_scale is set. coefs: the schedule's
-    (alpha_t, alpha_bar_t, beta_t); key: the Philox key of the request;
-    skip: None or (B, L) f32, the v2 global skip, added to eps (to both
-    halves when guided) before the guidance."""
+    (alpha_t, alpha_bar_t, beta_t); key: the Philox key of the request, a
+    (2,) int32 tensor on x's device (the kernel reads it there, so a
+    captured launch reads whatever key was copied in last), or two ints or
+    another integer tensor, converted here; skip: None or (B, L) f32, the
+    v2 global skip, added to eps (to both halves when guided) before the
+    guidance; out: None or a (B, L) f32 tensor to write x_{t-1} into."""
     if not x.is_cuda:
-        return reverse_step_plain(eps, x, t, coefs, guidance_scale=guidance_scale,
+        mean = reverse_step_plain(eps, x, t, coefs, guidance_scale=guidance_scale,
                                   clip_x0=clip_x0, stochastic=stochastic, key=key, skip=skip)
+        return mean if out is None else out.copy_(mean)
     guided = guidance_scale is not None
     rows = x.shape[0] * (2 if guided else 1)
     if x.dtype != torch.float32 or eps.dtype != torch.float32:
@@ -156,17 +184,24 @@ def reverse_step(eps, x, t: int, coefs: Tuple[float, float, float], *,
         raise ValueError(f"eps has shape {tuple(eps.shape)}, expected {(rows, x.shape[1])}")
     if eps.device != x.device or not (x.is_contiguous() and eps.is_contiguous()):
         raise ValueError("eps and x must be contiguous and on one device")
-    if skip is not None and (skip.dtype != torch.float32 or skip.shape != x.shape
-                             or skip.device != x.device or not skip.is_contiguous()):
-        raise ValueError("skip must be a contiguous float32 tensor shaped and placed like x")
-    out = torch.empty_like(x)
+    for name, v in (("skip", skip), ("out", out)):
+        if v is not None and (v.dtype != torch.float32 or v.shape != x.shape
+                              or v.device != x.device or not v.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 tensor shaped and "
+                             "placed like x")
+    if not isinstance(key, torch.Tensor) or key.dtype != torch.int32:
+        key = key_tensor(key, x.device)
+    if tuple(key.shape) != (2,) or key.device != x.device or not key.is_contiguous():
+        raise ValueError(f"key must be a contiguous (2,) tensor on {x.device}, got "
+                         f"{tuple(key.shape)} on {key.device}")
+    out = torch.empty_like(x) if out is None else out
     a, ab, beta = coefs
     code = _reverse_fn()(
         eps.data_ptr(), None if skip is None else skip.data_ptr(), x.data_ptr(),
         out.data_ptr(), x.numel(), int(guided), float(guidance_scale or 0.0),
         int(clip_x0 is not None), float(clip_x0 or 0.0), float(a), float(ab), float(beta),
-        int(t), int(stochastic),
-        key[0] & _M32, key[1] & _M32, torch.cuda.current_stream(x.device).cuda_stream)
+        int(t), int(stochastic), key.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "reverse_step")
     reverse_step.launches += 1
     return out
@@ -296,15 +331,33 @@ def _cond_adds(prep: Dict, cond, color, guided: bool):
     return adds[:-1], adds[-1]
 
 
+class SamplerInputs(NamedTuple):
+    """What a request gives the step loop: the starting state x (B, L) f32,
+    the Philox key (2,) int32, the condition rows of each stage and of the
+    head (rows, d) f32 (rows = 2B when guided)."""
+    x: torch.Tensor
+    key: torch.Tensor
+    stage_adds: Tuple[torch.Tensor, ...]
+    final_add: torch.Tensor
+
+    def tensors(self) -> Tuple[torch.Tensor, ...]:
+        return (self.x, self.key, *self.stage_adds, self.final_add)
+
+    def clone(self) -> "SamplerInputs":
+        return SamplerInputs(self.x.clone(), self.key.clone(),
+                             tuple(a.clone() for a in self.stage_adds), self.final_add.clone())
+
+
 @torch.no_grad()
-def fused_sample(prep: Dict, batch: int, cond: torch.Tensor,
+def draw_request(prep: Dict, batch: int, cond: torch.Tensor,
                  color: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None,
-                 x_init: Optional[torch.Tensor] = None, stochastic: bool = True,
-                 clip_x0: Optional[float] = None,
-                 guidance_scale: Optional[float] = None) -> torch.Tensor:
-    """Full ancestral sampling on the kernels. The generator draws x_init
-    (unless given) and the request's Philox key."""
+                 x_init: Optional[torch.Tensor] = None,
+                 guided: bool = False) -> SamplerInputs:
+    """The per-request work before the step loop, on the model's device:
+    x_init (drawn from the generator unless given), then the request's
+    Philox key from the same generator, then the condition adds (as
+    `full_sampler.py:200-226` do outside their kernel). No host sync."""
     model = prep["model"]
     dev = model.latent_proj.weight.device
     cond = cond.to(dev)
@@ -314,16 +367,123 @@ def fused_sample(prep: Dict, batch: int, cond: torch.Tensor,
     else:
         x = x_init.to(device=dev, dtype=torch.float32).contiguous()
     key = torch.randint(0, 2**31 - 1, (2,), generator=generator,
-                        device=generator.device if generator is not None else "cpu").tolist()
-    guided = guidance_scale is not None
+                        device=generator.device if generator is not None else "cpu")
     stage_adds, final_add = _cond_adds(prep, cond, color, guided)
+    return SamplerInputs(x, key_tensor(key, dev), tuple(stage_adds), final_add)
+
+
+@torch.no_grad()
+def run_steps(prep: Dict, inputs: SamplerInputs, *, stochastic: bool = True,
+              clip_x0: Optional[float] = None, guidance_scale: Optional[float] = None,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The T reverse steps from `inputs`, each the projection, the stage,
+    head and reverse-step kernels and nothing else (plain twins for CPU
+    weights). Reads its inputs only from `inputs` and writes the final x
+    into `out` (a new tensor when None), so that a CUDA graph of it
+    (`SamplerGraph`) serves any request copied into the same tensors."""
     proj, head = prep["proj"], prep["head"]
-    copies = 2 if guided else 1
+    copies = 2 if guidance_scale is not None else 1
+    x = inputs.x
     for t in range(prep["n_steps"] - 1, -1, -1):
         h, skip = proj(x, copies)
         for i, stage in enumerate(prep["stages"]):
-            h = stage(h, stage_adds[i], row_add=prep["tadds"][i][t])
-        eps = head(h, row_add=prep["tadd_final"][t], rows_add=final_add)
+            h = stage(h, inputs.stage_adds[i], row_add=prep["tadds"][i][t])
+        eps = head(h, row_add=prep["tadd_final"][t], rows_add=inputs.final_add)
         x = reverse_step(eps, x, t, prep["coefs"][t], guidance_scale=guidance_scale,
-                         clip_x0=clip_x0, stochastic=stochastic, key=key, skip=skip)
+                         clip_x0=clip_x0, stochastic=stochastic, key=inputs.key, skip=skip,
+                         out=out if t == 0 else None)
     return x
+
+
+@torch.no_grad()
+def fused_sample(prep: Dict, batch: int, cond: torch.Tensor,
+                 color: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None,
+                 x_init: Optional[torch.Tensor] = None, stochastic: bool = True,
+                 clip_x0: Optional[float] = None,
+                 guidance_scale: Optional[float] = None) -> torch.Tensor:
+    """Full ancestral sampling on the kernels as a host loop of launches
+    (7 a step). The generator draws x_init (unless given) and the request's
+    Philox key. `SamplerGraph` replays the same launches; this loop is its
+    oracle and the CPU's path."""
+    inputs = draw_request(prep, batch, cond, color, generator, x_init,
+                          guided=guidance_scale is not None)
+    return run_steps(prep, inputs, stochastic=stochastic, clip_x0=clip_x0,
+                     guidance_scale=guidance_scale)
+
+
+# ---------------------------------------------------------------------------
+# The step loop as one CUDA graph
+
+def launch_counts() -> Dict[str, int]:
+    """The launch counters of the sampler step's kernels."""
+    return {name: getattr(fn, attr) for name, (fn, attr) in _COUNTERS.items()}
+
+
+def _add_launches(delta: Dict[str, int], times: int = 1) -> None:
+    for name, (fn, attr) in _COUNTERS.items():
+        setattr(fn, attr, getattr(fn, attr) + times * delta[name])
+
+
+class SamplerGraph:
+    """`run_steps` for one (batch, guidance_scale, clip_x0, stochastic)
+    captured once as a CUDA graph and replayed for every request: the T
+    steps' 7 T launches in one `replay()`, as the TPU kernel runs them in
+    one launch. The request's x_init, key and condition rows are copied
+    into the graph's own input tensors before each replay; guidance, clip,
+    T and the schedule are baked in, as the TPU kernel bakes them per
+    compile.
+
+    Built from a first request's inputs: one eager `run_steps` on a side
+    stream (it builds the kernels and sets their attributes, so that the
+    capture makes no such call), then the capture. A failed capture raises.
+
+    Launch counts: the eager run counts as launched; the capture launches
+    nothing, so what it added to the counters is taken back and kept as
+    `captured` (the launches of one replay), and each replay adds it.
+    `replays` counts the replays; `warm_s` (the eager run), `capture_s`
+    (capture and instantiation) and `pool_bytes` (the memory the capture
+    reserved for the graph's pool) describe the build."""
+
+    def __init__(self, prep: Dict, inputs: SamplerInputs, *, stochastic: bool = True,
+                 clip_x0: Optional[float] = None, guidance_scale: Optional[float] = None):
+        dev = inputs.x.device
+        kw = dict(stochastic=stochastic, clip_x0=clip_x0, guidance_scale=guidance_scale)
+        self.inputs = inputs.clone()
+        self.out = torch.empty_like(inputs.x)
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            run_steps(prep, self.inputs, out=self.out, **kw)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        self.warm_s = time.perf_counter() - t0
+        before = launch_counts()
+        t0 = time.perf_counter()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            reserved = torch.cuda.memory_reserved(dev)
+            run_steps(prep, self.inputs, out=self.out, **kw)
+        self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        after = launch_counts()
+        self.captured = {name: after[name] - before[name] for name in after}
+        _add_launches(self.captured, -1)
+        self.replays = 0
+
+    def __call__(self, inputs: SamplerInputs) -> torch.Tensor:
+        """The request's final x: a new tensor, since the next replay
+        rewrites the graph's own output."""
+        for dst, src in zip(self.inputs.tensors(), inputs.tensors()):
+            dst.copy_(src)
+        self.graph.replay()
+        _add_launches(self.captured)
+        self.replays += 1
+        return self.out.clone()
+
+
+_COUNTERS = {"latent_proj": (latent_proj, "launches"), "fused_stage": (fused_stage, "launches"),
+             "fused_head": (fused_head, "launches"),
+             "fused_head_products": (fused_head, "product_launches"),
+             "reverse_step": (reverse_step, "launches")}

@@ -10,6 +10,11 @@ class 0 and sliced back on the host. Each chunk runs
     sample (1000 ancestral steps, CFG, x0 clip) -> denormalise -> decode
     [-> round(clip(img, 0, 1) * 255) as uint8 with quantize_uint8=True]
 
+where on a CUDA device the 1000 steps are one replay of the bucket's
+captured CUDA graph (`FusedDiffusionSampler`); `warmup` captures every
+bucket's graph before traffic. `sample_async` issues every chunk before it
+fetches any; `sample` is `sample_async(...)()`.
+
 and the service returns (N, 64, 64, 3) images as numpy: float32 by default,
 as the reference does, or uint8 when the service quantizes.
 
@@ -17,12 +22,12 @@ Unlike the reference service, `guidance_scale` is a constructor argument
 and reaches the sampler. Chunk i of a request draws from a generator seeded
 by (seed, i), so a result is reproducible for a given (seed, request).
 
-Not ported yet: `service_from_run`, `sample_async` double buffering,
-`warmup`, `animate`, DDIM serving, `decode_bf16`, `PixelSamplingService`.
+Not ported yet: `service_from_run`, `animate`, DDIM serving
+(`sampler_kind`), `use_fused`, `decode_bf16`, `PixelSamplingService`.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -107,21 +112,32 @@ class SamplingService:
         img = self.vae.decode(latents)
         return quantize_uint8(img) if self.quantize_uint8 else img
 
+    def warmup(self, seed: int = 0, buckets: Optional[Sequence[int]] = None,
+               with_colors: bool = False) -> None:
+        """Run the live path once per bucket (default: all), host numpy
+        classes in and images out, so that every bucket's CUDA graph is
+        captured and every kernel built before live traffic."""
+        for b in buckets or self.buckets:
+            classes = np.zeros((b,), np.int64)
+            colors = np.zeros((b,), np.int64) if with_colors else None
+            self.sample(classes, seed, colors, decode=True)
+
     @torch.no_grad()
-    def sample(self, classes, seed: int = 0, colors=None, decode: bool = True,
-               x_init=None, stochastic: bool = True) -> np.ndarray:
-        """One image (or latent, decode=False) per entry of `classes`
-        (and `colors` for v3). Returns (N, 64, 64, 3) images (float32, or
-        uint8 with quantize_uint8) or (N, latent) float32 latents. x_init
-        (N, latent) and stochastic=False fix the starting state and drop the
-        step noise (for checks against a reference)."""
+    def sample_async(self, classes, seed: int = 0, colors=None, decode: bool = True,
+                     x_init=None, stochastic: bool = True) -> Callable[[], np.ndarray]:
+        """Dispatch a request as bucket-sized chunks (`request_plan`) and
+        return `fetch()`, which waits for the chunks in order and slices
+        each chunk's padding off. Every chunk is issued before any is
+        fetched: its sampler replay, decode and the copy of its result into
+        pinned host memory (`non_blocking`) are all enqueued, so chunk i's
+        copy overlaps chunk i + 1's sampling. Arguments as `sample`."""
         classes = np.asarray(classes, np.int64).reshape(-1)
         if colors is not None:
             colors = np.asarray(colors, np.int64).reshape(-1)
         if x_init is not None:
             x_init = np.asarray(x_init, np.float32)
         n = classes.shape[0]
-        outs = []
+        pending = []
         start = 0
         for i, b in enumerate(self.request_plan(n)):
             take = min(b, n - start)
@@ -135,9 +151,35 @@ class SamplingService:
             lat = self.sampler.sample(b, *cond, generator=self._generator(seed, i),
                                       x_init=x0, stochastic=stochastic)
             out = self._decode(lat) if decode else lat
-            outs.append(out.cpu().numpy()[:take])
+            done = None
+            if out.is_cuda:
+                host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+                host.copy_(out, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+                out = host
+            pending.append((out, done, take))
             start += take
-        return outs[0] if len(outs) == 1 else np.concatenate(outs)
+
+        def fetch() -> np.ndarray:
+            outs = []
+            for out, done, take in pending:
+                if done is not None:
+                    done.synchronize()
+                outs.append(out.numpy()[:take])
+            return outs[0] if len(outs) == 1 else np.concatenate(outs)
+
+        return fetch
+
+    def sample(self, classes, seed: int = 0, colors=None, decode: bool = True,
+               x_init=None, stochastic: bool = True) -> np.ndarray:
+        """One image (or latent, decode=False) per entry of `classes`
+        (and `colors` for v3). Returns (N, 64, 64, 3) images (float32, or
+        uint8 with quantize_uint8) or (N, latent) float32 latents. x_init
+        (N, latent) and stochastic=False fix the starting state and drop the
+        step noise (for checks against a reference). `sample_async`, then
+        its fetch."""
+        return self.sample_async(classes, seed, colors, decode, x_init, stochastic)()
 
     def sample_latents(self, classes, seed: int = 0, colors=None) -> np.ndarray:
         return self.sample(classes, seed, colors, decode=False)

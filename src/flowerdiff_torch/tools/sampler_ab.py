@@ -1,0 +1,194 @@
+#!/usr/bin/env python3
+"""Time the flagship sampling service with its bucket calls as CUDA-graph
+replays against the same calls as a host loop of launches, in turns, in one
+process on one CUDA card.
+
+    python3 src/flowerdiff_torch/tools/sampler_ab.py [--rounds 2]
+
+The host loop (`kernels/full_sampler.fused_sample`, 7 launches a step) is
+the path the graph replaced and stays in the tree as its oracle, so both
+run in one process: round r runs them in the order (loop, graph), the next
+round (graph, loop), i.e. A B B A for two rounds.
+
+One `SamplingService` at flagship width (denoiser latent 256, hidden (256,
+512, 1024, 512, 256), 102 classes; decoder channels (64, 128, 256, 512);
+weights from seeds 0 and 1, the committed z-score stats; CFG 7.0, x0 clip
+3.0, 1000 steps, buckets 8 and 64, uint8 images), warmed with `warmup()`.
+The loop's turns swap the sampler's `sample` for `fused_sample` on the same
+bound kernels. Each turn times, by the host clock around work that ends in
+a synchronise:
+  - the 50-image request `sample_classes(range(10), 5)` (one 64 bucket:
+    128 rows under CFG), three times;
+  - one bucket call (`sample` of the sampler: draws, condition rows, the
+    1000 steps) at each bucket, three times, with CUDA events around it.
+Then, once a path, one profiled bucket call at each bucket (torch.profiler):
+wall, device busy and idle share a step; and the graph path's 64-bucket
+chunk split into its parts, each synchronised: the draws and condition rows,
+the replay (copies in, replay, clone), the decode with quantisation, the
+copy to the host. Prints one line a measurement, the card's name and power
+limit, and the mean of each measurement over the rounds per path.
+"""
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+_PORT = Path(__file__).resolve().parents[1]
+_ROOT = _PORT.parents[1]
+sys.path.insert(0, str(_PORT.parent))
+
+from flowerdiff_torch.diffusion import linear_schedule  # noqa: E402
+from flowerdiff_torch.kernels.full_sampler import draw_request, fused_sample  # noqa: E402
+from flowerdiff_torch.serving import SamplingService  # noqa: E402
+from flowerdiff_torch.utils.weights import (  # noqa: E402
+    denoiser_from_params,
+    init_numpy_params,
+    vae_from_params,
+)
+
+FLAGSHIP = dict(latent_dim=256, hidden_dims=(256, 512, 1024, 512, 256), time_emb_dim=256,
+                num_classes=102, shared_cond_proj=True, global_skip=False)
+VAE = dict(latent_dim=256, channels=(64, 128, 256, 512), head_width=512, base_size=8)
+STATS = _ROOT / "artifacts" / "flagship_r5b" / "run" / "latent_stats.npz"
+GUIDANCE, CLIP, BUCKETS = 7.0, 3.0, (8, 64)
+
+
+def host_loop(inner):
+    """`inner.sample` with its bucket calls issued from the host."""
+    def sample(batch, *cond, generator=None, x_init=None, stochastic=True):
+        return fused_sample(inner._prep, batch, cond[0], cond[1] if len(cond) > 1 else None,
+                            generator, x_init, stochastic, inner.clip_x0, inner.guidance_scale)
+    return sample
+
+
+def wall_ms(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def event_ms(fn) -> float:
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def profiled(fn):
+    """(wall ms, device busy ms) of one call under torch.profiler; only
+    DeviceType.CUDA rows count (an aten op's row repeats its kernels')."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = wall_ms(fn)
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    if busy <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return wall, busy
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rounds", type=int, default=2)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("sampler_ab: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stats = np.load(STATS)
+    svc = SamplingService(
+        denoiser_from_params(init_numpy_params("denoiser", seed=0, **FLAGSHIP), device="cuda",
+                             **FLAGSHIP),
+        vae_from_params(init_numpy_params("vae", seed=1, **VAE), device="cuda", **VAE),
+        sched=linear_schedule(1000), buckets=BUCKETS, latent_stats=(stats["mean"], stats["std"]),
+        clip_x0=CLIP, guidance_scale=GUIDANCE, quantize_uint8=True, device="cuda")
+    inner = svc.sampler._inner
+    steps = svc.sched.n_steps
+    svc.warmup()
+    for b in BUCKETS:  # the loop's first calls outside the timed turns too
+        host_loop(inner)(b, torch.zeros(b, dtype=torch.int64, device="cuda"))
+
+    def use(path):
+        if path == "loop":
+            inner.sample = host_loop(inner)
+        else:
+            inner.__dict__.pop("sample", None)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    results = {}
+
+    def record(path, what, value):
+        results.setdefault((path, what), []).append(value)
+        print(f"[sampler_ab] {path}: {what} {value:.3f}", flush=True)
+
+    for rnd in range(args.rounds):
+        for path in (("loop", "graph") if rnd % 2 == 0 else ("graph", "loop")):
+            use(path)
+            for _ in range(3):
+                ms = wall_ms(lambda: svc.sample_classes(range(10), 5, seed=rnd))
+                record(path, "50-image request ms", ms)
+                record(path, "50-image request images/s", 50e3 / ms)
+            for b in BUCKETS:
+                cls = torch.arange(b, device="cuda") % FLAGSHIP["num_classes"]
+                for _ in range(3):
+                    record(path, f"bucket {b} call wall ms",
+                           wall_ms(lambda: svc.sampler.sample(b, cls, generator=gen)))
+                    record(path, f"bucket {b} call event ms",
+                           event_ms(lambda: svc.sampler.sample(b, cls, generator=gen)))
+    for path in ("loop", "graph"):
+        use(path)
+        for b in BUCKETS:
+            cls = torch.arange(b, device="cuda") % FLAGSHIP["num_classes"]
+            wall, busy = profiled(lambda: svc.sampler.sample(b, cls, generator=gen))
+            print(f"[sampler_ab] {path}: bucket {b}, one profiled call of {steps} steps: wall "
+                  f"{wall:.3f} ms ({wall * 1e3 / steps:.2f} us a step), device busy {busy:.3f} "
+                  f"ms ({busy * 1e3 / steps:.2f} us a step), idle share {1 - busy / wall:.4f}",
+                  flush=True)
+
+    # the graph path's 64-bucket chunk, part by part
+    use("graph")
+    (graph,) = [g for key, g in inner.graphs.items() if key[0] == 64]
+    cls = torch.arange(64, device="cuda") % FLAGSHIP["num_classes"]
+    for _ in range(3):
+        parts = {}
+        t0 = time.perf_counter()
+        inputs = draw_request(inner._prep, 64, cls, None, gen, None, guided=True)
+        torch.cuda.synchronize()
+        parts["draws and condition rows"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lat = graph(inputs)
+        torch.cuda.synchronize()
+        parts["replay (copies in, replay, clone)"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        imgs = svc._decode(lat * svc.sampler.std + svc.sampler.mean)
+        torch.cuda.synchronize()
+        parts["denormalise, decode, quantise"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        imgs.cpu().numpy()
+        parts["copy to the host"] = time.perf_counter() - t0
+        print("[sampler_ab] graph: the 64-bucket chunk split, wall ms: " + ", ".join(
+            f"{k} {v * 1e3:.3f}" for k, v in parts.items()), flush=True)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(f"[sampler_ab] card: {smi}")
+    for (path, what), runs in sorted(results.items()):
+        print(f"[sampler_ab] {path}: {what}: mean {np.mean(runs):.3f} "
+              f"{[round(v, 3) for v in runs]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -586,3 +586,149 @@ def test_epoch_kernel_matches_twin_at_small_width(gen, lane, moments):
             assert float((ma - mb).abs().max()) <= 4e-2 * float(mb.abs().max()) + 1e-12, name
     q = sk.names.index("attn_0.q.weight")
     assert torch.equal(sk.params[q], st.params[q])  # the same f32 factor on both sides
+
+
+# ---------------------------------------------------------------------------
+# The reverse process as one CUDA graph (kernels/full_sampler.SamplerGraph)
+
+_GRAPH_NET = dict(latent_dim=256, hidden_dims=(256, 512, 1024, 512, 256), time_emb_dim=256,
+                  num_classes=102, shared_cond_proj=True)
+_GRAPH_STEPS = 20
+
+
+def _graph_sampler(global_skip, guided, steps=_GRAPH_STEPS):
+    from flowerdiff_torch.diffusion import linear_schedule
+    from flowerdiff_torch.diffusion.api import FusedDiffusionSampler
+
+    kw = dict(_GRAPH_NET, global_skip=global_skip)
+    model = denoiser_from_params(init_numpy_params("denoiser", seed=3, bias_std=0.3, **kw),
+                                 device="cuda", **kw)
+    return FusedDiffusionSampler(model, linear_schedule(steps), (256,), clip_x0=3.0,
+                                 guidance_scale=7.0 if guided else None, device="cuda")
+
+
+def _host_loop(sampler, batch, cls, seed, x_init=None, stochastic=True):
+    from flowerdiff_torch.kernels.full_sampler import fused_sample
+
+    return fused_sample(sampler._prep, batch, cls,
+                        generator=torch.Generator(device="cuda").manual_seed(seed),
+                        x_init=x_init, stochastic=stochastic, clip_x0=sampler.clip_x0,
+                        guidance_scale=sampler.guidance_scale)
+
+
+def _replay(sampler, batch, cls, seed, x_init=None, stochastic=True):
+    return sampler.sample(batch, cls, generator=torch.Generator(device="cuda").manual_seed(seed),
+                          x_init=x_init, stochastic=stochastic)
+
+
+# (stage rows, guided, v2 global skip, step noise)
+@pytest.mark.parametrize("rows,guided,global_skip,stochastic",
+                         [(16, True, False, True), (128, True, True, False),
+                          (16, False, True, True), (128, False, False, False)])
+def test_graph_replay_is_bit_equal_to_the_host_loop(gen, rows, guided, global_skip,
+                                                    stochastic):
+    """20 steps through the captured graph and through `fused_sample`'s host
+    loop, the same x_init and key: the same kernels in the same order give
+    the same bits. The counters: the first call counts its eager run and its
+    replay, the capture nothing; a replay adds what its graph captured."""
+    from flowerdiff_torch.kernels.full_sampler import launch_counts
+
+    sampler = _graph_sampler(global_skip, guided)
+    batch = rows // 2 if guided else rows
+    cls = torch.arange(batch, device="cuda") % 102
+    x0 = None if stochastic else _r(gen, batch, 256)
+    before = launch_counts()
+    got = _replay(sampler, batch, cls, 11, x0, stochastic)
+    (graph,) = sampler.graphs.values()
+    step = {"latent_proj": 1, "fused_stage": 4, "fused_head": 1, "fused_head_products": 0,
+            "reverse_step": 1}
+    assert graph.captured == {k: _GRAPH_STEPS * v for k, v in step.items()}
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: 2 * _GRAPH_STEPS * v for k, v in step.items()}
+    ref = _host_loop(sampler, batch, cls, 11, x0, stochastic)
+    assert got.shape == (batch, 256) and torch.isfinite(got).all()
+    assert torch.equal(got, ref)
+    before = launch_counts()
+    again = _replay(sampler, batch, cls, 11, x0, stochastic)
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in after} == graph.captured
+    assert torch.equal(again, ref) and graph.replays == 2 and len(sampler.graphs) == 1
+
+
+def test_graph_carries_each_request(gen):
+    """Two requests through one captured graph (other classes, x_init and
+    key): each equals its own host-loop result."""
+    sampler = _graph_sampler(False, True)
+    cls_a = torch.arange(8, device="cuda") % 102
+    cls_b = (torch.arange(8, device="cuda") * 13 + 5) % 102
+    x_c = _r(gen, 8, 256)
+    a = _replay(sampler, 8, cls_a, 21)
+    b = _replay(sampler, 8, cls_b, 22)
+    c = _replay(sampler, 8, cls_b, 23, x_init=x_c)
+    assert len(sampler.graphs) == 1
+    assert torch.equal(a, _host_loop(sampler, 8, cls_a, 21))
+    assert torch.equal(b, _host_loop(sampler, 8, cls_b, 22))
+    assert torch.equal(c, _host_loop(sampler, 8, cls_b, 23, x_init=x_c))
+    assert not torch.equal(a, b) and not torch.equal(b, c)
+
+
+def test_graph_buckets_replay_independently(gen):
+    """Bucket A, then B, then A: A's second result equals its first, and the
+    tensor A's first call returned is not rewritten by later replays."""
+    sampler = _graph_sampler(False, True)
+    cls_a = torch.arange(8, device="cuda") % 102
+    cls_b = torch.arange(64, device="cuda") % 102
+    a1 = _replay(sampler, 8, cls_a, 31)
+    kept = a1.clone()
+    b = _replay(sampler, 64, cls_b, 32)
+    a2 = _replay(sampler, 8, cls_a, 31)
+    assert len(sampler.graphs) == 2
+    assert torch.equal(a1, kept) and torch.equal(a2, kept)
+    assert torch.equal(b, _host_loop(sampler, 64, cls_b, 32))
+
+
+def test_reverse_step_takes_the_key_from_device_memory(gen):
+    x, eps = _r(gen, 64, 256), _r(gen, 128, 256)
+    kw = dict(guidance_scale=7.0, clip_x0=3.0)
+    for key in ((12345, 678), (2**31 + 3, 2**32 - 1)):
+        ref = reverse_step(eps, x, 500, (0.99, 0.5, 0.01), key=key, **kw)
+        words = [k - 2**32 if k >= 2**31 else k for k in key]
+        dev_key = torch.tensor(words, dtype=torch.int32, device="cuda")
+        assert torch.equal(reverse_step(eps, x, 500, (0.99, 0.5, 0.01), key=dev_key, **kw), ref)
+        assert float((ref - reverse_step_plain(eps, x, 500, (0.99, 0.5, 0.01), key=dev_key,
+                                               **kw)).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("decode", [False, True])
+def test_sample_async_equals_sample_on_the_card(gen, decode):
+    """A request of three chunks: `sample_async`'s fetch equals `sample` bit
+    for bit (each chunk one replay of its bucket's graph). The latents are
+    bit-equal as they are; the decoded images differed by one uint8 level
+    on 3 of 233,472 values under cuDNN's default algorithms, which may sum
+    in another order from one call to the next, so cuDNN's deterministic
+    algorithms are asked for here: what is compared is the service's
+    dispatch and fetch."""
+    import numpy as np
+
+    from flowerdiff_torch.diffusion import linear_schedule
+    from flowerdiff_torch.serving import SamplingService
+    from flowerdiff_torch.utils.weights import vae_from_params
+
+    den = dict(latent_dim=64, hidden_dims=(64, 128, 64), time_emb_dim=64, num_classes=11)
+    vae = dict(latent_dim=64, channels=(8, 16, 32, 64), head_width=64)
+    svc = SamplingService(
+        denoiser_from_params(init_numpy_params("denoiser", seed=4, **den), device="cuda", **den),
+        vae_from_params(init_numpy_params("vae", seed=5, **vae), device="cuda", **vae),
+        sched=linear_schedule(10), buckets=(4, 8), clip_x0=3.0, guidance_scale=3.0,
+        quantize_uint8=True, device="cuda")
+    classes = np.arange(19) * 5 % 11
+    assert svc.request_plan(19) == [8, 8, 4]
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True):
+        svc.warmup()
+        assert sorted(k[0] for k in svc.sampler.graphs) == [4, 8]
+        got = svc.sample_async(classes, seed=3, decode=decode)()
+        ref = svc.sample(classes, seed=3, decode=decode)
+    assert got.shape == ((19, 64, 64, 3) if decode else (19, 64))
+    np.testing.assert_array_equal(got, ref)
+    assert sum(g.replays for g in svc.sampler.graphs.values()) == 2 + 2 * 3
