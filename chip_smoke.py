@@ -31,29 +31,49 @@ Phases (any failure raises and the script exits nonzero without a result):
      stages, one head, one reverse step; a replay adds what its graph
      captured) and checked against one profiled replay's kernel rows by
      name; one replayed bucket call timed at each bucket beside its bound;
-     then the decode of one 64 bucket;
-  7. hold the train-step kernel (forward + backward of the latent-DDPM
+     then the decode of one 64 bucket; two identical 50-image requests
+     bit-equal as uint8 and as f32 images (the service decodes under
+     cuDNN's deterministic algorithms); the decode of 64 latents timed on
+     cuDNN's default algorithms, the deterministic ones and in bf16, in
+     turns, and the bf16 decode within its limits of the f32 one;
+  7. serve the same request with `sampler_kind='ddim'` (50 DDIM steps of the
+     plain f32 model): latency, the latents against the same DDIM on the
+     CPU from one x_init, two identical requests bit-equal;
+  8. run `sample_with_trajectory` and `masked_denoise` (per-chain start
+     steps) at bucket 8 over 1000 steps: the trajectory ends at x0, a chain
+     started at T-1 equals plain `sample` from its x_init;
+  9. hold the augmentation (flip, rotation, color jitter) on the card
+     against the CPU on injected draws for 64 images, and the card's own
+     draws against their closed-form means;
+ 10. hold the train-step kernel (forward + backward of the latent-DDPM
      objective) against torch autograd on its plain twin at flagship width,
      B = 64, with dropout masks, a condition mask with zeros and perturbed
      biases and LN affines, in both lanes (f32, bf16), with and without the
      v2 skip; check that leaving out any one term would show; time the step;
-  8. train the flagship latent DDPM for 10 epochs (150 steps) on a K = 8
-     pool of cached latents of 1020 synthetic images through
+ 11. train the flagship latent DDPM as users run it, on augmented images
+     (rotation 10 degrees, jitter 0.2), for 10 epochs (150 steps) on a
+     K = 8 pool of cached latents of 1020 synthetic images through
      `LatentDiffusionTrainer.run_epochs_fused`, with the train-step kernel
      and, from the same seed, with eager autograd; compare the loss curves;
-     then sample from the EMA weights through the kernel sampler and decode;
-  9. drive the whole-epoch train kernel (`make_mega_epoch_fn`: 15 steps of 64
+     time the pool build with and without augmentation; then sample from
+     the EMA weights through the kernel sampler and decode;
+ 12. train without a cache: 2 epochs of 15 steps of 64, each epoch's 960
+     augmented images through one bf16 encoder call, then the bf16
+     train-step kernel (`make_fused_latent_epochs` with epoch_encode, via
+     the trainer), launches counted; the epoch-encode form against the
+     per-step form from one generator in the f32 lane;
+ 13. drive the whole-epoch train kernel (`make_mega_epoch_fn`: 15 steps of 64
      with draws, forward, backward, clip and AdamW from one library call) at
-     flagship width on latents gathered from the K = 8 pool: hold an epoch
-     against its plain twin on the same draws from a state 15 steps in, in
-     the injected and the stochastic lane, both compute lanes, both moment
-     types, with hyperparameters at which the clip, the decay, the bias
-     corrections, the falling learning rate and the q/k decay each count,
-     and show that a twin epoch without any one of them would fail; check
-     the draws' distribution and bit-equal reruns; train 150 steps and
+     flagship width on latents gathered from the augmented K = 8 pool: hold
+     an epoch against its plain twin on the same draws from a state 15 steps
+     in, in the injected and the stochastic lane, both compute lanes, both
+     moment types, with hyperparameters at which the clip, the decay, the
+     bias corrections, the falling learning rate and the q/k decay each
+     count, and show that a twin epoch without any one of them would fail;
+     check the draws' distribution and bit-equal reruns; train 150 steps and
      sample from the EMA weights; time an epoch beside the per-step kernel
      body;
- 10. print the card's name and power limit, a `kernels` JSON line, and as
+ 14. print the card's name and power limit, a `kernels` JSON line, and as
      the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -73,11 +93,17 @@ import torch
 _ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(_ROOT / "src"))
 
-from flowerdiff_torch.data import DeviceDataset, synthetic_flowers  # noqa: E402
+from flowerdiff_torch.data import (  # noqa: E402
+    DeviceDataset,
+    make_augment_fn,
+    synthetic_flowers,
+)
 from flowerdiff_torch.diffusion import linear_schedule  # noqa: E402
 from flowerdiff_torch.diffusion.api import (  # noqa: E402
+    DDIMSampler,
     DiffusionSampler,
     FusedDiffusionSampler,
+    NormalizedSampler,
 )
 from flowerdiff_torch.kernels import _build  # noqa: E402
 from flowerdiff_torch.kernels import train_epoch as te  # noqa: E402
@@ -112,6 +138,7 @@ from flowerdiff_torch.serving import SamplingService  # noqa: E402
 from flowerdiff_torch.train.fused import (  # noqa: E402
     epoch_rows,
     make_fused_cached_epochs,
+    make_fused_latent_epochs,
     make_latent_cache_builder,
 )
 from flowerdiff_torch.train.latent_ddpm import (  # noqa: E402
@@ -748,7 +775,166 @@ def phase_service(model, vae, stats):
     dt = time.perf_counter() - t0
     assert imgs.shape == (50, 64, 64, 3)
     print(f"[service] decode_latents(50): plan {svc.request_plan(50)} {dt * 1e3:.2f} ms")
+
+    # reproducible for a given (seed, request), as uint8 and as f32 images,
+    # with no flag set here: the service decodes on cuDNN's deterministic
+    # algorithms
+    svc32 = SamplingService(model, vae, buckets=(64,), latent_stats=stats, clip_x0=CLIP,
+                            guidance_scale=GUIDANCE, device="cuda")
+    u8 = [svc.sample_classes(range(10), 5, seed=0) for _ in range(2)]
+    f32 = [svc32.sample_classes(range(10), 5, seed=0) for _ in range(2)]
+    diff_u8, diff_f32 = int((u8[0] != u8[1]).sum()), int((f32[0] != f32[1]).sum())
+    same_path = bool(np.array_equal(
+        np.round(np.clip(f32[0], 0.0, 1.0) * 255.0).astype(np.uint8), u8[0]))
+    print(f"[service] two identical 50-image requests: uint8 values that differ {diff_u8} of "
+          f"{u8[0].size}, f32 values {diff_f32} of {f32[0].size}; the f32 service's images "
+          f"quantised equal the uint8 service's: {same_path}")
+    assert diff_u8 == 0 and diff_f32 == 0 and same_path, "identical requests differ"
+    assert not torch.backends.cudnn.deterministic, "the service left a global flag set"
+
+    # the decode of 64 latents on cuDNN's default algorithms, on its
+    # deterministic ones (the service's) and in bf16, in turns
+    svc16 = SamplingService(model, vae, buckets=(64,), decode_bf16=True, use_fused=False,
+                            device="cuda")
+    z = torch.randn((64, FLAGSHIP["latent_dim"]), generator=torch.Generator(device="cuda")
+                    .manual_seed(8), device="cuda") * 2.0
+    decodes = {"default": lambda: vae.decode(z), "deterministic": lambda: svc32._decode(z),
+               "bf16": lambda: svc16._decode(z)}
+    dec_ms = {k: [] for k in decodes}
+    with torch.no_grad():
+        for name in ("default", "deterministic", "bf16", "bf16", "deterministic", "default"):
+            dec_ms[name].append(event_ms(decodes[name], 10))
+        img32, img16 = decodes["deterministic"](), decodes["bf16"]()
+    d = (img16 - img32).abs()
+    mae, mx = float(d.mean()), float(d.max())
+    print(f"[service] decode of 64 latents, ms between CUDA events (10 calls, two turns): "
+          f"cuDNN default algorithms {dec_ms['default']}, deterministic "
+          f"{dec_ms['deterministic']}, bf16 (deterministic) {dec_ms['bf16']}; bf16 against "
+          f"f32: mean abs {mae:.2e} (limit {1 / 255:.2e}), max abs {mx:.2e} "
+          f"(limit {16 / 255:.2e})")
+    assert img16.dtype == torch.float32 and mae < 1 / 255 and mx < 16 / 255
     return got, calls
+
+
+def event_ms(fn, iters: int) -> float:
+    """Mean device time of one of `iters` eager calls, between CUDA events,
+    after one call to warm up."""
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return round(start.elapsed_time(end) / iters, 4)
+
+
+def phase_ddim(model, vae, stats, den_params):
+    """The service with sampler_kind='ddim': 50 deterministic steps of the
+    plain f32 model (no kernel, as in the reference), the 50-image request
+    timed, its latents against the same DDIM on the CPU from one x_init,
+    two identical requests bit-equal."""
+    svc = SamplingService(model, vae, buckets=(8, 64), latent_stats=stats, clip_x0=CLIP,
+                          guidance_scale=GUIDANCE, quantize_uint8=True, sampler_kind="ddim",
+                          ddim_steps=50, device="cuda")
+    assert isinstance(svc.sampler, DDIMSampler) and svc.use_fused
+    svc.warmup()
+    reset_counts()
+    times, outs = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(svc.sample_classes(range(10), 5, seed=0))
+        times.append((time.perf_counter() - t0) * 1e3)
+    assert launch_counts() == sampler_counts(0), "DDIM launched a sampler kernel"
+    assert outs[0].dtype == np.uint8 and outs[0].shape == (50, 64, 64, 3) and outs[0].std() > 0
+    same = all(np.array_equal(outs[0], o) for o in outs[1:])
+    lat_ms = float(np.median(times))
+    print(f"[ddim] sample_classes(range(10), 5), 50 DDIM steps, CFG {GUIDANCE}, clip {CLIP}, "
+          f"uint8: latency {lat_ms:.1f} ms (runs {[round(v, 1) for v in times]}), "
+          f"{50e3 / lat_ms:.1f} images/s; three identical requests bit-equal: {same}")
+    assert same, "identical DDIM requests differ"
+
+    classes = np.repeat(np.arange(10), 5)
+    x = np.random.default_rng(3).standard_normal((50, FLAGSHIP["latent_dim"])).astype(np.float32)
+    got = svc.sample(classes, x_init=x, decode=False)
+    cpu_model = denoiser_from_params(den_params, device="cpu", **FLAGSHIP)
+    cpu = DDIMSampler(NormalizedSampler(DiffusionSampler(
+        cpu_model, linear_schedule(1000), (FLAGSHIP["latent_dim"],), clip_x0=CLIP,
+        guidance_scale=GUIDANCE, device="cpu"), *stats), 50)
+    t0 = time.perf_counter()
+    ref = cpu.sample(50, torch.from_numpy(classes), x_init=torch.from_numpy(x)).numpy()
+    cpu_s = time.perf_counter() - t0
+    err, scale = float(np.abs(got - ref).max()), float(np.abs(ref).max())
+    print(f"[ddim] latents on the card against the CPU from one x_init (TF32 off): max_abs_err "
+          f"{err:.3e} (max|CPU| {scale:.3f}, limit {1e-3 * scale:.3e}); the CPU run "
+          f"{cpu_s:.1f} s")
+    assert err <= 1e-3 * scale, "DDIM on the card disagrees with the CPU"
+    return lat_ms
+
+
+def phase_partial(model):
+    """The trajectory and masked samplers at bucket 8, 1000 guided clipped
+    steps, no step noise: the plain f32 model (FusedDiffusionSampler
+    overrides `sample` only)."""
+    dev = torch.device("cuda")
+    sched = linear_schedule(1000)
+    kw = dict(clip_x0=CLIP, guidance_scale=GUIDANCE, device=dev)
+    fused = FusedDiffusionSampler(model, sched, (FLAGSHIP["latent_dim"],), **kw)
+    plain = DiffusionSampler(model, sched, (FLAGSHIP["latent_dim"],), **kw)
+    cls = torch.arange(8, device=dev)
+    x = torch.randn((8, FLAGSHIP["latent_dim"]), generator=torch.Generator(device=dev)
+                    .manual_seed(9), device=dev)
+    t_start = torch.tensor([999, 999, 750, 500, 250, 100, 0, -1], device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    x0, traj = fused.sample_with_trajectory(8, cls, x_init=x, stochastic=False)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    masked = fused.masked_denoise(x, t_start, cls, stochastic=False)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    assert launch_counts() == sampler_counts(0), "trajectory or masked sampling ran a kernel"
+    ref = plain.sample(8, cls, x_init=x, stochastic=False)
+    ends = torch.equal(traj[-1], x0)
+    chains = torch.equal(masked[:2], ref[:2])
+    print(f"[partial] sample_with_trajectory, bucket 8, 1000 steps: {(t1 - t0) * 1e3:.1f} ms, "
+          f"trajectory {tuple(traj.shape)}, trajectory[-1] == x0: {ends}; masked_denoise "
+          f"(t_start {t_start.tolist()}): {(t2 - t1) * 1e3:.1f} ms, the chains from T-1 "
+          f"equal plain sample: {chains} (max_abs_err {max_err(masked[:2], ref[:2]):.3e}), "
+          f"x0 equal plain sample: {torch.equal(x0, ref)}")
+    assert traj.shape == (1000, 8, FLAGSHIP["latent_dim"]) and torch.isfinite(traj).all()
+    assert ends and chains and torch.equal(masked[7], x[7]) and torch.isfinite(masked).all()
+
+
+def phase_augment(dataset):
+    """The augmentation on the card against the CPU on the same injected
+    draws (64 images), and the card's own draws against their closed-form
+    means, each within five standard errors."""
+    augment = make_augment_fn(dataset.max_rotation_deg, dataset.jitter)
+    x = dataset.images[:64].float() * (1.0 / 255.0)
+    draws = augment.draw(64, torch.Generator().manual_seed(1))
+    ref = augment(x.cpu(), draws=draws)
+    got = augment(x, draws=draws._replace(**{k: v.cuda() for k, v in draws._asdict().items()}))
+    err = max_err(got.cpu(), ref)
+    n = 4096
+    d = augment.draw(n, torch.Generator(device="cuda").manual_seed(2), "cuda")
+    max_rad = dataset.max_rotation_deg * np.pi / 180.0
+    stats = {"flip share": (float(d.flip.float().mean()), 0.5, 0.5 / n ** 0.5),
+             "angle": (float(d.angle.mean()), 0.0, max_rad / (3 * n) ** 0.5)}
+    for k in ("fb", "fc", "fs"):
+        stats[k] = (float(getattr(d, k).mean()), 1.0, dataset.jitter / (3 * n) ** 0.5)
+    chunk = dataset.images[:255].float() * (1.0 / 255.0)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    ms = event_ms(lambda: augment(chunk, gen), 10)
+    print(f"[augment] 64 images on the card against the CPU, same draws: max_abs_err {err:.3e} "
+          f"(limit 1e-5); the card's own {n} draws, mean (closed form, 5 standard errors): "
+          f"{ {k: (round(m, 5), c, round(5 * se, 5)) for k, (m, c, se) in stats.items()} }; "
+          f"a chunk of 255 images {ms:.4f} ms")
+    assert err <= 1e-5, "augmentation on the card disagrees with the CPU"
+    for k, (m, c, se) in stats.items():
+        assert abs(m - c) <= 5 * se, f"{k}: mean {m} off {c}"
 
 
 def _perturb_module(model, gen):
@@ -932,36 +1118,45 @@ def phase_train_kernel(gen):
     return row
 
 
-def phase_train(vae, stats):
-    """The flagship latent-DDPM trainer on cached latents, 10 epochs, with
-    the train-step kernel and with eager autograd from the same seed."""
+def phase_train(vae, stats, dataset):
+    """The flagship latent-DDPM trainer on cached latents of augmented
+    images, 10 epochs, with the train-step kernel and with eager autograd
+    from the same seed."""
     dev = torch.device("cuda")
-    images, labels = synthetic_flowers(1020, FLAGSHIP["num_classes"], 64, seed=0)
-    dataset = DeviceDataset(images, labels, augment=False)
     epochs, steps = 10, TRAIN["steps_per_epoch"]
 
     def config(train_kernel, lane="bfloat16"):
         return LatentDiffusionConfig(train_kernel=train_kernel, train_kernel_dtype=lane,
                                      **FLAGSHIP, **TRAIN)
 
-    # the K = 8 pool alone: its build time, and bf16 against f32 convolutions
+    # the K = 8 pool alone: its build time with and without augmentation,
+    # and bf16 against f32 convolutions
     cfg = config(False)
     gen = torch.Generator(device=dev).manual_seed(11)
     tstats = tuple(torch.as_tensor(s, dtype=torch.float32, device=dev) for s in stats)
-    build = make_latent_cache_builder(vae, cfg, augment=False)
-    build(dataset.images, gen, tstats)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pool = build(dataset.images, gen, tstats)
-    torch.cuda.synchronize()
-    pool_ms = (time.perf_counter() - t0) * 1e3
+    aug = dict(max_rotation_deg=dataset.max_rotation_deg, jitter=dataset.jitter)
+    assert dataset.augment_enabled and aug == dict(max_rotation_deg=10.0, jitter=0.2)
+    build = make_latent_cache_builder(vae, cfg, **aug)
+    build_plain = make_latent_cache_builder(vae, cfg, augment=False)
+    build_ms = {}
+    for name, fn in (("augmented", build), ("not augmented", build_plain)):
+        fn(dataset.images, gen, tstats)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(dataset.images, gen, tstats)
+        torch.cuda.synchronize()
+        build_ms[name] = (time.perf_counter() - t0) * 1e3
+        if name == "augmented":
+            pool = out
+    pool_ms = build_ms["augmented"]
     pool32 = make_latent_cache_builder(vae, dataclasses.replace(cfg, encode_dtype=None),
-                                       augment=False)(dataset.images, gen, tstats)
+                                       **aug)(dataset.images, gen, tstats)
     assert pool.shape == (8, 1020, FLAGSHIP["latent_dim"]) and pool.dtype == torch.float32
     assert torch.isfinite(pool).all()
     d_mean = float((pool.mean(dim=(0, 1)) - pool32.mean(dim=(0, 1))).abs().max())
     d_std = float((pool.std(dim=(0, 1)) / pool32.std(dim=(0, 1)) - 1).abs().max())
-    print(f"[train] pool (8, 1020, 256) built in {pool_ms:.1f} ms (bf16 encoder); per-dim "
+    print(f"[train] pool (8, 1020, 256) of augmented images built in {pool_ms:.1f} ms (without "
+          f"augmentation {build_ms['not augmented']:.1f} ms; bf16 encoder); per-dim "
           f"mean within {d_mean:.3f} and std within {d_std:.3f} (relative) of the f32 "
           f"encoder's pool; pool std {float(pool.std()):.3f}")
     assert d_mean < 0.1 * float(pool32.std()) and d_std < 0.1
@@ -1034,7 +1229,60 @@ def phase_train(vae, stats):
     print(f"[train] sampler(fused=True) on the EMA weights: 16 images, {n_t} guided steps "
           f"(CFG {GUIDANCE}, clip {CLIP}) + decode in {dt * 1e3:.1f} ms (the capture of its graph "
           f"included); launches {launch_counts()}")
-    return runs["kernel bf16"][3], pool, dataset
+    return runs["kernel bf16"][3], pool
+
+
+def phase_uncached(vae, stats, dataset):
+    """Uncached training as users run it with epoch_encode: each epoch's 960
+    augmented images through one bf16 encoder call, then 15 bf16
+    train-step kernel steps, 2 epochs through the trainer (the kernel's
+    launches counted); then the epoch-encode form against the per-step
+    form (eager autograd, an encode a step) from one generator, f32 lane,
+    f32 encoder, on the first 5 steps."""
+    dev = torch.device("cuda")
+    steps = TRAIN["steps_per_epoch"]
+    uncached = dict(TRAIN, latent_cache=0, cache_refresh_epochs=0)
+    cfg = LatentDiffusionConfig(**FLAGSHIP, **uncached, epoch_encode=True, train_kernel=True)
+    assert cfg.encode_dtype == "bfloat16" and cfg.train_kernel_dtype == "bfloat16"
+    trainer = LatentDiffusionTrainer(cfg, vae, seed=4, latent_stats=stats)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    ts.kernel_loss_and_grads.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = trainer.run_epochs_fused(dataset, 2, vae, gen, batch_size=TRAIN_BATCH)
+    dt = (time.perf_counter() - t0) * 1e3
+    launches = ts.kernel_loss_and_grads.launches
+    finite = bool(np.all(np.isfinite(trainer.last_step_losses)))
+    assert finite and len(losses) == 2 and trainer.state.step == 2 * steps
+    assert launches == 2 * steps, f"uncached training launched the train step {launches} times"
+    wall, kernels = device_profile(lambda: trainer.run_epochs_fused(
+        dataset, 1, vae, gen, batch_size=TRAIN_BATCH))
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    print(f"[uncached] 2 epochs x {steps} steps of {TRAIN_BATCH}, augmented, one bf16 encode of "
+          f"{steps * TRAIN_BATCH} images an epoch, bf16 train-step kernel: {dt:.1f} ms "
+          f"({dt / 2:.1f} ms an epoch, first-call builds included); train-step launches "
+          f"{launches}; epoch losses {[round(v, 4) for v in losses]}; one profiled epoch: wall "
+          f"{wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms, idle share "
+          f"{1 - busy / wall:.3f}")
+
+    idx = torch.from_numpy(epoch_rows(3, dataset.n, TRAIN_BATCH, 1)[0][:5]).to(dev)
+    tstats = tuple(torch.as_tensor(s, dtype=torch.float32, device=dev) for s in stats)
+    forms = {}
+    for name, over in (("per-step encode, eager", dict()),
+                       ("epoch encode, kernel f32", dict(epoch_encode=True, train_kernel=True,
+                                                         train_kernel_dtype="float32"))):
+        fcfg = LatentDiffusionConfig(**FLAGSHIP, **dict(uncached, encode_dtype=None), **over)
+        t = LatentDiffusionTrainer(fcfg, vae, seed=4, latent_stats=stats)
+        fn = make_fused_latent_epochs(t.model, vae, t.sched, fcfg, steps_per_epoch=5)
+        forms[name] = fn(t.state, dataset.images, dataset.labels, None, idx,
+                         torch.Generator(device=dev).manual_seed(17), tstats).cpu()
+    a, b = forms.values()
+    err, scale = float((a - b).abs().max()), float(a.abs().max())
+    print(f"[uncached] the first 5 steps, per-step encode (eager) against epoch encode (kernel, "
+          f"f32 lane) from one generator: losses {[round(float(v), 5) for v in a]}, max diff "
+          f"{err:.3e} (limit {1e-4 * scale:.3e})")
+    assert err <= 1e-4 * scale, "the two forms of the uncached epochs disagree"
+    return launches
 
 
 def _state_snapshot(state):
@@ -1402,8 +1650,8 @@ def main() -> int:
     phase_build()
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    model = denoiser_from_params(init_numpy_params("denoiser", seed=0, **FLAGSHIP),
-                                 device="cuda", **FLAGSHIP)
+    den_params = init_numpy_params("denoiser", seed=0, **FLAGSHIP)
+    model = denoiser_from_params(den_params, device="cuda", **FLAGSHIP)
     vae = vae_from_params(init_numpy_params("vae", seed=1, **VAE), device="cuda", **VAE)
     sched = linear_schedule(1000)
     prep = prepare_fused_sampler(model, sched.to("cuda"))
@@ -1413,15 +1661,22 @@ def main() -> int:
     phase_short_parity(model, gen)
     phase_profile(model)
     stats = np.load(STATS)
-    launches, calls = phase_service(model, vae, (stats["mean"], stats["std"]))
+    stats = (stats["mean"], stats["std"])
+    launches, calls = phase_service(model, vae, stats)
     for row in kernel_rows:
         row["launches"] = launches[row["name"]]
         if row["name"] == "reverse_step":  # kernel 3: the whole reverse process
             row["bucket_call"] = {str(b): c for b, c in calls.items()}
+    phase_ddim(model, vae, stats, den_params)
+    phase_partial(model)
+    images, labels = synthetic_flowers(1020, FLAGSHIP["num_classes"], 64, seed=0)
+    dataset = DeviceDataset(images, labels)  # augments: rotation 10 degrees, jitter 0.2
+    phase_augment(dataset)
     train_row = phase_train_kernel(gen)
-    train_row["launches"], pool, dataset = phase_train(vae, (stats["mean"], stats["std"]))
+    train_row["launches"], pool = phase_train(vae, stats, dataset)
+    train_row["uncached_launches"] = phase_uncached(vae, stats, dataset)
     kernel_rows.append(train_row)
-    kernel_rows.append(phase_train_epoch(vae, (stats["mean"], stats["std"]), pool, dataset))
+    kernel_rows.append(phase_train_epoch(vae, stats, pool, dataset))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

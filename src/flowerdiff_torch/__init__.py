@@ -1,11 +1,12 @@
 """flowerdiff_torch: the PyTorch + CUDA (Hopper) port of flowerdiff.
 
 The JAX package `flowerdiff` is the reference; this package reproduces its
-class-conditional latent sampling path (denoiser, DDPM sampler, VAE decode,
-bucketed serving) and its latent-DDPM training on cached latents (frozen
-VAE encoder, latent pool, clip + AdamW + SGDR + EMA trainer) in PyTorch,
-with the Pallas TPU kernels of those paths rewritten as hand-written CUDA
-C++ kernels for sm_90a (`flowerdiff_torch.kernels`).
+class-conditional latent sampling path (denoiser, ancestral, DDIM, partial
+and trajectory samplers, VAE decode, bucketed serving) and its latent-DDPM
+training on augmented images (device-side flip, rotation and color jitter;
+frozen VAE encoder, cached or per-step latents, clip + AdamW + SGDR + EMA
+trainer) in PyTorch, with the Pallas TPU kernels of those paths rewritten as
+hand-written CUDA C++ kernels for sm_90a (`flowerdiff_torch.kernels`).
 
 Importing this package imports `torch` only. Kernel libraries are compiled
 and loaded on first launch, so the package imports on a CPU-only machine.

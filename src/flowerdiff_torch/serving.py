@@ -1,40 +1,55 @@
 """Production sampling service (port of `SamplingService` in
 flowerdiff/serving.py).
 
-One `SamplingService` holds the denoiser behind a `FusedDiffusionSampler`
-(the kernel path), optionally z-score denormalisation, and the VAE decoder.
-A request of N class labels is cut into bucket-sized chunks (`request_plan`):
-full top-bucket chunks plus one ladder bucket for the tail, each padded with
-class 0 and sliced back on the host. Each chunk runs
+One `SamplingService` holds the denoiser behind a sampler, optionally
+z-score denormalisation, and the VAE decoder. A request of N class labels
+is cut into bucket-sized chunks (`request_plan`): full top-bucket chunks
+plus one ladder bucket for the tail, each padded with class 0 and sliced
+back on the host. Each chunk runs
 
-    sample (1000 ancestral steps, CFG, x0 clip) -> denormalise -> decode
+    sample -> denormalise -> decode
     [-> round(clip(img, 0, 1) * 255) as uint8 with quantize_uint8=True]
-
-where on a CUDA device the 1000 steps are one replay of the bucket's
-captured CUDA graph (`FusedDiffusionSampler`); `warmup` captures every
-bucket's graph before traffic. `sample_async` issues every chunk before it
-fetches any; `sample` is `sample_async(...)()`.
 
 and the service returns (N, 64, 64, 3) images as numpy: float32 by default,
 as the reference does, or uint8 when the service quantizes.
 
-Unlike the reference service, `guidance_scale` is a constructor argument
-and reaches the sampler. Chunk i of a request draws from a generator seeded
-by (seed, i), so a result is reproducible for a given (seed, request).
+The sampler: `sampler_kind='ancestral'` runs the 1000 ancestral steps with
+CFG and x0 clip, on the kernel path (`FusedDiffusionSampler`) when
+`use_fused` (default: on a CUDA device), where the 1000 steps are one replay
+of the bucket's captured CUDA graph and `warmup` captures every bucket's
+graph before traffic; with `use_fused=False` it runs the plain f32 model.
+`sampler_kind='ddim'` runs `ddim_steps` deterministic DDIM steps of the
+plain f32 model (a `DDIMSampler` outside the `NormalizedSampler`, as in the
+reference). `sample_async` issues every chunk before it fetches any;
+`sample` is `sample_async(...)()`.
 
-Not ported yet: `service_from_run`, `animate`, DDIM serving
-(`sampler_kind`), `use_fused`, `decode_bf16`, `PixelSamplingService`.
+The decoder runs under cuDNN's deterministic algorithms, so a result is
+reproducible bit for bit for a given (seed, request): chunk i of a request
+draws from a generator seeded by (seed, i). `decode_bf16=True` runs the
+decoder's convolutions and products in bf16 (autocast), its output cast
+back to f32 before any quantisation.
+
+Unlike the reference service, `guidance_scale` is a constructor argument
+and reaches the sampler.
+
+Not ported yet: `service_from_run`, `animate`, `PixelSamplingService`.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from flowerdiff_torch.diffusion.api import FusedDiffusionSampler, NormalizedSampler
+from flowerdiff_torch.diffusion.api import (
+    DDIMSampler,
+    DiffusionSampler,
+    FusedDiffusionSampler,
+    NormalizedSampler,
+)
 from flowerdiff_torch.diffusion.schedule import DiffusionSchedule, linear_schedule
-from flowerdiff_torch.utils.device import resolve_device
+from flowerdiff_torch.utils.device import derived_generator, resolve_device
 
 DEFAULT_BUCKETS = (8, 16, 32, 64, 128, 256, 512)
 
@@ -42,6 +57,20 @@ DEFAULT_BUCKETS = (8, 16, 32, 64, 128, 256, 512)
 def quantize_uint8(img: torch.Tensor) -> torch.Tensor:
     """[0, 1] floats -> uint8, rounding half to even like jnp.round."""
     return torch.round(torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8)
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN on, with its deterministic algorithms only, for the block;
+    every flag is restored after it. (`torch.backends.cudnn.flags` would
+    also set allow_tf32 and benchmark to its own defaults for the block.)"""
+    cudnn = torch.backends.cudnn
+    before = cudnn.enabled, cudnn.deterministic
+    cudnn.enabled, cudnn.deterministic = True, True
+    try:
+        yield
+    finally:
+        cudnn.enabled, cudnn.deterministic = before
 
 
 class SamplingService:
@@ -55,6 +84,10 @@ class SamplingService:
         clip_x0: Optional[float] = None,
         guidance_scale: Optional[float] = None,
         quantize_uint8: bool = False,
+        use_fused: Optional[bool] = None,
+        sampler_kind: str = "ancestral",
+        ddim_steps: int = 50,
+        decode_bf16: bool = False,
         device=None,
     ):
         """model: the port's ConditionalLatentDenoiser; vae: the port's
@@ -63,20 +96,29 @@ class SamplingService:
         x0-thresholding bound; guidance_scale: classifier-free guidance.
         quantize_uint8: return uint8 images (rounded half to even on the
         device, a quarter of the bytes to the host) instead of the decoder's
-        float32 output."""
+        float32 output. use_fused: the kernel path for ancestral `sample`;
+        None picks it on a CUDA device and the plain model elsewhere.
+        sampler_kind: 'ancestral' or 'ddim' (`ddim_steps` strided steps).
+        decode_bf16: the decoder under bf16 autocast, output f32."""
         self.device = resolve_device(device)
+        if sampler_kind not in ("ancestral", "ddim"):
+            raise ValueError(f"unknown sampler_kind {sampler_kind!r}")
         self.quantize_uint8 = quantize_uint8
+        self.decode_bf16 = decode_bf16
         self.buckets = tuple(sorted(buckets))
         if not self.buckets:
             raise ValueError("need at least one bucket size")
         self.sched = sched or linear_schedule()
         self.model = model.to(self.device).eval()
         self.vae = vae.to(self.device).eval()
-        self.sampler = FusedDiffusionSampler(
-            self.model, self.sched, (model.latent_dim,), clip_x0=clip_x0,
-            guidance_scale=guidance_scale, device=self.device)
+        self.use_fused = self.device.type == "cuda" if use_fused is None else use_fused
+        cls = FusedDiffusionSampler if self.use_fused else DiffusionSampler
+        self.sampler = cls(self.model, self.sched, (model.latent_dim,), clip_x0=clip_x0,
+                           guidance_scale=guidance_scale, device=self.device)
         if latent_stats is not None:
             self.sampler = NormalizedSampler(self.sampler, *latent_stats)
+        if sampler_kind == "ddim":
+            self.sampler = DDIMSampler(self.sampler, num_steps=ddim_steps)
 
     def bucket_size(self, n: int) -> int:
         """Smallest bucket >= n."""
@@ -104,19 +146,19 @@ class SamplingService:
             return arr
         return np.concatenate([arr, np.zeros((target - n,) + arr.shape[1:], arr.dtype)])
 
-    def _generator(self, seed: int, chunk: int) -> torch.Generator:
-        state = np.random.SeedSequence([seed, chunk]).generate_state(1, np.uint64)[0]
-        return torch.Generator(device=self.device).manual_seed(int(state) >> 1)
-
     def _decode(self, latents: torch.Tensor) -> torch.Tensor:
-        img = self.vae.decode(latents)
+        with deterministic_cudnn(), torch.autocast(self.device.type, dtype=torch.bfloat16,
+                                                   enabled=self.decode_bf16):
+            img = self.vae.decode(latents)
+        img = img.float()
         return quantize_uint8(img) if self.quantize_uint8 else img
 
     def warmup(self, seed: int = 0, buckets: Optional[Sequence[int]] = None,
                with_colors: bool = False) -> None:
         """Run the live path once per bucket (default: all), host numpy
-        classes in and images out, so that every bucket's CUDA graph is
-        captured and every kernel built before live traffic."""
+        classes in and images out, so that every kernel is built and, on
+        the kernel path, every bucket's CUDA graph captured before live
+        traffic."""
         for b in buckets or self.buckets:
             classes = np.zeros((b,), np.int64)
             colors = np.zeros((b,), np.int64) if with_colors else None
@@ -148,7 +190,7 @@ class SamplingService:
             x0 = None
             if x_init is not None:
                 x0 = torch.from_numpy(self._pad(x_init[part], b)).to(self.device)
-            lat = self.sampler.sample(b, *cond, generator=self._generator(seed, i),
+            lat = self.sampler.sample(b, *cond, generator=derived_generator(self.device, seed, i),
                                       x_init=x0, stochastic=stochastic)
             out = self._decode(lat) if decode else lat
             done = None

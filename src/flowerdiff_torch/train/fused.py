@@ -1,15 +1,16 @@
 """Multi-epoch training windows over a device-resident dataset (port of the
-latent-cache part of flowerdiff/train/fused.py).
+latent-DDPM part of flowerdiff/train/fused.py).
 
 The reference compiles a window of epochs into one `lax.scan` program. Here
 a window is a plain Python loop over the steps, each step enqueueing its
 kernels without a host synchronisation; the losses come back as one device
 tensor. (A CUDA graph of the step is later performance work.)
 
-Ported: `epoch_rows`, `make_latent_cache_builder`, `make_fused_cached_epochs`.
-The uncached `make_fused_latent_epochs` and every augmenting path need the
-device-side augmentation program of the data pipeline, which comes with the
-VAE-GAN slice: asking for them raises.
+Ported: `epoch_rows`, `_make_gather`, `make_latent_cache_builder`,
+`make_fused_cached_epochs` and `make_fused_latent_epochs` (both forms:
+the frozen encode per step, or once per epoch). Each augmenting path takes
+its draws from one generator in a fixed order, a row at a time: the
+augmentation's, the posterior noise, then the step's.
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from flowerdiff_torch.data.pipeline import make_augment_fn, unit_float
+from flowerdiff_torch.kernels.train_step import draw_step_inputs
 from flowerdiff_torch.models.latent_unet import ConditionalLatentDenoiser
 from flowerdiff_torch.models.vae import FlowerVAE
 from flowerdiff_torch.train.latent_ddpm import (
@@ -53,12 +56,113 @@ def epoch_rows(rng, n: int, batch_size: int, epochs: int, shuffle: bool = True,
     return idx, steps
 
 
-def make_fused_latent_epochs(*args, **kwargs):
-    """The uncached fused epochs encode freshly augmented images every
-    epoch; they wait for the augmentation program."""
-    raise NotImplementedError(
-        "make_fused_latent_epochs needs the device-side augmentation program, "
-        "which comes with the VAE-GAN slice; use cfg.latent_cache > 0")
+def _make_gather(augment: bool, max_rotation_deg: float, jitter: float):
+    """gather(images_u8, idx_row, generator=None, draws=None) -> the rows'
+    float [0, 1] images, augmented when `augment` (the reference's
+    `_make_gather`: the same program as `DeviceDataset.assemble`)."""
+    augment_fn = make_augment_fn(max_rotation_deg, jitter) if augment else None
+
+    def gather(images_u8, idx_row, generator=None, draws=None):
+        imgs = unit_float(images_u8[idx_row])
+        if augment_fn is not None:
+            imgs = augment_fn(imgs, generator, draws)
+        return imgs
+
+    gather.augment_fn = augment_fn
+    return gather
+
+
+def _kernel_denoise_body(model: ConditionalLatentDenoiser, cfg: LatentDiffusionConfig):
+    """cfg.train_kernel's body (kernels/train_step.py) in
+    cfg.train_kernel_dtype, v1/v2 only."""
+    from flowerdiff_torch.kernels.train_step import kernel_supported, make_kernel_denoise_body
+
+    if not kernel_supported(model):
+        raise ValueError(
+            "cfg.train_kernel=True requires a shared_cond_proj single-condition "
+            "variant (v1/v2); use the eager path for v3")
+    if cfg.train_kernel_dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"train_kernel_dtype {cfg.train_kernel_dtype!r}: choose "
+                         f"one of {sorted(_KERNEL_DTYPES)}")
+    return make_kernel_denoise_body(model, cfg, dtype=_KERNEL_DTYPES[cfg.train_kernel_dtype])
+
+
+def make_fused_latent_epochs(model: ConditionalLatentDenoiser, vae: FlowerVAE, sched,
+                             cfg: LatentDiffusionConfig, has_colors: bool = False,
+                             augment: bool = True, max_rotation_deg: float = 10.0,
+                             jitter: float = 0.2, steps_per_epoch: int = 1,
+                             epoch_encode: Optional[bool] = None):
+    """fn(state, images_u8, labels_all, colors_all, idx (T, B), generator=None,
+    latent_stats=None) -> losses (T,) on the device; the state is updated in
+    place. T must be whole epochs of steps_per_epoch rows.
+
+    Per step (epoch_encode False, the default from cfg.epoch_encode): gather
+    and augment the row's images, draw their posterior through the frozen
+    encoder (the VAE's own f32 convolutions, as the reference's step body),
+    then the eager denoise step. epoch_encode=True: the epoch's S rows are
+    drawn first, a row at a time in the per-step order (augmentation,
+    posterior noise, step draws), so each row sees the same numbers; then
+    the S * B augmented images go through ONE encoder call
+    (cfg.encode_dtype='bfloat16' runs its convolutions under bf16 autocast;
+    the noise and latents stay f32), then S denoise steps. cfg.train_kernel
+    selects the train-step kernel for those steps and requires
+    epoch_encode."""
+    if epoch_encode is None:
+        epoch_encode = cfg.epoch_encode
+    if cfg.train_kernel and not epoch_encode:
+        raise ValueError("cfg.train_kernel=True requires epoch_encode")
+    gather = _make_gather(augment, max_rotation_deg, jitter)
+
+    def check(idx):
+        if idx.shape[0] % steps_per_epoch:
+            raise ValueError(f"T={idx.shape[0]} is not a multiple of steps={steps_per_epoch}")
+
+    if not epoch_encode:
+        encode = make_latent_encode_fn(vae)
+        denoise = make_latent_denoise_body(model, cfg)
+
+        def epochs_fn(state, images_u8, labels_all, colors_all, idx,
+                      generator: Optional[torch.Generator] = None, latent_stats=None):
+            check(idx)
+            losses = []
+            for idx_row in idx:
+                z = encode(gather(images_u8, idx_row, generator), generator, latent_stats)
+                cols = colors_all[idx_row] if has_colors else None
+                losses.append(denoise(state, sched, z, labels_all[idx_row], cols, generator))
+            return torch.stack(losses)
+
+        return epochs_fn
+
+    encode = make_latent_encode_fn(vae, cfg.encode_dtype)
+    denoise = (_kernel_denoise_body(model, cfg) if cfg.train_kernel
+               else make_latent_denoise_body(model, cfg))
+    lat = model.latent_dim
+
+    def epochs_fn(state, images_u8, labels_all, colors_all, idx,
+                  generator: Optional[torch.Generator] = None, latent_stats=None):
+        check(idx)
+        b, dev = idx.shape[1], idx.device
+        z_like = torch.empty((b, lat), device=dev)
+        losses = []
+        for e in range(0, idx.shape[0], steps_per_epoch):
+            rows = idx[e:e + steps_per_epoch]
+            aug, noise, step_draws = [], [], []
+            for _ in range(steps_per_epoch):
+                if gather.augment_fn is not None:
+                    aug.append(gather.augment_fn.draw(b, generator, dev))
+                noise.append(torch.randn((b, lat), generator=generator, device=dev))
+                step_draws.append(draw_step_inputs(model, sched.n_steps, cfg.cond_dropout,
+                                                   z_like, generator))
+            imgs = torch.cat([gather(images_u8, r, draws=aug[s] if aug else None)
+                              for s, r in enumerate(rows)])
+            z = encode(imgs, None, latent_stats, noise=torch.cat(noise))
+            for s, r in enumerate(rows):
+                cols = colors_all[r] if has_colors else None
+                losses.append(denoise(state, sched, z[s * b:(s + 1) * b], labels_all[r], cols,
+                                      draws=step_draws[s]))
+        return torch.stack(losses)
+
+    return epochs_fn
 
 
 def make_latent_cache_builder(vae: FlowerVAE, cfg: LatentDiffusionConfig,
@@ -66,24 +170,22 @@ def make_latent_cache_builder(vae: FlowerVAE, cfg: LatentDiffusionConfig,
                               jitter: float = 0.2, chunk: int = 255):
     """build(images_u8, generator, latent_stats=None) -> the (K, N, latent)
     f32 pool of frozen-VAE posterior draws, slot k holding one fresh
-    reparameterisation draw of the whole dataset, encoded in `chunk`-sized
-    pieces. cfg.encode_dtype='bfloat16' runs the encoder under autocast;
-    the noise and the pool stay f32."""
-    if augment:
-        raise NotImplementedError(
-            "device-side augmentation (make_augment_fn: flip, rotation, color "
-            "jitter) comes with the VAE-GAN slice's data pipeline; build the "
-            "DeviceDataset with augment=False")
+    augmentation draw and one reparameterisation draw of the whole dataset,
+    encoded in `chunk`-sized pieces (per chunk: the augmentation's draws,
+    then the noise). cfg.encode_dtype='bfloat16' runs the encoder under
+    autocast; the images, the noise and the pool stay f32."""
     k_slots = cfg.latent_cache
     if k_slots <= 0:
         raise ValueError("latent_cache must be > 0 for the cached path")
     encode = make_latent_encode_fn(vae, cfg.encode_dtype)
+    gather = _make_gather(augment, max_rotation_deg, jitter)
 
     def build(images_u8, generator=None, latent_stats=None):
         n = images_u8.shape[0]
+        rows = torch.arange(n, device=images_u8.device)
         slots = []
         for _ in range(k_slots):
-            zs = [encode(images_u8[i:i + chunk].float() / 255.0, generator, latent_stats)
+            zs = [encode(gather(images_u8, rows[i:i + chunk], generator), generator, latent_stats)
                   for i in range(0, n, chunk)]
             slots.append(torch.cat(zs))
         return torch.stack(slots)
@@ -103,23 +205,8 @@ def make_fused_cached_epochs(model: ConditionalLatentDenoiser, cfg: LatentDiffus
     k_slots = cfg.latent_cache
     if k_slots <= 0:
         raise ValueError("latent_cache must be > 0 for the cached path")
-    if cfg.train_kernel:
-        from flowerdiff_torch.kernels.train_step import (
-            kernel_supported,
-            make_kernel_denoise_body,
-        )
-
-        if not kernel_supported(model):
-            raise ValueError(
-                "cfg.train_kernel=True requires a shared_cond_proj single-condition "
-                "variant (v1/v2); use the eager path for v3")
-        if cfg.train_kernel_dtype not in _KERNEL_DTYPES:
-            raise ValueError(f"train_kernel_dtype {cfg.train_kernel_dtype!r}: choose "
-                             f"one of {sorted(_KERNEL_DTYPES)}")
-        denoise = make_kernel_denoise_body(model, cfg,
-                                           dtype=_KERNEL_DTYPES[cfg.train_kernel_dtype])
-    else:
-        denoise = make_latent_denoise_body(model, cfg)
+    denoise = (_kernel_denoise_body(model, cfg) if cfg.train_kernel
+               else make_latent_denoise_body(model, cfg))
 
     def epochs_fn(state, sched, z_pool, labels_all, colors_all, idx,
                   generator: Optional[torch.Generator] = None):

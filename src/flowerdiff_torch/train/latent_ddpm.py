@@ -67,13 +67,16 @@ class LatentDiffusionConfig:
     # null condition, and the sampling-time guidance scale
     cond_dropout: float = 0.0
     guidance_scale: Optional[float] = None
-    sampler: str = "ancestral"  # 'ddim' is not ported yet
+    # 'ancestral' or 'ddim' over ddim_steps strided timesteps (sampler())
+    sampler: str = "ancestral"
     ddim_steps: int = 50
     # per-step EMA of the denoiser weights; sampling then uses the EMA copy
     ema_decay: Optional[float] = None
+    # the uncached fused epochs encode the whole epoch's images in one call
     epoch_encode: bool = False
-    # compute type of the frozen encoder's convolutions when building the
-    # latent cache ('bfloat16' = autocast); the noise draw and the pool stay f32
+    # compute type of the frozen encoder's convolutions in the epoch-encode
+    # path and the latent cache ('bfloat16' = autocast); the noise draw and
+    # the latents stay f32
     encode_dtype: Optional[str] = None
     # the hand-written forward+backward train step (kernels/train_step.py);
     # v1/v2 variants only
@@ -272,17 +275,38 @@ class LatentDiffusionTrainer:
 
     def run_epochs_fused(self, dataset, epochs: int, vae: Optional[FlowerVAE] = None,
                          generator: Optional[torch.Generator] = None, batch_size: int = 64):
-        """Train `epochs` epochs over a data.DeviceDataset and return the
-        per-epoch mean losses. With cfg.latent_cache > 0 this is the
-        latent-cache path (`run_epochs_cached`). `vae`: the frozen VAE whose
-        encoder fills the pool (default: the trainer's)."""
+        """Train `epochs` epochs over a data.DeviceDataset (augmented when it
+        augments) and return the per-epoch mean losses, with one host fetch.
+        With cfg.latent_cache > 0 this is the latent-cache path
+        (`run_epochs_cached`); otherwise every step encodes freshly
+        augmented images through the frozen VAE (train/fused.py
+        `make_fused_latent_epochs`, cfg.epoch_encode choosing the form).
+        `vae`: the frozen VAE (default: the trainer's)."""
         if self.cfg.latent_cache > 0:
             return self.run_epochs_cached(dataset, epochs, vae, generator,
                                           batch_size=batch_size)
-        raise NotImplementedError(
-            "the uncached fused epochs (make_fused_latent_epochs) need the "
-            "device-side augmentation program, which comes with the VAE-GAN "
-            "slice; set cfg.latent_cache > 0")
+        from flowerdiff_torch.train.fused import epoch_rows, make_fused_latent_epochs
+
+        cfg = self.cfg
+        vae = self.vae if vae is None else vae.to(self.device).eval()
+        has_colors = cfg.num_colors is not None
+        seed = 0 if generator is None else generator.initial_seed()
+        host_seed = int(np.random.default_rng(
+            [seed % 2**32, seed >> 32, self.state.step]).integers(0, 2**31 - 1))
+        idx, steps = epoch_rows(host_seed, dataset.n, batch_size, epochs)
+        key = ("uncached", steps, dataset.augment_enabled, dataset.max_rotation_deg,
+               dataset.jitter, vae)
+        if key not in self._fused:
+            self._fused[key] = make_fused_latent_epochs(
+                self.model, vae, self.sched, cfg, has_colors=has_colors,
+                augment=dataset.augment_enabled, max_rotation_deg=dataset.max_rotation_deg,
+                jitter=dataset.jitter, steps_per_epoch=steps)
+        losses = self._fused[key](
+            self.state, dataset.images, dataset.labels,
+            dataset.colors if has_colors else None,
+            torch.from_numpy(idx).to(self.device), generator, self.latent_stats)
+        self.last_step_losses = losses.cpu().numpy()
+        return self.last_step_losses.reshape(epochs, steps).mean(axis=1).tolist()
 
     def run_epochs_cached(self, dataset, epochs: int, vae: Optional[FlowerVAE] = None,
                           generator: Optional[torch.Generator] = None, batch_size: int = 64):
@@ -358,22 +382,24 @@ class LatentDiffusionTrainer:
     def sampler(self, fused: bool = False):
         """Sampling facade over the sampling params (the EMA weights when
         cfg.ema_decay is set), wrapped in the latent codec when training is
-        z-scored. fused=True samples through the stage, head and
-        reverse-step kernels."""
+        z-scored, and in the DDIM view (cfg.ddim_steps strided steps) when
+        cfg.sampler is 'ddim'. fused=True samples the ancestral `sample`
+        through the stage, head and reverse-step kernels."""
         from flowerdiff_torch.diffusion.api import (
+            DDIMSampler,
             DiffusionSampler,
             FusedDiffusionSampler,
             NormalizedSampler,
         )
 
-        if self.cfg.sampler != "ancestral":
-            raise NotImplementedError("only the ancestral sampler is ported")
         cls = FusedDiffusionSampler if fused else DiffusionSampler
         sampler = cls(self.sampling_model(), self.sched, (self.cfg.latent_dim,),
                       clip_x0=self.cfg.clip_denoised,
                       guidance_scale=self.cfg.guidance_scale, device=self.device)
         if self.latent_stats is not None:
             sampler = NormalizedSampler(sampler, *self.latent_stats)
+        if self.cfg.sampler == "ddim":
+            sampler = DDIMSampler(sampler, num_steps=self.cfg.ddim_steps)
         return sampler
 
     def eps_fn(self, deterministic: bool = True):

@@ -1,8 +1,9 @@
-"""Device selection shared by the port's entry points."""
+"""Device selection and derived generators shared by the port's entry points."""
 from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -17,3 +18,12 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "available; pass device='cpu' to run the plain PyTorch path"
         )
     return dev
+
+
+def derived_generator(device, *words: int) -> torch.Generator:
+    """A `torch.Generator` on `device` seeded from the integers `words`
+    through numpy's SeedSequence: the port's counterpart of
+    `jax.random.fold_in`. Equal words give the same stream; another word
+    gives an unrelated one."""
+    state = np.random.SeedSequence([int(w) for w in words]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state) >> 1)

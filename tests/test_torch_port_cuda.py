@@ -700,35 +700,130 @@ def test_reverse_step_takes_the_key_from_device_memory(gen):
                                                **kw)).abs().max()) <= 1e-4
 
 
-@pytest.mark.parametrize("decode", [False, True])
-def test_sample_async_equals_sample_on_the_card(gen, decode):
-    """A request of three chunks: `sample_async`'s fetch equals `sample` bit
-    for bit (each chunk one replay of its bucket's graph). The latents are
-    bit-equal as they are; the decoded images differed by one uint8 level
-    on 3 of 233,472 values under cuDNN's default algorithms, which may sum
-    in another order from one call to the next, so cuDNN's deterministic
-    algorithms are asked for here: what is compared is the service's
-    dispatch and fetch."""
-    import numpy as np
+_SVC_DEN = dict(latent_dim=64, hidden_dims=(64, 128, 64), time_emb_dim=64, num_classes=11)
+_SVC_VAE = dict(latent_dim=64, channels=(8, 16, 32, 64), head_width=64)
 
+
+def _service(**kw):
     from flowerdiff_torch.diffusion import linear_schedule
     from flowerdiff_torch.serving import SamplingService
     from flowerdiff_torch.utils.weights import vae_from_params
 
-    den = dict(latent_dim=64, hidden_dims=(64, 128, 64), time_emb_dim=64, num_classes=11)
-    vae = dict(latent_dim=64, channels=(8, 16, 32, 64), head_width=64)
-    svc = SamplingService(
-        denoiser_from_params(init_numpy_params("denoiser", seed=4, **den), device="cuda", **den),
-        vae_from_params(init_numpy_params("vae", seed=5, **vae), device="cuda", **vae),
+    return SamplingService(
+        denoiser_from_params(init_numpy_params("denoiser", seed=4, **_SVC_DEN), device="cuda",
+                             **_SVC_DEN),
+        vae_from_params(init_numpy_params("vae", seed=5, **_SVC_VAE), device="cuda", **_SVC_VAE),
         sched=linear_schedule(10), buckets=(4, 8), clip_x0=3.0, guidance_scale=3.0,
-        quantize_uint8=True, device="cuda")
+        device="cuda", **kw)
+
+
+@pytest.mark.parametrize("decode", [False, True])
+def test_sample_async_equals_sample_on_the_card(gen, decode):
+    """A request of three chunks: `sample_async`'s fetch equals `sample` bit
+    for bit (each chunk one replay of its bucket's graph), the decoded
+    images included: the service decodes under cuDNN's deterministic
+    algorithms itself."""
+    import numpy as np
+
+    svc = _service(quantize_uint8=True)
+    assert svc.use_fused
     classes = np.arange(19) * 5 % 11
     assert svc.request_plan(19) == [8, 8, 4]
-    with torch.backends.cudnn.flags(enabled=True, deterministic=True):
-        svc.warmup()
-        assert sorted(k[0] for k in svc.sampler.graphs) == [4, 8]
-        got = svc.sample_async(classes, seed=3, decode=decode)()
-        ref = svc.sample(classes, seed=3, decode=decode)
+    svc.warmup()
+    assert sorted(k[0] for k in svc.sampler.graphs) == [4, 8]
+    got = svc.sample_async(classes, seed=3, decode=decode)()
+    ref = svc.sample(classes, seed=3, decode=decode)
     assert got.shape == ((19, 64, 64, 3) if decode else (19, 64))
     np.testing.assert_array_equal(got, ref)
     assert sum(g.replays for g in svc.sampler.graphs.values()) == 2 + 2 * 3
+    assert not torch.backends.cudnn.deterministic  # the service set no global flag
+
+
+@pytest.mark.parametrize("kind", ["ancestral", "ddim"])
+@pytest.mark.parametrize("quantize", [True, False])
+def test_identical_requests_are_bit_equal_on_the_card(gen, kind, quantize):
+    """Two identical 19-image requests (three chunks): equal bit for bit as
+    uint8 and as f32 images, with no flag set by the caller."""
+    import numpy as np
+
+    svc = _service(quantize_uint8=quantize, sampler_kind=kind, ddim_steps=5)
+    classes = np.arange(19) * 3 % 11
+    a = svc.sample(classes, seed=8)
+    b = svc.sample(classes, seed=8)
+    assert a.dtype == (np.uint8 if quantize else np.float32) and a.shape == (19, 64, 64, 3)
+    np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(a, svc.sample(classes, seed=9))
+
+
+def test_augment_on_the_card_matches_the_cpu_with_injected_draws(gen):
+    """64 images of 64 x 64: the card's rotation and jitter against the
+    CPU's on the same draws, within 1e-5 (f32, values in [0, 1])."""
+    from flowerdiff_torch.data import make_augment_fn
+
+    augment = make_augment_fn(10.0, 0.2)
+    x = torch.rand((64, 64, 64, 3), generator=torch.Generator().manual_seed(1))
+    draws = augment.draw(64, torch.Generator().manual_seed(2))
+    ref = augment(x, draws=draws)
+    got = augment(x.cuda(), draws=draws._replace(**{k: v.cuda()
+                                                   for k, v in draws._asdict().items()}))
+    assert got.is_cuda
+    assert float((got.cpu() - ref).abs().max()) <= 1e-5
+    own = augment(x.cuda(), torch.Generator(device="cuda").manual_seed(3))
+    assert own.is_cuda and 0.0 <= float(own.min()) and float(own.max()) <= 1.0
+
+
+def test_ddim_on_the_card_matches_the_cpu(gen):
+    """The plain f32 model's DDIM (20 steps, CFG 3, clip 3) on the card
+    against the CPU from one x_init, TF32 off: within 1e-3 x max|CPU|."""
+    from flowerdiff_torch.diffusion import linear_schedule
+    from flowerdiff_torch.diffusion.api import DiffusionSampler
+
+    tree = init_numpy_params("denoiser", seed=6, bias_std=0.2, **_SVC_DEN)
+    x = torch.randn((8, 64), generator=torch.Generator().manual_seed(4))
+    cls = torch.arange(8) % 11
+    out = {}
+    for dev in ("cpu", "cuda"):
+        s = DiffusionSampler(denoiser_from_params(tree, device=dev, **_SVC_DEN),
+                             linear_schedule(200), (64,), clip_x0=3.0, guidance_scale=3.0,
+                             device=dev)
+        out[dev] = s.ddim(8, cls, num_steps=20, x_init=x).cpu()
+    scale = float(out["cpu"].abs().max())
+    assert float((out["cuda"] - out["cpu"]).abs().max()) <= 1e-3 * scale
+
+
+def test_uncached_epochs_on_the_card_launch_the_train_kernel(gen):
+    """make_fused_latent_epochs with epoch_encode and the bf16 train
+    kernel, augmenting, at small width: one kernel launch a step, finite
+    losses, and the f32 lane against the per-step form from one generator
+    within 1e-4 x max|loss|."""
+    from flowerdiff_torch.data import synthetic_flowers
+    from flowerdiff_torch.train.fused import epoch_rows, make_fused_latent_epochs
+    from flowerdiff_torch.train.latent_ddpm import (
+        LatentDiffusionConfig,
+        create_latent_diffusion_state,
+    )
+    from flowerdiff_torch.utils.weights import vae_from_params
+
+    vae = vae_from_params(init_numpy_params("vae", seed=5, **_SVC_VAE), device="cuda",
+                          **_SVC_VAE)
+    imgs, labels = synthetic_flowers(64, 11, 64, seed=1)
+    images = torch.from_numpy(imgs).cuda()
+    labels = torch.from_numpy(labels).long().cuda()
+    idx = torch.from_numpy(epoch_rows(2, 64, 16, 2)[0]).cuda()
+    losses = {}
+    for name, over in (("bf16", dict(train_kernel=True, epoch_encode=True,
+                                     encode_dtype="bfloat16")),
+                       ("f32", dict(train_kernel=True, epoch_encode=True,
+                                    train_kernel_dtype="float32")),
+                       ("per step", dict())):
+        cfg = LatentDiffusionConfig(cond_dropout=0.1, n_steps=100, **_SVC_DEN, **over)
+        state, model, sched = create_latent_diffusion_state(0, cfg, device="cuda")
+        fn = make_fused_latent_epochs(model, vae, sched, cfg, steps_per_epoch=4)
+        before = ts.kernel_loss_and_grads.launches
+        losses[name] = fn(state, images, labels, None, idx,
+                          torch.Generator(device="cuda").manual_seed(7)).cpu()
+        launched = ts.kernel_loss_and_grads.launches - before
+        assert launched == (8 if cfg.train_kernel else 0), (name, launched)
+        assert torch.isfinite(losses[name]).all() and state.step == 8
+    scale = float(losses["per step"].abs().max())
+    assert float((losses["f32"] - losses["per step"]).abs().max()) <= 1e-4 * scale

@@ -107,7 +107,7 @@ def test_sample_returns_f32_images_by_default():
     svc = SamplingService(denoiser_from_params(den_tree, device="cpu", **DEN),
                           vae_from_params(vae_tree, device="cpu", **VAE),
                           sched=linear_schedule(STEPS), buckets=(4, 8), latent_stats=stats,
-                          guidance_scale=3.0, device="cpu")
+                          guidance_scale=3.0, use_fused=True, device="cpu")
     ref_svc = JaxService(JaxDenoiser(**DEN), den_tree, JaxVAE(**VAE), vae_tree,
                          sched=jax_schedule(STEPS), use_fused=False, buckets=(4, 8))
     n = 6
@@ -121,7 +121,7 @@ def test_sample_returns_f32_images_by_default():
     # the same request quantised: the uint8 contract of the reference
     q = SamplingService(svc.model, svc.vae, sched=linear_schedule(STEPS), buckets=(4, 8),
                         latent_stats=stats, guidance_scale=3.0, quantize_uint8=True,
-                        device="cpu").sample(c, x_init=x, stochastic=False)
+                        use_fused=True, device="cpu").sample(c, x_init=x, stochastic=False)
     assert q.dtype == np.uint8
     np.testing.assert_array_equal(
         q, np.round(np.clip(got, 0.0, 1.0) * 255.0).astype(np.uint8))

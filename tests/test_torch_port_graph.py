@@ -119,7 +119,7 @@ def _service(buckets, quantize=True):
     vae = vae_from_params(init_numpy_params("vae", seed=35, **VAE), device="cpu", **VAE)
     return SamplingService(den, vae, sched=linear_schedule(STEPS), buckets=buckets,
                            clip_x0=3.0, guidance_scale=2.0, quantize_uint8=quantize,
-                           device="cpu")
+                           use_fused=True, device="cpu")
 
 
 def _spy(svc):
@@ -146,7 +146,8 @@ def test_warmup_with_colors_runs_the_color_path():
     kw = dict(DEN, shared_cond_proj=False, num_colors=4)
     den = denoiser_from_params(init_numpy_params("denoiser", seed=36, **kw), device="cpu", **kw)
     vae = vae_from_params(init_numpy_params("vae", seed=35, **VAE), device="cpu", **VAE)
-    svc = SamplingService(den, vae, sched=linear_schedule(STEPS), buckets=(4,), device="cpu")
+    svc = SamplingService(den, vae, sched=linear_schedule(STEPS), buckets=(4,), use_fused=True,
+                          device="cpu")
     conds = []
     orig = svc.sampler.sample
 

@@ -81,40 +81,42 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 
 def test_unported_training_paths_raise_rather_than_run_something_else():
-    """Augmentation and the uncached fused epochs wait for the data
-    pipeline's augmentation program: asking for either raises and names it;
-    nothing trains silently without augmentation."""
+    """bf16 latent training (compute_dtype) is not ported: asking for it
+    raises and names it, and nothing trains in f32 instead. The train
+    kernel's limits raise as in the reference: no v3 model, and only with
+    the whole-epoch encode on the uncached path; an unknown sampler kind
+    raises in the service."""
     from flowerdiff_torch.data import DeviceDataset
-    from flowerdiff_torch.models import FlowerVAE
+    from flowerdiff_torch.diffusion import linear_schedule
+    from flowerdiff_torch.models import ConditionalLatentDenoiser, FlowerVAE
+    from flowerdiff_torch.serving import SamplingService
     from flowerdiff_torch.train import fused
     from flowerdiff_torch.train.latent_ddpm import LatentDiffusionConfig, LatentDiffusionTrainer
 
     kw = dict(latent_dim=16, hidden_dims=(16, 16), time_emb_dim=16, num_classes=3)
     vae = FlowerVAE(latent_dim=16, channels=(8, 16), head_width=16)
     imgs, labels = np.zeros((4, 16, 16, 3), np.uint8), np.zeros(4, np.int64)
-    augmented = DeviceDataset(imgs, labels, device="cpu")  # augment defaults to True
-    assert augmented.augment_enabled
-    cached = LatentDiffusionTrainer(LatentDiffusionConfig(latent_cache=2, **kw), vae, device="cpu")
-    with pytest.raises(NotImplementedError, match="VAE-GAN slice"):
-        cached.run_epochs_fused(augmented, 1, None, None, batch_size=2)
-    assert cached.state.step == 0 and cached._z_pool is None
-    with pytest.raises(NotImplementedError, match="VAE-GAN slice"):
-        fused.make_latent_cache_builder(vae, cached.cfg, augment=True)
-    plain = DeviceDataset(imgs, labels, augment=False, device="cpu")
-    uncached = LatentDiffusionTrainer(LatentDiffusionConfig(**kw), vae, device="cpu")
-    with pytest.raises(NotImplementedError, match="latent_cache"):
-        uncached.run_epochs_fused(plain, 1, None, None, batch_size=2)
-    with pytest.raises(NotImplementedError, match="augmentation"):
-        fused.make_fused_latent_epochs(uncached.model, vae, uncached.sched, uncached.cfg)
+    with pytest.raises(NotImplementedError, match="float32"):
+        LatentDiffusionTrainer(LatentDiffusionConfig(compute_dtype="bfloat16", **kw), vae,
+                               device="cpu")
+    uncached = LatentDiffusionTrainer(LatentDiffusionConfig(train_kernel=True, **kw), vae,
+                                      device="cpu")
+    with pytest.raises(ValueError, match="epoch_encode"):
+        uncached.run_epochs_fused(DeviceDataset(imgs, labels, device="cpu"), 1, None, None,
+                                  batch_size=2)
+    assert uncached.state.step == 0
     v3 = dict(kw, shared_cond_proj=False, num_colors=2)
     trainer = LatentDiffusionTrainer(
         LatentDiffusionConfig(latent_cache=1, train_kernel=True, **v3), vae, device="cpu")
     with pytest.raises(ValueError, match="v1/v2"):
         trainer.run_epochs_fused(DeviceDataset(imgs, labels, colors=labels, augment=False,
                                                device="cpu"), 1, None, None, batch_size=2)
-    with pytest.raises(NotImplementedError, match="ancestral"):
-        LatentDiffusionTrainer(LatentDiffusionConfig(sampler="ddim", **kw), vae,
-                               device="cpu").sampler()
+    with pytest.raises(ValueError, match="v1/v2"):
+        fused.make_fused_latent_epochs(trainer.model, vae, trainer.sched, trainer.cfg,
+                                       has_colors=True, epoch_encode=True)
+    with pytest.raises(ValueError, match="sampler_kind"):
+        SamplingService(ConditionalLatentDenoiser(**kw), vae, sched=linear_schedule(3),
+                        sampler_kind="euler", device="cpu")
 
 
 def test_every_cuda_source_is_built_and_keeps_a_plain_c_interface():

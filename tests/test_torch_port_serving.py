@@ -45,7 +45,8 @@ def _port(buckets=(4, 8), guidance=GUIDANCE):
                           vae_from_params(vae_tree, device="cpu", **VAE),
                           sched=linear_schedule(STEPS), buckets=buckets,
                           latent_stats=stats, clip_x0=CLIP,
-                          guidance_scale=guidance, quantize_uint8=True, device="cpu")
+                          guidance_scale=guidance, quantize_uint8=True, use_fused=True,
+                          device="cpu")
     return svc, den_tree, vae_tree, stats
 
 
