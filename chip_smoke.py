@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive flowerdiff_torch's sampling and training paths on one CUDA card and
-check them.
+"""Drive flowerdiff_torch's sampling and training paths (latent DDPM and
+VAE-GAN) on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -73,11 +73,28 @@ Phases (any failure raises and the script exits nonzero without a result):
      check the draws' distribution and bit-equal reruns; train 150 steps and
      sample from the EMA weights; time an epoch beside the per-step kernel
      body;
- 14. print the card's name and power limit, a `kernels` JSON line, and as
+ 14. train the flagship VAE-GAN (`phase_vae_gan`: channels (64, 128, 256,
+     512), latent 256, 102 classes, VGG from the in-repo asset, B = 64, the
+     gates of epoch 200 of 1200, so every term is on and the centers update):
+     the step on the card against the same step on the CPU at a small width
+     from the CPU's draws (3 steps, f32; each leaf of G and D on its own),
+     on augmented flower images, and printed but not gated on uniform
+     noise, where the gradients of D are near rounding;
+     `VAEGANTrainer.run_epochs_fused` for 2 epochs of 15 augmented batches with the best-state policy in f32
+     and in bf16 (finite, the best epoch as the epoch means say, bf16 within
+     its band of f32), with every kernel counter read around it (the path
+     runs none); two identical 3-step runs bit-equal in each lane; ms a step
+     by host clock and CUDA events, cuDNN's deterministic algorithms against
+     its default ones in turns, f32, f32 with TF32 and bf16; one profiled
+     step, peak memory and the step's bound; then the trained generator,
+     through the weight bridge, builds a latent pool and the service decodes
+     8 of its latents;
+ 15. print the card's name and power limit, a `kernels` JSON line, and as
      the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -145,16 +162,22 @@ from flowerdiff_torch.train.latent_ddpm import (  # noqa: E402
     LatentDiffusionConfig,
     LatentDiffusionTrainer,
 )
+from flowerdiff_torch.models import VGGPerceptual  # noqa: E402
+from flowerdiff_torch.train import vae_gan as vg  # noqa: E402
+from flowerdiff_torch.train.schedules import vae_gan_loss_gates  # noqa: E402
+from flowerdiff_torch.utils.device import derived_generator  # noqa: E402
 from flowerdiff_torch.utils.timing import cuda_ms  # noqa: E402
 from flowerdiff_torch.utils.weights import (  # noqa: E402
     denoiser_from_params,
     init_numpy_params,
+    state_dict_to_flax,
     vae_from_params,
 )
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+TF32_FLOP_PER_S = 495e12
 F32_FLOP_PER_S = 67e12
 
 FLAGSHIP = dict(latent_dim=256, hidden_dims=(256, 512, 1024, 512, 256),
@@ -220,6 +243,34 @@ EPOCH_BF16_W_MEAN = 0.05
 # gradient norm, an SGDR period of one epoch so the rate falls from lr to
 # ~0 within the epoch, and a start at step 15, where bc2 = 0.016.
 EPOCH_HARD = dict(weight_decay=1.0, grad_clip=0.1, t0=1, t_mult=1, ema_decay=0.9)
+# The VAE-GAN of the flagship preset (configs.py:85-86: VAEGANConfig's
+# defaults, channels (64, 128, 256, 512), latent 256, head 512, 102
+# classes, VGG on), its one-cycle over vae_epochs x 15 steps, batch 64.
+VAE_EPOCHS = 1200
+VAE_GAN = dict(total_steps=VAE_EPOCHS * 15)
+VAE_GAN_BATCH = 64
+VAE_GAN_EPOCH = 200  # every gate on, the centers updating
+# The card against the CPU, f32 (TF32 off, as main() sets it), 3 steps at a
+# small width with the CPU's draws: the limits of the CPU tests against the
+# reference (tests/test_torch_port_vae_gan.py): losses rtol 1e-3 (the
+# adversarial and D losses move with D's Adam steps on near-rounding
+# gradients); the centers within 1e-5; each leaf of G and D on its own: the
+# rms of its weights' difference within 5e-2 of the rms of its move from the
+# init, and of its Adam first moments' within 2e-2 of their rms. The leaves
+# whose gradient is rounding noise in the first steps (the bias of every
+# convolution that feeds a LayerNorm2d, which removes it; the channel gates'
+# kernels, whose input is a LayerNorm2d's bias, zero at init) are held to
+# Adam's bound of 2 lr a step, with a first moment below 1e-6.
+VAE_GAN_SMALL = dict(VAE_GAN, channels=(16, 32, 48, 64), latent_dim=32, head_width=64)
+VAE_GAN_LOSS_RTOL = 1e-3
+VAE_GAN_W_RTOL, VAE_GAN_MU_RTOL, VAE_GAN_NOISE_MU = 5e-2, 2e-2, 1e-6
+VAE_GAN_NOISE = re.compile(r"((stem_conv|down\d+_conv|res\d+\.conv[12])\.bias"
+                           r"|\.ca\.(squeeze|excite)\.weight)$")
+VAE_GAN_CENTER_ATOL = 1e-5
+# bf16 against f32 from one seed (the same data and draws), 2 epochs: the
+# relative difference of each loss's epoch mean. The worst reading on the
+# H100 was 8.5e-4 (the adversarial term); the band is 1e-2 for every term.
+VAE_GAN_BF16_BAND = 1e-2
 
 
 def eager_ms(fn, iters: int = 50) -> float:
@@ -1640,6 +1691,294 @@ def phase_train_epoch(vae, stats, pool, dataset):
     return row
 
 
+def card_line() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def kernel_launches() -> dict:
+    """Every launch counter of the port's kernels."""
+    return dict(launch_counts(), train_step=ts.kernel_loss_and_grads.launches,
+                epoch_draws=te.epoch_draws.launches)
+
+
+def _rms(t: torch.Tensor) -> float:
+    return float(t.double().pow(2).mean().sqrt())
+
+
+def vae_gan_step_counts(trainer, images, labels, gates):
+    """(bytes, FLOP) of one VAE-GAN step: every weight of G and D with its two
+    Adam moments read and written once, the frozen VGG read once, the images
+    read once; the FLOP of its convolutions and products, forward and
+    backward, as torch's FlopCounterMode counts them over one step."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    st = trainer.state
+    n_bytes = sum(t.numel() * t.element_size() for t in st.tensors()) * 2
+    n_bytes += sum(p.numel() * p.element_size() for p in trainer.vgg.parameters())
+    n_bytes += images.numel() * images.element_size()
+    with FlopCounterMode(display=False) as counter:
+        trainer.step_fn(st, images, labels, gates, 99)
+    return n_bytes, counter.get_total_flops()
+
+
+def vae_gan_card_against_cpu(batches, gates, vgg, vgg_cpu, what):
+    """Three f32 steps of the small-width VAE-GAN on the card and on the CPU
+    from one seeded init, with the CPU's draws: prints, and returns, each
+    loss's worst relative error, each leaf's readings as shares of their
+    limits, and the centers' max error."""
+    small = vg.VAEGANConfig(**VAE_GAN_SMALL)
+    runs = {}
+    draws = None
+    init, _, _ = vg.create_vae_gan_state(5, small, device="cpu")
+    for where, net in (("cpu", vgg_cpu), ("cuda", vgg)):
+        state, vae, disc = vg.create_vae_gan_state(5, small, device=where)
+        if draws is None:
+            gen = torch.Generator().manual_seed(32)
+            draws = [vg.draw_step_inputs(vae, len(batches[0][1]), gen, "cpu")
+                     for _ in batches]
+        body = vg.make_vae_gan_step_body(vae, disc, small, net)
+        ms = []
+        for (x, y), (eps, masks) in zip(batches, draws):
+            m = body(state, x.to(where), y.to(where), gates.to(where),
+                     draws=(eps.to(where), tuple(k.to(where) for k in masks)))
+            ms.append({k: float(v) for k, v in m.items()})
+        runs[where] = (ms, state)
+    worst = {k: max(abs(g[k] - c[k]) / abs(c[k]) for g, c in zip(runs["cuda"][0], runs["cpu"][0]))
+             for k in vg.METRICS}
+    print(f"[vae_gan] card against CPU on {what}: {len(batches)} steps at channels "
+          f"{small.channels}, latent {small.latent_dim}, B={len(batches[0][1])}, f32 (TF32 off), "
+          "VGG from the asset, the CPU's draws: max relative error of each loss (limit "
+          f"{VAE_GAN_LOSS_RTOL}): " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    w_max = 2 * max(small.lr, small.d_lr) * len(batches)  # Adam's largest move
+    report = {}
+    for part in ("gen", "disc"):
+        got, ref = (getattr(runs[w][1], part) for w in ("cuda", "cpu"))
+        for name, p, q, a, m, n in zip(ref.names, got.params, ref.params,
+                                       getattr(init, part).params, got.mu, ref.mu):
+            p, m = p.cpu(), m.cpu()
+            if VAE_GAN_NOISE.search(name):
+                report[(part, "noise", name)] = (
+                    float((p - q).abs().max()) / w_max,
+                    max(float(m.abs().max()), float(n.abs().max())) / VAE_GAN_NOISE_MU)
+            else:
+                report[(part, "leaf", name)] = (_rms(p - q) / _rms(q - a) / VAE_GAN_W_RTOL,
+                                                _rms(m - n) / _rms(n) / VAE_GAN_MU_RTOL)
+    for part, title in (("gen", "generator"), ("disc", "discriminator")):
+        for kind, limits in (("leaf", f"weights (limit {VAE_GAN_W_RTOL} of the move) and first "
+                                      f"moments (limit {VAE_GAN_MU_RTOL})"),
+                             ("noise", f"rounding-noise leaves' weights (limit {w_max:.1e}) and "
+                                       f"first moments (limit {VAE_GAN_NOISE_MU})")):
+            got = {n: r for (p, k, n), r in report.items() if p == part and k == kind}
+            if got:
+                wn, mn = (max(got, key=lambda n, j=j: got[n][j]) for j in (0, 1))
+                print(f"[vae_gan]   {title}, {len(got)} leaves, {limits}, each as a share of "
+                      f"its limit: worst {got[wn][0]:.3f} ({wn}), {got[mn][1]:.3f} ({mn})")
+    c_err = float((runs["cuda"][1].centers.cpu() - runs["cpu"][1].centers).abs().max())
+    print(f"[vae_gan]   centers max abs error {c_err:.2e} (limit {VAE_GAN_CENTER_ATOL})")
+    return worst, report, c_err
+
+
+def phase_vae_gan(dataset, model):
+    """VAE-GAN training at the flagship VAE's full width: the card against
+    the CPU at a small width, 2 fused epochs with the best-state policy in
+    both lanes, bit-equal reruns, timings (host clock and CUDA events, the
+    deterministic algorithms against cuDNN's default ones in turns, TF32),
+    a profiled step, peak memory and the bound, then the trained generator
+    through a latent pool and the service's decode."""
+    dev = torch.device("cuda")
+    card = card_line()
+    gates = vg.gates_array(vae_gan_loss_gates(VAE_GAN_EPOCH, VAE_EPOCHS), dev)
+    assert float(gates.min()) > 0, "not every gate is on"
+    vgg = VGGPerceptual()
+    vgg_cpu = VGGPerceptual(device="cpu")
+    assert vgg.pretrained, "the VGG asset did not load"
+
+    # --- the card against the CPU at a small width, the CPU's draws, f32
+    rows = [torch.arange(i * 8, (i + 1) * 8) for i in range(3)]
+    batches = [dataset.assemble(r.to(dev), derived_generator(dev, 31, i))
+               for i, r in enumerate(rows)]
+    flowers = [(x.cpu(), y.cpu()) for x, y in batches]
+    noise_gen = torch.Generator().manual_seed(33)
+    noise = [(torch.rand(x.shape, generator=noise_gen), y) for x, y in flowers]
+    worst, report, c_err = vae_gan_card_against_cpu(flowers, gates, vgg, vgg_cpu,
+                                                    "augmented flower images")
+    vae_gan_card_against_cpu(noise, gates, vgg, vgg_cpu, "uniform-noise images, not gated")
+    assert max(worst.values()) <= VAE_GAN_LOSS_RTOL, worst
+    bad = {k: r for k, r in report.items() if max(r) > 1.0}
+    assert not bad, bad
+    assert c_err <= VAE_GAN_CENTER_ATOL
+
+    # --- the main path: 2 fused epochs at full width in each lane, best state tracked
+    cfg = vg.VAEGANConfig(**VAE_GAN)
+    steps = dataset.n // VAE_GAN_BATCH
+    reset_counts()
+    ts.kernel_loss_and_grads.launches = te.epoch_draws.launches = 0
+    lanes = {}
+    for lane in ("float32", "bfloat16"):
+        trainer = vg.VAEGANTrainer(dataclasses.replace(cfg, compute_dtype=lane), seed=0, vgg=vgg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, (bl, bi, best) = trainer.run_epochs_fused(
+            dataset, VAE_GAN_EPOCH, VAE_EPOCHS, 2, seed=1, batch_size=VAE_GAN_BATCH,
+            best=(float("inf"), None))
+        dt = (time.perf_counter() - t0) * 1e3
+        means = [o["total"] for o in out]
+        pick = int(np.argmin(means))
+        print(f"[vae_gan] {lane}: run_epochs_fused, 2 epochs x {steps} steps of {VAE_GAN_BATCH} "
+              f"augmented images at epoch {VAE_GAN_EPOCH} of {VAE_EPOCHS}, best state tracked: "
+              f"{dt:.1f} ms ({dt / (2 * steps):.2f} ms a step, first calls included; {card}); "
+              f"epoch means " + "; ".join(", ".join(f"{k} {o[k]:.4f}" for k in vg.METRICS)
+                                          for o in out)
+              + f"; best epoch {bi} (hand check: {VAE_GAN_EPOCH + pick}), best loss {bl:.5f}")
+        assert all(np.isfinite(v) for o in out for v in o.values()), out
+        assert bi == VAE_GAN_EPOCH + pick and abs(bl - means[pick]) <= 1e-5 * abs(means[pick])
+        assert int(best.step) == steps * (pick + 1) and trainer.state.step == 2 * steps
+        lanes[lane] = (trainer, out)
+    counts = kernel_launches()
+    print(f"[vae_gan] kernel launches over the VAE-GAN path (it runs none of the TPU "
+          f"kernels' counterparts): {counts}")
+    assert not any(counts.values()), counts
+    band = {}
+    for k in vg.METRICS:
+        band[k] = max(abs(b[k] - f[k]) / abs(f[k])
+                      for f, b in zip(lanes["float32"][1], lanes["bfloat16"][1]))
+    print(f"[vae_gan] bf16 against f32, the same seed and draws, worst epoch mean (limit): "
+          + ", ".join(f"{k} {band[k]:.2e}" for k in vg.METRICS) + f" ({VAE_GAN_BF16_BAND})")
+    assert max(band.values()) <= VAE_GAN_BF16_BAND, band
+
+    # --- two identical 3-step runs, bit for bit
+    idx = torch.arange(3 * VAE_GAN_BATCH, device=dev).reshape(3, VAE_GAN_BATCH)
+    batches = [dataset.assemble(r, derived_generator(dev, 41, i)) for i, r in enumerate(idx)]
+    for lane in ("float32", "bfloat16"):
+        finals = []
+        for _ in range(2):
+            lcfg = dataclasses.replace(cfg, compute_dtype=lane)
+            state, vae, disc = vg.create_vae_gan_state(3, lcfg)
+            step = vg.make_vae_gan_step(vae, disc, lcfg, vgg)
+            ms = [step(state, x, y, gates, 42) for x, y in batches]
+            finals.append((torch.stack([m[k] for m in ms for k in vg.METRICS]), state.tensors()))
+            del vae, disc
+        (m0, t0_), (m1, t1_) = finals
+        n_diff = sum(int((a != b).sum()) for a, b in zip(t0_, t1_))
+        n_all = sum(a.numel() for a in t0_)
+        print(f"[vae_gan] {lane}: two identical 3-step runs from one seed: {n_diff} of {n_all} "
+              f"state values and {int((m0 != m1).sum())} of {m0.numel()} losses differ")
+        assert n_diff == 0 and torch.equal(m0, m1), "the VAE-GAN step is not bit-reproducible"
+        del finals, t0_, t1_
+
+    # --- timings: host clock and CUDA events, deterministic against default algorithms
+    x, y = batches[0]
+
+    def timed(trainer, n=10):
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        for i in range(n):
+            trainer.step_fn(trainer.state, x, y, gates, (7, i))
+        ev[1].record()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n, ev[0].elapsed_time(ev[1]) / n
+
+    @contextlib.contextmanager
+    def algorithms(which):
+        # the step looks `deterministic_cudnn` up when it runs: the default
+        # algorithms for the block
+        if which == "deterministic":
+            yield
+            return
+        keep = vg.deterministic_cudnn
+        vg.deterministic_cudnn = contextlib.nullcontext
+        try:
+            yield
+        finally:
+            vg.deterministic_cudnn = keep
+
+    @contextlib.contextmanager
+    def tf32(on):
+        keep = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = on
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = keep
+
+    timing = {}
+    for lane, trainer_lane, with_tf32 in (("f32", "float32", False),
+                                          ("f32 + TF32", "float32", True),
+                                          ("bf16", "bfloat16", False)):
+        trainer = lanes[trainer_lane][0]
+        res = {"deterministic": [], "default": []}
+        with tf32(with_tf32):
+            for which in res:  # each mode's first calls pick and plan its algorithms
+                with algorithms(which):
+                    timed(trainer, 2)
+            for which in ("deterministic", "default", "default", "deterministic"):
+                with algorithms(which):
+                    res[which].append(timed(trainer))
+        timing[lane] = res
+        line = "; ".join(f"{w}: host {', '.join(f'{h:.2f}' for h, _ in r)} ms, events "
+                         f"{', '.join(f'{e:.2f}' for _, e in r)} ms" for w, r in res.items())
+        print(f"[vae_gan] {lane} step, B={VAE_GAN_BATCH}, 10 steps a turn, turns deterministic, "
+              f"default, default, deterministic ({card}): {line}")
+
+    # --- one profiled step, peak memory, the bound
+    n_bytes, flops = vae_gan_step_counts(lanes["float32"][0], x, y, gates)
+    for peak_name, peak in (("bf16", BF16_FLOP_PER_S), ("TF32", TF32_FLOP_PER_S),
+                            ("f32", F32_FLOP_PER_S)):
+        b_ms, b_by = bound_ms(n_bytes, flops, peak)
+        timing[f"bound {peak_name}"] = (b_ms, b_by)
+    print(f"[vae_gan] the step's work: {flops / 1e12:.4f} TFLOP (FlopCounterMode), "
+          f"{n_bytes / 1e9:.3f} GB of weights, moments, VGG and images; bound "
+          + ", ".join(f"{k[6:]} {v[0]:.3f} ms ({v[1]})" for k, v in timing.items()
+                      if k.startswith("bound"))
+          + f" ({card})")
+    for lane, trainer_lane in (("f32", "float32"), ("bf16", "bfloat16")):
+        trainer = lanes[trainer_lane][0]
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        trainer.step_fn(trainer.state, x, y, gates, 8)
+        torch.cuda.synchronize()
+        peak_mem = torch.cuda.max_memory_allocated()
+        wall, kernels = device_profile(
+            lambda: trainer.step_fn(trainer.state, x, y, gates, 9))
+        busy = sum(e.self_device_time_total for e in kernels) / 1e6
+        print(f"[vae_gan] {lane}, one profiled step: wall {wall * 1e3:.2f} ms, device busy "
+              f"{busy * 1e3:.2f} ms, idle share {1 - busy / wall:.3f}, "
+              f"{sum(e.count for e in kernels)} kernels; peak memory {peak_mem / 2**30:.2f} GiB "
+              f"({(peak_mem - resident) / 2**30:.2f} GiB above the {resident / 2**30:.2f} GiB "
+              f"resident) ({card})")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+            print(f"[vae_gan]   {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<4d} "
+                  f"{e.key[:90]}")
+
+    # --- the trained generator feeds the latent side: a pool, then a decode
+    tree = state_dict_to_flax(lanes["float32"][0].vae)
+    latent_vae = vae_from_params({"params": tree}, **VAE)
+    assert latent_vae.classifier is None
+    lcfg = LatentDiffusionConfig(**FLAGSHIP, latent_cache=1, encode_dtype="bfloat16")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pool = make_latent_cache_builder(latent_vae, lcfg)(dataset.images,
+                                                      torch.Generator(device=dev).manual_seed(5))
+    torch.cuda.synchronize()
+    pool_ms = (time.perf_counter() - t0) * 1e3
+    svc = SamplingService(model, latent_vae, sched=linear_schedule(1000), buckets=(8, 64))
+    t0 = time.perf_counter()
+    imgs = svc.decode_latents(pool[0, :8].cpu().numpy())
+    dec_ms = (time.perf_counter() - t0) * 1e3
+    assert pool.shape == (1, dataset.n, FLAGSHIP["latent_dim"]) and torch.isfinite(pool).all()
+    assert imgs.shape == (8, 64, 64, 3) and np.isfinite(imgs).all()
+    assert imgs.min() >= 0.0 and imgs.max() <= 1.0
+    print(f"[vae_gan] the trained f32 generator through the bridge into a FlowerVAE: a latent "
+          f"pool of {dataset.n} augmented images in {pool_ms:.1f} ms (std "
+          f"{float(pool.std()):.3f}), 8 of its latents decoded by SamplingService in "
+          f"{dec_ms:.1f} ms (mean pixel {float(imgs.mean()):.3f}) ({card})")
+    del lanes, pool
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1677,6 +2016,8 @@ def main() -> int:
     train_row["uncached_launches"] = phase_uncached(vae, stats, dataset)
     kernel_rows.append(train_row)
     kernel_rows.append(phase_train_epoch(vae, stats, pool, dataset))
+    del pool
+    phase_vae_gan(dataset, model)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

@@ -4,7 +4,12 @@ NCHW, torch's habit; the public decoder output is converted back to the
 reference's NHWC (models/vae.py). Submodules carry the flax module names so
 the weight bridge (utils/weights.py) maps parameters by name.
 
-`ConditionedResidualBlock` is not on the sampling path and is not ported yet.
+Reduced precision is torch autocast around a module (the reference's flax
+`dtype`): convolutions and Linears then take bf16 inputs, LayerNorm2d keeps
+its statistics in f32 and returns its input's type, as the reference's
+does, and `full_precision` marks the parts the reference keeps in f32.
+
+`ConditionedResidualBlock` is not ported: no model of the JAX package uses it.
 """
 from __future__ import annotations
 
@@ -23,6 +28,12 @@ def kaiming_std(fan_in: int) -> float:
     return math.sqrt(KAIMING_GAIN / fan_in)
 
 
+def full_precision(x: torch.Tensor):
+    """A block with autocast off on x's device: what runs in it computes in
+    the type of its operands (cast them to f32 first)."""
+    return torch.autocast(x.device.type, enabled=False)
+
+
 def swish(x: torch.Tensor) -> torch.Tensor:
     """x * sigmoid(x)."""
     return F.silu(x)
@@ -30,7 +41,8 @@ def swish(x: torch.Tensor) -> torch.Tensor:
 
 class LayerNorm2d(nn.Module):
     """Per-(sample, channel) normalisation over H, W with a per-channel
-    affine; biased variance, eps 1e-5 (the reference's LayerNorm2d)."""
+    affine; biased variance, eps 1e-5 (the reference's LayerNorm2d). The
+    statistics and the affine are f32; the output takes the input's type."""
 
     def __init__(self, num_channels: int, eps: float = 1e-5):
         super().__init__()
@@ -39,10 +51,12 @@ class LayerNorm2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mean = x.mean(dim=(2, 3), keepdim=True)
-        var = x.var(dim=(2, 3), keepdim=True, unbiased=False)
-        y = (x - mean) * torch.rsqrt(var + self.eps)
-        return y * self.weight.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)
+        x32 = x.float()
+        mean = x32.mean(dim=(2, 3), keepdim=True)
+        var = x32.var(dim=(2, 3), keepdim=True, unbiased=False)
+        y = (x32 - mean) * torch.rsqrt(var + self.eps)
+        y = y * self.weight.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)
+        return y.to(x.dtype)
 
 
 class CALayer(nn.Module):

@@ -17,6 +17,10 @@ Quirks kept from the reference, config-gated:
   - `global_skip` (v2): out += sigmoid(residual_weight) * final(x).
   - flax LayerNorm epsilon, 1e-6.
 
+Under bf16 autocast (the trainer's compute_dtype 'bfloat16', the
+reference's `dtype`) the stage Linears run in bf16; the time and condition
+embeddings and the final projection stay f32, as in the reference.
+
 Dropout (rate `dropout_rate`, on the block's LayerNorm output before the
 swish and on the attention weights) acts in train mode only. `forward` also
 takes injected masks in its place, so that one set of masks can go through
@@ -36,7 +40,7 @@ from flowerdiff_torch.core.embeddings import (
     MultiConditionEmbedding,
     TimeEmbedding,
 )
-from flowerdiff_torch.core.layers import swish
+from flowerdiff_torch.core.layers import full_precision, swish
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
 
@@ -120,8 +124,9 @@ class ConditionalLatentDenoiser(nn.Module):
         stage, both (B, d_i) and already scaled by 1 / (1 - rate); m_attn
         holds one value a (sample, head), repeated over the head's d_i / 8
         columns. They take the place of the module's own dropout draws."""
-        t_base = self.time_emb(t)
-        c_base = self.embed_condition(cond, color)
+        with full_precision(x):
+            t_base = self.time_emb(t)
+            c_base = self.embed_condition(cond, color)
         if cond_mask is not None:
             c_base = c_base * cond_mask[:, None].to(c_base.dtype)
 
@@ -142,7 +147,9 @@ class ConditionalLatentDenoiser(nn.Module):
             h = self.stage("downsample", i)(h)
 
         h = h + self.final_time_proj(t_base) + self.final_cond_proj(c_base)
-        out = self.final(self.final_norm(h))
-        if self.global_skip:
-            out = out + torch.sigmoid(self.residual_weight) * self.final(x)
+        h = self.final_norm(h)
+        with full_precision(h):
+            out = self.final(h.float())
+            if self.global_skip:
+                out = out + torch.sigmoid(self.residual_weight) * self.final(x.float())
         return out

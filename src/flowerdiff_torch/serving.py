@@ -36,7 +36,6 @@ Not ported yet: `service_from_run`, `animate`, `PixelSamplingService`.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
@@ -49,7 +48,11 @@ from flowerdiff_torch.diffusion.api import (
     NormalizedSampler,
 )
 from flowerdiff_torch.diffusion.schedule import DiffusionSchedule, linear_schedule
-from flowerdiff_torch.utils.device import derived_generator, resolve_device
+from flowerdiff_torch.utils.device import (
+    derived_generator,
+    deterministic_cudnn,
+    resolve_device,
+)
 
 DEFAULT_BUCKETS = (8, 16, 32, 64, 128, 256, 512)
 
@@ -57,20 +60,6 @@ DEFAULT_BUCKETS = (8, 16, 32, 64, 128, 256, 512)
 def quantize_uint8(img: torch.Tensor) -> torch.Tensor:
     """[0, 1] floats -> uint8, rounding half to even like jnp.round."""
     return torch.round(torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8)
-
-
-@contextlib.contextmanager
-def deterministic_cudnn():
-    """cuDNN on, with its deterministic algorithms only, for the block;
-    every flag is restored after it. (`torch.backends.cudnn.flags` would
-    also set allow_tf32 and benchmark to its own defaults for the block.)"""
-    cudnn = torch.backends.cudnn
-    before = cudnn.enabled, cudnn.deterministic
-    cudnn.enabled, cudnn.deterministic = True, True
-    try:
-        yield
-    finally:
-        cudnn.enabled, cudnn.deterministic = before
 
 
 class SamplingService:

@@ -7,10 +7,14 @@ kernels without a host synchronisation; the losses come back as one device
 tensor. (A CUDA graph of the step is later performance work.)
 
 Ported: `epoch_rows`, `_make_gather`, `make_latent_cache_builder`,
-`make_fused_cached_epochs` and `make_fused_latent_epochs` (both forms:
-the frozen encode per step, or once per epoch). Each augmenting path takes
-its draws from one generator in a fixed order, a row at a time: the
-augmentation's, the posterior noise, then the step's.
+`make_fused_cached_epochs`, `make_fused_latent_epochs` (both forms:
+the frozen encode per step, or once per epoch) and
+`make_fused_vae_gan_epochs` (plain, and with the best-state policy). Each
+augmenting latent path takes its draws from one generator in a fixed order,
+a row at a time: the augmentation's, the posterior noise, then the step's.
+The VAE-GAN window derives a generator per row from (seed, row, step), the
+reference's fold_in(rng, offset) and fold_in(.., step), and draws the
+augmentation, then the step's noise and dropout masks, from it.
 """
 from __future__ import annotations
 
@@ -28,6 +32,8 @@ from flowerdiff_torch.train.latent_ddpm import (
     make_latent_denoise_body,
     make_latent_encode_fn,
 )
+from flowerdiff_torch.train.vae_gan import METRICS, make_vae_gan_step_body
+from flowerdiff_torch.utils.device import derived_generator
 
 _KERNEL_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -222,5 +228,58 @@ def make_fused_cached_epochs(model: ConditionalLatentDenoiser, cfg: LatentDiffus
             cols = colors_all[idx_row] if has_colors else None
             losses.append(denoise(state, sched, z, labels_all[idx_row], cols, generator))
         return torch.stack(losses)
+
+    return epochs_fn
+
+
+def make_fused_vae_gan_epochs(vae, disc, cfg, vgg=None, augment: bool = True,
+                              max_rotation_deg: float = 10.0, jitter: float = 0.2,
+                              steps_per_epoch: int = 1, track_best: bool = False):
+    """fn(state, images_u8, labels_all, idx (T, B), gates (T, 5), seed=0,
+    draws=None) -> metrics, a dict of (T,) device tensors; the state is
+    updated in place. T must be whole epochs of steps_per_epoch rows.
+
+    Row r gathers and augments its images (`_make_gather`) and takes one
+    VAE-GAN step with gate row r, drawing from the generator of (seed..., r,
+    state step) (`seed`: an int or a tuple of ints): the augmentation, then
+    the step's noise and dropout masks. draws: per row, (augmentation
+    draws or None, step draws) in place of the generator's.
+
+    track_best=True: fn(..., best_loss (0-d tensor), best_state (a
+    VAEGANSnapshot)) -> (metrics, best_loss, best epoch in the window (-1
+    if none), best_state). At the end of each epoch whose mean total is
+    below the carried best, the snapshot takes the state's tensors and step
+    by a device-side select: no host fetch an epoch."""
+    step_body = make_vae_gan_step_body(vae, disc, cfg, vgg)
+    gather = _make_gather(augment, max_rotation_deg, jitter)
+
+    def epochs_fn(state, images_u8, labels_all, idx, gates, seed=0, draws=None,
+                  best_loss=None, best_state=None):
+        if idx.shape[0] % steps_per_epoch:
+            raise ValueError(f"T={idx.shape[0]} is not a multiple of steps={steps_per_epoch}")
+        if track_best and (best_loss is None or best_state is None):
+            raise ValueError("track_best needs best_loss and best_state")
+        words = seed if isinstance(seed, tuple) else (seed,)
+        dev = idx.device
+        rows = []
+        best_epoch = torch.tensor(-1, device=dev)
+        for r, idx_row in enumerate(idx):
+            gen = derived_generator(dev, *words, r, state.step) if draws is None else None
+            aug, step_draws = (None, None) if draws is None else draws[r]
+            imgs = gather(images_u8, idx_row, gen, aug)
+            rows.append(step_body(state, imgs, labels_all[idx_row], gates[r], gen, step_draws))
+            if track_best and (r + 1) % steps_per_epoch == 0:
+                epoch_mean = torch.stack([m["total"] for m in rows[-steps_per_epoch:]]).mean()
+                better = epoch_mean < best_loss
+                best_loss = torch.where(better, epoch_mean, best_loss)
+                best_epoch = torch.where(better, r // steps_per_epoch, best_epoch)
+                live = state.tensors()
+                torch._foreach_copy_(best_state.tensors, [torch.where(better, n, b) for n, b in
+                                                          zip(live, best_state.tensors)])
+                best_state.step.copy_(torch.where(better, state.step, best_state.step))
+        metrics = {k: torch.stack([m[k] for m in rows]) for k in METRICS}
+        if track_best:
+            return metrics, best_loss, best_epoch, best_state
+        return metrics
 
     return epochs_fn

@@ -31,6 +31,7 @@ from flowerdiff_torch.diffusion.ddpm import ddpm_eps_loss
 from flowerdiff_torch.kernels.train_step import draw_step_inputs
 from flowerdiff_torch.models.latent_unet import ConditionalLatentDenoiser
 from flowerdiff_torch.models.vae import FlowerVAE
+from flowerdiff_torch.train.optim import AdamState
 from flowerdiff_torch.train.schedules import cosine_warm_restarts_schedule
 from flowerdiff_torch.utils.device import resolve_device
 from flowerdiff_torch.utils.weights import init_numpy_params, load_denoiser
@@ -89,7 +90,7 @@ class LatentDiffusionConfig:
     cache_refresh_epochs: int = 0
 
 
-class LatentTrainState:
+class LatentTrainState(AdamState):
     """The denoiser's parameters (the module's own), the AdamW moments, the
     step count and the optional EMA copy. `apply_gradients` is the optimizer
     chain: global-norm clip, AdamW with the SGDR learning rate of the
@@ -97,41 +98,22 @@ class LatentTrainState:
     synchronisation."""
 
     def __init__(self, model: ConditionalLatentDenoiser, cfg: LatentDiffusionConfig):
-        self.model = model
+        super().__init__(model, cosine_warm_restarts_schedule(cfg.lr, cfg.steps_per_epoch,
+                                                              cfg.t0, cfg.t_mult),
+                         ADAM_B1, ADAM_B2, ADAM_EPS, cfg.weight_decay, cfg.grad_clip)
         self.cfg = cfg
-        self.names = [n for n, _ in model.named_parameters()]
-        self.params: List[torch.Tensor] = [p.data for _, p in model.named_parameters()]
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
-        self.step = 0
-        self.schedule = cosine_warm_restarts_schedule(cfg.lr, cfg.steps_per_epoch, cfg.t0,
-                                                      cfg.t_mult)
         self.ema_decay = None if cfg.ema_decay is None else float(cfg.ema_decay)
         self.ema: Optional[List[torch.Tensor]] = (
             None if cfg.ema_decay is None else [p.clone() for p in self.params])
 
+    @property
+    def model(self) -> ConditionalLatentDenoiser:
+        return self.module
+
     def apply_gradients(self, grads: Dict[str, torch.Tensor]) -> None:
         """grads: a tensor for EVERY parameter name (zeros where a parameter
         took no part in the loss). The given tensors are left as they are."""
-        cfg = self.cfg
-        g = [grads[n] for n in self.names]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
-        scale = cfg.grad_clip / torch.clamp(norm, min=cfg.grad_clip)
-        g = torch._foreach_mul(g, scale)
-        lr = self.schedule(self.step)
-        t = self.step + 1
-        torch._foreach_mul_(self.mu, ADAM_B1)
-        torch._foreach_add_(self.mu, g, alpha=1.0 - ADAM_B1)
-        torch._foreach_mul_(self.nu, ADAM_B2)
-        torch._foreach_addcmul_(self.nu, g, g, value=1.0 - ADAM_B2)
-        denom = torch._foreach_div(self.nu, 1.0 - ADAM_B2**t)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, ADAM_EPS)
-        update = torch._foreach_div(self.mu, 1.0 - ADAM_B1**t)
-        torch._foreach_div_(update, denom)
-        torch._foreach_add_(update, self.params, alpha=cfg.weight_decay)
-        torch._foreach_add_(self.params, update, alpha=-lr)
-        self.step = t
+        super().apply_gradients([grads[n] for n in self.names])
         if self.ema is not None:
             torch._foreach_mul_(self.ema, self.ema_decay)
             torch._foreach_add_(self.ema, self.params, alpha=1.0 - self.ema_decay)
@@ -146,8 +128,8 @@ def create_latent_diffusion_state(seed: int, cfg: LatentDiffusionConfig, device=
     """(state, model, schedule). The denoiser starts from `params` (a
     flax-named numpy tree) or, without one, from the seeded initialiser with
     zero biases, the reference's initial distribution."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError("the port trains the denoiser in float32")
+    if cfg.compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: choose 'float32' or 'bfloat16'")
     dev = resolve_device(device)
     kw = dict(latent_dim=cfg.latent_dim, hidden_dims=tuple(cfg.hidden_dims),
               time_emb_dim=cfg.time_emb_dim, num_classes=cfg.num_classes,
@@ -189,12 +171,14 @@ def make_latent_encode_fn(vae: FlowerVAE, encode_dtype: Optional[str] = None):
 
 def make_latent_denoise_body(model: ConditionalLatentDenoiser, cfg: LatentDiffusionConfig):
     """The trainable half of the step on pre-encoded latents, by eager
-    autograd over the f32 module (the path for v3 and for
-    train_kernel=False): denoise(state, sched, z, labels, colors,
-    generator, draws=None) -> loss (0-d tensor). The draws are the same, in
-    the same order, as the kernel body's (`draw_step_inputs`)."""
+    autograd over the module (the path for v3 and for train_kernel=False):
+    denoise(state, sched, z, labels, colors, generator, draws=None) -> loss
+    (0-d tensor). cfg.compute_dtype 'bfloat16' runs the model under bf16
+    autocast (parameters, gradients and moments stay f32). The draws are the
+    same, in the same order, as the kernel body's (`draw_step_inputs`)."""
     names = [n for n, _ in model.named_parameters()]
     params = [p for _, p in model.named_parameters()]
+    bf16 = cfg.compute_dtype == "bfloat16"
 
     def denoise(state, sched, z, labels, colors, generator=None, draws=None):
         if draws is None:
@@ -204,7 +188,8 @@ def make_latent_denoise_body(model: ConditionalLatentDenoiser, cfg: LatentDiffus
         pairs = list(zip(masks[0::2], masks[1::2]))
 
         def eps_fn(xt, tt, *cond):
-            return model(xt, tt, *cond, cond_mask=cond_mask, masks=pairs)
+            with torch.autocast(xt.device.type, dtype=torch.bfloat16, enabled=bf16):
+                return model(xt, tt, *cond, cond_mask=cond_mask, masks=pairs)
 
         cond = (labels,) if colors is None else (labels, colors)
         for p in params:

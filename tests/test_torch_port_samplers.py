@@ -350,7 +350,7 @@ def test_trainer_samples_ddim_when_its_config_says_so():
         s = trainer.sampler(fused=fused)
         assert isinstance(s, DDIMSampler) and s.num_steps == 4
         assert isinstance(s._inner, NormalizedSampler)
-    params = state_dict_to_flax(trainer.sampling_params)
+    params = state_dict_to_flax(trainer.sampling_params, trainer.model)
     rng, c = jax.random.key(3), _cond()
     ref = JaxDDIM(JaxNormalized(JaxSampler(JaxDenoiser(**DEN), params, jax_schedule(20), (32,),
                                            clip_x0=1.0), *stats), 4).sample(

@@ -259,7 +259,7 @@ def test_module_autograd_matches_jax_grad(variant):
     names = [n for n, _ in model.named_parameters()]
     grads = torch.autograd.grad(loss, list(model.parameters()), allow_unused=True)
     got = state_dict_to_flax({n: torch.zeros_like(p) if g is None else g
-                              for n, p, g in zip(names, model.parameters(), grads)})
+                              for n, p, g in zip(names, model.parameters(), grads)}, model)
     np.testing.assert_allclose(float(loss.detach()), float(ref_loss), rtol=1e-5)
     _assert_trees_close(got, jax.tree.map(np.asarray, ref), rtol=5e-4, atol=1e-6)
     # the bridge is its own inverse on the weights
@@ -320,7 +320,7 @@ def test_six_step_trajectory_matches_optax(body):
     assert state.step == 6 and int(jstate.step) == 6
     _assert_trees_close(state_dict_to_flax(model), jax.tree.map(np.asarray, jstate.params),
                         rtol=2e-4, atol=2e-6)
-    _assert_trees_close(state_dict_to_flax(state.ema_params),
+    _assert_trees_close(state_dict_to_flax(state.ema_params, model),
                         jax.tree.map(np.asarray, jstate.ema_params), rtol=2e-4, atol=2e-6)
     # q has zero gradient and still decays by (1 - lr wd) a step, as optax decays it
     np.testing.assert_allclose(model.attn_0.q.weight.numpy(), (q0 * decay).numpy(), rtol=1e-6)

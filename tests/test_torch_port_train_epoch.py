@@ -193,7 +193,7 @@ def _port_epoch(run: Run, draws, tables=None, **over):
     mu, nu, count = adam_moments_to_flax(state)
     return dict(losses=losses.numpy(), params=state_dict_to_flax(model), mu=mu, nu=nu,
                 count=count, step=state.step,
-                ema=None if state.ema is None else state_dict_to_flax(state.ema_params))
+                ema=None if state.ema is None else state_dict_to_flax(state.ema_params, model))
 
 
 @pytest.fixture(scope="module")
