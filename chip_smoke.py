@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive flowerdiff_torch's sampling and training paths (latent DDPM and
-VAE-GAN) on one CUDA card and check them.
+"""Drive flowerdiff_torch's sampling and training paths (latent DDPM,
+VAE-GAN and the pixel family) on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -78,8 +78,9 @@ Phases (any failure raises and the script exits nonzero without a result):
      gates of epoch 200 of 1200, so every term is on and the centers update):
      the step on the card against the same step on the CPU at a small width
      from the CPU's draws (3 steps, f32; each leaf of G and D on its own),
-     on augmented flower images, and printed but not gated on uniform
-     noise, where the gradients of D are near rounding;
+     on augmented flower images, and on uniform noise, where only the
+     centers are gated, relative to their size (the encoder's rounding
+     carried through Adam moves them more than on flowers);
      `VAEGANTrainer.run_epochs_fused` for 2 epochs of 15 augmented batches with the best-state policy in f32
      and in bf16 (finite, the best epoch as the epoch means say, bf16 within
      its band of f32), with every kernel counter read around it (the path
@@ -89,7 +90,22 @@ Phases (any failure raises and the script exits nonzero without a result):
      step, peak memory and the step's bound; then the trained generator,
      through the weight bridge, builds a latent pool and the service decodes
      8 of its latents;
- 15. print the card's name and power limit, a `kernels` JSON line, and as
+ 15. train and serve the pixel family (`phase_pixel`: the v5 PixelUNet at
+     the v4/v5 width, base 64, time 128, 64x64x3, T = 1000): the card
+     against the CPU at base 16 (the forward; 3 Adam steps with the CPU's
+     draws, losses, moments and weights leaf by leaf); in each lane (f32
+     with TF32 off, bf16) `PixelDiffusionTrainer.run_epochs_fused` for 2
+     epochs of 15 augmented batches of 64 (finite, falling or flat; bf16
+     within its band of f32), ms a step by CUDA events over 10 steps, a
+     profiled step and the bound from `FlopCounterMode`;
+     `PixelSamplingService` at buckets (4, 16, 64): a 64-image request
+     timed in each lane beside a sampler step's time, profile and bound, a
+     68-image request (chunks 64 and 4), uint8 output equal to the float
+     output quantised, two identical requests bit-equal, a 50-step DDIM
+     request; every launch counter 0 over the phase; then the full-width
+     state saved by `CheckpointManager`, restored bit-equal into a fresh
+     state, and one more step from each bit-equal;
+ 16. print the card's name and power limit, a `kernels` JSON line, and as
      the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -98,6 +114,7 @@ import contextlib
 import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -151,7 +168,12 @@ from flowerdiff_torch.kernels.latent_stage import (  # noqa: E402
     fused_stage_plain,
     stage_max_clusters,
 )
-from flowerdiff_torch.serving import SamplingService  # noqa: E402
+from flowerdiff_torch.serving import PixelSamplingService, SamplingService  # noqa: E402
+from flowerdiff_torch.train.checkpoints import (  # noqa: E402
+    CheckpointManager,
+    state_to_tree,
+    tree_into_state,
+)
 from flowerdiff_torch.train.fused import (  # noqa: E402
     epoch_rows,
     make_fused_cached_epochs,
@@ -163,6 +185,7 @@ from flowerdiff_torch.train.latent_ddpm import (  # noqa: E402
     LatentDiffusionTrainer,
 )
 from flowerdiff_torch.models import VGGPerceptual  # noqa: E402
+from flowerdiff_torch.train import pixel_ddpm as px  # noqa: E402
 from flowerdiff_torch.train import vae_gan as vg  # noqa: E402
 from flowerdiff_torch.train.schedules import vae_gan_loss_gates  # noqa: E402
 from flowerdiff_torch.utils.device import derived_generator  # noqa: E402
@@ -170,6 +193,7 @@ from flowerdiff_torch.utils.timing import cuda_ms  # noqa: E402
 from flowerdiff_torch.utils.weights import (  # noqa: E402
     denoiser_from_params,
     init_numpy_params,
+    pixel_unet_from_params,
     state_dict_to_flax,
     vae_from_params,
 )
@@ -267,10 +291,45 @@ VAE_GAN_W_RTOL, VAE_GAN_MU_RTOL, VAE_GAN_NOISE_MU = 5e-2, 2e-2, 1e-6
 VAE_GAN_NOISE = re.compile(r"((stem_conv|down\d+_conv|res\d+\.conv[12])\.bias"
                            r"|\.ca\.(squeeze|excite)\.weight)$")
 VAE_GAN_CENTER_ATOL = 1e-5
+# On uniform noise the centers are held relative to their size: they are an
+# EMA of per-class batch means of z, so |dc| / max|c| follows |dz| / max|z|,
+# which read up to 1.5e-5 after Adam's first update on the H100 (the weights
+# whose gradient is rounding noise step lr either way;
+# src/flowerdiff_torch/tools/centers_probe.py, PERF.md section 7). The limit
+# is 4e-5 of max|c|.
+VAE_GAN_NOISE_CENTER_REL = 4e-5
 # bf16 against f32 from one seed (the same data and draws), 2 epochs: the
 # relative difference of each loss's epoch mean. The worst reading on the
 # H100 was 8.5e-4 (the adversarial term); the band is 1e-2 for every term.
 VAE_GAN_BF16_BAND = 1e-2
+# The pixel family at the v4/v5 width (PixelDiffusionConfig's defaults: base
+# 64, time 128, 64x64x3, T = 1000; the v5 residual on), B = 64 on the 1020
+# synthetic images, 15 steps an epoch; served at buckets (4, 16, 64).
+PIXEL_BATCH = 64
+PIXEL_BUCKETS = (4, 16, 64)
+# The card against the CPU at base 16 (time 32), f32 with TF32 off, from one
+# seeded tree with nonzero biases: the forward within 1e-5 of max|CPU| (f32
+# convolutions summed in another order); 3 Adam steps with the CPU's draws:
+# losses rtol 1e-5; each leaf's Adam first moments within VAE_GAN_MU_RTOL of
+# their rms; every weight within Adam's bound of 2 lr a step; and, per leaf,
+# the weights of the elements whose gradient (the CPU's bias-corrected first
+# moment) is at least PIXEL_GRAD_FLOOR of the leaf's rms within
+# VAE_GAN_W_RTOL of the leaf's move. At the raw-timestep embedding's scale
+# (losses ~1e5 at init) the gradients are heavy-tailed: ~29% of the weights
+# have one below 1e-2 of their leaf's rms, and Adam's step, which divides
+# each element by its own scale, takes their rounding to up to 4 lr apart
+# over 3 steps. On the H100 every element apart by more than lr had a
+# gradient below 9.1e-3 of its leaf's rms, and above a floor of 1e-2 the
+# rest read 6.8e-3 of the move (PERF.md section 6).
+PIXEL_SMALL = dict(base_channels=16, time_emb_dim=32, learnable_residual=True)
+PIXEL_FWD_RTOL = 1e-5
+PIXEL_LOSS_RTOL = 1e-5
+PIXEL_GRAD_FLOOR = 2e-2
+# bf16 against f32 from one seed, the same draws, 2 epochs: each epoch mean
+# within 5e-2. The losses fall from ~7e6 to ~1e4 over the 30 steps, and the
+# two lanes' per-step losses part by up to 6.8% on the way; the worst epoch
+# mean read 1.56e-2 on the H100 (the second; the first 2.8e-3).
+PIXEL_BF16_BAND = 5e-2
 
 
 def eager_ms(fn, iters: int = 50) -> float:
@@ -1775,8 +1834,10 @@ def vae_gan_card_against_cpu(batches, gates, vgg, vgg_cpu, what):
                 print(f"[vae_gan]   {title}, {len(got)} leaves, {limits}, each as a share of "
                       f"its limit: worst {got[wn][0]:.3f} ({wn}), {got[mn][1]:.3f} ({mn})")
     c_err = float((runs["cuda"][1].centers.cpu() - runs["cpu"][1].centers).abs().max())
-    print(f"[vae_gan]   centers max abs error {c_err:.2e} (limit {VAE_GAN_CENTER_ATOL})")
-    return worst, report, c_err
+    c_max = float(runs["cpu"][1].centers.abs().max())
+    print(f"[vae_gan]   centers max abs error {c_err:.2e} of max|centers| {c_max:.3e} "
+          f"(share {c_err / c_max:.2e})")
+    return worst, report, c_err, c_max
 
 
 def phase_vae_gan(dataset, model):
@@ -1801,13 +1862,16 @@ def phase_vae_gan(dataset, model):
     flowers = [(x.cpu(), y.cpu()) for x, y in batches]
     noise_gen = torch.Generator().manual_seed(33)
     noise = [(torch.rand(x.shape, generator=noise_gen), y) for x, y in flowers]
-    worst, report, c_err = vae_gan_card_against_cpu(flowers, gates, vgg, vgg_cpu,
-                                                    "augmented flower images")
-    vae_gan_card_against_cpu(noise, gates, vgg, vgg_cpu, "uniform-noise images, not gated")
+    worst, report, c_err, _ = vae_gan_card_against_cpu(flowers, gates, vgg, vgg_cpu,
+                                                       "augmented flower images")
+    _, _, n_err, n_max = vae_gan_card_against_cpu(
+        noise, gates, vgg, vgg_cpu, "uniform-noise images, only the centers gated")
     assert max(worst.values()) <= VAE_GAN_LOSS_RTOL, worst
     bad = {k: r for k, r in report.items() if max(r) > 1.0}
     assert not bad, bad
-    assert c_err <= VAE_GAN_CENTER_ATOL
+    assert c_err <= VAE_GAN_CENTER_ATOL, f"flowers: centers {c_err} > {VAE_GAN_CENTER_ATOL}"
+    assert n_err <= VAE_GAN_NOISE_CENTER_REL * n_max, (
+        f"noise: centers {n_err} > {VAE_GAN_NOISE_CENTER_REL} x max|centers| {n_max}")
 
     # --- the main path: 2 fused epochs at full width in each lane, best state tracked
     cfg = vg.VAEGANConfig(**VAE_GAN)
@@ -1979,6 +2043,244 @@ def phase_vae_gan(dataset, model):
     del lanes, pool
 
 
+def pixel_step_counts(trainer, images):
+    """(bytes, FLOP) of one pixel training step: the weights and both Adam
+    moments read and written once, the images read once; the FLOP of the
+    convolutions and products, forward and backward, as FlopCounterMode
+    counts them over one step."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    n_bytes = sum(t.numel() * t.element_size() for t in trainer.state.tensors()) * 2
+    n_bytes += images.numel() * images.element_size()
+    with FlopCounterMode(display=False) as counter:
+        trainer._step(trainer.state, images, 99)
+    return n_bytes, counter.get_total_flops()
+
+
+def pixel_card_against_cpu(dataset, card):
+    """The PixelUNet (v5, base 16) on the card against the CPU from one
+    seeded tree: the forward, then 3 Adam steps with the CPU's draws, each
+    leaf of the weights and Adam first moments on its own."""
+    small = px.PixelDiffusionConfig(**PIXEL_SMALL)
+    tree = init_numpy_params("pixel", seed=7, **PIXEL_SMALL)
+    gen = torch.Generator().manual_seed(21)
+    x = torch.rand((8, 64, 64, 3), generator=gen) * 2 - 1
+    t = torch.randint(0, small.n_steps, (8,), generator=gen)
+    with torch.no_grad():
+        out = {w: pixel_unet_from_params(tree, device=w, **PIXEL_SMALL)(x.to(w), t.to(w)).cpu()
+               for w in ("cpu", "cuda")}
+    scale = float(out["cpu"].abs().max())
+    f_err = max_err(out["cuda"], out["cpu"]) / scale
+    rows = torch.arange(24, device=dataset.images.device).reshape(3, 8)
+    batches = [dataset.assemble(r, derived_generator(dataset.images.device, 23, i))[0].cpu()
+               for i, r in enumerate(rows)]
+    draws = [(torch.randint(0, small.n_steps, (8,), generator=gen),
+              torch.randn((8, 64, 64, 3), generator=gen)) for _ in batches]
+    runs = {}
+    for where in ("cpu", "cuda"):
+        state, model, sched = px.create_pixel_diffusion_state(0, small, device=where,
+                                                              params=tree)
+        body = px.make_pixel_diffusion_step_body(model)
+        losses = [float(body(state, sched, b.to(where), draws=(tt.to(where), e.to(where))))
+                  for b, (tt, e) in zip(batches, draws)]
+        runs[where] = (losses, state)
+    l_err = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"][0], runs["cpu"][0]))
+    ref, got = runs["cpu"][1], runs["cuda"][1]
+    init = dict(pixel_unet_from_params(tree, device="cpu", **PIXEL_SMALL).named_parameters())
+    bound = 2 * small.lr * len(batches)  # Adam's largest move the other way
+    shares, n_weak, n_all, dw_max = {}, 0, 0, 0.0
+    for name, p, q, m, n in zip(ref.names, got.params, ref.params, got.mu, ref.mu):
+        d, m = p.cpu() - q, m.cpu()
+        g = n.abs() / (1 - 0.9 ** len(batches))
+        strong = g >= PIXEL_GRAD_FLOOR * _rms(g)
+        n_weak += int((~strong).sum())
+        n_all += d.numel()
+        dw_max = max(dw_max, float(d.abs().max()) / bound)
+        w_share = _rms(d[strong]) / _rms(q - init[name].detach()) if strong.any() else 0.0
+        shares[name] = (w_share / VAE_GAN_W_RTOL, _rms(m - n) / _rms(n) / VAE_GAN_MU_RTOL)
+    wn, mn = (max(shares, key=lambda k, j=j: shares[k][j]) for j in (0, 1))
+    print(f"[pixel] card against CPU at base 16 (v5), f32 (TF32 off): forward of 8 images, "
+          f"max error {f_err:.2e} of max|CPU| {scale:.3f} (limit {PIXEL_FWD_RTOL}); 3 Adam "
+          f"steps of B=8 with the CPU's draws: losses {runs['cuda'][0]} against "
+          f"{runs['cpu'][0]}, worst relative {l_err:.2e} (limit {PIXEL_LOSS_RTOL}); "
+          f"{len(shares)} leaves, as shares of their limits: weights of the elements whose "
+          f"gradient is at least {PIXEL_GRAD_FLOOR} of its leaf's rms (limit {VAE_GAN_W_RTOL} "
+          f"of the move) worst {shares[wn][0]:.3f} ({wn}), first moments (limit "
+          f"{VAE_GAN_MU_RTOL}) worst {shares[mn][1]:.3f} ({mn}); {n_weak} of {n_all} weights "
+          f"below the floor; largest |dw| {dw_max:.3f} of Adam's bound {bound:.1e} ({card})")
+    assert f_err <= PIXEL_FWD_RTOL and l_err <= PIXEL_LOSS_RTOL
+    bad = {k: r for k, r in shares.items() if max(r) > 1.0}
+    assert not bad and dw_max <= 1.0, (bad, dw_max)
+
+
+def phase_pixel(dataset):
+    """The pixel family (v4/v5) at full width: the card against the CPU at
+    base 16, then in each lane (f32 with TF32 off, bf16) 2 fused epochs of 15
+    steps of 64, ms a step by CUDA events, a profiled step and the bound;
+    PixelSamplingService at buckets (4, 16, 64): a 64-image request, a
+    request that chunks, uint8 output, bit-equal identical requests, a
+    50-step DDIM request; then a checkpoint of the full-width state saved,
+    restored bit-equal, and one step from each equal. No kernel of the port
+    runs here: every launch counter stays 0 over the phase."""
+    dev = torch.device("cuda")
+    card = card_line()
+    pixel_card_against_cpu(dataset, card)
+
+    cfg = px.PixelDiffusionConfig(learnable_residual=True)
+    steps = dataset.n // PIXEL_BATCH
+    reset_counts()
+    ts.kernel_loss_and_grads.launches = te.epoch_draws.launches = 0
+    x = dataset.assemble(torch.arange(PIXEL_BATCH, device=dev), derived_generator(dev, 51))[0]
+    lanes = {}
+    for lane in ("float32", "bfloat16"):
+        trainer = px.PixelDiffusionTrainer(dataclasses.replace(cfg, compute_dtype=lane), seed=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        means = trainer.run_epochs_fused(dataset, 2, seed=1, batch_size=PIXEL_BATCH)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        print(f"[pixel] {lane}: run_epochs_fused, 2 epochs x {steps} steps of {PIXEL_BATCH} "
+              f"augmented images: {dt:.1f} ms ({dt / (2 * steps):.2f} ms a step, first calls "
+              f"included; {card}); epoch means {means}; the steps' losses "
+              + " ".join(f"{v:.6g}" for v in trainer.last_step_losses))
+        assert np.isfinite(means).all() and means[1] <= 1.01 * means[0], means
+        assert trainer.state.step == 2 * steps
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        trainer._step(trainer.state, x, (7, 0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        for i in range(10):
+            trainer._step(trainer.state, x, (7, i))
+        ev[1].record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / 10
+        step_ms = ev[0].elapsed_time(ev[1]) / 10
+        wall, kernels = device_profile(lambda: trainer._step(trainer.state, x, 8))
+        busy = sum(e.self_device_time_total for e in kernels) / 1e6
+        print(f"[pixel] {lane} step, B={PIXEL_BATCH}: {step_ms:.2f} ms by CUDA events over 10 "
+              f"steps ({host_ms:.2f} ms by host clock); one profiled step: wall "
+              f"{wall * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms, idle share "
+              f"{1 - busy / wall:.3f}, {sum(e.count for e in kernels)} kernels ({card})")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+            print(f"[pixel]   {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<4d} "
+                  f"{e.key[:90]}")
+        lanes[lane] = (trainer, means, step_ms)
+    n_bytes, flops = pixel_step_counts(lanes["float32"][0], x)
+    print(f"[pixel] the step's work: {flops / 1e12:.4f} TFLOP (FlopCounterMode), "
+          f"{n_bytes / 1e9:.3f} GB of weights, moments and images; bound "
+          + ", ".join(f"{name} {bound_ms(n_bytes, flops, peak)[0]:.3f} ms "
+                      f"({bound_ms(n_bytes, flops, peak)[1]})"
+                      for name, peak in (("bf16", BF16_FLOP_PER_S), ("TF32", TF32_FLOP_PER_S),
+                                         ("f32", F32_FLOP_PER_S)))
+          + f" ({card})")
+    band = max(abs(b - f) / abs(f) for f, b in zip(lanes["float32"][1], lanes["bfloat16"][1]))
+    f32_steps, bf16_steps = (lanes[k][0].last_step_losses for k in ("float32", "bfloat16"))
+    print(f"[pixel] bf16 against f32, the same seed and draws: worst epoch mean {band:.2e} "
+          f"(limit {PIXEL_BF16_BAND}); worst step "
+          f"{float(np.max(np.abs(bf16_steps - f32_steps) / np.abs(f32_steps))):.2e}")
+    assert band <= PIXEL_BF16_BAND
+
+    # --- serving at buckets (4, 16, 64)
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter, torch.no_grad():
+        lanes["float32"][0].model(x, torch.zeros(PIXEL_BATCH, dtype=torch.long, device=dev))
+    step_flops = counter.get_total_flops()
+    sched = lanes["float32"][0].sched
+    for lane in ("float32", "bfloat16"):
+        model = lanes[lane][0].sampling_model()
+        svc = PixelSamplingService(model, sched, buckets=PIXEL_BUCKETS)
+        assert svc.request_plan(64) == [64] and svc.request_plan(68) == [64, 4]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imgs = svc.sample_images(64, seed=3)
+        req_ms = (time.perf_counter() - t0) * 1e3
+        assert imgs.shape == (64, 64, 64, 3) and imgs.dtype == np.float32
+        assert np.isfinite(imgs).all() and imgs.min() >= 0.0 and imgs.max() <= 1.0
+        short = DiffusionSampler(model, linear_schedule(20), (64, 64, 3), clip_x0=1.0)
+        short_ms = event_ms(lambda: short.sample(PIXEL_BATCH, generator=derived_generator(
+            dev, 5)), 2) / 20
+        wall, kernels = device_profile(lambda: short.sample(
+            PIXEL_BATCH, generator=derived_generator(dev, 6)))
+        busy = sum(e.self_device_time_total for e in kernels) / 1e6
+        peak = BF16_FLOP_PER_S if lane == "bfloat16" else F32_FLOP_PER_S
+        b_ms, b_by = bound_ms(sum(p.numel() * p.element_size() for p in model.parameters())
+                              + 2 * x.numel() * 4, step_flops, peak)
+        print(f"[pixel] {lane} service: one 64-image request, {sched.n_steps} steps at the 64 "
+              f"bucket: {req_ms:.1f} ms ({req_ms / sched.n_steps:.3f} ms a step, host clock); "
+              f"a sampler step "
+              f"at batch 64 by CUDA events {short_ms:.3f} ms; a profiled 20-step call: wall "
+              f"{wall * 1e3 / 20:.3f} ms a step, device busy {busy * 1e3 / 20:.3f} ms, idle "
+              f"share {1 - busy / wall:.3f}, {sum(e.count for e in kernels) // 20} kernels a "
+              f"step; bound a step {b_ms:.3f} ms ({b_by}, {step_flops / 1e9:.1f} GFLOP) ({card})")
+        if lane == "bfloat16":
+            t0 = time.perf_counter()
+            many = svc.sample_images(68, seed=4)
+            chunk_ms = (time.perf_counter() - t0) * 1e3
+            assert many.shape == (68, 64, 64, 3) and np.isfinite(many).all()
+            u8 = PixelSamplingService(model, sched, buckets=PIXEL_BUCKETS, quantize_uint8=True)
+            q = u8.sample_images(4, seed=7)
+            a, b = svc.sample_images(4, seed=7), svc.sample_images(4, seed=7)
+            ref = np.round(np.clip(a, 0.0, 1.0) * 255.0).astype(np.uint8)
+            n_diff = int((a != b).sum())
+            print(f"[pixel] bf16 service: a 68-image request (chunks {svc.request_plan(68)}) "
+                  f"{chunk_ms:.1f} ms; uint8 output of a 4-image request: {q.dtype}, range "
+                  f"{q.min()}..{q.max()}, {int((q != ref).sum())} values off the float "
+                  f"result quantised; two identical 4-image requests: {n_diff} values differ "
+                  f"({card})")
+            assert q.dtype == np.uint8 and q.shape == (4, 64, 64, 3) and q.max() > q.min()
+            assert np.array_equal(q, ref), "uint8 output is not the float output quantised"
+            assert n_diff == 0, "two identical pixel requests differ"
+            assert not np.array_equal(a, svc.sample_images(4, seed=8))
+        else:
+            ddim = PixelSamplingService(model, sched, buckets=PIXEL_BUCKETS,
+                                        sampler_kind="ddim", ddim_steps=50)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d = ddim.sample_images(64, seed=3)
+            ddim_ms = (time.perf_counter() - t0) * 1e3
+            assert d.shape == (64, 64, 64, 3) and np.isfinite(d).all()
+            assert d.min() >= 0.0 and d.max() <= 1.0
+            print(f"[pixel] f32 DDIM service, 50 steps: one 64-image request {ddim_ms:.1f} ms "
+                  f"(mean pixel {float(d.mean()):.3f}) ({card})")
+    counts = kernel_launches()
+    print(f"[pixel] kernel launches over the pixel path (it runs none of the TPU kernels' "
+          f"counterparts): {counts}")
+    assert not any(counts.values()), counts
+
+    # --- checkpoint of the full-width state: restored bit-equal, one more step equal
+    trainer = lanes["float32"][0]
+    ckpt_dir = _ROOT / "build" / "pixel_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        mgr = CheckpointManager(str(ckpt_dir))
+        t0 = time.perf_counter()
+        mgr.save(trainer.state.step, state_to_tree(trainer.state))
+        save_ms = (time.perf_counter() - t0) * 1e3
+        state2, model2, sched2 = px.create_pixel_diffusion_state(
+            1, dataclasses.replace(cfg, compute_dtype="float32"))
+        t0 = time.perf_counter()
+        tree_into_state(state2, mgr.restore(like=state_to_tree(state2)))
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        size = sum(f.stat().st_size for f in ckpt_dir.rglob("*") if f.is_file())
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    at = trainer.state.step
+    same = state2.step == at and all(
+        torch.equal(a, b) for a, b in zip(trainer.state.tensors(), state2.tensors()))
+    trainer._step(trainer.state, x, 77)
+    px.make_pixel_diffusion_step(model2, sched2)(state2, x, 77)
+    after = all(torch.equal(a, b) for a, b in zip(trainer.state.tensors(), state2.tensors()))
+    print(f"[pixel] checkpoint of the f32 state at step {at}: "
+          f"{size / 1e6:.1f} MB saved in {save_ms:.1f} ms, restored in {load_ms:.1f} ms; "
+          f"restored state bit-equal: {same}; one more step from each bit-equal: {after} "
+          f"({card})")
+    assert same and after, "the restored pixel state does not continue as the unbroken one"
+    return {lane: v[2] for lane, v in lanes.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2018,6 +2320,7 @@ def main() -> int:
     kernel_rows.append(phase_train_epoch(vae, stats, pool, dataset))
     del pool
     phase_vae_gan(dataset, model)
+    phase_pixel(dataset)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

@@ -212,6 +212,7 @@ class NormalizedSampler:
 
     def __init__(self, inner: DiffusionSampler, mean, std):
         self._inner = inner
+        self.device = inner.device
         self.mean = torch.as_tensor(mean, dtype=torch.float32, device=inner.device)
         self.std = torch.as_tensor(std, dtype=torch.float32, device=inner.device)
         self.sched = inner.sched

@@ -1,5 +1,5 @@
-"""Production sampling service (port of `SamplingService` in
-flowerdiff/serving.py).
+"""Production sampling services (port of `SamplingService` and
+`PixelSamplingService` in flowerdiff/serving.py).
 
 One `SamplingService` holds the denoiser behind a sampler, optionally
 z-score denormalisation, and the VAE decoder. A request of N class labels
@@ -32,7 +32,13 @@ back to f32 before any quantisation.
 Unlike the reference service, `guidance_scale` is a constructor argument
 and reaches the sampler.
 
-Not ported yet: `service_from_run`, `animate`, `PixelSamplingService`.
+`PixelSamplingService` serves the unconditional pixel family (v4/v5) on the
+same bucket ladder, (4, 16, 64) by default: one 1000-step reverse process
+(or DDIM) of the PixelUNet per chunk, then the clip to [0, 1] (and the
+uint8 quantisation) on the device. Its sampler runs under cuDNN's
+deterministic algorithms, so two identical requests are bit-equal.
+
+Not ported yet: `service_from_run`, `pixel_service_from_run`, `animate`.
 """
 from __future__ import annotations
 
@@ -60,6 +66,32 @@ DEFAULT_BUCKETS = (8, 16, 32, 64, 128, 256, 512)
 def quantize_uint8(img: torch.Tensor) -> torch.Tensor:
     """[0, 1] floats -> uint8, rounding half to even like jnp.round."""
     return torch.round(torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8)
+
+
+def _to_host(out: torch.Tensor):
+    """(host tensor, event or None): a card tensor's copy into pinned host
+    memory enqueued without waiting, and the event that marks it done."""
+    if not out.is_cuda:
+        return out, None
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    host.copy_(out, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def _fetcher(pending) -> Callable[[], np.ndarray]:
+    """fetch() over (host tensor, event, rows to keep) chunks: waits for each
+    in order, slices its padding off, concatenates."""
+    def fetch() -> np.ndarray:
+        outs = []
+        for out, done, take in pending:
+            if done is not None:
+                done.synchronize()
+            outs.append(out.numpy()[:take])
+        return outs[0] if len(outs) == 1 else np.concatenate(outs)
+
+    return fetch
 
 
 class SamplingService:
@@ -181,26 +213,9 @@ class SamplingService:
                 x0 = torch.from_numpy(self._pad(x_init[part], b)).to(self.device)
             lat = self.sampler.sample(b, *cond, generator=derived_generator(self.device, seed, i),
                                       x_init=x0, stochastic=stochastic)
-            out = self._decode(lat) if decode else lat
-            done = None
-            if out.is_cuda:
-                host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-                host.copy_(out, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record()
-                out = host
-            pending.append((out, done, take))
+            pending.append((*_to_host(self._decode(lat) if decode else lat), take))
             start += take
-
-        def fetch() -> np.ndarray:
-            outs = []
-            for out, done, take in pending:
-                if done is not None:
-                    done.synchronize()
-                outs.append(out.numpy()[:take])
-            return outs[0] if len(outs) == 1 else np.concatenate(outs)
-
-        return fetch
+        return _fetcher(pending)
 
     def sample(self, classes, seed: int = 0, colors=None, decode: bool = True,
                x_init=None, stochastic: bool = True) -> np.ndarray:
@@ -237,3 +252,83 @@ class SamplingService:
         color_arr = (np.repeat(np.asarray(colors, np.int64), n_per_class)
                      if colors is not None else None)
         return self.sample(classes, seed, color_arr)
+
+
+class PixelSamplingService:
+    """Deployment API for the unconditional pixel family (v4/v5): requests
+    of N images cut into bucket-sized chunks (`request_plan`, the ladder
+    smaller than the latent one: a 64x64x3 sample is ~2,000x the state of a
+    latent), each chunk one reverse process of the PixelUNet from the
+    generator of (seed, chunk), then clipped to [0, 1] (and quantised to
+    uint8 with quantize_uint8) on the device."""
+
+    bucket_size = SamplingService.bucket_size
+    request_plan = SamplingService.request_plan
+
+    def __init__(self, model, sched: Optional[DiffusionSchedule] = None,
+                 buckets: Tuple[int, ...] = (4, 16, 64), clip_x0: Optional[float] = 1.0,
+                 sampler_kind: str = "ancestral", ddim_steps: int = 50, img_size: int = 64,
+                 quantize_uint8: bool = False, device=None):
+        """model: the port's PixelUNet; clip_x0: the x0-thresholding bound
+        (None: the reference's unclipped sampler); sampler_kind:
+        'ancestral' or 'ddim' (`ddim_steps` strided steps)."""
+        self.device = resolve_device(device)
+        if sampler_kind not in ("ancestral", "ddim"):
+            raise ValueError(f"unknown sampler_kind {sampler_kind!r}")
+        self.buckets = tuple(sorted(buckets))
+        if not self.buckets:
+            raise ValueError("need at least one bucket size")
+        self.quantize_uint8 = quantize_uint8
+        self.sched = sched or linear_schedule()
+        self.model = model.to(self.device).eval()
+        self.sampler = DiffusionSampler(self.model, self.sched, (img_size, img_size, 3),
+                                        clip_x0=clip_x0, device=self.device)
+        if sampler_kind == "ddim":
+            self.sampler = DDIMSampler(self.sampler, num_steps=ddim_steps)
+
+    def _post(self, x: torch.Tensor) -> torch.Tensor:
+        return quantize_uint8(x) if self.quantize_uint8 else torch.clamp(x, 0.0, 1.0)
+
+    def warmup(self, seed: int = 0, buckets: Optional[Sequence[int]] = None) -> None:
+        """Run the live path once per bucket (default: all)."""
+        for b in buckets or self.buckets:
+            self.sample_images(b, seed)
+
+    @torch.no_grad()
+    def sample_async(self, classes, seed: int = 0, colors=None, decode: bool = True,
+                     x_init=None, stochastic: bool = True) -> Callable[[], np.ndarray]:
+        """The batcher's entry, as `SamplingService.sample_async`: the pixel
+        family is unconditional, so only the row count of `classes`
+        matters. Every chunk is issued (sampling, clip, the copy into pinned
+        host memory) before `fetch()` waits for any. x_init (N, H, W, 3) and
+        stochastic=False fix the starting state and drop the step noise."""
+        if colors is not None:
+            raise ValueError("the pixel family has no color conditioning")
+        if not decode:
+            raise ValueError("the pixel family has no latent space to return")
+        n = int(np.asarray(classes).reshape(-1).shape[0])
+        if x_init is not None:
+            x_init = np.asarray(x_init, np.float32)
+        pending = []
+        start = 0
+        for i, b in enumerate(self.request_plan(n)):
+            take = min(b, n - start)
+            x0 = None
+            if x_init is not None:
+                x0 = torch.from_numpy(SamplingService._pad(x_init[start:start + take], b))
+            with deterministic_cudnn():
+                x = self.sampler.sample(b, generator=derived_generator(self.device, seed, i),
+                                        x_init=x0, stochastic=stochastic)
+            pending.append((*_to_host(self._post(x)), take))
+            start += take
+        return _fetcher(pending)
+
+    def sample(self, classes, seed: int = 0, colors=None, decode: bool = True,
+               x_init=None, stochastic: bool = True) -> np.ndarray:
+        """`sample_async`, then its fetch."""
+        return self.sample_async(classes, seed, colors, decode, x_init, stochastic)()
+
+    def sample_images(self, n: int, seed: int = 0) -> np.ndarray:
+        """n images (n, img_size, img_size, 3) in [0, 1] (float32, or uint8
+        with quantize_uint8), as host numpy."""
+        return self.sample(np.zeros((n,), np.int64), seed)

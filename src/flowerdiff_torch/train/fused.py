@@ -8,13 +8,14 @@ tensor. (A CUDA graph of the step is later performance work.)
 
 Ported: `epoch_rows`, `_make_gather`, `make_latent_cache_builder`,
 `make_fused_cached_epochs`, `make_fused_latent_epochs` (both forms:
-the frozen encode per step, or once per epoch) and
-`make_fused_vae_gan_epochs` (plain, and with the best-state policy). Each
+the frozen encode per step, or once per epoch),
+`make_fused_vae_gan_epochs` (plain, and with the best-state policy) and
+`make_fused_pixel_epochs`. Each
 augmenting latent path takes its draws from one generator in a fixed order,
 a row at a time: the augmentation's, the posterior noise, then the step's.
-The VAE-GAN window derives a generator per row from (seed, row, step), the
-reference's fold_in(rng, offset) and fold_in(.., step), and draws the
-augmentation, then the step's noise and dropout masks, from it.
+The VAE-GAN and pixel windows derive a generator per row from (seed, row,
+step), the reference's fold_in(rng, offset) and fold_in(.., step), and draw
+the augmentation, then the step's draws, from it.
 """
 from __future__ import annotations
 
@@ -27,11 +28,13 @@ from flowerdiff_torch.data.pipeline import make_augment_fn, unit_float
 from flowerdiff_torch.kernels.train_step import draw_step_inputs
 from flowerdiff_torch.models.latent_unet import ConditionalLatentDenoiser
 from flowerdiff_torch.models.vae import FlowerVAE
+from flowerdiff_torch.models.pixel_unet import PixelUNet
 from flowerdiff_torch.train.latent_ddpm import (
     LatentDiffusionConfig,
     make_latent_denoise_body,
     make_latent_encode_fn,
 )
+from flowerdiff_torch.train.pixel_ddpm import make_pixel_diffusion_step_body
 from flowerdiff_torch.train.vae_gan import METRICS, make_vae_gan_step_body
 from flowerdiff_torch.utils.device import derived_generator
 
@@ -281,5 +284,35 @@ def make_fused_vae_gan_epochs(vae, disc, cfg, vgg=None, augment: bool = True,
         if track_best:
             return metrics, best_loss, best_epoch, best_state
         return metrics
+
+    return epochs_fn
+
+
+def make_fused_pixel_epochs(model: PixelUNet, augment: bool = True,
+                            max_rotation_deg: float = 10.0, jitter: float = 0.2,
+                            steps_per_epoch: int = 1):
+    """fn(state, sched, images_u8, idx (T, B), seed=0, draws=None) -> losses
+    (T,) on the device; the state is updated in place. T must be whole
+    epochs of steps_per_epoch rows.
+
+    Row r gathers and augments its images (`_make_gather`) and takes one
+    pixel-DDPM step (train/pixel_ddpm.py), drawing from the generator of
+    (seed..., r, state step) (`seed`: an int or a tuple of ints): the
+    augmentation, then t and eps. draws: per row, (augmentation draws or
+    None, (t, eps)) in place of the generator's."""
+    step_body = make_pixel_diffusion_step_body(model)
+    gather = _make_gather(augment, max_rotation_deg, jitter)
+
+    def epochs_fn(state, sched, images_u8, idx, seed=0, draws=None):
+        if idx.shape[0] % steps_per_epoch:
+            raise ValueError(f"T={idx.shape[0]} is not a multiple of steps={steps_per_epoch}")
+        words = seed if isinstance(seed, tuple) else (seed,)
+        losses = []
+        for r, idx_row in enumerate(idx):
+            gen = derived_generator(idx.device, *words, r, state.step) if draws is None else None
+            aug, step_draws = (None, None) if draws is None else draws[r]
+            imgs = gather(images_u8, idx_row, gen, aug)
+            losses.append(step_body(state, sched, imgs, gen, step_draws))
+        return torch.stack(losses)
 
     return epochs_fn

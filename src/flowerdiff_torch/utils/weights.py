@@ -16,8 +16,12 @@ Layout rules (the port's own copy of the reference's conversion rules):
   encoder mu_fc1 / logvar_fc1 input  -> permuted the same way, since the port
                                         flattens the conv features NCHW
 
+Each rule is picked by the type of the module that receives (or owns) the
+entry, in both directions: a 4-D kernel goes to a ConvTranspose2d flipped
+and to a Conv2d plain, whatever the layer's name.
+
 `state_dict_to_flax` is the inverse map: a module (the denoiser, a
-FlowerVAE, a Discriminator64), or a dict keyed like its state dict
+FlowerVAE, a Discriminator64, a PixelUNet), or a dict keyed like its state dict
 (gradients, EMA weights, Adam moments) with that module, back to a
 flax-named numpy tree in flax layouts, so that it can be held against the
 reference's trees leaf by leaf and loaded into the reference's modules.
@@ -31,7 +35,6 @@ the reference's initial distribution, zero biases).
 from __future__ import annotations
 
 import math
-import re
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
@@ -42,18 +45,18 @@ from flowerdiff_torch.core.layers import LayerNorm2d, kaiming_std
 from flowerdiff_torch.models.discriminator import WIDTHS as DISC_WIDTHS
 from flowerdiff_torch.models.discriminator import Discriminator64
 from flowerdiff_torch.models.latent_unet import ConditionalLatentDenoiser
+from flowerdiff_torch.models.pixel_unet import PixelUNet
 from flowerdiff_torch.models.vae import FlowerVAE
 from flowerdiff_torch.utils.device import resolve_device
-
-_CONV_TRANSPOSE = re.compile(r"up\d+_conv$")
-
 
 def _unwrap(tree: Dict[str, Any]) -> Dict[str, Any]:
     return tree["params"] if "params" in tree else tree
 
 
-def _leaf_params(path: str, name: str, leaf: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-    """One flax module's parameter dict -> torch state-dict entries."""
+def _leaf_params(path: str, name: str, leaf: Dict[str, np.ndarray],
+                 owners: Dict[str, torch.nn.Module]) -> Dict[str, np.ndarray]:
+    """One flax module's parameter dict -> torch state-dict entries, a
+    conv kernel laid out for the module `owners` names at its path."""
     prefix = f"{path}{name}"
     out: Dict[str, np.ndarray] = {}
     if "kernel" in leaf:
@@ -65,12 +68,16 @@ def _leaf_params(path: str, name: str, leaf: Dict[str, np.ndarray]) -> Dict[str,
                 out[f"{path}{part}.weight"] = k[:, j * d:(j + 1) * d].T
                 out[f"{path}{part}.bias"] = b[j * d:(j + 1) * d]
             return out
+        owner = owners.get(prefix)
         if k.ndim == 2:
             out[f"{prefix}.weight"] = k.T
-        elif _CONV_TRANSPOSE.search(name):
+        elif isinstance(owner, torch.nn.ConvTranspose2d):
             out[f"{prefix}.weight"] = k[::-1, ::-1].transpose(2, 3, 0, 1)
-        else:
+        elif isinstance(owner, torch.nn.Conv2d):
             out[f"{prefix}.weight"] = k.transpose(3, 2, 0, 1)
+        else:
+            raise ValueError(f"flax_to_state_dict: {prefix} is no Conv2d or ConvTranspose2d "
+                             f"of the module, for a kernel of shape {k.shape}")
         if "bias" in leaf:
             out[f"{prefix}.bias"] = leaf["bias"]
     elif "embedding" in leaf:
@@ -83,16 +90,23 @@ def _leaf_params(path: str, name: str, leaf: Dict[str, np.ndarray]) -> Dict[str,
     return out
 
 
-def flax_to_state_dict(tree: Dict[str, Any], path: str = "") -> Dict[str, torch.Tensor]:
-    """Flatten a flax-named numpy tree into a torch state dict (no layout
-    permutations beyond the per-layer rules above)."""
+def flax_to_state_dict(tree: Dict[str, Any], module: torch.nn.Module,
+                       path: str = "") -> Dict[str, torch.Tensor]:
+    """Flatten a flax-named numpy tree into a state dict for `module` (no
+    layout permutations beyond the per-layer rules above). `path`: the
+    tree's place in the module, e.g. "decoder." for a FlowerVAE's decoder."""
+    return _flatten(tree, dict(module.named_modules()), path)
+
+
+def _flatten(tree: Dict[str, Any], owners: Dict[str, torch.nn.Module],
+             path: str) -> Dict[str, torch.Tensor]:
     out: Dict[str, Any] = {}
     for name, value in _unwrap(tree).items():
         if isinstance(value, dict):
             if all(not isinstance(v, dict) for v in value.values()):
-                out.update(_leaf_params(path, name, value))
+                out.update(_leaf_params(path, name, value, owners))
             else:
-                out.update(flax_to_state_dict(value, f"{path}{name}."))
+                out.update(_flatten(value, owners, f"{path}{name}."))
         else:  # a bare parameter, e.g. residual_weight
             out[f"{path}{name}"] = value
     return {k: torch.from_numpy(np.ascontiguousarray(np.asarray(v, np.float32)))
@@ -105,7 +119,14 @@ def hwc_to_chw_index(c: int, h: int, w: int) -> np.ndarray:
 
 
 def load_denoiser(model: ConditionalLatentDenoiser, tree: Dict[str, Any]) -> ConditionalLatentDenoiser:
-    model.load_state_dict(flax_to_state_dict(tree), strict=True)
+    model.load_state_dict(flax_to_state_dict(tree, model), strict=True)
+    return model
+
+
+def load_pixel_unet(model: PixelUNet, tree: Dict[str, Any]) -> PixelUNet:
+    """A PixelUNet tree (time MLP, stage biases, convs, `up1` / `up2`
+    transposed, `res_ratio` for v5) into the module."""
+    model.load_state_dict(flax_to_state_dict(tree, model), strict=True)
     return model
 
 
@@ -127,7 +148,7 @@ def load_vae(vae: FlowerVAE, tree: Dict[str, Any]) -> FlowerVAE:
     lacks keeps the module's weights; a classifier the module lacks is
     ignored."""
     params = _unwrap(tree)
-    sd = flax_to_state_dict(params["decoder"], "decoder.")
+    sd = flax_to_state_dict(params["decoder"], vae, "decoder.")
     idx = _vae_index(vae)
     for key in _VAE_ROWS:
         sd[key] = sd[key][idx].contiguous()
@@ -135,7 +156,7 @@ def load_vae(vae: FlowerVAE, tree: Dict[str, Any]) -> FlowerVAE:
         if part == "classifier" and vae.classifier is None:
             continue
         if part in params:
-            sd.update(flax_to_state_dict(params[part], f"{part}."))
+            sd.update(flax_to_state_dict(params[part], vae, f"{part}."))
         else:
             sd.update({k: v for k, v in vae.state_dict().items() if k.startswith(f"{part}.")})
     if "encoder" in params:
@@ -147,7 +168,7 @@ def load_vae(vae: FlowerVAE, tree: Dict[str, Any]) -> FlowerVAE:
 
 def load_discriminator(disc: Discriminator64, tree: Dict[str, Any]) -> Discriminator64:
     """A Discriminator64 tree (conv0-3, norm1-3, head) into the module."""
-    disc.load_state_dict(flax_to_state_dict(tree), strict=True)
+    disc.load_state_dict(flax_to_state_dict(tree, disc), strict=True)
     return disc
 
 
@@ -219,7 +240,7 @@ def load_adam_moments(state, mu: Dict[str, Any], nu: Dict[str, Any], count: int)
     flax-named numpy trees laid out like the weights (optax's `mu` / `nu`,
     the packed `qkv` included)."""
     for dst, tree in ((state.mu, mu), (state.nu, nu)):
-        flat = flax_to_state_dict(tree)
+        flat = flax_to_state_dict(tree, state.module)
         if set(flat) != set(state.names):
             raise ValueError("the moment tree's leaves are not the state's parameters")
         for name, t in zip(state.names, dst):
@@ -245,6 +266,13 @@ def denoiser_from_params(tree: Dict[str, Any], device=None, **config) -> Conditi
 def vae_from_params(tree: Dict[str, Any], device=None, **config) -> FlowerVAE:
     dev = resolve_device(device)
     return load_vae(FlowerVAE(**config), tree).to(dev).eval()
+
+
+def pixel_unet_from_params(tree: Dict[str, Any], device=None, **config) -> PixelUNet:
+    """PixelUNet(**config) holding `tree`'s weights, in eval mode on
+    `device` (default cuda)."""
+    dev = resolve_device(device)
+    return load_pixel_unet(PixelUNet(**config), tree).to(dev).eval()
 
 
 # --------------------------------------------------------------------------
@@ -389,6 +417,30 @@ def _discriminator_tree(ini: _Init, in_channels: int = 3):
     return p
 
 
+def _pixel_tree(ini: _Init, in_channels: int = 3, base_channels: int = 64,
+                time_emb_dim: int = 128, learnable_residual: bool = False,
+                compute_dtype: str = "float32"):
+    del compute_dtype  # a PixelUNet keyword that holds no weights
+    b, e = base_channels, time_emb_dim
+    p: Dict[str, Any] = {"time_fc_a": ini.dense(1, e), "time_fc_b": ini.dense(e, e)}
+    for i, ch in enumerate((b, 2 * b, 4 * b), start=1):
+        p[f"time_to_s{i}"] = ini.dense(e, ch)
+    for name, cin, cout in (("conv1", in_channels, b), ("conv2", 2 * b, 2 * b),
+                            ("conv3", 4 * b, 4 * b), ("conv4", 4 * b, 2 * b),
+                            ("conv5", 2 * b, b)):
+        p[f"{name}_a"] = ini.conv(3, cin, cout)
+        p[f"{name}_b"] = ini.conv(3, cout, cout)
+    for name, cin, cout in (("down1", b, 2 * b), ("down2", 2 * b, 4 * b),
+                            ("up1", 4 * b, 2 * b), ("up2", 2 * b, b)):
+        p[name] = ini.conv(4, cin, cout)  # a transposed conv's kernel is (kh, kw, in, out) too
+    p["bottleneck_a"] = ini.conv(3, 4 * b, 8 * b)
+    p["bottleneck_b"] = ini.conv(3, 8 * b, 4 * b)
+    p["out_conv"] = ini.conv(3, b, in_channels)
+    if learnable_residual:
+        p["res_ratio"] = np.asarray(0.1, np.float32)
+    return p
+
+
 def init_numpy_params(kind: str, seed: int = 0, bias_std: float = 0.05,
                       **config) -> Dict[str, Any]:
     """A seeded flax-named numpy tree, `{"params": {...}}`.
@@ -397,7 +449,8 @@ def init_numpy_params(kind: str, seed: int = 0, bias_std: float = 0.05,
     (FlowerVAE config keywords; the tree holds the decoder and, drawn after
     it, the encoder); "generator" (the same, plus `num_classes`, and the
     classifier head drawn after the encoder: the reference's `init_all`
-    tree); "discriminator" (Discriminator64, `in_channels`)."""
+    tree); "discriminator" (Discriminator64, `in_channels`); "pixel"
+    (PixelUNet config keywords; `res_ratio` 0.1 with learnable_residual)."""
     ini = _Init(seed, bias_std)
     if kind == "denoiser":
         return {"params": _denoiser_tree(ini, **config)}
@@ -410,5 +463,7 @@ def init_numpy_params(kind: str, seed: int = 0, bias_std: float = 0.05,
         return {"params": tree}
     if kind == "discriminator":
         return {"params": _discriminator_tree(ini, **config)}
-    raise ValueError(f"unknown kind {kind!r}; choose 'denoiser', 'vae', 'generator' "
-                     "or 'discriminator'")
+    if kind == "pixel":
+        return {"params": _pixel_tree(ini, **config)}
+    raise ValueError(f"unknown kind {kind!r}; choose 'denoiser', 'vae', 'generator', "
+                     "'discriminator' or 'pixel'")

@@ -32,7 +32,7 @@ def _perturbed(params, seed):
 
 
 def _load(module, tree):
-    module.load_state_dict(flax_to_state_dict(tree), strict=True)
+    module.load_state_dict(flax_to_state_dict(tree, module), strict=True)
     return module.eval()
 
 

@@ -839,15 +839,17 @@ _GAN = dict(channels=(16, 32, 48, 64), latent_dim=32, head_width=64, num_classes
             total_steps=100)
 
 
-def _gan_batches(n, b=8, seed=3):
-    """Synthetic flower images, as the trainer sees them. (On uniform noise
-    with these labels the comparison below held its losses and failed its
-    centers limit on the H100; chip_smoke.py prints the noise readings on
-    its own batches, ungated.)"""
+def _gan_batches(n, b=8, seed=3, noise_seed=None):
+    """Synthetic flower images, as the trainer sees them, or, with
+    `noise_seed`, uniform-noise images with the same labels (where the
+    centers are held relative to their size:
+    test_vae_gan_centers_on_noise_are_rounding_on_the_card)."""
     from flowerdiff_torch.data import synthetic_flowers
 
     imgs, labels = synthetic_flowers(n * b, 10, 64, seed=seed)
     x = torch.from_numpy(imgs).float() / 255.0
+    if noise_seed is not None:
+        x = torch.rand(x.shape, generator=torch.Generator().manual_seed(noise_seed))
     y = torch.from_numpy(labels).long()
     return [(x[i * b:(i + 1) * b], y[i * b:(i + 1) * b]) for i in range(n)]
 
@@ -947,3 +949,128 @@ def test_vae_gan_bf16_lane_is_finite_and_within_its_band(gen):
     assert torch.isfinite(b16).all()
     assert float(((b16 - f32).abs() / f32.abs()).max()) <= 1e-2
     assert all(t.dtype == torch.float32 for t in state.tensors())
+
+
+# On uniform noise the centers part from the CPU's by the encoder's rounding
+# carried through Adam (src/flowerdiff_torch/tools/centers_probe.py on the
+# H100, PERF.md section 7): at the first step, with equal weights, z differs
+# by ~1e-6 of max|z|; Adam's first update is lr sign(g), so weights whose
+# gradient lies within rounding of zero step lr either way, and from the
+# second step z differs by up to 1.5e-5 of max|z|. The centers are an EMA
+# (momentum 0.9, from zero) of per-class batch means of z, so |dc| / max|c|
+# follows |dz| / max|z|: the worst reading was 1.3e-5 (4 noise seeds, 3
+# steps each). The limit is 4e-5 of max|c|, and the flowers case keeps its
+# absolute 1e-5.
+_NOISE_CENTER_REL = 4e-5
+
+
+@pytest.mark.parametrize("noise_seed", [0, 1, 2, 3])
+def test_vae_gan_centers_on_noise_are_rounding_on_the_card(gen, monkeypatch, noise_seed):
+    """Three f32 steps on uniform-noise images with the flowers' labels, the
+    CPU's draws: losses rtol 1e-3 and the centers within
+    _NOISE_CENTER_REL of their largest value."""
+    from flowerdiff_torch.train import vae_gan as vg
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = vg.VAEGANConfig(**_GAN)
+    batches = _gan_batches(3, noise_seed=noise_seed)
+    _, cpu_vae, _ = vg.create_vae_gan_state(5, cfg, device="cpu")
+    g = torch.Generator().manual_seed(4)
+    draws = [vg.draw_step_inputs(cpu_vae, 8, g, "cpu") for _ in range(3)]
+    ref, ref_state = _gan_run("cpu", cfg, batches, draws)
+    got, state = _gan_run("cuda", cfg, batches, draws)
+    assert torch.allclose(got, ref, rtol=1e-3, atol=0), (got, ref)
+    c_err = float((state.centers.cpu() - ref_state.centers).abs().max())
+    assert c_err <= _NOISE_CENTER_REL * float(ref_state.centers.abs().max()), c_err
+
+
+# The pixel family (no kernel of its own: cuDNN and cuBLAS through
+# PyTorch), held against itself on the CPU at base 16, 32x32 images.
+_PIXEL = dict(base_channels=16, time_emb_dim=32, learnable_residual=True, img_size=32,
+              n_steps=100)
+
+
+def test_pixel_step_on_the_card_matches_the_cpu(gen, monkeypatch):
+    """Three f32 Adam steps (TF32 off) from one seeded tree with the CPU's
+    draws: losses rtol 1e-5; per leaf, Adam first moments within 2e-2 of
+    their rms, every weight within Adam's bound of 2 lr a step, and the
+    weights of the elements whose gradient is at least 2e-2 of the leaf's
+    rms within 5e-2 of the leaf's move (rms). Below that floor an element's
+    rounding takes Adam's normalised step either way (chip_smoke.py's
+    PIXEL_GRAD_FLOOR)."""
+    from flowerdiff_torch.train import pixel_ddpm as px
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = px.PixelDiffusionConfig(**_PIXEL)
+    arch = dict(base_channels=16, time_emb_dim=32, learnable_residual=True)
+    tree = init_numpy_params("pixel", seed=2, **arch)
+    g = torch.Generator().manual_seed(5)
+    xs = [torch.rand((8, 32, 32, 3), generator=g) for _ in range(3)]
+    draws = [(torch.randint(0, 100, (8,), generator=g), torch.randn((8, 32, 32, 3), generator=g))
+             for _ in range(3)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        state, model, sched = px.create_pixel_diffusion_state(0, cfg, device=dev, params=tree)
+        body = px.make_pixel_diffusion_step_body(model)
+        losses = [body(state, sched, x.to(dev), draws=(t.to(dev), e.to(dev))).cpu()
+                  for x, (t, e) in zip(xs, draws)]
+        runs[dev] = (torch.stack(losses), state)
+    assert torch.allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-5, atol=0)
+    init, _, _ = px.create_pixel_diffusion_state(0, cfg, device="cpu", params=tree)
+    a, b = runs["cuda"][1], runs["cpu"][1]
+    for name, p, q, p0, m, n in zip(b.names, a.params, b.params, init.params, a.mu, b.mu):
+        d = p.cpu() - q
+        g = n.abs() / (1 - 0.9**3)
+        strong = g >= 2e-2 * _rms(g)
+        assert float(d.abs().max()) <= 2 * cfg.lr * 3, name
+        assert _rms(d[strong]) <= 5e-2 * _rms(q - p0), name
+        assert _rms(m.cpu() - n) <= 2e-2 * _rms(n), name
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_identical_pixel_requests_are_bit_equal_on_the_card(gen, quantize):
+    """PixelSamplingService (T = 100, buckets (2, 4)): two identical 5-image
+    requests (chunks [4, 2]) equal bit for bit; another seed differs."""
+    from flowerdiff_torch.diffusion import linear_schedule
+    from flowerdiff_torch.serving import PixelSamplingService
+    from flowerdiff_torch.utils.weights import pixel_unet_from_params
+
+    arch = dict(base_channels=16, time_emb_dim=32, learnable_residual=True)
+    model = pixel_unet_from_params(init_numpy_params("pixel", seed=3, **arch), **arch)
+    svc = PixelSamplingService(model, linear_schedule(100), buckets=(2, 4), img_size=32,
+                               quantize_uint8=quantize)
+    a, b = svc.sample_images(5, seed=8), svc.sample_images(5, seed=8)
+    assert a.dtype == (np.uint8 if quantize else np.float32) and a.shape == (5, 32, 32, 3)
+    np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(a, svc.sample_images(5, seed=9))
+
+
+def test_checkpoint_resume_is_bit_equal_on_the_card(gen, tmp_path):
+    """The pixel state on the card: 2 steps, save, one more; a fresh state
+    restored onto the card takes the same step bit for bit."""
+    from flowerdiff_torch.train import pixel_ddpm as px
+    from flowerdiff_torch.train.checkpoints import (
+        CheckpointManager,
+        state_to_tree,
+        tree_into_state,
+    )
+
+    cfg = px.PixelDiffusionConfig(**_PIXEL)
+    x = torch.rand((8, 32, 32, 3), generator=torch.Generator().manual_seed(6)).cuda()
+
+    def fresh(seed):
+        state, model, sched = px.create_pixel_diffusion_state(seed, cfg)
+        return state, px.make_pixel_diffusion_step(model, sched)
+
+    state, step = fresh(0)
+    for _ in range(2):
+        step(state, x, 4)
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    mgr.save(2, state_to_tree(state))
+    step(state, x, 4)
+    state2, step2 = fresh(1)
+    tree_into_state(state2, mgr.restore(like=state_to_tree(state2)))
+    assert all(t.is_cuda for t in state2.tensors()) and state2.step == 2
+    step2(state2, x, 4)
+    assert state.step == state2.step == 3
+    assert all(torch.equal(a, b) for a, b in zip(state.tensors(), state2.tensors()))

@@ -62,8 +62,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         create_vae_gan_state,
     )
     from flowerdiff_torch.utils.weights import denoiser_from_params, init_numpy_params
+    from flowerdiff_torch.models.pixel_unet import PixelUNet
+    from flowerdiff_torch.serving import PixelSamplingService
+    from flowerdiff_torch.train.pixel_ddpm import (
+        PixelDiffusionConfig,
+        PixelDiffusionTrainer,
+        create_pixel_diffusion_state,
+    )
+    from flowerdiff_torch.utils.weights import pixel_unet_from_params
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pix = dict(base_channels=8, time_emb_dim=8)
+    pix_cfg = PixelDiffusionConfig(img_size=16, n_steps=3, **pix)
     kw = dict(latent_dim=16, hidden_dims=(16, 16), time_emb_dim=16, num_classes=3)
     model = ConditionalLatentDenoiser(**kw)
     vae = FlowerVAE(latent_dim=16, channels=(8, 16), head_width=16)
@@ -85,6 +95,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         lambda: create_vae_gan_state(0, gan_cfg),
         lambda: Discriminator64(),
         lambda: VGGPerceptual(),
+        lambda: PixelDiffusionTrainer(pix_cfg),
+        lambda: create_pixel_diffusion_state(0, pix_cfg),
+        lambda: PixelSamplingService(PixelUNet(**pix), sched=sched),
+        lambda: pixel_unet_from_params(init_numpy_params("pixel", **pix), **pix),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -135,6 +149,15 @@ def test_unported_training_paths_raise_rather_than_run_something_else():
     with pytest.raises(ValueError, match="sampler_kind"):
         SamplingService(ConditionalLatentDenoiser(**kw), vae, sched=linear_schedule(3),
                         sampler_kind="euler", device="cpu")
+    from flowerdiff_torch.models.pixel_unet import PixelUNet
+    from flowerdiff_torch.serving import PixelSamplingService
+    from flowerdiff_torch.train.pixel_ddpm import PixelDiffusionConfig, PixelDiffusionTrainer
+
+    with pytest.raises(ValueError, match="compute_dtype"):
+        PixelDiffusionTrainer(PixelDiffusionConfig(compute_dtype="float16"), device="cpu")
+    with pytest.raises(ValueError, match="sampler_kind"):
+        PixelSamplingService(PixelUNet(base_channels=8), sched=linear_schedule(3),
+                             sampler_kind="euler", device="cpu")
 
 
 def test_every_cuda_source_is_built_and_keeps_a_plain_c_interface():

@@ -1,137 +1,68 @@
 """flowerdiff_torch's VAE-GAN training slice on the CPU against the JAX
-package, at a tiny width: channels (8, 16, 24, 32), latent 8, 10 classes,
-64x64 images (the discriminator's fixed ladder needs 64), batch 4. The
-losses, the one-cycle schedule and the loss gates, the discriminator, the
-VGG features from the in-repo asset, the classifier head, the VAE's full
-pass, the weight bridge both ways, a 5-step trajectory of the step, the
-fused epochs in both forms, both trainers' bf16 lanes and a tiny trainer.
-
-Inputs come from a numpy seed and the weights from the reference's own
-init, carried across by the bridge. Random draws are injected: the
-reparameterisation noise is recomputed from the reference's keys; on the
-reference side flax `Dropout` is patched to the identity and on the port
-side the classifier's masks are given as None, which applies no dropout (the
-two dropout streams cannot be aligned; the masks themselves are held in the
-classifier's own test).
+package: the losses, the one-cycle schedule and the loss gates, the
+discriminator, the VGG features from the in-repo asset, the classifier
+head, the VAE's full pass, the weight bridge both ways, the adversarial
+term against the updated discriminator, the seeded step's draws and the
+configuration's defaults. The 5-step trajectory, both trainers' bf16 lanes
+and a tiny trainer are in test_torch_port_vae_gan_steps.py, the fused
+epochs in test_torch_port_vae_gan_fused.py; the inputs, fixtures and
+helpers they share in torch_port_vae_gan_common.py.
 """
 import copy
 import dataclasses
-import re
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from flax import linen as fnn
 
-from flowerdiff.losses import center as jcenter
-from flowerdiff.losses import gan as jgan
-from flowerdiff.losses.kl import kl_divergence as jax_kl
-from flowerdiff.models.discriminator import Discriminator64 as JaxDisc
-from flowerdiff.models.vae import FlowerVAE as JaxVAE
-from flowerdiff.models.vae import LatentClassifier as JaxClassifier
-from flowerdiff.models.vgg import VGGFeatures as JaxVGGFeatures
-from flowerdiff.models.vgg import VGGPerceptual as JaxVGG
-from flowerdiff.train import schedules as jsched
-from flowerdiff.train.fused import epoch_rows as jax_epoch_rows
-from flowerdiff.train.fused import make_fused_vae_gan_epochs as jax_fused_epochs
-from flowerdiff.train.latent_ddpm import LatentDiffusionConfig as JaxLatentConfig
-from flowerdiff.train.latent_ddpm import create_latent_diffusion_state as jax_latent_state
-from flowerdiff.diffusion.ddpm import q_sample as jax_q_sample
-from flowerdiff.losses.distances import euclidean_distance_loss as jax_euclid
-from flowerdiff.train.vae_gan import VAEGANConfig as JaxConfig
-from flowerdiff.train.vae_gan import create_vae_gan_state as jax_create_state
-from flowerdiff.train.vae_gan import gates_array as jax_gates
-from flowerdiff.train.vae_gan import make_vae_gan_step as jax_make_step
-from flowerdiff_torch.data import DeviceDataset, synthetic_flowers
-from flowerdiff_torch.losses import (
+from torch_port_vae_gan_common import (  # noqa: F401 (fixtures)
+    ARCH,
+    B,
+    CLASSES,
+    COMMON,
+    Discriminator64,
+    FlowerVAE,
+    IMG,
+    JaxClassifier,
+    JaxConfig,
+    JaxDisc,
+    JaxVAE,
+    JaxVGGFeatures,
+    LATENT,
+    VAEGANConfig,
+    VGGPerceptual,
+    _assert_trees_equal,
+    _batches,
+    _leaves,
+    _port,
+    _t,
     bce_loss,
     center_loss,
+    describe_vgg_weights,
     discriminator_loss,
-    generator_adv_loss,
-    kl_divergence,
-    standalone_center_loss,
-    update_centers,
-)
-from flowerdiff_torch.models import Discriminator64, FlowerVAE, VGGPerceptual
-from flowerdiff_torch.models.vgg import describe_vgg_weights, load_vgg_params
-from flowerdiff_torch.train import fused
-from flowerdiff_torch.train.latent_ddpm import (
-    LatentDiffusionConfig,
-    create_latent_diffusion_state,
-    make_latent_denoise_body,
-)
-from flowerdiff_torch.train.schedules import onecycle_schedule, vae_gan_loss_gates
-from flowerdiff_torch.train.vae_gan import (
-    METRICS,
-    VAEGANConfig,
-    VAEGANTrainer,
-    create_vae_gan_state,
     gates_array,
-    make_vae_gan_step,
-    make_vae_gan_step_body,
-)
-from flowerdiff_torch.utils.weights import (
+    generator_adv_loss,
     init_numpy_params,
+    jax_gates,
+    jax_init,
+    jax_kl,
+    jcenter,
+    jgan,
+    jsched,
+    kl_divergence,
     load_discriminator,
+    load_vgg_params,
+    make_vae_gan_step,
+    onecycle_schedule,
+    standalone_center_loss,
     state_dict_to_flax,
+    update_centers,
     vae_from_params,
+    vae_gan_loss_gates,
+    vgg_pair,
 )
-
-B, LATENT, CLASSES, IMG = 4, 8, 10, 64
-ARCH = dict(latent_dim=LATENT, channels=(8, 16, 24, 32), head_width=32)
-COMMON = dict(num_classes=CLASSES, total_steps=20, **ARCH)
-
-
-def _leaves(tree, prefix=""):
-    for k, v in sorted(tree.items()):
-        if isinstance(v, dict):
-            yield from _leaves(v, f"{prefix}{k}/")
-        else:
-            yield f"{prefix}{k}", np.asarray(v)
-
-
-def _t(a):
-    return torch.from_numpy(np.array(a))
-
-
-@pytest.fixture()
-def no_dropout(monkeypatch):
-    def identity(self, x, deterministic=True, rng=None):  # noqa: ARG001
-        return x
-
-    monkeypatch.setattr(fnn.Dropout, "__call__", identity)
-
-
-@pytest.fixture(scope="module")
-def jax_init():
-    """The reference's initial state at the tiny width, as numpy trees."""
-    state, _, _ = jax_create_state(jax.random.key(0), JaxConfig(**COMMON))
-    return (jax.tree.map(np.asarray, state.gen.params),
-            jax.tree.map(np.asarray, state.disc.params))
-
-
-@pytest.fixture(scope="module")
-def vgg_pair():
-    jvgg = JaxVGG()
-    return jvgg, VGGPerceptual(device="cpu")
-
-
-def _port(jax_init, vgg=None, cfg=None):
-    cfg = cfg or VAEGANConfig(**COMMON)
-    vae = FlowerVAE(num_classes=CLASSES, **ARCH)
-    gp, dp = jax_init
-    state, vae, disc = create_vae_gan_state(0, cfg, vae=vae, device="cpu",
-                                            g_params={"params": copy.deepcopy(gp)},
-                                            d_params={"params": copy.deepcopy(dp)})
-    return state, vae, disc, make_vae_gan_step_body(vae, disc, cfg, vgg)
-
-
-def _batches(n, seed=7):
-    rng = np.random.default_rng(seed)
-    return [(rng.uniform(size=(B, IMG, IMG, 3)).astype(np.float32),
-             rng.integers(0, CLASSES, B).astype(np.int32)) for _ in range(n)]
 
 
 # ---------------------------------------------------------------- losses
@@ -315,14 +246,6 @@ def test_full_pass_matches_jax_with_the_reference_noise(jax_init):
                                    err_msg=name)
     assert got[0].shape == (B, IMG, IMG, 3)
 
-
-def _assert_trees_equal(got, ref):
-    got, ref = dict(_leaves(got)), dict(_leaves(ref))
-    assert set(got) == set(ref)
-    for k in ref:
-        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
-
-
 def test_weight_bridge_both_ways(jax_init, vgg_pair):
     """A generator trained a step in the port goes back through
     state_dict_to_flax, loads into the reference's FlowerVAE and gives the
@@ -369,125 +292,6 @@ def test_weight_bridge_both_ways(jax_init, vgg_pair):
     assert shapes(init_numpy_params("discriminator", seed=3)["params"]) == shapes(dp)
     assert all(not v.any() for k, v in _leaves(gen["params"]) if k.endswith("bias"))
 
-
-# ---------------------------------------------------------------- the step
-
-
-# Leaves whose reference gradient is rounding noise in the first steps, so
-# that Adam's normalised step moves them by +-lr in a direction that any
-# other summation order may flip: the bias of every convolution that feeds a
-# LayerNorm2d (its per-(sample, channel) normalisation removes the bias: zero
-# gradient in exact arithmetic), and the channel gates' kernels, whose input
-# is the spatial mean of a LayerNorm2d's output, that is its bias, zero at
-# init.
-NOISE_LEAVES = re.compile(r"((stem_conv|down\d+_conv|res\d+/conv[12])/bias"
-                          r"|/ca/(squeeze|excite)/kernel)$")
-# Each other leaf: its weights' rms difference within W_RTOL of the rms of
-# the reference's move from the init, and its Adam first moments' within
-# MU_RTOL of the reference's. The worst readings here were 2.3e-2 (weights,
-# the best state after 2 steps of the one-cycle's smallest rates, where an
-# element with a near-zero gradient may take Adam's step the other way) and
-# 5.7e-3 (moments, D after 5 steps on noise images).
-W_RTOL, MU_RTOL = 5e-2, 2e-2
-
-
-def _rms(a):
-    return float(np.sqrt(np.mean(np.square(a, dtype=np.float64))))
-
-
-def _assert_leaves_close(got, want, init, got_mu, want_mu, steps, what, lr=1e-4):
-    """Each leaf of flax-named trees on its own: the rms of its weights'
-    difference within W_RTOL of the rms of the reference's move from
-    `init`, and the rms of its Adam first moments' difference (the running
-    mean of the gradient, whose scale Adam's step alone does not show)
-    within MU_RTOL of the reference's. A NOISE_LEAVES leaf: every weight
-    within 2 lr a step of the reference (the largest move Adam can make the
-    other way), and its first moment below 1e-6 on both sides, far below
-    any true gradient's here."""
-    got, want, init, got_mu, want_mu = (dict(_leaves(t)) for t in
-                                        (got, want, init, got_mu, want_mu))
-    assert set(got) == set(want) == set(got_mu) == set(want_mu)
-    for k in want:
-        d, dmu = got[k] - want[k], got_mu[k] - want_mu[k]
-        if NOISE_LEAVES.search(k):
-            assert np.abs(d).max() <= 2 * lr * steps, (what, k, np.abs(d).max())
-            assert max(np.abs(got_mu[k]).max(), np.abs(want_mu[k]).max()) < 1e-6, (what, k)
-        else:
-            assert _rms(d) <= W_RTOL * _rms(want[k] - init[k]), (what, k, _rms(d))
-            assert _rms(dmu) <= MU_RTOL * _rms(want_mu[k]), (what, k, _rms(dmu))
-
-
-def _port_mu(state, vae, disc):
-    """The port's Adam first moments as flax-named trees (G's, D's)."""
-    return (state_dict_to_flax(dict(zip(state.gen.names, state.gen.mu)), module=vae),
-            state_dict_to_flax(dict(zip(state.disc.names, state.disc.mu)), module=disc))
-
-
-def _jax_mu(jstate):
-    """The reference's Adam first moments: G's chain(clip, adamw), D's adam."""
-    return jstate.gen.opt_state[1][0].mu, jstate.disc.opt_state[0].mu
-
-
-def _reference_steps(jax_init, vgg_pair, batches, epochs, dtype="float32"):
-    """The reference's jitted step from the same init: (final state, losses,
-    the noise its keys draw each step, split(fold_in(rng_i, step))[0], and
-    (G weights, D weights, centers, G's and D's Adam first moments) after
-    each step, copied to numpy)."""
-    jvgg, _ = vgg_pair
-    cfg = JaxConfig(compute_dtype=dtype, **COMMON)
-    jstate, jvae, jdisc = jax_create_state(jax.random.key(0), cfg)
-    gp, dp = jax_init
-    jstate = jstate.replace(gen=jstate.gen.replace(params=jax.tree.map(jnp.asarray, gp)),
-                            disc=jstate.disc.replace(params=jax.tree.map(jnp.asarray, dp)))
-    step = jax_make_step(jvae, jdisc, cfg, jvgg)
-    key = jax.random.key(42)
-    out, eps, after = [], [], []
-    for i, ((imgs, labels), epoch) in enumerate(zip(batches, epochs)):
-        rng_i = jax.random.fold_in(key, i)
-        reparam, _ = jax.random.split(jax.random.fold_in(rng_i, int(jstate.step)))
-        eps.append(np.asarray(jax.random.normal(reparam, (B, LATENT))))
-        jstate, m = step(jstate, jnp.asarray(imgs), jnp.asarray(labels),
-                         jax_gates(jsched.vae_gan_loss_gates(epoch, 300)), rng_i, jvgg.params)
-        out.append({k: float(v) for k, v in m.items()})
-        after.append(jax.tree.map(np.array, (jstate.gen.params, jstate.disc.params,
-                                             jstate.centers, *_jax_mu(jstate))))
-    return jstate, out, eps, after
-
-
-# Epochs 170 and 250 of 300: every gate on and the centers updating
-TRAJECTORY_EPOCHS = (0, 50, 100, 170, 250)
-
-
-def test_five_step_trajectory_matches_the_reference(jax_init, vgg_pair, no_dropout):
-    """Five steps of make_vae_gan_step (VGG on; the gates of epochs 0, 50,
-    100, 170 and 250 of 300, so the last two have every term on and update
-    the centers; the one-cycle over 20 steps). Each step: every loss term
-    and D's loss within rtol 1e-4, except D's loss and the adversarial term,
-    rtol 1e-3 (on these noise images some of D's gradients are near f32
-    rounding, where the two sides' summation orders differ). After each
-    step: the centers within 1e-5, and each leaf of the generator and the
-    discriminator, weights and Adam moments, as `_assert_leaves_close`
-    holds it."""
-    batches = _batches(5)
-    jstate, ref, eps, after = _reference_steps(jax_init, vgg_pair, batches,
-                                               TRAJECTORY_EPOCHS)
-    state, vae, disc, body = _port(jax_init, vgg_pair[1])
-    for i, ((imgs, labels), epoch, e) in enumerate(zip(batches, TRAJECTORY_EPOCHS, eps)):
-        m = body(state, _t(imgs), _t(labels).long(), gates_array(vae_gan_loss_gates(epoch, 300)),
-                 draws=(_t(e), (None, None)))
-        for k in METRICS:
-            rtol = 1e-3 if k in ("gan", "d_loss") else 1e-4
-            np.testing.assert_allclose(float(m[k]), ref[i][k], rtol=rtol, err_msg=f"{k} {i}")
-        g_ref, d_ref, c_ref, g_mu, d_mu = after[i]
-        np.testing.assert_allclose(state.centers.numpy(), c_ref, atol=1e-5, err_msg=f"{i}")
-        for mod, want, init, got_mu, want_mu in zip((vae, disc), (g_ref, d_ref), jax_init,
-                                                    _port_mu(state, vae, disc), (g_mu, d_mu)):
-            _assert_leaves_close(state_dict_to_flax(mod), want, init, got_mu, want_mu, i + 1,
-                                 f"step {i}")
-    assert state.step == 5 == int(jstate.step)
-    assert float(state.centers.abs().sum()) > 0  # the last two steps updated them
-
-
 def test_adversarial_term_sees_the_updated_discriminator(jax_init):
     """The step's adversarial term is BCE(D(recon), 1) with D AFTER its
     Adam step: recomputed from the pre-step generator and the post-step
@@ -508,227 +312,6 @@ def test_adversarial_term_sees_the_updated_discriminator(jax_init):
     assert abs(float(old) - float(new)) > 1e-2
     assert all(p.grad is None for p in disc.parameters())
     assert all(p.grad is None for p in vae.parameters())
-
-
-# ---------------------------------------------------------------- fused epochs
-
-
-def _jax_aug_draws(key, b):
-    """make_augment_fn's draws (rotation 10 degrees, jitter 0.2, flip)."""
-    from flowerdiff_torch.data.pipeline import AugmentDraws
-
-    k_flip, k_rot, k_b, k_c, k_s = jax.random.split(key, 5)
-    lim = 10.0 * jnp.pi / 180.0
-    fs = [np.asarray(jax.random.uniform(k, (b, 1, 1, 1), minval=0.8, maxval=1.2)).reshape(b)
-          for k in (k_b, k_c, k_s)]
-    return AugmentDraws(_t(jax.random.bernoulli(k_flip, 0.5, (b,))),
-                        _t(jax.random.uniform(k_rot, (b,), minval=-lim, maxval=lim)),
-                        *map(_t, fs))
-
-
-@pytest.mark.parametrize("track_best", [False, True])
-def test_fused_epochs_match_the_reference(jax_init, vgg_pair, no_dropout, track_best):
-    """make_fused_vae_gan_epochs: 2 epochs x 2 steps over 8 augmented
-    synthetic images (epoch 170 of 300: every term on, centers updating)
-    against the reference's fused epochs, its augmentation draws
-    (fold_in(data_key, offset)) and noise (fold_in(fold_in(rng, offset),
-    step)) injected. Per-step losses as the trajectory test; each leaf's
-    weights and moments after 4 steps, and the centers, as there. With
-    track_best: the same best epoch, its loss, and the best state's leaves
-    and centers."""
-    jvgg, vgg = vgg_pair
-    images, labels = synthetic_flowers(8, CLASSES, IMG, seed=3)
-    idx, offsets, steps = jax_epoch_rows(5, 8, B, 2)
-    gates = np.repeat(np.asarray([jax_gates(jsched.vae_gan_loss_gates(170 + e, 300))
-                                  for e in range(2)]), steps, axis=0)
-    cfg = JaxConfig(**COMMON)
-    jstate, jvae, jdisc = jax_create_state(jax.random.key(0), cfg)
-    gp, dp = jax_init
-    jstate = jstate.replace(gen=jstate.gen.replace(params=jax.tree.map(jnp.asarray, gp)),
-                            disc=jstate.disc.replace(params=jax.tree.map(jnp.asarray, dp)))
-    fn = jax_fused_epochs(jvae, jdisc, cfg, jvgg, steps_per_epoch=steps, track_best=track_best)
-    key, data_key = jax.random.key(21), jax.random.key(22)
-    args = (jstate, jnp.asarray(images), jnp.asarray(labels), idx, offsets, jnp.asarray(gates),
-            key, data_key, jvgg.params)
-    draws = []
-    for r, off in enumerate(np.asarray(offsets)):
-        reparam, _ = jax.random.split(jax.random.fold_in(jax.random.fold_in(key, int(off)), r))
-        draws.append((_jax_aug_draws(jax.random.fold_in(data_key, int(off)), B),
-                      (_t(jax.random.normal(reparam, (B, LATENT))), (None, None))))
-    if track_best:
-        best0 = jax.tree.map(jnp.copy, jstate)
-        jstate, jm, jbl, jbi, jbest = fn(*args, jnp.float32(1e9), best0)
-    else:
-        jstate, jm = fn(*args)
-
-    state, vae, disc, _ = _port(jax_init)
-    fn_t = fused.make_fused_vae_gan_epochs(vae, disc, VAEGANConfig(**COMMON), vgg,
-                                           steps_per_epoch=steps, track_best=track_best)
-    targs = (state, _t(images), _t(labels).long(), _t(np.asarray(idx)).long(), _t(gates))
-    if track_best:
-        m, bl, bi, best = fn_t(*targs, draws=draws, best_loss=torch.tensor(1e9),
-                               best_state=state.snapshot())
-    else:
-        m = fn_t(*targs, draws=draws)
-    for k in METRICS:
-        rtol = 1e-3 if k in ("gan", "d_loss") else 1e-4
-        np.testing.assert_allclose(m[k].numpy(), np.asarray(jm[k]), rtol=rtol, err_msg=k)
-
-    def close(st, vae, disc, ref, what):
-        ref = jax.tree.map(np.asarray, ref)
-        for mod, want, init, got_mu, want_mu in zip(
-                (vae, disc), (ref.gen.params, ref.disc.params), jax_init,
-                _port_mu(st, vae, disc), _jax_mu(ref)):
-            _assert_leaves_close(state_dict_to_flax(mod), want, init, got_mu, want_mu,
-                                 st.step, what)
-        np.testing.assert_allclose(st.centers.numpy(), ref.centers, atol=1e-5, err_msg=what)
-
-    close(state, vae, disc, jstate, "end")
-    if track_best:
-        means = m["total"].numpy().reshape(2, steps).mean(axis=1)
-        assert int(bi) == int(jbi) == (1 if means[1] < means[0] else 0)
-        np.testing.assert_allclose(float(bl), float(jbl), rtol=1e-4)
-        # the best state holds that epoch's end: copy it into a fresh state
-        fresh, fvae, fdisc, _ = _port(jax_init)
-        fresh.restore(best)
-        assert fresh.step == int(jbest.gen.step) == 2 * (int(bi) + 1)
-        close(fresh, fvae, fdisc, jbest, "best")
-
-
-# ---------------------------------------------------------------- bf16
-
-
-def _rel(a, b, scale):
-    return float(np.sqrt(sum(np.sum((x - y) ** 2) for x, y in zip(a, b)))) / scale
-
-
-def test_vae_gan_bf16_step_is_within_twice_the_reference_gap(jax_init, vgg_pair, no_dropout):
-    """compute_dtype='bfloat16', one step with every gate on: the port's
-    gradients against the reference's bf16 gradients, within twice the
-    reference's own bf16-to-f32 gap (the relative global norm, the
-    generator's and the discriminator's apart). The gradients are read from
-    Adam's first moments after the step, mu = (1 - b1) g on both sides (the
-    generator's after its clip). Torch autocast rounds at other places than
-    flax's dtype (norm outputs stay f32), so the two bf16 runs agree only to
-    bf16's own scale. (Losses after more steps are no measure: D's Adam
-    steps of size lr on rounding-noise gradients make them scatter.) The
-    losses are finite; parameters and moments stay f32."""
-    batches = _batches(1, seed=12)
-    refs = {dt: _reference_steps(jax_init, vgg_pair, batches, (200,), dt)
-            for dt in ("float32", "bfloat16")}
-    eps = refs["float32"][2]
-    cfg = VAEGANConfig(compute_dtype="bfloat16", **COMMON)
-    state, vae, disc, body = _port(jax_init, vgg_pair[1], cfg=cfg)
-    (imgs, labels), = batches
-    m = body(state, _t(imgs), _t(labels).long(), gates_array(vae_gan_loss_gates(200, 300)),
-             draws=(_t(eps[0]), (None, None)))
-    assert all(np.isfinite(float(v)) for v in m.values())
-    assert all(t.dtype == torch.float32 for t in state.tensors())
-    port = {"gen": state_dict_to_flax(dict(zip(state.gen.names, state.gen.mu)), module=vae),
-            "disc": state_dict_to_flax(dict(zip(state.disc.names, state.disc.mu)), module=disc)}
-    for part in ("gen", "disc"):
-        ref32, ref16 = (dict(_leaves(jax.tree.map(np.asarray, refs[dt][0].gen.opt_state[1][0].mu
-                                                  if part == "gen" else
-                                                  refs[dt][0].disc.opt_state[0].mu)))
-                        for dt in ("float32", "bfloat16"))
-        got = dict(_leaves(port[part]))
-        names = sorted(ref32)
-        scale = float(np.sqrt(sum(np.sum(ref32[k] ** 2) for k in names)))
-        gap = _rel([ref16[k] for k in names], [ref32[k] for k in names], scale)
-        dist = _rel([got[k] for k in names], [ref16[k] for k in names], scale)
-        assert 0 < gap < 1 and dist <= 2 * gap, (part, dist, gap)
-
-
-def test_latent_bf16_step_is_within_twice_the_reference_gap():
-    """LatentDiffusionConfig(compute_dtype='bfloat16') in the eager body:
-    the gradient of one step, from the reference's init with perturbed
-    biases and injected t, eps and condition mask, against the reference's
-    bf16 gradient, within twice the reference's own bf16-to-f32 gap (the
-    relative global norm); the moments and weights stay f32. Any other
-    compute_dtype raises."""
-    den = dict(latent_dim=32, hidden_dims=(32, 64, 32), time_emb_dim=16, num_classes=7)
-    common = dict(dropout_rate=0.0, cond_dropout=0.3, n_steps=50, **den)
-    rng = np.random.default_rng(13)
-    z = rng.standard_normal((8, 32)).astype(np.float32)
-    eps = rng.standard_normal((8, 32)).astype(np.float32)
-    labels = rng.integers(0, 7, 8).astype(np.int32)
-    t = rng.integers(0, 50, 8).astype(np.int32)
-    keep = (rng.random(8) >= 0.3).astype(np.float32)
-    jstate, jmodel, jsch = jax_latent_state(jax.random.key(0), JaxLatentConfig(**common))
-    params0 = jax.tree.map(np.asarray, jstate.params)
-    for leaf in params0.values():
-        if isinstance(leaf, dict) and "bias" in leaf and "kernel" in leaf:
-            leaf["bias"] = (0.1 * rng.standard_normal(leaf["bias"].shape)).astype(np.float32)
-    grads = {}
-    for dtype, module in (("float32", jmodel), ("bfloat16", jmodel.clone(dtype=jnp.bfloat16))):
-        def loss_fn(p, module=module):
-            out = module.apply({"params": p}, jax_q_sample(jsch, z, t, eps), t, labels,
-                               cond_mask=keep)
-            return jax_euclid(eps, out)
-
-        grads[dtype] = jax.jit(jax.grad(loss_fn))(jax.tree.map(jnp.asarray, params0))
-    cfg = LatentDiffusionConfig(compute_dtype="bfloat16", **common)
-    state, model, sched = create_latent_diffusion_state(0, cfg, device="cpu",
-                                                        params={"params": params0})
-    captured = []
-    state.apply_gradients = captured.append
-    ones = [torch.ones(8, d) for d in den["hidden_dims"][:-1] for _ in range(2)]
-    make_latent_denoise_body(model, cfg)(state, sched, _t(z), _t(labels).long(), None,
-                                         draws=(_t(t).long(), _t(eps), _t(keep), ones))
-    port = dict(_leaves(state_dict_to_flax(captured[0], model)))
-    ref16, ref32 = (dict(_leaves(jax.tree.map(np.asarray, grads[d])))
-                    for d in ("bfloat16", "float32"))
-    names = sorted(ref32)
-    scale = float(np.sqrt(sum(np.sum(ref32[k] ** 2) for k in names)))
-    gap = _rel([ref16[k] for k in names], [ref32[k] for k in names], scale)
-    dist = _rel([port[k] for k in names], [ref16[k] for k in names], scale)
-    assert 0 < gap < 0.1 and dist <= 2 * gap, (dist, gap)
-    assert all(g.dtype == torch.float32 for g in captured[0].values())
-    with pytest.raises(ValueError, match="compute_dtype"):
-        create_latent_diffusion_state(0, dataclasses.replace(cfg, compute_dtype="float16"),
-                                      device="cpu")
-
-
-# ---------------------------------------------------------------- trainer
-
-
-def test_tiny_trainer_trains_tracks_its_best_state_and_is_reproducible():
-    """VAEGANTrainer on device='cpu' (no VGG, seeded init): run_epoch over
-    host batches, then run_epochs_fused over an augmented DeviceDataset
-    with the best-state policy. The best epoch is the one the epoch means
-    say; two trainers from one seed give bit-equal metrics and weights;
-    remat recomputes the encoder's blocks and changes no number."""
-    images, labels = synthetic_flowers(8, CLASSES, IMG, seed=4)
-    ds = DeviceDataset(images, labels, device="cpu")
-    cfg = VAEGANConfig(use_perceptual=False, **COMMON)
-
-    def run(**over):
-        trainer = VAEGANTrainer(dataclasses.replace(cfg, **over), seed=2, device="cpu")
-        imgs, labs = ds.full()
-        first = trainer.run_epoch([(imgs[i:i + B], labs[i:i + B]) for i in range(0, 8, B)],
-                                  200, 300, seed=1)
-        out, best = trainer.run_epochs_fused(ds, 200, 300, 2, seed=3, batch_size=B,
-                                             best=(first["total"], None))
-        return trainer, first, out, best
-
-    trainer, first, out, (bl, bi, best) = run()
-    assert trainer.vgg is None and trainer.state.step == 2 + 4
-    assert set(first) == set(METRICS) and all(np.isfinite(v) for v in first.values())
-    means = [first["total"]] + [o["total"] for o in out]
-    pick = int(np.argmin(means))
-    assert bi == (None if pick == 0 else 200 + pick - 1)
-    assert bl == pytest.approx(means[pick], rel=1e-6)
-    assert int(best.step) == 2 + 2 * pick
-    again, first2, out2, _ = run()
-    assert first2 == first and out2 == out
-    for a, b in zip(trainer.state.tensors(), again.state.tensors()):
-        assert torch.equal(a, b)
-    remat, first3, out3, _ = run(remat=True)
-    assert remat.vae.encoder.remat
-    np.testing.assert_allclose([o["total"] for o in out3], [o["total"] for o in out], rtol=1e-6)
-    with pytest.raises(ValueError, match="compute_dtype"):
-        VAEGANTrainer(dataclasses.replace(cfg, compute_dtype="float16"), device="cpu")
-
 
 def test_seeded_step_draws_from_the_derived_generator(jax_init):
     """make_vae_gan_step draws the noise, then the classifier's keep masks,
