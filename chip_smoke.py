@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive flowerdiff_torch's sampling and training paths (latent DDPM,
-VAE-GAN and the pixel family) on one CUDA card and check them.
+VAE-GAN and the pixel family) and its pipeline (the command line, the run
+directory and the services built from it) on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -105,18 +106,38 @@ Phases (any failure raises and the script exits nonzero without a result):
      request; every launch counter 0 over the phase; then the full-width
      state saved by `CheckpointManager`, restored bit-equal into a fresh
      state, and one more step from each bit-equal;
- 16. print the card's name and power limit, a `kernels` JSON line, and as
+ 16. run the pipeline as users run it (`phase_runner`), through the
+     command line in process (`cli.main`) into a temporary run directory:
+     the flagship preset at full width on 1020 synthetic images with the
+     train-step kernel, 2 VAE-GAN epochs and 3 latent-DDPM epochs of 15
+     steps of 64 (the kernel must launch exactly 45 times, and nothing else
+     of the port's kernels); the same command again, which must resume
+     (the VAE loaded, the diffusion model at epoch 3, the same recon PSNR);
+     `service_from_run` over the directory at guidance 7.0 with uint8
+     output: `warmup`, then the 50-image request, with the sampler kernels'
+     launches counted (one 1000-step replay at the 64 bucket), timed, and
+     bit-equal when repeated, then `animate`; then a v5 run of 2 epochs and
+     `pixel_service_from_run` with one 4-image request; the run
+     directories must hold the reference's artifact names; each runner
+     stage's wall time is printed from its `[stage ...]` line. Where the
+     card has no matplotlib or sklearn, the runs take --no-cadence-viz and
+     --no-final-sweep, and the parts of the final sweep that need neither
+     (the quality report and the 10 animations) are driven and timed from
+     the resumed run's runner;
+ 17. print the card's name and power limit, a `kernels` JSON line, and as
      the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -2281,6 +2302,198 @@ def phase_pixel(dataset):
     return {lane: v[2] for lane, v in lanes.items()}
 
 
+# The runner's command lines (phase_runner): the flagship preset at full
+# width, depth cut to 2 VAE-GAN and 3 latent-DDPM epochs of 15 steps of 64
+# over 1020 synthetic images; the v5 preset for 2 epochs.
+RUNNER_FLAGSHIP = ["--version", "flagship", "--dataset", "synthetic", "--synthetic_size",
+                   "1020", "--train_kernel", "--vae_epochs", "2", "--total_epochs", "3",
+                   "--batch_size", "64"]
+RUNNER_PIXEL = ["--version", "v5", "--dataset", "synthetic", "--synthetic_size", "1020",
+                "--total_epochs", "2", "--batch_size", "64"]
+RUNNER_TRAIN_STEPS = 3 * (1020 // 64)
+RUNNER_FILES = ("ckpt_vae/step_*", "ckpt_diffusion/step_*", "latent_stats.npz",
+                "vae_history.jsonl")
+RUNNER_VIZ_FILES = ("vae_samples_grid_subset.png", "denoising_path_*_final.png",
+                    "diffusion_animation_*_final.gif", "sample_quality.jsonl")
+
+
+class _Tee(io.StringIO):
+    """Keeps what is written and passes it on to the real stdout."""
+
+    def __init__(self, out):
+        super().__init__()
+        self._out = out
+
+    def write(self, text):
+        self._out.write(text)
+        return super().write(text)
+
+
+def run_cli(argv):
+    """cli.main(argv) in this process: (its printed lines, its wall time s)."""
+    from flowerdiff_torch import cli
+
+    tee = _Tee(sys.stdout)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        runner = cli.main(argv)
+    torch.cuda.synchronize()
+    return runner, tee.getvalue(), time.perf_counter() - t0
+
+
+def stage_lines(text: str) -> dict:
+    """{stage: seconds} of the runner's `[stage name] T s total` lines."""
+    return {m.group(1): float(m.group(2))
+            for m in re.finditer(r"^\[stage (\S+)\] ([0-9.]+)s total", text, re.M)}
+
+
+def _need_files(run_dir: Path, patterns) -> None:
+    for pattern in patterns:
+        found = sorted(p.name for p in run_dir.glob(pattern))
+        assert found, f"{run_dir.name} holds nothing named {pattern}"
+
+
+def phase_runner():
+    """The pipeline through its command line and its run directory (phase
+    16 above). Returns the sampler and train-step kernels' launches over
+    the training run and the served request, by counter name."""
+    from flowerdiff_torch.runner import missing_packages
+    from flowerdiff_torch.serving import pixel_service_from_run, service_from_run
+
+    card = card_line()
+    missing = missing_packages("matplotlib", "sklearn")
+    figures = not missing
+    no_viz = [] if figures else ["--no-cadence-viz", "--no-final-sweep"]
+    if missing:
+        print(f"[runner] {', '.join(missing)} not installed: the runs take "
+              f"{' '.join(no_viz)}; the figures they skip are listed below")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=_ROOT / "build") as tmp:
+        flagship = Path(tmp) / "flagship"
+        argv = RUNNER_FLAGSHIP + ["--results_dir", str(flagship)] + no_viz
+
+        # --- 1. train: the train-step kernel once a step, nothing else
+        reset_counts()
+        ts.kernel_loss_and_grads.launches = te.epoch_draws.launches = 0
+        runner, text, wall = run_cli(argv)
+        counts = kernel_launches()
+        stages = stage_lines(text)
+        print(f"[runner] flagship run: {wall:.1f} s; stages {stages}; kernel launches "
+              f"{counts} ({card})")
+        assert counts["train_step"] == RUNNER_TRAIN_STEPS, counts
+        assert not any(v for k, v in counts.items() if k != "train_step"), counts
+        assert runner.preset.latent.train_kernel and runner.preset.latent.latent_cache == 8
+        psnr = re.search(r"^VAE recon PSNR: (.*)$", text, re.M).group(1)
+        losses = [float(v) for v in re.findall(r"Average Loss: ([0-9.eE+-]+)", text)]
+        assert len(losses) == 3 and np.isfinite(losses).all(), losses
+        runner_launches = {"train_step": counts["train_step"]}
+
+        # --- 2. resume: nothing trains, the same VAE
+        reset_counts()
+        ts.kernel_loss_and_grads.launches = 0
+        resumed, text2, wall2 = run_cli(argv + ([] if no_viz else ["--no-final-sweep"]))
+        assert "Loading existing autoencoder" in text2, text2
+        assert "Loaded diffusion model at epoch 3" in text2, text2
+        psnr2 = re.search(r"^VAE recon PSNR: (.*)$", text2, re.M).group(1)
+        print(f"[runner] resumed run: {wall2:.1f} s; stages {stage_lines(text2)}; recon PSNR "
+              f"{psnr} then {psnr2}")
+        assert psnr2 == psnr, (psnr, psnr2)
+        assert not any(kernel_launches().values()), kernel_launches()
+
+        # --- the final sweep's parts that need neither matplotlib nor sklearn
+        if not figures:
+            from flowerdiff_torch import viz
+
+            _, diff = resumed.run_latent(total_epochs=3, final_sweep=False, cadence_viz=False,
+                                         restore_scope="params")
+            decode_fn, encode_mu_fn, _ = resumed._vae_fns(resumed._trained_vae)
+            sampler = diff.sampler()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            report = resumed._quality_report(sampler, encode_mu_fn)
+            torch.cuda.synchronize()
+            q_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for class_idx in range(10):
+                viz.create_diffusion_animation(
+                    sampler, decode_fn, class_idx, resumed.class_names, fps=15,
+                    save_path=str(flagship / f"diffusion_animation_{class_idx}_final.gif"))
+            torch.cuda.synchronize()
+            anim_s = time.perf_counter() - t0
+            assert np.isfinite(report["latent_mmd"]), report
+            print(f"[runner] final sweep without figures (plain f32 model, 1000 steps): "
+                  f"quality report {q_s:.1f} s (accuracy {report['classifier_accuracy']:.3f}, "
+                  f"MMD {report['latent_mmd']:.4f}, FD {report['perceptual_fd']:.1f}); 10 "
+                  f"animations {anim_s:.1f} s; the sample grid and the 10 denoising paths "
+                  f"need matplotlib and sklearn: not run ({card})")
+            assert not any(kernel_launches().values()), kernel_launches()
+            del diff, sampler
+
+        # --- 3. serve the run directory through the CUDA-graph sampler
+        t0 = time.perf_counter()
+        svc = service_from_run(str(flagship), version="flagship", synthetic_size=1020,
+                               guidance_scale=7.0, quantize_uint8=True)
+        build_s = time.perf_counter() - t0
+        assert svc.use_fused and svc.sampler._inner.guidance_scale == 7.0
+        stats = np.load(flagship / "latent_stats.npz")
+        assert np.array_equal(svc.sampler.mean.cpu().numpy(), stats["mean"])
+        t0 = time.perf_counter()
+        svc.warmup()
+        warm_s = time.perf_counter() - t0
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imgs = svc.sample_classes(range(10), 5, seed=0)
+        req_ms = (time.perf_counter() - t0) * 1e3
+        served = launch_counts()
+        want = sampler_counts(svc.sched.n_steps)
+        again = svc.sample_classes(range(10), 5, seed=0)
+        print(f"[runner] service_from_run: built in {build_s:.1f} s, warmup of buckets "
+              f"{svc.buckets} {warm_s:.1f} s; launches over the 50-image request {served}")
+        print(f"[runner] 50-image request served from the run directory (1000 steps, CFG 7.0, "
+              f"clip 3.0, decode, uint8): {req_ms:.1f} ms ({card})")
+        assert served == want, (served, want)
+        assert imgs.shape == (50, 64, 64, 3) and imgs.dtype == np.uint8, imgs.shape
+        assert np.array_equal(imgs, again), "two identical requests from the run differ"
+        runner_launches.update(served)
+        gif = svc.animate(4, seed=1)
+        assert gif[:6] == b"GIF89a", gif[:6]
+        print(f"[runner] animate(4, seed=1): {len(gif)} bytes of GIF")
+        del svc
+
+        # --- 4. the pixel family through the command line and its service
+        pixel = Path(tmp) / "pixel"
+        reset_counts()
+        ts.kernel_loss_and_grads.launches = 0
+        _, text3, wall3 = run_cli(RUNNER_PIXEL + ["--results_dir", str(pixel)]
+                                  + ([] if figures else ["--no-cadence-viz"]))
+        assert not any(kernel_launches().values()), kernel_launches()
+        px_losses = [float(v) for v in re.findall(r"Diffusion Epoch \d+/2, Loss: (\S+)", text3)]
+        assert len(px_losses) == 2 and np.isfinite(px_losses).all(), px_losses
+        psvc = pixel_service_from_run(str(pixel), version="v5")
+        t0 = time.perf_counter()
+        px_imgs = psvc.sample_images(4, seed=0)
+        px_ms = (time.perf_counter() - t0) * 1e3
+        assert px_imgs.shape == (4, 64, 64, 3) and np.isfinite(px_imgs).all()
+        assert px_imgs.min() >= 0.0 and px_imgs.max() <= 1.0
+        print(f"[runner] v5 run: {wall3:.1f} s, epoch losses {px_losses}; "
+              f"pixel_service_from_run: a 4-image request {px_ms:.1f} ms ({card})")
+
+        # --- 5. the artifacts of the reference's names
+        _need_files(flagship, RUNNER_FILES)
+        _need_files(pixel, ("ckpt_pixel/step_2", "diffusion_animation.gif"))
+        if figures:
+            _need_files(flagship, RUNNER_VIZ_FILES)
+        else:
+            _need_files(flagship, ("sample_quality.jsonl", "diffusion_animation_*_final.gif"))
+        print(f"[runner] run directory: {sorted(p.name for p in flagship.iterdir())}; pixel: "
+              f"{sorted(p.name for p in pixel.iterdir())}")
+    print(f"[runner] phase wall time {time.perf_counter() - t_phase:.1f} s; flagship stages "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in stages.items()) + f" ({card})")
+    return runner_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2321,6 +2534,9 @@ def main() -> int:
     del pool
     phase_vae_gan(dataset, model)
     phase_pixel(dataset)
+    runner_launches = phase_runner()
+    for row in kernel_rows:
+        row["runner_launches"] = runner_launches.get(row["name"], 0)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

@@ -6,10 +6,12 @@ and trajectory samplers, VAE decode, bucketed serving), its latent-DDPM
 training on augmented images (device-side flip, rotation and color jitter;
 frozen VAE encoder, cached or per-step latents, clip + AdamW + SGDR + EMA
 trainer), its VAE-GAN training, the pixel family (v4/v5: PixelUNet, its
-DDPM trainer and service), checkpoints with exact resume, the presets and
-the quality utilities in PyTorch, with the Pallas TPU kernels of those
-paths rewritten as hand-written CUDA C++ kernels for sm_90a
-(`flowerdiff_torch.kernels`).
+DDPM trainer and service), checkpoints with exact resume, the presets, the
+quality utilities, the Flowers102 loader and v3 color labels, the figures
+(`viz`), and the pipeline with its command line (`runner`, `cli`; `python -m
+flowerdiff_torch`) and the services built from a run directory, in
+PyTorch, with the Pallas TPU kernels of those paths rewritten as
+hand-written CUDA C++ kernels for sm_90a (`flowerdiff_torch.kernels`).
 
 Importing this package imports `torch` only. Kernel libraries are compiled
 and loaded on first launch, so the package imports on a CPU-only machine.

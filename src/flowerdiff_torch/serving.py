@@ -38,10 +38,16 @@ same bucket ladder, (4, 16, 64) by default: one 1000-step reverse process
 uint8 quantisation) on the device. Its sampler runs under cuDNN's
 deterministic algorithms, so two identical requests are bit-equal.
 
-Not ported yet: `service_from_run`, `pixel_service_from_run`, `animate`.
+`animate` (both services) returns one diffusion animation as GIF bytes, built
+from the same frames as viz/animation.py. `service_from_run` and
+`pixel_service_from_run` build a service from the run directory the
+runner (runner.py) leaves: the latest checkpoints, the latent statistics and
+the configuration the run trained with.
 """
 from __future__ import annotations
 
+import dataclasses
+import os
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
@@ -245,6 +251,34 @@ class SamplingService:
             start += take
         return outs[0] if len(outs) == 1 else np.concatenate(outs)
 
+    def animate(self, class_idx: int, seed: int = 0, color: Optional[int] = None,
+                num_frames: int = 50, fps: int = 10, label: Optional[str] = None) -> bytes:
+        """One diffusion animation as GIF bytes, the serving form of
+        viz.create_diffusion_animation: one clean latent through the
+        bucketed sampler (the generator of (seed, 0)), re-noised to each t
+        of the ping-pong timestep list with one eps (the generator of
+        (seed, 0, 1)), every frame decoded through the bucket ladder."""
+        from flowerdiff_torch.viz.animation import (
+            _pingpong_timesteps,
+            _render_frame,
+            encode_gif,
+            frame_title,
+            renoise_frames,
+        )
+
+        cls = np.full((1,), class_idx, np.int64)
+        col = np.full((1,), color, np.int64) if color is not None else None
+        clean = torch.from_numpy(self.sample(cls, seed, col, decode=False)).to(self.device)
+        timesteps = _pingpong_timesteps(self.sched.n_steps, num_frames)
+        eps = torch.randn(clean.shape, generator=derived_generator(self.device, seed, 0, 1),
+                          device=self.device)
+        decoded = self.decode_latents(renoise_frames(self.sched, clean, timesteps, eps).cpu())
+        decoded = decoded.astype(np.float32) / 255.0 if self.quantize_uint8 else decoded
+        name = label if label is not None else str(class_idx)
+        frames = [_render_frame(decoded[i], frame_title(name, t, self.sched.n_steps))
+                  for i, t in enumerate(timesteps)]
+        return encode_gif(frames, fps)
+
     def sample_classes(self, class_ids: Sequence[int], n_per_class: int,
                        seed: int = 0, colors: Optional[Sequence[int]] = None) -> np.ndarray:
         """Decoded (N, 64, 64, 3) images, one row block per class."""
@@ -332,3 +366,92 @@ class PixelSamplingService:
         """n images (n, img_size, img_size, 3) in [0, 1] (float32, or uint8
         with quantize_uint8), as host numpy."""
         return self.sample(np.zeros((n,), np.int64), seed)
+
+    @torch.no_grad()
+    def animate(self, seed: int = 0, num_frames: int = 50, fps: int = 10, label=None) -> bytes:
+        """GIF bytes of frames captured from one reverse trajectory (the
+        generator of (seed, 0)), the serving form of
+        viz.create_pixel_diffusion_animation."""
+        from flowerdiff_torch.viz.animation import encode_gif, trajectory_frames
+
+        with deterministic_cudnn():
+            _, traj = self.sampler.sample_with_trajectory(
+                1, generator=derived_generator(self.device, seed, 0))
+        return encode_gif(trajectory_frames(traj, self.sched.n_steps, num_frames), fps)
+
+
+def service_from_run(results_dir: str, version: str = "v1", synthetic_size: int = 1020,
+                     seed: int = 42, tiny: bool = False, cond_dropout: Optional[float] = None,
+                     ema_decay: Optional[float] = None, guidance_scale: Optional[float] = None,
+                     sampler_kind: str = "ancestral", ddim_steps: int = 50,
+                     buckets: Tuple[int, ...] = DEFAULT_BUCKETS, quantize_uint8: bool = False,
+                     decode_bf16: bool = False, device=None) -> SamplingService:
+    """A SamplingService over a finished run's results directory: the
+    runner restores (restore_scope="params") the trained VAE's generator
+    weights and the latest diffusion checkpoint's weights and EMA, and
+    recomputes the latent statistics as the run did (a run directory
+    without a VAE checkpoint trains one first). The service samples from
+    the EMA weights when the run kept them, with the run's z-scoring and x0
+    clip. cond_dropout / ema_decay must be the run's (they change what
+    the checkpoint holds); guidance_scale may differ (the preset's when
+    None) and reaches the sampler."""
+    from flowerdiff_torch.configs import get_preset, tiny_preset
+    from flowerdiff_torch.runner import PipelineRunner
+    from flowerdiff_torch.train.checkpoints import CheckpointManager
+
+    preset = get_preset(version)
+    if tiny:
+        preset = tiny_preset(preset)
+    lat = preset.latent
+    if lat is None:
+        raise ValueError(f"preset {version} has no latent stage")
+    lat = dataclasses.replace(
+        lat,
+        cond_dropout=cond_dropout if cond_dropout is not None else lat.cond_dropout,
+        ema_decay=ema_decay if ema_decay is not None else lat.ema_decay,
+        guidance_scale=guidance_scale if guidance_scale is not None else lat.guidance_scale)
+    preset = dataclasses.replace(preset, latent=lat)
+
+    saved = CheckpointManager(os.path.join(results_dir, "ckpt_diffusion")).latest_step()
+    if not saved:
+        raise FileNotFoundError(f"no diffusion checkpoint under {results_dir}")
+    runner = PipelineRunner(preset, results_dir=results_dir, dataset="synthetic", seed=seed,
+                            synthetic_size=synthetic_size, device=device)
+    _, diff = runner.run_latent(total_epochs=saved, final_sweep=False, cadence_viz=False,
+                                restore_scope="params")
+    return SamplingService(
+        diff.sampling_model(), runner._trained_vae, sched=diff.sched,
+        buckets=buckets, latent_stats=diff.latent_stats,
+        clip_x0=diff.cfg.clip_denoised, guidance_scale=diff.cfg.guidance_scale,
+        quantize_uint8=quantize_uint8, sampler_kind=sampler_kind, ddim_steps=ddim_steps,
+        decode_bf16=decode_bf16, device=runner.device)
+
+
+def pixel_service_from_run(results_dir: str, version: str = "v4", seed: int = 42,
+                           tiny: bool = False, sampler_kind: str = "ancestral",
+                           ddim_steps: int = 50, buckets: Tuple[int, ...] = (4, 16, 64),
+                           quantize_uint8: bool = False, device=None) -> PixelSamplingService:
+    """A PixelSamplingService over a finished v4/v5 run's `ckpt_pixel`
+    (its latest step), the counterpart of service_from_run."""
+    from flowerdiff_torch.configs import get_preset, tiny_preset
+    from flowerdiff_torch.train.checkpoints import (
+        CheckpointManager,
+        state_to_tree,
+        tree_into_state,
+    )
+    from flowerdiff_torch.train.pixel_ddpm import PixelDiffusionTrainer
+
+    preset = get_preset(version)
+    if tiny:
+        preset = tiny_preset(preset)
+    if preset.pixel is None:
+        raise ValueError(f"preset {version} has no pixel stage")
+    ckpt = CheckpointManager(os.path.join(results_dir, "ckpt_pixel"))
+    if not ckpt.exists():
+        raise FileNotFoundError(f"no ckpt_pixel under {results_dir}")
+    trainer = PixelDiffusionTrainer(preset.pixel, seed=seed, device=device)
+    tree_into_state(trainer.state, ckpt.restore(like=state_to_tree(trainer.state)))
+    return PixelSamplingService(
+        trainer.sampling_model(), sched=trainer.sched, buckets=buckets,
+        clip_x0=preset.pixel.clip_denoised, sampler_kind=sampler_kind, ddim_steps=ddim_steps,
+        img_size=preset.pixel.img_size, quantize_uint8=quantize_uint8, device=trainer.device)

@@ -92,6 +92,22 @@ def vae_gan_state_to_tree(state) -> dict:
             "centers": state.centers}
 
 
+def vae_gan_snapshot_to_tree(state, snap) -> dict:
+    """The `vae_gan_state_to_tree` tree of a `VAEGANSnapshot` of `state`
+    (its tensors in `state.tensors()` order: the generator's params, mu and
+    nu, the discriminator's, then the centers)."""
+    leaves = iter(snap.tensors)
+    step = torch.tensor(int(snap.step), dtype=torch.int64)
+
+    def adam_tree(adam):
+        return {**{key: {n: next(leaves) for n in adam.names} for key in ("params", "mu", "nu")},
+                "step": step}
+
+    gen = adam_tree(state.gen)
+    disc = adam_tree(state.disc)
+    return {"gen": gen, "disc": disc, "centers": next(leaves)}
+
+
 def tree_into_vae_gan_state(state, tree: dict):
     tree_into_state(state.gen, tree["gen"])
     tree_into_state(state.disc, tree["disc"])

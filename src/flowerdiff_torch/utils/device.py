@@ -22,13 +22,17 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     return dev
 
 
-def derived_generator(device, *words: int) -> torch.Generator:
-    """A `torch.Generator` on `device` seeded from the integers `words`
-    through numpy's SeedSequence: the port's counterpart of
-    `jax.random.fold_in`. Equal words give the same stream; another word
-    gives an unrelated one."""
+def derived_seed(*words: int) -> int:
+    """A 63-bit seed from the integers `words` through numpy's SeedSequence:
+    the port's counterpart of `jax.random.fold_in`. Equal words give the
+    same seed; another word gives an unrelated one."""
     state = np.random.SeedSequence([int(w) for w in words]).generate_state(1, np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(state) >> 1)
+    return int(state) >> 1
+
+
+def derived_generator(device, *words: int) -> torch.Generator:
+    """A `torch.Generator` on `device` seeded with `derived_seed(*words)`."""
+    return torch.Generator(device=device).manual_seed(derived_seed(*words))
 
 
 @contextlib.contextmanager

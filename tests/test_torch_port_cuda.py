@@ -1074,3 +1074,54 @@ def test_checkpoint_resume_is_bit_equal_on_the_card(gen, tmp_path):
     step2(state2, x, 4)
     assert state.step == state2.step == 3
     assert all(torch.equal(a, b) for a, b in zip(state.tensors(), state2.tensors()))
+
+
+def _small_preset(tiny_preset):
+    """configs.tiny_preset at widths the kernels take: latent 64, hidden
+    (64, 128, 64), time 64 (the stage kernel needs multiples of 64)."""
+    import dataclasses
+
+    def small(preset):
+        preset = tiny_preset(preset)
+        if preset.latent is None:
+            return preset
+        return dataclasses.replace(
+            preset, vae=dataclasses.replace(preset.vae, latent_dim=64),
+            latent=dataclasses.replace(preset.latent, latent_dim=64, hidden_dims=(64, 128, 64),
+                                       time_emb_dim=64))
+
+    return small
+
+
+def test_cli_run_and_its_service_launch_the_kernels(gen, tmp_path, monkeypatch):
+    """cli.main on the card with --train_kernel at a small width: the
+    train-step kernel launches once a step; service_from_run over the run
+    directory samples through the sampler's kernels, and two identical
+    requests are bit-equal."""
+    from flowerdiff_torch import cli, configs
+    from flowerdiff_torch.kernels.full_sampler import launch_counts
+    from flowerdiff_torch.serving import service_from_run
+
+    monkeypatch.delenv("FLOWERDIFF_PLATFORM", raising=False)
+    monkeypatch.setattr(configs, "tiny_preset", _small_preset(configs.tiny_preset))
+    before = ts.kernel_loss_and_grads.launches
+    runner = cli.main(["--version", "flagship", "--tiny", "--dataset", "synthetic",
+                       "--synthetic_size", "64", "--train_kernel", "--vae_epochs", "1",
+                       "--total_epochs", "2", "--batch_size", "16", "--results_dir",
+                       str(tmp_path), "--no-cadence-viz", "--no-final-sweep"])
+    assert runner.device.type == "cuda"
+    assert ts.kernel_loss_and_grads.launches - before == 2 * (64 // 16)
+
+    svc = service_from_run(str(tmp_path), version="flagship", tiny=True, synthetic_size=64,
+                           buckets=(8,), quantize_uint8=True)
+    assert svc.use_fused and svc.sampler._inner.guidance_scale == 7.0
+    svc.warmup()  # the bucket's first call runs eagerly, then captures its graph
+    counts = launch_counts()
+    a = svc.sample(np.arange(6) % 5, seed=3)
+    moved = {k: launch_counts()[k] - counts[k] for k in counts}
+    steps = svc.sched.n_steps
+    assert moved["fused_stage"] == 2 * steps and moved["reverse_step"] == steps, moved
+    assert moved["latent_proj"] == steps and moved["fused_head"] == steps, moved
+    b = svc.sample(np.arange(6) % 5, seed=3)
+    assert a.dtype == np.uint8 and a.shape == (6, 64, 64, 3)
+    np.testing.assert_array_equal(a, b)

@@ -17,8 +17,11 @@ import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
 sys.path[:0] = [{root!r}, {src!r}]
 import flowerdiff_torch
-for mod in pkgutil.walk_packages(flowerdiff_torch.__path__, "flowerdiff_torch."):
-    importlib.import_module(mod.name)
+names = [mod.name for mod in pkgutil.walk_packages(flowerdiff_torch.__path__,
+                                                    "flowerdiff_torch.")]
+for name in names:
+    importlib.import_module(name)
+print("WALKED", sorted(names))
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "flowerdiff" or m.startswith(("flowerdiff.", "jax.", "jaxlib", "flax")))
@@ -32,6 +35,11 @@ def test_port_imports_without_jax_or_flowerdiff():
                          timeout=120, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
+    for name in ("cli", "__main__", "runner", "serving", "data.flowers102",
+                 "data.color_labels", "viz", "viz.animation", "viz.color_viz", "viz.curves",
+                 "viz.denoise_path", "viz.grids", "viz.latent_compare", "viz.latent_plots",
+                 "viz.recon"):
+        assert f"'flowerdiff_torch.{name}'" in out.stdout, name
 
 
 def test_port_sources_name_no_jax_or_flowerdiff():
@@ -43,7 +51,7 @@ def test_port_sources_name_no_jax_or_flowerdiff():
     assert offenders == []
 
 
-def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path):
     from flowerdiff_torch import resolve_device
     from flowerdiff_torch.diffusion import linear_schedule
     from flowerdiff_torch.diffusion.api import DiffusionSampler, FusedDiffusionSampler
@@ -70,6 +78,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         create_pixel_diffusion_state,
     )
     from flowerdiff_torch.utils.weights import pixel_unet_from_params
+
+    from flowerdiff_torch.configs import get_preset, tiny_preset
+    from flowerdiff_torch.runner import PipelineRunner
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     pix = dict(base_channels=8, time_emb_dim=8)
@@ -99,6 +110,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         lambda: create_pixel_diffusion_state(0, pix_cfg),
         lambda: PixelSamplingService(PixelUNet(**pix), sched=sched),
         lambda: pixel_unet_from_params(init_numpy_params("pixel", **pix), **pix),
+        lambda: PipelineRunner(tiny_preset(get_preset("v4")), results_dir=str(tmp_path),
+                               dataset="synthetic", synthetic_size=8),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
