@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive flowerdiff_torch's sampling and training paths (latent DDPM,
-VAE-GAN and the pixel family) and its pipeline (the command line, the run
-directory and the services built from it) on one CUDA card and check them.
+VAE-GAN and the pixel family), its pipeline (the command line, the run
+directory and the services built from it) and a reference checkpoint
+imported and served over HTTP on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -9,7 +10,8 @@ Phases (any failure raises and the script exits nonzero without a result):
   1. build the CUDA kernels from src/flowerdiff_torch/kernels/csrc;
   2. hold each kernel against its plain PyTorch twin on the card, at the
      flagship shapes of the sampling path (B = 16 and 128 rows: the 8- and
-     64-image buckets doubled for classifier-free guidance; the latent
+     64-image buckets doubled for classifier-free guidance; and 8, 32 and
+     64 rows without it, the buckets phase 17's v1 service runs; the latent
      projection guided and not, with and without the v2 skip; the head in
      the sampler's table form on its column-tile kernel and with the t/c
      products on the whole-row kernel), with LayerNorm affines and biases
@@ -124,13 +126,35 @@ Phases (any failure raises and the script exits nonzero without a result):
      --no-final-sweep, and the parts of the final sweep that need neither
      (the quality report and the 10 animations) are driven and timed from
      the resumed run's runner;
- 17. print the card's name and power limit, a `kernels` JSON line, and as
+ 17. import a reference user's checkpoint and serve it over HTTP
+     (`phase_http`), at preset v1's full width (VAE (64, 128, 256, 512),
+     latent 256; denoiser (256, 512, 1024, 512, 256), 102 classes, T =
+     1000, z-scored, clip 3.0, no CFG): seeded port modules written in the
+     original layout by the exporters (`flower_autoencoder.pt` combined,
+     `conditional_diffusion_final.pt`), the import tool's `main` on them
+     (every tensor back bit-equal, the discriminator's GroupNorm affines
+     through BatchNorm's; the audit counts `IMPORT_COUNTS`); then
+     `tools/serve.build_service` over the run directory (uint8), `warmup`
+     of its 6 buckets (`serve` refuses the service before it), the v1
+     model's kernel sampler against the plain f32 model on a short
+     schedule at the buckets the traffic runs (8, 32, 64; no step noise,
+     fixed x_init), the device ceiling (one direct 64-row call), and
+     `serve` on loopback: /healthz, 16 serial 2-row npy requests (each
+     bit-equal to the service called at `derived_seed(seed, k)` for its
+     dispatch k), a burst of 16 clients x 4 requests x 2 rows beside one
+     /v1/animate (every reply 200 and bit-equal to its dispatch called
+     directly, the GIF to `animate`, no graph captured under the traffic,
+     the sampler kernels launched exactly once a step of every bucket chunk
+     dispatched); images/s, dispatches, max_coalesced and latency p50/p99
+     printed with the card;
+ 18. print the card's name and power limit, a `kernels` JSON line, and as
      the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import http.client
 import io
 import json
 import re
@@ -138,6 +162,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 from pathlib import Path
@@ -232,6 +257,9 @@ VAE = dict(latent_dim=256, channels=(64, 128, 256, 512), head_width=512, base_si
 GUIDANCE, CLIP = 7.0, 3.0
 ROWS = 128  # a 64-image bucket, doubled for CFG
 BUCKET_ROWS = (16, ROWS)  # the rows of the 8 and 64 buckets
+# phase_http's v1 service has no CFG, so a bucket call's rows are the
+# bucket: the 8, 32 and 64 buckets its requests and its ceiling call run
+HTTP_ROWS = (8, 32, 64)
 STATS = _ROOT / "artifacts" / "flagship_r5b" / "run" / "latent_stats.npz"
 # Kernel vs twin, relative to max|twin|. The twin rounds the same activations
 # to bf16, but its f32 sums run in another order, so a value near a rounding
@@ -415,9 +443,12 @@ def held(what: str, got, ref, rel_tol: float, dropped: dict):
 
 
 def phase_kernels(model, prep, gen):
-    """Each kernel against its twin at the main path's shapes: both buckets'
-    row counts, with perturbed LN affines and biases. The JSON row takes the
-    128-row (64 bucket) times, the worst error over both row counts."""
+    """Each kernel against its twin at the main paths' shapes, with
+    perturbed LN affines and biases: the guided buckets' row counts
+    (BUCKET_ROWS) and the unguided ones of phase_http (HTTP_ROWS: the
+    reverse step without CFG, the projection with one copy). The JSON row
+    takes the 128-row (guided 64 bucket) times, the worst error over every
+    case."""
     dev = torch.device("cuda")
     t = 500
     hidden, lat = FLAGSHIP["hidden_dims"], FLAGSHIP["latent_dim"]
@@ -443,7 +474,8 @@ def phase_kernels(model, prep, gen):
     # the projection's inputs from a generator of their own, so that the
     # later phases draw what they drew before it was checked here
     pgen = torch.Generator(device=dev).manual_seed(7)
-    for rows in BUCKET_ROWS:
+    cases = [(rows, True) for rows in BUCKET_ROWS] + [(rows, False) for rows in HTTP_ROWS]
+    for rows, guided in cases:
         for i, s in enumerate(stage_w):
             d, dout = hidden[i], hidden[i + 1]
             run = bind_stage(**s)
@@ -549,10 +581,11 @@ def phase_kernels(model, prep, gen):
         if rows == ROWS:
             hd_row.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
 
-        b = rows // 2
+        b = rows // 2 if guided else rows
         eps = torch.randn((rows, lat), generator=gen, device=dev)
         x = torch.randn((b, lat), generator=gen, device=dev)
-        kw = dict(guidance_scale=GUIDANCE, clip_x0=CLIP, stochastic=True, key=(12345, 678))
+        kw = dict(guidance_scale=GUIDANCE if guided else None, clip_x0=CLIP, stochastic=True,
+                  key=(12345, 678))
         # the key as the sampler passes it: two words in device memory
         dev_kw = dict(kw, key=key_tensor(kw["key"], dev))
         coefs = prep["coefs"][t]
@@ -565,23 +598,24 @@ def phase_kernels(model, prep, gen):
         plain = cuda_ms(lambda: reverse_step_plain(eps, x, t, coefs, **kw))
         eager = eager_ms(lambda: reverse_step(eps, x, t, coefs, **dev_kw))
         b_ms, b_by = bound_ms(4 * (rows * lat + 2 * b * lat), 60 * b * lat, F32_FLOP_PER_S)
-        print(f"[kernels] reverse_step B={b} (eps {rows} rows): max_abs_err {err:.3e} "
-              f"(tol {NOISE_TOL:.0e}) ms {ms:.4f} plain_ms {plain:.4f} "
+        print(f"[kernels] reverse_step B={b} (eps {rows} rows, CFG {guided}): max_abs_err "
+              f"{err:.3e} (tol {NOISE_TOL:.0e}) ms {ms:.4f} plain_ms {plain:.4f} "
               f"bound_ms {b_ms:.5f} ({b_by}) eager_ms {eager:.4f}")
         rv_row["max_abs_err"] = max(rv_row["max_abs_err"], err)
         if rows == ROWS:
             rv_row.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
 
         # the step's projection: guided (both halves of the stage input) and
-        # not, with and without the v2 skip (the flagship is v1: no skip)
+        # not, with and without the v2 skip (the flagship is v1: no skip);
+        # unguided only at phase_http's rows
         hid = hidden[0]
         wl = prep["proj"].weights[0]
         bl = torch.randn((hid,), generator=pgen, device=dev) * 0.5
         skip_w = dict(wf=head_w["wf"], bf=torch.randn((lat,), generator=pgen, device=dev) * 0.5,
                       rw=torch.tensor(0.3, device=dev))
         skip_rw_dropped = dict(skip_w, rw=torch.tensor(30.0, device=dev))  # sigmoid -> 1
-        for guided in (True, False):
-            copies = 2 if guided else 1
+        for proj_guided in ((True, False) if guided else (False,)):
+            copies = 2 if proj_guided else 1
             b = rows // copies
             x = torch.randn((b, lat), generator=pgen, device=dev)
             for with_skip in (False, True):
@@ -589,8 +623,8 @@ def phase_kernels(model, prep, gen):
                 run = bind_latent_proj(wl, bl, **kw)
                 h, skip = run(x, copies)
                 ref_h, ref_skip = latent_proj_plain(x, wl, bl, copies=copies, **kw)
-                tag = f"B={b} rows {rows} guided={guided} skip={with_skip}"
-                if guided:
+                tag = f"B={b} rows {rows} guided={proj_guided} skip={with_skip}"
+                if proj_guided:
                     assert torch.equal(h[:b], h[b:]), f"latent_proj {tag}: the two copies differ"
                 dropped = {"bl": latent_proj_plain(x, wl, torch.zeros_like(bl),
                                                    copies=copies)[0]}
@@ -628,7 +662,7 @@ def phase_kernels(model, prep, gen):
                       f"library_ms {lib:.4f} (bf16 torch.addmm, one copy of h, no skip; "
                       f"{copies} copies by torch.baddbmm {lib2:.4f}); the replaced eager "
                       f"torch.addmm (f32, one copy, no skip) {addmm:.4f}")
-                if rows == ROWS and guided and not with_skip:
+                if rows == ROWS and guided and proj_guided and not with_skip:
                     pj_row.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                                   library_ms=lib)
     return [st, hd_row, rv_row, pj_row]
@@ -2311,6 +2345,14 @@ RUNNER_FLAGSHIP = ["--version", "flagship", "--dataset", "synthetic", "--synthet
 RUNNER_PIXEL = ["--version", "v5", "--dataset", "synthetic", "--synthetic_size", "1020",
                 "--total_epochs", "2", "--batch_size", "64"]
 RUNNER_TRAIN_STEPS = 3 * (1020 // 64)
+
+# phase_http: (used, skipped, approximated) of the v1 import of each model
+# written by the exporters (tests/test_torch_port_import.py pins the same
+# counts on the CPU): the VAE's 130 tensors and its two center buffers; the
+# discriminator's 16 tensors, BN's 9 running statistics skipped and its 3
+# affines approximated (onto GroupNorm); the denoiser's 76 tensors and its 6
+# dead-tail tensors skipped.
+IMPORT_COUNTS = {"autoencoder": (132, 0, 0), "discriminator": (16, 9, 6), "denoiser": (76, 6, 0)}
 RUNNER_FILES = ("ckpt_vae/step_*", "ckpt_diffusion/step_*", "latent_stats.npz",
                 "vae_history.jsonl")
 RUNNER_VIZ_FILES = ("vae_samples_grid_subset.png", "denoising_path_*_final.png",
@@ -2494,6 +2536,290 @@ def phase_runner():
     return runner_launches
 
 
+# phase_http: serial requests of 2 rows; the burst of HTTP_CLIENTS threads of
+# HTTP_PER_CLIENT requests of 2 rows; the server's base seed
+HTTP_SERIAL = 16
+HTTP_CLIENTS, HTTP_PER_CLIENT = 16, 4
+HTTP_SEED = 1234
+
+
+def _http(port: int, method: str, path: str, body=None):
+    """One request on its own connection: (status, content type, body,
+    seconds)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    t0 = time.perf_counter()
+    conn.request(method, path, body=None if body is None else json.dumps(body),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = resp.read()
+    dt = time.perf_counter() - t0
+    conn.close()
+    return resp.status, resp.getheader("Content-Type"), data, dt
+
+
+def _same_tensors(got: dict, want: dict) -> bool:
+    return set(got) == set(want) and all(
+        torch.equal(torch.as_tensor(got[k]).cpu(), want[k].detach().cpu()) for k in want)
+
+
+def _perturb_all(modules, seed: int) -> None:
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in modules:
+            for p in m.parameters():
+                p.add_(0.01 * torch.randn(p.shape, generator=gen))
+
+
+def _dir_mb(path: Path) -> float:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file()) / 2**20
+
+
+def phase_http():
+    """A reference user's v1 checkpoint imported and served over loopback
+    HTTP (phase 17 above). Returns the sampler kernels' launches over the
+    HTTP traffic, by counter name."""
+    from flowerdiff_torch.configs import get_preset
+    from flowerdiff_torch.data.flowers102 import class_names
+    from flowerdiff_torch.models import Discriminator64
+    from flowerdiff_torch.serving_http import serve
+    from flowerdiff_torch.tools import import_torch_checkpoint
+    from flowerdiff_torch.tools import serve as serve_tool
+    from flowerdiff_torch.utils.device import derived_seed
+    from flowerdiff_torch.utils.torch_import import (
+        export_autoencoder,
+        export_discriminator,
+        export_latent_denoiser,
+    )
+    from flowerdiff_torch.utils.weights import load_discriminator
+
+    card = card_line()
+    preset = get_preset("v1")
+    vcfg, lcfg = preset.vae, preset.latent
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=_ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        # --- 1. the reference's two files, written by the exporters from
+        # seeded port modules at v1's full width, then the import tool
+        arch = dict(latent_dim=vcfg.latent_dim, channels=tuple(vcfg.channels),
+                    head_width=vcfg.head_width, num_classes=vcfg.num_classes)
+        gen_m = vae_from_params(init_numpy_params("generator", seed=31, **arch), device="cpu",
+                                **arch)
+        disc = load_discriminator(Discriminator64(device="cpu"),
+                                  init_numpy_params("discriminator", seed=32))
+        den_kw = dict(latent_dim=lcfg.latent_dim, hidden_dims=tuple(lcfg.hidden_dims),
+                      time_emb_dim=lcfg.time_emb_dim, num_classes=lcfg.num_classes,
+                      shared_cond_proj=lcfg.shared_cond_proj, global_skip=lcfg.global_skip)
+        den = denoiser_from_params(init_numpy_params("denoiser", seed=33, **den_kw),
+                                   device="cpu", **den_kw)
+        _perturb_all((gen_m, disc, den), 34)  # norm affines off 1 and 0 too
+        centers = torch.randn((vcfg.num_classes, vcfg.latent_dim),
+                              generator=torch.Generator().manual_seed(35))
+        ae_pt, den_pt = tmp / "flower_autoencoder.pt", tmp / "conditional_diffusion_final.pt"
+        t0 = time.perf_counter()
+        torch.save({"autoencoder": export_autoencoder(gen_m, centers).params,
+                    "discriminator": export_discriminator(disc).params}, ae_pt)
+        torch.save(export_latent_denoiser(den).params, den_pt)
+        export_s = time.perf_counter() - t0
+        pt_mb = (ae_pt.stat().st_size + den_pt.stat().st_size) / 2**20
+        run = tmp / "run"
+        t0 = time.perf_counter()
+        results = import_torch_checkpoint.main(
+            ["--preset", "v1", "--out", str(run), "--autoencoder", str(ae_pt),
+             "--diffusion", str(den_pt)])
+        import_s = time.perf_counter() - t0
+        counts = {k: (len(r.used), len(r.skipped), len(r.approximated))
+                  for k, r in results.items()}
+        vae_ckpt = CheckpointManager(str(run / "ckpt_vae"))
+        diff_ckpt = CheckpointManager(str(run / "ckpt_diffusion"))
+        vae_tree, diff_tree = vae_ckpt.restore(), diff_ckpt.restore()
+        same = {"generator": _same_tensors(vae_tree["gen"]["params"], gen_m.state_dict()),
+                "discriminator (GroupNorm affines through BatchNorm's)":
+                    _same_tensors(vae_tree["disc"]["params"], disc.state_dict()),
+                "centers": torch.equal(vae_tree["centers"], centers),
+                "denoiser": _same_tensors(diff_tree["params"], den.state_dict())}
+        print(f"[http] export of the v1 generator, discriminator and denoiser to the "
+              f"reference's two files: {export_s:.2f} s, {pt_mb:.1f} MB; import tool: "
+              f"{import_s:.2f} s, run directory {_dir_mb(run):.1f} MB (steps "
+              f"{vae_ckpt.latest_step()} and {diff_ckpt.latest_step()}); (used, skipped, "
+              f"approximated) {counts}; bit-equal round trip {same} ({card})")
+        assert counts == IMPORT_COUNTS, (counts, IMPORT_COUNTS)
+        assert all(same.values()), same
+        assert vae_ckpt.latest_step() == preset.vae_epochs
+        assert diff_ckpt.latest_step() == preset.total_epochs
+        del gen_m, disc, den, vae_tree, diff_tree
+
+        # --- 2. the service from the run directory, as tools/serve.py builds it
+        args = serve_tool.build_parser().parse_args(
+            ["--results_dir", str(run), "--version", "v1", "--synthetic_size", "1020",
+             "--host", "127.0.0.1", "--port", "0"])
+        t0 = time.perf_counter()
+        svc = serve_tool.build_service(args)
+        build_s = time.perf_counter() - t0
+        inner = svc.sampler._inner
+        assert svc.use_fused and svc.quantize_uint8 and svc.device.type == "cuda"
+        assert inner.guidance_scale is None and inner.clip_x0 == lcfg.clip_denoised
+        assert svc.unwarmed() == list(svc.buckets)
+        try:
+            serve(svc, HTTP_SEED, host=args.host, port=args.port)
+        except RuntimeError as exc:
+            print(f"[http] serve before warmup: refused ({exc})")
+        else:
+            raise AssertionError("serve took a service with no graph captured")
+        t0 = time.perf_counter()
+        serve_tool.warm(svc, args.seed + 99)
+        warm_s = time.perf_counter() - t0
+        assert sorted(k[0] for k in inner.graphs) == list(svc.buckets) == [8, 16, 32, 64, 128,
+                                                                            256]
+        assert svc.unwarmed() == []
+
+        # the v1 model's kernel path against the plain f32 model at the
+        # buckets the traffic and the ceiling call run (no CFG: a bucket's
+        # rows are the bucket), on a short schedule as phase_short_parity
+        short = linear_schedule(20)
+        skw = dict(clip_x0=inner.clip_x0, guidance_scale=None, device="cuda")
+        fused20 = FusedDiffusionSampler(svc.model, short, (lcfg.latent_dim,), **skw)
+        plain20 = DiffusionSampler(svc.model, short, (lcfg.latent_dim,), **skw)
+        pgen = torch.Generator(device="cuda").manual_seed(36)
+        for b in HTTP_ROWS:
+            cls = torch.arange(b, device="cuda") % lcfg.num_classes
+            x0 = torch.randn((b, lcfg.latent_dim), generator=pgen, device="cuda")
+            got = fused20.sample(b, cls, x_init=x0, stochastic=False)
+            ref = plain20.sample(b, cls, x_init=x0, stochastic=False)
+            err, scale = max_err(got, ref), float(ref.abs().max())
+            print(f"[http] v1 kernel sampler vs f32 model, B={b}, T=20, no CFG, clip "
+                  f"{inner.clip_x0}: max_abs_err {err:.4e} (max|ref| {scale:.3f}, tol "
+                  f"{3e-2 * scale:.4e})")
+            assert err <= 3e-2 * scale, f"B={b}: the v1 kernel sampler disagrees with the model"
+        del fused20, plain20
+        cls64 = np.arange(64) % lcfg.num_classes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc.sample(cls64, seed=2)
+        ceiling_s = time.perf_counter() - t0
+        print(f"[http] service from the run directory: built in {build_s:.1f} s, warmup of "
+              f"buckets {svc.buckets} {warm_s:.1f} s; device ceiling, one direct 64-row call: "
+              f"{ceiling_s * 1e3:.1f} ms, {64 / ceiling_s:.1f} images/s ({card})")
+
+        # --- 3. serve it over loopback HTTP, every dispatch recorded
+        dispatches = []
+        orig = svc.sample_async
+
+        def spy(classes, seed=0, colors=None, decode=True, *rest, **kw):
+            fetch = orig(classes, seed, colors, decode, *rest, **kw)
+            entry = {"classes": np.array(classes), "seed": seed, "decode": decode}
+            dispatches.append(entry)
+
+            def recorded():
+                entry["out"] = fetch()
+                return entry["out"]
+
+            return recorded
+
+        svc.sample_async = spy
+        server = serve(svc, HTTP_SEED, host=args.host, port=args.port,
+                       max_wait_ms=args.max_wait_ms, max_batch=args.max_batch,
+                       class_names=class_names())
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        port = server.server_address[1]
+        replies, errors, anim = {}, [], {}
+
+        def client(i):
+            try:
+                for j in range(HTTP_PER_CLIENT):
+                    r = i * HTTP_PER_CLIENT + j
+                    classes = [r % 102, (5 * r + 1) % 102]
+                    replies[r] = (classes, _http(port, "POST", "/v1/sample",
+                                                 {"classes": classes, "format": "npy"}))
+            except Exception as exc:  # failed below
+                errors.append(exc)
+
+        try:
+            status, _, data, _ = _http(port, "GET", "/healthz")
+            health = json.loads(data)
+            print(f"[http] GET /healthz: {status} {health}")
+            assert status == 200 and health["backend"] == "cuda" and health["family"] == "latent"
+            assert health["buckets"] == list(svc.buckets) and health["num_classes"] == 102
+            graphs = dict(inner.graphs)
+            reset_counts()
+            serial = []
+            t0 = time.perf_counter()
+            for k in range(HTTP_SERIAL):
+                classes = [k % 102, (7 * k + 3) % 102]
+                reply = _http(port, "POST", "/v1/sample", {"classes": classes, "format": "npy"})
+                assert reply[:2] == (200, "application/octet-stream"), reply[:2]
+                serial.append((classes, np.load(io.BytesIO(reply[2])), reply[3]))
+            serial_s = time.perf_counter() - t0
+            assert len(dispatches) == HTTP_SERIAL
+            threads = [threading.Thread(target=client, args=(i,)) for i in range(HTTP_CLIENTS)]
+            threads.append(threading.Thread(target=lambda: anim.update(
+                reply=_http(port, "POST", "/v1/animate", {"class": 4, "seed": 11}))))
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads[:-1]:
+                t.join(timeout=600)
+            burst_s = time.perf_counter() - t0  # the clients' requests
+            threads[-1].join(timeout=600)
+            all_s = time.perf_counter() - t0  # and the animation
+            launches = launch_counts()
+            stats = json.loads(_http(port, "GET", "/stats")[2])
+        finally:
+            server.shutdown()
+            server.server_close()
+            server.batcher.stop()
+            svc.sample_async = orig
+
+        # --- 4. the gates
+        assert not errors, errors
+        assert dict(inner.graphs) == graphs, "a graph was captured under the traffic"
+        assert not torch.backends.cudnn.deterministic, "two threads restored each other's flags"
+        chunks = sum(len(svc.request_plan(len(d["classes"]))) for d in dispatches)
+        want = sampler_counts(svc.sched.n_steps, chunks)
+        print(f"[http] launches over the traffic {launches}; expected {want} for {chunks} "
+              f"bucket chunks ({len(dispatches)} service calls, the animation's included)")
+        assert launches == want, (launches, want)
+        for k, (classes, got, _) in enumerate(serial):
+            d = dispatches[k]
+            assert d["seed"] == derived_seed(HTTP_SEED, k) and list(d["classes"]) == classes
+            ref = svc.sample(np.array(classes), derived_seed(HTTP_SEED, k))
+            assert np.array_equal(got, ref.astype(np.float32) / 255.0), f"serial request {k}"
+        burst = [d for d in dispatches[HTTP_SERIAL:] if d["decode"]]
+        for d in dispatches[HTTP_SERIAL:]:
+            ref = svc.sample(d["classes"], d["seed"], decode=d["decode"])
+            assert np.array_equal(d["out"], ref), f"dispatch of {len(d['classes'])} rows"
+        lat = []
+        for r, (classes, (status, ctype, data, dt)) in sorted(replies.items()):
+            assert status == 200, (r, status, data[:200])
+            got = np.load(io.BytesIO(data))
+            assert any(np.array_equal(got, d["out"][o:o + 2].astype(np.float32) / 255.0)
+                       for d in burst for o in range(len(d["classes"]) - 1)
+                       if list(d["classes"][o:o + 2]) == classes), f"burst request {r}"
+            lat.append(dt)
+        assert len(replies) == HTTP_CLIENTS * HTTP_PER_CLIENT
+        status, ctype, gif, anim_dt = anim["reply"]
+        assert status == 200 and ctype == "image/gif" and gif[:6] == b"GIF89a"
+        assert gif == svc.animate(4, 11, label="4"), "the served animation differs"
+        n_burst = 2 * HTTP_CLIENTS * HTTP_PER_CLIENT
+        serial_lat = [v[2] for v in serial]
+        print(f"[http] serial: {HTTP_SERIAL} requests of 2 rows in {serial_s:.2f} s, "
+              f"{2 * HTTP_SERIAL / serial_s:.1f} images/s, latency p50 "
+              f"{np.percentile(serial_lat, 50) * 1e3:.1f} ms p99 "
+              f"{np.percentile(serial_lat, 99) * 1e3:.1f} ms; bit-equal to direct calls at "
+              f"their derived seeds ({card})")
+        print(f"[http] burst: {HTTP_CLIENTS} clients x {HTTP_PER_CLIENT} requests x 2 rows "
+              f"in {burst_s:.2f} s, {n_burst / burst_s:.1f} images/s, beside one /v1/animate "
+              f"(all done in {all_s:.2f} s); "
+              f"{len(burst)} dispatches, max_coalesced {stats['max_coalesced']}, rows a "
+              f"dispatch {[len(d['classes']) for d in burst]}; request latency p50 "
+              f"{np.percentile(lat, 50) * 1e3:.1f} ms p99 {np.percentile(lat, 99) * 1e3:.1f} "
+              f"ms; animation {anim_dt:.2f} s, {len(gif)} bytes, bit-equal to animate(); "
+              f"every reply bit-equal to its dispatch called directly ({card})")
+        print(f"[http] stats {stats}")
+        del svc
+    print(f"[http] phase wall time {time.perf_counter() - t_phase:.1f} s ({card})")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2535,8 +2861,10 @@ def main() -> int:
     phase_vae_gan(dataset, model)
     phase_pixel(dataset)
     runner_launches = phase_runner()
+    http_launches = phase_http()
     for row in kernel_rows:
         row["runner_launches"] = runner_launches.get(row["name"], 0)
+        row["http_launches"] = http_launches.get(row["name"], 0)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

@@ -39,7 +39,20 @@ uint8 quantisation) on the device. Its sampler runs under cuDNN's
 deterministic algorithms, so two identical requests are bit-equal.
 
 `animate` (both services) returns one diffusion animation as GIF bytes, built
-from the same frames as viz/animation.py. `service_from_run` and
+from the same frames as viz/animation.py.
+
+Threads: each service holds one lock (`device_lock`) while it enqueues
+device work (a request's chunks, a decode, an animation's sampling) and
+releases it before it waits for the results. The lock keeps two threads
+from interleaving a CUDA graph's input copies and its replay, and keeps
+`deterministic_cudnn`'s process-wide flags to one thread at a time. It
+does not keep a graph's capture free of other threads' device calls: a
+fetch waits on its event outside the lock. So a threaded caller warms
+every bucket first (`warmup`; `unwarmed` lists what is left), and the HTTP
+server (serving_http.serve) refuses a service with a bucket left. Every
+call enqueues on the calling thread's current stream (the default stream
+for the HTTP server's threads), so a later replay cannot overtake an
+earlier copy out of a graph's output. `service_from_run` and
 `pixel_service_from_run` build a service from the run directory the
 runner (runner.py) leaves: the latest checkpoints, the latent statistics and
 the configuration the run trained with.
@@ -48,6 +61,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
@@ -128,6 +142,7 @@ class SamplingService:
         sampler_kind: 'ancestral' or 'ddim' (`ddim_steps` strided steps).
         decode_bf16: the decoder under bf16 autocast, output f32."""
         self.device = resolve_device(device)
+        self.device_lock = threading.RLock()
         if sampler_kind not in ("ancestral", "ddim"):
             raise ValueError(f"unknown sampler_kind {sampler_kind!r}")
         self.quantize_uint8 = quantize_uint8
@@ -191,6 +206,19 @@ class SamplingService:
             colors = np.zeros((b,), np.int64) if with_colors else None
             self.sample(classes, seed, colors, decode=True)
 
+    def unwarmed(self) -> list:
+        """The buckets whose live request would still capture a CUDA graph
+        (the kernel path on the card; a v3 model's requests carry colors):
+        [] once `warmup` has run, and always off that path."""
+        sampler = self.sampler
+        if isinstance(sampler, NormalizedSampler):
+            sampler = sampler._inner
+        if self.device.type != "cuda" or not isinstance(sampler, FusedDiffusionSampler):
+            return []
+        colored = self.model.num_colors is not None
+        live = {key[0] for key in sampler.graphs if key[3] and key[4] == colored}
+        return [b for b in self.buckets if b not in live]
+
     @torch.no_grad()
     def sample_async(self, classes, seed: int = 0, colors=None, decode: bool = True,
                      x_init=None, stochastic: bool = True) -> Callable[[], np.ndarray]:
@@ -208,19 +236,21 @@ class SamplingService:
         n = classes.shape[0]
         pending = []
         start = 0
-        for i, b in enumerate(self.request_plan(n)):
-            take = min(b, n - start)
-            part = slice(start, start + take)
-            cond = [torch.from_numpy(self._pad(classes[part], b)).to(self.device)]
-            if colors is not None:
-                cond.append(torch.from_numpy(self._pad(colors[part], b)).to(self.device))
-            x0 = None
-            if x_init is not None:
-                x0 = torch.from_numpy(self._pad(x_init[part], b)).to(self.device)
-            lat = self.sampler.sample(b, *cond, generator=derived_generator(self.device, seed, i),
-                                      x_init=x0, stochastic=stochastic)
-            pending.append((*_to_host(self._decode(lat) if decode else lat), take))
-            start += take
+        with self.device_lock:
+            for i, b in enumerate(self.request_plan(n)):
+                take = min(b, n - start)
+                part = slice(start, start + take)
+                cond = [torch.from_numpy(self._pad(classes[part], b)).to(self.device)]
+                if colors is not None:
+                    cond.append(torch.from_numpy(self._pad(colors[part], b)).to(self.device))
+                x0 = None
+                if x_init is not None:
+                    x0 = torch.from_numpy(self._pad(x_init[part], b)).to(self.device)
+                lat = self.sampler.sample(b, *cond,
+                                          generator=derived_generator(self.device, seed, i),
+                                          x_init=x0, stochastic=stochastic)
+                pending.append((*_to_host(self._decode(lat) if decode else lat), take))
+                start += take
         return _fetcher(pending)
 
     def sample(self, classes, seed: int = 0, colors=None, decode: bool = True,
@@ -237,19 +267,27 @@ class SamplingService:
         return self.sample(classes, seed, colors, decode=False)
 
     @torch.no_grad()
+    def _decode_async(self, latents: torch.Tensor) -> Callable[[], np.ndarray]:
+        """Enqueue the decode of (N, latent) raw VAE latents (host or
+        device) in bucket-sized chunks, each padded with zero rows; returns
+        fetch(), as `sample_async`."""
+        n = latents.shape[0]
+        pending = []
+        start = 0
+        with self.device_lock:
+            for b in self.request_plan(n):
+                take = min(b, n - start)
+                chunk = latents[start:start + take].to(self.device)
+                if take < b:
+                    chunk = torch.cat([chunk, chunk.new_zeros((b - take,) + chunk.shape[1:])])
+                pending.append((*_to_host(self._decode(chunk)), take))
+                start += take
+        return _fetcher(pending)
+
     def decode_latents(self, latents) -> np.ndarray:
         """(N, latent) raw VAE latents -> (N, 64, 64, 3) images (float32,
         or uint8 with quantize_uint8), in bucket-sized chunks."""
-        latents = np.asarray(latents, np.float32)
-        n = latents.shape[0]
-        outs = []
-        start = 0
-        for b in self.request_plan(n):
-            take = min(b, n - start)
-            chunk = torch.from_numpy(self._pad(latents[start:start + take], b))
-            outs.append(self._decode(chunk.to(self.device)).cpu().numpy()[:take])
-            start += take
-        return outs[0] if len(outs) == 1 else np.concatenate(outs)
+        return self._decode_async(torch.from_numpy(np.asarray(latents, np.float32)))()
 
     def animate(self, class_idx: int, seed: int = 0, color: Optional[int] = None,
                 num_frames: int = 50, fps: int = 10, label: Optional[str] = None) -> bytes:
@@ -268,11 +306,14 @@ class SamplingService:
 
         cls = np.full((1,), class_idx, np.int64)
         col = np.full((1,), color, np.int64) if color is not None else None
-        clean = torch.from_numpy(self.sample(cls, seed, col, decode=False)).to(self.device)
+        clean = torch.from_numpy(self.sample(cls, seed, col, decode=False))
         timesteps = _pingpong_timesteps(self.sched.n_steps, num_frames)
-        eps = torch.randn(clean.shape, generator=derived_generator(self.device, seed, 0, 1),
-                          device=self.device)
-        decoded = self.decode_latents(renoise_frames(self.sched, clean, timesteps, eps).cpu())
+        with self.device_lock, torch.no_grad():
+            clean = clean.to(self.device)
+            eps = torch.randn(clean.shape, generator=derived_generator(self.device, seed, 0, 1),
+                              device=self.device)
+            fetch = self._decode_async(renoise_frames(self.sched, clean, timesteps, eps))
+        decoded = fetch()
         decoded = decoded.astype(np.float32) / 255.0 if self.quantize_uint8 else decoded
         name = label if label is not None else str(class_idx)
         frames = [_render_frame(decoded[i], frame_title(name, t, self.sched.n_steps))
@@ -307,6 +348,7 @@ class PixelSamplingService:
         (None: the reference's unclipped sampler); sampler_kind:
         'ancestral' or 'ddim' (`ddim_steps` strided steps)."""
         self.device = resolve_device(device)
+        self.device_lock = threading.RLock()
         if sampler_kind not in ("ancestral", "ddim"):
             raise ValueError(f"unknown sampler_kind {sampler_kind!r}")
         self.buckets = tuple(sorted(buckets))
@@ -328,6 +370,10 @@ class PixelSamplingService:
         for b in buckets or self.buckets:
             self.sample_images(b, seed)
 
+    def unwarmed(self) -> list:
+        """[]: the pixel family's sampler captures no CUDA graph."""
+        return []
+
     @torch.no_grad()
     def sample_async(self, classes, seed: int = 0, colors=None, decode: bool = True,
                      x_init=None, stochastic: bool = True) -> Callable[[], np.ndarray]:
@@ -345,16 +391,17 @@ class PixelSamplingService:
             x_init = np.asarray(x_init, np.float32)
         pending = []
         start = 0
-        for i, b in enumerate(self.request_plan(n)):
-            take = min(b, n - start)
-            x0 = None
-            if x_init is not None:
-                x0 = torch.from_numpy(SamplingService._pad(x_init[start:start + take], b))
-            with deterministic_cudnn():
-                x = self.sampler.sample(b, generator=derived_generator(self.device, seed, i),
-                                        x_init=x0, stochastic=stochastic)
-            pending.append((*_to_host(self._post(x)), take))
-            start += take
+        with self.device_lock:
+            for i, b in enumerate(self.request_plan(n)):
+                take = min(b, n - start)
+                x0 = None
+                if x_init is not None:
+                    x0 = torch.from_numpy(SamplingService._pad(x_init[start:start + take], b))
+                with deterministic_cudnn():
+                    x = self.sampler.sample(b, generator=derived_generator(self.device, seed, i),
+                                            x_init=x0, stochastic=stochastic)
+                pending.append((*_to_host(self._post(x)), take))
+                start += take
         return _fetcher(pending)
 
     def sample(self, classes, seed: int = 0, colors=None, decode: bool = True,
@@ -374,7 +421,7 @@ class PixelSamplingService:
         viz.create_pixel_diffusion_animation."""
         from flowerdiff_torch.viz.animation import encode_gif, trajectory_frames
 
-        with deterministic_cudnn():
+        with self.device_lock, deterministic_cudnn():
             _, traj = self.sampler.sample_with_trajectory(
                 1, generator=derived_generator(self.device, seed, 0))
         return encode_gif(trajectory_frames(traj, self.sched.n_steps, num_frames), fps)

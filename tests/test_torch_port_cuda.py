@@ -1125,3 +1125,96 @@ def test_cli_run_and_its_service_launch_the_kernels(gen, tmp_path, monkeypatch):
     b = svc.sample(np.arange(6) % 5, seed=3)
     assert a.dtype == np.uint8 and a.shape == (6, 64, 64, 3)
     np.testing.assert_array_equal(a, b)
+
+
+def test_http_server_under_concurrent_clients_equals_serial_calls(gen):
+    """8 concurrent clients (3 requests of 2 rows each, npy) and one
+    concurrent /v1/animate against a tiny service on the card: every reply
+    equals rows of a dispatch, each dispatch equals the service called
+    directly, one call at a time, at that dispatch's seed, and the GIF equals
+    `animate` called directly, bit for bit; no graph is captured under the
+    traffic. This holds only if the service's lock keeps the threads from
+    interleaving a graph's input copies and its replay. Before `warmup` the
+    server refuses the service."""
+    import http.client
+    import io
+    import json
+    import threading
+
+    from flowerdiff_torch.serving_http import serve
+
+    svc = _service()
+    assert svc.unwarmed() == [4, 8]
+    with pytest.raises(RuntimeError, match="no CUDA graph captured"):
+        serve(svc, 31, host="127.0.0.1", port=0)  # a capture under traffic
+    svc.warmup()
+    assert svc.unwarmed() == []
+    graphs = dict(svc.sampler.graphs)
+    dispatches = []
+    orig = svc.sample_async
+
+    def spy(classes, seed=0, colors=None, decode=True, *rest, **kw):
+        fetch = orig(classes, seed, colors, decode, *rest, **kw)
+        entry = {"classes": np.array(classes), "seed": seed, "decode": decode}
+        dispatches.append(entry)
+
+        def recorded():
+            entry["out"] = fetch()
+            return entry["out"]
+
+        return recorded
+
+    svc.sample_async = spy
+    server = serve(svc, 31, host="127.0.0.1", port=0, max_wait_ms=5.0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    port = server.server_address[1]
+
+    def post(path, body):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        conn.request("POST", path, body=json.dumps(body))
+        resp = conn.getresponse()
+        data = resp.read()
+        conn.close()
+        return resp.status, data
+
+    replies, errors = {}, []
+
+    def client(i):
+        try:
+            for j in range(3):
+                classes = [(3 * i + j) % 11, (5 * i + 2 * j + 1) % 11]
+                replies[(i, j)] = (classes, post("/v1/sample",
+                                                 {"classes": classes, "format": "npy"}))
+        except Exception as exc:
+            errors.append(exc)
+
+    anim = {}
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(8)]
+    threads.append(threading.Thread(target=lambda: anim.update(
+        reply=post("/v1/animate", {"class": 4, "seed": 9, "num_frames": 6}))))
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.batcher.stop()
+    assert not errors and len(replies) == 24
+    assert dict(svc.sampler.graphs) == graphs, "a graph was captured under traffic"
+    assert not torch.backends.cudnn.deterministic, "two threads restored each other's flags"
+    svc.sample_async = orig
+    for entry in dispatches:  # each dispatch against the direct call
+        want = svc.sample(entry["classes"], entry["seed"], decode=entry["decode"])
+        np.testing.assert_array_equal(entry["out"], want)
+    for classes, (status, data) in replies.values():
+        assert status == 200
+        got = np.load(io.BytesIO(data))
+        assert any(np.array_equal(got, d["out"][o:o + 2])
+                   for d in dispatches if d["decode"]
+                   for o in range(len(d["classes"]) - 1)
+                   if list(d["classes"][o:o + 2]) == classes), classes
+    status, gif = anim["reply"]
+    assert status == 200 and gif == svc.animate(4, 9, num_frames=6, label="4")
+    assert server.batcher.stats["dispatches"] == sum(d["decode"] for d in dispatches)

@@ -38,7 +38,8 @@ def test_port_imports_without_jax_or_flowerdiff():
     for name in ("cli", "__main__", "runner", "serving", "data.flowers102",
                  "data.color_labels", "viz", "viz.animation", "viz.color_viz", "viz.curves",
                  "viz.denoise_path", "viz.grids", "viz.latent_compare", "viz.latent_plots",
-                 "viz.recon"):
+                 "viz.recon", "serving_http", "utils.torch_import", "tools.serve",
+                 "tools.import_torch_checkpoint", "tools.export_torch_checkpoint"):
         assert f"'flowerdiff_torch.{name}'" in out.stdout, name
 
 
@@ -117,6 +118,37 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_tools_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path):
+    """Without FLOWERDIFF_PLATFORM the import tool and tools/serve.py build
+    on the card, and raise without one: nothing falls back to the CPU."""
+    from flowerdiff_torch import configs
+    from flowerdiff_torch.models import ConditionalLatentDenoiser
+    from flowerdiff_torch.tools import import_torch_checkpoint, serve
+    from flowerdiff_torch.train.checkpoints import CheckpointManager
+    from flowerdiff_torch.utils.torch_import import export_latent_denoiser
+
+    monkeypatch.delenv("FLOWERDIFF_PLATFORM", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    full = configs.get_preset  # the import tool at the preset's tiny widths
+    monkeypatch.setattr(configs, "get_preset", lambda name: configs.tiny_preset(full(name)))
+    den = ConditionalLatentDenoiser(latent_dim=32, hidden_dims=(32, 64, 32), time_emb_dim=32)
+    torch.save(export_latent_denoiser(den).params, tmp_path / "den.pt")
+    for version, ckpt in (("v1", "ckpt_diffusion"), ("v4", "ckpt_pixel")):
+        CheckpointManager(str(tmp_path / version / ckpt)).save(1, {"step": torch.tensor(1)})
+    calls = [
+        lambda: import_torch_checkpoint.main(["--preset", "v1", "--out", str(tmp_path / "out"),
+                                              "--diffusion", str(tmp_path / "den.pt")]),
+        lambda: serve.build_service(serve.build_parser().parse_args(
+            ["--results_dir", str(tmp_path / "v1"), "--tiny"])),
+        lambda: serve.build_service(serve.build_parser().parse_args(
+            ["--results_dir", str(tmp_path / "v4"), "--version", "v4", "--tiny"])),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert not (tmp_path / "out" / "ckpt_diffusion").exists()
 
 
 def test_unported_training_paths_raise_rather_than_run_something_else():
