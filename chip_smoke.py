@@ -147,18 +147,38 @@ Phases (any failure raises and the script exits nonzero without a result):
      the sampler kernels launched exactly once a step of every bucket chunk
      dispatched); images/s, dispatches, max_coalesced and latency p50/p99
      printed with the card;
- 18. print the card's name and power limit, a `kernels` JSON line, and as
+ 18. the one-time JPEG ingest (`phase_ingest`): which decoder the card's
+     machine has (the port builds the root native/jpeg_loader.cpp with g++
+     where libjpeg's headers are there, else PIL, and prints why), 64 JPEGs
+     of 500x375 to 64x64 by it and by PIL, timed;
+ 19. multi-GPU (`phase_parallel`): the flagship VAE-GAN (f32), the uncached
+     latent chunk and the v5 pixel chunk, 2 epochs of 2 steps at a global
+     batch of 64 on 128 images, with no process group; (a) the same under
+     torchrun's environment for one rank on NCCL with the 1x1 mesh, every
+     loss and state tensor bit-equal, then `cli.main` at the flagship
+     preset with --mesh_data 1 --train_kernel (the train-step kernel
+     launches once a step: 8); (b) two spawned ranks on the one card over
+     gloo (NCCL refuses two ranks on one device), 32 rows each: the losses
+     against world size 1 (tests/test_fused.py's mesh tolerance; the pixel
+     family's second epoch as noted at PARALLEL_LOSS_RTOL), the two ranks'
+     states bit-equal; (c) in those ranks, the flagship denoiser's forward
+     sharded at model=2 against the replicated forward; ms a step of each
+     lane beside the step with no group;
+ 20. print the card's name and power limit, a `kernels` JSON line, and as
      the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import http.client
 import io
 import json
+import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -169,6 +189,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 _ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(_ROOT / "src"))
@@ -2820,6 +2841,275 @@ def phase_http():
     return launches
 
 
+# phase_parallel: the three training chunks (the flagship VAE-GAN in f32,
+# the uncached latent chunk, the v5 pixel chunk) on PARALLEL_IMAGES images,
+# a global batch of 64: one epoch of 2 steps, then another one timed
+PARALLEL_IMAGES, PARALLEL_BATCH = 128, 64
+PARALLEL_LATENT = dict(dropout_rate=0.3, cond_dropout=0.1, ema_decay=0.999,
+                       normalize_latents=True, steps_per_epoch=PARALLEL_IMAGES // PARALLEL_BATCH,
+                       clip_denoised=CLIP, guidance_scale=GUIDANCE)
+# world size 2 against world size 1: tests/test_fused.py's mesh tolerances
+# for the losses (the VAE-GAN's total, the latent and pixel losses); the
+# VAE-GAN's other terms within VAE_GAN_LOSS_RTOL, the card-against-CPU limit.
+# The pixel losses (~1e6 at init, the raw-timestep scale) hold them over the
+# first epoch, one Adam update from the common init (2.3e-6 on the H100);
+# two updates later the elements whose gradient is rounding noise have
+# stepped by ~lr either way, as between the card and the CPU (PERF.md
+# section 6), and the second epoch read 1.3e-4: it is held to
+# VAE_GAN_LOSS_RTOL.
+PARALLEL_LOSS_RTOL, PARALLEL_LOSS_ATOL = 5e-5, 1e-6
+# the tensor-parallel forward against the replicated one, relative to
+# max|replicated| (tests/test_parallel.py's 2e-5 on values of order one)
+PARALLEL_TP_REL = 2e-5
+PARALLEL_TP_ROWS = 64
+# the CLI at world size 1 on NCCL: the flagship preset (train-step kernel,
+# latent cache) on 256 images, 1 VAE-GAN epoch and 2 latent epochs of 4 steps
+RUNNER_PARALLEL = ["--version", "flagship", "--dataset", "synthetic", "--synthetic_size",
+                   "256", "--train_kernel", "--vae_epochs", "1", "--total_epochs", "2",
+                   "--batch_size", "64", "--mesh_data", "1", "--no-cadence-viz",
+                   "--no-final-sweep"]
+RUNNER_PARALLEL_STEPS = 2 * (256 // 64)
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _timed_epochs(fn, steps):
+    """fn() twice, an epoch each: the first untimed (cuDNN's and cuBLAS's
+    first calls), the second timed by host clock. Returns ms a step."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def parallel_chunks(images, labels, stats, mesh, vgg):
+    """The three chunks from fixed seeds on `mesh` (None: no process
+    group), two epochs each: {name: (per-epoch losses, state tensors, ms a
+    step of the second epoch)}. The VAE-GAN's losses are its metrics,
+    "total" first."""
+    dataset = DeviceDataset(images, labels, mesh=mesh)
+    steps = PARALLEL_IMAGES // PARALLEL_BATCH
+    out = {}
+    gan = vg.VAEGANTrainer(vg.VAEGANConfig(**VAE_GAN), seed=0, vgg=vgg)
+    runs = []
+    ms = _timed_epochs(lambda: runs.extend(gan.run_epochs_fused(
+        dataset, VAE_GAN_EPOCH, VAE_EPOCHS, 1, seed=len(runs), batch_size=PARALLEL_BATCH,
+        mesh=mesh)), steps)
+    losses = [[m[k] for k in ("total",) + vg.METRICS[:-1]] for m in runs]
+    out["vae_gan"] = (np.asarray(losses), gan.state.tensors(), ms)
+    vae = vae_from_params(init_numpy_params("vae", seed=1, **VAE), device="cuda", **VAE)
+    lat = LatentDiffusionTrainer(LatentDiffusionConfig(**FLAGSHIP, **PARALLEL_LATENT), vae,
+                                 seed=4, latent_stats=stats)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    runs = []
+    ms = _timed_epochs(lambda: runs.append(lat.run_epochs_fused(
+        dataset, 1, None, gen, batch_size=PARALLEL_BATCH, mesh=mesh)), steps)
+    out["latent"] = (np.asarray(runs), lat.state.tensors() + lat.state.ema, ms)
+    pix = px.PixelDiffusionTrainer(px.PixelDiffusionConfig(learnable_residual=True), seed=0)
+    runs = []
+    ms = _timed_epochs(lambda: runs.append(pix.run_epochs_fused(
+        dataset, 1, seed=len(runs), batch_size=PARALLEL_BATCH, mesh=mesh)), steps)
+    out["pixel"] = (np.asarray(runs), pix.state.tensors(), ms)
+    return out
+
+
+def tensor_parallel_forward(mesh) -> dict:
+    """The flagship denoiser's forward sharded over the mesh's "model" dim
+    against the replicated forward, on PARALLEL_TP_ROWS rows: the error and
+    ms of each (CUDA events over 20 calls)."""
+    from flowerdiff_torch.parallel import latent_denoiser_rules, shard_params
+
+    tree = init_numpy_params("denoiser", seed=0, **FLAGSHIP)
+    replicated = denoiser_from_params(tree, device="cuda", **FLAGSHIP)
+    sharded = shard_params(denoiser_from_params(tree, device="cuda", **FLAGSHIP), mesh,
+                           latent_denoiser_rules())
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((PARALLEL_TP_ROWS, FLAGSHIP["latent_dim"]), generator=gen, device="cuda")
+    t = torch.randint(0, 1000, (PARALLEL_TP_ROWS,), generator=gen, device="cuda")
+    c = torch.randint(0, FLAGSHIP["num_classes"], (PARALLEL_TP_ROWS,), generator=gen,
+                      device="cuda")
+    with torch.no_grad():
+        ref, got = replicated(x, t, c), sharded(x, t, c)
+        return {"rel_err": float((got - ref).abs().max() / ref.abs().max()),
+                "local_block_fc_0": tuple(sharded.block_fc_0.weight.shape),
+                "ms": event_ms(lambda: sharded(x, t, c), 20),
+                "replicated_ms": event_ms(lambda: replicated(x, t, c), 20)}
+
+
+def _parallel_rank(rank, workdir, payload):
+    """One of phase_parallel's two ranks on the one card, over gloo: the
+    three chunks at world size 2, then the tensor-parallel forward at
+    model=2. Saves {chunk: (losses, digest of the state, ms a step), "tp":
+    ...} for the parent."""
+    import faulthandler
+
+    faulthandler.enable()  # a crash in a collective prints the rank's stack
+    from flowerdiff_torch.parallel import create_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(workdir, "rendezvous"),
+                            rank=rank, world_size=2)
+    try:
+        vgg = VGGPerceptual(device="cuda")
+        chunks = parallel_chunks(*payload, create_mesh(device_type="cuda"), vgg)
+        out = {k: (v[0], _digest(v[1]), v[2]) for k, v in chunks.items()}
+        del chunks
+        out["tp"] = tensor_parallel_forward(create_mesh(data=1, model=2, device_type="cuda"))
+        torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel(images, labels, stats):
+    """phase 19 above. Returns the train-step kernel's launches in the CLI
+    run, by counter name."""
+    from flowerdiff_torch.parallel import create_mesh, init_distributed, mesh_size
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    images, labels = images[:PARALLEL_IMAGES], labels[:PARALLEL_IMAGES]
+    vgg = VGGPerceptual(device="cuda")
+    alone = parallel_chunks(images, labels, stats, None, vgg)
+
+    # --- (a) world size 1 on NCCL, torchrun's environment for one rank
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(_free_port()))
+    os.environ.update(env)
+    try:
+        assert init_distributed() == 1 and dist.get_backend() == "nccl"
+        mesh = create_mesh()
+        assert tuple(mesh.shape) == (1, 1) and mesh.device_type == "cuda"
+        one = parallel_chunks(images, labels, stats, mesh, vgg)
+        for name, (losses, tensors, ms) in one.items():
+            ref_losses, ref_tensors, ref_ms = alone[name]
+            same = np.array_equal(losses, ref_losses) and all(
+                torch.equal(a, b) for a, b in zip(tensors, ref_tensors, strict=True))
+            print(f"[parallel] {name}: NCCL world size 1 {ms:.2f} ms a step against "
+                  f"{ref_ms:.2f} with no group (global batch {PARALLEL_BATCH}); losses and "
+                  f"{len(tensors)} state tensors bit-equal: {same} ({card})")
+            assert same, name
+        del one
+        reset_counts()
+        ts.kernel_loss_and_grads.launches = te.epoch_draws.launches = 0
+        with tempfile.TemporaryDirectory(dir=_ROOT / "build") as tmp:
+            runner, text, wall = run_cli(RUNNER_PARALLEL + ["--results_dir", tmp])
+        counts = kernel_launches()
+        print(f"[parallel] cli.main --mesh_data 1 --train_kernel on NCCL: {wall:.1f} s, "
+              f"kernel launches {counts} ({card})")
+        assert mesh_size(runner.mesh) == 1 and runner.preset.latent.train_kernel
+        assert counts["train_step"] == RUNNER_PARALLEL_STEPS, counts
+        assert not any(v for k, v in counts.items() if k != "train_step"), counts
+        losses = [float(v) for v in re.findall(r"Average Loss: ([0-9.eE+-]+)", text)]
+        assert len(losses) == 2 and np.isfinite(losses).all(), losses
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for key in env:
+            os.environ.pop(key, None)
+
+    # --- (b), (c) world size 2 on the one card: two spawned ranks over gloo
+    # (NCCL refuses two ranks on one device)
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(dir=_ROOT / "build") as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_parallel_rank, args=(tmp, (images, labels, stats)),
+                                 nprocs=2, join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=5):
+                assert time.perf_counter() - t0 < 400, "the two ranks are still running"
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+        spawn_s = time.perf_counter() - t0
+    def rel(a, b):
+        return np.abs(a - b) / np.maximum(np.abs(b), 1e-30)
+
+    for name, (ref_losses, _tensors, ref_ms) in alone.items():
+        (losses, digest, ms), (losses1, digest1, ms1) = ranks[0][name], ranks[1][name]
+        err = rel(losses, ref_losses)
+        print(f"[parallel] {name}: gloo world size 2 on one card {ms:.2f} / {ms1:.2f} ms a "
+              f"step (rank 0 / 1, {PARALLEL_BATCH // 2} rows each) against {ref_ms:.2f} with "
+              f"no group; losses against world size 1 by epoch: total or loss "
+              f"{err[:, 0].tolist()}, every term {err.max():.2e}; ranks bit-equal: "
+              f"{digest == digest1} ({card})")
+        assert digest == digest1 and np.array_equal(losses, losses1), name
+        late = VAE_GAN_LOSS_RTOL if name == "pixel" else PARALLEL_LOSS_RTOL
+        for epoch, rtol in enumerate((PARALLEL_LOSS_RTOL, late)):
+            np.testing.assert_allclose(losses[epoch, 0], ref_losses[epoch, 0], rtol=rtol,
+                                       atol=PARALLEL_LOSS_ATOL, err_msg=f"{name} {epoch}")
+        np.testing.assert_allclose(losses, ref_losses, rtol=VAE_GAN_LOSS_RTOL, err_msg=name)
+    for rank in ranks:
+        tp = rank["tp"]
+        print(f"[parallel] tensor-parallel flagship denoiser at model=2 over gloo, "
+              f"{PARALLEL_TP_ROWS} rows: {tp['ms']:.3f} ms against {tp['replicated_ms']:.3f} "
+              f"replicated; error {tp['rel_err']:.2e} of max|replicated|; block_fc_0 local "
+              f"{tp['local_block_fc_0']} ({card})")
+        assert tp["rel_err"] <= PARALLEL_TP_REL, tp
+        assert tp["local_block_fc_0"] == (FLAGSHIP["hidden_dims"][0] // 2,
+                                          FLAGSHIP["hidden_dims"][0]), tp
+    print(f"[parallel] two ranks: {spawn_s:.1f} s with their start; phase wall time "
+          f"{time.perf_counter() - t_phase:.1f} s ({card})")
+    return {"train_step": counts["train_step"]}
+
+
+def phase_ingest():
+    """The one-time JPEG ingest: which decoder the card's machine has
+    (the native libjpeg one, built here, or PIL, and why), and 64 JPEGs of
+    500x375 decoded to 64x64 by each, timed."""
+    from PIL import Image
+
+    from flowerdiff_torch import native
+
+    rng = np.random.default_rng(0)
+    with tempfile.TemporaryDirectory(dir=_ROOT / "build") as tmp:
+        paths = []
+        for i in range(64):
+            path = os.path.join(tmp, f"image_{i:05d}.jpg")
+            Image.fromarray(rng.integers(0, 255, (375, 500, 3), dtype=np.uint8)).save(path)
+            paths.append(path)
+        t0 = time.perf_counter()
+        built = native.native_available()  # builds on first use
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        imgs, ok = native.decode_jpeg_batch(paths, 64)
+        decode_ms = (time.perf_counter() - t0) * 1e3
+        assert ok.all() and imgs.shape == (64, 64, 64, 3)
+        used = (f"native libjpeg decoder (built in {build_s:.1f} s)" if built
+                else f"PIL (the native decoder did not build in {build_s:.1f} s: "
+                     f"{native.build_error()})")
+        saved = native._load
+        native._load = lambda: None
+        try:
+            t0 = time.perf_counter()
+            pil, pil_ok = native.decode_jpeg_batch(paths, 64)
+            pil_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            native._load = saved
+        assert pil_ok.all()
+        diff = int(np.abs(imgs.astype(np.int16) - pil.astype(np.int16)).max())
+    print(f"[ingest] decoder: {used}; 64 JPEGs of 500x375 to 64x64: {decode_ms:.1f} ms, PIL "
+          f"{pil_ms:.1f} ms (max |difference| {diff} of 255; host, {os.cpu_count()} cores)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2862,9 +3152,12 @@ def main() -> int:
     phase_pixel(dataset)
     runner_launches = phase_runner()
     http_launches = phase_http()
+    phase_ingest()
+    parallel_launches = phase_parallel(images, labels, stats)
     for row in kernel_rows:
         row["runner_launches"] = runner_launches.get(row["name"], 0)
         row["http_launches"] = http_launches.get(row["name"], 0)
+        row["parallel_launches"] = parallel_launches.get(row["name"], 0)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

@@ -10,8 +10,16 @@ defaults and preset resolution.
         --batch_size 16 --synthetic_size 64      # offline smoke run on the CPU
 
 The run is on the CUDA card (and raises without one) unless
-FLOWERDIFF_PLATFORM=cpu selects the CPU. The runner is single-device:
---mesh_data / --mesh_model other than 1 raise.
+FLOWERDIFF_PLATFORM=cpu selects the CPU. --mesh_data / --mesh_model shape
+the ('data', 'model') mesh (parallel/mesh.py) over torchrun's processes;
+under torchrun the CLI joins the process group itself (NCCL on the card,
+gloo on the CPU), every rank trains on its rows of each batch and rank 0
+writes:
+
+    FLOWERDIFF_PLATFORM=cpu PYTHONPATH=src torchrun --nproc_per_node 2 \
+        -m flowerdiff_torch.cli --mesh_data 2 --version v1 --dataset synthetic --tiny
+
+A mesh of more than one process without torchrun's environment raises.
 """
 from __future__ import annotations
 
@@ -19,9 +27,6 @@ import argparse
 import dataclasses
 import os
 from typing import Optional, Sequence
-
-MULTI_DEVICE = "multi-GPU runs are not ported yet (ROADMAP Queue 1 item 8)"
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -46,9 +51,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--synthetic_size", type=int, default=512)
     p.add_argument("--mesh_data", type=int, default=None,
-                   help="data-parallel size; only 1 (or unset) runs")
+                   help="data-parallel size (default: every process torchrun starts)")
     p.add_argument("--mesh_model", type=int, default=1,
-                   help="model-parallel size; only 1 runs")
+                   help="model-parallel size")
     p.add_argument("--vae_bf16", action="store_true",
                    help="bfloat16 compute for the VAE-GAN stage only (parameters and "
                         "optimizer f32)")
@@ -179,17 +184,17 @@ def run_device() -> str:
 def main(argv: Optional[Sequence[str]] = None):
     """Parse `argv`, run the pipeline, return the PipelineRunner."""
     args = build_parser().parse_args(argv)
-    if args.mesh_data not in (None, 1) or args.mesh_model not in (None, 1):
-        raise NotImplementedError(
-            f"--mesh_data {args.mesh_data} --mesh_model {args.mesh_model}: {MULTI_DEVICE}")
-
+    from flowerdiff_torch.parallel import create_mesh, init_distributed
     from flowerdiff_torch.runner import PipelineRunner
 
+    device = run_device()
+    init_distributed("gloo" if device == "cpu" else None)
+    mesh = create_mesh(data=args.mesh_data, model=args.mesh_model)
     preset = resolve_preset(args)
     runner = PipelineRunner(
         preset, results_dir=args.results_dir, data_root=args.data_root, dataset=args.dataset,
         seed=args.seed, synthetic_size=args.synthetic_size,
-        fused_epochs=not args.no_fused_epochs, device=run_device())
+        fused_epochs=not args.no_fused_epochs, device=device, mesh=mesh)
     if preset.pixel is not None:
         runner.run_pixel(epochs=args.total_epochs, batch_size=args.batch_size,
                          cadence_viz=not args.no_cadence_viz)

@@ -9,7 +9,8 @@ Reduced precision is torch autocast around a module (the reference's flax
 its statistics in f32 and returns its input's type, as the reference's
 does, and `full_precision` marks the parts the reference keeps in f32.
 
-`ConditionedResidualBlock` is not ported: no model of the JAX package uses it.
+`ConditionedResidualBlock` is the reference's FiLM-shift conditioned conv
+block; no model uses it, in the reference either.
 """
 from __future__ import annotations
 
@@ -104,3 +105,35 @@ class ResidualBlock(nn.Module):
         h = self.ln2(self.conv2(h))
         h = self.sa(self.ca(h))
         return swish(h + x)
+
+
+class ConditionedResidualBlock(nn.Module):
+    """LN2d -> swish -> conv3x3 -> (+swish(time_emb(t_emb))) (+swish(
+    class_emb(c_emb))) -> LN2d -> swish -> dropout -> conv3x3 -> +residual,
+    the residual 1x1-projected when the channel counts differ. NCHW; the
+    embeddings are (B, cond_dim). Dropout acts in train mode."""
+
+    def __init__(self, in_channels: int, out_channels: int, cond_dim: int = 256,
+                 dropout_rate: float = 0.2):
+        super().__init__()
+        self.ln1 = LayerNorm2d(in_channels)
+        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.time_emb = nn.Linear(cond_dim, out_channels)
+        self.class_emb = nn.Linear(cond_dim, out_channels)
+        self.ln2 = LayerNorm2d(out_channels)
+        self.drop = nn.Dropout(dropout_rate)
+        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.residual_proj = (nn.Conv2d(in_channels, out_channels, 1)
+                              if in_channels != out_channels else None)
+
+    def forward(self, x: torch.Tensor, t_emb: torch.Tensor = None,
+                c_emb: torch.Tensor = None) -> torch.Tensor:
+        h = self.conv1(swish(self.ln1(x)))
+        if t_emb is not None:
+            h = h + swish(self.time_emb(t_emb))[:, :, None, None]
+        if c_emb is not None:
+            h = h + swish(self.class_emb(c_emb))[:, :, None, None]
+        h = self.conv2(self.drop(swish(self.ln2(h))))
+        if self.residual_proj is not None:
+            x = self.residual_proj(x)
+        return h + x

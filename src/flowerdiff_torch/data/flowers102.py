@@ -7,9 +7,11 @@ flowerdiff/data/flowers102.py).
 
 The 'train' split is setid['trnid'] (1020 images), 'val' is 'valid', 'test'
 is 'tstid' (6149); labels are mapped to 0-based. The .mat files are read with
-scipy.io; each JPEG is decoded with PIL (`convert("RGB")`, then a bicubic
-resize to (img_size, img_size)), once, and the split is cached as a
-compressed .npz beside the files, so later runs skip the decode.
+scipy.io; each JPEG is decoded once, RGB and resized bicubic to (img_size,
+img_size), by the native multithreaded libjpeg decoder where it builds
+(`flowerdiff_torch.native`), PIL otherwise (`convert("RGB")`, then
+`resize(BICUBIC)`), as the reference's one-time ingest; the split is cached
+as a compressed .npz beside the files, so later runs skip the decode.
 
 Nothing is downloaded: absent files raise FileNotFoundError, which the
 runner's `dataset="auto"` turns into the synthetic fallback.
@@ -35,22 +37,13 @@ def _dataset_dir(root: str) -> str:
 
 
 def decode_jpegs(paths: List[str], size: int) -> Tuple[np.ndarray, np.ndarray]:
-    """(images uint8 (N, size, size, 3), ok bool (N,)): each file through
-    PIL, RGB, bicubic-resized; a file that fails to decode is left zero and
-    marked not ok."""
-    from PIL import Image
+    """(images uint8 (N, size, size, 3), ok bool (N,)): each file RGB,
+    bicubic-resized, through the native decoder when it builds (`native`),
+    PIL otherwise, as the reference's one-time ingest; a file that fails to
+    decode is left zero and marked not ok."""
+    from flowerdiff_torch.native import decode_jpeg_batch
 
-    out = np.zeros((len(paths), size, size, 3), np.uint8)
-    ok = np.zeros((len(paths),), bool)
-    for i, path in enumerate(paths):
-        try:
-            with Image.open(path) as img:
-                img = img.convert("RGB").resize((size, size), Image.BICUBIC)
-                out[i] = np.asarray(img, np.uint8)
-                ok[i] = True
-        except (OSError, ValueError):
-            out[i] = 0
-    return out, ok
+    return decode_jpeg_batch(paths, size)
 
 
 def load_flowers102(root: str = "./data", split: str = "train", img_size: int = 64,

@@ -34,6 +34,7 @@ from typing import Iterator, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from flowerdiff_torch.parallel.mesh import local_rows
 from flowerdiff_torch.utils.device import derived_generator, resolve_device
 
 GRAY_WEIGHTS = (0.299, 0.587, 0.114)
@@ -139,12 +140,19 @@ def make_augment_fn(max_rotation_deg: float = 10.0, jitter: float = 0.2, flip: b
 class DeviceDataset:
     """Device-resident dataset: images uint8 (N, H, W, 3), labels (and the
     optional v3 color labels) int64, and the augmentation policy, which the
-    training paths read."""
+    training paths read.
+
+    mesh: a data-parallel mesh (parallel/mesh.py). Every rank holds the
+    whole source arrays (the reference's replicated source); a batch is
+    the global batch's index row and augmentation draws, of which the rank
+    assembles its rows."""
 
     def __init__(self, images: np.ndarray, labels: np.ndarray,
                  colors: Optional[np.ndarray] = None, augment: bool = True,
-                 max_rotation_deg: float = 10.0, jitter: float = 0.2, device=None):
+                 max_rotation_deg: float = 10.0, jitter: float = 0.2, device=None,
+                 mesh=None):
         dev = resolve_device(device)
+        self.mesh = mesh
         images = np.asarray(images)
         if images.dtype != np.uint8 or images.ndim != 4:
             raise ValueError("images must be uint8 (N, H, W, C)")
@@ -162,10 +170,14 @@ class DeviceDataset:
     def assemble(self, idx: torch.Tensor, generator: Optional[torch.Generator] = None,
                  draws: Optional[AugmentDraws] = None) -> Tuple[torch.Tensor, ...]:
         """(images float [0, 1], labels[, colors]) of the rows `idx`,
-        augmented when the dataset augments."""
+        augmented when the dataset augments; under the mesh, this rank's
+        rows of them (`idx` and `draws` are the global batch's)."""
+        if self._augment is not None and draws is None:
+            draws = self._augment.draw(idx.shape[0], generator, self.images.device)
+        idx = local_rows(self.mesh, idx)
         imgs = unit_float(self.images[idx])
         if self._augment is not None:
-            imgs = self._augment(imgs, generator, draws)
+            imgs = self._augment(imgs, None, local_rows(self.mesh, draws))
         if self.colors is not None:
             return imgs, self.labels[idx], self.colors[idx]
         return imgs, self.labels[idx]

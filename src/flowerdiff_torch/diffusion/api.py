@@ -112,12 +112,14 @@ class DiffusionSampler:
     def sample(self, batch: int, *cond: torch.Tensor,
                generator: Optional[torch.Generator] = None,
                x_init: Optional[torch.Tensor] = None,
-               stochastic: bool = True) -> torch.Tensor:
-        """Full ancestral sampling, steps T-1 .. 0."""
+               stochastic: bool = True, mesh=None) -> torch.Tensor:
+        """Full ancestral sampling, steps T-1 .. 0. `mesh`: a data-parallel
+        mesh (parallel/mesh.py) over which the request's rows are split; the
+        gathered result equals the unsplit run's."""
         return _sample_impl(
             self.sched, self._eps, (batch,) + self.event_shape, *self._cond(cond),
             generator=generator, device=self.device, clip_x0=self.clip_x0, x_init=x_init,
-            stochastic=stochastic)
+            stochastic=stochastic, mesh=mesh)
 
     def sample_from(self, x_t, t_start: int, *cond: torch.Tensor,
                     generator: Optional[torch.Generator] = None,

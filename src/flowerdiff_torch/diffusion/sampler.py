@@ -28,6 +28,7 @@ import torch
 
 from flowerdiff_torch.diffusion.ddpm import p_sample, p_sample_mean
 from flowerdiff_torch.diffusion.schedule import DiffusionSchedule
+from flowerdiff_torch.parallel.mesh import all_gather_rows, data_size, local_rows
 
 EpsFn = Callable[..., torch.Tensor]
 
@@ -41,16 +42,21 @@ def _start(shape, generator, device, x_init) -> torch.Tensor:
 @torch.no_grad()
 def _reverse_scan(sched: DiffusionSchedule, eps_fn: EpsFn, x: torch.Tensor, cond: tuple,
                   t_start: int, collect: bool, clip_x0: Optional[float] = None,
-                  generator: Optional[torch.Generator] = None, stochastic: bool = True):
+                  generator: Optional[torch.Generator] = None, stochastic: bool = True,
+                  mesh=None):
     """The ancestral step at t = t_start-1 .. 0 from x: (x, the (t_start, B,
-    ...) stack of the state after each step when `collect`, else None)."""
+    ...) stack of the state after each step when `collect`, else None).
+    Under `mesh` x is this rank's rows and each step's noise the rank's
+    rows of the global batch's draw."""
     sched = sched.to(x.device)
+    noise_shape = (x.shape[0] * data_size(mesh),) + tuple(x.shape[1:])
     states = []
     for t in range(t_start - 1, -1, -1):
         t_vec = torch.full((x.shape[0],), t, dtype=torch.long, device=x.device)
         eps = eps_fn(x, t_vec, *cond)
         if stochastic:
-            noise = torch.randn(x.shape, generator=generator, device=x.device)
+            noise = local_rows(mesh, torch.randn(noise_shape, generator=generator,
+                                                 device=x.device))
             x = p_sample(sched, x, t_vec, eps, noise, clip_x0)
         else:
             x = p_sample_mean(sched, x, t_vec, eps, clip_x0)
@@ -63,11 +69,17 @@ def sample(sched: DiffusionSchedule, eps_fn: EpsFn, shape: tuple, *cond: torch.T
            generator: Optional[torch.Generator] = None,
            device=None, clip_x0: Optional[float] = None,
            x_init: Optional[torch.Tensor] = None,
-           stochastic: bool = True) -> torch.Tensor:
-    """Full ancestral sampling from N(0, I) (or from `x_init`)."""
-    x = _start(shape, generator, device, x_init)
-    return _reverse_scan(sched, eps_fn, x, cond, sched.n_steps, False, clip_x0, generator,
-                         stochastic)[0]
+           stochastic: bool = True, mesh=None) -> torch.Tensor:
+    """Full ancestral sampling from N(0, I) (or from `x_init`). Under a
+    data-parallel `mesh` (parallel/mesh.py) the request's rows are split
+    over the "data" ranks: each rank runs its rows of the global start and
+    of every step's noise, and the rows are gathered back, equal to the
+    unsplit run's."""
+    x = local_rows(mesh, _start(shape, generator, device, x_init))
+    cond = tuple(local_rows(mesh, c) for c in cond)
+    x = _reverse_scan(sched, eps_fn, x, cond, sched.n_steps, False, clip_x0, generator,
+                      stochastic, mesh)[0]
+    return all_gather_rows(mesh, x)
 
 
 def sample_from(sched: DiffusionSchedule, eps_fn: EpsFn, x_t: torch.Tensor, t_start: int,

@@ -10,12 +10,16 @@ training step does not use it, in the reference either.
 The reference's segment sums are one-hot sums here, (C, B, ...) products
 reduced over the batch: on the card `index_add_` adds with atomics in no
 fixed order, and the training step must be bit-reproducible. They are not
-matrix products, so no TF32 or autocast setting rounds the latents.
+matrix products, so no TF32 or autocast setting rounds the latents. Under
+a data-parallel mesh the centers' segment sums are summed over the ranks,
+the reference's "reduce over the global batch via the mesh's all-reduce".
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from flowerdiff_torch.parallel.mesh import all_reduce_sum
 
 
 def _segment_sums(values: torch.Tensor, labels: torch.Tensor, num_classes: int):
@@ -60,9 +64,12 @@ def standalone_center_loss(z: torch.Tensor, labels: torch.Tensor, centers: torch
 
 
 def update_centers(centers: torch.Tensor, z: torch.Tensor, labels: torch.Tensor,
-                   momentum: float = 0.9) -> torch.Tensor:
-    """The new centers; classes absent from the batch keep their old ones."""
-    sums, counts = _segment_sums(z, labels, centers.shape[0])
+                   momentum: float = 0.9, mesh=None) -> torch.Tensor:
+    """The new centers; classes absent from the batch keep their old ones.
+    Under a mesh (parallel/mesh.py) z and labels are this rank's rows, and
+    the segment sums and counts are summed over the "data" group, so every
+    rank computes the global batch's centers."""
+    sums, counts = all_reduce_sum(mesh, _segment_sums(z, labels, centers.shape[0]))
     means = sums / torch.clamp(counts, min=1.0)[:, None]
     updated = momentum * centers + (1.0 - momentum) * means
     return torch.where((counts > 0)[:, None], updated, centers)

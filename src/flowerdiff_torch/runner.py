@@ -20,6 +20,11 @@ derives an integer seed or a generator from (seed, stream, epoch)
 the pixel DDPM. The two runners therefore train on other draws; their
 control flow, cadences, checkpoints and artifact names are the same.
 
+Under a data-parallel mesh (parallel/mesh.py; the CLI under torchrun)
+every rank trains on its rows of each global batch and holds the same
+state; rank 0 alone writes the logs, figures, checkpoints, the final sweep
+and the quality report, and loads the dataset (and its cache) first.
+
 Figures need matplotlib (and the latent sweeps sklearn). A run that asks
 for cadence figures or the final sweep without them stops before training;
 the figures every run writes (the loss curves, the v3 color grid, the pixel
@@ -45,6 +50,7 @@ from flowerdiff_torch.data import DeviceDataset, synthetic_flowers
 from flowerdiff_torch.data.flowers102 import class_names as flowers_class_names
 from flowerdiff_torch.data.flowers102 import load_flowers102
 from flowerdiff_torch.models.vae import FlowerVAE
+from flowerdiff_torch.parallel.mesh import barrier, is_writer, mesh_size
 from flowerdiff_torch.train.checkpoints import (
     CheckpointManager,
     parse_epoch_from_filename,
@@ -67,6 +73,12 @@ from flowerdiff_torch.viz.grids import generate_pixel_samples_grid
 VAE_STREAM, DIFFUSION_STREAM, PIXEL_STREAM = 0, 1, 2
 
 
+def _say(*args, **kwargs) -> None:
+    """print, on the rank that writes (parallel/mesh.py `is_writer`)."""
+    if is_writer():
+        print(*args, **kwargs)
+
+
 def missing_packages(*names: str) -> list:
     return [n for n in names if importlib.util.find_spec(n) is None]
 
@@ -83,9 +95,12 @@ def require_viz_packages(*names: str) -> None:
 
 def unconditional_figure(what: str, fn, *args, **kwargs):
     """A figure the reference writes on every run: drawn where matplotlib
-    imports, otherwise skipped with one line naming the package."""
+    imports, otherwise skipped with one line naming the package; rank 0
+    alone draws it in a multi-process run."""
+    if not is_writer():
+        return None
     if missing_packages("matplotlib"):
-        print(f"skipped {what}: matplotlib is not installed")
+        _say(f"skipped {what}: matplotlib is not installed")
         return None
     return fn(*args, **kwargs)
 
@@ -119,7 +134,7 @@ class _StageClock:
         other = total - sum(self.buckets.values())
         first = (f" (first dispatch incl. compile {self.first_dispatch:.1f}s)"
                  if self.first_dispatch is not None else "")
-        print(f"[stage {self.stage}] {total:.1f}s total: {parts}, "
+        _say(f"[stage {self.stage}] {total:.1f}s total: {parts}, "
               f"other {other:.1f}s{first}", flush=True)
         return total
 
@@ -147,6 +162,17 @@ class _CondAdapter:
                                             self._colors(x_init.shape[0]), **kw)
 
 
+def _writer_first(fn, *args, **kwargs):
+    """fn(*args, **kwargs) on rank 0 first, then on the other ranks, which
+    then read what it cached (one process: just the call)."""
+    if is_writer():
+        out = fn(*args, **kwargs)
+        barrier()
+        return out
+    barrier()
+    return fn(*args, **kwargs)
+
+
 def _copy_leaves(dst, names, leaves: dict) -> None:
     """Copy host arrays `leaves[name]` into the tensors `dst`, in place."""
     torch._foreach_copy_(dst, [torch.as_tensor(np.asarray(leaves[n])).to(d.device)
@@ -156,13 +182,17 @@ def _copy_leaves(dst, names, leaves: dict) -> None:
 class PipelineRunner:
     def __init__(self, preset: VersionPreset, results_dir: Optional[str] = None,
                  data_root: str = "./data", dataset: str = "auto", seed: int = 42,
-                 synthetic_size: int = 512, fused_epochs: bool = True, device=None):
+                 synthetic_size: int = 512, fused_epochs: bool = True, device=None,
+                 mesh=None):
         """dataset: 'auto' (Flowers102 under data_root, else synthetic),
         'flowers102' or 'synthetic'. fused_epochs: train in chunks of
         epochs (the trainers' `run_epochs_fused`) instead of epoch by
-        epoch."""
+        epoch. mesh: a data-parallel mesh (parallel/mesh.py), None for one
+        process."""
         self.preset = preset
         self.seed = seed
+        self.mesh = mesh
+        self.writer = is_writer()
         self.device = resolve_device(device)
         self.fused_epochs = fused_epochs
         self.max_epochs_per_dispatch = 50
@@ -173,14 +203,15 @@ class PipelineRunner:
         os.makedirs(self.results_dir, exist_ok=True)
         self.class_names = flowers_class_names()
 
-        images, labels = self._load_data(data_root, dataset, synthetic_size)
+        images, labels = _writer_first(self._load_data, data_root, dataset, synthetic_size)
         colors = None
         if preset.latent is not None and preset.latent.num_colors is not None:
             from flowerdiff_torch.data.color_labels import extract_color_labels_cached
             from flowerdiff_torch.viz.color_viz import create_flower_color_visualization
 
-            colors, _names = extract_color_labels_cached(
-                images, cache_path=os.path.join(self.results_dir, "color_labels.npz"))
+            colors, _names = _writer_first(
+                extract_color_labels_cached, images,
+                cache_path=os.path.join(self.results_dir, "color_labels.npz"))
             unconditional_figure(
                 "color_visualization.png", create_flower_color_visualization,
                 images[:100], labels[:100], self.class_names,
@@ -190,10 +221,11 @@ class PipelineRunner:
         self.train_ds = DeviceDataset(
             images, labels, colors=colors, augment=True,
             max_rotation_deg=0.0 if is_pixel else 10.0,  # the pixel family only flips
-            jitter=0.0 if is_pixel else 0.2, device=self.device)
+            jitter=0.0 if is_pixel else 0.2, device=self.device, mesh=mesh)
         # held-out rows (recon PSNR, t-SNE, MMD, the quality report): the
         # real test split, or synthetic images from another seed
-        eval_images, eval_labels = self._load_eval_data(data_root, dataset, synthetic_size)
+        eval_images, eval_labels = _writer_first(self._load_eval_data, data_root, dataset,
+                                                 synthetic_size)
         eval_ds = DeviceDataset(eval_images, eval_labels, augment=False, device=self.device)
         self.test_images, self.test_labels = eval_ds.full()[:2]
         self.train_images_eval = self.train_ds.full()[0]
@@ -215,7 +247,7 @@ class PipelineRunner:
             except FileNotFoundError:
                 if dataset == "flowers102":
                     raise
-                print("Flowers102 not found — using the synthetic dataset.")
+                _say("Flowers102 not found — using the synthetic dataset.")
         return synthetic_flowers(synthetic_size, 102, self.preset.img_size, seed=self.seed)
 
     def _load_eval_data(self, data_root, dataset, synthetic_size):
@@ -242,11 +274,14 @@ class PipelineRunner:
         (exact resume, needed to train on); "params" restores only what
         sampling reads (the VAE's generator weights; the diffusion weights
         and EMA), the optimizer moments staying at init, and skips the
-        recon PSNR. Returns (VAE-GAN trainer, diffusion trainer)."""
+        recon PSNR. Returns (VAE-GAN trainer, diffusion trainer). Under a
+        mesh of more than one rank the restore is always "full"."""
         preset = self.preset
         assert preset.vae is not None and preset.latent is not None
         if restore_scope not in ("full", "params"):
             raise ValueError(f"restore_scope {restore_scope!r}: choose 'full' or 'params'")
+        if mesh_size(self.mesh) > 1:
+            restore_scope = "full"
         if cadence_viz or final_sweep:
             require_viz_packages("matplotlib", "sklearn")
         batch_size = batch_size or preset.batch_size
@@ -261,7 +296,7 @@ class PipelineRunner:
         vae_ckpt = CheckpointManager(os.path.join(self.results_dir, "ckpt_vae"))
         history = LossHistory()
         if vae_ckpt.exists():
-            print(f"Loading existing autoencoder from {vae_ckpt.directory}")
+            _say(f"Loading existing autoencoder from {vae_ckpt.directory}")
             like_tree = vae_gan_state_to_tree(trainer.state)
             if restore_scope == "params":
                 host = vae_ckpt.restore_host(like=like_tree)
@@ -270,7 +305,7 @@ class PipelineRunner:
             else:
                 tree_into_vae_gan_state(trainer.state, vae_ckpt.restore(like=like_tree))
         else:
-            print("No existing autoencoder found. Training a new one...")
+            _say("No existing autoencoder found. Training a new one...")
             self._train_vae_gan(trainer, vae_ckpt, history, vae_epochs, batch_size,
                                 cadence_viz, checkpoint_every)
 
@@ -278,9 +313,9 @@ class PipelineRunner:
         self._trained_vae = vae
         setup_clock = _StageClock("inter_stage_setup")
         decode_fn, encode_mu_fn, encode_decode_fn = self._vae_fns(vae)
-        if restore_scope != "params":
+        if restore_scope != "params" and self.writer:
             with setup_clock.track("recon_psnr"):
-                print(f"VAE recon PSNR: {self._recon_psnr(encode_decode_fn):.2f} dB "
+                _say(f"VAE recon PSNR: {self._recon_psnr(encode_decode_fn):.2f} dB "
                       f"(held-out) / "
                       f"{self._recon_psnr(encode_decode_fn, images=self.train_images_eval):.2f}"
                       f" dB (train)")
@@ -303,7 +338,7 @@ class PipelineRunner:
                 start_epoch = epoch
                 tree_into_state(diff.state,
                                 diff_ckpt.restore(epoch, like=state_to_tree(diff.state)))
-                print(f"Continuing training from epoch {start_epoch}")
+                _say(f"Continuing training from epoch {start_epoch}")
         elif diff_ckpt.exists():
             start_epoch = diff_ckpt.latest_step()
             if restore_scope == "params" and start_epoch >= total_epochs:
@@ -313,7 +348,7 @@ class PipelineRunner:
                     _copy_leaves(diff.state.ema, diff.state.names, host["ema_params"])
             else:
                 tree_into_state(diff.state, diff_ckpt.restore(like=state_to_tree(diff.state)))
-            print(f"Loaded diffusion model at epoch {start_epoch}")
+            _say(f"Loaded diffusion model at epoch {start_epoch}")
 
         # the reference saves at every visualisation cadence;
         # checkpoint_every decouples the two
@@ -331,14 +366,16 @@ class PipelineRunner:
                 n = self._chunk_size(epoch, total_epochs, viz_cadence, ckpt_every,
                                      cap=1000 if cached else None)
                 with clock.track("dispatch"):
-                    chunk = diff.run_epochs_fused(self.train_ds, n, None, gen, batch_size)
+                    chunk = diff.run_epochs_fused(self.train_ds, n, None, gen, batch_size,
+                                                  mesh=self.mesh)
             else:
-                chunk = [diff.run_epoch(self.train_ds.batches(ep_rng, batch_size), gen)]
+                chunk = [diff.run_epoch(self.train_ds.batches(ep_rng, batch_size), gen,
+                                        mesh=self.mesh)]
             for off, loss in enumerate(chunk):
                 diff_losses.append(loss)
-                print(f"Epoch {epoch + off + 1}/{total_epochs}, Average Loss: {loss:.6f}")
+                _say(f"Epoch {epoch + off + 1}/{total_epochs}, Average Loss: {loss:.6f}")
             epoch += len(chunk)
-            if cadence_viz and epoch % preset.diffusion_visualize_every == 0:
+            if cadence_viz and self.writer and epoch % preset.diffusion_visualize_every == 0:
                 with clock.track("viz"):
                     self._diffusion_viz(diff, decode_fn, encode_mu_fn, epoch)
             if epoch % ckpt_every == 0 or epoch == total_epochs:
@@ -355,7 +392,7 @@ class PipelineRunner:
                                  start_epoch=start_epoch or None)
         clock.done()
 
-        if final_sweep:
+        if final_sweep and self.writer:
             sweep_clock = _StageClock("final_sweep")
             self._final_sweep(diff, decode_fn, encode_mu_fn, clock=sweep_clock)
             sweep_clock.done()
@@ -393,17 +430,17 @@ class PipelineRunner:
                 with clock.track("dispatch"):
                     chunk, (best, maybe_epoch, best_state) = trainer.run_epochs_fused(
                         self.train_ds, epoch, vae_epochs, n, seed, batch_size,
-                        best=(best, best_state))
+                        best=(best, best_state), mesh=self.mesh)
                 if maybe_epoch is not None:
                     best_epoch, have_best = maybe_epoch, True
             else:
                 batches = self.train_ds.batches(ep_rng, batch_size)
                 if preset.latent.num_colors is not None:
                     batches = ((img, lab) for img, lab, _col in batches)
-                chunk = [trainer.run_epoch(batches, epoch, vae_epochs, seed)]
+                chunk = [trainer.run_epoch(batches, epoch, vae_epochs, seed, mesh=self.mesh)]
             for off, metrics in enumerate(chunk):
                 history.append(metrics)
-                print(f"Epoch {epoch + off + 1}/{vae_epochs}, "
+                _say(f"Epoch {epoch + off + 1}/{vae_epochs}, "
                       + ", ".join(f"{k}: {v:.6f}" for k, v in sorted(metrics.items())))
             if not self.fused_epochs:
                 totals = [m["total"] for m in chunk]
@@ -419,7 +456,8 @@ class PipelineRunner:
                 with clock.track("ckpt_save"):
                     vae_ckpt.save(best_epoch, best_as_tree())
                 saved_best_epoch = best_epoch
-            if (epoch % preset.vae_visualize_every == 0 or epoch == vae_epochs) and cadence_viz:
+            if ((epoch % preset.vae_visualize_every == 0 or epoch == vae_epochs) and cadence_viz
+                    and self.writer):
                 with clock.track("viz"):
                     self._vae_viz(trainer, epoch)
         if have_best and saved_best_epoch != best_epoch:
@@ -427,7 +465,8 @@ class PipelineRunner:
                 vae_ckpt.save(best_epoch, best_as_tree())
         with clock.track("ckpt_save"):
             vae_ckpt.save(vae_epochs, vae_gan_state_to_tree(trainer.state))
-        history.save_jsonl(os.path.join(self.results_dir, "vae_history.jsonl"))
+        if self.writer:
+            history.save_jsonl(os.path.join(self.results_dir, "vae_history.jsonl"))
         unconditional_figure("autoencoder_losses.png", viz.plot_loss_curves, history.history,
                              os.path.join(self.results_dir, "autoencoder_losses.png"))
         clock.done()
@@ -449,7 +488,7 @@ class PipelineRunner:
         ckpt = CheckpointManager(os.path.join(self.results_dir, "ckpt_pixel"))
         if ckpt.exists():
             tree_into_state(trainer.state, ckpt.restore(like=state_to_tree(trainer.state)))
-            print(f"Loaded pixel diffusion at epoch {ckpt.latest_step()}")
+            _say(f"Loaded pixel diffusion at epoch {ckpt.latest_step()}")
         else:
             ep_rng = np.random.default_rng(self.seed)
             epoch = 0
@@ -457,13 +496,15 @@ class PipelineRunner:
                 seed = derived_seed(self.seed, PIXEL_STREAM, epoch)
                 if self.fused_epochs:
                     n = self._chunk_size(epoch, epochs, preset.pixel_visualize_every)
-                    chunk = trainer.run_epochs_fused(self.train_ds, n, seed, batch_size)
+                    chunk = trainer.run_epochs_fused(self.train_ds, n, seed, batch_size,
+                                                     mesh=self.mesh)
                 else:
-                    chunk = [trainer.run_epoch(self.train_ds.batches(ep_rng, batch_size), seed)]
+                    chunk = [trainer.run_epoch(self.train_ds.batches(ep_rng, batch_size), seed,
+                                               mesh=self.mesh)]
                 for off, loss in enumerate(chunk):
-                    print(f"Diffusion Epoch {epoch + off + 1}/{epochs}, Loss: {loss:.4f}")
+                    _say(f"Diffusion Epoch {epoch + off + 1}/{epochs}, Loss: {loss:.4f}")
                 epoch += len(chunk)
-                if (cadence_viz and preset.pixel_visualize_every
+                if (cadence_viz and self.writer and preset.pixel_visualize_every
                         and epoch % preset.pixel_visualize_every == 0):
                     # 0-based epoch in the artifact names, as the reference
                     sampler = trainer.sampler()
@@ -473,6 +514,8 @@ class PipelineRunner:
                         self.results_dir, f"diffusion_animation_epoch_{epoch - 1}.gif"))
             ckpt.save(epochs, state_to_tree(trainer.state))
 
+        if not self.writer:
+            return trainer
         sampler = trainer.sampler()
         unconditional_figure("samples_grid.png", generate_pixel_samples_grid, sampler,
                              save_path=os.path.join(self.results_dir, "samples_grid.png"))
@@ -494,7 +537,7 @@ class PipelineRunner:
         path = os.path.join(self.results_dir, "generated_pixel_diffusion.png")
         plt.savefig(path, bbox_inches="tight")
         plt.close()
-        print(f"Generated image saved as {path}")
+        _say(f"Generated image saved as {path}")
 
     # ------------------------------------------------------------------ #
     # Helpers
@@ -513,8 +556,9 @@ class PipelineRunner:
                                      noise)
         mean = z.mean(dim=0).cpu().numpy()
         std = torch.clamp(z.std(dim=0, unbiased=False), min=1e-3).cpu().numpy()
-        np.savez(os.path.join(self.results_dir, "latent_stats.npz"), mean=mean, std=std)
-        print(f"latent stats: |mean| {float(np.abs(mean).mean()):.3f}, "
+        if self.writer:
+            np.savez(os.path.join(self.results_dir, "latent_stats.npz"), mean=mean, std=std)
+        _say(f"latent stats: |mean| {float(np.abs(mean).mean()):.3f}, "
               f"std range [{float(std.min()):.3f}, {float(std.max()):.3f}]")
         return mean, std
 
@@ -543,7 +587,7 @@ class PipelineRunner:
                 extra_splits={"train": self.train_images_eval},
                 decode_fn=vae.decode, feature_fn=pooled_feats, feature_params=vgg_params,
                 run_id=os.path.abspath(self.results_dir))
-        print("Sample quality: classifier acc "
+        _say("Sample quality: classifier acc "
               f"{report['classifier_accuracy']:.3f} (chance "
               f"{report['chance_accuracy']:.3f}), latent MMD heldout "
               f"{report['latent_mmd']:.4f} / train "

@@ -16,6 +16,11 @@ one. At start-up the manager restores a `.old` whose step directory is
 missing (a crash between the two renames: the backup is the only copy) and
 sweeps every other `.new` / `.old`. A step directory that holds an
 `_incomplete` marker is never listed.
+
+In a multi-process run (parallel/mesh.py) only rank 0 sweeps and writes;
+the other ranks wait at a barrier until it is done, and every rank restores
+onto its own device (the `like` leaves'), where the reference re-applies
+each leaf's sharding.
 """
 from __future__ import annotations
 
@@ -26,6 +31,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from flowerdiff_torch.parallel.mesh import barrier, is_writer
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
 _FILE = "state.pt"
@@ -122,8 +129,13 @@ class CheckpointManager:
 
     def __init__(self, directory: str, max_to_keep: int = 5):
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
+        if is_writer():
+            self._recover()
+        barrier()
+
+    def _recover(self) -> None:
+        os.makedirs(self.directory, exist_ok=True)
         for name in sorted(os.listdir(self.directory)):
             path = os.path.join(self.directory, name)
             if name.endswith(".old"):
@@ -150,7 +162,13 @@ class CheckpointManager:
     def save(self, step: int, tree: Any) -> None:
         """Write `tree` (nested dicts of tensors, numpy arrays or numbers)
         as step `step`, replacing an existing one only once the new one is
-        on disk."""
+        on disk. In a multi-process run rank 0 writes and every rank returns
+        once it is written."""
+        if is_writer():
+            self._write(step, tree)
+        barrier()
+
+    def _write(self, step: int, tree: Any) -> None:
         target = self._step_dir(step)
         staging, backup = target + ".new", target + ".old"
         for stale in (staging, backup):

@@ -16,6 +16,15 @@ a row at a time: the augmentation's, the posterior noise, then the step's.
 The VAE-GAN and pixel windows derive a generator per row from (seed, row,
 step), the reference's fold_in(rng, offset) and fold_in(.., step), and draw
 the augmentation, then the step's draws, from it.
+
+Every window takes `mesh=` (parallel/mesh.py), as the reference's do. Under
+a data-parallel mesh each rank draws the GLOBAL batch's augmentation,
+posterior noise and step draws exactly as one process does, keeps its rows
+of them and of the batch, and steps on those rows; the step bodies average
+the gradients and the losses over the ranks (train/latent_ddpm.py,
+vae_gan.py, pixel_ddpm.py), so every rank holds the same state and returns
+the global batch's losses. The train-step kernel does not shard: it raises
+under a mesh of more than one rank.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ from flowerdiff_torch.kernels.train_step import draw_step_inputs
 from flowerdiff_torch.models.latent_unet import ConditionalLatentDenoiser
 from flowerdiff_torch.models.vae import FlowerVAE
 from flowerdiff_torch.models.pixel_unet import PixelUNet
+from flowerdiff_torch.parallel.mesh import data_size, local_rows, mesh_size
 from flowerdiff_torch.train.latent_ddpm import (
     LatentDiffusionConfig,
     make_latent_denoise_body,
@@ -65,16 +75,20 @@ def epoch_rows(rng, n: int, batch_size: int, epochs: int, shuffle: bool = True,
     return idx, steps
 
 
-def _make_gather(augment: bool, max_rotation_deg: float, jitter: float):
+def _make_gather(augment: bool, max_rotation_deg: float, jitter: float, mesh=None):
     """gather(images_u8, idx_row, generator=None, draws=None) -> the rows'
     float [0, 1] images, augmented when `augment` (the reference's
-    `_make_gather`: the same program as `DeviceDataset.assemble`)."""
+    `_make_gather`: the same program as `DeviceDataset.assemble`). idx_row
+    and the augmentation draws (given, or drawn from `generator`) are the
+    global batch's; under `mesh` the rank keeps its rows of both."""
     augment_fn = make_augment_fn(max_rotation_deg, jitter) if augment else None
 
     def gather(images_u8, idx_row, generator=None, draws=None):
-        imgs = unit_float(images_u8[idx_row])
+        if augment_fn is not None and draws is None:
+            draws = augment_fn.draw(idx_row.shape[0], generator, images_u8.device)
+        imgs = unit_float(images_u8[local_rows(mesh, idx_row)])
         if augment_fn is not None:
-            imgs = augment_fn(imgs, generator, draws)
+            imgs = augment_fn(imgs, None, local_rows(mesh, draws))
         return imgs
 
     gather.augment_fn = augment_fn
@@ -100,7 +114,7 @@ def make_fused_latent_epochs(model: ConditionalLatentDenoiser, vae: FlowerVAE, s
                              cfg: LatentDiffusionConfig, has_colors: bool = False,
                              augment: bool = True, max_rotation_deg: float = 10.0,
                              jitter: float = 0.2, steps_per_epoch: int = 1,
-                             epoch_encode: Optional[bool] = None):
+                             epoch_encode: Optional[bool] = None, mesh=None):
     """fn(state, images_u8, labels_all, colors_all, idx (T, B), generator=None,
     latent_stats=None) -> losses (T,) on the device; the state is updated in
     place. T must be whole epochs of steps_per_epoch rows.
@@ -115,12 +129,19 @@ def make_fused_latent_epochs(model: ConditionalLatentDenoiser, vae: FlowerVAE, s
     (cfg.encode_dtype='bfloat16' runs its convolutions under bf16 autocast;
     the noise and latents stay f32), then S denoise steps. cfg.train_kernel
     selects the train-step kernel for those steps and requires
-    epoch_encode."""
+    epoch_encode. Under `mesh` each rank encodes and steps on its rows;
+    the losses are the global batch's."""
     if epoch_encode is None:
         epoch_encode = cfg.epoch_encode
-    if cfg.train_kernel and not epoch_encode:
-        raise ValueError("cfg.train_kernel=True requires epoch_encode")
-    gather = _make_gather(augment, max_rotation_deg, jitter)
+    if cfg.train_kernel:
+        if not epoch_encode:
+            raise ValueError("cfg.train_kernel=True requires epoch_encode")
+        if mesh_size(mesh) > 1:
+            raise ValueError(
+                "cfg.train_kernel is the single-chip fast path; multi-GPU training uses the "
+                "eager step body (the train-step kernel does not shard under a mesh)")
+    gather = _make_gather(augment, max_rotation_deg, jitter, mesh)
+    ranks, lat = data_size(mesh), model.latent_dim
 
     def check(idx):
         if idx.shape[0] % steps_per_epoch:
@@ -128,29 +149,33 @@ def make_fused_latent_epochs(model: ConditionalLatentDenoiser, vae: FlowerVAE, s
 
     if not epoch_encode:
         encode = make_latent_encode_fn(vae)
-        denoise = make_latent_denoise_body(model, cfg)
+        denoise = make_latent_denoise_body(model, cfg, mesh)
 
         def epochs_fn(state, images_u8, labels_all, colors_all, idx,
                       generator: Optional[torch.Generator] = None, latent_stats=None):
             check(idx)
+            b, dev = idx.shape[1], idx.device
             losses = []
             for idx_row in idx:
-                z = encode(gather(images_u8, idx_row, generator), generator, latent_stats)
-                cols = colors_all[idx_row] if has_colors else None
-                losses.append(denoise(state, sched, z, labels_all[idx_row], cols, generator))
+                imgs = gather(images_u8, idx_row, generator)
+                noise = local_rows(mesh, torch.randn((b, lat), generator=generator, device=dev))
+                z = encode(imgs, None, latent_stats, noise=noise)
+                mine = local_rows(mesh, idx_row)
+                cols = colors_all[mine] if has_colors else None
+                losses.append(denoise(state, sched, z, labels_all[mine], cols, generator))
             return torch.stack(losses)
 
         return epochs_fn
 
     encode = make_latent_encode_fn(vae, cfg.encode_dtype)
     denoise = (_kernel_denoise_body(model, cfg) if cfg.train_kernel
-               else make_latent_denoise_body(model, cfg))
-    lat = model.latent_dim
+               else make_latent_denoise_body(model, cfg, mesh))
 
     def epochs_fn(state, images_u8, labels_all, colors_all, idx,
                   generator: Optional[torch.Generator] = None, latent_stats=None):
         check(idx)
         b, dev = idx.shape[1], idx.device
+        bl = b // ranks
         z_like = torch.empty((b, lat), device=dev)
         losses = []
         for e in range(0, idx.shape[0], steps_per_epoch):
@@ -164,11 +189,13 @@ def make_fused_latent_epochs(model: ConditionalLatentDenoiser, vae: FlowerVAE, s
                                                    z_like, generator))
             imgs = torch.cat([gather(images_u8, r, draws=aug[s] if aug else None)
                               for s, r in enumerate(rows)])
-            z = encode(imgs, None, latent_stats, noise=torch.cat(noise))
+            z = encode(imgs, None, latent_stats,
+                       noise=torch.cat([local_rows(mesh, n) for n in noise]))
             for s, r in enumerate(rows):
-                cols = colors_all[r] if has_colors else None
-                losses.append(denoise(state, sched, z[s * b:(s + 1) * b], labels_all[r], cols,
-                                      draws=step_draws[s]))
+                mine = local_rows(mesh, r)
+                cols = colors_all[mine] if has_colors else None
+                losses.append(denoise(state, sched, z[s * bl:(s + 1) * bl], labels_all[mine],
+                                      cols, draws=local_rows(mesh, step_draws[s])))
         return torch.stack(losses)
 
     return epochs_fn
@@ -237,7 +264,7 @@ def make_fused_cached_epochs(model: ConditionalLatentDenoiser, cfg: LatentDiffus
 
 def make_fused_vae_gan_epochs(vae, disc, cfg, vgg=None, augment: bool = True,
                               max_rotation_deg: float = 10.0, jitter: float = 0.2,
-                              steps_per_epoch: int = 1, track_best: bool = False):
+                              steps_per_epoch: int = 1, track_best: bool = False, mesh=None):
     """fn(state, images_u8, labels_all, idx (T, B), gates (T, 5), seed=0,
     draws=None) -> metrics, a dict of (T,) device tensors; the state is
     updated in place. T must be whole epochs of steps_per_epoch rows.
@@ -252,9 +279,13 @@ def make_fused_vae_gan_epochs(vae, disc, cfg, vgg=None, augment: bool = True,
     VAEGANSnapshot)) -> (metrics, best_loss, best epoch in the window (-1
     if none), best_state). At the end of each epoch whose mean total is
     below the carried best, the snapshot takes the state's tensors and step
-    by a device-side select: no host fetch an epoch."""
-    step_body = make_vae_gan_step_body(vae, disc, cfg, vgg)
-    gather = _make_gather(augment, max_rotation_deg, jitter)
+    by a device-side select: no host fetch an epoch.
+
+    Under `mesh` the draws (drawn or given) are the global batch's, each
+    rank steps on its rows, and the metrics, so the best epoch too, are the
+    global batch's on every rank."""
+    step_body = make_vae_gan_step_body(vae, disc, cfg, vgg, mesh)
+    gather = _make_gather(augment, max_rotation_deg, jitter, mesh)
 
     def epochs_fn(state, images_u8, labels_all, idx, gates, seed=0, draws=None,
                   best_loss=None, best_state=None):
@@ -270,7 +301,8 @@ def make_fused_vae_gan_epochs(vae, disc, cfg, vgg=None, augment: bool = True,
             gen = derived_generator(dev, *words, r, state.step) if draws is None else None
             aug, step_draws = (None, None) if draws is None else draws[r]
             imgs = gather(images_u8, idx_row, gen, aug)
-            rows.append(step_body(state, imgs, labels_all[idx_row], gates[r], gen, step_draws))
+            rows.append(step_body(state, imgs, labels_all[local_rows(mesh, idx_row)], gates[r],
+                                  gen, step_draws))
             if track_best and (r + 1) % steps_per_epoch == 0:
                 epoch_mean = torch.stack([m["total"] for m in rows[-steps_per_epoch:]]).mean()
                 better = epoch_mean < best_loss
@@ -290,7 +322,7 @@ def make_fused_vae_gan_epochs(vae, disc, cfg, vgg=None, augment: bool = True,
 
 def make_fused_pixel_epochs(model: PixelUNet, augment: bool = True,
                             max_rotation_deg: float = 10.0, jitter: float = 0.2,
-                            steps_per_epoch: int = 1):
+                            steps_per_epoch: int = 1, mesh=None):
     """fn(state, sched, images_u8, idx (T, B), seed=0, draws=None) -> losses
     (T,) on the device; the state is updated in place. T must be whole
     epochs of steps_per_epoch rows.
@@ -299,9 +331,11 @@ def make_fused_pixel_epochs(model: PixelUNet, augment: bool = True,
     pixel-DDPM step (train/pixel_ddpm.py), drawing from the generator of
     (seed..., r, state step) (`seed`: an int or a tuple of ints): the
     augmentation, then t and eps. draws: per row, (augmentation draws or
-    None, (t, eps)) in place of the generator's."""
-    step_body = make_pixel_diffusion_step_body(model)
-    gather = _make_gather(augment, max_rotation_deg, jitter)
+    None, (t, eps)) in place of the generator's. Under `mesh` the draws are
+    the global batch's, each rank steps on its rows, and the losses are the
+    global batch's."""
+    step_body = make_pixel_diffusion_step_body(model, mesh)
+    gather = _make_gather(augment, max_rotation_deg, jitter, mesh)
 
     def epochs_fn(state, sched, images_u8, idx, seed=0, draws=None):
         if idx.shape[0] % steps_per_epoch:

@@ -31,6 +31,13 @@ from flowerdiff_torch.diffusion.ddpm import ddpm_eps_loss
 from flowerdiff_torch.kernels.train_step import draw_step_inputs
 from flowerdiff_torch.models.latent_unet import ConditionalLatentDenoiser
 from flowerdiff_torch.models.vae import FlowerVAE
+from flowerdiff_torch.parallel.mesh import (
+    all_reduce_mean,
+    broadcast_from_rank0,
+    data_size,
+    local_rows,
+    mesh_size,
+)
 from flowerdiff_torch.train.optim import AdamState
 from flowerdiff_torch.train.schedules import cosine_warm_restarts_schedule
 from flowerdiff_torch.utils.device import resolve_device
@@ -169,20 +176,31 @@ def make_latent_encode_fn(vae: FlowerVAE, encode_dtype: Optional[str] = None):
     return encode
 
 
-def make_latent_denoise_body(model: ConditionalLatentDenoiser, cfg: LatentDiffusionConfig):
+def make_latent_denoise_body(model: ConditionalLatentDenoiser, cfg: LatentDiffusionConfig,
+                             mesh=None):
     """The trainable half of the step on pre-encoded latents, by eager
     autograd over the module (the path for v3 and for train_kernel=False):
     denoise(state, sched, z, labels, colors, generator, draws=None) -> loss
     (0-d tensor). cfg.compute_dtype 'bfloat16' runs the model under bf16
     autocast (parameters, gradients and moments stay f32). The draws are the
-    same, in the same order, as the kernel body's (`draw_step_inputs`)."""
+    same, in the same order, as the kernel body's (`draw_step_inputs`).
+
+    Under `mesh` (parallel/mesh.py) z, labels and colors are this rank's
+    rows and `draws` this rank's rows of the global batch's; drawn here,
+    they are the global batch's draws, of which the rank keeps its rows.
+    The gradients and the loss are averaged over the "data" ranks before
+    the optimizer, so the clip sees the global norm and the loss is the
+    global batch's."""
     names = [n for n, _ in model.named_parameters()]
     params = [p for _, p in model.named_parameters()]
     bf16 = cfg.compute_dtype == "bfloat16"
+    ranks = data_size(mesh)
 
     def denoise(state, sched, z, labels, colors, generator=None, draws=None):
         if draws is None:
-            draws = draw_step_inputs(model, sched.n_steps, cfg.cond_dropout, z, generator)
+            z_global = z if ranks == 1 else z.new_empty((z.shape[0] * ranks,) + z.shape[1:])
+            draws = local_rows(mesh, draw_step_inputs(model, sched.n_steps, cfg.cond_dropout,
+                                                      z_global, generator))
         t, eps, keep, masks = draws
         cond_mask = keep if cfg.cond_dropout > 0.0 else None
         pairs = list(zip(masks[0::2], masks[1::2]))
@@ -201,23 +219,32 @@ def make_latent_denoise_body(model: ConditionalLatentDenoiser, cfg: LatentDiffus
         finally:
             for p in params:
                 p.requires_grad_(False)
-        state.apply_gradients({n: torch.zeros_like(p) if g is None else g
-                               for n, p, g in zip(names, params, grads)})
-        return loss.detach()
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        *grads, loss = all_reduce_mean(mesh, grads + [loss.detach()])
+        state.apply_gradients(dict(zip(names, grads)))
+        return loss
 
     return denoise
 
 
 def make_latent_diffusion_step_body(model: ConditionalLatentDenoiser, vae: FlowerVAE,
-                                    sched: DiffusionSchedule, cfg: LatentDiffusionConfig):
+                                    sched: DiffusionSchedule, cfg: LatentDiffusionConfig,
+                                    mesh=None):
     """step(state, images, labels, colors, generator, latent_stats=None) ->
     loss: the frozen encode of one batch of NHWC float images, then the
-    eager denoise body."""
+    eager denoise body. Under `mesh` the batch is this rank's rows, and the
+    posterior noise and the step's draws are the rank's rows of the global
+    batch's."""
     encode = make_latent_encode_fn(vae)
-    denoise = make_latent_denoise_body(model, cfg)
+    denoise = make_latent_denoise_body(model, cfg, mesh)
+    ranks = data_size(mesh)
 
     def step(state, images, labels, colors, generator=None, latent_stats=None):
-        z = encode(images, generator, latent_stats)
+        noise = None
+        if ranks > 1:
+            noise = local_rows(mesh, torch.randn((images.shape[0] * ranks, model.latent_dim),
+                                                 generator=generator, device=images.device))
+        z = encode(images, generator, latent_stats, noise=noise)
         return denoise(state, sched, z, labels, colors, generator)
 
     return step
@@ -247,27 +274,46 @@ class LatentDiffusionTrainer:
         self._pool_builds = 0
         self.last_step_losses = None  # (T,) per-step losses of the last fused run
 
-    def run_epoch(self, batches: Iterable, generator: Optional[torch.Generator] = None) -> float:
+    def run_epoch(self, batches: Iterable, generator: Optional[torch.Generator] = None,
+                  mesh=None) -> float:
         """One epoch over (images, labels[, colors]) batches of NHWC float
-        images; returns the mean loss."""
+        images; returns the mean loss. mesh: the batches are this rank's
+        rows (a DeviceDataset on that mesh); the loss is the global
+        batches'."""
+        step = self._step
+        if mesh is not None:
+            if ("step", mesh) not in self._fused:
+                self._fused["step", mesh] = make_latent_diffusion_step_body(
+                    self.model, self.vae, self.sched, self.cfg, mesh)
+            step = self._fused["step", mesh]
         losses = []
         for batch in batches:
             images, labels = batch[0], batch[1]
             colors = batch[2] if self.cfg.num_colors is not None else None
-            losses.append(self._step(self.state, images, labels, colors, generator,
-                                     self.latent_stats))
+            losses.append(step(self.state, images, labels, colors, generator,
+                               self.latent_stats))
         return float(torch.stack(losses).mean())
 
     def run_epochs_fused(self, dataset, epochs: int, vae: Optional[FlowerVAE] = None,
-                         generator: Optional[torch.Generator] = None, batch_size: int = 64):
+                         generator: Optional[torch.Generator] = None, batch_size: int = 64,
+                         mesh=None):
         """Train `epochs` epochs over a data.DeviceDataset (augmented when it
         augments) and return the per-epoch mean losses, with one host fetch.
         With cfg.latent_cache > 0 this is the latent-cache path
         (`run_epochs_cached`); otherwise every step encodes freshly
         augmented images through the frozen VAE (train/fused.py
         `make_fused_latent_epochs`, cfg.epoch_encode choosing the form).
-        `vae`: the frozen VAE (default: the trainer's)."""
+        `vae`: the frozen VAE (default: the trainer's). `mesh`: a
+        data-parallel mesh (parallel/mesh.py); batch_size is the global
+        batch, the state starts from rank 0's, and the losses are the global
+        batch's. The latent cache and the train-step kernel run on a mesh of
+        one rank only."""
         if self.cfg.latent_cache > 0:
+            # a 1x1 mesh is how the runner spells "single chip": allowed
+            if mesh_size(mesh) > 1:
+                raise ValueError(
+                    "latent_cache is the single-chip fast path; use the "
+                    "uncached fused path under a multi-device mesh")
             return self.run_epochs_cached(dataset, epochs, vae, generator,
                                           batch_size=batch_size)
         from flowerdiff_torch.train.fused import epoch_rows, make_fused_latent_epochs
@@ -280,12 +326,14 @@ class LatentDiffusionTrainer:
             [seed % 2**32, seed >> 32, self.state.step]).integers(0, 2**31 - 1))
         idx, steps = epoch_rows(host_seed, dataset.n, batch_size, epochs)
         key = ("uncached", steps, dataset.augment_enabled, dataset.max_rotation_deg,
-               dataset.jitter, vae)
+               dataset.jitter, vae, mesh)
         if key not in self._fused:
             self._fused[key] = make_fused_latent_epochs(
                 self.model, vae, self.sched, cfg, has_colors=has_colors,
                 augment=dataset.augment_enabled, max_rotation_deg=dataset.max_rotation_deg,
-                jitter=dataset.jitter, steps_per_epoch=steps)
+                jitter=dataset.jitter, steps_per_epoch=steps, mesh=mesh)
+        if mesh_size(mesh) > 1:
+            broadcast_from_rank0(self.state.tensors() + (self.state.ema or []))
         losses = self._fused[key](
             self.state, dataset.images, dataset.labels,
             dataset.colors if has_colors else None,

@@ -25,6 +25,13 @@ import torch
 from flowerdiff_torch.diffusion import DiffusionSchedule, linear_schedule
 from flowerdiff_torch.diffusion.ddpm import ddpm_eps_loss
 from flowerdiff_torch.models.pixel_unet import PixelUNet
+from flowerdiff_torch.parallel.mesh import (
+    all_reduce_mean,
+    broadcast_from_rank0,
+    data_size,
+    local_rows,
+    mesh_size,
+)
 from flowerdiff_torch.train.optim import AdamState
 from flowerdiff_torch.utils.device import derived_generator, deterministic_cudnn, resolve_device
 from flowerdiff_torch.utils.weights import init_numpy_params, load_pixel_unet
@@ -66,29 +73,40 @@ def create_pixel_diffusion_state(seed: int, cfg: PixelDiffusionConfig, device=No
     return state, model, sched
 
 
-def make_pixel_diffusion_step_body(model: PixelUNet):
+def make_pixel_diffusion_step_body(model: PixelUNet, mesh=None):
     """step(state, sched, images, generator=None, draws=None) -> loss (0-d
     device tensor); the state is updated in place. images: (B, H, W, 3)
-    float; draws: (t (B,), eps like images) in place of the generator's."""
+    float; draws: (t (B,), eps like images) in place of the generator's, in
+    the eps-loss's order. Under `mesh` (parallel/mesh.py) images are this
+    rank's rows, the draws (given or drawn) the global batch's, and the
+    gradients and the loss are averaged over the "data" ranks before the
+    optimizer."""
     params = list(model.parameters())
+    ranks = data_size(mesh)
 
     def step(state: AdamState, sched: DiffusionSchedule, images: torch.Tensor,
              generator: Optional[torch.Generator] = None, draws=None) -> torch.Tensor:
-        t, eps = (None, None) if draws is None else draws
+        if draws is None:
+            b, dev = images.shape[0] * ranks, images.device
+            draws = (torch.randint(0, sched.n_steps, (b,), generator=generator, device=dev),
+                     torch.randn((b,) + tuple(images.shape[1:]), generator=generator,
+                                 device=dev, dtype=images.dtype))
+        t, eps = local_rows(mesh, draws)
         with deterministic_cudnn():
-            loss = ddpm_eps_loss(sched, model, generator, images, distance="mse", t=t, eps=eps)
+            loss = ddpm_eps_loss(sched, model, None, images, distance="mse", t=t, eps=eps)
             grads = torch.autograd.grad(loss, params)
+        *grads, loss = all_reduce_mean(mesh, list(grads) + [loss.detach()])
         state.apply_gradients(grads)
-        return loss.detach()
+        return loss
 
     return step
 
 
-def make_pixel_diffusion_step(model: PixelUNet, sched: DiffusionSchedule):
+def make_pixel_diffusion_step(model: PixelUNet, sched: DiffusionSchedule, mesh=None):
     """step(state, images, seed=0, draws=None) -> loss: the step body with
     its draws from a generator derived from (seed..., the state's step).
     `seed`: an int or a tuple of ints."""
-    body = make_pixel_diffusion_step_body(model)
+    body = make_pixel_diffusion_step_body(model, mesh)
 
     def step(state, images, seed=0, draws=None):
         words = seed if isinstance(seed, tuple) else (seed,)
@@ -110,29 +128,42 @@ class PixelDiffusionTrainer:
         self._fused = {}
         self.last_step_losses = None  # (T,) per-step losses of the last fused run
 
-    def run_epoch(self, batches, seed: int = 0) -> float:
+    def run_epoch(self, batches, seed: int = 0, mesh=None) -> float:
         """batches: (images, labels) with NHWC float images on the device;
         batch i draws from the generator of (seed, i, step). Returns the
-        mean loss (one host fetch)."""
-        losses = [self._step(self.state, images, (seed, i))
+        mean loss (one host fetch). mesh: the batches are this rank's rows
+        (a DeviceDataset on that mesh); the loss is the global batches'."""
+        step = self._step
+        if mesh is not None:
+            if ("step", mesh) not in self._fused:
+                self._fused["step", mesh] = make_pixel_diffusion_step(self.model, self.sched,
+                                                                      mesh)
+            step = self._fused["step", mesh]
+        losses = [step(self.state, images, (seed, i))
                   for i, (images, _labels) in enumerate(batches)]
         return float(torch.stack(losses).mean())
 
-    def run_epochs_fused(self, dataset, epochs: int, seed: int = 0, batch_size: int = 64):
+    def run_epochs_fused(self, dataset, epochs: int, seed: int = 0, batch_size: int = 64,
+                         mesh=None):
         """Train `epochs` epochs over a data.DeviceDataset (augmented when it
         augments) through train/fused.py's `make_fused_pixel_epochs`; one
-        host fetch. Returns the per-epoch mean losses."""
+        host fetch. Returns the per-epoch mean losses. `mesh`: a
+        data-parallel mesh (parallel/mesh.py); batch_size is the global
+        batch, the state starts from rank 0's, and the losses are the global
+        batch's."""
         from flowerdiff_torch.train.fused import epoch_rows, make_fused_pixel_epochs
 
         host_seed = int(np.random.default_rng(
             [seed % 2**32, seed >> 32, self.state.step]).integers(0, 2**31 - 1))
         idx, steps = epoch_rows(host_seed, dataset.n, batch_size, epochs)
-        key = (steps, dataset.augment_enabled, dataset.max_rotation_deg, dataset.jitter)
+        key = (steps, dataset.augment_enabled, dataset.max_rotation_deg, dataset.jitter, mesh)
         if key not in self._fused:
             self._fused[key] = make_fused_pixel_epochs(
                 self.model, augment=dataset.augment_enabled,
                 max_rotation_deg=dataset.max_rotation_deg, jitter=dataset.jitter,
-                steps_per_epoch=steps)
+                steps_per_epoch=steps, mesh=mesh)
+        if mesh_size(mesh) > 1:
+            broadcast_from_rank0(self.state.tensors())
         losses = self._fused[key](self.state, self.sched, dataset.images,
                                   torch.from_numpy(idx).to(self.device), seed)
         self.last_step_losses = losses.cpu().numpy()

@@ -32,6 +32,15 @@ reference. The entry points derive a generator per (seed, offset, step),
 the counterpart of the reference's fold_in(fold_in(rng, offset), step).
 The step runs under cuDNN's deterministic algorithms and its center update
 sums in a fixed order, so two runs from one seed are bit-equal on the card.
+
+Under a data-parallel mesh (parallel/mesh.py) each rank steps on its rows
+of the global batch with its rows of the global batch's draws, and the
+collectives the reference's mesh inserts are written out: the
+discriminator's and the generator's gradients are averaged over the ranks
+before their optimizers (so the clip sees the global norm), the adaptive
+scales read the global batch's loss terms, the KL's batch sum is scaled by
+the ranks (losses/kl.py), the centers' segment sums are summed over the
+ranks, and the metrics are the global batch's.
 """
 from __future__ import annotations
 
@@ -53,6 +62,13 @@ from flowerdiff_torch.losses import (
 from flowerdiff_torch.models.discriminator import Discriminator64
 from flowerdiff_torch.models.vae import FlowerVAE
 from flowerdiff_torch.models.vgg import VGGPerceptual
+from flowerdiff_torch.parallel.mesh import (
+    all_reduce_mean,
+    broadcast_from_rank0,
+    data_size,
+    local_rows,
+    mesh_size,
+)
 from flowerdiff_torch.train.optim import AdamState
 from flowerdiff_torch.train.schedules import LossGates, onecycle_schedule, vae_gan_loss_gates
 from flowerdiff_torch.utils.device import derived_generator, deterministic_cudnn, resolve_device
@@ -174,14 +190,17 @@ def draw_step_inputs(vae: FlowerVAE, batch: int, generator: Optional[torch.Gener
 
 
 def make_vae_gan_step_body(vae: FlowerVAE, disc: Discriminator64, cfg: VAEGANConfig,
-                           vgg: Optional[VGGPerceptual] = None):
+                           vgg: Optional[VGGPerceptual] = None, mesh=None):
     """step(state, images, labels, gates, generator=None, draws=None) ->
     metrics (a dict of 0-d device tensors, `METRICS`).
 
     images: (B, 64, 64, 3) float in [0, 1]; labels (B,); gates: the five
     `LossGates` as a (5,) f32 tensor; draws: (eps, classifier keep masks) in
-    place of the generator's (`draw_step_inputs`)."""
+    place of the generator's (`draw_step_inputs`). Under `mesh` images and
+    labels are this rank's rows, draws (given or drawn) the global batch's,
+    and the metrics the global batch's."""
     _check_dtype(cfg)
+    ranks = data_size(mesh)
     use_vgg = cfg.use_perceptual and vgg is not None
     bf16 = cfg.compute_dtype == "bfloat16"
     g_params = list(vae.parameters())
@@ -190,8 +209,8 @@ def make_vae_gan_step_body(vae: FlowerVAE, disc: Discriminator64, cfg: VAEGANCon
     def step(state: VAEGANState, images, labels, gates, generator=None, draws=None):
         dev = images.device
         if draws is None:
-            draws = draw_step_inputs(vae, images.shape[0], generator, dev)
-        eps, masks = draws
+            draws = draw_step_inputs(vae, images.shape[0] * ranks, generator, dev)
+        eps, masks = local_rows(mesh, draws)
         kl_weight, kl_factor, cls_factor, center_factor, do_update = gates.unbind(0)
 
         def autocast():
@@ -202,19 +221,26 @@ def make_vae_gan_step_body(vae: FlowerVAE, disc: Discriminator64, cfg: VAEGANCon
             with autocast():
                 recon, mu, logvar, z = vae.autoencode(images, noise=eps)
                 d_loss = discriminator_loss(disc(images), disc(recon.detach()))
-            state.disc.apply_gradients(torch.autograd.grad(d_loss, d_params))
+            state.disc.apply_gradients(all_reduce_mean(mesh, torch.autograd.grad(d_loss,
+                                                                                 d_params)))
 
             # the generator's objective against the updated discriminator
             with autocast():
                 recon_loss = euclidean_distance_loss(recon, images)
                 perceptual = (vgg(recon, images) if use_vgg
                               else torch.zeros((), device=dev))
-                kl = kl_divergence(mu, logvar)
+                kl = kl_divergence(mu, logvar, ranks)
                 ce = _cross_entropy(vae.classify(z, deterministic=False, masks=masks), labels)
                 center = center_loss(z, labels, state.centers)
                 adv = generator_adv_loss(disc(recon))
 
-                r, p, k, a = (t.detach() for t in (recon_loss, perceptual, kl, adv))
+                local = (recon_loss, perceptual, kl, ce, center, adv, d_loss)
+                terms = local
+                if mesh is not None:  # the global batch's terms
+                    stacked = torch.stack([t.detach().float() for t in local])
+                    terms = [v.to(t.dtype) for v, t in
+                             zip(all_reduce_mean(mesh, [stacked])[0], local)]
+                r, p, k, a = (terms[i].detach() for i in (0, 1, 2, 5))
                 big = r > 1e-8
                 perceptual_scale = torch.where(big, torch.clamp(r / (p + 1e-8), max=1.0), 1.0)
                 kl_scale = torch.where(big & (k > 0), torch.clamp(r / (k + 1e-8), max=1.0), 1.0)
@@ -226,23 +252,23 @@ def make_vae_gan_step_body(vae: FlowerVAE, disc: Discriminator64, cfg: VAEGANCon
                          + cfg.lambda_center * center_factor * center
                          + cfg.lambda_gan * gan_scale * adv)
             grads = torch.autograd.grad(total, g_params)
-        state.gen.apply_gradients(grads)
+        state.gen.apply_gradients(all_reduce_mean(mesh, grads))
 
         with torch.no_grad():
-            updated = update_centers(state.centers, z.detach(), labels, momentum=0.9)
+            updated = update_centers(state.centers, z.detach(), labels, momentum=0.9, mesh=mesh)
             state.centers.copy_(torch.where(do_update > 0, updated, state.centers))
-        values = (recon_loss, perceptual, kl, ce, center, adv, d_loss, total)
+        values = tuple(terms) + tuple(all_reduce_mean(mesh, [total.detach()]))
         return {k: v.detach() for k, v in zip(METRICS, values)}
 
     return step
 
 
 def make_vae_gan_step(vae: FlowerVAE, disc: Discriminator64, cfg: VAEGANConfig,
-                      vgg: Optional[VGGPerceptual] = None):
+                      vgg: Optional[VGGPerceptual] = None, mesh=None):
     """step(state, images, labels, gates, seed, draws=None) -> metrics: the
     step body with its draws from a generator derived from (seed..., the
     state's step). `seed`: an int or a tuple of ints."""
-    body = make_vae_gan_step_body(vae, disc, cfg, vgg)
+    body = make_vae_gan_step_body(vae, disc, cfg, vgg, mesh)
 
     def step(state, images, labels, gates, seed=0, draws=None):
         words = seed if isinstance(seed, tuple) else (seed,)
@@ -281,20 +307,29 @@ class VAEGANTrainer:
         return vae_gan_loss_gates(epoch, num_epochs, self.cfg.kl_weight_start,
                                   self.cfg.kl_weight_end)
 
-    def run_epoch(self, batches, epoch: int, num_epochs: int, seed: int = 0) -> Dict[str, float]:
+    def run_epoch(self, batches, epoch: int, num_epochs: int, seed: int = 0,
+                  mesh=None) -> Dict[str, float]:
         """batches: (images, labels) device tensors. Batch i draws from the
-        generator of (seed, i, step). Returns the epoch's mean metrics."""
+        generator of (seed, i, step). Returns the epoch's mean metrics.
+        mesh: the batches are this rank's rows (a DeviceDataset on that
+        mesh); the metrics are the global batches'."""
         gates = gates_array(self._gates(epoch, num_epochs), self.device)
+        step_fn = self.step_fn
+        if mesh is not None:
+            if ("step", mesh) not in self._fused:
+                self._fused["step", mesh] = make_vae_gan_step(self.vae, self.disc, self.cfg,
+                                                              self.vgg, mesh)
+            step_fn = self._fused["step", mesh]
         totals, count = None, 0
         for i, (images, labels) in enumerate(batches):
-            m = self.step_fn(self.state, images, labels, gates, (seed, i))
+            m = step_fn(self.state, images, labels, gates, (seed, i))
             totals = m if totals is None else {k: totals[k] + m[k] for k in METRICS}
             count += 1
         means = torch.stack([totals[k] for k in METRICS]).cpu().numpy() / count
         return dict(zip(METRICS, means.tolist()))
 
     def run_epochs_fused(self, dataset, start_epoch: int, num_epochs_total: int, epochs: int,
-                         seed: int = 0, batch_size: int = 64, best=None):
+                         seed: int = 0, batch_size: int = 64, best=None, mesh=None):
         """Train `epochs` epochs (absolute epoch `start_epoch` onwards, for
         the gates) over a data.DeviceDataset, augmented when it augments;
         one host fetch. Returns the per-epoch mean metrics.
@@ -304,7 +339,11 @@ class VAEGANTrainer:
         total is below the carried best replaces the best state (a
         `VAEGANSnapshot`; None: a snapshot of the current state). Then the
         return is (metrics, (best_loss, best absolute epoch or None,
-        best_state))."""
+        best_state)).
+
+        mesh: a data-parallel mesh (parallel/mesh.py); batch_size is the
+        global batch, the state starts from rank 0's, and the metrics (so
+        the best epoch) are the global batch's on every rank."""
         from flowerdiff_torch.train.fused import epoch_rows, make_fused_vae_gan_epochs
 
         host_seed = int(np.random.default_rng(
@@ -314,12 +353,14 @@ class VAEGANTrainer:
                                       for e in range(epochs)], np.float32), steps, axis=0)
         track_best = best is not None
         key = (steps, dataset.augment_enabled, dataset.max_rotation_deg, dataset.jitter,
-               track_best)
+               track_best, mesh)
         if key not in self._fused:
             self._fused[key] = make_fused_vae_gan_epochs(
                 self.vae, self.disc, self.cfg, self.vgg, augment=dataset.augment_enabled,
                 max_rotation_deg=dataset.max_rotation_deg, jitter=dataset.jitter,
-                steps_per_epoch=steps, track_best=track_best)
+                steps_per_epoch=steps, track_best=track_best, mesh=mesh)
+        if mesh_size(mesh) > 1:
+            broadcast_from_rank0(self.state.tensors())
         args = (self.state, dataset.images, dataset.labels, torch.from_numpy(idx).to(self.device),
                 torch.from_numpy(gates).to(self.device), seed)
         if track_best:

@@ -9,7 +9,9 @@ Layout rules (the port's own copy of the reference's conversion rules):
   Conv kernel HWIO                   -> Conv2d weight OIHW
   ConvTranspose kernel (kh,kw,in,out)-> ConvTranspose2d weight (in,out,kh,kw),
                                         spatially flipped
-  packed qkv kernel (d, 3d)          -> three Linears q, k, v
+  packed qkv kernel (d, 3d)          -> three Linears q, k, v (the
+                                        denoiser's attention and
+                                        SpatialSelfAttention2D)
   Embed / LayerNorm / GroupNorm      -> weight (scale) and bias
   decoder fc2 output rows + fc2_ln   -> permuted HWC-major -> CHW-major, since
                                         the port reshapes fc2's output NCHW
@@ -40,7 +42,7 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from flowerdiff_torch.core.attention import MultiHeadSelfAttention
+from flowerdiff_torch.core.attention import MultiHeadSelfAttention, SpatialSelfAttention2D
 from flowerdiff_torch.core.layers import LayerNorm2d, kaiming_std
 from flowerdiff_torch.models.discriminator import WIDTHS as DISC_WIDTHS
 from flowerdiff_torch.models.discriminator import Discriminator64
@@ -211,7 +213,8 @@ def state_dict_to_flax(source, module: Optional[torch.nn.Module] = None) -> Dict
         path, leaf = key.rsplit(".", 1)
         owner, parts = owners[path], path.split(".")
         parent = owners.get(path.rpartition(".")[0])
-        if isinstance(parent, MultiHeadSelfAttention) and parts[-1] in ("q", "k", "v"):
+        attention = isinstance(parent, (MultiHeadSelfAttention, SpatialSelfAttention2D))
+        if attention and parts[-1] in ("q", "k", "v"):
             if parts[-1] == "q":  # k and v are packed with it
                 qkv = [flat[f"{path[:-1]}{p}.{leaf}"] for p in "qkv"]
                 _put(tree, parts[:-1] + ["qkv", "kernel" if leaf == "weight" else "bias"],

@@ -168,8 +168,12 @@ def test_main_builds_and_runs_the_runner_as_the_reference(argv, monkeypatch):
 @pytest.mark.parametrize("mesh", [["--mesh_data", "2"], ["--mesh_model", "2"],
                                   ["--mesh_data", "8", "--mesh_model", "1"]])
 def test_mesh_flags_other_than_one_raise(mesh, monkeypatch):
+    """A mesh of more than one process needs torchrun's processes: in one
+    process it raises, naming the torchrun command line."""
     monkeypatch.setattr(port_runner, "PipelineRunner", _Recorder)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    monkeypatch.setenv("FLOWERDIFF_PLATFORM", "cpu")
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node"):
         cli.main(["--version", "v1"] + mesh)
 
 

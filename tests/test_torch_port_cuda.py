@@ -27,7 +27,11 @@ from flowerdiff_torch.kernels.latent_stage import (
     fused_stage_plain,
     stage_max_clusters,
 )
-from flowerdiff_torch.utils.weights import denoiser_from_params, init_numpy_params
+from flowerdiff_torch.utils.weights import (
+    denoiser_from_params,
+    init_numpy_params,
+    vae_from_params,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -1218,3 +1222,109 @@ def test_http_server_under_concurrent_clients_equals_serial_calls(gen):
     status, gif = anim["reply"]
     assert status == 200 and gif == svc.animate(4, 9, num_frames=6, label="4")
     assert server.batcher.stats["dispatches"] == sum(d["decode"] for d in dispatches)
+
+
+def _small_chunks(mesh):
+    """phase_parallel's three chunks at small widths on the card, from fixed
+    seeds on `mesh` (None: no process group): (losses, state tensors)."""
+    from flowerdiff_torch.data import DeviceDataset, synthetic_flowers
+    from flowerdiff_torch.train import pixel_ddpm as px
+    from flowerdiff_torch.train import vae_gan as vg
+    from flowerdiff_torch.train.latent_ddpm import LatentDiffusionConfig, LatentDiffusionTrainer
+
+    imgs, labels = synthetic_flowers(32, 10, 64, seed=3)
+    dataset = DeviceDataset(imgs, labels, mesh=mesh)
+    gan = vg.VAEGANTrainer(vg.VAEGANConfig(use_perceptual=False, **_GAN), seed=0)
+    out = {"vae_gan": ([m["total"] for m in gan.run_epochs_fused(
+        dataset, 200, 1200, 1, seed=1, batch_size=16, mesh=mesh)], gan.state.tensors())}
+    arch = dict(latent_dim=32, channels=(16, 32, 48, 64), head_width=64, base_size=8)
+    vae = vae_from_params(init_numpy_params("vae", seed=1, **arch), device="cuda", **arch)
+    cfg = LatentDiffusionConfig(latent_dim=32, hidden_dims=(64, 128, 64), time_emb_dim=32,
+                                num_classes=10, cond_dropout=0.1, steps_per_epoch=2)
+    lat = LatentDiffusionTrainer(cfg, vae, seed=4)
+    out["latent"] = (lat.run_epochs_fused(dataset, 1, None,
+                                          torch.Generator(device="cuda").manual_seed(5),
+                                          batch_size=16, mesh=mesh), lat.state.tensors())
+    pix = px.PixelDiffusionTrainer(px.PixelDiffusionConfig(base_channels=16, time_emb_dim=32,
+                                                           learnable_residual=True), seed=0)
+    out["pixel"] = (pix.run_epochs_fused(dataset, 1, seed=1, batch_size=16, mesh=mesh),
+                    pix.state.tensors())
+    return out
+
+
+def test_nccl_world_size_one_is_bit_equal_to_no_group(gen, monkeypatch):
+    """phase_parallel (a) at small widths: torchrun's environment for one
+    rank, NCCL, the 1x1 mesh; the VAE-GAN, latent and pixel chunks leave
+    every loss and state tensor bit-equal to the run with no group."""
+    import socket
+
+    import torch.distributed as dist
+
+    from flowerdiff_torch.parallel import create_mesh, init_distributed
+
+    torch.backends.cudnn.allow_tf32 = False
+    alone = _small_chunks(None)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    for key, value in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                           MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(key, value)
+    try:
+        assert init_distributed() == 1 and dist.get_backend() == "nccl"
+        mesh = create_mesh()
+        assert tuple(mesh.shape) == (1, 1)
+        one = _small_chunks(mesh)
+    finally:
+        dist.destroy_process_group()
+    for name, (losses, tensors) in alone.items():
+        assert one[name][0] == losses, name
+        assert all(torch.equal(a, b) for a, b in zip(one[name][1], tensors, strict=True)), name
+
+
+def test_tensor_parallel_forward_on_the_card_over_gloo(gen, tmp_path):
+    """phase_parallel (c) at a small width: two spawned ranks on the one
+    card over gloo, the denoiser sharded at model=2, within 2e-5 of
+    max|replicated|."""
+    from torch_port_dist_common import card_tensor_parallel, start_ranks
+
+    for out in start_ranks(card_tensor_parallel, 2, tmp_path).join():
+        assert out["rel_err"] <= 2e-5, out
+        assert out["local_block_fc_0"] == (32, 64), out
+
+
+def test_native_jpeg_decoder_builds_on_this_machine(gen, tmp_path):
+    """The port's ingest builds native/jpeg_loader.cpp here and decodes
+    through it: every good file ok, a file that is no JPEG zero and not
+    ok, within a few levels of PIL (another resampler)."""
+    import shutil
+    import subprocess
+
+    from PIL import Image
+
+    from flowerdiff_torch import native
+
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on this machine")
+    probe = subprocess.run(["g++", "-x", "c++", "-E", "-"], input="#include <jpeglib.h>\n",
+                           capture_output=True, text=True)
+    if probe.returncode:
+        pytest.skip("no libjpeg headers (jpeglib.h) on this machine: the ingest decodes "
+                    "with PIL")
+    assert native.native_available(), native.build_error()
+    rng = np.random.default_rng(0)
+    paths = []
+    for i in range(4):
+        path = tmp_path / f"img_{i}.jpg"
+        Image.fromarray(rng.integers(0, 255, (90 + 10 * i, 120, 3), dtype=np.uint8)).save(path)
+        paths.append(str(path))
+    (tmp_path / "bad.jpg").write_bytes(b"not a jpeg")
+    imgs, ok = native.decode_jpeg_batch(paths + [str(tmp_path / "bad.jpg")], 32)
+    assert ok.tolist() == [True] * 4 + [False] and not imgs[4].any()
+    native_ok = imgs[:4].astype(np.float32)
+    saved, native._load = native._load, lambda: None
+    try:
+        pil, _ = native.decode_jpeg_batch(paths, 32)
+    finally:
+        native._load = saved
+    assert np.abs(native_ok - pil).mean() < 8.0

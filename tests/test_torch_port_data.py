@@ -2,9 +2,11 @@
 package's, on a dataset in torchvision's layout that the test writes itself
 (as tests/test_flowers102.py does) and on synthetic swatches and flowers.
 
-The JAX loader decodes through its native library when that is built; the
-test disables it (`flowerdiff.native._load`), so both decode with PIL and
-the images must be bit-equal. The color labels are numpy and sklearn on both
+Both loaders decode through their native libraries when those are built;
+the bit-equality tests disable both (`flowerdiff.native._load`,
+`flowerdiff_torch.native._load`), so both decode with PIL and the images
+must be bit-equal (the native decoders are held to each other in
+tests/test_torch_port_native.py). The color labels are numpy and sklearn on both
 sides: names and indices must be equal."""
 import os
 
@@ -14,6 +16,7 @@ import scipy.io
 from PIL import Image
 
 import flowerdiff.native
+import flowerdiff_torch.native
 from flowerdiff.data import color_labels as jcolor
 from flowerdiff.data import flowers102 as jflowers
 from flowerdiff_torch.data import color_labels as color
@@ -48,6 +51,7 @@ def flowers_root(tmp_path):
 @pytest.fixture()
 def pil_reference(monkeypatch):
     monkeypatch.setattr(flowerdiff.native, "_load", lambda: None)
+    monkeypatch.setattr(flowerdiff_torch.native, "_load", lambda: None)
 
 
 @pytest.mark.parametrize("split", ["train", "val", "test"])

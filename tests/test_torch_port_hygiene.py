@@ -39,7 +39,8 @@ def test_port_imports_without_jax_or_flowerdiff():
                  "data.color_labels", "viz", "viz.animation", "viz.color_viz", "viz.curves",
                  "viz.denoise_path", "viz.grids", "viz.latent_compare", "viz.latent_plots",
                  "viz.recon", "serving_http", "utils.torch_import", "tools.serve",
-                 "tools.import_torch_checkpoint", "tools.export_torch_checkpoint"):
+                 "tools.import_torch_checkpoint", "tools.export_torch_checkpoint",
+                 "parallel", "parallel.mesh", "parallel.sharding", "native"):
         assert f"'flowerdiff_torch.{name}'" in out.stdout, name
 
 
