@@ -255,6 +255,7 @@ from flowerdiff_torch.models import VGGPerceptual  # noqa: E402
 from flowerdiff_torch.train import pixel_ddpm as px  # noqa: E402
 from flowerdiff_torch.train import vae_gan as vg  # noqa: E402
 from flowerdiff_torch.train.schedules import vae_gan_loss_gates  # noqa: E402
+from flowerdiff_torch.tools.gemm_ab import step_products  # noqa: E402
 from flowerdiff_torch.utils.device import derived_generator  # noqa: E402
 from flowerdiff_torch.utils.timing import cuda_ms  # noqa: E402
 from flowerdiff_torch.utils.weights import (  # noqa: E402
@@ -1174,6 +1175,49 @@ def train_step_counts(named, batch):
     return 2 * w_bytes + io, flops
 
 
+_PRODUCT_SUMS: dict = {}
+
+
+def product_sums() -> dict:
+    """Each bf16 product of a flagship step (`gemm_ab.step_products`: B = 64,
+    hidden (256, 512, 1024, 512, 256), time embedding and latent 256) alone,
+    by form: launches a step, the kernels' us summed over the step (each
+    shape timed once by `cuda_ms` on random operands, times its count), and
+    the yardstick, one bf16 `torch.matmul` a product on bf16 copies of the
+    same operands (timed here only; the port never calls it). Measured once a
+    process; `library_ms` of the train_step and train_epoch rows."""
+    if _PRODUCT_SUMS:
+        return _PRODUCT_SUMS
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    for (form, m, n, k), count in step_products().items():
+        if form == "fwd":  # Y (B, out) = X W^T + b: M = B, N = out, K = in
+            x, w, b = r(m, k), r(n, k, scale=k ** -0.5), r(n)
+            fn = lambda: ts.linear_forward(x, w, b, exact=False)  # noqa: E731
+            a16, b16 = x.to(torch.bfloat16), w.to(torch.bfloat16).t()
+        elif form == "dx":  # dX (B, in) = dY W: M = B, N = in, K = out
+            dy, w = r(m, k), r(k, n, scale=n ** -0.5)
+            fn = lambda: ts.linear_dx(dy, w, exact=False)  # noqa: E731
+            a16, b16 = dy.to(torch.bfloat16), w.to(torch.bfloat16)
+        else:  # dW (out, in) = dY^T X: M = out, N = in, K = B
+            dy, x = r(k, m), r(k, n)
+            fn = lambda: ts.linear_dw(dy, x, exact=False)  # noqa: E731
+            a16, b16 = dy.to(torch.bfloat16).t(), x.to(torch.bfloat16)
+        kernel_us = 1e3 * cuda_ms(fn)
+        lib_us = 1e3 * cuda_ms(lambda: torch.matmul(a16, b16))  # noqa: B023
+        agg = _PRODUCT_SUMS.setdefault(form, {"launches": 0, "us": 0.0, "library_us": 0.0,
+                                              "kernels": {}})
+        agg["launches"] += count
+        agg["us"] += count * kernel_us
+        agg["library_us"] += count * lib_us
+        kernel = ts.product_plan(form, m, n, k)["kernel"]
+        agg["kernels"][kernel] = agg["kernels"].get(kernel, 0) + count
+    return _PRODUCT_SUMS
+
+
 def phase_train_kernel(gen):
     """The train-step kernel against autograd on its twin at flagship width,
     and its time beside the eager autograd steps and the bound."""
@@ -1300,6 +1344,16 @@ def phase_train_kernel(gen):
                   f"x{e.count // n_prof:<3d} {e.key[:80]}")
         row.update(plain_ms=twin_ms, bound_ms=b_ms, bound_by=b_by,
                    eager_autograd_twin_ms=twin_eager, eager_autograd_module_ms=module_eager)
+    sums = product_sums()
+    for form, agg in sums.items():
+        print(f"[train_kernel] bf16 {form} products of a step: {agg['launches']} launches on "
+              f"{agg['kernels']}, {agg['us']:.2f} us alone; torch.matmul bf16 "
+              f"{agg['library_us']:.2f} us")
+    row["library_ms"] = sum(agg["library_us"] for agg in sums.values()) / 1e3
+    row["products_ms"] = sum(agg["us"] for agg in sums.values()) / 1e3
+    print(f"[train_kernel] the {sum(a['launches'] for a in sums.values())} bf16 products of a "
+          f"step alone {row['products_ms']:.4f} ms; library_ms (one bf16 torch.matmul a "
+          f"product) {row['library_ms']:.4f}")
     row["max_rel_err"] = worst_bf16
     return row
 
@@ -1818,7 +1872,15 @@ def phase_train_epoch(vae, stats, pool, dataset):
     # the twin's epoch, eager (autograd, ~600 ops a step: the host sets its time)
     _state_restore(ts_, start)
     twin_ms = timed(lambda: te.mega_epoch_plain(ts_, sched, z_rows, labels, draws))[1] * 5
-    row.update(ms=ep_ms, plain_ms=twin_ms, bound_ms=b_ms, bound_by=b_by,
+    sums = product_sums()
+    lib_ms = steps * sum(agg["library_us"] for agg in sums.values()) / 1e3
+    for form, agg in sums.items():
+        print(f"[train_epoch] bf16 {form} products of an epoch: {steps * agg['launches']} "
+              f"launches, {steps * agg['us']:.1f} us alone; torch.matmul bf16 "
+              f"{steps * agg['library_us']:.1f} us")
+    print(f"[train_epoch] library_ms (one bf16 torch.matmul a product, {steps} steps) "
+          f"{lib_ms:.4f}")
+    row.update(ms=ep_ms, plain_ms=twin_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                ms_a_step=ep_ms / steps, f32_moments_ms=f32m_ms,
                wall_ms=float(np.mean(walls["epoch"])),
                per_step_body_wall_ms=float(np.mean(walls["body"])))

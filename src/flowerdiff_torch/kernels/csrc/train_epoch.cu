@@ -39,6 +39,8 @@
 // written once when the epoch function is bound to its weights.
 #include <cuda_bf16.h>
 
+#include <type_traits>
+
 #include "philox.cuh"
 #include "train_step.cuh"
 

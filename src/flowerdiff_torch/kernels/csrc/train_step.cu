@@ -24,18 +24,45 @@ extern "C" int fd_train_step_launch(const void* const* weights, void* const* gra
                                  global_skip, ln_eps, (cudaStream_t)stream);
 }
 
-// The product alone, for tests: C (M, N) = epilogue(sum_k A(m, k) B(n, k)).
+// The product alone, for tests and timing: C (M, N) = epilogue(sum_k A(m, k)
+// B(n, k)). route: the plan's kernel (0), or for the bf16 lane's Y and dX
+// forms the split-K kernel (1) or the wgmma kernel (2) forced.
 extern "C" int fd_gemm_launch(const void* A, long long a_sm, long long a_sk, const void* B,
                               long long b_sn, long long b_sk, void* C, int M, int N, int K,
                               const void* bias, float bias_scale, int round_bf16,
                               const void* mul, const void* res, void* colsum,
-                              float colsum_scale, int f32_lane, void* stream) {
+                              float colsum_scale, int f32_lane, int route, void* stream) {
   Run run{(cudaStream_t)stream, f32_lane != 0, cudaSuccess};
   run.gemm(f32_lane != 0, (const float*)A, (long)a_sm, (long)a_sk, (const float*)B,
            (long)b_sn, (long)b_sk, (float*)C, M, N, K,
            Epilogue{(const float*)bias, bias_scale, round_bf16, (const float*)mul,
-                    (const float*)res, (float*)colsum, colsum_scale});
+                    (const float*)res, (float*)colsum, colsum_scale},
+           route);
   return (int)run.err;
+}
+
+// An empty kernel on the launch (grid, block, shared memory, cluster) that
+// fd_gemm_launch makes for a product of this form (0 Y, 1 dX, 2 dW): a
+// product's launch floor.
+extern "C" int fd_gemm_empty_launch(int form, int M, int N, int K, int f32_lane, int route,
+                                    void* stream) {
+  if (M < 1 || N < 1 || K < 1 || form < 0 || form > 2) return (int)cudaErrorInvalidValue;
+  Run run{(cudaStream_t)stream, f32_lane != 0, cudaSuccess};
+  run.gemm_empty(f32_lane != 0, form, M, N, K, route);
+  return (int)run.err;
+}
+
+// The plan of a product of this form (0 Y, 1 dX, 2 dW; `product_plan`): out =
+// kernel (0 f32 FMA, 1 split-K, 2 wgmma), tile_m, tile_n, split (blocks a
+// cluster), kc (k's a block sums), blocks launched.
+extern "C" int fd_product_plan(int f32_lane, int form, int M, int N, int K, int route,
+                               int* out) {
+  if (M < 1 || N < 1 || K < 1 || form < 0 || form > 2) return (int)cudaErrorInvalidValue;
+  const ProductPlan p =
+      product_plan(f32_lane != 0, form == kFormDw, form == kFormY, M, N, K, route);
+  const int v[6] = {p.kernel, p.tile_m, p.tile_n, p.split, p.kc, p.blocks};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return 0;
 }
 
 // The split-K plan of the bf16 lane's Y and dX forms over K (`splitk_plan`).

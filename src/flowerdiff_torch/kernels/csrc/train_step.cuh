@@ -21,27 +21,75 @@
 //   * the product C[m][n] = sum_k A(m,k) B(n,k), both operands addressed
 //     through (row, k) strides, which gives the three forms of a Linear in
 //     PyTorch's (out, in) layout: Y = X W^T + b, dX = dY W, and dW = dY^T X
-//     with db = colsum(dY). Two kernels:
-//     - `splitk_gemm_kernel`, the bf16 lane's Y and dX forms (A read along
-//       k): M = 64 rows and K up to 1024, so one row of 64 x 32 tiles gives
-//       16-32 blocks, each on a chain of K / 64 dependent k steps. Here each
-//       output tile is a cluster of up to 8 blocks, each block summing its
-//       slice of K (one or two 64-deep tiles, copied with `cp.async` into a
-//       two-deep shared-memory ring, rounded to bf16 as the fragments are
-//       built, `mma.sync` m16n8k16 with f32 accumulators). Each block
-//       finishes 64 / s of the tile's rows: the others store their partial
-//       rows into its shared memory (distributed shared memory, one cluster
-//       barrier after the stores; the barrier that lets them store is
-//       hidden behind the k loop), it adds the s partials in rank order and
-//       runs the epilogue (bias, the bf16 rounding of dX, mul, res) once on
-//       the whole sum. No atomics and one launch: a product repeats bit for
-//       bit. (Reading the partials remotely after a barrier, then a second
-//       barrier before leaving, was 0.1-0.65 us a product slower.)
-//     - `gemm_kernel<T>`, one block a 64 x 32 tile over the whole of K: the
-//       dW form in the bf16 lane (it reduces over the 64 batch rows only, so
-//       every tile is independent and has one k step), and every form of
-//       the exact lane and of the three f32 products of the bf16 lane (the
-//       `final` product and the v2 skip), with T = float FMA tiles.
+//     with db = colsum(dY). `product_plan` sends each to one of three
+//     kernels (`fd_product_plan` exports the plan):
+//     - `wg_gemm_kernel`, the bf16 lane on Hopper's own path: TMA loads of
+//       f32 operand tiles (`cp.async.bulk.tensor` through a CUtensorMap,
+//       completing on mbarriers) into a shared-memory ring filled by one
+//       producer warp; two consumer warpgroups round each landed tile to a
+//       bf16, 128-byte-swizzled operand tile and run `wgmma.mma_async`
+//       m64n32k16 with f32 accumulators, one 64 x 64 output tile a block.
+//       For the bf16 lane it stands in for the products inside the Pallas
+//       kernels `_make_kernel` of flowerdiff/kernels/train_step.py and
+//       `_make_epoch_kernel` of train_epoch.py. It takes every dW form (K = the 64 batch rows: one k tile, so
+//       every tile is independent) and the Y and dX forms with N * K >=
+//       512 x 512, but Y at 1024 x 512 (`wgmma_takes`; the shapes where the
+//       two kernels, timed in turns, put it ahead). At M = 64 rows a Y or
+//       dX product has at most 16 output tiles, so K is split over a
+//       cluster of up to 8 blocks whose partials meet in rank order through
+//       distributed shared memory, as below.
+//       Bound: the dW form at 1024 x 1024 writes 4 MB of f32 dW, ~1.3 us at
+//       3.35 TB/s (0.13 GFLOP of products); at the step's smaller shapes the
+//       launch itself (~1.2 us for an empty kernel on the same grid, in a
+//       CUDA graph) and one load round trip. Design against it: two blocks
+//       a multiprocessor, so one tile's epilogue and store run beside the
+//       next tile's loads; the epilogue stages the tile in shared memory and
+//       stores it with one TMA store a warpgroup; db is summed by the
+//       producer warp while the consumers convert. A block runs its code
+//       once, from a cold instruction cache: with an unrolled epilogue that
+//       branched on every epilogue term the dW product took 5.8-6.5 us,
+//       with the short branch-free one 3.8 (`tools/gemm_ab.py`), so the
+//       common paths are short and branch-free.
+//       How the port's constraints are met:
+//       * the operands are f32 in device memory and are rounded to bf16 as
+//         the consumers copy a landed tile into the operand tile (the same
+//         rounding as the other kernels); A goes to wgmma as it lands (the
+//         dW form's dY MN-major, under the transpose flag), B always K-major
+//         (`wg_convert_t` transposes the dW form's X and the dX form's W);
+//       * each operand's tensor map (and C's, for the TMA store) is encoded
+//         on the host for every launch, in `Run::wgmma`, from the pointers
+//         of that call, through `cudaGetDriverEntryPoint` (no -lcuda), and
+//         kept in a cache keyed by every argument of the encode
+//         (`fdh::wg_map`). Both callers take this route: the buffers of a
+//         bound step (`bind_train_step`) and of a bound epoch function are
+//         fixed, so every step after the first finds its maps there, and a
+//         CUDA graph captures them by value (`__grid_constant__`);
+//       * ragged edges: TMA fills the parts of a box outside the matrix
+//         with zeros and the TMA store writes none of them; the split's
+//         epilogue masks them;
+//       * a refused launch or tensor-map encode is the sequence's error,
+//         which the wrapper raises: never a quiet change of kernel.
+//       Semantics as before: operands rounded to bf16, f32 accumulation, dX
+//       and dW rounded to bf16 after the whole sum, db = scale * colsum(dY)
+//       summed in row order in the same launch, no atomics.
+//     - `splitk_gemm_kernel`, the bf16 lane's other Y and dX forms: one row
+//       of 64 x 32 tiles gives 16-32 blocks, each on a chain of K / 64
+//       dependent k steps. Here each output tile is a cluster of up to 8
+//       blocks, each block summing its slice of K (one or two 64-deep tiles,
+//       copied with `cp.async` into a two-deep shared-memory ring, rounded
+//       to bf16 as the fragments are built, `mma.sync` m16n8k16 with f32
+//       accumulators). Each block finishes 64 / s of the tile's rows: the
+//       others store their partial rows into its shared memory (distributed
+//       shared memory, one cluster barrier after the stores; the barrier
+//       that lets them store is hidden behind the k loop), it adds the s
+//       partials in rank order and runs the epilogue (bias, the bf16
+//       rounding of dX, mul, res) once on the whole sum. No atomics and one
+//       launch: a product repeats bit for bit. (Reading the partials
+//       remotely after a barrier, then a second barrier before leaving, was
+//       0.1-0.65 us a product slower.)
+//     - `gemm_kernel`, f32 FMA tiles of 64 x 32 over the whole of K: every
+//       form of the exact lane and the three f32 products of the bf16 lane
+//       (the `final` product and the v2 skip).
 //   * row kernels, one block a row: q_sample + sinusoid, LayerNorm forward
 //     (saving mean and rstd) with the dropout mask, swish and residual fused
 //     in, LayerNorm backward, the loss with its seed gradient;
@@ -60,11 +108,14 @@
 #pragma once
 #include <stdint.h>
 
-#include <atomic>
+#include <algorithm>
 #include <cooperative_groups.h>
-#include <type_traits>
+#include <mutex>
+#include <set>
+#include <utility>
 
 #include "rows.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -72,7 +123,7 @@ namespace cg = cooperative_groups;
 
 using fd::warp_sum;
 
-constexpr int TM = 64, TN = 32;           // product tile; its depth TK is a template argument
+constexpr int TM = 64, TN = 32;           // the f32 and split-K products' tile
 constexpr int kGemmThreads = 128;         // 4 warps, 16 rows of the tile each
 constexpr int kRowThreads = 256;
 
@@ -90,44 +141,35 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-template <typename T>
-__device__ __forceinline__ T to_operand(float v);
-template <>
-__device__ __forceinline__ float to_operand<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 to_operand<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
+// v = epilogue(acc) at (m, n); i = m * N + n
+__device__ __forceinline__ float epi(float acc, const Epilogue& ep, int n, size_t i) {
+  float v = acc;
+  if (ep.bias) v += ep.bias_scale * ep.bias[n];
+  if (ep.round_bf16) v = round_bf16(v);
+  if (ep.mul) v *= ep.mul[i];
+  if (ep.res) v += ep.res[i];
+  return v;
 }
 
 __device__ __forceinline__ void emit(float* C, int M, int N, int m, int n, float acc,
                                      const Epilogue& ep) {
   if (m >= M || n >= N) return;
-  float v = acc;
-  if (ep.bias) v += ep.bias_scale * ep.bias[n];
-  if (ep.round_bf16) v = round_bf16(v);
   const size_t i = (size_t)m * N + n;
-  if (ep.mul) v *= ep.mul[i];
-  if (ep.res) v += ep.res[i];
-  C[i] = v;
+  C[i] = epi(acc, ep, n, i);
 }
 
-// C[m][n] = epilogue(sum_k A(m, k) * B(n, k)), A(m, k) = A[m * a_sm + k * a_sk],
-// B(n, k) = B[n * b_sn + k * b_sk], C row-major (M, N). One of each stride
-// pair is 1; tiles are read along that dimension. The next tile's global
-// loads are started before the current tile's products. A product is bound
-// by the latency of its chain of k steps, not by bytes or flops, so a deeper
-// tile shortens it: TK = 64 in the bf16 lane, where this kernel takes the dW
-// form only (one step: K is the 64 rows of the batch). At TK = 128 the
-// prefetch arrays no longer stay in registers.
-template <typename T, int TK>
+// The f32 products: C[m][n] = epilogue(sum_k A(m, k) * B(n, k)), A(m, k) =
+// A[m * a_sm + k * a_sk], B(n, k) = B[n * b_sn + k * b_sk], C row-major
+// (M, N); one block a 64 x 32 tile over the whole of K, f32 FMA, a 4 x 4
+// patch a thread. One of each stride pair is 1; tiles are read along that
+// dimension. The next tile's global loads are started before the current
+// tile's products.
 __global__ void __launch_bounds__(kGemmThreads)
 gemm_kernel(const float* A, long a_sm, long a_sk, const float* B, long b_sn, long b_sk,
             float* C, int M, int N, int K, Epilogue ep) {
-  constexpr bool kExact = std::is_same<T, float>::value;
-  constexpr int PAD = kExact ? 1 : 8;
-  constexpr int LD = TK + PAD;
-  __shared__ __align__(16) T As[TM * LD];
-  __shared__ __align__(16) T Bs[TN * LD];
+  constexpr int TK = 32, LD = TK + 1;
+  __shared__ float As[TM * LD];
+  __shared__ float Bs[TN * LD];
   const int tid = threadIdx.x;
   const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
 
@@ -163,19 +205,17 @@ gemm_kernel(const float* A, long a_sm, long a_sk, const float* B, long b_sn, lon
     for (int i = 0; i < NA; ++i) {
       const int e = i * kGemmThreads + tid;
       const int r = a_kfast ? e / TK : e % TM, c = a_kfast ? e % TK : e / TM;
-      As[r * LD + c] = to_operand<T>(ra[i]);
+      As[r * LD + c] = ra[i];
     }
 #pragma unroll
     for (int i = 0; i < NB; ++i) {
       const int e = i * kGemmThreads + tid;
       const int r = b_kfast ? e / TK : e % TN, c = b_kfast ? e % TK : e / TN;
-      Bs[r * LD + c] = to_operand<T>(rb[i]);
+      Bs[r * LD + c] = rb[i];
     }
   };
 
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;   // tensor-core fragment coordinates
-  const int ty = tid >> 3, tx = tid & 7;   // f32 lane: a 4 x 4 patch a thread
+  const int ty = tid >> 3, tx = tid & 7;  // a 4 x 4 patch a thread
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -187,56 +227,25 @@ gemm_kernel(const float* A, long a_sm, long a_sk, const float* B, long b_sn, lon
     stage();
     __syncthreads();
     if (k0 + TK < K) fetch(k0 + TK);
-    if constexpr (kExact) {
 #pragma unroll 8
-      for (int k = 0; k < TK; ++k) {
-        float a[4], b[4];
+    for (int k = 0; k < TK; ++k) {
+      float a[4], b[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = As[(4 * ty + i) * LD + k];
+      for (int i = 0; i < 4; ++i) a[i] = As[(4 * ty + i) * LD + k];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = Bs[(4 * tx + j) * LD + k];
+      for (int j = 0; j < 4; ++j) b[j] = Bs[(4 * tx + j) * LD + k];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-    } else {
-      // acc[j] is the n8 tile j of this warp's 16 rows
-      const T* a_lo = As + (16 * warp + g) * LD + 2 * t;
-      const T* a_hi = a_lo + 8 * LD;
-#pragma unroll
-      for (int kk = 0; kk < TK; kk += 16) {
-        const uint32_t a0 = *reinterpret_cast<const uint32_t*>(a_lo + kk);
-        const uint32_t a1 = *reinterpret_cast<const uint32_t*>(a_hi + kk);
-        const uint32_t a2 = *reinterpret_cast<const uint32_t*>(a_lo + kk + 8);
-        const uint32_t a3 = *reinterpret_cast<const uint32_t*>(a_hi + kk + 8);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const T* b = Bs + (8 * j + g) * LD + kk + 2 * t;
-          fd::mma_bf16(acc[j], a0, a1, a2, a3, *reinterpret_cast<const uint32_t*>(b),
-                       *reinterpret_cast<const uint32_t*>(b + 8));
-        }
-      }
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
     __syncthreads();
   }
 
-  if constexpr (kExact) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        emit(C, M, N, m0 + 4 * ty + i, n0 + 4 * tx + j, acc[i][j], ep);
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + 16 * warp + g, n = n0 + 8 * j + 2 * t;
-      emit(C, M, N, m, n, acc[j][0], ep);
-      emit(C, M, N, m, n + 1, acc[j][1], ep);
-      emit(C, M, N, m + 8, n, acc[j][2], ep);
-      emit(C, M, N, m + 8, n + 1, acc[j][3], ep);
-    }
-  }
+    for (int j = 0; j < 4; ++j) emit(C, M, N, m0 + 4 * ty + i, n0 + 4 * tx + j, acc[i][j], ep);
 }
 
 // ---------------------------------------------------------------------------
@@ -423,6 +432,291 @@ splitk_gemm_kernel(const float* __restrict__ A, long a_sm, const float* __restri
     emit(C, M, N, m0 + rank * rows + rr, n0 + c, v, ep);
   }
 }
+
+// ---------------------------------------------------------------------------
+// The bf16 lane's product on wgmma fed by TMA (see the note at the top).
+
+constexpr int kWgTile = 64;          // output tile 64 x 64; a k tile is 64 deep
+constexpr int kWgSlots = 2;          // f32 ring slots, each an A and a B tile
+constexpr int kWgThreads = 288;      // two consumer warpgroups, then the producer warp
+constexpr int kWgMaxSplit = 8;       // blocks a cluster: the portable maximum
+constexpr uint32_t kWgF32Bytes = kWgTile * kWgTile * 4;  // a landed f32 tile
+constexpr uint32_t kWgOpBytes = kWgTile * kWgTile * 2;   // a bf16 operand tile
+constexpr int kWgLDP = kWgTile + 8;  // f32 stride of a row of the split's partials
+constexpr size_t kWgRingBytes = (size_t)kWgSlots * 2 * kWgF32Bytes;
+constexpr size_t kWgPartialBytes = sizeof(float) * kWgTile * kWgLDP;
+
+// Shared memory of a launch: 1024 bytes of alignment slack, the ring, the A
+// and B operand tiles, the output tile (split == 1) or the split's partial
+// tile, the mbarriers: 97-99 KB, two blocks a multiprocessor.
+inline size_t wg_smem_bytes(int split) {
+  return 1024 + kWgRingBytes + 2 * kWgOpBytes + (split > 1 ? kWgPartialBytes : kWgF32Bytes) +
+         2 * kWgSlots * sizeof(uint64_t);
+}
+
+struct WgShape {
+  int M, N, K;
+  int n_tiles;        // 64 x 64 output tiles a row of C
+  int split, kt_per;  // blocks a cluster, each summing kt_per k tiles
+};
+
+// A landed f32 tile (64 lines of 64 floats, 256 bytes a line) rounded to a
+// bf16 operand tile of the same lines, swizzled: 256 threads, each one
+// 16-byte chunk of 2 lines. The 8 lanes of a line read its 8 chunks'
+// halves so that each 16-byte load touches 8 different bank groups, and
+// store to 8 different swizzled chunks.
+__device__ __forceinline__ void wg_convert(const float* src, uint8_t* dst, int tid) {
+  const int c = tid & 7;
+  const int first = c & 4;  // lanes 4-7 read their chunk's upper half first
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int line = (tid >> 3) + 32 * i;
+    const float* p = src + line * kWgTile + 8 * c;
+    const float4 u = *reinterpret_cast<const float4*>(p + first);
+    const float4 v = *reinterpret_cast<const float4*>(p + (first ^ 4));
+    const float4 lo = first ? v : u, hi = first ? u : v;
+    *reinterpret_cast<uint4*>(dst + line * 128 + ((c ^ (line & 7)) << 4)) =
+        make_uint4(bf16x2(lo.x, lo.y), bf16x2(lo.z, lo.w), bf16x2(hi.x, hi.y),
+                   bf16x2(hi.z, hi.w));
+  }
+}
+
+// The same, transposed: the landed tile's lines are k (64 values of n a
+// line) and the operand tile's lines are n (64 k's a line, K-major). A
+// thread makes chunk c (k in [8c, 8c + 8)) of lines n and n + 32 from 8
+// single loads each; a warp's 32 lanes are 32 consecutive n, so each load
+// reads 128 consecutive bytes and each 16-byte store lands in its own bank
+// group.
+__device__ __forceinline__ void wg_convert_t(const float* src, uint8_t* dst, int tid) {
+  const int n = tid & 31, c = tid >> 5;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int line = n + 32 * i;
+    const float* p = src + 8 * c * kWgTile + line;
+    float v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = p[k * kWgTile];
+    *reinterpret_cast<uint4*>(dst + line * 128 + ((c ^ (line & 7)) << 4)) =
+        make_uint4(bf16x2(v[0], v[1]), bf16x2(v[2], v[3]), bf16x2(v[4], v[5]),
+                   bf16x2(v[6], v[7]));
+  }
+}
+
+// C = epilogue(sum_k A(m, k) B(n, k)), one 64 x 64 output tile a block (a
+// rank of a cluster when split > 1). kAmn / kBmn: the operand is MN-major
+// in device memory (A(m, k) = A[k][m], the dW form's dY; B(n, k) = B[k][n],
+// dW's X and dX's W) or K-major (Y's X and W, dX's dY). Each comes through
+// its tensor map in 64 x 64 f32 boxes.
+//
+// Thread 0 initialises the mbarriers and issues the first TMA loads before
+// the block's first barrier; warp 8, the producer, then refills each slot
+// as it is released. Each slot's `full` mbarrier completes on its bytes.
+// Warps 0-7 are two consumer warpgroups: together they round a landed A and
+// B tile to bf16 operand tiles (A as it lands, MN- or K-major; B always
+// K-major, `wg_convert_t` transposing an MN-major one), release the slot,
+// and each runs four wgmma.m64n32k16 on its half of the tile's columns.
+//
+// split == 1: the block's k tiles are all of K. Each warpgroup writes its
+// accumulators, through `epi`, into its 32-column half of the output tile
+// in shared memory (128-byte swizzle) and one thread stores it with TMA
+// (`map_c`; rows and columns outside C are not written). Two blocks fit a
+// multiprocessor, so one tile's epilogue runs beside the next one's loads.
+// split > 1: rank r sums kt_per k tiles from r kt_per; the ranks' partials
+// meet in rank order through distributed shared memory and `emit`, as in
+// splitk_gemm_kernel.
+//
+// ep.colsum (the dW form, split == 1): in the blocks of the first tile
+// column the producer warp sums A's landed tiles down k, in row order (two
+// columns a lane), while the consumers convert; a slot is then released by
+// both (its `empty` mbarrier counts two arrivals).
+template <bool kAmn, bool kBmn>
+__global__ void __launch_bounds__(kWgThreads, 2)
+wg_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+               const __grid_constant__ CUtensorMap map_b,
+               const __grid_constant__ CUtensorMap map_c, float* C, WgShape sh, Epilogue ep) {
+  extern __shared__ uint8_t wg_raw[];
+  const uint32_t raw = fdh::smem_u32(wg_raw);
+  uint8_t* ring = wg_raw + (((raw + 1023u) & ~1023u) - raw);
+  uint8_t* op_a = ring + kWgRingBytes;
+  uint8_t* op_b = op_a + kWgOpBytes;
+  uint8_t* out = op_b + kWgOpBytes;  // split == 1: two 32-column halves, swizzled
+  float* part = reinterpret_cast<float*>(out);  // split > 1
+  const bool split = sh.split > 1;
+  const uint32_t full0 = fdh::smem_u32(out + (split ? kWgPartialBytes : kWgF32Bytes));
+  const uint32_t empty0 = full0 + 8 * kWgSlots;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  const int tile = (int)blockIdx.x / sh.split;
+  const int m0 = tile / sh.n_tiles * kWgTile, n0 = tile % sh.n_tiles * kWgTile;
+  const int nk = (sh.K + kWgTile - 1) / kWgTile;
+  int rank = 0, k_first = 0, k_count = nk;
+  if (split) {
+    rank = (int)cg::this_cluster().block_rank();
+    k_first = rank * sh.kt_per;
+    k_count = max(0, min(nk, k_first + sh.kt_per) - k_first);
+  }
+  const bool sums = kAmn && ep.colsum && n0 == 0 && !split;
+
+  auto load = [&](int i) {  // k tile i of this block into slot i % kWgSlots
+    const int slot = i % kWgSlots;
+    const uint32_t full = full0 + 8 * slot;
+    const uint32_t dst = fdh::smem_u32(ring + (size_t)slot * 2 * kWgF32Bytes);
+    const int k0 = (k_first + i) * kWgTile;
+    fdh::mbar_expect_tx(full, 2 * kWgF32Bytes);
+    if (kAmn) fdh::tma_load_2d(dst, &map_a, m0, k0, full);
+    else fdh::tma_load_2d(dst, &map_a, k0, m0, full);
+    if (kBmn) fdh::tma_load_2d(dst + kWgF32Bytes, &map_b, n0, k0, full);
+    else fdh::tma_load_2d(dst + kWgF32Bytes, &map_b, k0, n0, full);
+  };
+
+  if (threadIdx.x == 0) {  // warp 0 starts first
+    fdh::tma_prefetch(&map_a);
+    fdh::tma_prefetch(&map_b);
+    if (!split) fdh::tma_prefetch(&map_c);
+    for (int i = 0; i < kWgSlots; ++i) {
+      fdh::mbar_init(full0 + 8 * i, 1);
+      fdh::mbar_init(empty0 + 8 * i, sums ? 2 : 1);
+    }
+    fdh::fence_barrier_init();
+    for (int i = 0; i < min(k_count, kWgSlots); ++i) load(i);
+  }
+  __syncthreads();
+  if (split)  // a block may write into another's shared memory only once that
+              // one has started: arrive now, wait before the first remote store
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  float acc[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+  const int half = warp >> 2;  // the consumer warpgroup: its 32 columns of the tile
+  if (warp == 8) {
+    // ---- producer: the column sums, then the refill of the slot
+    float s0 = 0.f, s1 = 0.f;
+    for (int i = 0; i < k_count; ++i) {
+      const int slot = i % kWgSlots;
+      if (sums) {
+        fdh::mbar_wait(full0 + 8 * slot, (i / kWgSlots) & 1);
+        const float* fa = reinterpret_cast<const float*>(ring + (size_t)slot * 2 * kWgF32Bytes);
+        const int kv = min(kWgTile, sh.K - (k_first + i) * kWgTile);
+#pragma unroll 16
+        for (int k = 0; k < kv; ++k) {  // A's landed tile is [k][m]
+          s0 += fa[k * kWgTile + lane];
+          s1 += fa[k * kWgTile + lane + 32];
+        }
+        __syncwarp();
+        if (lane == 0) fdh::mbar_arrive(empty0 + 8 * slot);
+      }
+      if (lane == 0 && i + kWgSlots < k_count) {
+        fdh::mbar_wait(empty0 + 8 * slot, (i / kWgSlots) & 1);
+        load(i + kWgSlots);
+      }
+      __syncwarp();
+    }
+    if (sums) {
+      if (m0 + lane < sh.M) ep.colsum[m0 + lane] = ep.colsum_scale * s0;
+      if (m0 + lane + 32 < sh.M) ep.colsum[m0 + lane + 32] = ep.colsum_scale * s1;
+    }
+  } else {
+    // ---- consumers
+    const int tid = threadIdx.x;  // 0-255
+    const uint32_t a_s = fdh::smem_u32(op_a), b_s = fdh::smem_u32(op_b) + half * 32 * 128;
+    for (int i = 0; i < k_count; ++i) {
+      const int slot = i % kWgSlots;
+      if (i > 0) {  // both warpgroups' last products have read the operand tiles
+        fdh::wgmma_wait_all();
+        fdh::named_bar_sync(1, 256);
+      }
+      fdh::mbar_wait(full0 + 8 * slot, (i / kWgSlots) & 1);
+      const float* fa = reinterpret_cast<const float*>(ring + (size_t)slot * 2 * kWgF32Bytes);
+      wg_convert(fa, op_a, tid);
+      if (kBmn) wg_convert_t(fa + kWgTile * kWgTile, op_b, tid);
+      else wg_convert(fa + kWgTile * kWgTile, op_b, tid);
+      fdh::fence_proxy_async();
+      fdh::named_bar_sync(1, 256);
+      if (tid == 0) fdh::mbar_arrive(empty0 + 8 * slot);
+      __syncwarp();
+      fdh::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgTile / 16; ++kk)
+        // a k16 step: 16 lines of an MN-major tile, 32 bytes along a K-major line
+        fdh::wgmma_m64n32k16<kAmn ? 1 : 0>(acc, fdh::wg_desc(a_s + (kAmn ? kk * 2048 : kk * 32)),
+                                           fdh::wg_desc(b_s + kk * 32));
+      fdh::wgmma_commit();
+    }
+    fdh::wgmma_wait_all();
+    if (!split) {
+      // The accumulators into this warpgroup's half of the output tile; the
+      // bf16 rounding here where it is the whole epilogue (the dW form),
+      // else `epi` over the half after. Short code: it runs once a tile,
+      // from a cold instruction cache.
+      const int w = warp & 3, g = lane >> 2, tq = lane & 3, t128 = tid & 127;
+      uint8_t* mine = out + half * 8192;
+      const bool whole = !ep.bias && !ep.mul && !ep.res;
+      const bool rnd = whole && ep.round_bf16;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * w + g + 8 * h, cc = 8 * j + 2 * tq;
+          float2 v = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          if (rnd) v = make_float2(round_bf16(v.x), round_bf16(v.y));
+          *reinterpret_cast<float2*>(mine + r * 128 + (((cc >> 2) ^ (r & 7)) << 4) +
+                                     (cc & 3) * 4) = v;
+        }
+      if (!whole) {
+        fdh::named_bar_sync(2 + half, 128);
+        for (int e = t128; e < kWgTile * 32; e += 128) {
+          const int r = e >> 5, cc = e & 31;
+          const int m = m0 + r, n = n0 + 32 * half + cc;
+          if (m >= sh.M || n >= sh.N) continue;
+          float* v = reinterpret_cast<float*>(mine + r * 128 + (((cc >> 2) ^ (r & 7)) << 4) +
+                                              (cc & 3) * 4);
+          *v = epi(*v, ep, n, (size_t)m * sh.N + n);
+        }
+      }
+      fdh::fence_proxy_async();
+      fdh::named_bar_sync(2 + half, 128);
+      if (t128 == 0 && n0 + 32 * half < sh.N) {
+        fdh::tma_store_2d(&map_c, n0 + 32 * half, m0, fdh::smem_u32(mine));
+        fdh::bulk_commit();
+        fdh::bulk_wait_read();  // the block may leave once the store has read its tile
+      }
+    }
+  }
+
+  if (split) {
+    // each row of this block's partial tile into the slot of the block that
+    // finishes that row, then the cluster's sum in rank order
+    cg::cluster_group cluster = cg::this_cluster();
+    const int s = sh.split, rows = kWgTile / s;
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    if (warp < 8) {
+      const int w = warp & 3, g = lane >> 2, tq = lane & 3;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * w + g + 8 * h;
+        float* dst = cluster.map_shared_rank(part, r / rows) +
+                     (rank * rows + r % rows) * kWgLDP + 32 * half;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          *reinterpret_cast<float2*>(dst + 8 * j + 2 * tq) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+    cluster.sync();  // every slot is written and visible; no remote access follows
+    if (warp < 8) {
+      for (int e = threadIdx.x; e < rows * kWgTile; e += 256) {
+        const int rr = e / kWgTile, col = e % kWgTile;
+        float v = 0.f;
+        for (int qq = 0; qq < s; ++qq) v += part[(qq * rows + rr) * kWgLDP + col];
+        emit(C, sh.M, sh.N, m0 + rank * rows + rr, n0 + col, v, ep);
+      }
+    }
+  }
+}
+
+// An empty kernel, launched on a product's grid to time its launch alone.
+__global__ void product_empty_kernel(int) {}
 
 // Sum over the block, the warps' partial sums added in order. `red` holds
 // one float a warp.
@@ -655,7 +949,77 @@ loss_kernel(const float* out, const float* skipv, const float* eps, const float*
 }
 
 // ---------------------------------------------------------------------------
-// Host side: the sequence of launches.
+// Host side: the plan of a product and the sequence of launches.
+
+// The kernel a product runs on.
+enum ProductKernel { kFmaKernel = 0, kSplitKernel = 1, kWgmmaKernel = 2 };
+// Which kernel the bf16 lane's Y and dX forms take: the plan's choice, or
+// either kernel forced (the two timed against each other, `fd_gemm_launch`).
+enum ProductRoute { kRoutePlan = 0, kRouteSplit = 1, kRouteWgmma = 2 };
+
+// The kernel, its output tile, its split of K over a cluster and the k's a
+// block sums, and the blocks, threads and dynamic shared memory launched.
+struct ProductPlan {
+  int kernel, tile_m, tile_n, split, kc, blocks, threads;
+  size_t smem;
+};
+
+// The bf16 lane's Y and dX forms that wg_gemm_kernel takes from
+// splitk_gemm_kernel: those with N * K >= 2^18 (512 x 512 and up), where the
+// two, timed in turns at the flagship's shapes, put wg_gemm_kernel ahead
+// (PERF.md), except Y at N = 1024, K = 512, where it was not. b_along_k: the
+// Y form.
+inline bool wgmma_takes(bool b_along_k, int N, int K) {
+  if (b_along_k && N == 1024 && K == 512) return false;
+  return (long long)N * K >= (1LL << 18);
+}
+
+// The three forms of a Linear's product (`fd_product_plan`, `fd_gemm_empty_launch`).
+enum ProductForm { kFormY = 0, kFormDx = 1, kFormDw = 2 };
+
+// a_along_m: the dW form (A(m, k) = A[k][m]); b_along_k: the Y form (B(n, k) = W[n][k]).
+inline ProductPlan product_plan(bool f32, bool a_along_m, bool b_along_k, int M, int N, int K,
+                                int route = kRoutePlan) {
+  ProductPlan p{};
+  if (f32) {
+    p = {kFmaKernel, TM, TN, 1, K, ((N + TN - 1) / TN) * ((M + TM - 1) / TM), kGemmThreads, 0};
+    return p;
+  }
+  const bool wg = a_along_m || route == kRouteWgmma ||
+                  (route == kRoutePlan && wgmma_takes(b_along_k, N, K));
+  if (!wg) {
+    int s, kc;
+    splitk_plan(K, &s, &kc);
+    p = {kSplitKernel, TM, TN, s, kc, ((N + TN - 1) / TN) * s * ((M + TM - 1) / TM),
+         kGemmThreads, kSplitSmem};
+    return p;
+  }
+  const int tiles = ((M + kWgTile - 1) / kWgTile) * ((N + kWgTile - 1) / kWgTile);
+  const int nk = (K + kWgTile - 1) / kWgTile;
+  int s = 1;
+  if (!a_along_m)
+    while (s < kWgMaxSplit && 2 * s <= nk) s *= 2;
+  const int kt = (nk + s - 1) / s;
+  p = {kWgmmaKernel, kWgTile, kWgTile, s, kt * kWgTile, tiles * s, kWgThreads, wg_smem_bytes(s)};
+  return p;
+}
+
+// Allow `kernel` `bytes` of dynamic shared memory (the most any plan gives
+// it), once a (kernel, device).
+inline cudaError_t allow_smem(const void* kernel, size_t bytes) {
+  static std::mutex lock;
+  static std::set<std::pair<const void*, int>> done;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> hold(lock);
+  if (done.count({kernel, dev})) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess) done.insert({kernel, dev});
+  return e;
+}
+
+inline size_t wg_smem_max() { return std::max(wg_smem_bytes(1), wg_smem_bytes(2)); }
 
 struct Run {
   cudaStream_t stream;
@@ -669,67 +1033,127 @@ struct Run {
     if (err == cudaSuccess) err = launch != cudaSuccess ? launch : e;
   }
 
-  // The bf16 lane's Y and dX forms: clusters of s blocks (`splitk_plan`).
-  void splitk(const float* A, long a_sm, const float* B, long b_sn, long b_sk, float* C,
-              int M, int N, int K, const Epilogue& ep) {
-    // the shared memory above 48 KB, set once a device (bit d: device d)
-    static std::atomic<unsigned long long> configured{0};
-    if (ep.colsum || (b_sn != 1 && b_sk != 1) || M < 1 || N < 1 || K < 1) {
+  // The launch of plan p: grid, block, shared memory and cluster.
+  void config(const ProductPlan& p, int M, int N, cudaLaunchConfig_t* cfg,
+              cudaLaunchAttribute* attr) const {
+    *cfg = {};
+    if (p.kernel == kWgmmaKernel)
+      cfg->gridDim = dim3((unsigned)p.blocks);
+    else
+      cfg->gridDim = dim3((unsigned)((N + p.tile_n - 1) / p.tile_n * p.split),
+                          (unsigned)((M + p.tile_m - 1) / p.tile_m));
+    cfg->blockDim = dim3((unsigned)p.threads);
+    cfg->dynamicSmemBytes = p.smem;
+    cfg->stream = stream;
+    attr->id = cudaLaunchAttributeClusterDimension;
+    attr->val.clusterDim.x = p.split;
+    attr->val.clusterDim.y = 1;
+    attr->val.clusterDim.z = 1;
+    cfg->attrs = attr;
+    // the split-K kernel reads its cluster even where it is one block
+    cfg->numAttrs = p.split > 1 || p.kernel == kSplitKernel ? 1 : 0;
+  }
+
+  // The bf16 lane's Y and dX forms on clusters of s blocks (`splitk_plan`).
+  void splitk(const ProductPlan& p, const float* A, long a_sm, const float* B, long b_sn,
+              long b_sk, float* C, int M, int N, int K, const Epilogue& ep) {
+    if (ep.colsum || (b_sn != 1 && b_sk != 1)) {
       note(cudaErrorInvalidValue);
       return;
     }
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess && (dev >= 64 || !(configured.load() >> dev & 1ull))) {
-      e = cudaFuncSetAttribute(splitk_gemm_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSplitSmem);
-      if (e == cudaSuccess)
-        e = cudaFuncSetAttribute(splitk_gemm_kernel<false>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSplitSmem);
-      if (e == cudaSuccess && dev < 64) configured.fetch_or(1ull << dev);
-    }
+    cudaError_t e = allow_smem((const void*)splitk_gemm_kernel<true>, kSplitSmem);
+    if (e == cudaSuccess) e = allow_smem((const void*)splitk_gemm_kernel<false>, kSplitSmem);
     if (e != cudaSuccess) {
       note(e);
       return;
     }
-    int s, kc;
-    splitk_plan(K, &s, &kc);
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)((N + TN - 1) / TN * s), (unsigned)((M + TM - 1) / TM));
-    cfg.blockDim = dim3(kGemmThreads);
-    cfg.dynamicSmemBytes = kSplitSmem;
-    cfg.stream = stream;
+    cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
-    attr.id = cudaLaunchAttributeClusterDimension;
-    attr.val.clusterDim.x = s;
-    attr.val.clusterDim.y = 1;
-    attr.val.clusterDim.z = 1;
-    cfg.attrs = &attr;
-    cfg.numAttrs = 1;
+    config(p, M, N, &cfg, &attr);
     if (b_sk == 1)
-      note(cudaLaunchKernelEx(&cfg, splitk_gemm_kernel<true>, A, a_sm, B, b_sn, C, M, N, K, kc,
-                              ep));
+      note(cudaLaunchKernelEx(&cfg, splitk_gemm_kernel<true>, A, a_sm, B, b_sn, C, M, N, K,
+                              p.kc, ep));
     else
       note(cudaLaunchKernelEx(&cfg, splitk_gemm_kernel<false>, A, a_sm, B, b_sk, C, M, N, K,
-                              kc, ep));
+                              p.kc, ep));
   }
 
-  // The bf16 lane's forms with A read along k go to `splitk`; the dW form
-  // (A read along m) and the f32 products to `gemm_kernel`.
-  void gemm(bool f32, const float* A, long a_sm, long a_sk, const float* B, long b_sn,
-            long b_sk, float* C, int M, int N, int K, const Epilogue& ep) {
-    if (!f32 && a_sk == 1) {
-      splitk(A, a_sm, B, b_sn, b_sk, C, M, N, K, ep);
+  // The bf16 lane's products on wg_gemm_kernel: the dW form (A and B
+  // MN-major), and Y (both K-major) and dX (B MN-major) where the plan says.
+  // Each operand's tensor map is encoded here, on the host, from the
+  // pointers of this call (`fdh::wg_map` keeps the ones it has seen).
+  void wgmma(const ProductPlan& p, const float* A, long a_sm, long a_sk, const float* B,
+             long b_sn, long b_sk, float* C, int M, int N, int K, const Epilogue& ep) {
+    const bool a_mn = a_sk != 1, b_mn = b_sk != 1;
+    if ((a_mn && (a_sm != 1 || !b_mn)) || (b_mn && b_sn != 1) ||
+        (ep.colsum && (p.split > 1 || !a_mn))) {
+      note(cudaErrorInvalidValue);
       return;
     }
-    const dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM);
-    if (f32)
-      gemm_kernel<float, 32><<<grid, kGemmThreads, 0, stream>>>(A, a_sm, a_sk, B, b_sn, b_sk,
-                                                                C, M, N, K, ep);
+    CUtensorMap ma, mb, mc;
+    if (!fdh::wg_map(&ma, A, a_mn ? M : K, a_mn ? K : M, a_mn ? a_sk : a_sm) ||
+        !fdh::wg_map(&mb, B, b_mn ? N : K, b_mn ? K : N, b_mn ? b_sk : b_sn) ||
+        !fdh::wg_map(&mc, C, N, M, N, 32, kWgTile, true)) {
+      note(cudaErrorInvalidValue);
+      return;
+    }
+    const int n_tiles = (N + kWgTile - 1) / kWgTile;
+    const WgShape sh{M, N, K, n_tiles, p.split, p.kc / kWgTile};
+    const void* kernel = a_mn   ? (const void*)wg_gemm_kernel<true, true>
+                         : b_mn ? (const void*)wg_gemm_kernel<false, true>
+                                : (const void*)wg_gemm_kernel<false, false>;
+    const cudaError_t e = allow_smem(kernel, wg_smem_max());
+    if (e != cudaSuccess) {
+      note(e);
+      return;
+    }
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    config(p, M, N, &cfg, &attr);
+    if (a_mn)
+      note(cudaLaunchKernelEx(&cfg, wg_gemm_kernel<true, true>, ma, mb, mc, C, sh, ep));
+    else if (b_mn)
+      note(cudaLaunchKernelEx(&cfg, wg_gemm_kernel<false, true>, ma, mb, mc, C, sh, ep));
     else
-      gemm_kernel<__nv_bfloat16, 64><<<grid, kGemmThreads, 0, stream>>>(
-          A, a_sm, a_sk, B, b_sn, b_sk, C, M, N, K, ep);
-    note();
+      note(cudaLaunchKernelEx(&cfg, wg_gemm_kernel<false, false>, ma, mb, mc, C, sh, ep));
+  }
+
+  // Every product of the step: the f32 ones on `gemm_kernel`, the bf16 lane's
+  // where `product_plan` sends them.
+  void gemm(bool f32, const float* A, long a_sm, long a_sk, const float* B, long b_sn,
+            long b_sk, float* C, int M, int N, int K, const Epilogue& ep,
+            int route = kRoutePlan) {
+    if (M < 1 || N < 1 || K < 1) {
+      note(cudaErrorInvalidValue);
+      return;
+    }
+    const ProductPlan p = product_plan(f32, a_sk != 1, b_sk == 1, M, N, K, route);
+    if (p.kernel == kSplitKernel) {
+      splitk(p, A, a_sm, B, b_sn, b_sk, C, M, N, K, ep);
+    } else if (p.kernel == kWgmmaKernel) {
+      wgmma(p, A, a_sm, a_sk, B, b_sn, b_sk, C, M, N, K, ep);
+    } else {
+      const dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM);
+      gemm_kernel<<<grid, kGemmThreads, 0, stream>>>(A, a_sm, a_sk, B, b_sn, b_sk, C, M, N, K,
+                                                     ep);
+      note();
+    }
+  }
+
+  // An empty kernel on the grid, block, shared memory and cluster of the
+  // product's plan: its launch alone.
+  void gemm_empty(bool f32, int form, int M, int N, int K, int route = kRoutePlan) {
+    const ProductPlan p = product_plan(f32, form == kFormDw, form == kFormY, M, N, K, route);
+    const cudaError_t e =
+        allow_smem((const void*)product_empty_kernel, std::max(wg_smem_max(), kSplitSmem));
+    if (e != cudaSuccess) {
+      note(e);
+      return;
+    }
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    config(p, M, N, &cfg, &attr);
+    note(cudaLaunchKernelEx(&cfg, product_empty_kernel, 0));
   }
 
   // Y (rows, out) = (X (rows, in) W^T + scale * bias) [* mul] [+ res]; W (out, in)

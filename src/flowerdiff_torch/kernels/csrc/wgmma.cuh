@@ -1,0 +1,234 @@
+// Hopper building blocks: mbarriers, TMA tile loads through a CUtensorMap,
+// and bf16 warpgroup products (`wgmma.mma_async`) on 128-byte-swizzled
+// shared-memory tiles. Used by the train step's product (train_step.cuh).
+//
+// Operand tiles. A tile is 64 lines of 128 bytes (64 bf16 values), line l
+// at byte 128 l, its 16-byte chunk c stored at chunk c ^ (l % 8): the
+// 128-byte swizzle, on a 1024-byte-aligned base. A line is a row of 64 k's
+// for a K-major operand and 64 consecutive rows (m or n) at one k for an
+// MN-major one; `wg_desc` describes either to `wgmma` (the transpose flag
+// of `wgmma_m64n32k16` says which for A; B is K-major).
+//
+// Tensor maps. `cuTensorMapEncodeTiled` is not in the runtime library; it is
+// taken through `cudaGetDriverEntryPoint`, so nothing beyond the runtime is
+// linked. `wg_map` encodes a map of an f32 matrix (64 x 64 boxes by default,
+// zero fill outside the bounds) and keeps it in a small cache keyed by every
+// argument of the encode: a product on the same buffers (every step of a
+// bound train step, every step of an epoch) encodes once.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; the function comes from the runtime
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <mutex>
+
+namespace fdh {
+
+constexpr long long kWaitCycles = 1LL << 31;  // ~1 s: a lost copy traps, never hangs
+constexpr int kBox = 64;                      // f32 tile of a TMA load: 64 x 64
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed; trap (a launch
+// error the host sees at its next synchronise) if it never does.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  long long t0 = 0;
+  for (long long spins = 0;; ++spins) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins == 0) t0 = clock64();
+    else if (clock64() - t0 > kWaitCycles) __trap();
+  }
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Order this thread's generic-proxy accesses of shared memory before later
+// async-proxy ones (a TMA refill of a slot it read, a wgmma of a tile it
+// wrote).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// `count` threads (whole warps) meet at named barrier `id` (0 is __syncthreads').
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"((uint64_t)map) : "memory");
+}
+
+// The box of `map` at (c0 inner, c1 outer) into shared memory at `dst`;
+// completes on `bar` with the box's bytes (elements outside the bounds are
+// zeros and count too).
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// The box of `map` at (c0 inner, c1 outer) from shared memory at `src`, into
+// device memory (elements outside the bounds are not written); one bulk
+// group of this thread.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, int c0, int c1,
+                                             uint32_t src) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n" ::"l"(
+          (uint64_t)map),
+      "r"(c0), "r"(c1), "r"(src)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// This thread's bulk stores have read their shared memory (it may be rewritten).
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// The descriptor of a swizzled operand tile starting at shared address
+// `addr`: 8-line groups 1024 bytes apart (the stride byte offset), the
+// leading byte offset unused (a K-major line holds the whole k16 step; an
+// MN-major tile is one 64-wide line across), 128-byte swizzle.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// d (64 x 32, f32) += A (64 x 16) B (16 x 32), bf16 operands in shared
+// memory, B K-major. kTA: A is MN-major (1) or K-major (0). Thread (warp w
+// of the warpgroup, lane 4g + t) holds d[4j + 2h + e] = D[16w + g + 8h][8j +
+// 2t + e].
+template <int kTA>
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1), "n"(kTA));
+}
+
+// ---------------------------------------------------------------------------
+// Host: tensor maps of f32 matrices.
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return (e == cudaSuccess && found == cudaDriverEntryPointSuccess) ? (EncodeTiled)p : nullptr;
+  }();
+  return fn;
+}
+
+struct MapKey {
+  const float* base;
+  uint64_t inner, outer, ld;
+  uint32_t box_inner, box_outer;
+  bool swizzle;
+  bool operator==(const MapKey& o) const {
+    return base == o.base && inner == o.inner && outer == o.outer && ld == o.ld &&
+           box_inner == o.box_inner && box_outer == o.box_outer && swizzle == o.swizzle;
+  }
+};
+
+// A map of the f32 matrix at `base`, `outer` lines of `inner` elements, line
+// stride `ld` elements, moved in boxes of (box_inner, box_outer) elements,
+// laid out in shared memory with the 128-byte swizzle or without. False
+// where the encode refuses it (base not 16-byte aligned, ld * 4 not a
+// multiple of 16).
+inline bool wg_map(CUtensorMap* map, const float* base, uint64_t inner, uint64_t outer,
+                   uint64_t ld, uint32_t box_inner = kBox, uint32_t box_outer = kBox,
+                   bool swizzle = false) {
+  constexpr int kSlots = 512;
+  static MapKey keys[kSlots];
+  static CUtensorMap maps[kSlots];
+  static std::mutex lock;
+  const MapKey key{base, inner, outer, ld, box_inner, box_outer, swizzle};
+  const size_t slot = (((uintptr_t)base >> 4) * 0x9E3779B97F4A7C15ull ^ inner * 31 ^
+                       outer * 131 ^ ld ^ box_inner * 7 ^ (swizzle ? 1 : 0)) %
+                      kSlots;
+  {
+    std::lock_guard<std::mutex> hold(lock);
+    if (keys[slot] == key) {
+      *map = maps[slot];
+      return true;
+    }
+  }
+  const EncodeTiled encode = encode_tiled();
+  if (!encode || !base || inner < 1 || outer < 1 || ld < inner) return false;
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {ld * sizeof(float)};
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, (void*)base, dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE,
+             swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) !=
+      CUDA_SUCCESS)
+    return false;
+  std::lock_guard<std::mutex> hold(lock);
+  keys[slot] = key;
+  maps[slot] = *map;
+  return true;
+}
+
+}  // namespace fdh

@@ -192,8 +192,12 @@ def _lib():
         lib.fd_train_step_launch.argtypes = [vp] * 7 + [ci, ci, cf, vp]
         lib.fd_train_step_launch.restype = ci
         lib.fd_gemm_launch.argtypes = ([vp, ll, ll, vp, ll, ll, vp, ci, ci, ci, vp, cf, ci,
-                                        vp, vp, vp, cf, ci, vp])
+                                        vp, vp, vp, cf, ci, ci, vp])
         lib.fd_gemm_launch.restype = ci
+        lib.fd_gemm_empty_launch.argtypes = [ci] * 6 + [vp]
+        lib.fd_gemm_empty_launch.restype = ci
+        lib.fd_product_plan.argtypes = [ci] * 6 + [ctypes.POINTER(ci)]
+        lib.fd_product_plan.restype = ci
         lib.fd_splitk_plan.argtypes = [ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
         lib.fd_splitk_plan.restype = ci
         lib.fd_ln_fwd_launch.argtypes = [vp] * 4 + [ci, vp, vp, vp, vp, ci, ci, cf, vp]
@@ -289,6 +293,10 @@ def bind_train_step(w_named: Dict[str, torch.Tensor], batch: int, *,
     lat = w_named["wl"].shape[1]
     if te % 2:
         raise ValueError(f"time_emb_dim {te} must be even")
+    if not lane and any(w % 4 for w in [lat, te] + hidden):
+        raise ValueError("the bf16 lane's products read their operands through tensor maps, "
+                         "whose rows are whole 16-byte units: latent, time_emb and hidden "
+                         f"widths must be multiples of 4, got {[lat, te] + hidden}")
     if global_skip and hidden[-1] != lat:
         raise ValueError("global_skip needs hidden_dims[-1] == latent_dim")
     expected = _expected_shapes([lat, te, classes] + hidden)
@@ -359,30 +367,65 @@ def splitk_plan(k: int) -> Tuple[int, int]:
 
 # The three forms of the product and the LayerNorm kernels, alone (tests).
 
+# kernels of `product_plan` in csrc/train_step.cuh, by their number there
+PRODUCT_KERNELS = ("fma", "splitk", "wgmma")
+_FORMS = {"fwd": 0, "dx": 1, "dw": 2}
+_ROUTES = {"plan": 0, "splitk": 1, "wgmma": 2}
+
+
+def product_plan(form: str, m: int, n: int, k: int, *, exact: bool = False,
+                 route: str = "plan") -> Dict[str, object]:
+    """Where the library sends a product of form "fwd" (Y = X W^T + b), "dx"
+    (dY W) or "dw" (dY^T X) with C (m, n) and depth k: {"kernel": "fma" (the
+    f32 lane), "splitk" or "wgmma", "tile": (tile_m, tile_n), "split":
+    blocks a cluster, "kc": k's a block sums, "blocks": blocks launched}
+    (`fd_product_plan`). `route` forces the bf16 lane's Y and dX forms onto
+    one kernel, as `linear_forward(..., route=)` does."""
+    out = (ctypes.c_int * 6)()
+    _build.check(_lib().fd_product_plan(int(exact), _FORMS[form], m, n, k, _ROUTES[route], out),
+                 "product plan")
+    return {"kernel": PRODUCT_KERNELS[out[0]], "tile": (out[1], out[2]), "split": out[3],
+            "kc": out[4], "blocks": out[5]}
+
+
+def product_empty_launcher(form: str, m: int, n: int, k: int, *, exact: bool = False,
+                           route: str = "plan"):
+    """A call that launches an empty kernel on the product's grid, block,
+    shared memory and cluster (`fd_gemm_empty_launch`): its launch floor."""
+    lib = _lib()
+
+    def launch():
+        code = lib.fd_gemm_empty_launch(_FORMS[form], m, n, k, int(exact), _ROUTES[route],
+                                        _stream(torch.cuda.current_device()))
+        _build.check(code, "empty product launch")
+    return launch
+
+
 def _gemm(a, a_sm, a_sk, b, b_sn, b_sk, m, n, k, *, exact, bias=None, bias_scale=1.0,
-          round_bf16=False, mul=None, res=None, colsum=None, colsum_scale=1.0):
+          round_bf16=False, mul=None, res=None, colsum=None, colsum_scale=1.0, route="plan"):
     c = torch.empty((m, n), dtype=_F32, device=a.device)
     p = _optr
     code = _lib().fd_gemm_launch(a.data_ptr(), a_sm, a_sk, b.data_ptr(), b_sn, b_sk,
                                  c.data_ptr(), m, n, k, p(bias), bias_scale, int(round_bf16),
                                  p(mul), p(res), p(colsum), colsum_scale, int(exact),
-                                 _stream(a.device))
+                                 _ROUTES[route], _stream(a.device))
     _build.check(code, "train_step product")
     return c
 
 
-def linear_forward(x, w, bias, *, exact: bool, scale: float = 1.0, mul=None, res=None):
+def linear_forward(x, w, bias, *, exact: bool, scale: float = 1.0, mul=None, res=None,
+                   route: str = "plan"):
     """(x w^T + scale * bias) [* mul] [+ res] by the kernel; w (out, in)."""
     rows, k = x.shape
     return _gemm(x, k, 1, w, k, 1, rows, w.shape[0], k, exact=exact, bias=bias,
-                 bias_scale=scale, mul=mul, res=res)
+                 bias_scale=scale, mul=mul, res=res, route=route)
 
 
-def linear_dx(dy, w, *, exact: bool, mul=None, res=None):
+def linear_dx(dy, w, *, exact: bool, mul=None, res=None, route: str = "plan"):
     """dy w, rounded to bf16 unless exact, [* mul] [+ res]; w (out, in)."""
     rows, out = dy.shape
     return _gemm(dy, out, 1, w, 1, w.shape[1], rows, w.shape[1], out, exact=exact,
-                 round_bf16=not exact, mul=mul, res=res)
+                 round_bf16=not exact, mul=mul, res=res, route=route)
 
 
 def linear_dw(dy, x, *, exact: bool, scale: float = 1.0):

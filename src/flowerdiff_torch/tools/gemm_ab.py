@@ -22,9 +22,16 @@ library yardstick (never on the port's path). Then the whole bf16 train step
 epoch kernel (`make_mega_epoch_fn`, S = 15, bf16 lane and moments) between
 CUDA events around five epochs.
 
+Where the tree exports its product plan (`product_plan`), each shape also
+gets the kernel the plan names and an empty kernel on the plan's grid,
+block, shared memory and cluster (the launch floor, `product_empty_launcher`),
+and each Y and dX shape the split-K and the wgmma kernel forced in turn
+(`route=`), each beside an empty kernel on its own grid.
+
 Prints one line a (tree, round, shape), then the card's name and power limit
-and per tree the mean a shape, the sum over a step's 79 bf16 products (each
-shape times its count), the yardstick's sum, the step and the epoch.
+and per tree the mean a shape, the sums over a step's products of each form
+and of all 79 (each shape times its count) of every measurement, the step
+and the epoch.
 """
 from __future__ import annotations
 
@@ -118,8 +125,20 @@ def child(tree: Path) -> None:
             got = fn()[0]
         err = float((got - ref).abs().max()) / float(ref.abs().max())
         same = bool(torch.equal(got, fn() if form != "dw" else fn()[0]))
-        _emit(kind="product", form=form, m=m, n=n, k=k, count=count, ms=cuda_ms(fn),
-              library_ms=cuda_ms(lib), rel_err=err, repeat_bit_equal=same)
+        rec = dict(kind="product", form=form, m=m, n=n, k=k, count=count, ms=cuda_ms(fn),
+                   library_ms=cuda_ms(lib), rel_err=err, repeat_bit_equal=same)
+        if hasattr(ts, "product_plan"):  # trees that export their plan and an empty launch
+            rec["kernel"] = ts.product_plan(form, m, n, k)["kernel"]
+            rec["empty_ms"] = cuda_ms(ts.product_empty_launcher(form, m, n, k))
+            if form != "dw":  # the two kernels the plan chooses between, each forced
+                for route in ("splitk", "wgmma"):
+                    call = ((lambda: ts.linear_forward(x, w, b, exact=False, route=route))
+                            if form == "fwd" else
+                            (lambda: ts.linear_dx(dy, w, exact=False, route=route)))
+                    rec[f"{route}_ms"] = cuda_ms(call)
+                    rec[f"{route}_empty_ms"] = cuda_ms(
+                        ts.product_empty_launcher(form, m, n, k, route=route))
+        _emit(**rec)
 
     flagship = dict(latent_dim=LATENT, hidden_dims=HIDDEN, time_emb_dim=TE, num_classes=102,
                     shared_cond_proj=True, global_skip=False)
@@ -179,10 +198,15 @@ def main() -> int:
                 rec = json.loads(line)
                 if rec["kind"] == "product":
                     key = (rec["form"], rec["m"], rec["n"], rec["k"])
+                    extra = "".join(f" {name} {rec[name]:.5f}" for name in (
+                        "empty_ms", "splitk_ms", "splitk_empty_ms", "wgmma_ms",
+                        "wgmma_empty_ms") if name in rec)
                     print(f"[gemm_ab] tree {tree} round {rnd} {rec['form']} M={rec['m']} "
-                          f"N={rec['n']} K={rec['k']} x{rec['count']}: ms {rec['ms']:.5f} "
-                          f"torch.matmul bf16 {rec['library_ms']:.5f} rel_err "
-                          f"{rec['rel_err']:.2e} repeat bit-equal {rec['repeat_bit_equal']}")
+                          f"N={rec['n']} K={rec['k']} x{rec['count']}"
+                          f"{' on ' + rec['kernel'] if 'kernel' in rec else ''}: ms "
+                          f"{rec['ms']:.5f} torch.matmul bf16 {rec['library_ms']:.5f}{extra} "
+                          f"rel_err {rec['rel_err']:.2e} repeat bit-equal "
+                          f"{rec['repeat_bit_equal']}")
                 else:
                     key = (rec["kind"],)
                     print(f"[gemm_ab] tree {tree} round {rnd} {rec['kind']}: ms {rec['ms']:.4f}"
@@ -193,24 +217,32 @@ def main() -> int:
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"[gemm_ab] card: {smi}")
     for tree, by_key in results.items():
-        total = lib_total = 0.0
-        n_products = 0
+        sums = {}  # (form, measurement) -> ms summed over a step's products
         for key, recs in by_key.items():
             ms = sum(x["ms"] for x in recs) / len(recs)
             if key[0] in ("step", "epoch"):
                 print(f"[gemm_ab] tree {tree} {key[0]}: mean ms {ms:.4f} "
                       f"{[round(x['ms'], 4) for x in recs]}")
                 continue
-            lib = sum(x["library_ms"] for x in recs) / len(recs)
             count = recs[0]["count"]
-            total += count * ms
-            lib_total += count * lib
-            n_products += count
+            means = {name: sum(x[name] for x in recs) / len(recs) for name in (
+                "ms", "library_ms", "empty_ms", "splitk_ms", "wgmma_ms") if name in recs[0]}
+            for form in (key[0], "all"):
+                for name, v in means.items():
+                    sums[(form, name)] = sums.get((form, name), 0.0) + count * v
+                sums[(form, "count")] = sums.get((form, "count"), 0) + count
             print(f"[gemm_ab] tree {tree} {key[0]} M={key[1]} N={key[2]} K={key[3]} "
-                  f"x{count}: mean ms {ms:.5f} {[round(x['ms'], 5) for x in recs]} "
-                  f"torch.matmul bf16 {lib:.5f}")
-        print(f"[gemm_ab] tree {tree}: sum over a step's {n_products} bf16 products "
-              f"{total:.4f} ms; torch.matmul bf16 yardstick sum {lib_total:.4f} ms")
+                  f"x{count}{' on ' + recs[0]['kernel'] if 'kernel' in recs[0] else ''}: "
+                  f"mean ms {ms:.5f} {[round(x['ms'], 5) for x in recs]} "
+                  + " ".join(f"{name} {v:.5f}" for name, v in means.items() if name != "ms"))
+        for form in ("fwd", "dx", "dw", "all"):
+            if (form, "count") not in sums:
+                continue
+            print(f"[gemm_ab] tree {tree}: sum over a step's {sums[(form, 'count')]} bf16 "
+                  f"{'products' if form == 'all' else form + ' products'}: "
+                  + ", ".join(f"{name} {sums[(form, name)]:.4f}" for name in (
+                      "ms", "library_ms", "empty_ms", "splitk_ms", "wgmma_ms")
+                      if (form, name) in sums))
     return 0
 
 

@@ -18,6 +18,7 @@ from flowerdiff_torch.kernels.full_sampler import (
     reverse_step_plain,
 )
 from flowerdiff_torch.kernels import train_step as ts
+from flowerdiff_torch.tools.gemm_ab import step_products
 from flowerdiff_torch.kernels.latent_stage import (
     bind_head,
     bind_stage,
@@ -41,6 +42,16 @@ pytestmark = pytest.mark.cuda
 # order of the sum with it on the CPU.
 SPLITK_PLAN = {1024: (8, 128), 512: (8, 64), 256: (4, 64), 1000: (8, 128), 200: (4, 64),
                96: (2, 64), 64: (1, 64), 36: (1, 64)}
+
+# The bf16 lane's Y and dX shapes of the flagship step that run on the wgmma
+# kernel, (form, M, N, K) -> (blocks a cluster, k tiles a block): N * K of
+# 512 x 512 and up, but Y at N = 1024, K = 512; the others stay on the
+# split-K kernel (PERF.md, the products' A/B).
+WGMMA_YX = {("fwd", 64, 512, 512): (8, 1), ("dx", 64, 512, 512): (8, 1),
+            ("fwd", 64, 1024, 256): (4, 1), ("dx", 64, 1024, 512): (8, 1),
+            ("fwd", 64, 512, 1024): (8, 2), ("dx", 64, 512, 1024): (8, 2),
+            ("dx", 64, 256, 1024): (8, 2), ("fwd", 64, 1024, 1024): (8, 2),
+            ("dx", 64, 1024, 1024): (8, 2)}
 
 
 @pytest.fixture
@@ -304,18 +315,40 @@ def _bf(x):
     return x.to(torch.bfloat16).float()
 
 
+# Every Linear (in, out) of the flagship train step at its 64 rows: their
+# three forms cover the 24 (form, M, N, K) shapes of its bf16 products
+# (`gemm_ab.step_products`, fwd M = 64, N = out, K = in; dW M = out, N = in,
+# K = 64; dX M = 64, N = in, K = out).
+FLAGSHIP_LINEARS = sorted({(k, n) if form == "fwd" else (n, m) if form == "dw" else (n, k)
+                           for form, m, n, k in step_products()})
+# Odd row counts and ragged tiles, K that is not a multiple of the split or
+# of the 64-deep tile (Y at K = 1000 or 200, dX at K = 36 or 40).
+RAGGED_LINEARS = [(1, 32, 32), (13, 96, 40), (67, 100, 36), (64, 1000, 36), (64, 200, 1000)]
+PRODUCT_CASES = RAGGED_LINEARS + [(64, k, n) for k, n in FLAGSHIP_LINEARS]
+
+
 @pytest.mark.parametrize("exact", [True, False])
-@pytest.mark.parametrize("rows,k,n", [(1, 32, 32), (13, 96, 40), (64, 256, 512), (67, 100, 36),
-                                      (64, 1024, 1024), (64, 1024, 512), (64, 1000, 36),
-                                      (64, 200, 1000)])
+@pytest.mark.parametrize("rows,k,n", PRODUCT_CASES)
 def test_product_three_forms_match_f32_references(gen, exact, rows, k, n):
     """Y = X W^T + b, dX = dY W, dW = dY^T X with db = colsum(dY), at odd row
-    counts and ragged tiles, the flagship's widest shapes, and K that is not
-    a multiple of the split or of the 64-deep tile (Y at K = 1000 or 200, dX
-    at K = 36 or 40). Exact lane: f32 sums in another order, rtol 1e-5 of
-    the largest value. bf16 lane: the references round the same operands to
-    bf16, and the dX / dW outputs are rounded to bf16 after the whole sum
-    (one bf16 ulp = 2^-8 relative, plus the summation order)."""
+    counts and ragged tiles and at every shape of the flagship step, each
+    on the kernel its plan names. Exact lane: f32 sums in another order,
+    rtol 1e-5 of the largest value. bf16 lane: the references round the
+    same operands to bf16, and the dX / dW outputs are rounded to bf16
+    after the whole sum (one bf16 ulp = 2^-8 relative, plus the summation
+    order). db is summed in f32 in row order in both lanes."""
+    _check_three_forms(gen, exact, rows, k, n, "plan")
+
+
+@pytest.mark.parametrize("route", ["splitk", "wgmma"])
+@pytest.mark.parametrize("rows,k,n", PRODUCT_CASES)
+def test_product_routes_match_f32_references(gen, route, rows, k, n):
+    """The bf16 lane's Y and dX forms forced onto either kernel (the two
+    that the plan chooses between) hold the same references."""
+    _check_three_forms(gen, False, rows, k, n, route)
+
+
+def _check_three_forms(gen, exact, rows, k, n, route):
     x, w, b = _r(gen, rows, k), _r(gen, n, k, scale=k ** -0.5), _r(gen, n)
     dy, mul, res = _r(gen, rows, n), _r(gen, rows, n), _r(gen, rows, n)
     rnd = (lambda t: t) if exact else _bf
@@ -325,25 +358,33 @@ def test_product_three_forms_match_f32_references(gen, exact, rows, k, n):
         assert got.shape == ref.shape
         assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
 
-    close(ts.linear_forward(x, w, b, exact=exact, scale=2.0, mul=mul, res=res),
+    close(ts.linear_forward(x, w, b, exact=exact, scale=2.0, mul=mul, res=res, route=route),
           (rnd(x) @ rnd(w).t() + 2.0 * b) * mul + res)
     res_x = _r(gen, rows, k)
-    close(ts.linear_dx(dy, w, exact=exact, res=res_x), rnd(rnd(dy) @ rnd(w)) + res_x)
-    dw, db = ts.linear_dw(dy, x, exact=exact, scale=2.0)
-    close(dw, rnd(rnd(dy).t() @ rnd(x)))
-    close(db, 2.0 * dy.sum(dim=0))
+    close(ts.linear_dx(dy, w, exact=exact, res=res_x, route=route),
+          rnd(rnd(dy) @ rnd(w)) + res_x)
+    if route == "plan":
+        dw, db = ts.linear_dw(dy, x, exact=exact, scale=2.0)
+        close(dw, rnd(rnd(dy).t() @ rnd(x)))
+        ref_db = torch.zeros(n, device="cuda")
+        for r in range(rows):  # in row order, as the kernels sum
+            ref_db += dy[r]
+        assert torch.equal(db, 2.0 * ref_db)
 
 
-@pytest.mark.parametrize("rows,k,n", [(64, 1024, 1024), (64, 1024, 512), (64, 256, 512),
-                                      (64, 256, 256), (13, 96, 40)])
-def test_product_is_bit_equal_on_repeat(gen, rows, k, n):
-    """Each form twice on the same inputs gives the same bits: the bf16
-    lane's split-K partials are added in rank order, with no atomics."""
+@pytest.mark.parametrize("route", ["plan", "splitk", "wgmma"])
+@pytest.mark.parametrize("rows,k,n", [(13, 96, 40)] + [(64, k, n) for k, n in FLAGSHIP_LINEARS])
+def test_product_is_bit_equal_on_repeat(gen, route, rows, k, n):
+    """Each form twice on the same inputs gives the same bits: no atomics;
+    the split-K partials (either kernel) are added in rank order."""
     x, w, b = _r(gen, rows, k), _r(gen, n, k, scale=k ** -0.5), _r(gen, n)
     dy, res = _r(gen, rows, n), _r(gen, rows, k)
-    for fn in (lambda: ts.linear_forward(x, w, b, exact=False, scale=2.0),
-               lambda: ts.linear_dx(dy, w, exact=False, res=res),
-               lambda: ts.linear_dw(dy, x, exact=False)[0]):
+    fns = [lambda: ts.linear_forward(x, w, b, exact=False, scale=2.0, route=route),
+           lambda: ts.linear_dx(dy, w, exact=False, res=res, route=route)]
+    if route == "plan":
+        fns += [lambda: ts.linear_dw(dy, x, exact=False)[0],
+                lambda: ts.linear_dw(dy, x, exact=False)[1]]
+    for fn in fns:
         first = fn()
         torch.cuda.synchronize()
         assert torch.equal(first, fn())
@@ -354,6 +395,28 @@ def test_splitk_plan_at_the_flagship(gen):
     K = 512: 8 of one; K = 256: 4 of one; K = 64 would be one block; and the
     ragged K of `test_product_three_forms_match_f32_references`."""
     assert {k: ts.splitk_plan(k) for k in SPLITK_PLAN} == SPLITK_PLAN
+
+
+def test_product_plan_sends_each_form_where_documented(gen):
+    """The library's plan at the flagship step's 24 bf16 shapes: dW on the
+    wgmma kernel, a block a 64 x 64 tile, no split; Y and dX on the kernel
+    `WGMMA_YX` names (the faster of the two in the A/B of PERF.md), else on
+    the split-K kernel with `splitk_plan`'s clusters. The f32 lane: the FMA
+    kernel."""
+    for (form, m, n, k), count in step_products().items():
+        plan = ts.product_plan(form, m, n, k)
+        if form == "dw":
+            assert plan == {"kernel": "wgmma", "tile": (64, 64), "split": 1, "kc": 64,
+                            "blocks": m // 64 * (n // 64)}, (form, m, n, k)
+        elif (form, m, n, k) in WGMMA_YX:
+            s, kt = WGMMA_YX[(form, m, n, k)]
+            assert plan == {"kernel": "wgmma", "tile": (64, 64), "split": s, "kc": 64 * kt,
+                            "blocks": -(-n // 64) * s}, (form, m, n, k)
+        else:
+            s, kc = SPLITK_PLAN[k]
+            assert plan == {"kernel": "splitk", "tile": (64, 32), "split": s, "kc": kc,
+                            "blocks": n // 32 * s}, (form, m, n, k)
+        assert ts.product_plan(form, m, n, k, exact=True)["kernel"] == "fma"
 
 
 @pytest.mark.parametrize("rows,d", [(5, 48), (64, 1024), (3, 1000)])
@@ -435,6 +498,18 @@ def test_train_step_kernel_matches_twin(gen, global_skip, dtype, tol):
     for name, g in tree.items():
         if ".q." in name or ".k." in name:
             assert not g.any(), name
+
+
+def test_train_step_bf16_lane_refuses_widths_tensor_maps_cannot_read(gen):
+    """A width whose rows are not whole 16-byte units cannot be read through
+    a tensor map: the bf16 lane refuses it when it is bound, the f32 lane
+    (FMA products, no tensor map) takes it."""
+    kw = dict(latent_dim=62, hidden_dims=(64, 128, 64), time_emb_dim=32, num_classes=7)
+    model = denoiser_from_params(init_numpy_params("denoiser", seed=2, **kw), device="cuda", **kw)
+    named = dict(ts.weights_spec(model))
+    with pytest.raises(ValueError, match="multiples of 4"):
+        ts.bind_train_step(named, 8, dtype=torch.bfloat16)
+    ts.bind_train_step(named, 8, dtype=torch.float32)
 
 
 # ---------------------------------------------------------------------------
