@@ -53,6 +53,10 @@ Phases (any failure raises and the script exits nonzero without a result):
      B = 64, with dropout masks, a condition mask with zeros and perturbed
      biases and LN affines, in both lanes (f32, bf16), with and without the
      v2 skip; check that leaving out any one term would show; time the step;
+     count the tensor-map encodes: the binding encodes each map once, a step
+     after it none; hold the bf16 step at latent and time embedding 254
+     (rows tensor maps cannot read: their products on split-K and mma_dw)
+     against its twin at the bf16 limit, v1 and v2;
  11. train the flagship latent DDPM as users run it, on augmented images
      (rotation 10 degrees, jitter 0.2), for 10 epochs (150 steps) on a
      K = 8 pool of cached latents of 1020 synthetic images through
@@ -73,9 +77,9 @@ Phases (any failure raises and the script exits nonzero without a result):
      moment types, with hyperparameters at which the clip, the decay, the
      bias corrections, the falling learning rate and the q/k decay each
      count, and show that a twin epoch without any one of them would fail;
-     check the draws' distribution and bit-equal reruns; train 150 steps and
-     sample from the EMA weights; time an epoch beside the per-step kernel
-     body;
+     check the draws' distribution and bit-equal reruns; train 150 steps
+     (no tensor-map encode after the first epoch) and sample from the EMA
+     weights; time an epoch (wall and busy) beside the per-step kernel body;
  14. train the flagship VAE-GAN (`phase_vae_gan`: channels (64, 128, 256,
      512), latent 256, 102 classes, VGG from the in-repo asset, B = 64, the
      gates of epoch 200 of 1200, so every term is on and the centers update):
@@ -1139,17 +1143,79 @@ def _perturb_module(model, gen):
 
 
 def _train_case(model, gen):
-    """One step's inputs at B = 64: draws at dropout 0.3, and a condition
-    keep-mask with every fourth row zero."""
+    """One step's inputs at B = 64 for the model's widths: draws at dropout
+    0.3, and a condition keep-mask with every fourth row zero."""
     dev = torch.device("cuda")
     sched = linear_schedule(1000).to(dev)
-    z = torch.randn((TRAIN_BATCH, FLAGSHIP["latent_dim"]), generator=gen, device=dev)
+    z = torch.randn((TRAIN_BATCH, model.latent_dim), generator=gen, device=dev)
     labels = torch.randint(0, FLAGSHIP["num_classes"], (TRAIN_BATCH,), generator=gen, device=dev)
     t, eps, _, masks = ts.draw_step_inputs(model, 1000, 0.0, z, gen)
     keep = (torch.arange(TRAIN_BATCH, device=dev) % 4 != 0).float()
     data = ts.step_data(sched, z, labels, t, eps, keep,
-                        ts.sinusoid_freqs(FLAGSHIP["time_emb_dim"], dev))
+                        ts.sinusoid_freqs(model.time_emb_dim, dev))
     return data, masks
+
+
+def _worst_leaf(grads, ref):
+    """(largest error of a leaf relative to its max|twin grad|, that leaf,
+    largest absolute error)."""
+    worst_rel, worst_abs, worst_leaf = 0.0, 0.0, ""
+    for k, r in ref.items():
+        err = (grads[k].reshape(r.shape) - r).abs()
+        rel = float(err.max() / (r.abs().max() + 1e-30))
+        if rel > worst_rel:
+            worst_rel, worst_leaf = rel, k
+        worst_abs = max(worst_abs, float(err.max()))
+    return worst_rel, worst_leaf, worst_abs
+
+
+RAGGED_WIDTH = 254  # latent and time embedding whose rows tensor maps cannot read
+
+
+def ragged_train_step(gen) -> dict:
+    """The bf16 step at latent and time embedding 254 with the flagship's
+    hidden widths (under the v2 skip the last one 254 too): its products'
+    kernels from the plan, loss and every leaf against autograd on the twin
+    at the bf16 limit (a hard gate), no encode a step, ms in a CUDA graph."""
+    out = {}
+    for skip in (False, True):
+        hidden = FLAGSHIP["hidden_dims"][:-1] + ((RAGGED_WIDTH,) if skip else (256,))
+        kw = dict(FLAGSHIP, latent_dim=RAGGED_WIDTH, time_emb_dim=RAGGED_WIDTH,
+                  hidden_dims=hidden, global_skip=skip)
+        model = denoiser_from_params(init_numpy_params("denoiser", seed=3, **kw),
+                                     device="cuda", **kw)
+        _perturb_module(model, gen)
+        named = dict(ts.weights_spec(model))
+        data, masks = _train_case(model, gen)
+        run = ts.bind_train_step(named, TRAIN_BATCH, dtype=torch.bfloat16, global_skip=skip)
+        kernels = {}
+        for q in run.products():
+            kernels[q["kernel"]] = kernels.get(q["kernel"], 0) + 1
+            ragged = any(4 * v % 16 for v in q["strides"])
+            assert not (ragged and q["kernel"] == "wgmma"), q
+        assert kernels.get("mma_dw", 0) > 0 and kernels.get("splitk", 0) > 0, kernels
+        loss, grads = run(data, masks)
+        torch.cuda.synchronize()
+        e0 = ts.tensor_map_encodes()
+        ref_loss, ref = ts.twin_loss_and_grads(named, data, masks, dtype=torch.bfloat16,
+                                               global_skip=skip)
+        worst_rel, worst_leaf, worst_abs = _worst_leaf(grads, ref)
+        loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+        assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads.values())
+        assert worst_rel <= TRAIN_BF16_REL, (
+            f"ragged train_step skip={skip}: leaf {worst_leaf} off by {worst_rel} x max|twin "
+            f"grad| > {TRAIN_BF16_REL}")
+        assert loss_rel <= TRAIN_BF16_REL
+        ms = cuda_ms(lambda: run(data, masks), iters=20)
+        torch.cuda.synchronize()
+        assert ts.tensor_map_encodes() == e0, "a bound ragged step encoded a tensor map"
+        print(f"[train_kernel] ragged widths (latent, time embedding {RAGGED_WIDTH}, hidden "
+              f"{hidden}) skip={skip} bf16: products on {kernels}; loss {float(loss):.6f} (twin "
+              f"{float(ref_loss):.6f}, rel {loss_rel:.2e}); worst leaf {worst_leaf} "
+              f"{worst_rel:.3e} x max|twin grad| (abs {worst_abs:.3e}, limit {TRAIN_BF16_REL}); "
+              f"ms {ms:.4f}; tensor-map encodes a step 0")
+        out[f"skip={skip}"] = dict(ms=ms, max_rel_err=worst_rel, kernels=kernels)
+    return out
 
 
 def _moved(grads, ref):
@@ -1236,24 +1302,31 @@ def phase_train_kernel(gen):
         data, masks = _train_case(model, gen)
         for dtype in (torch.float32, torch.bfloat16):
             lane = "f32" if dtype == torch.float32 else "bf16"
+            e_bind = ts.tensor_map_encodes()
             run = ts.bind_train_step(named, TRAIN_BATCH, dtype=dtype, global_skip=skip)
+            e_bind = ts.tensor_map_encodes() - e_bind
             before = ts.kernel_loss_and_grads.launches
             loss, grads = run(data, masks)
             torch.cuda.synchronize()
             assert ts.kernel_loss_and_grads.launches == before + 1
+            e0 = ts.tensor_map_encodes()
+            for _ in range(3):
+                run(data, masks)
+            torch.cuda.synchronize()
+            e_steps = ts.tensor_map_encodes() - e0
+            n_maps = 3 * sum(1 for q in run.products() if q["kernel"] == "wgmma")
+            print(f"[train_kernel] skip={skip} {lane}: tensor-map encodes at bind {e_bind} (3 a "
+                  f"wgmma product: {n_maps}), a step after bind {e_steps / 3:.1f}")
+            assert e_bind == n_maps and e_steps == 0, (e_bind, n_maps, e_steps)
             ref_loss, ref = ts.twin_loss_and_grads(named, data, masks, dtype=dtype,
                                                    global_skip=skip)
             assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads.values())
-            worst_rel, worst_abs, worst_leaf = 0.0, 0.0, ""
-            for k, r in ref.items():
-                err = (grads[k].reshape(r.shape) - r).abs()
-                if dtype == torch.float32:
+            if dtype == torch.float32:
+                for k, r in ref.items():
+                    err = (grads[k].reshape(r.shape) - r).abs()
                     over = float((err - (TRAIN_F32_ATOL + TRAIN_F32_RTOL * r.abs())).max())
                     assert over <= 0, f"train_step f32 skip={skip}: leaf {k} over by {over}"
-                rel = float(err.max() / (r.abs().max() + 1e-30))
-                if rel > worst_rel:
-                    worst_rel, worst_leaf = rel, k
-                worst_abs = max(worst_abs, float(err.max()))
+            worst_rel, worst_leaf, worst_abs = _worst_leaf(grads, ref)
             loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
             if dtype == torch.bfloat16:
                 assert worst_rel <= TRAIN_BF16_REL, (
@@ -1355,6 +1428,7 @@ def phase_train_kernel(gen):
           f"step alone {row['products_ms']:.4f} ms; library_ms (one bf16 torch.matmul a "
           f"product) {row['library_ms']:.4f}")
     row["max_rel_err"] = worst_bf16
+    row["ragged"] = ragged_train_step(gen)
     return row
 
 
@@ -1768,10 +1842,19 @@ def phase_train_epoch(vae, stats, pool, dataset):
     epochs = 10
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    losses = [epoch_fn(trainer.state, trainer.sched, z_all[e * steps:(e + 1) * steps],
-                       labels_all[e * steps:(e + 1) * steps], 12) for e in range(epochs)]
+    e_bind = ts.tensor_map_encodes()
+    losses = []
+    for e in range(epochs):
+        losses.append(epoch_fn(trainer.state, trainer.sched, z_all[e * steps:(e + 1) * steps],
+                               labels_all[e * steps:(e + 1) * steps], 12))
+        if e == 0:  # the first epoch binds the step: its maps are encoded then
+            e_first = ts.tensor_map_encodes()
     losses = torch.stack(losses).cpu().numpy()
     dt = time.perf_counter() - t0
+    e_later = ts.tensor_map_encodes() - e_first
+    print(f"[train_epoch] tensor-map encodes: the first epoch (binding) {e_first - e_bind}, "
+          f"an epoch after it {e_later / (epochs - 1):.1f}")
+    assert e_later == 0, f"{e_later} tensor-map encodes in {epochs - 1} bound epochs"
     means = losses.mean(axis=1)
     assert np.all(np.isfinite(losses)) and means[-1] < means[0], means
     assert trainer.state.step == epochs * steps
@@ -1827,10 +1910,15 @@ def phase_train_epoch(vae, stats, pool, dataset):
     run_body()
     walls = {"body": [], "epoch": []}
     events = {"body": [], "epoch": []}
+    e_timed = ts.tensor_map_encodes()
     for which in ("body", "epoch", "epoch", "body"):
         wall, ev = timed(run_body if which == "body" else run_epochs)
         walls[which].append(wall)
         events[which].append(ev)
+    e_timed = ts.tensor_map_encodes() - e_timed
+    print(f"[train_epoch] tensor-map encodes over the timed runs (10 epochs, 10 epochs of the "
+          f"per-step body): {e_timed}")
+    assert e_timed == 0, f"{e_timed} tensor-map encodes in bound epochs and steps"
     # the same epoch with f32 moments (AdamW moves 4 more bytes a weight each way)
     epoch_f32m = te.make_mega_epoch_fn(trainer.model, cfg, steps, batch,
                                        moments_dtype=torch.float32)
@@ -1882,8 +1970,9 @@ def phase_train_epoch(vae, stats, pool, dataset):
           f"{lib_ms:.4f}")
     row.update(ms=ep_ms, plain_ms=twin_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                ms_a_step=ep_ms / steps, f32_moments_ms=f32m_ms,
-               wall_ms=float(np.mean(walls["epoch"])),
-               per_step_body_wall_ms=float(np.mean(walls["body"])))
+               wall_ms=float(np.mean(walls["epoch"])), busy_ms=busy,
+               per_step_body_wall_ms=float(np.mean(walls["body"])),
+               encodes_an_epoch_after_bind=e_later / (epochs - 1))
     print(f"[train_epoch] the twin's epoch, eager: {twin_ms:.1f} ms")
     return row
 

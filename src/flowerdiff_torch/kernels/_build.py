@@ -95,6 +95,11 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def loaded(name: str):
+    """The ctypes handle of library `name` if this process has loaded it, else None."""
+    return _LIBS.get(name)
+
+
 def check(code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"CUDA launch of {what} failed: cudaError {code}")

@@ -19,8 +19,10 @@
 //                    and the masks into fixed buffers (Philox4x32-10, keyed
 //                    by the seed; counter = (element group, global step,
 //                    tensor id), so no two tensors or steps share bits);
-//   the train step   the launches of train_step.cuh, reading those buffers
-//                    and writing its loss straight into losses[i];
+//   the train step   the launches of train_step.cuh from the bound step's
+//                    plan (its routes and tensor maps, made when the step
+//                    was bound: the epoch encodes nothing), reading those
+//                    buffers and writing its loss straight into losses[i];
 //   sumsq_kernel     per-chunk partial sums of g^2 over all leaves, then
 //   norm_kernel      one block adds the partials in order: no atomics, so an
 //                    epoch repeats bit for bit from the same seed;
@@ -324,15 +326,14 @@ struct Note {
 // kernels/train_epoch.py (pointers and 64-bit integers first, then ints,
 // then floats).
 struct EpochArgs {
-  const void* const* weights;  // as train_step_enqueue takes them
-  void* const* grads;
+  const void* plan;            // the bound train step's (fd_step_plan_create): its
+                               // weights, gradients, workspace, dims and lane
   const float* z_rows;         // (steps * B, latent)
   const int* labels;           // (steps * B)
   const float* freqs;          // (time_emb / 2)
   const float* abar;           // (n_sched)
   const void* const* injected; // stochastic == 0: t_f, eps, cond_mask, masks: (steps * B, .)
   void* const* draw_bufs;      // one step's t_f, sa, s1a, eps, cond_mask, masks: (B, .)
-  void* workspace;             // fd_train_step_workspace_floats(dims) floats
   float* losses;               // (steps)
   float* gnorms;               // (steps): each step's gradient norm before the clip
   const float* tables;         // (3, steps): lr, bc1, bc2
@@ -342,22 +343,20 @@ struct EpochArgs {
   const void* blends;          // Blend rows: q and k of every stage, then the EMA pairs
   const void* qk_chunks;
   const void* ema_chunks;
-  const int* dims;             // B, latent, time_emb, classes, n_stages, hidden[0..n_stages]
   unsigned long long seed;
   long long count0;            // the optimizer's step count at the epoch's start
   int steps, n_sched, n_leaf_chunks, n_qk_chunks, n_ema_chunks;
-  int f32_lane, global_skip, bf16_moments, stochastic;
+  int bf16_moments, stochastic;
   float grad_clip, weight_decay, b1, b2, omb1, omb2, eps_adam;
   float dropout, mask_scale, cond_dropout;
   float qk_factor;             // prod_i (1 - lr_i wd)
   float ema_keep, ema_take;    // ema = ema_keep ema + ema_take w
-  float ln_eps;
 };
 
 extern "C" int fd_train_epoch_launch(const EpochArgs* a, void* stream) {
-  Dims d;
-  if (!read_dims(a->dims, &d) || a->steps < 1 || a->n_sched < 1)
-    return (int)cudaErrorInvalidValue;
+  if (!a->plan || a->steps < 1 || a->n_sched < 1) return (int)cudaErrorInvalidValue;
+  const StepPlan& step = *(const StepPlan*)a->plan;
+  const Dims& d = step.d;
   cudaStream_t st = (cudaStream_t)stream;
   float* const* bufs = (float* const*)a->draw_bufs;
   const float* const* inj = (const float* const*)a->injected;
@@ -402,8 +401,7 @@ extern "C" int fd_train_epoch_launch(const EpochArgs* a, void* stream) {
                                                      bufs[2], d.B, a->n_sched);
       note();
     }
-    note(train_step_enqueue(a->weights, a->grads, data, masks, a->workspace, a->losses + i, d,
-                            a->f32_lane, a->global_skip, a->ln_eps, st));
+    note(train_step_enqueue(step, data, masks, a->losses + i, st));
     sumsq_kernel<<<a->n_leaf_chunks, kOptThreads, 0, st>>>(leaves, chunks, a->partials);
     note();
     norm_kernel<<<1, 1024, 0, st>>>(a->partials, a->n_leaf_chunks, a->gnorms + i);
@@ -432,6 +430,10 @@ extern "C" int fd_train_epoch_launch(const EpochArgs* a, void* stream) {
   }
   return (int)note.err;
 }
+
+// Calls of cuTensorMapEncodeTiled by this library so far (none: the epoch
+// launches from the train step's plan).
+extern "C" long long fd_tensor_map_encodes() { return fdh::map_encodes(); }
 
 // One step's draws alone, into the caller's buffers (t_f, sa, s1a, eps,
 // cond_mask, masks): the bits step `gstep` of an epoch with this seed uses.

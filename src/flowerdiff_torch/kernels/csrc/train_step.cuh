@@ -21,8 +21,12 @@
 //   * the product C[m][n] = sum_k A(m,k) B(n,k), both operands addressed
 //     through (row, k) strides, which gives the three forms of a Linear in
 //     PyTorch's (out, in) layout: Y = X W^T + b, dX = dY W, and dW = dY^T X
-//     with db = colsum(dY). `product_plan` sends each to one of three
-//     kernels (`fd_product_plan` exports the plan):
+//     with db = colsum(dY). `product_plan` sends each to one of four
+//     kernels (`fd_product_plan` exports the plan) from its form, its shape
+//     and whether tensor maps can read its operands: every base 16-byte
+//     aligned and every line stride a whole number of 16-byte units (a
+//     width that is a multiple of 4; `latent_dim` and `time_emb_dim` need
+//     not be, `StepPlan` below):
 //     - `wg_gemm_kernel`, the bf16 lane on Hopper's own path: TMA loads of
 //       f32 operand tiles (`cp.async.bulk.tensor` through a CUtensorMap,
 //       completing on mbarriers) into a shared-memory ring filled by one
@@ -31,12 +35,13 @@
 //       m64n32k16 with f32 accumulators, one 64 x 64 output tile a block.
 //       For the bf16 lane it stands in for the products inside the Pallas
 //       kernels `_make_kernel` of flowerdiff/kernels/train_step.py and
-//       `_make_epoch_kernel` of train_epoch.py. It takes every dW form (K = the 64 batch rows: one k tile, so
-//       every tile is independent) and the Y and dX forms with N * K >=
-//       512 x 512, but Y at 1024 x 512 (`wgmma_takes`; the shapes where the
-//       two kernels, timed in turns, put it ahead). At M = 64 rows a Y or
-//       dX product has at most 16 output tiles, so K is split over a
-//       cluster of up to 8 blocks whose partials meet in rank order through
+//       `_make_epoch_kernel` of train_epoch.py. It takes every dW form that
+//       tensor maps can read (K = the 64 batch rows: one k tile, so every
+//       tile is independent) and such Y and dX forms with N * K >= 512 x
+//       512, but Y at 1024 x 512 (`wgmma_takes`; the shapes where the two
+//       kernels, timed in turns, put it ahead). At M = 64 rows a Y or dX
+//       product has at most 16 output tiles, so K is split over a cluster
+//       of up to 8 blocks whose partials meet in rank order through
 //       distributed shared memory, as below.
 //       Bound: the dW form at 1024 x 1024 writes 4 MB of f32 dW, ~1.3 us at
 //       3.35 TB/s (0.13 GFLOP of products); at the step's smaller shapes the
@@ -57,23 +62,33 @@
 //         dW form's dY MN-major, under the transpose flag), B always K-major
 //         (`wg_convert_t` transposes the dW form's X and the dX form's W);
 //       * each operand's tensor map (and C's, for the TMA store) is encoded
-//         on the host for every launch, in `Run::wgmma`, from the pointers
-//         of that call, through `cudaGetDriverEntryPoint` (no -lcuda), and
-//         kept in a cache keyed by every argument of the encode
-//         (`fdh::wg_map`). Both callers take this route: the buffers of a
-//         bound step (`bind_train_step`) and of a bound epoch function are
-//         fixed, so every step after the first finds its maps there, and a
-//         CUDA graph captures them by value (`__grid_constant__`);
+//         on the host once, when the step is planned (`make_step_plan`,
+//         from `bind_train_step`), through `cudaGetDriverEntryPoint` (no
+//         -lcuda): every operand of every product is a weight, a gradient
+//         or a slice of the bound workspace, so the maps hold for every
+//         step of the binding, and the epoch kernel launches from the same
+//         plan. A launch encodes nothing and passes the plan's maps by value
+//         (`__grid_constant__`), so a CUDA graph captures them;
 //       * ragged edges: TMA fills the parts of a box outside the matrix
 //         with zeros and the TMA store writes none of them; the split's
 //         epilogue masks them;
-//       * a refused launch or tensor-map encode is the sequence's error,
-//         which the wrapper raises: never a quiet change of kernel.
+//       * the route is chosen when the step is planned, never after a
+//         refusal: a refused tensor-map encode fails the plan and a refused
+//         launch is the sequence's error, which the wrapper raises.
 //       Semantics as before: operands rounded to bf16, f32 accumulation, dX
 //       and dW rounded to bf16 after the whole sum, db = scale * colsum(dY)
 //       summed in row order in the same launch, no atomics.
-//     - `splitk_gemm_kernel`, the bf16 lane's other Y and dX forms: one row
-//       of 64 x 32 tiles gives 16-32 blocks, each on a chain of K / 64
+//     - `mma_dw_kernel`, the bf16 lane's dW form where a tensor map cannot
+//       read an operand (a row of dY, X or dW not a whole number of 16-byte
+//       units): one block a 64 x 32 tile over the whole of K, 32-deep k
+//       tiles copied with `cp.async` (16 bytes where aligned, else 4) into
+//       a two-deep ring, rounded to bf16 as the fragments are built,
+//       `mma.sync` m16n8k16; the blocks of the first tile column sum db
+//       from the landed tiles in row order. The same semantics, bit for bit
+//       repeatable.
+//     - `splitk_gemm_kernel`, the bf16 lane's other Y and dX forms (those
+//       a tensor map cannot read among them: its copies are 16 bytes where
+//       aligned, else 4; `cp_async_quad`): one row of 64 x 32 tiles gives 16-32 blocks, each on a chain of K / 64
 //       dependent k steps. Here each output tile is a cluster of up to 8
 //       blocks, each block summing its slice of K (one or two 64-deep tiles,
 //       copied with `cp.async` into a two-deep shared-memory ring, rounded
@@ -110,9 +125,11 @@
 
 #include <algorithm>
 #include <cooperative_groups.h>
+#include <memory>
 #include <mutex>
 #include <set>
 #include <utility>
+#include <vector>
 
 #include "rows.cuh"
 #include "wgmma.cuh"
@@ -431,6 +448,101 @@ splitk_gemm_kernel(const float* __restrict__ A, long a_sm, const float* __restri
     for (int q = 0; q < s; ++q) v += R[(q * rows + rr) * kSplitLDP + c];
     emit(C, M, N, m0 + rank * rows + rr, n0 + c, v, ep);
   }
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 lane's dW form that tensor maps cannot read (see the note at the
+// top): C[m][n] = epilogue(sum_k A[k][m] B[k][n]), A = dY (K rows of M, line
+// stride a_ld), B = X (K rows of N, line stride b_ld), C row-major (M, N).
+// One block a 64 x 32 tile over the whole of K, 32 k's a ring slot: A's
+// slot is [k][m], B's [k][n], each line padded by 4 floats so that a warp's
+// fragment loads fall in 32 different banks.
+
+constexpr int kDwTK = 32;                 // k's a ring slot
+constexpr int kDwLDA = TM + 4;            // f32 stride of a k line of an A slot
+constexpr int kDwLDB = TN + 4;            // f32 stride of a k line of a B slot
+
+__global__ void __launch_bounds__(kGemmThreads)
+mma_dw_kernel(const float* __restrict__ A, long a_ld, const float* __restrict__ B, long b_ld,
+              float* C, int M, int N, int K, Epilogue ep) {
+  __shared__ __align__(16) float As[2][kDwTK * kDwLDA];
+  __shared__ __align__(16) float Bs[2][kDwTK * kDwLDB];
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
+  const int n_tiles = (K + kDwTK - 1) / kDwTK;
+  const bool sums = ep.colsum && blockIdx.x == 0;
+
+  // k tile i into ring slot `slot`: 4 quads of A and 2 of B a thread, along
+  // m and n (contiguous in device memory)
+  auto load = [&](int i, int slot) {
+    const int k0 = i * kDwTK;
+#pragma unroll
+    for (int q = 0; q < kDwTK * TM / 4 / kGemmThreads; ++q) {
+      const int e = q * kGemmThreads + tid;
+      const int r = e / (TM / 4), c = (e % (TM / 4)) * 4;
+      const int k = k0 + r, m = m0 + c;
+      const int nv = k < K ? max(0, min(4, M - m)) : 0;
+      cp_async_quad(&As[slot][r * kDwLDA + c], A + (size_t)k * a_ld + m, nv, A);
+    }
+#pragma unroll
+    for (int q = 0; q < kDwTK * TN / 4 / kGemmThreads; ++q) {
+      const int e = q * kGemmThreads + tid;
+      const int r = e / (TN / 4), c = (e % (TN / 4)) * 4;
+      const int k = k0 + r, n = n0 + c;
+      const int nv = k < K ? max(0, min(4, N - n)) : 0;
+      cp_async_quad(&Bs[slot][r * kDwLDB + c], B + (size_t)k * b_ld + n, nv, B);
+    }
+  };
+
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;  // tensor-core fragment coordinates
+  const int mr = 16 * warp + g;           // the warp's first fragment row in the tile
+  float acc[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+  float colsum = 0.f;
+
+  load(0, 0);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + 1 < n_tiles) load(i + 1, (i + 1) & 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // tile i has landed
+    __syncthreads();
+    const float* as = As[i & 1];
+    const float* bs = Bs[i & 1];
+    if (sums && tid < TM) {  // db: A's column tid down k, in row order, in f32
+      const int kv = min(kDwTK, K - i * kDwTK);
+      for (int k = 0; k < kv; ++k) colsum += as[k * kDwLDA + tid];
+    }
+#pragma unroll
+    for (int kk = 0; kk < kDwTK; kk += 16) {
+      const float* a = as + (kk + 2 * t) * kDwLDA + mr;
+      const uint32_t a0 = bf16x2(a[0], a[kDwLDA]);
+      const uint32_t a1 = bf16x2(a[8], a[kDwLDA + 8]);
+      const uint32_t a2 = bf16x2(a[8 * kDwLDA], a[9 * kDwLDA]);
+      const uint32_t a3 = bf16x2(a[8 * kDwLDA + 8], a[9 * kDwLDA + 8]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float* b = bs + (kk + 2 * t) * kDwLDB + 8 * j + g;
+        fd::mma_bf16(acc[j], a0, a1, a2, a3, bf16x2(b[0], b[kDwLDB]),
+                     bf16x2(b[8 * kDwLDB], b[9 * kDwLDB]));
+      }
+    }
+    __syncthreads();  // slot i & 1 is refilled by the next iteration
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+
+  if (sums && tid < TM && m0 + tid < M) ep.colsum[m0 + tid] = ep.colsum_scale * colsum;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        emit(C, M, N, m0 + mr + 8 * h, n0 + 8 * j + 2 * t + e, acc[j][2 * h + e], ep);
 }
 
 // ---------------------------------------------------------------------------
@@ -949,13 +1061,20 @@ loss_kernel(const float* out, const float* skipv, const float* eps, const float*
 }
 
 // ---------------------------------------------------------------------------
-// Host side: the plan of a product and the sequence of launches.
+// Host side: the plan of a product, the plan of a step, and the sequence of
+// launches.
 
 // The kernel a product runs on.
-enum ProductKernel { kFmaKernel = 0, kSplitKernel = 1, kWgmmaKernel = 2 };
-// Which kernel the bf16 lane's Y and dX forms take: the plan's choice, or
-// either kernel forced (the two timed against each other, `fd_gemm_launch`).
-enum ProductRoute { kRoutePlan = 0, kRouteSplit = 1, kRouteWgmma = 2 };
+enum ProductKernel { kFmaKernel = 0, kSplitKernel = 1, kWgmmaKernel = 2, kMmaDwKernel = 3 };
+// The kernel a bf16 product is sent to: the plan's choice, or one kernel
+// forced (the kernels timed against each other, `fd_gemm_launch`).
+enum ProductRoute { kRoutePlan = 0, kRouteSplit = 1, kRouteWgmma = 2, kRouteMmaDw = 3 };
+static_assert((int)kRouteSplit == (int)kSplitKernel && (int)kRouteWgmma == (int)kWgmmaKernel &&
+                  (int)kRouteMmaDw == (int)kMmaDwKernel,
+              "a forced route names its kernel");
+
+// The three forms of a Linear's product.
+enum ProductForm { kFormY = 0, kFormDx = 1, kFormDw = 2 };
 
 // The kernel, its output tile, its split of K over a cluster and the k's a
 // block sums, and the blocks, threads and dynamic shared memory launched.
@@ -965,43 +1084,68 @@ struct ProductPlan {
 };
 
 // The bf16 lane's Y and dX forms that wg_gemm_kernel takes from
-// splitk_gemm_kernel: those with N * K >= 2^18 (512 x 512 and up), where the
-// two, timed in turns at the flagship's shapes, put wg_gemm_kernel ahead
-// (PERF.md), except Y at N = 1024, K = 512, where it was not. b_along_k: the
-// Y form.
-inline bool wgmma_takes(bool b_along_k, int N, int K) {
-  if (b_along_k && N == 1024 && K == 512) return false;
+// splitk_gemm_kernel where tensor maps can read them: those with N * K >=
+// 2^18 (512 x 512 and up), where the two, timed in turns at the flagship's
+// shapes, put wg_gemm_kernel ahead (PERF.md), except Y at N = 1024, K = 512,
+// where it was not.
+inline bool wgmma_takes(int form, int N, int K) {
+  if (form == kFormY && N == 1024 && K == 512) return false;
   return (long long)N * K >= (1LL << 18);
 }
 
-// The three forms of a Linear's product (`fd_product_plan`, `fd_gemm_empty_launch`).
-enum ProductForm { kFormY = 0, kFormDx = 1, kFormDw = 2 };
+// Line strides (elements) of the operands of a product of this form on
+// contiguous tensors: Y reads X (M, K) and W (N, K), dX reads dY (M, K) and
+// W (K, N), dW reads dY (K, M) and X (K, N); C is (M, N).
+inline void contiguous_lds(int form, int M, int N, int K, long* a_ld, long* b_ld, long* c_ld) {
+  *a_ld = form == kFormDw ? M : K;
+  *b_ld = form == kFormY ? K : N;
+  *c_ld = N;
+}
 
-// a_along_m: the dW form (A(m, k) = A[k][m]); b_along_k: the Y form (B(n, k) = W[n][k]).
-inline ProductPlan product_plan(bool f32, bool a_along_m, bool b_along_k, int M, int N, int K,
-                                int route = kRoutePlan) {
-  ProductPlan p{};
+// Whether tensor maps can read a matrix with this line stride (elements):
+// whole 16-byte units.
+inline bool tma_stride(long ld) { return (ld * (long)sizeof(float)) % 16 == 0; }
+inline bool tma_base(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// The plan of a product of `form`. tma: tensor maps can read every operand
+// (`tma_stride`, `tma_base`). route: kRoutePlan, or the kernel forced. False
+// where the route is refused: a kernel the form does not run on (split-K for
+// dW, mma_dw for Y and dX), or wgmma for operands a tensor map cannot read.
+// The f32 lane runs every form on the FMA kernel, whatever the route.
+inline bool product_plan(bool f32, int form, int M, int N, int K, bool tma, int route,
+                         ProductPlan* out) {
   if (f32) {
-    p = {kFmaKernel, TM, TN, 1, K, ((N + TN - 1) / TN) * ((M + TM - 1) / TM), kGemmThreads, 0};
-    return p;
+    *out = {kFmaKernel, TM, TN, 1, K, ((N + TN - 1) / TN) * ((M + TM - 1) / TM), kGemmThreads,
+            0};
+    return true;
   }
-  const bool wg = a_along_m || route == kRouteWgmma ||
-                  (route == kRoutePlan && wgmma_takes(b_along_k, N, K));
-  if (!wg) {
+  const bool dw = form == kFormDw;
+  int kernel = route;
+  if (route == kRoutePlan)
+    kernel = !tma ? (dw ? kMmaDwKernel : kSplitKernel)
+                  : (dw || wgmma_takes(form, N, K) ? kWgmmaKernel : kSplitKernel);
+  if ((kernel == kWgmmaKernel && !tma) || (kernel == kSplitKernel && dw) ||
+      (kernel == kMmaDwKernel && !dw) || kernel < kSplitKernel || kernel > kMmaDwKernel)
+    return false;
+  if (kernel == kMmaDwKernel) {
+    *out = {kMmaDwKernel, TM, TN, 1, K, ((N + TN - 1) / TN) * ((M + TM - 1) / TM),
+            kGemmThreads, 0};
+  } else if (kernel == kSplitKernel) {
     int s, kc;
     splitk_plan(K, &s, &kc);
-    p = {kSplitKernel, TM, TN, s, kc, ((N + TN - 1) / TN) * s * ((M + TM - 1) / TM),
-         kGemmThreads, kSplitSmem};
-    return p;
+    *out = {kSplitKernel, TM, TN, s, kc, ((N + TN - 1) / TN) * s * ((M + TM - 1) / TM),
+            kGemmThreads, kSplitSmem};
+  } else {
+    const int tiles = ((M + kWgTile - 1) / kWgTile) * ((N + kWgTile - 1) / kWgTile);
+    const int nk = (K + kWgTile - 1) / kWgTile;
+    int s = 1;
+    if (!dw)
+      while (s < kWgMaxSplit && 2 * s <= nk) s *= 2;
+    const int kt = (nk + s - 1) / s;
+    *out = {kWgmmaKernel, kWgTile, kWgTile, s, kt * kWgTile, tiles * s, kWgThreads,
+            wg_smem_bytes(s)};
   }
-  const int tiles = ((M + kWgTile - 1) / kWgTile) * ((N + kWgTile - 1) / kWgTile);
-  const int nk = (K + kWgTile - 1) / kWgTile;
-  int s = 1;
-  if (!a_along_m)
-    while (s < kWgMaxSplit && 2 * s <= nk) s *= 2;
-  const int kt = (nk + s - 1) / s;
-  p = {kWgmmaKernel, kWgTile, kWgTile, s, kt * kWgTile, tiles * s, kWgThreads, wg_smem_bytes(s)};
-  return p;
+  return true;
 }
 
 // Allow `kernel` `bytes` of dynamic shared memory (the most any plan gives
@@ -1020,188 +1164,6 @@ inline cudaError_t allow_smem(const void* kernel, size_t bytes) {
 }
 
 inline size_t wg_smem_max() { return std::max(wg_smem_bytes(1), wg_smem_bytes(2)); }
-
-struct Run {
-  cudaStream_t stream;
-  bool exact;  // the f32 lane
-  cudaError_t err;
-
-  // The first error of the sequence: a refused launch's own code, else the
-  // launch's cudaGetLastError.
-  void note(cudaError_t launch = cudaSuccess) {
-    const cudaError_t e = cudaGetLastError();
-    if (err == cudaSuccess) err = launch != cudaSuccess ? launch : e;
-  }
-
-  // The launch of plan p: grid, block, shared memory and cluster.
-  void config(const ProductPlan& p, int M, int N, cudaLaunchConfig_t* cfg,
-              cudaLaunchAttribute* attr) const {
-    *cfg = {};
-    if (p.kernel == kWgmmaKernel)
-      cfg->gridDim = dim3((unsigned)p.blocks);
-    else
-      cfg->gridDim = dim3((unsigned)((N + p.tile_n - 1) / p.tile_n * p.split),
-                          (unsigned)((M + p.tile_m - 1) / p.tile_m));
-    cfg->blockDim = dim3((unsigned)p.threads);
-    cfg->dynamicSmemBytes = p.smem;
-    cfg->stream = stream;
-    attr->id = cudaLaunchAttributeClusterDimension;
-    attr->val.clusterDim.x = p.split;
-    attr->val.clusterDim.y = 1;
-    attr->val.clusterDim.z = 1;
-    cfg->attrs = attr;
-    // the split-K kernel reads its cluster even where it is one block
-    cfg->numAttrs = p.split > 1 || p.kernel == kSplitKernel ? 1 : 0;
-  }
-
-  // The bf16 lane's Y and dX forms on clusters of s blocks (`splitk_plan`).
-  void splitk(const ProductPlan& p, const float* A, long a_sm, const float* B, long b_sn,
-              long b_sk, float* C, int M, int N, int K, const Epilogue& ep) {
-    if (ep.colsum || (b_sn != 1 && b_sk != 1)) {
-      note(cudaErrorInvalidValue);
-      return;
-    }
-    cudaError_t e = allow_smem((const void*)splitk_gemm_kernel<true>, kSplitSmem);
-    if (e == cudaSuccess) e = allow_smem((const void*)splitk_gemm_kernel<false>, kSplitSmem);
-    if (e != cudaSuccess) {
-      note(e);
-      return;
-    }
-    cudaLaunchConfig_t cfg;
-    cudaLaunchAttribute attr;
-    config(p, M, N, &cfg, &attr);
-    if (b_sk == 1)
-      note(cudaLaunchKernelEx(&cfg, splitk_gemm_kernel<true>, A, a_sm, B, b_sn, C, M, N, K,
-                              p.kc, ep));
-    else
-      note(cudaLaunchKernelEx(&cfg, splitk_gemm_kernel<false>, A, a_sm, B, b_sk, C, M, N, K,
-                              p.kc, ep));
-  }
-
-  // The bf16 lane's products on wg_gemm_kernel: the dW form (A and B
-  // MN-major), and Y (both K-major) and dX (B MN-major) where the plan says.
-  // Each operand's tensor map is encoded here, on the host, from the
-  // pointers of this call (`fdh::wg_map` keeps the ones it has seen).
-  void wgmma(const ProductPlan& p, const float* A, long a_sm, long a_sk, const float* B,
-             long b_sn, long b_sk, float* C, int M, int N, int K, const Epilogue& ep) {
-    const bool a_mn = a_sk != 1, b_mn = b_sk != 1;
-    if ((a_mn && (a_sm != 1 || !b_mn)) || (b_mn && b_sn != 1) ||
-        (ep.colsum && (p.split > 1 || !a_mn))) {
-      note(cudaErrorInvalidValue);
-      return;
-    }
-    CUtensorMap ma, mb, mc;
-    if (!fdh::wg_map(&ma, A, a_mn ? M : K, a_mn ? K : M, a_mn ? a_sk : a_sm) ||
-        !fdh::wg_map(&mb, B, b_mn ? N : K, b_mn ? K : N, b_mn ? b_sk : b_sn) ||
-        !fdh::wg_map(&mc, C, N, M, N, 32, kWgTile, true)) {
-      note(cudaErrorInvalidValue);
-      return;
-    }
-    const int n_tiles = (N + kWgTile - 1) / kWgTile;
-    const WgShape sh{M, N, K, n_tiles, p.split, p.kc / kWgTile};
-    const void* kernel = a_mn   ? (const void*)wg_gemm_kernel<true, true>
-                         : b_mn ? (const void*)wg_gemm_kernel<false, true>
-                                : (const void*)wg_gemm_kernel<false, false>;
-    const cudaError_t e = allow_smem(kernel, wg_smem_max());
-    if (e != cudaSuccess) {
-      note(e);
-      return;
-    }
-    cudaLaunchConfig_t cfg;
-    cudaLaunchAttribute attr;
-    config(p, M, N, &cfg, &attr);
-    if (a_mn)
-      note(cudaLaunchKernelEx(&cfg, wg_gemm_kernel<true, true>, ma, mb, mc, C, sh, ep));
-    else if (b_mn)
-      note(cudaLaunchKernelEx(&cfg, wg_gemm_kernel<false, true>, ma, mb, mc, C, sh, ep));
-    else
-      note(cudaLaunchKernelEx(&cfg, wg_gemm_kernel<false, false>, ma, mb, mc, C, sh, ep));
-  }
-
-  // Every product of the step: the f32 ones on `gemm_kernel`, the bf16 lane's
-  // where `product_plan` sends them.
-  void gemm(bool f32, const float* A, long a_sm, long a_sk, const float* B, long b_sn,
-            long b_sk, float* C, int M, int N, int K, const Epilogue& ep,
-            int route = kRoutePlan) {
-    if (M < 1 || N < 1 || K < 1) {
-      note(cudaErrorInvalidValue);
-      return;
-    }
-    const ProductPlan p = product_plan(f32, a_sk != 1, b_sk == 1, M, N, K, route);
-    if (p.kernel == kSplitKernel) {
-      splitk(p, A, a_sm, B, b_sn, b_sk, C, M, N, K, ep);
-    } else if (p.kernel == kWgmmaKernel) {
-      wgmma(p, A, a_sm, a_sk, B, b_sn, b_sk, C, M, N, K, ep);
-    } else {
-      const dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM);
-      gemm_kernel<<<grid, kGemmThreads, 0, stream>>>(A, a_sm, a_sk, B, b_sn, b_sk, C, M, N, K,
-                                                     ep);
-      note();
-    }
-  }
-
-  // An empty kernel on the grid, block, shared memory and cluster of the
-  // product's plan: its launch alone.
-  void gemm_empty(bool f32, int form, int M, int N, int K, int route = kRoutePlan) {
-    const ProductPlan p = product_plan(f32, form == kFormDw, form == kFormY, M, N, K, route);
-    const cudaError_t e =
-        allow_smem((const void*)product_empty_kernel, std::max(wg_smem_max(), kSplitSmem));
-    if (e != cudaSuccess) {
-      note(e);
-      return;
-    }
-    cudaLaunchConfig_t cfg;
-    cudaLaunchAttribute attr;
-    config(p, M, N, &cfg, &attr);
-    note(cudaLaunchKernelEx(&cfg, product_empty_kernel, 0));
-  }
-
-  // Y (rows, out) = (X (rows, in) W^T + scale * bias) [* mul] [+ res]; W (out, in)
-  void fwd(const float* X, const float* W, const float* bias, float* Y, int rows, int in,
-           int out, float scale = 1.f, const float* mul = nullptr, const float* res = nullptr,
-           bool f32 = false) {
-    gemm(f32 || exact, X, in, 1, W, in, 1, Y, rows, out, in,
-         Epilogue{bias, scale, 0, mul, res, nullptr, 0.f});
-  }
-
-  // dX (rows, in) = round(dY (rows, out) W) [* mul] [+ res]
-  void dx(const float* dY, const float* W, float* dX, int rows, int in, int out,
-          const float* mul = nullptr, const float* res = nullptr, bool f32 = false) {
-    const bool e = f32 || exact;
-    gemm(e, dY, out, 1, W, 1, in, dX, rows, in, out,
-         Epilogue{nullptr, 0.f, e ? 0 : 1, mul, res, nullptr, 0.f});
-  }
-
-  // dW (out, in) = round(dY^T X), db (out) = scale * colsum(dY)
-  void dw(const float* dY, const float* X, float* dW, float* db, int rows, int in, int out,
-          float scale = 1.f, bool f32 = false) {
-    const bool e = f32 || exact;
-    gemm(e, dY, 1, out, X, 1, in, dW, out, in, rows,
-         Epilogue{nullptr, 0.f, e ? 0 : 1, nullptr, nullptr, db, scale});
-  }
-
-  void ln_fwd(const float* x, const float* g, const float* b, const float* mask, int swish,
-              const float* res, float* y, float* mean, float* rstd, int rows, int d,
-              float eps) {
-    ln_fwd_kernel<<<rows, kRowThreads, 0, stream>>>(x, g, b, mask, swish, res, y, mean, rstd,
-                                                    d, eps);
-    note();
-  }
-
-  // dx and the affine's gradients; dyhat is scratch of x's shape
-  void ln_bwd(const float* dy, const float* x, const float* mean, const float* rstd,
-              const float* g, const float* b, const float* mask, int swish, const float* res,
-              float* dyhat, float* dx_out, float* dgamma, float* dbeta, int rows, int d) {
-    ln_bwd_kernel<<<rows, kRowThreads, 0, stream>>>(dy, x, mean, rstd, g, b, mask, swish, res,
-                                                    dyhat, dx_out, d);
-    note();
-    ln_param_grad_kernel<<<(d + 127) / 128, 128, 0, stream>>>(dyhat, x, mean, rstd, dgamma,
-                                                              dbeta, rows, d);
-    note();
-  }
-
-  static unsigned blocks(size_t n) { return (unsigned)((n + 255) / 256); }
-};
 
 constexpr int kMaxStages = 16;
 
@@ -1303,21 +1265,258 @@ enum { S_WT, S_BT, S_WB, S_BB, S_G1, S_B1, S_G2, S_B2, S_WV, S_BV, S_WO, S_BO, S
        kStageLeaves };
 enum { WTF, BTF, WCF, BCF, GF, BF, WF, BF2, RW, kTailLeaves };
 
-// Enqueue one train step (forward, loss, backward: 119 launches at four
-// stages) on `stream`. weights, grads: 11 + 14 * n_stages + 9 pointers to f32
-// tensors, matrices in PyTorch's (out, in) layout; data: z, t_f, sa, s1a, eps,
-// labels (int32), cond_mask, freqs; masks: block and attention mask of each
-// stage, (B, d_i); loss: one f32.
-cudaError_t train_step_enqueue(const void* const* weights, void* const* grads,
-                               const void* const* data, const void* const* masks,
-                               void* workspace, void* loss, const Dims& d, int f32_lane,
-                               int global_skip, float ln_eps, cudaStream_t stream) {
+// One product of a plan: its operands as the step passes them, its kernel,
+// and for wg_gemm_kernel the tensor maps of A, B and C, encoded once.
+struct Product {
+  int form;
+  const float* A;
+  const float* B;
+  float* C;
+  long a_sm, a_sk, b_sn, b_sk;
+  int M, N, K;
+  ProductPlan plan;
+  CUtensorMap ma, mb, mc;
+};
+
+// The plan of a bound train step (`fd_step_plan_create`): its widths, lane,
+// weight, gradient and workspace pointers, and every product of the step in
+// the order the step launches them, each with its route and, on the TMA
+// route, its maps. Made once a binding; every launch of the step, alone or
+// inside an epoch, reads it and encodes nothing. The tools' one-product
+// plans (`fd_gemm_launch`) are made a call.
+struct StepPlan {
+  Dims d{};
+  bool f32 = false;
+  int global_skip = 0;
+  float ln_eps = 0.f;
+  std::vector<const void*> weights;
+  std::vector<void*> grads;
+  void* workspace = nullptr;
+  std::vector<Product> products;
+};
+
+inline int n_leaves(const Dims& d) { return kHeadLeaves + kStageLeaves * d.n_stages + kTailLeaves; }
+
+struct Run {
+  cudaStream_t stream;
+  bool exact;  // the f32 lane
+  cudaError_t err;
+  StepPlan* rec = nullptr;         // planning: products go into rec, nothing launches
+  const StepPlan* plan = nullptr;  // launching: products come from plan, in order
+  size_t next = 0;
+
+  // The first error of the sequence: a refused launch's own code, else the
+  // launch's cudaGetLastError.
+  void note(cudaError_t launch = cudaSuccess) {
+    const cudaError_t e = rec ? cudaSuccess : cudaGetLastError();
+    if (err == cudaSuccess) err = launch != cudaSuccess ? launch : e;
+  }
+
+  // A row or column kernel on (grid, block); none while planning.
+  template <typename... P, typename... A>
+  void launch(void (*kernel)(P...), unsigned grid, unsigned block, A&&... args) {
+    if (rec) return;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(grid);
+    cfg.blockDim = dim3(block);
+    cfg.stream = stream;
+    note(cudaLaunchKernelEx(&cfg, kernel, std::forward<A>(args)...));
+  }
+
+  // The launch of plan p: grid, block, shared memory and cluster.
+  void config(const ProductPlan& p, int M, int N, cudaLaunchConfig_t* cfg,
+              cudaLaunchAttribute* attr) const {
+    *cfg = {};
+    if (p.kernel == kWgmmaKernel)
+      cfg->gridDim = dim3((unsigned)p.blocks);
+    else
+      cfg->gridDim = dim3((unsigned)((N + p.tile_n - 1) / p.tile_n * p.split),
+                          (unsigned)((M + p.tile_m - 1) / p.tile_m));
+    cfg->blockDim = dim3((unsigned)p.threads);
+    cfg->dynamicSmemBytes = p.smem;
+    cfg->stream = stream;
+    attr->id = cudaLaunchAttributeClusterDimension;
+    attr->val.clusterDim.x = p.split;
+    attr->val.clusterDim.y = 1;
+    attr->val.clusterDim.z = 1;
+    cfg->attrs = attr;
+    // the split-K kernel reads its cluster even where it is one block
+    cfg->numAttrs = p.split > 1 || p.kernel == kSplitKernel ? 1 : 0;
+  }
+
+  // Plan one product into rec: its route from its form, shape and operands,
+  // its operands checked against the kernel's layout, and on the TMA route
+  // its maps encoded. A refusal is the sequence's error.
+  void plan_product(bool f32, int form, const float* A, long a_sm, long a_sk, const float* B,
+                    long b_sn, long b_sk, float* C, int M, int N, int K, const Epilogue& ep,
+                    int route) {
+    Product q{};
+    q.form = form;
+    q.A = A, q.B = B, q.C = C;
+    q.a_sm = a_sm, q.a_sk = a_sk, q.b_sn = b_sn, q.b_sk = b_sk;
+    q.M = M, q.N = N, q.K = K;
+    const long a_ld = form == kFormDw ? a_sk : a_sm, b_ld = form == kFormY ? b_sn : b_sk;
+    const bool tma = tma_base(A) && tma_base(B) && tma_base(C) && tma_stride(a_ld) &&
+                     tma_stride(b_ld) && tma_stride(N);
+    if (M < 1 || N < 1 || K < 1 || !product_plan(f32, form, M, N, K, tma, route, &q.plan)) {
+      note(cudaErrorInvalidValue);
+      return;
+    }
+    // each kernel's operand layout: A(m, k) = A[m a_sm + k a_sk], B(n, k) = B[n b_sn + k b_sk]
+    const bool y = form == kFormY, dw = form == kFormDw;
+    const bool laid = dw ? a_sm == 1 && b_sn == 1 : a_sk == 1 && (y ? b_sk == 1 : b_sn == 1);
+    bool ok = true;
+    switch (q.plan.kernel) {
+      case kSplitKernel: ok = laid && !ep.colsum; break;
+      case kMmaDwKernel: ok = laid; break;
+      case kWgmmaKernel:
+        ok = laid && (!ep.colsum || (dw && q.plan.split == 1)) &&
+             fdh::wg_map(&q.ma, A, dw ? M : K, dw ? K : M, a_ld) &&
+             fdh::wg_map(&q.mb, B, y ? K : N, y ? N : K, b_ld) &&
+             fdh::wg_map(&q.mc, C, N, M, N, 32, kWgTile, true);
+        break;
+      default: break;  // the FMA kernel reads any strides
+    }
+    if (!ok) {
+      note(cudaErrorInvalidValue);
+      return;
+    }
+    rec->products.push_back(q);
+  }
+
+  // Launch planned product q with this call's epilogue.
+  void launch_product(const Product& q, const Epilogue& ep) {
+    const ProductPlan& p = q.plan;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    config(p, q.M, q.N, &cfg, &attr);
+    if (p.kernel == kSplitKernel) {
+      cudaError_t e = allow_smem((const void*)splitk_gemm_kernel<true>, kSplitSmem);
+      if (e == cudaSuccess) e = allow_smem((const void*)splitk_gemm_kernel<false>, kSplitSmem);
+      if (e != cudaSuccess) return note(e);
+      if (q.form == kFormY)
+        note(cudaLaunchKernelEx(&cfg, splitk_gemm_kernel<true>, q.A, q.a_sm, q.B, q.b_sn, q.C,
+                                q.M, q.N, q.K, p.kc, ep));
+      else
+        note(cudaLaunchKernelEx(&cfg, splitk_gemm_kernel<false>, q.A, q.a_sm, q.B, q.b_sk, q.C,
+                                q.M, q.N, q.K, p.kc, ep));
+    } else if (p.kernel == kWgmmaKernel) {
+      // dW: A and B MN-major; Y: both K-major; dX: B MN-major
+      const WgShape sh{q.M, q.N, q.K, (q.N + kWgTile - 1) / kWgTile, p.split, p.kc / kWgTile};
+      const void* kernel = q.form == kFormDw  ? (const void*)wg_gemm_kernel<true, true>
+                           : q.form == kFormDx ? (const void*)wg_gemm_kernel<false, true>
+                                               : (const void*)wg_gemm_kernel<false, false>;
+      const cudaError_t e = allow_smem(kernel, wg_smem_max());
+      if (e != cudaSuccess) return note(e);
+      if (q.form == kFormDw)
+        note(cudaLaunchKernelEx(&cfg, wg_gemm_kernel<true, true>, q.ma, q.mb, q.mc, q.C, sh, ep));
+      else if (q.form == kFormDx)
+        note(cudaLaunchKernelEx(&cfg, wg_gemm_kernel<false, true>, q.ma, q.mb, q.mc, q.C, sh,
+                                ep));
+      else
+        note(cudaLaunchKernelEx(&cfg, wg_gemm_kernel<false, false>, q.ma, q.mb, q.mc, q.C, sh,
+                                ep));
+    } else if (p.kernel == kMmaDwKernel) {
+      note(cudaLaunchKernelEx(&cfg, mma_dw_kernel, q.A, q.a_sk, q.B, q.b_sk, q.C, q.M, q.N, q.K,
+                              ep));
+    } else {
+      note(cudaLaunchKernelEx(&cfg, gemm_kernel, q.A, q.a_sm, q.a_sk, q.B, q.b_sn, q.b_sk, q.C,
+                              q.M, q.N, q.K, ep));
+    }
+  }
+
+  // Every product of the step: planned into rec, or launched as the plan's
+  // next product (the same operands in the same order, else an error).
+  void gemm(bool f32, int form, const float* A, long a_sm, long a_sk, const float* B, long b_sn,
+            long b_sk, float* C, int M, int N, int K, const Epilogue& ep,
+            int route = kRoutePlan) {
+    if (rec) return plan_product(f32, form, A, a_sm, a_sk, B, b_sn, b_sk, C, M, N, K, ep, route);
+    if (!plan || next >= plan->products.size()) return note(cudaErrorInvalidValue);
+    const Product& q = plan->products[next++];
+    if (q.form != form || q.A != A || q.B != B || q.C != C || q.M != M || q.N != N ||
+        q.K != K || q.a_sm != a_sm || q.a_sk != a_sk || q.b_sn != b_sn || q.b_sk != b_sk)
+      return note(cudaErrorInvalidValue);
+    launch_product(q, ep);
+  }
+
+  // An empty kernel on the grid, block, shared memory and cluster of the
+  // plan of a product of this form on contiguous tensors: its launch alone.
+  void gemm_empty(bool f32, int form, int M, int N, int K, int route = kRoutePlan) {
+    long a_ld, b_ld, c_ld;
+    contiguous_lds(form, M, N, K, &a_ld, &b_ld, &c_ld);
+    ProductPlan p;
+    if (!product_plan(f32, form, M, N, K, tma_stride(a_ld) && tma_stride(b_ld) && tma_stride(c_ld),
+                      route, &p))
+      return note(cudaErrorInvalidValue);
+    const cudaError_t e =
+        allow_smem((const void*)product_empty_kernel, std::max(wg_smem_max(), kSplitSmem));
+    if (e != cudaSuccess) return note(e);
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    config(p, M, N, &cfg, &attr);
+    note(cudaLaunchKernelEx(&cfg, product_empty_kernel, 0));
+  }
+
+  // Y (rows, out) = (X (rows, in) W^T + scale * bias) [* mul] [+ res]; W (out, in)
+  void fwd(const float* X, const float* W, const float* bias, float* Y, int rows, int in,
+           int out, float scale = 1.f, const float* mul = nullptr, const float* res = nullptr,
+           bool f32 = false) {
+    gemm(f32 || exact, kFormY, X, in, 1, W, in, 1, Y, rows, out, in,
+         Epilogue{bias, scale, 0, mul, res, nullptr, 0.f});
+  }
+
+  // dX (rows, in) = round(dY (rows, out) W) [* mul] [+ res]
+  void dx(const float* dY, const float* W, float* dX, int rows, int in, int out,
+          const float* mul = nullptr, const float* res = nullptr, bool f32 = false) {
+    const bool e = f32 || exact;
+    gemm(e, kFormDx, dY, out, 1, W, 1, in, dX, rows, in, out,
+         Epilogue{nullptr, 0.f, e ? 0 : 1, mul, res, nullptr, 0.f});
+  }
+
+  // dW (out, in) = round(dY^T X), db (out) = scale * colsum(dY)
+  void dw(const float* dY, const float* X, float* dW, float* db, int rows, int in, int out,
+          float scale = 1.f, bool f32 = false) {
+    const bool e = f32 || exact;
+    gemm(e, kFormDw, dY, 1, out, X, 1, in, dW, out, in, rows,
+         Epilogue{nullptr, 0.f, e ? 0 : 1, nullptr, nullptr, db, scale});
+  }
+
+  void ln_fwd(const float* x, const float* g, const float* b, const float* mask, int swish,
+              const float* res, float* y, float* mean, float* rstd, int rows, int d,
+              float eps) {
+    launch(ln_fwd_kernel, rows, kRowThreads, x, g, b, mask, swish, res, y, mean, rstd, d, eps);
+  }
+
+  // dx and the affine's gradients; dyhat is scratch of x's shape
+  void ln_bwd(const float* dy, const float* x, const float* mean, const float* rstd,
+              const float* g, const float* b, const float* mask, int swish, const float* res,
+              float* dyhat, float* dx_out, float* dgamma, float* dbeta, int rows, int d) {
+    launch(ln_bwd_kernel, rows, kRowThreads, dy, x, mean, rstd, g, b, mask, swish, res, dyhat,
+           dx_out, d);
+    launch(ln_param_grad_kernel, (d + 127) / 128, 128, dyhat, x, mean, rstd, dgamma, dbeta,
+           rows, d);
+  }
+
+  static unsigned blocks(size_t n) { return (unsigned)((n + 255) / 256); }
+};
+
+// The sequence of one train step (forward, loss, backward: 119 launches at
+// four stages) on `run`: planned (run.rec: the products only, nothing
+// launched; data, masks and loss may then be null pointers) or launched from
+// run.plan on run.stream. p's weights and grads: 11 + 14 * n_stages + 9 f32
+// tensors, matrices in PyTorch's (out, in) layout; data: z, t_f, sa, s1a,
+// eps, labels (int32), cond_mask, freqs; masks: block and attention mask of
+// each stage, (B, d_i); loss: one f32.
+void step_sequence(Run& run, const StepPlan& p, const void* const* data,
+                   const void* const* masks, void* loss) {
+  const Dims& d = p.d;
   const int n = d.n_stages, B = d.B, te = d.te, L = d.latent, dl = d.hidden[n];
-  if (global_skip && dl != L) return cudaErrorInvalidValue;
+  const int global_skip = p.global_skip;
+  const float ln_eps = p.ln_eps;
   Workspace w;
-  layout(d, (float*)workspace, &w);
-  auto W = [&](int i) { return (const float*)weights[i]; };
-  auto G = [&](int i) { return (float*)grads[i]; };
+  layout(d, (float*)p.workspace, &w);
+  auto W = [&](int i) { return (const float*)p.weights[i]; };
+  auto G = [&](int i) { return (float*)p.grads[i]; };
   const int tail = kHeadLeaves + kStageLeaves * n;
   const float* z = (const float*)data[0];
   const float* t_f = (const float*)data[1];
@@ -1327,28 +1526,20 @@ cudaError_t train_step_enqueue(const void* const* weights, void* const* grads,
   const int* labels = (const int*)data[5];
   const float* cond_mask = (const float*)data[6];
   const float* freqs = (const float*)data[7];
-
-  Run run{stream, f32_lane != 0, cudaSuccess};
-  cudaStream_t st = run.stream;
-  const int round = f32_lane ? 0 : 1;
+  const int round = p.f32 ? 0 : 1;
   const size_t nte = (size_t)B * te;
 
   // ---- forward
-  prep_kernel<<<B, 128, 0, st>>>(z, eps, sa, s1a, t_f, freqs, w.x_t, w.sin_emb, L, te / 2);
-  run.note();
+  run.launch(prep_kernel, B, 128, z, eps, sa, s1a, t_f, freqs, w.x_t, w.sin_emb, L, te / 2);
   run.fwd(w.sin_emb, W(WT1), W(BT1), w.a1, B, te, 2 * te);
-  swish_kernel<<<Run::blocks(2 * nte), 256, 0, st>>>(w.a1, w.s1, 2 * nte);
-  run.note();
+  run.launch(swish_kernel, Run::blocks(2 * nte), 256, w.a1, w.s1, 2 * nte);
   run.fwd(w.s1, W(WT2), W(BT2), w.t_base, B, 2 * te, te);
-  gather_kernel<<<B, 128, 0, st>>>(W(TABLE), labels, w.e_c, te, round);
-  run.note();
+  run.launch(gather_kernel, B, 128, W(TABLE), labels, w.e_c, te, round);
   run.fwd(w.e_c, W(WC1), W(BC1), w.c1, B, te, te);
-  swish_kernel<<<Run::blocks(nte), 256, 0, st>>>(w.c1, w.sc, nte);
-  run.note();
+  run.launch(swish_kernel, Run::blocks(nte), 256, w.c1, w.sc, nte);
   run.fwd(w.sc, W(WC2), W(BC2), w.c2, B, te, te);
-  cond_kernel<<<Run::blocks(nte), 256, 0, st>>>(w.c2, w.t_base, cond_mask, w.c_base, w.tc,
-                                                nte, te);
-  run.note();
+  run.launch(cond_kernel, Run::blocks(nte), 256, w.c2, w.t_base, cond_mask, w.c_base, w.tc, nte,
+             te);
   run.fwd(w.x_t, W(WL), W(BL), w.hin[0], B, L, d.hidden[0]);
   for (int i = 0; i < n; ++i) {
     const int s0 = kHeadLeaves + kStageLeaves * i, di = d.hidden[i], dn = d.hidden[i + 1];
@@ -1375,10 +1566,9 @@ cudaError_t train_step_enqueue(const void* const* weights, void* const* grads,
   run.fwd(w.hnf, W(tail + WF), W(tail + BF2), w.out, B, dl, L, 1.f, nullptr, nullptr, true);
   if (global_skip)
     run.fwd(w.x_t, W(tail + WF), W(tail + BF2), w.skipv, B, L, L, 1.f, nullptr, nullptr, true);
-  loss_kernel<<<1, kRowThreads, 0, st>>>(w.out, w.skipv, eps, W(tail + RW), w.hnf, w.x_t,
-                                         w.dout, w.rowbuf, w.hsk, (float*)loss,
-                                         G(tail + BF2), G(tail + RW), B, L, global_skip);
-  run.note();
+  run.launch(loss_kernel, 1, kRowThreads, w.out, w.skipv, eps, W(tail + RW), w.hnf, w.x_t,
+             w.dout, w.rowbuf, w.hsk, (float*)loss, G(tail + BF2), G(tail + RW), B, L,
+             global_skip);
 
   // ---- backward
   run.dw(w.dout, global_skip ? w.hsk : w.hnf, G(tail + WF), nullptr, B, dl, L, 1.f, true);
@@ -1417,24 +1607,55 @@ cudaError_t train_step_enqueue(const void* const* weights, void* const* grads,
     gnext = swap;
   }
   run.dw(gcur, w.x_t, G(WL), G(BL), B, L, d.hidden[0]);
-  cond_bwd_kernel<<<Run::blocks(nte), 256, 0, st>>>(w.d_t, w.d_c, w.d_tc, cond_mask, w.d_c2,
-                                                    nte, te);
-  run.note();
+  run.launch(cond_bwd_kernel, Run::blocks(nte), 256, w.d_t, w.d_c, w.d_tc, cond_mask, w.d_c2,
+             nte, te);
   // time MLP
   run.dw(w.d_t, w.s1, G(WT2), G(BT2), B, 2 * te, te);
   run.dx(w.d_t, W(WT2), w.d_wide, B, 2 * te, te);
-  swish_bwd_kernel<<<Run::blocks(2 * nte), 256, 0, st>>>(w.d_wide, w.a1, w.d_mlp, 2 * nte);
-  run.note();
+  run.launch(swish_bwd_kernel, Run::blocks(2 * nte), 256, w.d_wide, w.a1, w.d_mlp, 2 * nte);
   run.dw(w.d_mlp, w.sin_emb, G(WT1), G(BT1), B, te, 2 * te);
   // class MLP and table
   run.dw(w.d_c2, w.sc, G(WC2), G(BC2), B, te, te);
   run.dx(w.d_c2, W(WC2), w.d_wide, B, te, te);
-  swish_bwd_kernel<<<Run::blocks(nte), 256, 0, st>>>(w.d_wide, w.c1, w.d_mlp, nte);
-  run.note();
+  run.launch(swish_bwd_kernel, Run::blocks(nte), 256, w.d_wide, w.c1, w.d_mlp, nte);
   run.dw(w.d_mlp, w.e_c, G(WC1), G(BC1), B, te, te);
   run.dx(w.d_mlp, W(WC1), w.d_ec, B, te, te);
-  table_grad_kernel<<<d.classes, 128, 0, st>>>(w.d_ec, labels, G(TABLE), B, te, round);
-  run.note();
+  run.launch(table_grad_kernel, d.classes, 128, w.d_ec, labels, G(TABLE), B, te, round);
+}
+
+// The plan of a train step bound to these weights, gradients and workspace
+// (pointer arrays in `weights_spec` order; dims: B, latent, time_emb,
+// classes, n_stages, hidden[0..n_stages]): every product's route, and the
+// maps of the TMA routes encoded once. Null, with *err set, where the dims
+// or a product are refused (a refused encode among them).
+StepPlan* make_step_plan(const void* const* weights, void* const* grads, void* workspace,
+                         const int* dims, int f32_lane, int global_skip, float ln_eps,
+                         cudaError_t* err) {
+  auto p = std::make_unique<StepPlan>();
+  *err = cudaErrorInvalidValue;
+  if (!read_dims(dims, &p->d) || (global_skip && p->d.hidden[p->d.n_stages] != p->d.latent))
+    return nullptr;
+  p->f32 = f32_lane != 0;
+  p->global_skip = global_skip;
+  p->ln_eps = ln_eps;
+  p->weights.assign(weights, weights + n_leaves(p->d));
+  p->grads.assign(grads, grads + n_leaves(p->d));
+  p->workspace = workspace;
+  Run run{nullptr, p->f32, cudaSuccess};
+  run.rec = p.get();
+  const void* none[8 + 2 * kMaxStages] = {};
+  step_sequence(run, *p, none, none, nullptr);
+  *err = run.err;
+  return run.err == cudaSuccess ? p.release() : nullptr;
+}
+
+// Enqueue one train step of plan p on `stream` (see step_sequence).
+cudaError_t train_step_enqueue(const StepPlan& p, const void* const* data,
+                               const void* const* masks, void* loss, cudaStream_t stream) {
+  Run run{stream, p.f32, cudaSuccess};
+  run.plan = &p;
+  step_sequence(run, p, data, masks, loss);
+  if (run.err == cudaSuccess && run.next != p.products.size()) return cudaErrorInvalidValue;
   return run.err;
 }
 

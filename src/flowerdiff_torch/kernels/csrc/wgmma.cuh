@@ -12,9 +12,10 @@
 // Tensor maps. `cuTensorMapEncodeTiled` is not in the runtime library; it is
 // taken through `cudaGetDriverEntryPoint`, so nothing beyond the runtime is
 // linked. `wg_map` encodes a map of an f32 matrix (64 x 64 boxes by default,
-// zero fill outside the bounds) and keeps it in a small cache keyed by every
-// argument of the encode: a product on the same buffers (every step of a
-// bound train step, every step of an epoch) encodes once.
+// zero fill outside the bounds) and counts the encode (`map_encodes`). It
+// keeps nothing: the train step encodes every map of its products once,
+// when the step is planned (`StepPlan` in train_step.cuh), and launches
+// from the plan.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the function comes from the runtime
@@ -22,7 +23,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <mutex>
+#include <atomic>
 
 namespace fdh {
 
@@ -179,16 +180,11 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-struct MapKey {
-  const float* base;
-  uint64_t inner, outer, ld;
-  uint32_t box_inner, box_outer;
-  bool swizzle;
-  bool operator==(const MapKey& o) const {
-    return base == o.base && inner == o.inner && outer == o.outer && ld == o.ld &&
-           box_inner == o.box_inner && box_outer == o.box_outer && swizzle == o.swizzle;
-  }
-};
+// Calls of cuTensorMapEncodeTiled by this library (each library that
+// includes this header counts its own).
+static std::atomic<long long> encodes{0};
+
+inline long long map_encodes() { return encodes.load(std::memory_order_relaxed); }
 
 // A map of the f32 matrix at `base`, `outer` lines of `inner` elements, line
 // stride `ld` elements, moved in boxes of (box_inner, box_outer) elements,
@@ -198,37 +194,18 @@ struct MapKey {
 inline bool wg_map(CUtensorMap* map, const float* base, uint64_t inner, uint64_t outer,
                    uint64_t ld, uint32_t box_inner = kBox, uint32_t box_outer = kBox,
                    bool swizzle = false) {
-  constexpr int kSlots = 512;
-  static MapKey keys[kSlots];
-  static CUtensorMap maps[kSlots];
-  static std::mutex lock;
-  const MapKey key{base, inner, outer, ld, box_inner, box_outer, swizzle};
-  const size_t slot = (((uintptr_t)base >> 4) * 0x9E3779B97F4A7C15ull ^ inner * 31 ^
-                       outer * 131 ^ ld ^ box_inner * 7 ^ (swizzle ? 1 : 0)) %
-                      kSlots;
-  {
-    std::lock_guard<std::mutex> hold(lock);
-    if (keys[slot] == key) {
-      *map = maps[slot];
-      return true;
-    }
-  }
   const EncodeTiled encode = encode_tiled();
   if (!encode || !base || inner < 1 || outer < 1 || ld < inner) return false;
   const cuuint64_t dims[2] = {inner, outer};
   const cuuint64_t strides[1] = {ld * sizeof(float)};
   const cuuint32_t box[2] = {box_inner, box_outer};
   const cuuint32_t elem[2] = {1, 1};
-  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, (void*)base, dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE,
-             swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) !=
-      CUDA_SUCCESS)
-    return false;
-  std::lock_guard<std::mutex> hold(lock);
-  keys[slot] = key;
-  maps[slot] = *map;
-  return true;
+  encodes.fetch_add(1, std::memory_order_relaxed);
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, (void*)base, dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
 }
 
 }  // namespace fdh

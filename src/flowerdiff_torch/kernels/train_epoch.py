@@ -36,7 +36,9 @@ S losses as a tensor on the device. Per epoch:
 On CUDA weights all of 2 and 3 is `fd_train_epoch_launch`
 (csrc/train_epoch.cu): one call into the library enqueues every kernel of
 the epoch on the current stream, with no Python, no PyTorch op and no host
-synchronisation between the steps. A build or launch failure raises. On CPU
+synchronisation between the steps. Each step launches from the plan of the
+step that `bind_train_step` bound (its products' routes and tensor maps),
+so an epoch encodes no tensor map. A build or launch failure raises. On CPU
 weights the same arithmetic runs as `mega_epoch_plain`, the plain twin,
 which also serves the comparisons on the card. With bf16 moments the kernel
 keeps bf16 buffers for the epoch and writes f32 values (bf16-representable)
@@ -70,7 +72,6 @@ from flowerdiff_torch.kernels import _build
 from flowerdiff_torch.kernels.full_sampler import _TWO_PI_F32, philox4x32_10
 from flowerdiff_torch.kernels.train_step import (
     HEADS,
-    LN_EPS,
     _lane,
     _ptr_array,
     _stream,
@@ -190,16 +191,16 @@ class _EpochArgs(ctypes.Structure):
     """`EpochArgs` of csrc/train_epoch.cu, field for field."""
     _fields_ = (
         [(k, ctypes.c_void_p) for k in (
-            "weights", "grads", "z_rows", "labels", "freqs", "abar", "injected", "draw_bufs",
-            "workspace", "losses", "gnorms", "tables", "leaves", "leaf_chunks", "partials",
-            "blends", "qk_chunks", "ema_chunks", "dims")]
+            "plan", "z_rows", "labels", "freqs", "abar", "injected", "draw_bufs", "losses",
+            "gnorms", "tables", "leaves", "leaf_chunks", "partials", "blends", "qk_chunks",
+            "ema_chunks")]
         + [("seed", ctypes.c_ulonglong), ("count0", ctypes.c_longlong)]
         + [(k, ctypes.c_int) for k in (
-            "steps", "n_sched", "n_leaf_chunks", "n_qk_chunks", "n_ema_chunks", "f32_lane",
-            "global_skip", "bf16_moments", "stochastic")]
+            "steps", "n_sched", "n_leaf_chunks", "n_qk_chunks", "n_ema_chunks", "bf16_moments",
+            "stochastic")]
         + [(k, ctypes.c_float) for k in (
             "grad_clip", "weight_decay", "b1", "b2", "omb1", "omb2", "eps_adam", "dropout",
-            "mask_scale", "cond_dropout", "qk_factor", "ema_keep", "ema_take", "ln_eps")])
+            "mask_scale", "cond_dropout", "qk_factor", "ema_keep", "ema_take")])
 
 
 def _lib():
@@ -215,6 +216,8 @@ def _lib():
         lib.fd_grad_norm_launch.restype = ci
         lib.fd_adamw_launch.argtypes = [vp, vp, ci, vp, vp, ctypes.POINTER(cf), ci, vp]
         lib.fd_adamw_launch.restype = ci
+        lib.fd_tensor_map_encodes.argtypes = []
+        lib.fd_tensor_map_encodes.restype = ctypes.c_longlong
     return lib
 
 
@@ -410,7 +413,7 @@ def make_mega_epoch_fn(model: ConditionalLatentDenoiser, cfg, steps_per_epoch: i
     if not kernel_supported(model):
         raise ValueError("the epoch kernel supports shared_cond_proj single-condition "
                          "variants (v1/v2) only")
-    lane = _lane(dtype)
+    _lane(dtype)
     mdt = _moments_dtype(dtype, moments_dtype)
     steps = steps_per_epoch
     bound: Dict[torch.device, types.SimpleNamespace] = {}
@@ -501,30 +504,25 @@ def make_mega_epoch_fn(model: ConditionalLatentDenoiser, cfg, steps_per_epoch: i
             inj_ptrs = _ptr_array(injected)
         ema_keep = 1.0 if state.ema is None else state.ema_decay ** steps
         args = _EpochArgs(
-            weights=ctypes.cast(b.run.w_ptrs, ctypes.c_void_p),
-            grads=ctypes.cast(b.run.g_ptrs, ctypes.c_void_p),
-            z_rows=z.data_ptr(), labels=lab.data_ptr(), freqs=b.freqs.data_ptr(),
-            abar=abar.data_ptr(),
+            plan=b.run.plan, z_rows=z.data_ptr(), labels=lab.data_ptr(),
+            freqs=b.freqs.data_ptr(), abar=abar.data_ptr(),
             injected=None if injected is None else ctypes.cast(inj_ptrs, ctypes.c_void_p),
             draw_bufs=ctypes.cast(b.buf_ptrs, ctypes.c_void_p),
-            workspace=b.run.workspace.data_ptr(), losses=losses.data_ptr(),
-            gnorms=gnorms.data_ptr(), tables=b.tables.data_ptr(), leaves=b.leaves.data_ptr(),
-            leaf_chunks=b.leaf_chunks.data_ptr(), partials=b.partials.data_ptr(),
-            blends=b.blends.data_ptr(), qk_chunks=b.qk_chunks.data_ptr(),
-            ema_chunks=b.ema_chunks.data_ptr(),
-            dims=ctypes.cast(b.run.dims, ctypes.c_void_p),
+            losses=losses.data_ptr(), gnorms=gnorms.data_ptr(), tables=b.tables.data_ptr(),
+            leaves=b.leaves.data_ptr(), leaf_chunks=b.leaf_chunks.data_ptr(),
+            partials=b.partials.data_ptr(), blends=b.blends.data_ptr(),
+            qk_chunks=b.qk_chunks.data_ptr(), ema_chunks=b.ema_chunks.data_ptr(),
             seed=seed & (2**64 - 1), count0=state.step,
             steps=steps, n_sched=sched.n_steps, n_leaf_chunks=len(b.leaf_chunks),
             n_qk_chunks=len(b.qk_chunks),
             n_ema_chunks=0 if state.ema is None else len(b.ema_chunks),
-            f32_lane=lane, global_skip=int(model.global_skip),
             bf16_moments=int(mdt == torch.bfloat16), stochastic=int(stochastic),
             grad_clip=cfg.grad_clip, weight_decay=cfg.weight_decay, b1=ADAM_B1, b2=ADAM_B2,
             omb1=1.0 - ADAM_B1, omb2=1.0 - ADAM_B2, eps_adam=ADAM_EPS,
             dropout=model.dropout_rate, mask_scale=_mask_scale(model.dropout_rate),
             cond_dropout=cfg.cond_dropout,
             qk_factor=qk_decay_factor(tables[0], cfg.weight_decay),
-            ema_keep=ema_keep, ema_take=1.0 - ema_keep, ln_eps=LN_EPS)
+            ema_keep=ema_keep, ema_take=1.0 - ema_keep)
         code = _lib().fd_train_epoch_launch(ctypes.byref(args), _stream(dev))
         _build.check(code, "train_epoch")
         epoch_fn.launches += 1

@@ -39,11 +39,20 @@ alike, so the two can be given identical draws.
 `kernel_loss_and_grads` launches the kernels for CUDA weights (a build or
 launch failure raises) and runs autograd on the twin for CPU weights. Each
 launch of the kernel sequence adds one to `kernel_loss_and_grads.launches`.
+
+`bind_train_step` plans the step once on CUDA weights (`fd_step_plan_create`):
+each product's kernel, chosen from its form, shape and operand strides (a
+row that is not a whole number of 16-byte units, as at a `latent_dim` or
+`time_emb_dim` that is not a multiple of 4, keeps its product off the
+tensor-map kernel), and the tensor maps of the products that take it,
+encoded then. A launch encodes nothing: `tensor_map_encodes()` reads the
+process's count of encodes.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -189,14 +198,22 @@ def _lib():
         vp, ci, cf, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         lib.fd_train_step_workspace_floats.argtypes = [vp]
         lib.fd_train_step_workspace_floats.restype = ll
-        lib.fd_train_step_launch.argtypes = [vp] * 7 + [ci, ci, cf, vp]
+        lib.fd_step_plan_create.argtypes = [vp] * 4 + [ci, ci, cf, ctypes.POINTER(ci)]
+        lib.fd_step_plan_create.restype = vp
+        lib.fd_step_plan_free.argtypes = [vp]
+        lib.fd_step_plan_free.restype = None
+        lib.fd_step_plan_products.argtypes = [vp, ctypes.POINTER(ci), ci]
+        lib.fd_step_plan_products.restype = ci
+        lib.fd_train_step_launch.argtypes = [vp] * 5
         lib.fd_train_step_launch.restype = ci
-        lib.fd_gemm_launch.argtypes = ([vp, ll, ll, vp, ll, ll, vp, ci, ci, ci, vp, cf, ci,
+        lib.fd_tensor_map_encodes.argtypes = []
+        lib.fd_tensor_map_encodes.restype = ll
+        lib.fd_gemm_launch.argtypes = ([ci, vp, ll, ll, vp, ll, ll, vp, ci, ci, ci, vp, cf, ci,
                                         vp, vp, vp, cf, ci, ci, vp])
         lib.fd_gemm_launch.restype = ci
         lib.fd_gemm_empty_launch.argtypes = [ci] * 6 + [vp]
         lib.fd_gemm_empty_launch.restype = ci
-        lib.fd_product_plan.argtypes = [ci] * 6 + [ctypes.POINTER(ci)]
+        lib.fd_product_plan.argtypes = [ci] * 5 + [ll] * 3 + [ci, ctypes.POINTER(ci)]
         lib.fd_product_plan.restype = ci
         lib.fd_splitk_plan.argtypes = [ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
         lib.fd_splitk_plan.restype = ci
@@ -205,6 +222,14 @@ def _lib():
         lib.fd_ln_bwd_launch.argtypes = [vp] * 7 + [ci] + [vp] * 5 + [ci, ci, vp]
         lib.fd_ln_bwd_launch.restype = ci
     return lib
+
+
+def tensor_map_encodes() -> int:
+    """Calls of cuTensorMapEncodeTiled in this process so far: the count of
+    each kernel library that encodes (train_step, train_epoch) that is loaded.
+    A bound step encodes its maps when it is bound and none at a launch."""
+    libs = (_build.loaded(name) for name in ("train_step", "train_epoch"))
+    return sum(lib.fd_tensor_map_encodes() for lib in libs if lib is not None)
 
 
 def _stream(dev) -> int:
@@ -293,10 +318,6 @@ def bind_train_step(w_named: Dict[str, torch.Tensor], batch: int, *,
     lat = w_named["wl"].shape[1]
     if te % 2:
         raise ValueError(f"time_emb_dim {te} must be even")
-    if not lane and any(w % 4 for w in [lat, te] + hidden):
-        raise ValueError("the bf16 lane's products read their operands through tensor maps, "
-                         "whose rows are whole 16-byte units: latent, time_emb and hidden "
-                         f"widths must be multiples of 4, got {[lat, te] + hidden}")
     if global_skip and hidden[-1] != lat:
         raise ValueError("global_skip needs hidden_dims[-1] == latent_dim")
     expected = _expected_shapes([lat, te, classes] + hidden)
@@ -313,7 +334,11 @@ def bind_train_step(w_named: Dict[str, torch.Tensor], batch: int, *,
         raise ValueError(f"the train-step kernel does not take dims {list(dims)}")
     workspace = torch.empty(n_floats, dtype=_F32, device=dev)
     loss = torch.zeros((), dtype=_F32, device=dev)
-    w_ptrs, g_ptrs = _ptr_array(weights), _ptr_array(grads)
+    err = ctypes.c_int()
+    plan = lib.fd_step_plan_create(_ptr_array(weights), _ptr_array(grads), workspace.data_ptr(),
+                                   dims, lane, int(global_skip), LN_EPS, ctypes.byref(err))
+    if not plan:
+        _build.check(err.value or 1, "train_step plan")
     shapes = {"z": (batch, lat), "eps": (batch, lat), "labels": (batch,),
               "freqs": (1, te // 2)}
     named_grads = dict(zip(names, grads))
@@ -328,17 +353,28 @@ def bind_train_step(w_named: Dict[str, torch.Tensor], batch: int, *,
             tensors.append(data[k])
         for i, m in enumerate(masks):
             _check(f"mask {i}", m, (batch, hidden[i // 2]), _F32, dev)
-        code = lib.fd_train_step_launch(
-            w_ptrs, g_ptrs, _ptr_array(tensors), _ptr_array(masks), workspace.data_ptr(),
-            loss.data_ptr(), dims, lane, int(global_skip), LN_EPS, _stream(dev))
+        code = lib.fd_train_step_launch(plan, _ptr_array(tensors), _ptr_array(masks),
+                                        loss.data_ptr(), _stream(dev))
         _build.check(code, "train_step")
         kernel_loss_and_grads.launches += 1
         return loss, named_grads
 
-    # what a launch reads, alive as long as run; the epoch kernel
-    # (kernels/train_epoch.py) enqueues the same step on the same tensors
-    run.weights, run.grads, run.workspace, run.dims = weights, grads, workspace, dims
-    run.w_ptrs, run.g_ptrs = w_ptrs, g_ptrs
+    def products() -> List[Dict[str, object]]:
+        """The plan's products in launch order: form, (m, n, k), the line
+        strides of A, B and C, and the kernel, split, kc and blocks."""
+        n = lib.fd_step_plan_products(plan, None, 0)
+        rows = (ctypes.c_int * (n * 11))()
+        lib.fd_step_plan_products(plan, rows, n)
+        return [{"form": _FORM_NAMES[r[0]], "mnk": tuple(r[1:4]), "strides": tuple(r[4:7]),
+                 "kernel": PRODUCT_KERNELS[r[7]], "split": r[8], "kc": r[9], "blocks": r[10]}
+                for r in (rows[i * 11:(i + 1) * 11] for i in range(n))]
+
+    # what the plan points at, alive as long as run; the plan (routes and
+    # tensor maps) is freed with run. The epoch kernel (kernels/train_epoch.py)
+    # enqueues the same step from the same plan.
+    weakref.finalize(run, lib.fd_step_plan_free, plan)
+    run.weights, run.grads, run.workspace = weights, grads, workspace
+    run.plan, run.products = plan, products
     return run
 
 
@@ -368,22 +404,35 @@ def splitk_plan(k: int) -> Tuple[int, int]:
 # The three forms of the product and the LayerNorm kernels, alone (tests).
 
 # kernels of `product_plan` in csrc/train_step.cuh, by their number there
-PRODUCT_KERNELS = ("fma", "splitk", "wgmma")
+PRODUCT_KERNELS = ("fma", "splitk", "wgmma", "mma_dw")
 _FORMS = {"fwd": 0, "dx": 1, "dw": 2}
-_ROUTES = {"plan": 0, "splitk": 1, "wgmma": 2}
+_FORM_NAMES = ("fwd", "dx", "dw")
+_ROUTES = {"plan": 0, "splitk": 1, "wgmma": 2, "mma_dw": 3}
+
+
+def contiguous_strides(form: str, m: int, n: int, k: int) -> Tuple[int, int, int]:
+    """Line strides (elements) of A, B and C of a product of this form on
+    contiguous tensors: fwd reads X (m, k) and W (n, k); dx dY (m, k) and
+    W (k, n); dw dY (k, m) and X (k, n); C is (m, n)."""
+    return (m if form == "dw" else k), (k if form == "fwd" else n), n
 
 
 def product_plan(form: str, m: int, n: int, k: int, *, exact: bool = False,
-                 route: str = "plan") -> Dict[str, object]:
+                 route: str = "plan",
+                 strides: Optional[Tuple[int, int, int]] = None) -> Dict[str, object]:
     """Where the library sends a product of form "fwd" (Y = X W^T + b), "dx"
     (dY W) or "dw" (dY^T X) with C (m, n) and depth k: {"kernel": "fma" (the
-    f32 lane), "splitk" or "wgmma", "tile": (tile_m, tile_n), "split":
-    blocks a cluster, "kc": k's a block sums, "blocks": blocks launched}
-    (`fd_product_plan`). `route` forces the bf16 lane's Y and dX forms onto
-    one kernel, as `linear_forward(..., route=)` does."""
+    f32 lane), "splitk", "wgmma" or "mma_dw", "tile": (tile_m, tile_n),
+    "split": blocks a cluster, "kc": k's a block sums, "blocks": blocks
+    launched} (`fd_product_plan`). `strides`: the line strides of A, B and C
+    (default: contiguous tensors); a stride that is not a whole number of
+    16-byte units keeps the product off "wgmma". `route` forces a kernel, as
+    `linear_forward(..., route=)` does; a route the product cannot take
+    (wgmma on such a stride, splitk for dw, mma_dw for fwd or dx) raises."""
+    a_ld, b_ld, c_ld = strides or contiguous_strides(form, m, n, k)
     out = (ctypes.c_int * 6)()
-    _build.check(_lib().fd_product_plan(int(exact), _FORMS[form], m, n, k, _ROUTES[route], out),
-                 "product plan")
+    _build.check(_lib().fd_product_plan(int(exact), _FORMS[form], m, n, k, a_ld, b_ld, c_ld,
+                                        _ROUTES[route], out), "product plan")
     return {"kernel": PRODUCT_KERNELS[out[0]], "tile": (out[1], out[2]), "split": out[3],
             "kc": out[4], "blocks": out[5]}
 
@@ -391,7 +440,8 @@ def product_plan(form: str, m: int, n: int, k: int, *, exact: bool = False,
 def product_empty_launcher(form: str, m: int, n: int, k: int, *, exact: bool = False,
                            route: str = "plan"):
     """A call that launches an empty kernel on the product's grid, block,
-    shared memory and cluster (`fd_gemm_empty_launch`): its launch floor."""
+    shared memory and cluster (`fd_gemm_empty_launch`; contiguous tensors):
+    its launch floor."""
     lib = _lib()
 
     def launch():
@@ -401,14 +451,14 @@ def product_empty_launcher(form: str, m: int, n: int, k: int, *, exact: bool = F
     return launch
 
 
-def _gemm(a, a_sm, a_sk, b, b_sn, b_sk, m, n, k, *, exact, bias=None, bias_scale=1.0,
+def _gemm(form, a, a_sm, a_sk, b, b_sn, b_sk, m, n, k, *, exact, bias=None, bias_scale=1.0,
           round_bf16=False, mul=None, res=None, colsum=None, colsum_scale=1.0, route="plan"):
     c = torch.empty((m, n), dtype=_F32, device=a.device)
     p = _optr
-    code = _lib().fd_gemm_launch(a.data_ptr(), a_sm, a_sk, b.data_ptr(), b_sn, b_sk,
-                                 c.data_ptr(), m, n, k, p(bias), bias_scale, int(round_bf16),
-                                 p(mul), p(res), p(colsum), colsum_scale, int(exact),
-                                 _ROUTES[route], _stream(a.device))
+    code = _lib().fd_gemm_launch(_FORMS[form], a.data_ptr(), a_sm, a_sk, b.data_ptr(), b_sn,
+                                 b_sk, c.data_ptr(), m, n, k, p(bias), bias_scale,
+                                 int(round_bf16), p(mul), p(res), p(colsum), colsum_scale,
+                                 int(exact), _ROUTES[route], _stream(a.device))
     _build.check(code, "train_step product")
     return c
 
@@ -417,23 +467,23 @@ def linear_forward(x, w, bias, *, exact: bool, scale: float = 1.0, mul=None, res
                    route: str = "plan"):
     """(x w^T + scale * bias) [* mul] [+ res] by the kernel; w (out, in)."""
     rows, k = x.shape
-    return _gemm(x, k, 1, w, k, 1, rows, w.shape[0], k, exact=exact, bias=bias,
+    return _gemm("fwd", x, k, 1, w, k, 1, rows, w.shape[0], k, exact=exact, bias=bias,
                  bias_scale=scale, mul=mul, res=res, route=route)
 
 
 def linear_dx(dy, w, *, exact: bool, mul=None, res=None, route: str = "plan"):
     """dy w, rounded to bf16 unless exact, [* mul] [+ res]; w (out, in)."""
     rows, out = dy.shape
-    return _gemm(dy, out, 1, w, 1, w.shape[1], rows, w.shape[1], out, exact=exact,
+    return _gemm("dx", dy, out, 1, w, 1, w.shape[1], rows, w.shape[1], out, exact=exact,
                  round_bf16=not exact, mul=mul, res=res, route=route)
 
 
-def linear_dw(dy, x, *, exact: bool, scale: float = 1.0):
+def linear_dw(dy, x, *, exact: bool, scale: float = 1.0, route: str = "plan"):
     """(dy^T x rounded to bf16 unless exact, scale * colsum(dy))."""
     rows, out = dy.shape
     db = torch.empty(out, dtype=_F32, device=dy.device)
-    dw = _gemm(dy, 1, out, x, 1, x.shape[1], out, x.shape[1], rows, exact=exact,
-               round_bf16=not exact, colsum=db, colsum_scale=scale)
+    dw = _gemm("dw", dy, 1, out, x, 1, x.shape[1], out, x.shape[1], rows, exact=exact,
+               round_bf16=not exact, colsum=db, colsum_scale=scale, route=route)
     return dw, db
 
 

@@ -446,28 +446,8 @@ def test_layernorm_kernels_match_autograd(gen, rows, d, block):
 
 
 def _step_case(gen, global_skip, batch=9):
-    kw = dict(latent_dim=64, hidden_dims=(64, 128, 64), time_emb_dim=32, num_classes=7,
-              global_skip=global_skip)
-    model = denoiser_from_params(init_numpy_params("denoiser", seed=2, bias_std=0.3, **kw),
-                                 device="cuda", **kw)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if "_ln_" in name or "final_norm" in name:
-                p.add_(0.2 * torch.randn(p.shape, generator=gen, device="cuda"))
-    rate = 0.3
-    masks = []
-    for d in kw["hidden_dims"][:-1]:
-        mb = (torch.rand((batch, d), generator=gen, device="cuda") >= rate).float() / (1 - rate)
-        ma = (torch.rand((batch, 8), generator=gen, device="cuda") >= rate).float() / (1 - rate)
-        masks += [mb, ma.repeat_interleave(d // 8, dim=1)]
-    abar = torch.rand((batch, 1), generator=gen, device="cuda") * 0.9 + 0.05
-    data = {"z": _r(gen, batch, 64), "eps": _r(gen, batch, 64),
-            "t_f": torch.randint(0, 1000, (batch, 1), generator=gen, device="cuda").float(),
-            "sa": abar.sqrt(), "s1a": (1 - abar).sqrt(),
-            "labels": (torch.arange(batch, device="cuda") % 5).to(torch.int32),
-            "cond_mask": (torch.arange(batch, device="cuda") % 3 != 0).float()[:, None],
-            "freqs": ts.sinusoid_freqs(32, "cuda")}
-    return model, data, masks
+    return _net_case(gen, dict(latent_dim=64, hidden_dims=(64, 128, 64), time_emb_dim=32,
+                               num_classes=7, global_skip=global_skip), batch)
 
 
 @pytest.mark.parametrize("global_skip", [False, True])
@@ -500,16 +480,196 @@ def test_train_step_kernel_matches_twin(gen, global_skip, dtype, tol):
             assert not g.any(), name
 
 
-def test_train_step_bf16_lane_refuses_widths_tensor_maps_cannot_read(gen):
-    """A width whose rows are not whole 16-byte units cannot be read through
-    a tensor map: the bf16 lane refuses it when it is bound, the f32 lane
-    (FMA products, no tensor map) takes it."""
-    kw = dict(latent_dim=62, hidden_dims=(64, 128, 64), time_emb_dim=32, num_classes=7)
-    model = denoiser_from_params(init_numpy_params("denoiser", seed=2, **kw), device="cuda", **kw)
+# Widths whose rows are not whole 16-byte units (latent_dim, time_emb_dim not
+# multiples of 4; under the v2 skip hidden[-1] = latent_dim too), where tensor
+# maps cannot read a product's operands: (name, model widths, batch).
+RAGGED_NETS = [
+    ("small_v1", dict(latent_dim=62, hidden_dims=(64, 128, 64), time_emb_dim=30,
+                      num_classes=7), 9),
+    ("small_v2", dict(latent_dim=62, hidden_dims=(64, 128, 62), time_emb_dim=30,
+                      num_classes=7, global_skip=True), 9),
+    ("near_flagship_v1", dict(latent_dim=254, hidden_dims=(256, 512, 1024, 512, 256),
+                              time_emb_dim=254, num_classes=102), 64),
+    ("near_flagship_v2", dict(latent_dim=254, hidden_dims=(256, 512, 1024, 512, 254),
+                              time_emb_dim=254, num_classes=102, global_skip=True), 64),
+]
+_FLAGSHIP_NET = dict(latent_dim=256, hidden_dims=(256, 512, 1024, 512, 256), time_emb_dim=256,
+                     num_classes=102)
+
+
+def _net_case(gen, kw, batch):
+    """A denoiser of widths `kw` with nonzero biases and perturbed LN affines,
+    one step's data (a condition mask with zeros) and dropout masks."""
+    model = denoiser_from_params(init_numpy_params("denoiser", seed=2, bias_std=0.3, **kw),
+                                 device="cuda", **kw)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "_ln_" in name or "final_norm" in name:
+                p.add_(0.2 * torch.randn(p.shape, generator=gen, device="cuda"))
+    rate, lat, te = 0.3, kw["latent_dim"], kw["time_emb_dim"]
+    masks = []
+    for d in kw["hidden_dims"][:-1]:
+        mb = (torch.rand((batch, d), generator=gen, device="cuda") >= rate).float() / (1 - rate)
+        ma = (torch.rand((batch, 8), generator=gen, device="cuda") >= rate).float() / (1 - rate)
+        masks += [mb, ma.repeat_interleave(d // 8, dim=1)]
+    abar = torch.rand((batch, 1), generator=gen, device="cuda") * 0.9 + 0.05
+    data = {"z": _r(gen, batch, lat), "eps": _r(gen, batch, lat),
+            "t_f": torch.randint(0, 1000, (batch, 1), generator=gen, device="cuda").float(),
+            "sa": abar.sqrt(), "s1a": (1 - abar).sqrt(),
+            "labels": (torch.arange(batch, device="cuda") % 5).to(torch.int32),
+            "cond_mask": (torch.arange(batch, device="cuda") % 3 != 0).float()[:, None],
+            "freqs": ts.sinusoid_freqs(te, "cuda")}
+    return model, data, masks
+
+
+@pytest.mark.parametrize("name,kw,batch", RAGGED_NETS, ids=[n for n, _, _ in RAGGED_NETS])
+def test_train_step_bf16_lane_at_ragged_widths_matches_twin(gen, name, kw, batch):
+    """The bf16 lane at widths tensor maps cannot read (their products on
+    split-K and mma_dw, the plan's routes): loss and every gradient leaf
+    against autograd on the plain twin on the card, at the bf16 limit of
+    `test_train_step_kernel_matches_twin` (3e-2 of max|twin grad| a leaf)."""
+    tol, skip = 3e-2, kw.get("global_skip", False)
+    model, data, masks = _net_case(gen, kw, batch)
     named = dict(ts.weights_spec(model))
-    with pytest.raises(ValueError, match="multiples of 4"):
-        ts.bind_train_step(named, 8, dtype=torch.bfloat16)
-    ts.bind_train_step(named, 8, dtype=torch.float32)
+    run = ts.bind_train_step(named, batch, dtype=torch.bfloat16, global_skip=skip)
+    kernels = {q["kernel"] for q in run.products()}
+    assert {"splitk", "mma_dw"} <= kernels, kernels
+    loss, grads = run(data, masks)
+    ref_loss, ref = ts.twin_loss_and_grads(named, data, masks, dtype=torch.bfloat16,
+                                           global_skip=skip)
+    assert torch.isfinite(loss)
+    assert abs(float(loss) - float(ref_loss)) <= tol * abs(float(ref_loss))
+    for k, r in ref.items():
+        g = grads[k].reshape(r.shape)
+        assert float((g - r).abs().max()) <= tol * float(r.abs().max()) + 1e-9, k
+    again, _ = run(data, masks)
+    assert torch.equal(again, loss)  # no atomics: the step repeats bit for bit
+
+
+def _ragged(strides) -> bool:
+    return any(4 * s % 16 for s in strides)
+
+
+@pytest.mark.parametrize("name,kw,batch", RAGGED_NETS + [("flagship", _FLAGSHIP_NET, 64)],
+                         ids=[n for n, _, _ in RAGGED_NETS] + ["flagship"])
+def test_step_plan_routes_every_product_by_its_strides(gen, name, kw, batch):
+    """Every product of a bound bf16 step, read from its plan: none whose
+    operand rows are not whole 16-byte units on the tensor-map kernel (dW
+    then on mma_dw, Y / dX on split-K), each where `product_plan` with its
+    strides sends it; at the flagship the 79 bf16 products of
+    `step_products` on the routes of `test_product_plan_sends_each_form_
+    where_documented`, the f32 ones on the FMA kernel."""
+    model, _, _ = _net_case(gen, kw, batch)
+    run = ts.bind_train_step(dict(ts.weights_spec(model)), batch, dtype=torch.bfloat16,
+                             global_skip=kw.get("global_skip", False))
+    bf16 = {}
+    for q in run.products():
+        if q["kernel"] == "fma":
+            continue
+        form, (m, n, k) = q["form"], q["mnk"]
+        plan = ts.product_plan(form, m, n, k, strides=q["strides"])
+        assert plan["kernel"] == q["kernel"] and plan["split"] == q["split"], q
+        assert plan["kc"] == q["kc"] and plan["blocks"] == q["blocks"], q
+        if _ragged(q["strides"]):
+            assert q["kernel"] == ("mma_dw" if form == "dw" else "splitk"), q
+        bf16[(form, m, n, k)] = bf16.get((form, m, n, k), 0) + 1
+    # f32: final's Y, dX and dW, and the v2 skip's Y
+    assert sum(1 for q in run.products() if q["kernel"] == "fma") == \
+        (4 if kw.get("global_skip") else 3)
+    if name == "flagship":
+        assert bf16 == step_products()
+        for (form, m, n, k) in bf16:
+            want = "wgmma" if form == "dw" or (form, m, n, k) in WGMMA_YX else "splitk"
+            assert ts.product_plan(form, m, n, k)["kernel"] == want
+    else:
+        assert any(_ragged(q["strides"]) for q in run.products())
+
+
+def test_forced_wgmma_on_a_ragged_product_raises(gen):
+    """A product whose rows tensor maps cannot read is refused on the wgmma
+    kernel, when forced (`route=`), in the plan and at the launch; so are the
+    routes a form does not run on. The plan's own route takes it."""
+    x, w, b = _r(gen, 9, 62), _r(gen, 64, 62), _r(gen, 64)
+    dy = _r(gen, 9, 64)
+    for call in (lambda: ts.linear_forward(x, w, b, exact=False, route="wgmma"),
+                 lambda: ts.linear_dx(dy, w, exact=False, route="wgmma"),
+                 lambda: ts.linear_dw(dy, x, exact=False, route="wgmma"),
+                 lambda: ts.product_plan("fwd", 9, 64, 62, route="wgmma"),
+                 lambda: ts.product_plan("dw", 64, 62, 9, route="wgmma"),
+                 lambda: ts.product_plan("dw", 64, 64, 9, route="splitk"),
+                 lambda: ts.product_plan("fwd", 9, 64, 64, route="mma_dw")):
+        with pytest.raises(RuntimeError):
+            call()
+    assert ts.product_plan("fwd", 9, 64, 62)["kernel"] == "splitk"
+    assert ts.product_plan("dw", 64, 62, 9)["kernel"] == "mma_dw"
+    ts.linear_forward(x, w, b, exact=False)
+    ts.linear_dw(dy, x, exact=False)
+    torch.cuda.synchronize()
+
+
+# (rows, in, out) of Linears with a width that is not a multiple of 4
+RAGGED_STRIDE_LINEARS = [(9, 62, 64), (13, 30, 60), (64, 254, 1024), (64, 1024, 254),
+                         (64, 254, 254), (7, 5, 3)]
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("rows,k,n", RAGGED_STRIDE_LINEARS)
+def test_product_at_ragged_strides_matches_f32_references(gen, exact, rows, k, n):
+    """The three forms where tensor maps cannot read the operands, on the
+    plan's kernels (split-K, mma_dw), at the limits of
+    `test_product_three_forms_match_f32_references`."""
+    _check_three_forms(gen, exact, rows, k, n, "plan")
+
+
+@pytest.mark.parametrize("rows,k,n", PRODUCT_CASES + RAGGED_STRIDE_LINEARS)
+def test_mma_dw_route_matches_f32_references_and_repeats(gen, rows, k, n):
+    """dW on the mma_dw kernel, forced at every shape of the other product
+    tests: round(bf16(dY)^T bf16(X)) to one bf16 ulp of the largest value,
+    db = 2 colsum(dY) in row order exactly, and the same bits twice."""
+    dy, x = _r(gen, rows, n), _r(gen, rows, k)
+    dw, db = ts.linear_dw(dy, x, exact=False, scale=2.0, route="mma_dw")
+    ref = _bf(_bf(dy).t() @ _bf(x))
+    assert float((dw - ref).abs().max()) <= 2.0 ** -7 * float(ref.abs().max())
+    ref_db = torch.zeros(n, device="cuda")
+    for r in range(rows):
+        ref_db += dy[r]
+    assert torch.equal(db, 2.0 * ref_db)
+    torch.cuda.synchronize()
+    again, again_db = ts.linear_dw(dy, x, exact=False, scale=2.0, route="mma_dw")
+    assert torch.equal(again, dw) and torch.equal(again_db, db)
+
+
+def test_bound_steps_encode_no_tensor_map_after_bind(gen):
+    """At flagship width, with a bound step and an epoch function alive: the
+    binding encodes three maps a wgmma product; three steps after the first
+    and one epoch after its first encode none (`tensor_map_encodes`)."""
+    from flowerdiff_torch.kernels import train_epoch as te
+    from flowerdiff_torch.train.latent_ddpm import (
+        LatentDiffusionConfig,
+        create_latent_diffusion_state,
+    )
+
+    model, data, masks = _net_case(gen, _FLAGSHIP_NET, 64)
+    before = ts.tensor_map_encodes()
+    run = ts.bind_train_step(dict(ts.weights_spec(model)), 64, dtype=torch.bfloat16)
+    n_wgmma = sum(1 for q in run.products() if q["kernel"] == "wgmma")
+    assert n_wgmma == 50 and ts.tensor_map_encodes() - before == 3 * n_wgmma
+    cfg = LatentDiffusionConfig(**_FLAGSHIP_NET, n_steps=50, steps_per_epoch=3,
+                                dropout_rate=0.3, cond_dropout=0.1)
+    state, emodel, sched = create_latent_diffusion_state(3, cfg, device="cuda")
+    epoch_fn = te.make_mega_epoch_fn(emodel, cfg, 3, 64)
+    z = _r(gen, 3, 64, 256)
+    labels = torch.randint(0, 102, (3, 64), generator=gen, device="cuda")
+    run(data, masks)
+    epoch_fn(state, sched, z, labels, 1)
+    torch.cuda.synchronize()
+    first = ts.tensor_map_encodes()
+    for _ in range(3):
+        run(data, masks)
+    losses = epoch_fn(state, sched, z, labels, 2)
+    torch.cuda.synchronize()
+    assert ts.tensor_map_encodes() == first
+    assert torch.isfinite(losses).all()
 
 
 # ---------------------------------------------------------------------------
@@ -518,13 +678,13 @@ def test_train_step_bf16_lane_refuses_widths_tensor_maps_cannot_read(gen):
 _EPOCH_NET = dict(latent_dim=64, hidden_dims=(64, 128, 64), time_emb_dim=32, num_classes=7)
 
 
-def _epoch_case(**cfg_over):
+def _epoch_case(net=_EPOCH_NET, **cfg_over):
     from flowerdiff_torch.train.latent_ddpm import (
         LatentDiffusionConfig,
         create_latent_diffusion_state,
     )
 
-    cfg = LatentDiffusionConfig(**{**_EPOCH_NET, "n_steps": 50, "steps_per_epoch": 3,
+    cfg = LatentDiffusionConfig(**{**net, "n_steps": 50, "steps_per_epoch": 3,
                                    "dropout_rate": 0.3, "cond_dropout": 0.25, **cfg_over})
     state, model, sched = create_latent_diffusion_state(3, cfg, device="cuda")
     return cfg, state, model, sched
@@ -630,14 +790,31 @@ def test_epoch_kernel_matches_twin_at_small_width(gen, lane, moments):
     losses rtol 1e-4, weights and mu rtol 2e-3 / atol 2e-5. bf16 lane: losses
     rtol 1e-2, moments 4e-2 of the leaf's largest, weights within 2 lr a
     step. The same seed twice gives the same bits."""
+    _epoch_against_twin(gen, lane, moments, _EPOCH_NET)
+
+
+_RAGGED_EPOCH_NET = dict(latent_dim=62, hidden_dims=(64, 128, 64), time_emb_dim=30,
+                         num_classes=7)
+
+
+@pytest.mark.parametrize("lane,moments", [(torch.float32, torch.float32),
+                                          (torch.bfloat16, torch.bfloat16)])
+def test_epoch_kernel_matches_twin_at_ragged_widths(gen, lane, moments):
+    """The same epoch at widths tensor maps cannot read (latent 62, time
+    embedding 30: the bf16 products on split-K and mma_dw), at the limits of
+    `test_epoch_kernel_matches_twin_at_small_width`."""
+    _epoch_against_twin(gen, lane, moments, _RAGGED_EPOCH_NET)
+
+
+def _epoch_against_twin(gen, lane, moments, net):
     from flowerdiff_torch.kernels import train_epoch as te
 
     steps, batch = 3, 9
-    z = _r(gen, steps, batch, 64)
+    z = _r(gen, steps, batch, net["latent_dim"])
     labels = torch.randint(0, 7, (steps, batch), generator=gen, device="cuda")
     runs = []
     for kind in ("kernel", "twin", "kernel"):
-        cfg, state, model, sched = _epoch_case(weight_decay=0.5, ema_decay=0.9, t0=1)
+        cfg, state, model, sched = _epoch_case(net, weight_decay=0.5, ema_decay=0.9, t0=1)
         fn = te.make_mega_epoch_fn(model, cfg, steps, batch, dtype=lane, moments_dtype=moments)
         for e in range(2):  # the warm-up epochs run through the kernel for all three
             fn(state, sched, z, labels, 7)
