@@ -16,7 +16,9 @@ Phases (any failure raises and the script exits nonzero without a result):
      the sampler's table form on its column-tile kernel and with the t/c
      products on the whole-row kernel), with LayerNorm affines and biases
      large enough that a kernel leaving any one out would fail, and time
-     both, beside each kernel's library yardstick;
+     both, beside each kernel's library yardstick; each stage's launch plan
+     printed (clusters, rows and columns a block, ring, shared
+     memory) with its tensor-map encodes: at bind, none a launch;
   3. check the reverse-step noise against the closed-form variance of the
      zero-eps recursion (B = 128, latent 256, T = 1000);
   4. hold the kernel sampler against the plain f32 model on a short
@@ -233,11 +235,12 @@ from flowerdiff_torch.kernels.latent_stage import (  # noqa: E402
     LN_EPS,
     bind_head,
     bind_stage,
+    chunk_tiles,
     fused_head,
     fused_head_plain,
     fused_stage,
     fused_stage_plain,
-    stage_max_clusters,
+    stage_map_encodes,
 )
 from flowerdiff_torch.serving import PixelSamplingService, SamplingService  # noqa: E402
 from flowerdiff_torch.train.checkpoints import (  # noqa: E402
@@ -504,15 +507,19 @@ def phase_kernels(model, prep, gen):
     for rows, guided in cases:
         for i, s in enumerate(stage_w):
             d, dout = hidden[i], hidden[i + 1]
+            e_bind = stage_map_encodes()
             run = bind_stage(**s)
+            e_bind = stage_map_encodes() - e_bind
             plan = run.plan_for(rows)
-            ring = run.plan_for(16)  # 16 rows: a plan of the ring kernel
-            fit = {c: stage_max_clusters(c, ring.smem) for c in (8, 16)}
-            kind = f"slots {plan.slots}, chunk {plan.chunk}" if plan.slots else "whole rows"
-            print(f"[kernels] stage plan {d}->{dout} B={rows}: cluster {plan.cluster}, "
-                  f"{kind}, smem {plan.smem} B; cudaOccupancyMaxActiveClusters of the "
-                  f"ring kernel at {ring.smem} B: cluster 8 -> {fit[8]}, cluster 16 -> "
-                  f"{fit[16]}")
+            sd, so = d // plan.cols, dout // plan.cols
+            kbd, kbo = chunk_tiles(sd, d), chunk_tiles(so, d)
+            print(f"[kernels] stage plan {d}->{dout} B={rows}: {plan.tiles} cluster(s) of "
+                  f"{plan.cols} blocks (column slices), {plan.rows} rows a cluster; a block "
+                  f"{sd} columns ({so} of Wd); ring {plan.slots} slots of "
+                  f"{max(kbd * sd, kbo * so) * 128} B, a chunk one TMA box of {kbd} k64 tiles "
+                  f"({kbd * sd * 128} B; Wd {kbo}, {kbo * so * 128} B); weights read once a "
+                  f"cluster; {plan.qbufs} operand buffer(s); smem {plan.smem} B; "
+                  f"tensor-map encodes at bind {e_bind}")
             h = torch.randn((rows, d), generator=gen, device=dev)
             tc = torch.randn((rows, d), generator=gen, device=dev) * 0.5
             row = prep["tadds"][i][t]
@@ -526,9 +533,11 @@ def phase_kernels(model, prep, gen):
             for name in ("bb", "g1", "b1", "g2", "b2", "bv", "bo", "bd"):
                 dropped[name] = twin(**{name: (torch.ones_like if name.startswith("g")
                                                else torch.zeros_like)(s[name])})
+            e0 = stage_map_encodes()
             err, tol, weakest = held(f"stage {d}->{dout} B={rows}", run(h, tc, row), ref,
                                      STAGE_TOL, dropped)
             ms = cuda_ms(lambda: run(h, tc, row))
+            assert stage_map_encodes() == e0, "a bound stage's launch encoded a tensor map"
             plain = cuda_ms(twin)
             eager = eager_ms(lambda: run(h, tc, row))
             n_bytes = (4 * (2 * rows * d + d + 7 * d + dout + rows * dout)
@@ -814,11 +823,11 @@ def sampler_counts(n_steps, calls=1):
             "reverse_step": n_steps * calls, "latent_proj": n_steps * calls}
 
 
-# The step's kernels in a profiler's rows, by name: the stage's two kernels
-# (ring and whole-row) count as fused_stage, the head's whole-row kernel as
-# its product form.
+# The step's kernels in a profiler's rows, by name: the stage kernel's
+# instances count as fused_stage, the head's whole-row kernel as its
+# product form.
 PROFILE_NAMES = {"latent_proj_kernel": "latent_proj", "stage_kernel": "fused_stage",
-                 "stage_rows_kernel": "fused_stage", "head_cols_kernel": "fused_head",
+                 "head_cols_kernel": "fused_head",
                  "head_kernel": "fused_head_products", "reverse_step_kernel": "reverse_step"}
 
 

@@ -16,654 +16,577 @@
 // of bf16 weights for 2 x 128 x 3.67 M flops, ~68 flops a byte, far below
 // the H100's ~295 bf16 flops a byte: the ideal kernel is bound by weight
 // bytes. LayerNorm needs whole rows, which on the TPU sat in one core's
-// VMEM.
+// VMEM; here the rows of a launch sit in one cluster.
 //
-// Stage design: a cluster of `cluster` blocks owns fd::kRows = 16 rows (one
-// m16 tile); the host's plan (kernels/latent_stage.py::stage_plan) takes 16
-// for the 1024-wide stage and 8 for the others. Where the card cannot run
-// the wide stage's clusters of 16 of all the row tiles at once, the plan
-// takes the whole-row kernel below (stage_rows_kernel) instead, which was
-// measured faster there than the ring on clusters of 8 or of 32 rows.
-// Block `rank` owns columns [rank sd, (rank + 1) sd) of the rows, sd = d /
-// cluster: its slice of the residual stream h and of every product's output
-// (`mma.sync` m16n8k16 bf16 tiles, f32 accumulators). The elementwise work
-// runs on the slice; LayerNorm combines the blocks' partial row statistics
-// (Chan's formula in rank order: the same numbers in every block); and the
-// bf16 operand of the next product, which needs whole rows, is assembled in
-// every block by stores from each block into the others' shared memory
-// (distributed shared memory), one cluster barrier after each exchange.
+// Stage design (the plan: kernels/latent_stage.py::stage_plan). A launch
+// is `tiles` clusters along the rows, each of `cols` blocks that share
+// `rows` rows: column slice c owns the columns [c sd, (c + 1) sd) of h and of
+// each d-wide product, sd = d / cols, and [c so, (c + 1) so) of the last,
+// so = d_out / cols. The products are warpgroup MMAs with the weight as the
+// A operand: D^T = W X^T, M = 64 of the block's output columns a tile, N =
+// the block's rows, K-major on both sides, so neither the weight nor the
+// activations are transposed. The two consumer warpgroups split each
+// product's k64 tiles and add each other's sums (a wgmma of so few rows
+// costs ~60-70 ns whatever N: PERF.md section 6). The block's slice of h
+// lives in the consumer threads' registers in the accumulators' layout all
+// launch long.
 //
-// The weights do not depend on the activations: a block's stream is a fixed
-// sequence of k-chunks (its rows of Wb, Wv, Wo, then Wd, `chunk` k's each).
-// The chunks flow through a ring of `slots` shared-memory slots, each filled
-// by 1-D bulk copies (`cp.async.bulk`) that complete on the slot's mbarrier.
-// The weights are packed once, when a stage is bound, so that a block's
-// chunk is one contiguous run of bytes (two at clusters of 8): on the H100
-// a chunk carries ~1000 cycles of fixed cost (chunks of 128 k's against 256),
-// and a bulk copy a weight row made the copies' issue the limit. A ninth warp refills a slot with the
-// next chunk of the sequence as soon as the 8 compute warps are done with
-// it, so while the exchanges and LayerNorms run the ring already holds the
-// next product's first chunks; it issues the first `slots` chunks while the
-// rows are loaded. Slot rows are padded by 16 bytes and the operand rows by
-// 8 elements, so that the `ldmatrix` fragment loads hit eight different
-// bank groups.
+// Weights: a producer warp streams the block's chunks (kb k64 tiles of its
+// column slice of one product, one TMA box of up to 32 KB through the 3-D
+// tensor map encoded when the stage was bound, 128-byte swizzled: a
+// block's TMA requests run one after another, ~0.37 us each, so the boxes
+// are as large as they may be) through a ring of `slots` shared-memory
+// slots, the fixed sequence Wb, Wv, Wo, Wd known in advance, so it runs
+// ahead across the exchanges. A slot is refilled once the 8 consumer warps
+// have released it. Each cluster reads the weights once; more clusters of
+// fewer rows cost less than one that holds them all (the measurements
+// behind the plan's cost model: PERF.md section 6).
 //
-// Every phase runs once a launch, so its code is fetched cold each time:
-// loops stay rolled and the product is one function called from four places.
-// No atomics: split-K partial sums and statistics are added in a fixed order.
+// Exchanges: what the next step needs from the other blocks of a cluster
+// (the next product's bf16 operand, whole rows; a LayerNorm's per-block row
+// statistics) goes to them as st.async stores that complete on the
+// receiver's mbarrier, one mbarrier an exchange, used once a launch: no
+// cluster barrier between phases. An operand buffer is rewritten only once
+// every block has finished reading it: where two buffers fit, the exchanges
+// that must come before already say so; with one, the readers of the Wv and
+// Wo products each arrive on a `free` mbarrier of every block first.
+// LayerNorm statistics are each block's (mean, m2) of its slice of a row,
+// combined in rank order (Chan et al.), so every block gets the same numbers.
+// No atomics: repeated launches are bit-equal.
 //
 // Head design (the form with the t_base / c_base products, which are added
 // to whole rows before the LayerNorm): one block owns 16 whole rows and all
 // columns (the head's products are at most 512 wide). The sampler's form,
 // with its adds from tables, runs on csrc/latent_head.cu's column tiles.
-#include <cooperative_groups.h>
-
 #include "rows.cuh"
+#include "wgmma.cuh"
 
-namespace cg = cooperative_groups;
+// Phase stamps of tools/stage_phases.py's diagnostic build, which defines
+// these macros ahead of this source; nothing in the library's build.
+#ifndef FD_STAMP
+#define FD_STAMP_BEGIN
+#define FD_STAMP(i)
+#define FD_RING_WAIT(p, wait) wait
+#endif
+
 using fd::kPad;
 using fd::kRows;
 using fd::kThreads;
-using fd::kWarps;
 
 namespace {
 
+constexpr int kStageThreads = 288;  // two consumer warpgroups and the producer warp
 constexpr int kMaxCluster = 16;
-constexpr int kPieces = kMaxCluster;  // row pieces of a packed weight
-constexpr int kMaxSlots = 8;
-constexpr int kStageThreads = kThreads + 32;  // 8 compute warps and the ring's producer
-constexpr int kQPad = 8;          // bf16 elements of padding a stage operand row
-constexpr int kSlotPad = 16;      // bytes of padding a ring slot row
-constexpr int kBarBytes = 128;    // the ring's full and empty mbarriers, kMaxSlots each
-constexpr int kStageRed = kWarps * kRows * 8;  // split-K partials: one n8 tile a warp
-constexpr long long kWaitCycles = 1LL << 31;   // ~1 s: a lost copy traps, never hangs
+constexpr int kMaxSlots = 32;
+constexpr int kTileBytes = 8192;    // a weight tile in a slot: 64 lines of 128 bytes
+constexpr int kBarriers = 8;        // the exchanges' mbarriers: X0-X5, free after Wv, Wo
 
-// ---------------------------------------------------------------------------
-// mbarrier, bulk copy and ldmatrix primitives
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
+// k64 tiles a weight chunk takes for a column slice of `slice` rows: the
+// most, a power of two dividing d / 64, whose box stays within 32 KB. A
+// TMA request costs ~0.37 us whatever its size up to 32 KB, and a block's
+// requests run one after another (PERF.md section 6, tools/ingress_probe.py),
+// so a chunk is one request as large as a box may be.
+__host__ __device__ inline int chunk_tiles(int slice, int d) {
+  int kb = 1;
+  while (2 * kb * slice * 128 <= 32768 && (d / 64) % (2 * kb) == 0) kb *= 2;
+  return kb;
 }
 
-__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+// Bytes from a slot's start that a chunk's wgmma reads may reach: its last
+// k64 tile's last m64 tile (64 lines, past a slice's own where it has
+// fewer).
+__host__ __device__ inline int chunk_reach(int slice, int kb) {
+  return (kb - 1) * slice * 128 + (slice + 63) / 64 * kTileBytes;
 }
 
-__device__ __forceinline__ void bar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void bar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed; trap (a launch
-// error the host sees at its next synchronise) if it never does.
-__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  long long t0 = 0;
-  for (long long spins = 0;; ++spins) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spins == 0) t0 = clock64();
-    else if (clock64() - t0 > kWaitCycles) __trap();
-  }
-}
-
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-      "[%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// Order this thread's generic-proxy reads of shared memory before later
-// async-proxy writes (the bulk copy that refills a slot).
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0, uint32_t& r1,
-                                        uint32_t& r2, uint32_t& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t& r0, uint32_t& r1) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr)
-               : "memory");
-}
-
-// bf16(a), bf16(b) as one 32-bit word, a in the low half.
-__device__ __forceinline__ uint32_t bf16x2(float a, float b) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Split cluster barrier: arrive early, wait later.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// ---------------------------------------------------------------------------
-// The weight ring
-
-// The weights come packed (kernels/latent_stage.py::pack_stage_weight): an
-// (N, K) matrix is cut into kPieces pieces of N / kPieces whole rows, and
-// piece j's chunk kc (its rows, k's [kc chunk, (kc + 1) chunk), each row
-// padded to row_bytes) is one contiguous run of bytes at ((j nk + kc) N /
-// kPieces) row_bytes. A block of rank r owns pieces [r, r + 1) kPieces /
-// cluster, so a chunk of its stream is kPieces / cluster bulk copies, and
-// lands in a slot as rows of stride row_bytes, whatever the cluster size.
-//
-// Chunk q of the block's stream is chunk q % nk of product q / nk (0 Wb,
-// 1 Wv, 2 Wo, 3 Wd). It lives in slot q % slots: its copies complete phase
-// q / slots of the slot's `full` mbarrier, and the block's 8 compute warps,
-// one arrival each when they are done reading it, phase q / slots of its
-// `empty` mbarrier. A ninth warp waits for that and refills the slot with
-// chunk q + slots: issuing a bulk copy takes the issuing warp ~600 cycles,
-// which, issued by a compute warp, lay on the path of every chunk.
-struct Ring {
-  uint32_t slot0, full0, empty0;  // shared addresses of slot 0 and its mbarriers
-  int slots, slot_bytes, row_bytes, chunk, nk, total;
-  int pieces, piece0;             // pieces a block, its first
-  int piece_rows_d, piece_rows_o; // rows a piece of Wb, Wv, Wo and of Wd
-  const unsigned char *wb, *wv, *wo, *wd;
-
-  __device__ uint32_t slot(int q) const { return slot0 + (uint32_t)((q % slots) * slot_bytes); }
-  __device__ uint32_t full(int q) const { return full0 + 8u * (uint32_t)(q % slots); }
-  __device__ uint32_t empty(int q) const { return empty0 + 8u * (uint32_t)(q % slots); }
-  __device__ uint32_t parity(int q) const { return (uint32_t)((q / slots) & 1); }
-  __device__ int rows(int p) const { return pieces * (p < 3 ? piece_rows_d : piece_rows_o); }
-
-  // Called by all of one warp.
-  __device__ void issue(int q) const {
-    const int lane = threadIdx.x & 31, p = q / nk, kc = q - p * nk;
-    const int piece_rows = p < 3 ? piece_rows_d : piece_rows_o;
-    const uint32_t piece_bytes = (uint32_t)(piece_rows * row_bytes), b = full(q);
-    if (lane == 0) bar_expect_tx(b, piece_bytes * (uint32_t)pieces);
-    __syncwarp();
-    const unsigned char* w = p == 0 ? wb : p == 1 ? wv : p == 2 ? wo : wd;
-    for (int j = lane; j < pieces; j += 32)
-      bulk_copy(slot(q) + (uint32_t)j * piece_bytes,
-                w + ((size_t)(piece0 + j) * nk + kc) * piece_bytes, piece_bytes, b);
-  }
-
-  // Called by all of a compute warp once it has read chunk q.
-  __device__ void release(int q) const {
-    __syncwarp();
-    if ((threadIdx.x & 31) == 0) bar_arrive(empty(q));
-  }
-
-  // Called by all of the producer warp: once chunk q is read, chunk q + slots
-  // into its slot.
-  __device__ void refill(int q) const {
-    if (q + slots >= total) return;
-    bar_wait(empty(q), parity(q));
-    if ((threadIdx.x & 31) == 0) fence_proxy_async();
-    issue(q + slots);
+// Shared memory of a stage block, in bytes from a 1024-byte-aligned base:
+// the ring (slots of one chunk: kb tiles of slice lines of 128 bytes), the
+// operand buffers (rows x d bf16, k64 chunks of rows lines of 128 bytes,
+// swizzled), the two LayerNorms' statistics (cols x rows float2), the row
+// sums, (mean, rstd) a row, the block's slices of the biases and LayerNorm
+// affines (bb g1 b1 g2 b2 bv bo, sd each, then bd, so), the warpgroups'
+// partial sums (each thread's accumulators of each m64 tile, for both), the
+// mbarriers, and padding where the last slot's reads would reach past the
+// end. kernels/latent_stage.py::_stage_smem computes the same.
+struct StageLayout {
+  int sd, so, kbd, kbo, units, slot_bytes, q, q_bytes, stats, red, mr, vec, part, bars, total;
+  __host__ __device__ StageLayout(int d, int dout, int cols, int rows, int qbufs, int slots) {
+    sd = d / cols;
+    so = dout / cols;
+    kbd = chunk_tiles(sd, d);
+    kbo = chunk_tiles(so, d);
+    slot_bytes = (kbd * sd > kbo * so ? kbd * sd : kbo * so) * 128;
+    q = slots * slot_bytes;
+    q_bytes = rows * d * 2;
+    stats = q + qbufs * q_bytes;
+    red = stats + 2 * cols * rows * 8;
+    mr = red + 2 * 2 * 4 * rows * 4;  // row sums: [pass][warpgroup][warp][row]
+    vec = mr + rows * 8;
+    part = vec + ((7 * sd + so) * 4 + 15) / 16 * 16;
+    units = ((sd > so ? sd : so) + 63) / 64;
+    bars = part + 2 * 128 * units * (rows / 2) * 4;
+    total = bars + (2 * slots + kBarriers) * 8;
+    const int reach = chunk_reach(sd, kbd) > chunk_reach(so, kbo) ? chunk_reach(sd, kbd)
+                                                                  : chunk_reach(so, kbo);
+    const int over = reach - slot_bytes - (total - q);
+    if (over > 0) total += over;
   }
 };
 
-// dst[r][n] = sum_k A[r][k] * W_p[row0 + n][k] + bias[n] for r < rows_valid,
-// n < ncols (= the ring's rows of product p), A: bf16 16 x K in shared
-// memory, row stride lda. dst: shared or global, row stride ldd. The ncols
-// / 8 n8 tiles go to the warps, TPW a warp; with fewer than 8 tiles, `wpt`
-// warps share a tile and split each chunk's k16 steps, and their partial
-// sums are added in order. Two accumulators a tile (even and odd k16 steps)
-// halve the chain of dependent mma's.
-//
-// Every compute warp, idle or not, waits for chunk q before it releases it:
-// the slot's `empty` mbarrier counts one arrival a warp a chunk, so an idle
-// warp that arrived for chunk q + slots before chunk q was read would
-// complete the phase early and let the producer overwrite a slot still
-// being read.
-template <int TPW>
-__device__ __noinline__ void ring_gemm(const Ring& ring, int p, const __nv_bfloat16* A,
-                                       int lda, int ncols, const float* __restrict__ bias,
-                                       float* dst, int ldd, int rows_valid, float* red) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int tiles = ncols >> 3, steps = ring.chunk / 16;
-  int wpt = 1;
-  if (tiles < kWarps) {
-    wpt = kWarps / tiles;
-    if (wpt > steps) wpt = steps;
-  }
-  const int spw = steps / wpt;                      // k16 steps a warp a chunk
-  const int tile0 = (warp / wpt) * TPW, ks = warp % wpt;
-  const bool active = warp < kWarps && tile0 < tiles;  // warp kWarps: the producer
-  float acc[2][TPW][4];
-#pragma unroll
-  for (int e = 0; e < 2; ++e)
-#pragma unroll
-    for (int i = 0; i < TPW; ++i) acc[e][i][0] = acc[e][i][1] = acc[e][i][2] = acc[e][i][3] = 0.f;
-  // ldmatrix rows: A rows lane % 16 at k + 8 (lane / 16); B rows lane % 8 at
-  // k + 8 ((lane / 8) % 2).
-  const uint32_t a_base = smem_addr(A + (lane & 15) * lda + 8 * (lane >> 4));
-  const uint32_t b_off = (uint32_t)(((tile0 * 8 + (lane & 7)) * ring.row_bytes) +
-                                    16 * ((lane >> 3) & 1));
-  const int q0 = p * ring.nk;
-  for (int kc = 0; kc < ring.nk; ++kc) {
-    const int q = q0 + kc;
-    if (warp == kWarps) {
-      ring.refill(q);
-      continue;
-    }
-    bar_wait(ring.full(q), ring.parity(q));
-    if (active) {
-      const uint32_t sb = ring.slot(q) + b_off;
-      auto step = [&](int s, float (&c)[TPW][4]) {
-        const int kl = (ks * spw + s) * 16;
-        uint32_t a0, a1, a2, a3;
-        ldsm_x4(a_base + 2u * (uint32_t)(kc * ring.chunk + kl), a0, a1, a2, a3);
-#pragma unroll
-        for (int i = 0; i < TPW; ++i) {
-          if (tile0 + i < tiles) {
-            uint32_t b0, b1;
-            ldsm_x2(sb + (uint32_t)(i * 8 * ring.row_bytes + 2 * kl), b0, b1);
-            fd::mma_bf16(c[i], a0, a1, a2, a3, b0, b1);
-          }
-        }
-      };
-      for (int s = 0; s < spw; s += 2) {
-        step(s, acc[0]);
-        if (s + 1 < spw) step(s + 1, acc[1]);
-      }
-    }
-    ring.release(q);
-  }
-#pragma unroll
-  for (int i = 0; i < TPW; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[0][i][c] += acc[1][i][c];
-  if (wpt == 1) {
-    if (active) {
-#pragma unroll
-      for (int i = 0; i < TPW; ++i) {
-        if (tile0 + i < tiles) {
-          const int n = (tile0 + i) * 8 + 2 * t;
-          const float b0 = __ldg(bias + n), b1 = __ldg(bias + n + 1);
-          if (g < rows_valid)
-            *reinterpret_cast<float2*>(dst + g * ldd + n) =
-                make_float2(acc[0][i][0] + b0, acc[0][i][1] + b1);
-          if (g + 8 < rows_valid)
-            *reinterpret_cast<float2*>(dst + (g + 8) * ldd + n) =
-                make_float2(acc[0][i][2] + b0, acc[0][i][3] + b1);
-        }
-      }
-    }
-  } else {
-    if (active) {  // TPW == 1: this warp's partial of tile tile0
-      float* part = red + (ks * tiles + tile0) * (kRows * 8);
-      *reinterpret_cast<float2*>(part + g * 8 + 2 * t) =
-          make_float2(acc[0][0][0], acc[0][0][1]);
-      *reinterpret_cast<float2*>(part + (g + 8) * 8 + 2 * t) =
-          make_float2(acc[0][0][2], acc[0][0][3]);
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; warp < kWarps && i < rows_valid * ncols; i += kThreads) {
-      const int r = i / ncols, n = i - r * ncols, tile = n >> 3;
-      float v = 0.f;
-      for (int j = 0; j < wpt; ++j) v += red[(j * tiles + tile) * (kRows * 8) + r * 8 + (n & 7)];
-      dst[r * ldd + n] = v + __ldg(bias + n);
-    }
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ void ring_product(const Ring& ring, int p, const __nv_bfloat16* A,
-                                             int lda, const float* __restrict__ bias,
-                                             float* dst, int ldd, int rows_valid, float* red) {
-  const int ncols = ring.rows(p), tiles = ncols >> 3;
-  if (tiles <= kWarps) {
-    ring_gemm<1>(ring, p, A, lda, ncols, bias, dst, ldd, rows_valid, red);
-  } else if (tiles <= 2 * kWarps) {
-    ring_gemm<2>(ring, p, A, lda, ncols, bias, dst, ldd, rows_valid, red);
-  } else {
-    ring_gemm<4>(ring, p, A, lda, ncols, bias, dst, ldd, rows_valid, red);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Row phases of the stage. Each block holds only its column slice of the
-// rows (16 x sd f32, sd = d / cluster): the elementwise work and the
-// LayerNorm partial statistics run on the slice, and what the next product
-// needs from the other blocks goes to them by stores into their shared
-// memory (fire and forget), followed by one cluster barrier. Every phase
-// runs once a launch, so its code is fetched cold each time: loops stay
-// rolled and the products are one function called from four places.
-
-// Block barrier, then cluster barrier: every store of this block's threads
-// into any block's shared memory is visible to every block after it.
-__device__ __forceinline__ void cluster_sync_all() {
-  __syncthreads();
-  cluster_arrive();
-  cluster_wait();
-}
-
-// The block's slice (16 x sd f32, row stride sd) as bf16 into columns [c0,
-// c0 + sd) of the operand Q (16 x lda bf16) of every block of the cluster,
-// 16 bytes a store, each thread's stores to one block after another,
-// starting at a block that depends on the rank so that the blocks spread
-// their stores over the cluster.
-__device__ __noinline__ void push_operand(cg::cluster_group& cluster, const float* V, int sd,
-                                          __nv_bfloat16* Q, int lda, int c0, int n_cl,
-                                          int rank) {
-  const int vecs = kRows * sd / 8, items = n_cl * vecs;
-  for (int i = threadIdx.x; i < items; i += kThreads) {
-    const int k = i / vecs, e = i - k * vecs, r = e / (sd / 8), c = 8 * (e - r * (sd / 8));
-    const float4 lo = fd::ld4(V + r * sd + c), hi = fd::ld4(V + r * sd + c + 4);
-    const uint4 packed = make_uint4(bf16x2(lo.x, lo.y), bf16x2(lo.z, lo.w),
-                                    bf16x2(hi.x, hi.y), bf16x2(hi.z, hi.w));
-    __nv_bfloat16* dst = cluster.map_shared_rank(Q, (rank + k) % n_cl);
-    *reinterpret_cast<uint4*>(dst + r * lda + c0 + c) = packed;
-  }
-}
-
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+struct StageArgs {
+  const float *h, *row_add, *rows_add, *bb, *g1, *b1, *g2, *b2, *bv, *bo, *bd;
+  float* out;
+  int B, d, dout, cols, rows, qbufs, slots;
+  float eps;
+};
 
 __device__ __forceinline__ float swish(float u) { return u / (1.f + expf(-u)); }
 
-// Row r of the slice V (16 x sd), half a warp a row (lane l: columns l, l +
-// 16, ...): its mean and sum of squared deviations (two passes), stored as
-// (mean, m2) at stats[rank][r] in every block of the cluster.
-__device__ void push_row_stats(cg::cluster_group& cluster, const float* V, int sd,
-                               float2* stats, int n_cl, int rank) {
-  const int r = threadIdx.x >> 4, l = threadIdx.x & 15;
-  float s = 0.f;
-  for (int c = l; c < sd; c += 16) s += V[r * sd + c];
-  const float mean = half_warp_sum(s) / sd;
-  float ss = 0.f;
-  for (int c = l; c < sd; c += 16) {
-    const float e = V[r * sd + c] - mean;
-    ss += e * e;
-  }
-  const float m2 = half_warp_sum(ss);
-  for (int k = l; k < n_cl; k += 16)
-    cluster.map_shared_rank(stats, k)[rank * kRows + r] = make_float2(mean, m2);
-}
-
-// The whole row's mean and reciprocal standard deviation from the cluster's
-// partial statistics of slices of equal size sd: the mean of the means, and
-// the squared deviations as the sum of m2 + sd (mean_j - mean)^2 (Chan et
-// al.), both added in rank order, so every block gets the same numbers.
-__device__ void row_moments(const float2* stats, int sd, int n_cl, float eps, float& mean,
-                            float& rstd) {
-  const int r = threadIdx.x >> 4;
-  float m = 0.f;
-  for (int j = 0; j < n_cl; ++j) m += stats[j * kRows + r].x;
-  m /= n_cl;
-  float m2 = 0.f;
-  for (int j = 0; j < n_cl; ++j) {
-    const float2 st = stats[j * kRows + r];
-    const float e = st.x - m;
-    m2 += st.y + sd * e * e;
-  }
-  mean = m;
-  rstd = rsqrtf(m2 / (sd * n_cl) + eps);
-}
-
-// Shared memory of a stage launch, in this order: the ring's mbarriers, the
-// ring, the block's slices Xs (h) and U (a product's output) (16 x sd f32
-// each), the operands Q0 and Q1 (16 x (d + kQPad) bf16 each), two sets of
-// row statistics (kMaxCluster x 16 float2 each), the split-K partials.
-// kernels/latent_stage.py::stage_plan computes the same sum.
-size_t stage_smem_bytes(int d, int dout, int cluster, int slots, int chunk) {
-  const int sd = d / cluster, so = dout / cluster, sm = sd > so ? sd : so;
-  const size_t slot_bytes = (size_t)sm * (2 * chunk + kSlotPad);
-  return kBarBytes + slots * slot_bytes + sizeof(float) * 2 * kRows * (size_t)sd +
-         sizeof(__nv_bfloat16) * 2 * kRows * (size_t)(d + kQPad) +
-         sizeof(float2) * 2 * kMaxCluster * kRows + sizeof(float) * kStageRed;
-}
-
-__global__ void __launch_bounds__(kStageThreads, 1)
-stage_kernel(const float* __restrict__ h, const float* __restrict__ row_add,
-             const float* __restrict__ rows_add,
-             const __nv_bfloat16* __restrict__ wb, const float* __restrict__ bb,
-             const float* __restrict__ g1, const float* __restrict__ b1,
-             const float* __restrict__ g2, const float* __restrict__ b2,
-             const __nv_bfloat16* __restrict__ wv, const float* __restrict__ bv,
-             const __nv_bfloat16* __restrict__ wo, const float* __restrict__ bo,
-             const __nv_bfloat16* __restrict__ wd, const float* __restrict__ bd,
-             float* __restrict__ out, int B, int d, int dout, float eps, int slots,
-             int chunk) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int n_cl = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
-  const int sd = d / n_cl, so = dout / n_cl, sm = sd > so ? sd : so;
-  const int c0 = rank * sd, o0 = rank * so;
-  const int row0 = blockIdx.y * kRows;
-  const int tid = threadIdx.x;
-
-  Ring ring;
-  ring.slots = slots;
-  ring.chunk = chunk;
-  ring.row_bytes = 2 * chunk + kSlotPad;
-  ring.slot_bytes = sm * ring.row_bytes;
-  ring.nk = d / chunk;
-  ring.total = 4 * ring.nk;
-  ring.pieces = kPieces / n_cl;
-  ring.piece0 = rank * ring.pieces;
-  ring.piece_rows_d = d / kPieces;
-  ring.piece_rows_o = dout / kPieces;
-  ring.wb = reinterpret_cast<const unsigned char*>(wb);
-  ring.wv = reinterpret_cast<const unsigned char*>(wv);
-  ring.wo = reinterpret_cast<const unsigned char*>(wo);
-  ring.wd = reinterpret_cast<const unsigned char*>(wd);
-  ring.full0 = smem_addr(smem_raw);
-  ring.empty0 = ring.full0 + 8u * kMaxSlots;
-  ring.slot0 = ring.full0 + kBarBytes;
-
-  unsigned char* p = smem_raw + kBarBytes + (size_t)slots * ring.slot_bytes;
-  float* Xs = reinterpret_cast<float*>(p);        // 16 x sd: this block's columns of h
-  float* U = Xs + kRows * sd;                     // 16 x sd: a product's output slice
-  __nv_bfloat16* Q0 = reinterpret_cast<__nv_bfloat16*>(U + kRows * sd);  // operands,
-  __nv_bfloat16* Q1 = Q0 + kRows * (d + kQPad);                          //   full rows
-  float2* st1 = reinterpret_cast<float2*>(Q1 + kRows * (d + kQPad));  // row statistics
-  float2* st2 = st1 + kMaxCluster * kRows;
-  float* red = reinterpret_cast<float*>(st2 + kMaxCluster * kRows);   // split-K partials
-  const int lda = d + kQPad;
-
-  if (tid == 0) {
-    for (int s = 0; s < slots; ++s) {
-      bar_init(ring.full0 + 8u * s, 1);
-      bar_init(ring.empty0 + 8u * s, kWarps);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  cluster_arrive();  // this block has started: the others may write to it
-  const bool producer = tid >= kThreads;
-  if (producer) {
-    for (int q = 0; q < slots && q < ring.total; ++q) ring.issue(q);
-  }
-
-  // Xs = h + row_add + rows_add (zero past B), this block's columns
-  for (int i = tid; !producer && i < kRows * sd / 4; i += kThreads) {
-    const int r = i / (sd / 4), c = c0 + 4 * (i - r * (sd / 4)), row = row0 + r;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < B) {
-      v = fd::ldg4(h + (size_t)row * d + c);
-      if (row_add) v = fd::add4(v, fd::ldg4(row_add + c));
-      if (rows_add) v = fd::add4(v, fd::ldg4(rows_add + (size_t)row * d + c));
-    }
-    fd::st4(Xs + 4 * i, v);
-  }
-  __syncthreads();
-  cluster_wait();
-  if (!producer) push_operand(cluster, Xs, sd, Q0, lda, c0, n_cl, rank);
-  cluster_sync_all();
-
-  // h += swish(LN1(h @ Wb + bb))
-  ring_product(ring, 0, Q0, lda, bb + c0, U, sd, kRows, red);
-  if (!producer) push_row_stats(cluster, U, sd, st1, n_cl, rank);
-  cluster_sync_all();
-  const int r = tid >> 4, l = tid & 15;  // half a warp a row
-  float mean, rstd;
-  if (!producer) {
-    row_moments(st1, sd, n_cl, eps, mean, rstd);
-    for (int c = l; c < sd; c += 16) {
-      const float u = (U[r * sd + c] - mean) * rstd * __ldg(g1 + c0 + c) + __ldg(b1 + c0 + c);
-      Xs[r * sd + c] += swish(u);
-    }
-    __syncwarp();  // the row's new values, written by the half warp, read back
-    push_row_stats(cluster, Xs, sd, st2, n_cl, rank);
-  }
-  cluster_sync_all();
-  // Q1 = bf16(LN2(h)), Wv's operand
-  if (!producer) {
-    row_moments(st2, sd, n_cl, eps, mean, rstd);
-    for (int c = l; c < sd; c += 16)
-      U[r * sd + c] = (Xs[r * sd + c] - mean) * rstd * __ldg(g2 + c0 + c) + __ldg(b2 + c0 + c);
-  }
-  __syncthreads();
-  if (!producer) push_operand(cluster, U, sd, Q1, lda, c0, n_cl, rank);
-  cluster_sync_all();
-
-  // h += (LN2(h) @ Wv + bv) @ Wo + bo  (attention over one key)
-  ring_product(ring, 1, Q1, lda, bv + c0, U, sd, kRows, red);
-  if (!producer) push_operand(cluster, U, sd, Q0, lda, c0, n_cl, rank);  // Wo's operand
-  cluster_sync_all();
-  ring_product(ring, 2, Q0, lda, bo + c0, U, sd, kRows, red);
-  for (int i = tid; !producer && i < kRows * sd; i += kThreads) Xs[i] += U[i];
-  __syncthreads();
-  if (!producer) push_operand(cluster, Xs, sd, Q1, lda, c0, n_cl, rank);  // Wd's operand
-  cluster_sync_all();
-
-  // out = h @ Wd + bd, this block's columns
-  const int valid = B - row0 < kRows ? B - row0 : kRows;
-  ring_product(ring, 3, Q1, lda, bd + o0, out + (size_t)row0 * dout + o0, dout, valid, red);
-}
-
-// ---------------------------------------------------------------------------
-// The whole-row stage kernel (PR 1's design), for the wide stage where its
-// clusters of 16 cannot all run at once: a cluster of kRowsCluster = 8
-// blocks owns 16 whole rows; every block keeps the rows' residual stream in
-// its shared memory and computes 1/8 of each product's columns on the tensor
-// cores (fd::gemm_tc, weights read from global memory), after each product
-// the blocks exchange their column slices through DSMEM, and LayerNorm runs
-// on whole rows in every block.
-
-constexpr int kRowsCluster = 8;
-
-// Every block's column slice S (kRows x sw f32) -> the full rows in this
-// block: into F (kRows x kRowsCluster*sw f32) or, when F is null, into the bf16
-// product operand Q (row stride kRowsCluster*sw + kPad). Each thread loads its
-// float4 of all kRowsCluster slices before it stores any.
-//
-// One cluster barrier a gather: the products alternate between two slice
-// buffers, so a block that has passed this barrier knows every block has
-// finished the gather before, which read the buffer it writes next. After
-// the last gather each block arrives at one more barrier and waits on it
-// only before it exits, so that no block's shared memory goes while another
-// still reads it.
-__device__ void cluster_gather(cg::cluster_group& cluster, float* S, int sw, float* F,
-                               __nv_bfloat16* Q, bool last) {
-  cluster.sync();  // every slice written
-  const float4* remote[kRowsCluster];
+// Pins the accumulators around the asynchronous products: no read or write
+// of them moves across this point (CUTLASS's warpgroup_fence_operand).
+template <int MT, int V>
+__device__ __forceinline__ void fence_acc(float (&acc)[MT][V]) {
 #pragma unroll
-  for (int j = 0; j < kRowsCluster; ++j)
-    remote[j] = reinterpret_cast<const float4*>(cluster.map_shared_rank(S, j));
-  const int width = sw * kRowsCluster, q4 = sw / 4;
-  for (int i = threadIdx.x; i < kRows * q4; i += kThreads) {
-    float4 v[kRowsCluster];
+  for (int u = 0; u < MT; ++u)
 #pragma unroll
-    for (int j = 0; j < kRowsCluster; ++j) v[j] = remote[j][i];
-    const int r = i / q4, c = 4 * (i - r * q4);
+    for (int i = 0; i < V; ++i) asm volatile("" : "+f"(acc[u][i])::"memory");
+}
+
+// Byte offset of (row n, k) in an operand buffer of `rows` lines a chunk.
+__device__ __forceinline__ uint32_t swz(int n, int k, int rows) {
+  return (uint32_t)((k >> 6) * rows * 128 + n * 128 + ((((k >> 3) & 7) ^ (n & 7)) << 4) +
+                    (k & 7) * 2);
+}
+
+// The consumer threads' part of a stage block: two warpgroups, each
+// multiplying every row of the block (N of them) by half of each product's
+// k64 tiles (even, odd), then adding the other's partial sums through
+// shared memory, so that both hold the same values: a wgmma of these few
+// rows costs about the same whatever N, and each warpgroup issues half as
+// many. A thread of warp w of its warpgroup, lane 4 gq + t, holds for each
+// unit u (an m64 tile of the block's columns) the values v[u][4 j + 2 h +
+// e] of row n = 8 j + 2 t + e, column m = 64 u + 16 w + gq + 8 h of the
+// slice: the accumulators' layout of Wgmma<N>. Columns past the slice are
+// computed and ignored. The first warpgroup alone stores and sends.
+template <int N, int MT>
+struct Block {
+  static constexpr int V = N / 2;  // values a unit
+  const StageArgs& a;
+  uint8_t* base;
+  StageLayout L;
+  int c, sd, so, nkd, nko, total, wg, w, gq, t, tid, row0;
+  bool lead;
+
+  __device__ Block(const StageArgs& args, uint8_t* b)
+      : a(args), base(b), L(args.d, args.dout, args.cols, args.rows, args.qbufs, args.slots) {
+    c = (int)blockIdx.x;  // the block's rank in its cluster
+    sd = L.sd;
+    so = L.so;
+    nkd = a.d / 64 / L.kbd;  // chunks of each d-wide product
+    nko = a.d / 64 / L.kbo;  // chunks of Wd's
+    total = 3 * nkd + nko;
+    tid = (int)threadIdx.x;
+    wg = tid >> 7;
+    w = (tid >> 5) & 3;
+    gq = (tid & 31) >> 2;
+    t = tid & 3;
+    lead = wg == 0;
+    row0 = (int)blockIdx.y * a.rows;
+  }
+
+  __device__ uint32_t addr(int off) const { return fdh::smem_u32(base + off); }
+  __device__ uint32_t full(int q) const { return addr(L.bars + 8 * (q % a.slots)); }
+  __device__ uint32_t empty(int q) const { return addr(L.bars + 8 * (a.slots + q % a.slots)); }
+  __device__ uint32_t xbar(int i) const { return addr(L.bars + 8 * (2 * a.slots + i)); }
+  __device__ uint8_t* qbuf(int i) const { return base + L.q + (a.qbufs == 2 ? i : 0) * L.q_bytes; }
+
+  __device__ int row(int j, int e) const { return 8 * j + 2 * t + e; }
+  __device__ int col(int u, int h) const { return 64 * u + 16 * w + gq + 8 * h; }
+
+  // All 8 consumer warps, or one warpgroup's 4.
+  __device__ void sync_all() const { fdh::named_bar_sync(1, 256); }
+  __device__ void sync_wg() const { fdh::named_bar_sync(2 + wg, 128); }
+
+  // Each warp's lane 0 releases chunk q, unless no refill follows it.
+  __device__ void release(int q) const {
+    __syncwarp();
+    if ((tid & 31) == 0 && q + a.slots < total) fdh::mbar_arrive(empty(q));
+  }
+
+  // acc = the block's columns of product p (0 Wb, 1 Wv, 2 Wo, 3 Wd) over
+  // the operand in buffer `qb`, plus the bias (the block's slice of it, in
+  // shared memory). Chunk kc holds k64 tiles
+  // [kc kb, (kc + 1) kb) of the slice's rows; this warpgroup multiplies
+  // those of its parity.
+  __device__ __forceinline__ void product(int p, const uint8_t* qb, const float* bias,
+                                          float (&acc)[MT][V]) const {
+    const int slice = p < 3 ? sd : so, units = (slice + 63) / 64;
+    const int kb = p < 3 ? L.kbd : L.kbo, nk = p < 3 ? nkd : nko, q0 = p < 3 ? p * nkd : 3 * nkd;
 #pragma unroll
-    for (int j = 0; j < kRowsCluster; ++j) {
-      if (F) {
-        fd::st4(F + r * width + j * sw + c, v[j]);
-      } else {
-        __nv_bfloat162* q =
-            reinterpret_cast<__nv_bfloat162*>(Q + r * (width + kPad) + j * sw + c);
-        q[0] = __floats2bfloat162_rn(v[j].x, v[j].y);
-        q[1] = __floats2bfloat162_rn(v[j].z, v[j].w);
+    for (int u = 0; u < MT; ++u)
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc[u][i] = 0.f;
+    fence_acc(acc);
+    const uint32_t b0 = fdh::smem_u32(qb);
+    for (int kc = 0; kc < nk; ++kc) {
+      const int q = q0 + kc;
+      FD_RING_WAIT(p, fdh::mbar_wait(full(q), (uint32_t)((q / a.slots) & 1)));
+      const uint32_t a0 = addr(L.slot_bytes * (q % a.slots));
+      fdh::wgmma_fence();
+#pragma unroll 1
+      for (int b = (kc * kb + wg) & 1; b < kb; b += 2) {
+        const uint32_t at = a0 + (uint32_t)(b * slice * 128);
+        const uint32_t bt = b0 + (uint32_t)((kc * kb + b) * a.rows * 128);
+#pragma unroll
+        for (int u = 0; u < MT; ++u) {
+          if (u < units) {
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              fdh::Wgmma<N>::template run<0>(acc[u], fdh::wg_desc(at + u * kTileBytes + kk * 32),
+                                             fdh::wg_desc(bt + kk * 32));
+          }
+        }
+      }
+      fdh::wgmma_commit();
+      if (kc > 0) {
+        fdh::wgmma_wait_one();
+        release(q - 1);
       }
     }
+    fdh::wgmma_wait_all();
+    fence_acc(acc);
+    release(q0 + nk - 1);
+    // the other warpgroup's partial sums, added (a + b == b + a: both
+    // warpgroups get the same bits)
+    float* part = reinterpret_cast<float*>(base + L.part);
+    const int lane128 = tid & 127;
+#pragma unroll
+    for (int u = 0; u < MT; ++u)
+#pragma unroll
+      for (int i = 0; i < V; ++i)
+        if (u < units) part[((wg * L.units + u) * V + i) * 128 + lane128] = acc[u][i];
+    sync_all();
+#pragma unroll
+    for (int u = 0; u < MT; ++u)
+#pragma unroll
+      for (int i = 0; i < V; ++i)
+        if (u < units) acc[u][i] += part[(((1 - wg) * L.units + u) * V + i) * 128 + lane128];
+#pragma unroll
+    for (int u = 0; u < MT; ++u)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = col(u, h);
+        if (u < units && m < slice) {
+          const float bv = bias[m];
+#pragma unroll
+          for (int j = 0; j < N / 8; ++j) {
+            acc[u][4 * j + 2 * h] += bv;
+            acc[u][4 * j + 2 * h + 1] += bv;
+          }
+        }
+      }
   }
-  if (last) cluster_arrive();
+
+  // This block's rows of v (an operand, bf16) into the buffer `qb` of every
+  // block of the cluster: its own by plain stores, the others' by
+  // st.async completing on their exchange mbarrier `x`; then wait for the
+  // others' slices in this block's buffer.
+  __device__ __forceinline__ void share(const float (&v)[MT][V], uint8_t* qb, int x) const {
+    if (lead) {
+#pragma unroll
+      for (int u = 0; u < MT; ++u)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = col(u, h);
+          if (m < sd) {
+#pragma unroll
+            for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                *reinterpret_cast<__nv_bfloat16*>(qb + swz(row(j, e), c * sd + m, a.rows)) =
+                    __float2bfloat16_rn(v[u][4 * j + 2 * h + e]);
+          }
+        }
+    }
+    fdh::fence_proxy_async();
+    sync_all();
+    const int vecs = sd / 8, units = a.rows * vecs;
+    const uint32_t q0 = fdh::smem_u32(qb), bar = xbar(x);
+    for (int i = tid; i < units && a.cols > 1; i += 256) {
+      const int n = i / vecs, k = c * sd + 8 * (i - n * vecs);
+      const uint32_t off = q0 + swz(n, k, a.rows);
+      const uint4 val = *reinterpret_cast<const uint4*>(qb + swz(n, k, a.rows));
+      for (int j = 1; j < a.cols; ++j) {
+        const int to = (c + j) % a.cols;
+        fdh::st_async(fdh::mapa(off, to), val, fdh::mapa(bar, to));
+      }
+    }
+    fdh::mbar_wait(bar, 0);
+    fdh::fence_proxy_async();
+  }
+
+  // (mean, rstd) of each of the thread's rows of v over the whole row, in
+  // mr: the block's (mean, m2) of its slice (two passes), exchanged through
+  // `stats` and mbarrier x, combined in rank order by one thread a row.
+  __device__ __forceinline__ void row_moments(const float (&v)[MT][V], int which, int x) const {
+    float* red = reinterpret_cast<float*>(base + L.red);
+    float2* stats = reinterpret_cast<float2*>(base + L.stats) + which * a.cols * a.rows;
+    float2* mr = reinterpret_cast<float2*>(base + L.mr);
+    float mean[N / 8][2];
+#pragma unroll
+    for (int pass = 0; pass < 2; ++pass) {
+      float* rp = red + ((pass * 2 + wg) * 4) * N;
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float s = 0.f;
+#pragma unroll
+          for (int u = 0; u < MT; ++u)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              if (col(u, h) < sd) {
+                const float x0 = v[u][4 * j + 2 * h + e];
+                s += pass ? (x0 - mean[j][e]) * (x0 - mean[j][e]) : x0;
+              }
+          s += __shfl_xor_sync(0xffffffffu, s, 4);
+          s += __shfl_xor_sync(0xffffffffu, s, 8);
+          s += __shfl_xor_sync(0xffffffffu, s, 16);
+          if (gq == 0) rp[w * N + 8 * j + 2 * t + e] = s;
+        }
+      sync_wg();
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = 8 * j + 2 * t + e;
+          const float s = rp[n] + rp[N + n] + rp[2 * N + n] + rp[3 * N + n];
+          if (pass == 0) {
+            mean[j][e] = s / sd;
+          } else if (lead) {
+            // thread (w, gq) sends the row's pair to column slice 8 w + gq
+            const int to = 8 * w + gq;
+            const float2 st = make_float2(mean[j][e], s);
+            float2* dst = stats + c * a.rows + row(j, e);
+            if (to == c) *dst = st;
+            else if (to < a.cols)
+              fdh::st_async(fdh::mapa(fdh::smem_u32(dst), to), st, fdh::mapa(xbar(x), to));
+          }
+        }
+    }
+    sync_all();
+    if (tid < a.rows) {
+      fdh::mbar_wait(xbar(x), 0);
+      const float2* st = stats + tid;
+      float m = 0.f;
+      for (int j = 0; j < a.cols; ++j) m += st[j * a.rows].x;
+      m /= a.cols;
+      float m2 = 0.f;
+      for (int j = 0; j < a.cols; ++j) {
+        const float2 sj = st[j * a.rows];
+        const float e = sj.x - m;
+        m2 += sj.y + sd * e * e;
+      }
+      mr[tid] = make_float2(m, rsqrtf(m2 / (sd * a.cols) + a.eps));
+    }
+    sync_all();
+  }
+
+  // One buffer: every block of the cluster has read its operand buffer
+  // (the product just done) before anyone writes the next operand there.
+  __device__ void buffer_free(int x) const {
+    if (a.qbufs == 2) return;
+    sync_all();
+    if (tid == 0)
+      for (int j = 0; j < a.cols; ++j) fdh::mbar_arrive_remote(fdh::mapa(xbar(x), j));
+    fdh::mbar_wait(xbar(x), 0);
+  }
+};
+
+template <int N, int MT>
+__global__ void __launch_bounds__(kStageThreads, 1)
+stage_kernel(const __grid_constant__ CUtensorMap map_b, const __grid_constant__ CUtensorMap map_v,
+             const __grid_constant__ CUtensorMap map_o, const __grid_constant__ CUtensorMap map_d,
+             const __grid_constant__ StageArgs a) {
+  FD_STAMP_BEGIN;
+  FD_STAMP(0);
+  extern __shared__ uint8_t stage_raw[];
+  const uint32_t raw = fdh::smem_u32(stage_raw);
+  uint8_t* base = stage_raw + (((raw + 1023u) & ~1023u) - raw);
+  const Block<N, MT> k(a, base);
+  const int lane = (int)threadIdx.x & 31;
+  const bool producer = threadIdx.x >= 256;
+
+  // this block's slices of h + row_add + rows_add (zero past B) and of the
+  // vectors into shared memory first, whole 16-byte loads, all in flight
+  // while the barriers are set up; h staged in the partial sums' room
+  // (free until the first product's end; 512 units rows >= 4 rows sd bytes)
+  float* vec = reinterpret_cast<float*>(base + k.L.vec);
+  float* stage = reinterpret_cast<float*>(base + k.L.part);
+  float xs[MT][Block<N, MT>::V], acc[MT][Block<N, MT>::V];
+  if (!producer) {
+    const int q4 = k.sd / 4;
+    for (int i = threadIdx.x; i < a.rows * q4; i += 256) {
+      const int r = i / q4, row = k.row0 + r, cc = k.c * k.sd + 4 * (i - r * q4);
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row < a.B) {
+        const size_t at = (size_t)row * a.d + cc;
+        v = fd::ldg4(a.h + at);
+        if (a.row_add) v = fd::add4(v, fd::ldg4(a.row_add + cc));
+        if (a.rows_add) v = fd::add4(v, fd::ldg4(a.rows_add + at));
+      }
+      fd::st4(stage + 4 * i, v);
+    }
+    // (7 sd + so <= 2048: at most 8 a thread, all loaded before any is stored)
+    float t8[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i = threadIdx.x + 256 * j, v = i < 7 * k.sd ? i / k.sd : 7, e = i - v * k.sd;
+      const float* src = v == 0 ? a.bb : v == 1 ? a.g1 : v == 2 ? a.b1 : v == 3 ? a.g2
+                         : v == 4 ? a.b2 : v == 5 ? a.bv : v == 6 ? a.bo : a.bd;
+      if (i < 7 * k.sd + k.so) t8[j] = __ldg(src + (v < 7 ? k.c * k.sd : k.c * k.so) + e);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (threadIdx.x + 256 * j < 7 * k.sd + k.so) vec[threadIdx.x + 256 * j] = t8[j];
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.slots; ++s) {
+      fdh::mbar_init(k.full(s), 1);
+      fdh::mbar_init(k.empty(s), 8);
+    }
+    for (int i = 0; i < 6; ++i) fdh::mbar_init(k.xbar(i), 1);
+    fdh::mbar_init(k.xbar(6), a.cols);
+    fdh::mbar_init(k.xbar(7), a.cols);
+    fdh::fence_barrier_init();
+    const uint32_t op = (uint32_t)((a.cols - 1) * a.rows * k.sd * 2);
+    const uint32_t st = (uint32_t)((a.cols - 1) * a.rows * 8);
+    const uint32_t bytes[6] = {op, st, st, op, op, op};
+    for (int i = 0; i < 6; ++i) fdh::mbar_expect_tx(k.xbar(i), bytes[i]);
+  }
   __syncthreads();
-}
-
-__global__ void __cluster_dims__(kRowsCluster, 1, 1) __launch_bounds__(kThreads)
-stage_rows_kernel(const float* __restrict__ h, const float* __restrict__ row_add,
-                  const float* __restrict__ rows_add,
-                  const __nv_bfloat16* __restrict__ wb, const float* __restrict__ bb,
-                  const float* __restrict__ g1, const float* __restrict__ b1,
-                  const float* __restrict__ g2, const float* __restrict__ b2,
-                  const __nv_bfloat16* __restrict__ wv, const float* __restrict__ bv,
-                  const __nv_bfloat16* __restrict__ wo, const float* __restrict__ bo,
-                  const __nv_bfloat16* __restrict__ wd, const float* __restrict__ bd,
-                  float* __restrict__ out, int B, int d, int dout, float eps) {
-  extern __shared__ __align__(16) float smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int sd = d / kRowsCluster, so = dout / kRowsCluster;
-  const int sm = sd > so ? sd : so;
-  float* X = smem;                  // kRows x d: the residual stream h
-  float* F = X + kRows * d;         // kRows x d: gathered product results
-  float* S0 = F + kRows * d;        // kRows x sm: this block's column slice,
-  float* S1 = S0 + kRows * sm;      //   double-buffered
-  float* red = S1 + kRows * sm;     // split-K partial sums
-  __nv_bfloat16* Q = reinterpret_cast<__nv_bfloat16*>(red + fd::kRedFloats);  // operand
-  const int row0 = blockIdx.y * kRows;
-  const int tid = threadIdx.x;
-  const int c0 = rank * sd;
-
-  fd::load_rows(X, h, row_add, rows_add, row0, B, d);
-
-  // h += swish(LN1(h @ Wb + bb))
-  fd::to_operand(X, Q, d);
-  fd::gemm_tc(Q, d, wb, d, c0, sd, S0, red);
-  fd::add_bias(S0, sd, bb + c0);
-  cluster_gather(cluster, S0, sd, F, nullptr, false);
-  fd::rows_layernorm(F, F, d, g1, b1, eps, true);
-  fd::add_rows(X, F, d);
-
-  // h += (LN2(h) @ Wv + bv) @ Wo + bo  (attention over one key)
-  fd::rows_layernorm(X, F, d, g2, b2, eps, false);
-  fd::to_operand(F, Q, d);
-  fd::gemm_tc(Q, d, wv, d, c0, sd, S1, red);
-  fd::add_bias(S1, sd, bv + c0);
-  cluster_gather(cluster, S1, sd, nullptr, Q, false);  // rounded to bf16: Wo's operand
-  fd::gemm_tc(Q, d, wo, d, c0, sd, S0, red);
-  fd::add_bias(S0, sd, bo + c0);
-  cluster_gather(cluster, S0, sd, F, nullptr, true);
-  fd::add_rows(X, F, d);
-
-  // out = h @ Wd + bd, this block's columns
-  fd::to_operand(X, Q, d);
-  const int o0 = rank * so;
-  fd::gemm_tc(Q, d, wd, d, o0, so, S1, red);
-  for (int i = tid; i < kRows * so; i += kThreads) {
-    const int r = i / so, n = i - r * so, row = row0 + r;
-    if (row < B) out[(size_t)row * dout + o0 + n] = S1[i] + bd[o0 + n];
+  FD_STAMP(12);
+  fdh::cluster_arrive();  // this block's barriers exist: the others may use them
+  if (!producer) {
+#pragma unroll
+    for (int u = 0; u < MT; ++u)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int m = k.col(u, h);
+            xs[u][4 * j + 2 * h + e] = m < k.sd ? stage[k.row(j, e) * k.sd + m] : 0.f;
+          }
   }
-  cluster_wait();  // every block done reading this block's S0
+
+  // the producer: the stream is the chunks of Wb, Wv, Wo (nkd each), then
+  // Wd's (nko); chunk q, one box of slice rows x kb k64 tiles, into slot
+  // q % slots
+  auto map = [&](int p) { return p == 0 ? &map_b : p == 1 ? &map_v : p == 2 ? &map_o : &map_d; };
+  auto issue = [&](int q) {
+    const int p = q < 3 * k.nkd ? q / k.nkd : 3, kc = p < 3 ? q - p * k.nkd : q - 3 * k.nkd;
+    const int slice = p < 3 ? k.sd : k.so, kb = p < 3 ? k.L.kbd : k.L.kbo;
+    fdh::mbar_expect_tx(k.full(q), (uint32_t)(kb * slice * 128));
+    fdh::tma_load_3d(k.addr(k.L.slot_bytes * (q % a.slots)), map(p), 0, k.c * slice, kc * kb,
+                     k.full(q));
+  };
+  const int first = a.slots < k.total ? a.slots : k.total;
+  if (producer && lane == 0) {  // the first chunks at once: only this block's barriers
+    for (int p = 0; p < 4; ++p) fdh::tma_prefetch(map(p));
+    for (int q = 0; q < first; ++q) issue(q);
+  }
+
+  FD_STAMP(13);
+  fdh::cluster_wait();
+  FD_STAMP(1);
+
+  if (producer) {
+    if (lane == 0) {
+      for (int q = first; q < k.total; ++q) {
+        fdh::mbar_wait(k.empty(q), (uint32_t)(((q - a.slots) / a.slots) & 1));  // chunk q - slots read
+        issue(q);
+      }
+    }
+    __syncwarp();
+    fdh::cluster_arrive();
+    fdh::cluster_wait();
+    return;
+  }
+
+  const int sd = k.sd;
+  auto for_each = [&](auto&& f) {  // f(u, i, m, n) over the thread's values in the slice (m local)
+#pragma unroll
+    for (int u = 0; u < MT; ++u)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (k.col(u, h) < sd) f(u, 4 * j + 2 * h + e, k.col(u, h), k.row(j, e));
+  };
+  const float2* mr = reinterpret_cast<const float2*>(base + k.L.mr);
+
+  // The four products in one loop, so that each step's code (the exchange,
+  // the product, the LayerNorms) exists once: every phase runs once a
+  // launch and is fetched cold from L2 each time. acc holds the operand each
+  // product takes, then its output:
+  //   p 0: h -> U = bf16(h) Wb + bb; h += swish(LN1(U)); acc = LN2(h)
+  //   p 1: acc = V = bf16(acc) Wv + bv
+  //   p 2: O = bf16(V) Wo + bo; h += O; acc = h
+  //   p 3: out = bf16(h) Wd + bd
+  // Operand buffers: p even the first, p odd the second (one and the same
+  // where only one fits, rewritten after every block's release).
+  for_each([&](int u, int i, int, int) { acc[u][i] = xs[u][i]; });
+  for (int p = 0; p < 4; ++p) {
+    if (p >= 2) k.buffer_free(4 + p);
+    k.share(acc, k.qbuf(p & 1), p == 0 ? 0 : 2 + p);
+    if (p == 3) fdh::cluster_arrive();  // nothing more comes into this block from the others
+    FD_STAMP(p == 0 ? 2 : 4 + 2 * p);
+    k.product(p, k.qbuf(p & 1), vec + (p == 0 ? 0 : (4 + p) * sd), acc);
+    FD_STAMP(p == 0 ? 3 : 5 + 2 * p);
+    if (p == 0) {
+      for (int ln = 0; ln < 2; ++ln) {
+        k.row_moments(acc, ln, 1 + ln);
+        FD_STAMP(ln == 0 ? 4 : 5);
+        for_each([&](int u, int i, int m, int n) {
+          const float2 st = mr[n];
+          const float x = (acc[u][i] - st.x) * st.y * vec[(1 + 2 * ln) * sd + m] +
+                          vec[(2 + 2 * ln) * sd + m];
+          if (ln == 0) {
+            xs[u][i] += swish(x);
+            acc[u][i] = xs[u][i];
+          } else {
+            acc[u][i] = x;
+          }
+        });
+        if (ln == 0) FD_STAMP(14);
+      }
+    } else if (p == 2) {
+      for_each([&](int u, int i, int, int) {
+        xs[u][i] += acc[u][i];
+        acc[u][i] = xs[u][i];
+      });
+    }
+  }
+
+  // out: this block's columns of the last product
+#pragma unroll
+  for (int u = 0; u < MT; ++u)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = k.col(u, h), row = k.row0 + k.row(j, e);
+          if (k.lead && m < k.so && row < a.B)
+            a.out[(size_t)row * a.dout + k.c * k.so + m] = acc[u][4 * j + 2 * h + e];
+        }
+  FD_STAMP(15);
+  fdh::cluster_wait();  // no block leaves while another may still write to it
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -707,6 +630,7 @@ head_kernel(const float* __restrict__ h, const float* __restrict__ row_add,
   }
 }
 
+
 template <typename Kernel>
 cudaError_t reserve_smem(Kernel kernel, size_t bytes, size_t* configured) {
   if (bytes <= 48 * 1024 || bytes <= *configured) return cudaSuccess;
@@ -723,113 +647,123 @@ size_t smem_bytes(int floats, int k) {
          sizeof(__nv_bfloat16) * (size_t)kRows * (k + kPad);
 }
 
-size_t g_stage_smem = 0;
-size_t g_stage_rows_smem = 0;
 size_t g_head_smem = 0;
 
-// Shared memory and non-portable cluster sizes for stage_kernel.
-cudaError_t stage_attributes(size_t smem) {
+// The stage kernel's instance for `rows` a block: N = rows, MT = the m64
+// tiles a block's slice may have at that N (at most 64 accumulators a
+// thread). Its non-portable cluster sizes and shared memory set once.
+template <int N, int MT>
+cudaError_t stage_prepare(const void** kernel, size_t smem) {
+  static size_t configured = 0;
   static bool nonportable = false;
+  *kernel = (const void*)stage_kernel<N, MT>;
   if (!nonportable) {
-    cudaError_t err = cudaFuncSetAttribute(
-        stage_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    const cudaError_t err = cudaFuncSetAttribute(
+        stage_kernel<N, MT>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
     nonportable = true;
   }
-  return reserve_smem(stage_kernel, smem, &g_stage_smem);
+  return reserve_smem(stage_kernel<N, MT>, smem, &configured);
 }
 
-cudaLaunchConfig_t stage_config(dim3 grid, size_t smem, cudaStream_t stream,
-                                cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(kStageThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = grid.x;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
+int stage_units(int rows) { return rows == 128 ? 1 : rows == 64 ? 2 : 4; }
 
-// Shared memory of stage_rows_kernel: h and the gathered rows (16 x d f32
-// each), two column slices, the split-K partials and the bf16 operand.
-size_t stage_rows_smem_bytes(int d, int dout) {
-  const int sd = d / kRowsCluster, so = dout / kRowsCluster;
-  return smem_bytes(2 * d + 2 * (sd > so ? sd : so), d);
-}
-
-// The plan's fields, checked against what the kernel assumes.
-cudaError_t check_plan(int d, int dout, int cluster, int slots, int chunk, int smem) {
-  if (slots == 0)  // the whole-row kernel
-    return cluster != kRowsCluster || chunk != 0 || d % 64 || dout % 64 || d > 1024 ||
-                   dout > 4096 || (size_t)smem < stage_rows_smem_bytes(d, dout)
-               ? cudaErrorInvalidValue
-               : cudaSuccess;
-  if (cluster < 1 || cluster > kMaxCluster || (cluster & (cluster - 1)) || slots < 2 ||
-      slots > kMaxSlots || chunk % 64 || d % chunk || d % 64 || d > 1024 ||
-      dout % kPieces ||
-      d % (8 * cluster) || dout % (8 * cluster) || d / cluster > 32 * kWarps ||
-      dout / cluster > 32 * kWarps ||
-      (size_t)smem < stage_smem_bytes(d, dout, cluster, slots, chunk))
-    return cudaErrorInvalidValue;
-  return cudaSuccess;
+// The plan's fields, checked against what the kernel assumes
+// (kernels/latent_stage.py::stage_plan makes them).
+bool plan_ok(int B, int d, int dout, int tiles, int cols, int rows, int qbufs,
+             int slots, int smem) {
+  if (d < 64 || d > 1024 || d % 64 || dout < 8 || cols < 1 || cols > kMaxCluster ||
+      d % cols || dout % cols)
+    return false;
+  const int sd = d / cols, so = dout / cols;
+  if (sd % 8 || so % 8 || sd > 256 || so > 256) return false;
+  if (rows != 8 && rows != 16 && rows != 32 && rows != 64 && rows != 128) return false;
+  const int mt = stage_units(rows);
+  if ((sd + 63) / 64 > mt || (so + 63) / 64 > mt) return false;
+  if (qbufs < 1 || qbufs > 2 || slots < 2 || slots > kMaxSlots || tiles < 1 ||
+      (long long)tiles * rows < B)
+    return false;
+  const StageLayout L(d, dout, cols, rows, qbufs, slots);
+  return smem >= 1024 + L.total && smem <= 232448;
 }
 
 }  // namespace
 
-// The launch plan (cluster size, ring slots, chunk depth, shared memory) is
-// made by kernels/latent_stage.py::stage_plan; a plan of no slots launches
-// the whole-row kernel. A plan the kernel cannot run returns
-// cudaErrorInvalidValue, and a launch the card refuses (say,
-// cudaErrorClusterOutOfResources) returns its error. Nothing retries.
-extern "C" int fd_stage_launch(const void* h, const void* row_add, const void* rows_add,
-                               const void* wb, const void* bb, const void* g1,
-                               const void* b1, const void* g2, const void* b2,
-                               const void* wv, const void* bv, const void* wo,
-                               const void* bo, const void* wd, const void* bd,
-                               void* out, int B, int d, int dout, int cluster, int slots,
-                               int chunk, int smem, float eps, void* stream) {
-  cudaError_t err = check_plan(d, dout, cluster, slots, chunk, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (slots == 0) {
-    err = reserve_smem(stage_rows_kernel, (size_t)smem, &g_stage_rows_smem);
-    if (err != cudaSuccess) return (int)err;
-    stage_rows_kernel<<<dim3(kRowsCluster, (B + kRows - 1) / kRows), kThreads, smem,
-                        (cudaStream_t)stream>>>(
-        (const float*)h, (const float*)row_add, (const float*)rows_add,
-        (const __nv_bfloat16*)wb, (const float*)bb, (const float*)g1, (const float*)b1,
-        (const float*)g2, (const float*)b2, (const __nv_bfloat16*)wv, (const float*)bv,
-        (const __nv_bfloat16*)wo, (const float*)bo, (const __nv_bfloat16*)wd,
-        (const float*)bd, (float*)out, B, d, dout, eps);
-    return (int)cudaGetLastError();
-  }
-  err = stage_attributes((size_t)smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = stage_config(dim3(cluster, (B + kRows - 1) / kRows),
-                                              (size_t)smem, (cudaStream_t)stream, &attr);
-  err = cudaLaunchKernelEx(
-      &cfg, stage_kernel, (const float*)h, (const float*)row_add, (const float*)rows_add,
-      (const __nv_bfloat16*)wb, (const float*)bb, (const float*)g1, (const float*)b1,
-      (const float*)g2, (const float*)b2, (const __nv_bfloat16*)wv, (const float*)bv,
-      (const __nv_bfloat16*)wo, (const float*)bo, (const __nv_bfloat16*)wd,
-      (const float*)bd, (float*)out, B, d, dout, eps, slots, chunk);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+// The four tensor maps of a bound stage (Wb, Wv, Wo, Wd: bf16 (out, in) as
+// 3-D, boxes of a chunk: the rows of one column slice of `cols` by
+// chunk_tiles k64 tiles), encoded into `maps` (4 CUtensorMap, 64-byte
+// aligned), once, when the stage is bound.
+extern "C" int fd_stage_maps(const void* wb, const void* wv, const void* wo, const void* wd,
+                             int d, int dout, int cols, void* maps) {
+  if (cols < 1 || d % cols || dout % cols || (uintptr_t)maps % 64) return (int)cudaErrorInvalidValue;
+  CUtensorMap* m = static_cast<CUtensorMap*>(maps);
+  const int sd = d / cols, so = dout / cols, kbd = chunk_tiles(sd, d), kbo = chunk_tiles(so, d);
+  const bool ok = fdh::wg_map_bf16(&m[0], wb, d, d, d, sd, kbd) &&
+                  fdh::wg_map_bf16(&m[1], wv, d, d, d, sd, kbd) &&
+                  fdh::wg_map_bf16(&m[2], wo, d, d, d, sd, kbd) &&
+                  fdh::wg_map_bf16(&m[3], wd, dout, d, d, so, kbo);
+  return ok ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// How many clusters of `cluster` stage blocks with `smem` bytes each the card
-// runs at once (cudaOccupancyMaxActiveClusters), into *count.
-extern "C" int fd_stage_max_clusters(int cluster, int smem, int* count) {
-  cudaError_t err = stage_attributes((size_t)smem);
+// Calls of cuTensorMapEncodeTiled by this library so far.
+extern "C" long long fd_stage_map_encodes() { return fdh::map_encodes(); }
+
+// One stage launch on the plan's geometry, from the maps fd_stage_maps
+// encoded. A plan the kernel cannot run returns cudaErrorInvalidValue, and a
+// launch the card refuses returns its error. Nothing retries.
+extern "C" int fd_stage_launch(const void* maps, const void* h, const void* row_add,
+                               const void* rows_add, const void* bb, const void* g1,
+                               const void* b1, const void* g2, const void* b2, const void* bv,
+                               const void* bo, const void* bd, void* out, int B, int d,
+                               int dout, int tiles, int cols, int rows, int qbufs,
+                               int slots, int smem, float eps, void* stream) {
+  if (!plan_ok(B, d, dout, tiles, cols, rows, qbufs, slots, smem) || !maps)
+    return (int)cudaErrorInvalidValue;
+  const CUtensorMap* m = static_cast<const CUtensorMap*>(maps);
+  StageArgs a;
+  a.h = (const float*)h;
+  a.row_add = (const float*)row_add;
+  a.rows_add = (const float*)rows_add;
+  a.bb = (const float*)bb;
+  a.g1 = (const float*)g1;
+  a.b1 = (const float*)b1;
+  a.g2 = (const float*)g2;
+  a.b2 = (const float*)b2;
+  a.bv = (const float*)bv;
+  a.bo = (const float*)bo;
+  a.bd = (const float*)bd;
+  a.out = (float*)out;
+  a.B = B;
+  a.d = d;
+  a.dout = dout;
+  a.cols = cols;
+  a.rows = rows;
+  a.qbufs = qbufs;
+  a.slots = slots;
+  a.eps = eps;
+  const void* kernel = nullptr;
+  cudaError_t err = rows == 128  ? stage_prepare<128, 1>(&kernel, smem)
+                    : rows == 64 ? stage_prepare<64, 2>(&kernel, smem)
+                    : rows == 32 ? stage_prepare<32, 4>(&kernel, smem)
+                    : rows == 16 ? stage_prepare<16, 4>(&kernel, smem)
+                                 : stage_prepare<8, 4>(&kernel, smem);
   if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cols, tiles);
+  cfg.blockDim = dim3(kStageThreads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = stage_config(dim3(cluster, 1), (size_t)smem, nullptr, &attr);
-  return (int)cudaOccupancyMaxActiveClusters(count, stage_kernel, &cfg);
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cols;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  void* args[] = {(void*)&m[0], (void*)&m[1], (void*)&m[2], (void*)&m[3], (void*)&a};
+  err = cudaLaunchKernelExC(&cfg, kernel, args);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 // dl, de: multiples of 32; latent: a multiple of 8; all <= 512.

@@ -276,21 +276,4 @@ __device__ __forceinline__ void load_rows(float* X, const float* __restrict__ sr
   __syncthreads();
 }
 
-// X += F over kRows x n floats.
-__device__ __forceinline__ void add_rows(float* X, const float* F, int n) {
-  for (int i = threadIdx.x; i < kRows * n / 4; i += kThreads)
-    st4(X + 4 * i, add4(ld4(X + 4 * i), ld4(F + 4 * i)));
-  __syncthreads();
-}
-
-// S[r][c] += bias[c] for a kRows x sw slice.
-__device__ __forceinline__ void add_bias(float* S, int sw, const float* __restrict__ bias) {
-  for (int c = threadIdx.x; c < sw; c += kThreads) {
-    const float b = __ldg(bias + c);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) S[r * sw + c] += b;
-  }
-  __syncthreads();
-}
-
 }  // namespace fd

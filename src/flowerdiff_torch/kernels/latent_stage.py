@@ -15,27 +15,23 @@ and the head: out = LN(h + row_add + rows_add + t_base @ Wt + bt
 weights are bf16 in PyTorch's Linear layout (out, in), everything else f32.
 
 Bound on the card: weight bytes (see the note in csrc/latent_stage.cu).
-LayerNorm needs whole rows: a stage runs on clusters of blocks (16 for the
-1024-wide stage, else 8) that share 16 rows, each block owning a column
-slice of the rows and of every product's output, computed on the tensor
-cores from weights streamed through a ring of shared-memory slots; the
-blocks exchange LayerNorm statistics and operand slices through distributed
-shared memory. Where the card cannot run the wide stage's clusters of 16
-for all the row tiles at once (`stage_max_clusters`), the stage runs on the
-whole-row kernel instead: clusters of 8 in which every block holds the 16
-whole rows and reads its weight columns from global memory. The head has
+LayerNorm needs whole rows: a stage launch is clusters of blocks that each
+hold some rows (`stage_plan`: clusters along the rows, column slices a
+cluster), each block owning a column slice of its cluster's rows and of
+every product's output. The products run on `wgmma` with the weight as the
+A operand, fed by TMA through 3-D tensor maps that `bind_stage` encodes once
+(Linear's (out, in) layout is K-major as it is) into a ring of
+shared-memory slots, one box of up to 32 KB a chunk. The blocks of a
+cluster exchange LayerNorm statistics and operand slices through
+distributed shared memory, stores that complete on the receiver's
+mbarrier. The head has
 two kernels, chosen by form at each call: with no t_base or c_base (the
 sampler's step, whose time and condition adds come from tables) a block
 owns 16 rows and 16 output columns and computes its rows' LayerNorm itself
 (csrc/latent_head.cu); with either product, which must be added to whole
 rows before the LayerNorm, a block owns 16 whole rows and all the columns
 (csrc/latent_stage.cu::head_kernel). `stage_plan` makes a stage launch's
-plan (cluster size, ring slots, chunk depth, shared memory) on the host:
-`bind_stage` makes the one or two it can need once.
-
-`bind_stage` also packs the stage's four weights once into the kernel's
-layout (`pack_stage_weight`: whole-row pieces cut into k-chunks with padded
-rows), so that each chunk the kernel streams is one bulk copy a piece.
+plan on the host: `bind_stage` makes those of the row counts up to 128 once.
 
 `bind_stage` / `bind_head` fix a kernel's weights (checked once) and return
 the per-call launcher; for CPU weights they return the plain twin
@@ -130,122 +126,182 @@ def _check_max(name: str, n: int, most: int) -> None:
 _F32, _BF16 = torch.float32, torch.bfloat16
 
 
-# The stage kernel's launch plan. Its shared memory holds, besides the ring:
-# the block's column slices of h and of a product's output (16 rows, f32),
-# two bf16 operands of 16 full rows (padded by 8 elements), two sets of row
-# statistics, the split-K partials and the ring's mbarriers.
+# The stage kernel's launch plan (csrc/latent_stage.cu::stage_kernel). A
+# block's shared memory holds the weight ring (slots of one chunk: a TMA box
+# of kb k64 tiles of its slice's rows, up to 32 KB), the operand buffers
+# (its rows x d bf16), both LayerNorms' statistics (cols x rows float2), the
+# row sums, (mean, rstd) a row, the slices of the biases and LayerNorm
+# affines, both warpgroups' partial sums and the mbarriers, after up to 1 KB
+# that aligns the ring to 1024 bytes for the 128-byte swizzle.
 SMEM_LIMIT = 232_448   # bytes of shared memory a block may have on the H100
 MAX_CLUSTER = 16       # non-portable cluster size
-PIECES = 16            # row pieces of a packed weight: one bulk copy each a chunk
-MAX_SLOTS = 8
-MAX_D = 1024           # a thread holds at most 16 float4s of the 16 rows
-MAX_SLICE = 256        # columns a block computes: four n8 tiles a warp
-ROWS, WARPS = 16, 8
-SLOT_PAD, OPERAND_PAD, BARRIER_BYTES = 16, 8, 128
-MAX_CLUSTER_STATS = 16  # the statistics' room: (mean, m2) of 16 rows a block
-# Clusters of 16 pay only where a block of a cluster of 8 would stream more
-# than this many weight bytes (the 1024-wide stage: PERF.md, PR 5).
-_WIDE_STAGE_BYTES = 1 << 19
-# Chunk depths, deepest first: a chunk carries a fixed cost, so the deepest
-# whose two slots fit.
-_CHUNKS = (256, 128, 64)
-# The whole-row kernel (csrc/latent_stage.cu::stage_rows_kernel): clusters of
-# 8, split-K partials of 16 x 64 floats, operand rows padded by 32 elements.
-_ROWS_CLUSTER, _ROWS_RED_FLOATS, _ROWS_PAD = 8, ROWS * 64, 32
+MAX_SLOTS = 32
+MAX_D = 1024
+MAX_SLICE = 256        # columns a block computes of one product: a TMA box's lines
+ROW_CHOICES = (8, 16, 32, 64, 128)  # rows a block: N of its warpgroups' products
+TILE_BYTES, CHUNK_BYTES, BARRIERS = 8192, 32768, 8
+# At most this many blocks a launch up to 128 rows: one wave on the H100,
+# whose 132 SMs run 7 clusters of 16 such blocks at once (PERF_ARCHIVE.md).
+WAVE_BLOCKS = 64
+# The cost model's rates, measured on the H100 (PERF.md section 6): a block's
+# TMA requests run one after another at REQUEST_US each plus their bytes at
+# REQUEST_BYTES_PER_S (tools/ingress_probe.py); a column slice's operand
+# comes in over distributed shared memory at DSMEM_BYTES_PER_S, each
+# exchange after EXCHANGE_US (tools/stage_phases.py); a wgmma of a block's
+# few rows costs WGMMA_US, whatever its N (tools/stage_ab.py --sweep). The
+# model only ranks plans: it leaves out the launch's fixed phases.
+REQUEST_US, REQUEST_BYTES_PER_S = 0.37, 330e9
+DSMEM_BYTES_PER_S, EXCHANGE_US = 20e9, 1.0
+WGMMA_US = 0.065
 
 
 class StagePlan(NamedTuple):
-    cluster: int   # blocks sharing 16 rows, each computing 1/cluster of the columns
-    slots: int     # shared-memory slots of the weight ring; 0: the whole-row kernel
-    chunk: int     # k's of a chunk: one bulk copy of 2 * chunk bytes a weight row (0: none)
-    smem: int      # dynamic shared memory of a block, bytes
-
-    def slot_row_bytes(self) -> int:
-        return 2 * self.chunk + SLOT_PAD
-
-
-def _stage_smem(d: int, dout: int, cluster: int, slots: int, chunk: int) -> int:
-    """Mirrors csrc/latent_stage.cu::stage_smem_bytes."""
-    sd, sm = d // cluster, max(d, dout) // cluster
-    return (BARRIER_BYTES + slots * sm * (2 * chunk + SLOT_PAD) + 4 * 2 * ROWS * sd
-            + 2 * 2 * ROWS * (d + OPERAND_PAD) + 8 * 2 * MAX_CLUSTER_STATS * ROWS
-            + 4 * WARPS * ROWS * 8)
+    tiles: int    # clusters along the rows
+    cols: int     # blocks of a cluster: each computes 1 / cols of each product's columns
+    rows: int     # rows a block, one of ROW_CHOICES
+    qbufs: int    # operand buffers: 2, or 1 rewritten after every reader's release
+    slots: int    # slots of the weight ring
+    smem: int     # dynamic shared memory of a block, bytes
 
 
-def _rows_plan(d: int, dout: int) -> StagePlan:
-    """The whole-row kernel's plan, or ValueError."""
-    _check_width("d_out", dout, 8 * _ROWS_CLUSTER)
-    sm = max(d, dout) // _ROWS_CLUSTER
-    smem = 4 * (ROWS * (2 * d + 2 * sm) + _ROWS_RED_FLOATS) + 2 * ROWS * (d + _ROWS_PAD)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"stage {d} -> {dout}: the whole-row kernel's {smem} bytes "
-                         f"of shared memory are above {SMEM_LIMIT}")
-    return StagePlan(_ROWS_CLUSTER, 0, 0, smem)
+def _units(rows: int) -> int:
+    """m64 tiles a block's slice may have at `rows` rows (64 accumulators a
+    thread, rows / 2 a tile)."""
+    return 1 if rows == 128 else 2 if rows == 64 else 4
 
 
-def stage_plan(d: int, dout: int, rows: int = ROWS,
-               wave16: Optional[int] = None) -> StagePlan:
+def chunk_tiles(slice_: int, d: int) -> int:
+    """k64 tiles of a weight chunk (one TMA box) for a column slice of
+    `slice_` rows: the most, a power of two dividing d / 64, within
+    CHUNK_BYTES. Mirrors csrc/latent_stage.cu::chunk_tiles."""
+    kb = 1
+    while 2 * kb * slice_ * 128 <= CHUNK_BYTES and (d // 64) % (2 * kb) == 0:
+        kb *= 2
+    return kb
+
+
+def _stage_smem(d: int, dout: int, cols: int, rows: int, qbufs: int, slots: int) -> int:
+    """Mirrors csrc/latent_stage.cu::StageLayout, plus the alignment."""
+    sd, so = d // cols, dout // cols
+    kbd, kbo = chunk_tiles(sd, d), chunk_tiles(so, d)
+    slot = max(kbd * sd, kbo * so) * 128
+    ring = slots * slot
+    vec = -(-(7 * sd + so) * 4 // 16) * 16  # the slices of the biases and LN affines
+    part = 2 * 128 * -(-max(sd, so) // 64) * rows // 2 * 4  # both warpgroups' partial sums
+    red = 2 * 2 * 4 * rows * 4  # row sums: [pass][warpgroup][warp][row]
+    total = ring + qbufs * rows * d * 2 + 2 * cols * rows * 8 + red + rows * 8 + vec \
+        + part + (2 * slots + BARRIERS) * 8
+    reach = max((kb - 1) * n * 128 + -(-n // 64) * TILE_BYTES for n, kb in ((sd, kbd), (so, kbo)))
+    return 1024 + total + max(0, reach - slot - (total - ring))
+
+
+def stage_cost_us(d: int, dout: int, plan: StagePlan) -> float:
+    """The plan's cost model, us a launch: a block's weight requests
+    (REQUEST_US each plus their bytes) or its wgmmas, whichever is longer,
+    plus its exchanges: four operands from the other blocks of its
+    cluster over distributed shared memory, two LayerNorms' statistics, and
+    with one operand buffer two releases."""
+    sd, so = d // plan.cols, dout // plan.cols
+    weights = mma = 0.0
+    for n, products in ((sd, 3), (so, 1)):
+        kb = chunk_tiles(n, d)
+        chunks = products * d // 64 // kb
+        weights += chunks * (REQUEST_US + kb * n * 128 / REQUEST_BYTES_PER_S * 1e6)
+        # each warpgroup issues half of the slice's m64 tiles x d / 16 wgmmas
+        mma += products * -(-n // 64) * d // 32 * WGMMA_US
+    operand = plan.rows * d * 2 * (plan.cols - 1) / plan.cols
+    exchanges = (4 * (EXCHANGE_US + operand / DSMEM_BYTES_PER_S * 1e6)
+                 + (2 + 2 * (plan.qbufs == 1)) * EXCHANGE_US)
+    return max(weights, mma) + exchanges
+
+
+def stage_plan(d: int, dout: int, rows: int = 16) -> StagePlan:
     """The stage kernel's launch plan for widths d -> dout at `rows` rows,
-    or ValueError. `wave16`: how many clusters of 16 stage blocks the card
-    runs at once (`stage_max_clusters`); None: as many as the rows need.
+    or ValueError.
 
-    Cluster size min(16, d / 8, dout / 8) rounded down to a power of two,
-    then 8 instead of 16 unless the stage is wide (_WIDE_STAGE_BYTES). A
-    wide stage whose row tiles do not all fit in one wave of clusters of 16
-    runs on the whole-row kernel (its plan has no slots): there the ring on
-    clusters of 8, or on clusters of 16 of 32 rows, was slower (PERF.md, PR
-    5). Chunks of 256 k's (fewer where d is not a multiple of 256, or where
-    two slots of 256 do not fit); as many ring slots (at most 8, at most the
-    stage's 4 d / chunk chunks) as fit beside the fixed buffers."""
-    if d <= 0 or dout <= 0 or d % 64:
+    Geometry: `tiles` clusters along the rows, each of `cols` blocks (at most
+    16) that share `rows` rows (one of ROW_CHOICES). Column slice c computes
+    columns [c sd, (c + 1) sd) of the d-wide products (sd = d / cols) and
+    [c so, (c + 1) so) of the last (so = dout / cols): multiples of 8 (an
+    exchange moves 16-byte units), at most 256 (a TMA box's lines), and at
+    most _units(rows) m64 tiles. Up to 128 rows a launch takes at most
+    WAVE_BLOCKS blocks; above, the 128-row plan repeats over more clusters.
+
+    Shared memory (bytes, csrc/latent_stage.cu::StageLayout): slots x a
+    chunk (kb x slice x 128, kb = chunk_tiles: up to 32 KB) of ring +
+    qbufs x rows x d x 2 of operands + fixed parts; two operand buffers
+    where two slots still fit beside them, else one. The flagship's widest
+    stage shows the limits: 128 rows of a 1024-wide bf16 operand (256 KB)
+    do not fit a block's 227 KB, 64 rows (128 KB) fit beside at most three
+    32 KB slots.
+
+    Among the geometries that fit, the least `stage_cost_us`, then the most
+    column slices. Each cluster reads every weight byte once; one cluster
+    holding all the rows, or row groups of one cluster sharing each chunk
+    by TMA multicast, measured slower than more clusters of fewer rows at
+    every row count the sampler launches: a block's TMA requests run one
+    after another, its operand exchanges grow with its rows, and its wgmma
+    count with its slice (PERF.md section 6)."""
+    if d <= 0 or d % 64:
         raise ValueError(f"d width {d} must be a positive multiple of 64")
-    if dout % PIECES:
-        raise ValueError(f"d_out width {dout} must be a multiple of {PIECES}")
+    if dout <= 0 or dout % 8:
+        raise ValueError(f"d_out width {dout} must be a positive multiple of 8")
     _check_max("d", d, MAX_D)
-    cluster = 1 << (min(MAX_CLUSTER, d // 8, max(dout // 8, 1)).bit_length() - 1)
-    if cluster == 16 and (3 * d + dout) * d * 2 // 8 <= _WIDE_STAGE_BYTES:
-        cluster = 8
-    if cluster == 16 and wave16 is not None and -(-rows // ROWS) > wave16:
-        return _rows_plan(d, dout)
-    for name, n in (("d", d), ("d_out", dout)):
-        if n % (8 * cluster):
-            raise ValueError(f"{name} width {n} must be a multiple of 8 x the "
-                             f"cluster size {cluster}")
-        _check_max(f"{name} / cluster", n // cluster, MAX_SLICE)
-    for chunk in _CHUNKS:
-        if d % chunk:
+    if rows < 1:
+        raise ValueError(f"rows {rows} must be positive")
+    if rows > ROW_CHOICES[-1]:
+        plan = stage_plan(d, dout, ROW_CHOICES[-1])
+        return plan._replace(tiles=-(-rows // plan.rows))
+    plans = stage_plans(d, dout, rows)
+    if not plans:
+        raise ValueError(f"stage {d} -> {dout}: no cluster of at most {MAX_CLUSTER} blocks "
+                         f"splits it into column slices the kernel takes")
+    return min(plans, key=lambda plan: (stage_cost_us(d, dout, plan), -plan.cols))
+
+
+def stage_plans(d: int, dout: int, rows: int):
+    """Every plan the kernel takes for widths d -> dout at `rows` (at most
+    128) rows: each column split with each row count a block (at most as
+    many as the rows need), the most ring slots that fit, two operand
+    buffers where two slots still fit beside them."""
+    plans = []
+    most = next((r for r in ROW_CHOICES if r >= rows), ROW_CHOICES[-1])
+    for cols in range(1, MAX_CLUSTER + 1):
+        if d % cols or dout % cols:
             continue
-        fixed = _stage_smem(d, dout, cluster, 0, chunk)
-        slot = max(d, dout) // cluster * (2 * chunk + SLOT_PAD)
-        slots = min(MAX_SLOTS, 4 * d // chunk, (SMEM_LIMIT - fixed) // slot)
-        if slots >= 2:
-            return StagePlan(cluster, slots, chunk,
-                             _stage_smem(d, dout, cluster, slots, chunk))
-    raise ValueError(f"stage {d} -> {dout}: two ring slots do not fit in "
-                     f"{SMEM_LIMIT} bytes of shared memory")
+        sd, so = d // cols, dout // cols
+        if sd % 8 or so % 8 or max(sd, so) > MAX_SLICE:
+            continue
+        kbd, kbo = chunk_tiles(sd, d), chunk_tiles(so, d)
+        slot = max(kbd * sd, kbo * so) * 128
+        for rb in ROW_CHOICES:
+            tiles = -(-rows // rb)
+            if rb > most or -(-max(sd, so) // 64) > _units(rb):
+                continue
+            if tiles > 1 and tiles * cols > WAVE_BLOCKS:
+                continue
+            for qbufs in (2, 1):
+                fixed = _stage_smem(d, dout, cols, rb, qbufs, 0)
+                slots = min(MAX_SLOTS, 3 * d // 64 // kbd + d // 64 // kbo,
+                            (SMEM_LIMIT - fixed) // slot)
+                while slots >= 2 and _stage_smem(d, dout, cols, rb, qbufs, slots) > SMEM_LIMIT:
+                    slots -= 1
+                if slots >= 2:
+                    plans.append(StagePlan(tiles, cols, rb, qbufs, slots,
+                                           _stage_smem(d, dout, cols, rb, qbufs, slots)))
+                    break
+    return plans
 
 
-def pack_stage_weight(w: torch.Tensor, chunk: int) -> torch.Tensor:
-    """An (N, K) bf16 weight in the stage kernel's packed layout: (PIECES,
-    K / chunk, N / PIECES, chunk + 8). Piece j holds rows [j N / PIECES,
-    (j + 1) N / PIECES); [j, kc] is their k's [kc chunk, (kc + 1) chunk), each
-    row padded with 8 zeros (16 bytes, the ring slot's row padding), so that
-    a block's chunk of a product is one contiguous run of bytes a piece and
-    one bulk copy fills its part of a slot."""
-    n, k = w.shape
-    packed = w.reshape(PIECES, n // PIECES, k // chunk, chunk).permute(0, 2, 1, 3)
-    return torch.nn.functional.pad(packed, (0, SLOT_PAD // 2)).contiguous()
+MAP_BYTES = 128  # a CUtensorMap
 
 
-def stage_max_clusters(cluster: int, smem: int) -> int:
-    """cudaOccupancyMaxActiveClusters for stage blocks of `smem` bytes on
-    clusters of `cluster`: how many such clusters the card runs at once."""
-    fn = _build.load("latent_stage").fd_stage_max_clusters
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    count = ctypes.c_int(0)
-    _build.check(fn(cluster, smem, ctypes.byref(count)), "cudaOccupancyMaxActiveClusters")
-    return count.value
+def stage_map_encodes() -> int:
+    """Calls of cuTensorMapEncodeTiled by the loaded stage library so far:
+    `bind_stage` encodes a stage's maps, a launch none."""
+    fn = _build.load("latent_stage").fd_stage_map_encodes
+    fn.restype = ctypes.c_longlong
+    return fn()
 
 
 def _fn(symbol: str, n_ptr: int, n_int: int, lib: str = "latent_stage"):
@@ -264,20 +320,18 @@ def _stream(dev) -> int:
 def bind_stage(wb, bb, g1, b1, g2, b2, wv, bv, wo, bo, wd, bd, *,
                eps: float = LN_EPS):
     """`fused_stage` with its weights fixed: returns run(h, tc=None,
-    row_add=None). CUDA weights are checked here, once, and each call checks
-    only its activations, so a sampler's step pays for three checks a stage
-    and not fifteen. For CPU weights `run` is the plain twin."""
+    row_add=None). CUDA weights are checked here, once, the plans of the
+    row counts up to 128 made and the tensor maps of their column slices
+    encoded (`run.maps`, held by `run`), so a call checks only its
+    activations and encodes nothing (a CUDA graph's capture stays valid).
+    For CPU weights `run` is the plain twin."""
     weights = (wb, bb, g1, b1, g2, b2, wv, bv, wo, bo, wd, bd)
     if not wb.is_cuda:
         return lambda h, tc=None, row_add=None: fused_stage_plain(
             h, tc, *weights, row_add=row_add, eps=eps)
     dev = wb.device
     d, dout = wb.shape[1], wd.shape[0]
-    plans, edge = [stage_plan(d, dout)], None
-    if plans[0].cluster == 16:  # one plan for the rows one wave takes, one for more
-        wave = stage_max_clusters(16, plans[0].smem)
-        edge = ROWS * wave
-        plans.append(stage_plan(d, dout, edge + 1, wave))
+    plans = {rows: stage_plan(d, dout, rows) for rows in ROW_CHOICES}
     for name, w in (("wb", wb), ("wv", wv), ("wo", wo)):
         _check(name, w, (d, d), _BF16, dev)
     _check("wd", wd, (dout, d), _BF16, dev)
@@ -285,32 +339,52 @@ def bind_stage(wb, bb, g1, b1, g2, b2, wv, bv, wo, bo, wd, bd, *,
                     ("bv", bv), ("bo", bo)):
         _check(name, v, (d,), _F32, dev)
     _check("bd", bd, (dout,), _F32, dev)
-    launch_weights, ptrs = {}, {}
-    for chunk in {plan.chunk for plan in plans}:  # chunk 0: the weights as they are
-        pw = {name: pack_stage_weight(w, chunk) if chunk else w
-              for name, w in (("wb", wb), ("wv", wv), ("wo", wo), ("wd", wd))}
-        launch_weights[chunk] = (pw["wb"], bb, g1, b1, g2, b2, pw["wv"], bv,
-                                 pw["wo"], bo, pw["wd"], bd)
-        ptrs[chunk] = [w.data_ptr() for w in launch_weights[chunk]]
+    encode = _build.load("latent_stage").fd_stage_maps
+    encode.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    encode.restype = ctypes.c_int
+    maps, buffers = {}, []
+
+    def encode_maps(cols: int) -> None:
+        buf = ctypes.create_string_buffer(4 * MAP_BYTES + 64)
+        at = -(-ctypes.addressof(buf) // 64) * 64  # a CUtensorMap is 64-byte aligned
+        _build.check(encode(wb.data_ptr(), wv.data_ptr(), wo.data_ptr(), wd.data_ptr(),
+                            d, dout, cols, at), "the stage's tensor maps")
+        maps[cols] = at
+        buffers.append(buf)
+    for cols in sorted({plan.cols for plan in plans.values()}):
+        encode_maps(cols)
+    vecs = [v.data_ptr() for v in (bb, g1, b1, g2, b2, bv, bo, bd)]
+    chosen = {}
 
     def plan_for(rows: int) -> StagePlan:
-        return plans[0] if edge is None or rows <= edge else plans[1]
-    fn = _fn("fd_stage_launch", 16, 7)
+        plan = chosen.get(rows)
+        if plan is None:
+            base = plans[next((r for r in ROW_CHOICES if r >= rows), ROW_CHOICES[-1])]
+            plan = chosen[rows] = (base if rows <= ROW_CHOICES[-1] else stage_plan(d, dout, rows))
+        return plan
+    fn = _fn("fd_stage_launch", 13, 9)
 
-    def run(h, tc=None, row_add=None):
+    def run(h, tc=None, row_add=None, plan=None):
+        """`plan`: one of `stage_plans(d, dout, rows)` in place of the
+        bound one (a comparison's; its maps are encoded at its first call
+        where its column slices are new)."""
         bsz = h.shape[0]
         _check("h", h, (bsz, d), _F32, dev)
         _check("tc", tc, (bsz, d), _F32, dev)
         _check("row_add", row_add, (d,), _F32, dev)
         out = torch.empty((bsz, dout), dtype=_F32, device=dev)
-        plan = plan_for(bsz)
-        code = fn(h.data_ptr(), _ptr(row_add), _ptr(tc), *ptrs[plan.chunk], out.data_ptr(),
+        if plan is None:
+            plan = plan_for(bsz)
+        elif plan.cols not in maps:
+            encode_maps(plan.cols)
+        code = fn(maps[plan.cols], h.data_ptr(), _ptr(row_add), _ptr(tc), *vecs, out.data_ptr(),
                   bsz, d, dout, *plan, float(eps), _stream(dev))
         _build.check(code, "fused_stage")
         fused_stage.launches += 1
         return out
 
-    run.weights = launch_weights  # the tensors behind `ptrs` live as long as run
+    run.weights = weights  # the tensors behind the maps and pointers live as long as run
+    run.maps = buffers
     run.plan_for = plan_for
     return run
 

@@ -26,7 +26,9 @@ from flowerdiff_torch.kernels.latent_stage import (
     fused_head_plain,
     fused_stage,
     fused_stage_plain,
-    stage_max_clusters,
+    stage_map_encodes,
+    stage_plan,
+    stage_plans,
 )
 from flowerdiff_torch.utils.weights import (
     denoiser_from_params,
@@ -79,15 +81,19 @@ def _stage_args(gen, b, d, d_out):
 FLAGSHIP_STAGES = [(256, 512), (512, 1024), (1024, 512), (512, 256)]
 
 
-# Products with idle warps: (1024, 768) on clusters of 16 (16 rows; the
-# whole-row kernel at 128), (512, 1536) on clusters of 8 with chunks of 128
-# k's and more chunks than ring slots.
-IDLE_WARP_STAGES = [(16, 1024, 768), (128, 1024, 768), (128, 512, 1536)]
+# Other plans: (1024, 768) at 16 rows (a slice of 48 Wd rows, less than an
+# m64 tile) and at 128 (4 clusters of 32 rows, two ring slots), (512, 1536)
+# at 128 (Wd's slice of three m64 tiles, 192 rows).
+OTHER_STAGES = [(16, 1024, 768), (128, 1024, 768), (128, 512, 1536)]
+# The sampler's row counts: the 8 and 64 buckets with CFG (16, 128), the
+# unguided v1 service's 8, 32 and 64.
+SAMPLER_ROWS = (8, 16, 32, 64, 128)
 
 
 @pytest.mark.parametrize("b,d,d_out", [(1, 64, 64), (13, 128, 256), (32, 256, 64)]
-                         + [(b, d, o) for d, o in FLAGSHIP_STAGES for b in (1, 16, 100, 128)]
-                         + IDLE_WARP_STAGES)
+                         + [(b, d, o) for d, o in FLAGSHIP_STAGES
+                            for b in sorted({1, 100, *SAMPLER_ROWS})]
+                         + OTHER_STAGES)
 def test_stage_kernel_matches_twin(gen, b, d, d_out):
     args = _stage_args(gen, b, d, d_out)
     row = _r(gen, d)
@@ -100,6 +106,23 @@ def test_stage_kernel_matches_twin(gen, b, d, d_out):
     assert torch.equal(fused_stage(*args, row_add=row), got)
 
 
+@pytest.mark.parametrize("b,d,d_out", [(128, 256, 512), (16, 1024, 512), (64, 512, 256)])
+def test_every_stage_plan_matches_twin(gen, b, d, d_out):
+    """Each plan `stage_plans` offers (every column split and rows a block,
+    up to 128 rows a block), forced on the bound stage: the twin within the
+    same limit, the same bits when repeated."""
+    args = _stage_args(gen, b, d, d_out)
+    row = _r(gen, d)
+    run = bind_stage(*args[2:])
+    ref = fused_stage_plain(*args, row_add=row)
+    plans = stage_plans(d, d_out, b)
+    assert any(plan.rows == 128 for plan in plans) or b < 128
+    for plan in plans:
+        got = run(args[0], args[1], row, plan=plan)
+        assert float((got - ref).abs().max()) <= 2e-2 * float(ref.abs().max()), plan
+        assert torch.equal(run(args[0], args[1], row, plan=plan), got), plan
+
+
 @pytest.mark.parametrize("b", [16, 100])
 def test_stage_kernel_is_deterministic(gen, b):
     """No atomics: the same call twice gives the same bits."""
@@ -109,15 +132,31 @@ def test_stage_kernel_is_deterministic(gen, b):
     assert torch.equal(run(args[0], args[1], row), run(args[0], args[1], row))
 
 
-def test_stage_plan_follows_the_cards_occupancy(gen):
-    """The wide stage runs on the ring's clusters of 16 up to the rows that
-    one wave of them takes on this card, and on the whole-row kernel above."""
-    run = bind_stage(*_stage_args(gen, 1, 1024, 512)[2:])
-    ring = run.plan_for(16)
-    wave = stage_max_clusters(16, ring.smem)
-    assert ring.cluster == 16 and ring.slots >= 2 and wave >= 1
-    assert run.plan_for(16 * wave) == ring
-    assert run.plan_for(16 * wave + 1).slots == 0
+@pytest.mark.parametrize("rows", [16, 128])
+@pytest.mark.parametrize("d,d_out", FLAGSHIP_STAGES)
+def test_every_flagship_stage_launch_runs_the_wgmma_kernel(gen, d, d_out, rows):
+    """The route: each flagship cell of the 8 and 64 buckets (16, 128 rows)
+    is one launch of `stage_kernel` (the instance of its plan's rows a
+    block) with the plan `stage_plan` makes, and encodes no tensor map (the
+    binding did)."""
+    args = _stage_args(gen, rows, d, d_out)
+    row = _r(gen, d)
+    e0 = stage_map_encodes()
+    run = bind_stage(*args[2:])
+    assert stage_map_encodes() > e0
+    plan = run.plan_for(rows)
+    assert plan == stage_plan(d, d_out, rows)
+    run(args[0], args[1], row)
+    torch.cuda.synchronize()
+    e0 = stage_map_encodes()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run(args[0], args[1], row)
+        torch.cuda.synchronize()
+    assert stage_map_encodes() == e0
+    names = [e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    units = 1 if plan.rows == 128 else 2 if plan.rows == 64 else 4
+    want = f"stage_kernel<{plan.rows}, {units}>"
+    assert len(names) == 1 and want in names[0], names
 
 
 @pytest.mark.parametrize("b,dl,de,lat", [(9, 64, 32, 128), (128, 256, 256, 256)])
@@ -880,10 +919,13 @@ def _replay(sampler, batch, cls, seed, x_init=None, stochastic=True):
                           x_init=x_init, stochastic=stochastic)
 
 
-# (stage rows, guided, v2 global skip, step noise)
+# (stage rows, guided, v2 global skip, step noise); unguided 8, 32 and 64:
+# the v1 service's buckets, on the stage plans of those rows
 @pytest.mark.parametrize("rows,guided,global_skip,stochastic",
                          [(16, True, False, True), (128, True, True, False),
-                          (16, False, True, True), (128, False, False, False)])
+                          (16, False, True, True), (128, False, False, False),
+                          (8, False, False, True), (32, False, False, True),
+                          (64, False, True, True)])
 def test_graph_replay_is_bit_equal_to_the_host_loop(gen, rows, guided, global_skip,
                                                     stochastic):
     """20 steps through the captured graph and through `fused_sample`'s host

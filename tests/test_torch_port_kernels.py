@@ -22,14 +22,17 @@ from flowerdiff_torch.kernels.full_sampler import (
     reverse_step,
 )
 from flowerdiff_torch.kernels.latent_stage import (
-    bind_head,
-    PIECES,
+    ROW_CHOICES,
     SMEM_LIMIT,
+    WAVE_BLOCKS,
+    bind_head,
     bind_stage,
+    chunk_tiles,
     fused_head,
     fused_stage,
-    pack_stage_weight,
+    stage_cost_us,
     stage_plan,
+    stage_plans,
 )
 from flowerdiff_torch.utils.weights import denoiser_from_params, init_numpy_params
 
@@ -106,186 +109,301 @@ def test_bound_stage_and_head_equal_unbound():
 # (256, 512, 1024, 512, 256), and the card tests' other stage shapes.
 FLAGSHIP_STAGES = [(256, 512), (512, 1024), (1024, 512), (512, 256)]
 CARD_TEST_STAGES = [(64, 64), (128, 256), (256, 64), (1024, 768), (512, 1536)]
-# cudaOccupancyMaxActiveClusters for clusters of 16 stage blocks on the
-# H100 SXM (chip_smoke.py prints it)
-H100_WAVE16 = 7
+# The row counts of the sampler's stage launches: the 8 and 64 buckets with
+# CFG (16, 128) and the unguided v1 service's 8, 32 and 64.
+SAMPLER_ROWS = (8, 16, 32, 64, 128)
+
+
+def _slices(d, d_out, plan):
+    return d // plan.cols, d_out // plan.cols
+
+
+def _chunks(d, d_out, plan):
+    """(k64 tiles a chunk, chunks) of the d-wide products and of Wd's."""
+    sd, so = _slices(d, d_out, plan)
+    kbd, kbo = chunk_tiles(sd, d), chunk_tiles(so, d)
+    return (kbd, d // 64 // kbd), (kbo, d // 64 // kbo)
+
+
+def _layout(d, d_out, plan):
+    """Byte offsets of csrc/latent_stage.cu::StageLayout from the aligned base."""
+    sd, so = _slices(d, d_out, plan)
+    (kbd, _), (kbo, _) = _chunks(d, d_out, plan)
+    slot = max(kbd * sd, kbo * so) * 128
+    q = plan.slots * slot
+    stats = q + plan.qbufs * plan.rows * d * 2
+    red = stats + 2 * plan.cols * plan.rows * 8
+    mr = red + 2 * 2 * 4 * plan.rows * 4  # row sums: [pass][warpgroup][warp][row]
+    vec = mr + plan.rows * 8  # the block's slices of the 8 vectors
+    part = vec + -(-(7 * sd + so) * 4 // 16) * 16  # both warpgroups' partial sums
+    bars = part + 2 * 128 * -(-max(sd, so) // 64) * (plan.rows // 2) * 4
+    total = bars + (2 * plan.slots + 8) * 8
+    # a chunk's reads reach its last k64 tile's last m64 tile, 64 lines
+    reach = max((kb - 1) * n * 128 + -(-n // 64) * 8192 for n, kb in ((sd, kbd), (so, kbo)))
+    return dict(slot=slot, q=q, stats=stats, red=red, mr=mr, vec=vec, part=part, bars=bars,
+                reach=reach,
+                total=total + max(0, reach - slot - (total - q)))
 
 
 @pytest.mark.parametrize("rows", [16, 128])
 @pytest.mark.parametrize("d,d_out", FLAGSHIP_STAGES + CARD_TEST_STAGES)
 def test_stage_plan_fits_the_kernel(d, d_out, rows):
-    plan = stage_plan(d, d_out, rows, H100_WAVE16)
-    assert plan.smem <= SMEM_LIMIT == 232_448
-    assert plan.cluster in (1, 2, 4, 8, 16)
-    assert stage_plan(d, d_out, rows) == stage_plan(d, d_out, 16)  # no limit: one wave
-    # clusters of 16 only for the wide stages, and only where 16-row tiles
-    # fit in one wave of them; else the whole-row kernel on clusters of 8
-    if d == 1024 and rows == 128:
-        sm = max(d, d_out) // 8
-        whole = 4 * (16 * (2 * d + 2 * sm) + 16 * 64) + 2 * 16 * (d + 32)
-        assert plan == (8, 0, 0, whole) and d_out % 64 == 0
-        return
-    assert plan.cluster == (16 if d == 1024 else 8)
-    for n in (d, d_out):  # each block's column slice is whole n8 tiles
-        assert n % plan.cluster == 0 and (n // plan.cluster) % 8 == 0
-    assert plan.slots >= 2
-    assert d % plan.chunk == 0 and plan.chunk % 16 == 0  # whole k16 steps
-    # A block's chunk of a product is one bulk copy a piece of its packed
-    # weight (PIECES / cluster pieces): piece j's rows, k's from kc chunk, at
-    # byte ((j nk + kc) R) stride of the packed tensor, R = N / PIECES rows of
-    # stride slot_row_bytes, into a slot after the mbarriers.
-    stride, nk = plan.slot_row_bytes(), d // plan.chunk
-    slot_rows = max(d, d_out) // plan.cluster
-    assert stride % 16 == 0 and stride >= 2 * plan.chunk
+    plan = stage_plan(d, d_out, rows)
+    sd, so = _slices(d, d_out, plan)
+    # clusters of at most 16 blocks cover the rows, in one wave of the card
+    assert plan.cols <= 16 and plan.rows in ROW_CHOICES
+    assert plan.tiles * plan.rows >= rows
+    assert plan.tiles * plan.cols <= WAVE_BLOCKS
+    # column slices: whole 16-byte units of an operand, a TMA box's <= 256
+    # lines, at most the m64 tiles a thread's 64 accumulators take
+    for n in (sd, so):
+        assert n * plan.cols in (d, d_out) and n % 8 == 0 and n <= 256
+        assert -(-n // 64) * plan.rows // 2 <= 64
+    # the ring and the fixed parts add up to the plan's shared memory, which
+    # fits, and the last slot's reads stay inside it
+    lay = _layout(d, d_out, plan)
+    assert plan.smem == 1024 + lay["total"] <= SMEM_LIMIT == 232_448
+    assert lay["q"] - lay["slot"] + lay["reach"] <= lay["total"]
+    (kbd, nkd), (kbo, nko) = _chunks(d, d_out, plan)
+    assert 2 <= plan.slots <= min(32, 3 * nkd + nko)
+    # a chunk is one TMA box of at most 32 KB; every buffer the swizzled
+    # operands use starts on 1024 bytes: each slot, each k64 tile of a chunk
+    # (slice lines of 128 bytes), each m64 tile in it, each operand buffer,
+    # each k64 chunk of it, each warpgroup's rows
+    for n, kb in ((sd, kbd), (so, kbo)):
+        assert kb * n * 128 <= 32768 and (d // 64) % kb == 0 and (n * 128) % 1024 == 0
+    assert lay["slot"] % 1024 == 0 and lay["q"] % 1024 == 0
+    assert (plan.rows * d * 2) % 1024 == 0 and (plan.rows * 128) % 1024 == 0
+
+    # the cheapest of the plans the kernel takes
+    cost = stage_cost_us(d, d_out, plan)
+    assert all(stage_cost_us(d, d_out, other) >= cost for other in stage_plans(d, d_out, rows))
+
+
+@pytest.mark.parametrize("rows", SAMPLER_ROWS)
+def test_stage_plan_takes_every_sampler_row_count_in_one_wave(rows):
+    """Every flagship stage at every row count the sampler launches: the
+    plan covers its rows with at most WAVE_BLOCKS blocks, one wave of the
+    H100's clusters; the same plan each time."""
+    for d, d_out in FLAGSHIP_STAGES:
+        plan = stage_plan(d, d_out, rows)
+        assert plan in stage_plans(d, d_out, rows)
+        assert plan.tiles * plan.rows >= rows
+        assert plan.tiles * plan.cols <= WAVE_BLOCKS
+        assert plan == stage_plan(d, d_out, rows)
+    # above 128 rows the 128-row plan repeats over clusters along the rows
+    big = stage_plan(1024, 512, 1000)
+    base = stage_plan(1024, 512, 128)
+    assert big._replace(tiles=base.tiles) == base
+    assert big.tiles * big.rows >= 1000 > (big.tiles - 1) * big.rows
+
+
+def _boxes(d, d_out, plan):
+    """Each chunk the producers of one cluster issue, as
+    csrc/latent_stage.cu::stage_kernel's `issue` computes it: (column slice,
+    product, first k64 tile, first weight row, box lines, box k64 tiles)."""
+    sd, so = _slices(d, d_out, plan)
+    (kbd, nkd), (kbo, nko) = _chunks(d, d_out, plan)
+    for c in range(plan.cols):
+        for q in range(3 * nkd + nko):
+            p = q // nkd if q < 3 * nkd else 3
+            kc = q - p * nkd if p < 3 else q - 3 * nkd
+            n, kb = (sd, kbd) if p < 3 else (so, kbo)
+            yield c, p, kc * kb, c * n, n, kb
+
+
+@pytest.mark.parametrize("d,d_out,rows", [(256, 512, 128), (1024, 512, 128), (1024, 512, 16),
+                                          (192, 24, 40), (512, 1536, 128), (1024, 3968, 16)])
+def test_stage_tensor_map_boxes_read_each_weight_byte_once_a_cluster(d, d_out, rows):
+    """The tensor maps view each (out, in) bf16 weight, row stride d x 2
+    bytes (a multiple of 16), as (64 k's, rows, d / 64 k64 tiles) and read
+    boxes of (64, a column slice's rows, a chunk's k64 tiles): 128 bytes a
+    line (the swizzle's span), every box dimension at most 256. Over one
+    cluster's launch the issued boxes tile each of Wb, Wv, Wo (d x d) and Wd
+    (d_out x d) exactly once, each landing in a slot that holds it."""
+    plan = stage_plan(d, d_out, rows)
+    assert (d * 2) % 16 == 0
+    lay = _layout(d, d_out, plan)
+    seen = [np.zeros((d, d), np.int32) for _ in range(3)] + [np.zeros((d_out, d), np.int32)]
+    for c, p, t0, r0, lines, kb in _boxes(d, d_out, plan):
+        assert 1 <= lines <= 256 and 1 <= kb <= 256 and kb * lines * 128 <= lay["slot"]
+        assert (t0 + kb) * 64 <= d and r0 + lines <= seen[p].shape[0]
+        seen[p][r0:r0 + lines, 64 * t0:64 * (t0 + kb)] += 1
+    assert all((s == 1).all() for s in seen)
+
+
+def _accepted_before(d, d_out):
+    """The widths the stage kernel took before its Hopper redesign: the
+    16-row plan of the earlier ring kernel (clusters of 16 for the wide
+    stages, else 8; column slices of whole n8 tiles, at most 256 wide; its
+    shared memory), with the whole-row kernel's limits where it had
+    clusters of 16 (d_out a multiple of 64 up to 4096)."""
+    if d <= 0 or d % 64 or d > 1024 or d_out <= 0 or d_out % 16:
+        return False
+    cluster = 1 << (min(16, d // 8, max(d_out // 8, 1)).bit_length() - 1)
+    if cluster == 16 and (3 * d + d_out) * d * 2 // 8 <= 1 << 19:
+        cluster = 8
     for n in (d, d_out):
-        piece = n // PIECES * stride
-        assert piece % 16 == 0 and (PIECES // plan.cluster) * piece <= slot_rows * stride
-        for j in range(PIECES):
-            for kc in range(nk):
-                assert (j * nk + kc) * piece % 16 == 0
-        for slot in range(plan.slots):
-            for j in range(PIECES // plan.cluster):
-                assert (128 + slot * slot_rows * stride + j * piece) % 16 == 0
-    # ldmatrix reads eight rows at once: rows 16 bytes apart modulo 128
-    # bytes hit eight different bank groups, in a slot and in the operand.
-    assert stride % 128 == 16 and 2 * (d + 8) % 128 == 16
-    # the ring and the fixed buffers add up to the plan's shared memory
-    sd = d // plan.cluster
-    fixed = 128 + 2 * 4 * 16 * sd + 2 * 2 * 16 * (d + 8) + 2 * 8 * 16 * 16 + 4 * 8 * 16 * 8
-    assert plan.smem == fixed + plan.slots * slot_rows * stride
+        if n % (8 * cluster) or n // cluster > 256:
+            return False
+    sd, sm = d // cluster, max(d, d_out) // cluster
+    for chunk in (256, 128, 64):
+        if d % chunk:
+            continue
+        fixed = 128 + 4 * 2 * 16 * sd + 2 * 2 * 16 * (d + 8) + 8 * 2 * 16 * 16 + 4 * 8 * 16 * 8
+        slot = sm * (2 * chunk + 16)
+        if min(8, 4 * d // chunk, (232_448 - fixed) // slot) >= 2:
+            break
+    else:
+        return False
+    if cluster == 16:  # the whole-row kernel's clusters of 8
+        whole = 4 * (16 * (2 * d + 2 * max(d, d_out) // 8) + 16 * 64) + 2 * 16 * (d + 32)
+        return d_out % 64 == 0 and d_out <= 4096 and whole <= 232_448
+    return True
 
 
-def _ring_readers(plan, ncols):
-    """Which of the 8 compute warps read the ring in a product of `ncols`
-    columns a block: the split of csrc/latent_stage.cu::ring_gemm (n8 tiles,
-    1, 2 or 4 a warp; below 8 tiles, `wpt` warps a tile split the k steps)."""
-    tiles, steps = ncols // 8, plan.chunk // 16
-    tpw = 1 if tiles <= 8 else 2 if tiles <= 16 else 4
-    wpt = min(8 // tiles, steps) if tiles < 8 else 1
-    return [(w // wpt) * tpw < tiles for w in range(8)]
+def test_stage_plan_accepts_every_width_it_accepted_before():
+    before = [(d, o) for d in range(64, 1025, 64) for o in range(16, 4097, 16)
+              if _accepted_before(d, o)]
+    assert len(before) == 479 and (1024, 512) in before and (512, 4096) in before
+    for d, d_out in before:
+        for rows in (1, 8, 16, 100, 128, 300):
+            plan = stage_plan(d, d_out, rows)
+            assert plan.smem <= SMEM_LIMIT, (d, d_out, rows, plan)
 
 
-def _ring_faults(plan, d, d_out, idle_waits=True):
-    """Play the weight ring of csrc/latent_stage.cu::Ring for one launch and
-    return what went wrong: a read of a slot that a refill had overwritten,
-    or a wait that never ends. Chunk q of the 4 d / chunk lives in slot q %
-    slots; a copy lands at once; `full` completes a phase at each copy,
-    `empty` at each 8th arrival; a wait on parity P passes once the phase of
-    parity P has completed, as mbarrier.try_wait.parity does. The compute
-    warps that read nothing run first, the producer next, the readers last:
-    the order in which an early arrival does harm. `idle_waits` False plays
-    warps that read nothing arriving without waiting for the chunk."""
-    nk, slots = d // plan.chunk, plan.slots
-    total = 4 * nk
-    cols = [d // plan.cluster] * 3 + [d_out // plan.cluster]
-    full, empty, arrived, held = [0] * slots, [0] * slots, [0] * slots, [None] * slots
+def _ring_faults(plan, d, d_out, order, arrivals=8):
+    """Play the weight ring of csrc/latent_stage.cu for one block of one
+    launch, and return what went wrong: a box that landed in a slot whose
+    chunk a warp was still reading, a read of a slot holding another chunk,
+    or a wait that never ends. The stream is each d-wide product's chunks,
+    then Wd's.
+
+    The block has 8 consumer warps (two warpgroups, each multiplying the
+    chunk's k64 tiles of its parity: every warp reads every chunk) and a
+    producer. Chunk q lives in slot q % slots. The producer issues the
+    first `slots` chunks at once; from then on it waits for the `empty`
+    phase of chunk q - slots, then expects chunk q's bytes on its `full`
+    mbarrier and issues the box, which lands at once. `full` completes
+    once its expectation and the bytes are both in; `empty` once
+    `arrivals` warps arrived (the kernel counts 8). A consumer warp waits
+    for chunk q and reads it until its next chunk has been issued (the
+    kernel's wgmma_wait_one), then releases it, unless no refill follows
+    (q + slots >= total). A wait on parity P passes once the phase of
+    parity P has completed, as mbarrier.try_wait.parity does. `order` ranks
+    the threads for the scheduler: the lowest-ranked thread that can move,
+    moves."""
+    slots = plan.slots
+    (_, nkd), (_, nko) = _chunks(d, d_out, plan)
+    firsts = [0, nkd, 2 * nkd, 3 * nkd, 3 * nkd + nko]  # each product's first chunk
+    total = firsts[-1]
+    full_ph, expect, landed = [0] * slots, [False] * slots, [False] * slots
+    held, empty_ph, arrived = [None] * slots, [0] * slots, [0] * slots
+    reading = {}  # slot -> the warps reading it
     faults = []
 
-    def warp(w):
+    def settle(s):
+        if expect[s] and landed[s]:
+            expect[s] = landed[s] = False
+            full_ph[s] += 1
+
+    def consumer(w):
         for p in range(4):
-            reads = _ring_readers(plan, cols[p])[w]
-            for q in range(p * nk, (p + 1) * nk):
-                if reads or idle_waits:
-                    yield "wait_full", q
-                if reads:
-                    yield "read", q
-                yield "arrive", q
-            yield "sync", p
+            last = None
+            for q in range(firsts[p], firsts[p + 1]):
+                yield "wait_full", q
+                yield "read", q
+                if last is not None:
+                    yield "release", last
+                last = q
+            yield "release", last
 
     def producer():
-        for q in range(min(slots, total)):
-            yield "issue", q
-        for p in range(4):
-            for q in range(p * nk, (p + 1) * nk):
-                if q + slots < total:
-                    yield "wait_empty", q
-                    yield "issue", q + slots
-            yield "sync", p
+        for q in range(total):
+            if q >= slots:
+                yield "wait_empty", q - slots
+            yield "expect", q
+            yield "land", q
 
-    threads = [warp(w) for w in range(8)] + [producer()]
-    pending = [next(t) for t in threads]
+    threads = [consumer(w) for w in range(8)] + [producer()]
+    pending = [next(gen, None) for gen in threads]
 
-    def step(i):  # run thread i's next operation unless it must wait
+    def step(i):
         op, q = pending[i]
         s, parity = q % slots, (q // slots) & 1
-        if op == "wait_full" and full[s] & 1 == parity:
+        if op == "wait_full" and full_ph[s] & 1 == parity:
             return False
-        elif op == "wait_empty" and empty[s] & 1 == parity:
+        if op == "wait_empty" and empty_ph[s] & 1 == parity:
             return False
-        elif op == "issue":
+        if op == "expect":
+            expect[s] = True
+            settle(s)
+        elif op == "land":
+            if reading.get(s):
+                faults.append(f"chunk {q} landed in slot {s} while chunk {held[s]} was being read")
             held[s] = q
-            full[s] += 1
-        elif op == "read" and held[s] != q:
-            faults.append(f"chunk {q} overwritten by chunk {held[s]} before it was read")
-        elif op == "arrive":
-            arrived[s] += 1
-            if arrived[s] == 8:
-                arrived[s], empty[s] = 0, empty[s] + 1
+            landed[s] = True
+            settle(s)
+        elif op == "read":
+            if held[s] != q:
+                faults.append(f"warp {i} read chunk {q} but slot {s} holds {held[s]}")
+            reading.setdefault(s, set()).add(i)
+        elif op == "release":
+            reading.get(s, set()).discard(i)
+            if q + slots < total:
+                arrived[s] += 1
+                if arrived[s] == arrivals:
+                    arrived[s] = 0
+                    empty_ph[s] += 1
         pending[i] = next(threads[i], None)
         return True
 
-    while any(pending):
-        if all(op == "sync" for op, _ in pending):  # the block barrier after a product
-            pending = [next(t, None) for t in threads]
-            continue
-        live = [i for i, (op, _) in enumerate(pending) if op != "sync"]
-        order = ([i for i in live if i < 8 and pending[i][0] != "read"] + [8]
-                 + [i for i in live if pending[i][0] == "read"])
-        if not any(i in live and step(i) for i in order):
+    while any(p is not None for p in pending):
+        live = [i for i in order if pending[i] is not None]
+        if not any(step(i) for i in live):
             return faults + [f"waits forever at {[pending[i] for i in live]}"]
     return faults
 
 
-def _accepted_plans():
-    """Every (d, d_out) the stage kernel takes, planned at 16 and at 128 rows
-    on the H100 SXM; one of each distinct ring protocol (slots, chunks a
-    product, reading warps of each product) of the plans that use the ring."""
+def _ring_orders(seed):
+    """Scheduler orders of the block's threads: the producer first and the
+    readers last (an early release does the most harm), one warpgroup
+    ahead of the producer and the other behind it, and a random one."""
+    rng = np.random.default_rng(seed)
+    return [[8] + list(range(8)), [0, 1, 2, 3, 8, 4, 5, 6, 7], list(rng.permutation(9))]
+
+
+def _ring_protocols():
+    """One (plan, d, d_out) of each distinct ring protocol (slots, chunks of
+    each product) over every plan the kernel takes for every width at every
+    row count up to 128."""
     seen = {}
     for d in range(64, 1025, 64):
-        for d_out in range(16, 4097, 16):
-            for rows in (16, 128):
-                try:
-                    plan = stage_plan(d, d_out, rows, H100_WAVE16)
-                except ValueError:
-                    continue
-                if not plan.slots:  # the whole-row kernel: no ring
-                    continue
-                cols = [d // plan.cluster] * 3 + [d_out // plan.cluster]
-                key = (plan.slots, d // plan.chunk,
-                       tuple(tuple(_ring_readers(plan, n)) for n in cols))
-                seen.setdefault(key, (plan, d, d_out))
+        for d_out in range(8, 4097, 8):
+            for rows in ROW_CHOICES:
+                for plan in stage_plans(d, d_out, rows):
+                    key = (plan.slots,) + tuple(n for _, n in _chunks(d, d_out, plan))
+                    seen.setdefault(key, (plan, d, d_out))
     return list(seen.values())
 
 
 def test_stage_ring_never_overwrites_a_chunk_being_read():
-    plans = _accepted_plans()
-    assert len(plans) > 10
-    for plan, d, d_out in plans:
-        assert _ring_faults(plan, d, d_out) == [], (plan, d, d_out)
-    # Idle warps that arrive without waiting would let a refill overwrite a
-    # chunk still being read where a product has idle warps and more chunks
-    # than slots: the card tests' (512, 1536) at 128 rows is such a plan.
-    plan = stage_plan(512, 1536, 128, H100_WAVE16)
-    readers = _ring_readers(plan, 1536 // plan.cluster)
-    assert not all(readers) and 512 // plan.chunk > plan.slots
-    assert _ring_faults(plan, 512, 1536, idle_waits=False) != []
-
-
-@pytest.mark.parametrize("chunk", [64, 128])
-def test_pack_stage_weight_layout(chunk):
-    """Piece j, chunk kc of the packed weight holds rows j R .. (j + 1) R and
-    k's kc chunk .. (kc + 1) chunk of the (out, in) weight, each row followed
-    by 8 zeros; the bytes of a (piece, chunk) are contiguous."""
-    n, k = 96, 256
-    w = torch.from_numpy(_mk(np.random.default_rng(7), n, k)).to(torch.bfloat16)
-    packed = pack_stage_weight(w, chunk)
-    r = n // PIECES
-    assert packed.shape == (PIECES, k // chunk, r, chunk + 8) and packed.is_contiguous()
-    for j in range(PIECES):
-        for kc in range(k // chunk):
-            assert torch.equal(packed[j, kc, :, :chunk],
-                               w[j * r:(j + 1) * r, kc * chunk:(kc + 1) * chunk])
-    assert not packed[..., chunk:].any()
+    protocols = _ring_protocols()
+    assert len(protocols) > 40
+    assert any(3 * nkd + nko > plan.slots
+               for plan, d, d_out in protocols for (_, nkd), (_, nko) in [_chunks(d, d_out, plan)])
+    for i, (plan, d, d_out) in enumerate(protocols):
+        for order in _ring_orders(i):
+            assert _ring_faults(plan, d, d_out, order) == [], (plan, d, d_out, order)
+    # The model catches a broken protocol: an `empty` mbarrier that counts
+    # one warpgroup's four warps lets the producer refill a slot that the
+    # other warpgroup still reads, where chunks outnumber slots.
+    plan = stage_plan(1024, 512, 128)
+    (_, nkd), (_, nko) = _chunks(1024, 512, plan)
+    assert 3 * nkd + nko > plan.slots
+    one_group_behind = _ring_orders(0)[1]
+    assert _ring_faults(plan, 1024, 512, one_group_behind) == []
+    assert _ring_faults(plan, 1024, 512, one_group_behind, arrivals=4) != []
 
 
 @pytest.mark.parametrize("d,d_out", [(96, 64), (2048, 512), (64, 4096), (256, 100),
