@@ -18,24 +18,36 @@ Phases (any failure raises and the script exits nonzero without a result):
      large enough that a kernel leaving any one out would fail, and time
      both, beside each kernel's library yardstick; each stage's launch plan
      printed (clusters, rows and columns a block, ring, shared
-     memory) with its tensor-map encodes: at bind, none a launch;
+     memory) with its tensor-map encodes: at bind, none a launch; then the
+     reverse-process kernel (all T steps in one launch) at the guided 8 and
+     64 buckets and the unguided 8, 32 and 64, v1 and v2: each bucket's
+     plan printed (clusters, blocks, rows a cluster, ring, shared memory,
+     waves beside the card's active clusters, encodes at bind), 20 steps
+     against the host loop of the step's kernels with every left-out term
+     (CFG, the skip, the clip, the noise, a stage's condition add) more than
+     twice the limit away, repeats bit-equal, 5 steps against the plain
+     twins on the card, and a 1000-step call timed at both buckets beside
+     the twins' 1000 steps and the bound;
   3. check the reverse-step noise against the closed-form variance of the
      zero-eps recursion (B = 128, latent 256, T = 1000);
   4. hold the kernel sampler against the plain f32 model on a short
      schedule at flagship width, at both buckets (no step noise, fixed x_init);
-  5. profile one guided 50-step sampler call at the 64 bucket as a CUDA-graph
-     replay and one through the host loop (`fused_sample`, torch.profiler):
-     wall against device time a step, idle share, and the kernels that take
-     it;
+  5. profile one guided 50-step sampler call at the 64 bucket as one launch
+     of the reverse-process kernel and one through the host loop
+     (`fused_sample`, torch.profiler): wall against device time a step, idle
+     share, and the kernels that take it;
   6. run SamplingService at flagship width (seeded weights, z-score stats,
      CFG 7.0, x0 clip 3.0, 1000 steps, buckets 8 and 64, uint8 images):
-     `warmup` captures each bucket's graph (capture time and pool bytes
-     printed); each bucket's full 1000-step stochastic result must equal the
-     host loop's bit for bit from the same seed; three requests, with the
-     kernel launch counts read around them (a step: one projection, four
-     stages, one head, one reverse step; a replay adds what its graph
-     captured) and checked against one profiled replay's kernel rows by
-     name; one replayed bucket call timed at each bucket beside its bound;
+     `warmup` binds each bucket's plan (printed beside the card's active
+     clusters); each bucket's full 1000-step stochastic result against the
+     host loop's from the same seed within its limit, every left-out term
+     more than twice the limit away, repeats bit-equal; the host loop's own
+     launches counted over one call; three requests, with the kernel launch
+     counts read around them (one launch of the reverse-process kernel a
+     bucket call, none of the step's kernels) and checked against one
+     profiled bucket call's kernel rows by name; one bucket call timed at
+     each bucket (the launch between CUDA events, the whole call by the host
+     clock) beside its bound;
      then the decode of one 64 bucket; two identical 50-image requests
      bit-equal as uint8 and as f32 images (the service decodes under
      cuDNN's deterministic algorithms); the decode of 64 latents timed on
@@ -123,7 +135,7 @@ Phases (any failure raises and the script exits nonzero without a result):
      (the VAE loaded, the diffusion model at epoch 3, the same recon PSNR);
      `service_from_run` over the directory at guidance 7.0 with uint8
      output: `warmup`, then the 50-image request, with the sampler kernels'
-     launches counted (one 1000-step replay at the 64 bucket), timed, and
+     launches counted (one launch at the 64 bucket), timed, and
      bit-equal when repeated, then `animate`; then a v5 run of 2 epochs and
      `pixel_service_from_run` with one 4-image request; the run
      directories must hold the reference's artifact names; each runner
@@ -149,8 +161,8 @@ Phases (any failure raises and the script exits nonzero without a result):
      bit-equal to the service called at `derived_seed(seed, k)` for its
      dispatch k), a burst of 16 clients x 4 requests x 2 rows beside one
      /v1/animate (every reply 200 and bit-equal to its dispatch called
-     directly, the GIF to `animate`, no graph captured under the traffic,
-     the sampler kernels launched exactly once a step of every bucket chunk
+     directly, the GIF to `animate`, no plan bound under the traffic, the
+     reverse-process kernel launched exactly once a bucket chunk
      dispatched); images/s, dispatches, max_coalesced and latency p50/p99
      printed with the card;
  18. the one-time JPEG ingest (`phase_ingest`): which decoder the card's
@@ -220,16 +232,21 @@ from flowerdiff_torch.kernels.denoiser_apply import (  # noqa: E402
     stage_weights,
 )
 from flowerdiff_torch.kernels.full_sampler import (  # noqa: E402
+    ReverseProcess,
     bind_latent_proj,
     draw_request,
     fused_sample,
     key_tensor,
-    launch_counts,
     latent_proj,
     latent_proj_plain,
+    launch_counts,
     prepare_fused_sampler,
+    process_map_encodes,
+    process_max_clusters,
+    reverse_process,
     reverse_step,
     reverse_step_plain,
+    run_steps,
 )
 from flowerdiff_torch.kernels.latent_stage import (  # noqa: E402
     LN_EPS,
@@ -298,6 +315,17 @@ STATS = _ROOT / "artifacts" / "flagship_r5b" / "run" / "latent_stats.npz"
 STAGE_TOL = 5e-3
 HEAD_TOL = 5e-4
 NOISE_TOL = 1e-4   # reverse_step vs twin, absolute: same Philox bits, f32 libm
+# The reverse-process kernel against the host loop of the step's kernels,
+# relative to max|host loop|, by (steps, guided). Never bit-equal: the host
+# loop's projection and head sum on other tiles and its stages split the
+# columns by their own plans, so a value near a bf16 rounding boundary lands
+# one ulp away and the difference carries on through the steps; guided, the
+# scale (7.0) multiplies the two branches' difference. 20 steps read
+# 1.4e-2 to 1.8e-2 guided, 1.5e-3 to 1.8e-3 unguided; 1000 guided steps at
+# the 8 bucket 3.6e-2 (tests/test_torch_port_cuda.py, seeded weights with
+# biases of std 0.3). Against the plain twins on the card, 5 steps.
+PROCESS_TOL = {(20, True): 3e-2, (20, False): 5e-3, (1000, True): 1e-1, (1000, False): 3e-2,
+               (5, True): 3e-2, (5, False): 5e-3}
 # latent_proj vs twin, relative to max|twin|: both multiply the same bf16
 # values exactly in f32 and add them in another order
 PROJ_TOL = 1e-4
@@ -703,6 +731,126 @@ def phase_kernels(model, prep, gen):
     return [st, hd_row, rv_row, pj_row]
 
 
+def plain_steps(prep, inputs, *, stochastic=True, clip_x0=None, guidance_scale=None):
+    """The T steps on the kernels' plain twins (PyTorch ops on the card's
+    tensors): the reverse-process kernel's plain version, step for step as
+    `run_steps` issues the kernels."""
+    wl, bl, wf, bf, rw = prep["proj"].weights
+    _, _, _, _, g, b, hwf, hbf = prep["head"].weights
+    copies = 2 if guidance_scale is not None else 1
+    x = inputs.x
+    for t in range(prep["n_steps"] - 1, -1, -1):
+        h, skip = latent_proj_plain(x, wl, bl, copies=copies, wf=wf, bf=bf, rw=rw)
+        for i, stage in enumerate(prep["stages"]):
+            h = fused_stage_plain(h, inputs.stage_adds[i], *stage.weights,
+                                  row_add=prep["tadds"][i][t], eps=LN_EPS)
+        eps = fused_head_plain(h, None, None, None, None, None, None, g, b, hwf, hbf,
+                               row_add=prep["tadd_final"][t], rows_add=inputs.final_add,
+                               eps=LN_EPS)
+        x = reverse_step_plain(eps, x, t, prep["coefs"][t], guidance_scale=guidance_scale,
+                               clip_x0=clip_x0, stochastic=stochastic, key=inputs.key, skip=skip)
+    return x
+
+
+def left_out(prep, inputs, kw):
+    """The host loop with one term of the process left out at a time."""
+    adds = list(inputs.stage_adds)
+    adds[2] = torch.zeros_like(adds[2])
+    out = {"noise": run_steps(prep, inputs, **dict(kw, stochastic=False)),
+           "stage 2's condition add": run_steps(prep, inputs._replace(stage_adds=tuple(adds)),
+                                                **kw)}
+    if kw["guidance_scale"] is not None:  # the clip binds under CFG 7.0
+        out["CFG"] = run_steps(prep, inputs, **dict(kw, guidance_scale=1.0))
+        out["clip"] = run_steps(prep, inputs, **dict(kw, clip_x0=None))
+    if prep["model"].global_skip:
+        wl, bl = prep["proj"].weights[:2]
+        out["skip"] = run_steps(dict(prep, proj=bind_latent_proj(wl, bl)), inputs, **kw)
+    return out
+
+
+def phase_process(prep, gen):
+    """The reverse-process kernel (csrc/reverse_process.cu) at every bucket
+    the services launch here: the guided 8 and 64 (16 and 128 rows) and
+    phase_http's unguided 8, 32 and 64, v1 and v2: each bucket's plan
+    printed (clusters, blocks, rows, ring, shared memory, waves, the card's
+    active clusters, the tensor-map encodes of its binding); 20 steps
+    against the host loop of the step's kernels (`run_steps`) within
+    PROCESS_TOL with every left-out term more than twice the limit away, a
+    repeat bit-equal, no encode a launch; 5 steps against the plain twins on
+    the card. Then a 1000-step guided call at both buckets timed between
+    CUDA events beside the twins' 1000 steps at the 64 bucket and the
+    bound. The JSON row's error is the worst over every case."""
+    dev = torch.device("cuda")
+    row = {"name": "reverse_process", "route": "cuda",
+           "source": "src/flowerdiff_torch/kernels/csrc/reverse_process.cu",
+           "replaces": "src/flowerdiff/kernels/full_sampler.py:81", "max_abs_err": 0.0,
+           "library_ms": None}
+    cases = [(8, True), (64, True), (8, False), (32, False), (64, False)]
+    for skip in (False, True):
+        # biases of std 0.3, so that each condition add moves the result
+        kw_model = dict(FLAGSHIP, global_skip=skip)
+        mdl = denoiser_from_params(init_numpy_params("denoiser", seed=3, bias_std=0.3,
+                                                     **kw_model), device=dev, **kw_model)
+        for steps in (20, 5):
+            p = prepare_fused_sampler(mdl, linear_schedule(steps))
+            process = ReverseProcess(p)
+            for b, guided in cases:
+                kw = dict(stochastic=True, clip_x0=CLIP, guidance_scale=GUIDANCE if guided else None)
+                cls = torch.arange(b, device=dev) % FLAGSHIP["num_classes"]
+                inputs = draw_request(p, b, cls, None, gen, None, guided)
+                e0 = process_map_encodes()
+                plan = process.plan_for(b, guided)
+                e_bind = process_map_encodes() - e0
+                if steps == 20 and not skip:
+                    active = process_max_clusters(plan)
+                    print(f"[kernels] reverse_process plan B={b} guided={guided} "
+                          f"({b * (2 if guided else 1)} rows): {plan.clusters} cluster(s) of "
+                          f"{plan.cols} blocks, {plan.rows} rows a cluster, {plan.qbufs} operand "
+                          f"buffer(s), ring {plan.slots} slots, smem {plan.smem} B, "
+                          f"{plan.waves} wave(s) (the card runs {active} such clusters at once); "
+                          f"tensor-map encodes at bind {e_bind}")
+                    assert plan.waves > 1 or plan.clusters <= active, (plan, active)
+                e0 = process_map_encodes()
+                got = process(inputs, **kw)
+                assert torch.equal(process(inputs, **kw), got), f"B={b}: repeats differ"
+                assert process_map_encodes() == e0, "a bound plan's launch encoded a tensor map"
+                tag = f"reverse_process B={b} guided={guided} skip={skip} T={steps}"
+                if steps == 20:
+                    ref, what = run_steps(p, inputs, **kw), "host loop"
+                    dropped = left_out(p, inputs, kw)
+                else:
+                    ref, what, dropped = plain_steps(p, inputs, **kw), "twins", {}
+                tol_rel = PROCESS_TOL[(steps, guided)]
+                if dropped:
+                    err, tol, weakest = held(tag, got, ref, tol_rel, dropped)
+                else:
+                    err = max_err(got, ref)
+                    tol, weakest = tol_rel * float(ref.abs().max()), "-"
+                    assert torch.isfinite(got).all() and err <= tol, (tag, err, tol)
+                print(f"[kernels] {tag} against the {what}: max_abs_err {err:.3e} (tol "
+                      f"{tol:.3e}; least move of a left-out term: {weakest}); repeat bit-equal")
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+    # the 1000-step calls: the kernel at both buckets, the twins at 64
+    for b in (8, 64):
+        inputs = draw_request(prep, b, torch.arange(b, device=dev) % FLAGSHIP["num_classes"],
+                              None, gen, None, True)
+        kw = dict(stochastic=True, clip_x0=CLIP, guidance_scale=GUIDANCE)
+        process = ReverseProcess(prep)
+        process(inputs, **kw)
+        ms = [event_ms(lambda: process(inputs, **kw), 1) for _ in range(3)]
+        b_ms, b_by = sampler_bound_ms(prep, b)
+        line = (f"[kernels] reverse_process B={b} guided, 1000 steps: ms {np.mean(ms):.3f} "
+                f"(runs {[round(v, 3) for v in ms]}) bound_ms {b_ms:.4f} ({b_by})")
+        if b == 64:
+            plain = event_ms(lambda: plain_steps(prep, inputs, **kw), 1)
+            row.update(ms=float(np.mean(ms)), plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+            line += f" plain_ms {plain:.3f} (the twins' 1000 steps on the card)"
+        else:
+            row["ms_bucket_8"] = float(np.mean(ms))
+        print(line)
+    return row
+
+
 def phase_noise(sched):
     """Zero eps, x_init = 0: x_{t-1} = x_t / sqrt(a_t) + sqrt(b_t) z_t, so
     the variance follows v <- v / a_t + b_t (no noise at t = 0)."""
@@ -749,9 +897,9 @@ def phase_short_parity(model, gen):
 
 def phase_profile(model):
     """Host vs device time of the kernel sampler: one guided 50-step call at
-    the 64 bucket as a replay of its CUDA graph, and one through the host
-    loop (`fused_sample`, the parent's path), each under torch.profiler
-    (CUPTI). Each call's wall time and device busy time come from that one
+    the 64 bucket as one launch of the reverse-process kernel, and one
+    through the host loop of the step's kernels (`fused_sample`, its
+    oracle), each under torch.profiler (CUPTI). Each call's wall time and device busy time come from that one
     call; a bare call's wall time is printed beside it, to show what the
     profiler adds."""
     sched = linear_schedule(50)
@@ -760,12 +908,12 @@ def phase_profile(model):
     cls = torch.arange(ROWS // 2, device="cuda") % FLAGSHIP["num_classes"]
     steps = sched.n_steps
     calls = {
-        "graph replay": lambda: sampler.sample(ROWS // 2, cls),
+        "one launch": lambda: sampler.sample(ROWS // 2, cls),
         "host loop": lambda: fused_sample(sampler._prep, ROWS // 2, cls, clip_x0=CLIP,
                                           guidance_scale=GUIDANCE),
     }
     for name, fn in calls.items():
-        fn()  # the replay's first call captures its graph
+        fn()  # the first call binds the bucket's plan
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -802,37 +950,44 @@ def device_profile(fn):
     return wall, kernels
 
 
-def fused_replays(sampler) -> int:
-    """Graph replays of a FusedDiffusionSampler (or of the one a
+def bound_plans(sampler) -> dict:
+    """The bound plans of a FusedDiffusionSampler (or of the one a
     NormalizedSampler wraps)."""
-    return sum(g.replays for g in getattr(sampler, "_inner", sampler).graphs.values())
+    return dict(getattr(sampler, "_inner", sampler).process.bound)
 
 
 def reset_counts():
     fused_stage.launches = fused_head.launches = reverse_step.launches = 0
-    fused_head.product_launches = latent_proj.launches = 0
+    fused_head.product_launches = latent_proj.launches = reverse_process.launches = 0
 
 
-def sampler_counts(n_steps, calls=1):
-    """The launches of `calls` sampler calls of n_steps steps: a step is one
-    projection, four stages, one head (the column-tile kernel: none of the
-    head's product form) and one reverse step."""
+def sampler_counts(calls=1):
+    """The launches of `calls` bucket calls of the kernel sampler: one launch
+    of the reverse-process kernel each, and none of the step's own kernels."""
+    return {"reverse_process": calls, "fused_stage": 0, "fused_head": 0,
+            "fused_head_products": 0, "reverse_step": 0, "latent_proj": 0}
+
+
+def host_loop_counts(n_steps, calls=1):
+    """The launches of `calls` host-loop calls (`fused_sample`) of n_steps
+    steps: a step is one projection, four stages, one head (the column-tile
+    kernel: none of the head's product form) and one reverse step."""
     stages = len(FLAGSHIP["hidden_dims"]) - 1
-    return {"fused_stage": stages * n_steps * calls, "fused_head": n_steps * calls,
-            "fused_head_products": 0,
+    return {"reverse_process": 0, "fused_stage": stages * n_steps * calls,
+            "fused_head": n_steps * calls, "fused_head_products": 0,
             "reverse_step": n_steps * calls, "latent_proj": n_steps * calls}
 
 
-# The step's kernels in a profiler's rows, by name: the stage kernel's
+# The sampler's kernels in a profiler's rows, by name: the stage kernel's
 # instances count as fused_stage, the head's whole-row kernel as its
 # product form.
-PROFILE_NAMES = {"latent_proj_kernel": "latent_proj", "stage_kernel": "fused_stage",
-                 "head_cols_kernel": "fused_head",
+PROFILE_NAMES = {"process_kernel": "reverse_process", "latent_proj_kernel": "latent_proj",
+                 "stage_kernel": "fused_stage", "head_cols_kernel": "fused_head",
                  "head_kernel": "fused_head_products", "reverse_step_kernel": "reverse_step"}
 
 
 def profiled_launches(kernels):
-    """The step's kernel launches in a profile's device rows, by counter
+    """The sampler's kernel launches in a profile's device rows, by counter
     name (fused_head also counts its product form, as its counter does)."""
     got = dict.fromkeys(sampler_counts(0), 0)
     for e in kernels:
@@ -875,27 +1030,55 @@ def phase_service(model, vae, stats):
     assert svc.request_plan(70) == [64, 8] and svc.request_plan(50) == [64]
     steps = svc.sched.n_steps
     inner = svc.sampler._inner
-    svc.warmup()  # captures the 8 and the 64 bucket's graphs
-    graphs = {key[0]: g for key, g in inner.graphs.items()}
-    assert sorted(graphs) == [8, 64], sorted(inner.graphs)
-    for b, g in sorted(graphs.items()):
-        print(f"[graph] bucket {b} ({2 * b} rows, {steps} steps): eager run "
-              f"{g.warm_s * 1e3:.1f} ms, capture + instantiate {g.capture_s * 1e3:.1f} ms, "
-              f"graph pool {g.pool_bytes} bytes; launches a replay {g.captured}")
-        assert g.captured == sampler_counts(steps), g.captured
+    process = inner.process
+    e0 = process_map_encodes()
+    t0 = time.perf_counter()
+    svc.warmup()  # binds the 8 and the 64 bucket's plans
+    warm_s = time.perf_counter() - t0
+    assert sorted(process.bound) == [(8, True), (64, True)], sorted(process.bound)
+    print(f"[process] warmup of buckets {svc.buckets}: {warm_s:.2f} s, tensor-map encodes "
+          f"{process_map_encodes() - e0}")
+    for (b, _), plan in sorted(process.bound.items()):
+        active = process_max_clusters(plan)
+        print(f"[process] bucket {b} ({2 * b} rows, {steps} steps): plan {plan}; the card runs "
+              f"{active} such clusters at once")
+        assert plan.waves > 1 or plan.clusters <= active, (plan, active)
 
-    # the graph against its oracle: the host loop, the same seed, every step
-    # stochastic, bit for bit
-    for b in sorted(graphs):
+    # the kernel against its oracle, the host loop of the step's kernels,
+    # from the same seed, every step stochastic, within its limit; the host
+    # loop with one term left out more than twice the limit away; the
+    # kernel's repeats bit-equal
+    kw = dict(stochastic=True, clip_x0=CLIP, guidance_scale=GUIDANCE)
+    errs = {}
+    for b in (8, 64):
         cls = torch.arange(b, device="cuda") % FLAGSHIP["num_classes"]
-        got = inner.sample(b, cls, generator=torch.Generator(device="cuda").manual_seed(5))
-        ref = fused_sample(inner._prep, b, cls,
-                           generator=torch.Generator(device="cuda").manual_seed(5),
-                           clip_x0=CLIP, guidance_scale=GUIDANCE)
-        same = torch.equal(got, ref)
-        print(f"[graph] bucket {b}: {steps} stochastic guided steps, replay against the host "
-              f"loop from one seed: bit-equal {same} (max_abs_err {max_err(got, ref):.3e})")
-        assert same, f"bucket {b}: the graph replay differs from the host loop"
+        inputs = draw_request(inner._prep, b, cls, None,
+                              torch.Generator(device="cuda").manual_seed(5), None, guided=True)
+        e0 = process_map_encodes()
+        got = process(inputs, **kw)
+        again = process(inputs, **kw)
+        assert process_map_encodes() == e0, "a bound plan's launch encoded a tensor map"
+        ref = run_steps(inner._prep, inputs, **kw)
+        err, tol, weakest = held(f"reverse_process bucket {b}, {steps} steps", got, ref,
+                                 PROCESS_TOL[(steps, True)], left_out(inner._prep, inputs, kw))
+        errs[b] = err
+        print(f"[process] bucket {b}: {steps} stochastic guided steps in one launch against the "
+              f"host loop from one seed: max_abs_err {err:.3e} (tol {tol:.3e}, "
+              f"{PROCESS_TOL[(steps, True)]} x max|host loop| {float(ref.abs().max()):.3f}; "
+              f"least move of a left-out term: {weakest}); repeat bit-equal "
+              f"{torch.equal(got, again)}")
+        assert torch.equal(got, again), f"bucket {b}: repeated launches differ"
+
+    # the host loop's own launches, one 64-bucket call: the step's kernels
+    # on the path of the kernel's oracle
+    reset_counts()
+    cls = torch.arange(64, device="cuda") % FLAGSHIP["num_classes"]
+    fused_sample(inner._prep, 64, cls, generator=torch.Generator(device="cuda").manual_seed(5),
+                 clip_x0=CLIP, guidance_scale=GUIDANCE)
+    torch.cuda.synchronize()
+    host = launch_counts()
+    print(f"[process] the host loop (fused_sample), one 64-bucket call: launches {host}")
+    assert host == host_loop_counts(steps), host
 
     requests = [
         ("sample_classes(range(10), 5)", lambda: svc.sample_classes(range(10), 5, seed=0), 50),
@@ -903,7 +1086,7 @@ def phase_service(model, vae, stats):
         ("sample(70)", lambda: svc.sample(np.arange(70) % 102, seed=2), 70),
     ]
     bucket_calls = sum(len(svc.request_plan(n)) for _, _, n in requests)
-    replays = sum(g.replays for g in graphs.values())
+    bound = dict(process.bound)
     reset_counts()
     results = []
     for name, fn, n in requests:
@@ -915,33 +1098,32 @@ def phase_service(model, vae, stats):
         assert imgs.std() > 0, f"{name}: constant images"
         results.append((name, n, dt))
     got = launch_counts()
-    replays = sum(g.replays for g in graphs.values()) - replays
     for name, n, dt in results:
         print(f"[service] {name}: plan {svc.request_plan(n)} latency {dt * 1e3:.1f} ms "
               f"{n / dt:.2f} images/s")
-    want = sampler_counts(steps, bucket_calls)
-    print(f"[service] launches {got} expected {want}; graph replays {replays} for "
-          f"{bucket_calls} bucket calls")
-    assert got == want, "the main path did not run through the kernels as expected"
-    assert replays == bucket_calls, "a bucket call did not replay its graph"
+    want = sampler_counts(bucket_calls)
+    print(f"[service] launches {got} expected {want} for {bucket_calls} bucket calls")
+    assert got == want, "the main path did not run through the kernel as expected"
+    assert dict(process.bound) == bound, "a request bound a new plan after warmup"
 
-    # what a replay launches, read by the profiler: one 64-bucket call
-    cls = torch.arange(64, device="cuda") % FLAGSHIP["num_classes"]
+    # what a bucket call launches, read by the profiler: one 64-bucket call
     gen = torch.Generator(device="cuda").manual_seed(6)
     wall, kernels = device_profile(lambda: inner.sample(64, cls, generator=gen))
     seen = profiled_launches(kernels)
     busy_us = sum(e.self_device_time_total for e in kernels)
-    print(f"[graph] one profiled replayed call at bucket 64: kernels by name {seen}; wall "
-          f"{wall * 1e3:.2f} ms ({wall * 1e6 / steps:.1f} us a step), device busy "
+    print(f"[process] one profiled bucket call at 64: the sampler's kernels by name {seen}; "
+          f"wall {wall * 1e3:.2f} ms ({wall * 1e6 / steps:.1f} us a step), device busy "
           f"{busy_us / 1e3:.2f} ms ({busy_us / steps:.1f} us a step), idle share "
-          f"{1 - busy_us / 1e6 / wall:.3f}")
-    assert seen == graphs[64].captured, "the profiled replay ran other kernels than captured"
+          f"{1 - busy_us / 1e6 / wall:.3f}; kernels by device time: " + ", ".join(
+              f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
+              for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]))
+    assert seen == sampler_counts(1), "the profiled call ran other sampler kernels"
 
-    # one replayed bucket call: the replay alone between CUDA events, and the
-    # whole call (draws, condition rows, copies in, replay, clone) by the
-    # host clock, beside the bound of the T steps
+    # one bucket call: the launch alone between CUDA events, and the whole
+    # call (draws, condition rows, the launch) by the host clock, beside the
+    # bound of the T steps
     calls = {}
-    for b, g in sorted(graphs.items()):
+    for b in (8, 64):
         cls = torch.arange(b, device="cuda") % FLAGSHIP["num_classes"]
         gen = torch.Generator(device="cuda").manual_seed(7)
         inputs = draw_request(inner._prep, b, cls, None, gen, None, guided=True)
@@ -950,7 +1132,7 @@ def phase_service(model, vae, stats):
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             torch.cuda.synchronize()
             start.record()
-            g(inputs)
+            process(inputs, **kw)
             end.record()
             torch.cuda.synchronize()
             ev.append(start.elapsed_time(end))
@@ -959,10 +1141,10 @@ def phase_service(model, vae, stats):
             torch.cuda.synchronize()
             wall.append((time.perf_counter() - t0) * 1e3)
         b_ms, b_by = sampler_bound_ms(inner._prep, b)
-        calls[b] = dict(replay_ms=float(np.median(ev)), call_wall_ms=float(np.median(wall)),
-                        bound_ms=b_ms, bound_by=b_by)
-        print(f"[graph] bucket {b}: one replay of {steps} steps {np.median(ev):.3f} ms between "
-              f"CUDA events (runs {[round(v, 3) for v in ev]}), the whole bucket call "
+        calls[b] = dict(launch_ms=float(np.median(ev)), call_wall_ms=float(np.median(wall)),
+                        bound_ms=b_ms, bound_by=b_by, max_abs_err=errs[b])
+        print(f"[process] bucket {b}: one launch of {steps} steps {np.median(ev):.3f} ms "
+              f"between CUDA events (runs {[round(v, 3) for v in ev]}), the whole bucket call "
               f"{np.median(wall):.3f} ms wall (runs {[round(v, 3) for v in wall]}); bound "
               f"{b_ms:.4f} ms ({b_by}; weights read once)")
 
@@ -1013,7 +1195,7 @@ def phase_service(model, vae, stats):
           f"f32: mean abs {mae:.2e} (limit {1 / 255:.2e}), max abs {mx:.2e} "
           f"(limit {16 / 255:.2e})")
     assert img16.dtype == torch.float32 and mae < 1 / 255 and mx < 16 / 255
-    return got, calls
+    return got, host, calls
 
 
 def event_ms(fn, iters: int) -> float:
@@ -1545,12 +1727,11 @@ def phase_train(vae, stats, dataset):
     assert z.shape == (16, FLAGSHIP["latent_dim"]) and torch.isfinite(z).all()
     assert imgs.shape == (16, 64, 64, 3) and torch.isfinite(imgs).all()
     n_t = trainer.sched.n_steps
-    # the first call of a fresh sampler: the eager run before its capture,
-    # then one replay
-    assert launch_counts() == sampler_counts(n_t, calls=2), launch_counts()
-    assert fused_replays(sampler) == 1
+    # the first call of a fresh sampler binds its plan, then launches once
+    assert launch_counts() == sampler_counts(1), launch_counts()
+    assert len(bound_plans(sampler)) == 1
     print(f"[train] sampler(fused=True) on the EMA weights: 16 images, {n_t} guided steps "
-          f"(CFG {GUIDANCE}, clip {CLIP}) + decode in {dt * 1e3:.1f} ms (the capture of its graph "
+          f"(CFG {GUIDANCE}, clip {CLIP}) + decode in {dt * 1e3:.1f} ms (the binding of its plan "
           f"included); launches {launch_counts()}")
     return runs["kernel bf16"][3], pool
 
@@ -1886,8 +2067,8 @@ def phase_train_epoch(vae, stats, pool, dataset):
     n_t = trainer.sched.n_steps
     assert z.shape == (16, FLAGSHIP["latent_dim"]) and torch.isfinite(z).all()
     assert imgs.shape == (16, 64, 64, 3) and torch.isfinite(imgs).all()
-    assert launch_counts() == sampler_counts(n_t, calls=2), launch_counts()  # eager run + replay
-    assert fused_replays(sampler) == 1
+    assert launch_counts() == sampler_counts(1), launch_counts()
+    assert len(bound_plans(sampler)) == 1
     print(f"[train_epoch] sampler(fused=True) on the EMA weights: 16 images, {n_t} guided "
           f"steps + decode; launches {launch_counts()}")
 
@@ -2653,7 +2834,7 @@ def phase_runner():
             assert not any(kernel_launches().values()), kernel_launches()
             del diff, sampler
 
-        # --- 3. serve the run directory through the CUDA-graph sampler
+        # --- 3. serve the run directory through the kernel sampler
         t0 = time.perf_counter()
         svc = service_from_run(str(flagship), version="flagship", synthetic_size=1020,
                                guidance_scale=7.0, quantize_uint8=True)
@@ -2670,7 +2851,7 @@ def phase_runner():
         imgs = svc.sample_classes(range(10), 5, seed=0)
         req_ms = (time.perf_counter() - t0) * 1e3
         served = launch_counts()
-        want = sampler_counts(svc.sched.n_steps)
+        want = sampler_counts(len(svc.request_plan(50)))
         again = svc.sample_classes(range(10), 5, seed=0)
         print(f"[runner] service_from_run: built in {build_s:.1f} s, warmup of buckets "
               f"{svc.buckets} {warm_s:.1f} s; launches over the 50-image request {served}")
@@ -2845,12 +3026,12 @@ def phase_http():
         except RuntimeError as exc:
             print(f"[http] serve before warmup: refused ({exc})")
         else:
-            raise AssertionError("serve took a service with no graph captured")
+            raise AssertionError("serve took a service with no kernel plan bound")
         t0 = time.perf_counter()
         serve_tool.warm(svc, args.seed + 99)
         warm_s = time.perf_counter() - t0
-        assert sorted(k[0] for k in inner.graphs) == list(svc.buckets) == [8, 16, 32, 64, 128,
-                                                                            256]
+        assert sorted(k[0] for k in inner.process.bound) == list(svc.buckets) == [
+            8, 16, 32, 64, 128, 256]
         assert svc.unwarmed() == []
 
         # the v1 model's kernel path against the plain f32 model at the
@@ -2920,7 +3101,7 @@ def phase_http():
             print(f"[http] GET /healthz: {status} {health}")
             assert status == 200 and health["backend"] == "cuda" and health["family"] == "latent"
             assert health["buckets"] == list(svc.buckets) and health["num_classes"] == 102
-            graphs = dict(inner.graphs)
+            bound = dict(inner.process.bound)
             reset_counts()
             serial = []
             t0 = time.perf_counter()
@@ -2952,10 +3133,10 @@ def phase_http():
 
         # --- 4. the gates
         assert not errors, errors
-        assert dict(inner.graphs) == graphs, "a graph was captured under the traffic"
+        assert dict(inner.process.bound) == bound, "a plan was bound under the traffic"
         assert not torch.backends.cudnn.deterministic, "two threads restored each other's flags"
         chunks = sum(len(svc.request_plan(len(d["classes"]))) for d in dispatches)
-        want = sampler_counts(svc.sched.n_steps, chunks)
+        want = sampler_counts(chunks)
         print(f"[http] launches over the traffic {launches}; expected {want} for {chunks} "
               f"bucket chunks ({len(dispatches)} service calls, the animation's included)")
         assert launches == want, (launches, want)
@@ -3287,16 +3468,23 @@ def main() -> int:
     prep = prepare_fused_sampler(model, sched.to("cuda"))
 
     kernel_rows = phase_kernels(model, prep, gen)
+    kernel_rows.append(phase_process(prep, gen))
     phase_noise(sched)
     phase_short_parity(model, gen)
     phase_profile(model)
     stats = np.load(STATS)
     stats = (stats["mean"], stats["std"])
-    launches, calls = phase_service(model, vae, stats)
+    launches, host, calls = phase_service(model, vae, stats)
     for row in kernel_rows:
-        row["launches"] = launches[row["name"]]
-        if row["name"] == "reverse_step":  # kernel 3: the whole reverse process
+        if row["name"] == "reverse_process":  # kernel 3: the whole reverse process
+            row["launches"] = launches[row["name"]]
+            row["path"] = "phase_service: three requests, one launch a bucket call"
             row["bucket_call"] = {str(b): c for b, c in calls.items()}
+            row["max_abs_err"] = max([row["max_abs_err"]] + [c["max_abs_err"]
+                                                             for c in calls.values()])
+        else:  # the step's own kernels: the host loop, the reverse process's oracle
+            row["launches"] = host[row["name"]]
+            row["path"] = "phase_service: the host loop (fused_sample), one 64-bucket call"
     phase_ddim(model, vae, stats, den_params)
     phase_partial(model)
     images, labels = synthetic_flowers(1020, FLAGSHIP["num_classes"], 64, seed=0)

@@ -24,7 +24,7 @@ noise, which is how the port is held against the reference.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -35,10 +35,9 @@ from flowerdiff_torch.diffusion.sampler import (
     sample_with_trajectory as _traj_impl,
 )
 from flowerdiff_torch.kernels.full_sampler import (
-    SamplerGraph,
+    ReverseProcess,
     draw_request,
     prepare_fused_sampler,
-    run_steps,
 )
 from flowerdiff_torch.diffusion.schedule import DiffusionSchedule
 from flowerdiff_torch.utils.device import resolve_device
@@ -167,17 +166,16 @@ class DiffusionSampler:
 
 
 class FusedDiffusionSampler(DiffusionSampler):
-    """DiffusionSampler whose `sample` runs the kernel path: per step the
-    projection, stage, head and reverse-step kernels
+    """DiffusionSampler whose `sample` runs the kernel path
     (kernels/full_sampler.py). Latent pipeline only. It overrides `sample`
     alone, as the reference does: `ddim`, `sample_from`, `masked_denoise`
     and `sample_with_trajectory` run the plain f32 model.
 
-    On a CUDA device every call is one replay of a captured CUDA graph of
-    the T steps (`SamplerGraph`), captured at the first call of each
-    (batch, guided, clip_x0, stochastic, has_color) and kept in `graphs`;
-    a failed capture raises. On the CPU the same loop runs the kernels'
-    plain twins."""
+    On a CUDA device every call is one launch of the reverse-process kernel
+    (`process`, a `ReverseProcess`): all T steps of the call, its plan bound
+    at the first call of each (batch, guided) and listed in
+    `process.bound`; a kernel that fails to build or launch raises. On the
+    CPU the same call runs the step loop on the kernels' plain twins."""
 
     def __init__(self, model, sched: DiffusionSchedule, event_shape: Tuple[int, ...],
                  clip_x0: Optional[float] = None,
@@ -185,7 +183,7 @@ class FusedDiffusionSampler(DiffusionSampler):
         super().__init__(model, sched, event_shape, clip_x0=clip_x0,
                          guidance_scale=guidance_scale, device=device)
         self._prep = prepare_fused_sampler(self.model, self.sched)
-        self.graphs: Dict[tuple, SamplerGraph] = {}
+        self.process = ReverseProcess(self._prep)
 
     @torch.no_grad()
     def sample(self, batch: int, *cond: torch.Tensor,
@@ -195,15 +193,8 @@ class FusedDiffusionSampler(DiffusionSampler):
         color = cond[1] if len(cond) > 1 else None
         guided = self.guidance_scale is not None
         inputs = draw_request(self._prep, batch, cond[0], color, generator, x_init, guided)
-        kw = dict(stochastic=stochastic, clip_x0=self.clip_x0,
-                  guidance_scale=self.guidance_scale)
-        if self.device.type != "cuda":
-            return run_steps(self._prep, inputs, **kw)
-        key = (batch, guided, self.clip_x0, stochastic, color is not None)
-        graph = self.graphs.get(key)
-        if graph is None:
-            graph = self.graphs[key] = SamplerGraph(self._prep, inputs, **kw)
-        return graph(inputs)
+        return self.process(inputs, stochastic=stochastic, clip_x0=self.clip_x0,
+                            guidance_scale=self.guidance_scale)
 
 
 class NormalizedSampler:

@@ -23,8 +23,8 @@ from typing import Dict, List
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
-SOURCES = ("latent_stage", "latent_head", "latent_proj", "reverse_step", "train_step",
-           "train_epoch")
+SOURCES = ("latent_stage", "latent_head", "latent_proj", "reverse_step", "reverse_process",
+           "train_step", "train_epoch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -18,7 +18,8 @@
 // bytes. LayerNorm needs whole rows, which on the TPU sat in one core's
 // VMEM; here the rows of a launch sit in one cluster.
 //
-// Stage design (the plan: kernels/latent_stage.py::stage_plan). A launch
+// Stage design (the plan: kernels/latent_stage.py::stage_plan; the phases,
+// shared with the reverse-process kernel, in cluster_stage.cuh). A launch
 // is `tiles` clusters along the rows, each of `cols` blocks that share
 // `rows` rows: column slice c owns the columns [c sd, (c + 1) sd) of h and of
 // each d-wide product, sd = d / cols, and [c so, (c + 1) so) of the last,
@@ -58,46 +59,21 @@
 // to whole rows before the LayerNorm): one block owns 16 whole rows and all
 // columns (the head's products are at most 512 wide). The sampler's form,
 // with its adds from tables, runs on csrc/latent_head.cu's column tiles.
-#include "rows.cuh"
-#include "wgmma.cuh"
-
-// Phase stamps of tools/stage_phases.py's diagnostic build, which defines
-// these macros ahead of this source; nothing in the library's build.
-#ifndef FD_STAMP
-#define FD_STAMP_BEGIN
-#define FD_STAMP(i)
-#define FD_RING_WAIT(p, wait) wait
-#endif
+#include "cluster_stage.cuh"
 
 using fd::kPad;
 using fd::kRows;
 using fd::kThreads;
+using fdc::chunk_reach;
+using fdc::chunk_tiles;
+using fdc::kMaxCluster;
+using fdc::kMaxSlots;
+using fdc::kStageThreads;
+using fdc::swish;
 
 namespace {
 
-constexpr int kStageThreads = 288;  // two consumer warpgroups and the producer warp
-constexpr int kMaxCluster = 16;
-constexpr int kMaxSlots = 32;
-constexpr int kTileBytes = 8192;    // a weight tile in a slot: 64 lines of 128 bytes
 constexpr int kBarriers = 8;        // the exchanges' mbarriers: X0-X5, free after Wv, Wo
-
-// k64 tiles a weight chunk takes for a column slice of `slice` rows: the
-// most, a power of two dividing d / 64, whose box stays within 32 KB. A
-// TMA request costs ~0.37 us whatever its size up to 32 KB, and a block's
-// requests run one after another (PERF.md section 6, tools/ingress_probe.py),
-// so a chunk is one request as large as a box may be.
-__host__ __device__ inline int chunk_tiles(int slice, int d) {
-  int kb = 1;
-  while (2 * kb * slice * 128 <= 32768 && (d / 64) % (2 * kb) == 0) kb *= 2;
-  return kb;
-}
-
-// Bytes from a slot's start that a chunk's wgmma reads may reach: its last
-// k64 tile's last m64 tile (64 lines, past a slice's own where it has
-// fewer).
-__host__ __device__ inline int chunk_reach(int slice, int kb) {
-  return (kb - 1) * slice * 128 + (slice + 63) / 64 * kTileBytes;
-}
 
 // Shared memory of a stage block, in bytes from a 1024-byte-aligned base:
 // the ring (slots of one chunk: kb tiles of slice lines of 128 bytes), the
@@ -136,271 +112,9 @@ struct StageLayout {
 struct StageArgs {
   const float *h, *row_add, *rows_add, *bb, *g1, *b1, *g2, *b2, *bv, *bo, *bd;
   float* out;
-  int B, d, dout, cols, rows, qbufs, slots;
+  int B, d, dout;
+  fdc::Shape sh;  // rows a block, blocks a cluster, ring slots, operand buffers
   float eps;
-};
-
-__device__ __forceinline__ float swish(float u) { return u / (1.f + expf(-u)); }
-
-// Pins the accumulators around the asynchronous products: no read or write
-// of them moves across this point (CUTLASS's warpgroup_fence_operand).
-template <int MT, int V>
-__device__ __forceinline__ void fence_acc(float (&acc)[MT][V]) {
-#pragma unroll
-  for (int u = 0; u < MT; ++u)
-#pragma unroll
-    for (int i = 0; i < V; ++i) asm volatile("" : "+f"(acc[u][i])::"memory");
-}
-
-// Byte offset of (row n, k) in an operand buffer of `rows` lines a chunk.
-__device__ __forceinline__ uint32_t swz(int n, int k, int rows) {
-  return (uint32_t)((k >> 6) * rows * 128 + n * 128 + ((((k >> 3) & 7) ^ (n & 7)) << 4) +
-                    (k & 7) * 2);
-}
-
-// The consumer threads' part of a stage block: two warpgroups, each
-// multiplying every row of the block (N of them) by half of each product's
-// k64 tiles (even, odd), then adding the other's partial sums through
-// shared memory, so that both hold the same values: a wgmma of these few
-// rows costs about the same whatever N, and each warpgroup issues half as
-// many. A thread of warp w of its warpgroup, lane 4 gq + t, holds for each
-// unit u (an m64 tile of the block's columns) the values v[u][4 j + 2 h +
-// e] of row n = 8 j + 2 t + e, column m = 64 u + 16 w + gq + 8 h of the
-// slice: the accumulators' layout of Wgmma<N>. Columns past the slice are
-// computed and ignored. The first warpgroup alone stores and sends.
-template <int N, int MT>
-struct Block {
-  static constexpr int V = N / 2;  // values a unit
-  const StageArgs& a;
-  uint8_t* base;
-  StageLayout L;
-  int c, sd, so, nkd, nko, total, wg, w, gq, t, tid, row0;
-  bool lead;
-
-  __device__ Block(const StageArgs& args, uint8_t* b)
-      : a(args), base(b), L(args.d, args.dout, args.cols, args.rows, args.qbufs, args.slots) {
-    c = (int)blockIdx.x;  // the block's rank in its cluster
-    sd = L.sd;
-    so = L.so;
-    nkd = a.d / 64 / L.kbd;  // chunks of each d-wide product
-    nko = a.d / 64 / L.kbo;  // chunks of Wd's
-    total = 3 * nkd + nko;
-    tid = (int)threadIdx.x;
-    wg = tid >> 7;
-    w = (tid >> 5) & 3;
-    gq = (tid & 31) >> 2;
-    t = tid & 3;
-    lead = wg == 0;
-    row0 = (int)blockIdx.y * a.rows;
-  }
-
-  __device__ uint32_t addr(int off) const { return fdh::smem_u32(base + off); }
-  __device__ uint32_t full(int q) const { return addr(L.bars + 8 * (q % a.slots)); }
-  __device__ uint32_t empty(int q) const { return addr(L.bars + 8 * (a.slots + q % a.slots)); }
-  __device__ uint32_t xbar(int i) const { return addr(L.bars + 8 * (2 * a.slots + i)); }
-  __device__ uint8_t* qbuf(int i) const { return base + L.q + (a.qbufs == 2 ? i : 0) * L.q_bytes; }
-
-  __device__ int row(int j, int e) const { return 8 * j + 2 * t + e; }
-  __device__ int col(int u, int h) const { return 64 * u + 16 * w + gq + 8 * h; }
-
-  // All 8 consumer warps, or one warpgroup's 4.
-  __device__ void sync_all() const { fdh::named_bar_sync(1, 256); }
-  __device__ void sync_wg() const { fdh::named_bar_sync(2 + wg, 128); }
-
-  // Each warp's lane 0 releases chunk q, unless no refill follows it.
-  __device__ void release(int q) const {
-    __syncwarp();
-    if ((tid & 31) == 0 && q + a.slots < total) fdh::mbar_arrive(empty(q));
-  }
-
-  // acc = the block's columns of product p (0 Wb, 1 Wv, 2 Wo, 3 Wd) over
-  // the operand in buffer `qb`, plus the bias (the block's slice of it, in
-  // shared memory). Chunk kc holds k64 tiles
-  // [kc kb, (kc + 1) kb) of the slice's rows; this warpgroup multiplies
-  // those of its parity.
-  __device__ __forceinline__ void product(int p, const uint8_t* qb, const float* bias,
-                                          float (&acc)[MT][V]) const {
-    const int slice = p < 3 ? sd : so, units = (slice + 63) / 64;
-    const int kb = p < 3 ? L.kbd : L.kbo, nk = p < 3 ? nkd : nko, q0 = p < 3 ? p * nkd : 3 * nkd;
-#pragma unroll
-    for (int u = 0; u < MT; ++u)
-#pragma unroll
-      for (int i = 0; i < V; ++i) acc[u][i] = 0.f;
-    fence_acc(acc);
-    const uint32_t b0 = fdh::smem_u32(qb);
-    for (int kc = 0; kc < nk; ++kc) {
-      const int q = q0 + kc;
-      FD_RING_WAIT(p, fdh::mbar_wait(full(q), (uint32_t)((q / a.slots) & 1)));
-      const uint32_t a0 = addr(L.slot_bytes * (q % a.slots));
-      fdh::wgmma_fence();
-#pragma unroll 1
-      for (int b = (kc * kb + wg) & 1; b < kb; b += 2) {
-        const uint32_t at = a0 + (uint32_t)(b * slice * 128);
-        const uint32_t bt = b0 + (uint32_t)((kc * kb + b) * a.rows * 128);
-#pragma unroll
-        for (int u = 0; u < MT; ++u) {
-          if (u < units) {
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk)
-              fdh::Wgmma<N>::template run<0>(acc[u], fdh::wg_desc(at + u * kTileBytes + kk * 32),
-                                             fdh::wg_desc(bt + kk * 32));
-          }
-        }
-      }
-      fdh::wgmma_commit();
-      if (kc > 0) {
-        fdh::wgmma_wait_one();
-        release(q - 1);
-      }
-    }
-    fdh::wgmma_wait_all();
-    fence_acc(acc);
-    release(q0 + nk - 1);
-    // the other warpgroup's partial sums, added (a + b == b + a: both
-    // warpgroups get the same bits)
-    float* part = reinterpret_cast<float*>(base + L.part);
-    const int lane128 = tid & 127;
-#pragma unroll
-    for (int u = 0; u < MT; ++u)
-#pragma unroll
-      for (int i = 0; i < V; ++i)
-        if (u < units) part[((wg * L.units + u) * V + i) * 128 + lane128] = acc[u][i];
-    sync_all();
-#pragma unroll
-    for (int u = 0; u < MT; ++u)
-#pragma unroll
-      for (int i = 0; i < V; ++i)
-        if (u < units) acc[u][i] += part[(((1 - wg) * L.units + u) * V + i) * 128 + lane128];
-#pragma unroll
-    for (int u = 0; u < MT; ++u)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = col(u, h);
-        if (u < units && m < slice) {
-          const float bv = bias[m];
-#pragma unroll
-          for (int j = 0; j < N / 8; ++j) {
-            acc[u][4 * j + 2 * h] += bv;
-            acc[u][4 * j + 2 * h + 1] += bv;
-          }
-        }
-      }
-  }
-
-  // This block's rows of v (an operand, bf16) into the buffer `qb` of every
-  // block of the cluster: its own by plain stores, the others' by
-  // st.async completing on their exchange mbarrier `x`; then wait for the
-  // others' slices in this block's buffer.
-  __device__ __forceinline__ void share(const float (&v)[MT][V], uint8_t* qb, int x) const {
-    if (lead) {
-#pragma unroll
-      for (int u = 0; u < MT; ++u)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int m = col(u, h);
-          if (m < sd) {
-#pragma unroll
-            for (int j = 0; j < N / 8; ++j)
-#pragma unroll
-              for (int e = 0; e < 2; ++e)
-                *reinterpret_cast<__nv_bfloat16*>(qb + swz(row(j, e), c * sd + m, a.rows)) =
-                    __float2bfloat16_rn(v[u][4 * j + 2 * h + e]);
-          }
-        }
-    }
-    fdh::fence_proxy_async();
-    sync_all();
-    const int vecs = sd / 8, units = a.rows * vecs;
-    const uint32_t q0 = fdh::smem_u32(qb), bar = xbar(x);
-    for (int i = tid; i < units && a.cols > 1; i += 256) {
-      const int n = i / vecs, k = c * sd + 8 * (i - n * vecs);
-      const uint32_t off = q0 + swz(n, k, a.rows);
-      const uint4 val = *reinterpret_cast<const uint4*>(qb + swz(n, k, a.rows));
-      for (int j = 1; j < a.cols; ++j) {
-        const int to = (c + j) % a.cols;
-        fdh::st_async(fdh::mapa(off, to), val, fdh::mapa(bar, to));
-      }
-    }
-    fdh::mbar_wait(bar, 0);
-    fdh::fence_proxy_async();
-  }
-
-  // (mean, rstd) of each of the thread's rows of v over the whole row, in
-  // mr: the block's (mean, m2) of its slice (two passes), exchanged through
-  // `stats` and mbarrier x, combined in rank order by one thread a row.
-  __device__ __forceinline__ void row_moments(const float (&v)[MT][V], int which, int x) const {
-    float* red = reinterpret_cast<float*>(base + L.red);
-    float2* stats = reinterpret_cast<float2*>(base + L.stats) + which * a.cols * a.rows;
-    float2* mr = reinterpret_cast<float2*>(base + L.mr);
-    float mean[N / 8][2];
-#pragma unroll
-    for (int pass = 0; pass < 2; ++pass) {
-      float* rp = red + ((pass * 2 + wg) * 4) * N;
-#pragma unroll
-      for (int j = 0; j < N / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float s = 0.f;
-#pragma unroll
-          for (int u = 0; u < MT; ++u)
-#pragma unroll
-            for (int h = 0; h < 2; ++h)
-              if (col(u, h) < sd) {
-                const float x0 = v[u][4 * j + 2 * h + e];
-                s += pass ? (x0 - mean[j][e]) * (x0 - mean[j][e]) : x0;
-              }
-          s += __shfl_xor_sync(0xffffffffu, s, 4);
-          s += __shfl_xor_sync(0xffffffffu, s, 8);
-          s += __shfl_xor_sync(0xffffffffu, s, 16);
-          if (gq == 0) rp[w * N + 8 * j + 2 * t + e] = s;
-        }
-      sync_wg();
-#pragma unroll
-      for (int j = 0; j < N / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int n = 8 * j + 2 * t + e;
-          const float s = rp[n] + rp[N + n] + rp[2 * N + n] + rp[3 * N + n];
-          if (pass == 0) {
-            mean[j][e] = s / sd;
-          } else if (lead) {
-            // thread (w, gq) sends the row's pair to column slice 8 w + gq
-            const int to = 8 * w + gq;
-            const float2 st = make_float2(mean[j][e], s);
-            float2* dst = stats + c * a.rows + row(j, e);
-            if (to == c) *dst = st;
-            else if (to < a.cols)
-              fdh::st_async(fdh::mapa(fdh::smem_u32(dst), to), st, fdh::mapa(xbar(x), to));
-          }
-        }
-    }
-    sync_all();
-    if (tid < a.rows) {
-      fdh::mbar_wait(xbar(x), 0);
-      const float2* st = stats + tid;
-      float m = 0.f;
-      for (int j = 0; j < a.cols; ++j) m += st[j * a.rows].x;
-      m /= a.cols;
-      float m2 = 0.f;
-      for (int j = 0; j < a.cols; ++j) {
-        const float2 sj = st[j * a.rows];
-        const float e = sj.x - m;
-        m2 += sj.y + sd * e * e;
-      }
-      mr[tid] = make_float2(m, rsqrtf(m2 / (sd * a.cols) + a.eps));
-    }
-    sync_all();
-  }
-
-  // One buffer: every block of the cluster has read its operand buffer
-  // (the product just done) before anyone writes the next operand there.
-  __device__ void buffer_free(int x) const {
-    if (a.qbufs == 2) return;
-    sync_all();
-    if (tid == 0)
-      for (int j = 0; j < a.cols; ++j) fdh::mbar_arrive_remote(fdh::mapa(xbar(x), j));
-    fdh::mbar_wait(xbar(x), 0);
-  }
 };
 
 template <int N, int MT>
@@ -413,7 +127,13 @@ stage_kernel(const __grid_constant__ CUtensorMap map_b, const __grid_constant__ 
   extern __shared__ uint8_t stage_raw[];
   const uint32_t raw = fdh::smem_u32(stage_raw);
   uint8_t* base = stage_raw + (((raw + 1023u) & ~1023u) - raw);
-  const Block<N, MT> k(a, base);
+  const StageLayout L(a.d, a.dout, a.sh.cols, a.sh.rows, a.sh.qbufs, a.sh.slots);
+  const int sd = L.sd, so = L.so, nkd = a.d / 64 / L.kbd, nko = a.d / 64 / L.kbo;
+  const int total = 3 * nkd + nko, row0 = (int)blockIdx.y * a.sh.rows;
+  // the chunk stream is Wb, Wv, Wo (nkd chunks each), then Wd (nko)
+  const fdc::Offsets lay = {L.slot_bytes, L.q, L.q_bytes, L.stats, L.red,
+                            L.mr,         L.part, L.units, L.bars, total};
+  const fdc::Phases<N, MT> k(base, a.sh, lay);
   const int lane = (int)threadIdx.x & 31;
   const bool producer = threadIdx.x >= 256;
 
@@ -421,13 +141,13 @@ stage_kernel(const __grid_constant__ CUtensorMap map_b, const __grid_constant__ 
   // vectors into shared memory first, whole 16-byte loads, all in flight
   // while the barriers are set up; h staged in the partial sums' room
   // (free until the first product's end; 512 units rows >= 4 rows sd bytes)
-  float* vec = reinterpret_cast<float*>(base + k.L.vec);
-  float* stage = reinterpret_cast<float*>(base + k.L.part);
-  float xs[MT][Block<N, MT>::V], acc[MT][Block<N, MT>::V];
+  float* vec = reinterpret_cast<float*>(base + L.vec);
+  float* stage = reinterpret_cast<float*>(base + L.part);
+  float xs[MT][N / 2], acc[MT][N / 2];
   if (!producer) {
-    const int q4 = k.sd / 4;
-    for (int i = threadIdx.x; i < a.rows * q4; i += 256) {
-      const int r = i / q4, row = k.row0 + r, cc = k.c * k.sd + 4 * (i - r * q4);
+    const int q4 = sd / 4;
+    for (int i = threadIdx.x; i < a.sh.rows * q4; i += 256) {
+      const int r = i / q4, row = row0 + r, cc = k.c * sd + 4 * (i - r * q4);
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (row < a.B) {
         const size_t at = (size_t)row * a.d + cc;
@@ -441,26 +161,26 @@ stage_kernel(const __grid_constant__ CUtensorMap map_b, const __grid_constant__ 
     float t8[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int i = threadIdx.x + 256 * j, v = i < 7 * k.sd ? i / k.sd : 7, e = i - v * k.sd;
+      const int i = threadIdx.x + 256 * j, v = i < 7 * sd ? i / sd : 7, e = i - v * sd;
       const float* src = v == 0 ? a.bb : v == 1 ? a.g1 : v == 2 ? a.b1 : v == 3 ? a.g2
                          : v == 4 ? a.b2 : v == 5 ? a.bv : v == 6 ? a.bo : a.bd;
-      if (i < 7 * k.sd + k.so) t8[j] = __ldg(src + (v < 7 ? k.c * k.sd : k.c * k.so) + e);
+      if (i < 7 * sd + so) t8[j] = __ldg(src + (v < 7 ? k.c * sd : k.c * so) + e);
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      if (threadIdx.x + 256 * j < 7 * k.sd + k.so) vec[threadIdx.x + 256 * j] = t8[j];
+      if (threadIdx.x + 256 * j < 7 * sd + so) vec[threadIdx.x + 256 * j] = t8[j];
   }
   if (threadIdx.x == 0) {
-    for (int s = 0; s < a.slots; ++s) {
+    for (int s = 0; s < a.sh.slots; ++s) {
       fdh::mbar_init(k.full(s), 1);
       fdh::mbar_init(k.empty(s), 8);
     }
     for (int i = 0; i < 6; ++i) fdh::mbar_init(k.xbar(i), 1);
-    fdh::mbar_init(k.xbar(6), a.cols);
-    fdh::mbar_init(k.xbar(7), a.cols);
+    fdh::mbar_init(k.xbar(6), a.sh.cols);
+    fdh::mbar_init(k.xbar(7), a.sh.cols);
     fdh::fence_barrier_init();
-    const uint32_t op = (uint32_t)((a.cols - 1) * a.rows * k.sd * 2);
-    const uint32_t st = (uint32_t)((a.cols - 1) * a.rows * 8);
+    const uint32_t op = (uint32_t)((a.sh.cols - 1) * a.sh.rows * sd * 2);
+    const uint32_t st = (uint32_t)((a.sh.cols - 1) * a.sh.rows * 8);
     const uint32_t bytes[6] = {op, st, st, op, op, op};
     for (int i = 0; i < 6; ++i) fdh::mbar_expect_tx(k.xbar(i), bytes[i]);
   }
@@ -477,7 +197,7 @@ stage_kernel(const __grid_constant__ CUtensorMap map_b, const __grid_constant__ 
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int m = k.col(u, h);
-            xs[u][4 * j + 2 * h + e] = m < k.sd ? stage[k.row(j, e) * k.sd + m] : 0.f;
+            xs[u][4 * j + 2 * h + e] = m < sd ? stage[k.row(j, e) * sd + m] : 0.f;
           }
   }
 
@@ -486,13 +206,12 @@ stage_kernel(const __grid_constant__ CUtensorMap map_b, const __grid_constant__ 
   // q % slots
   auto map = [&](int p) { return p == 0 ? &map_b : p == 1 ? &map_v : p == 2 ? &map_o : &map_d; };
   auto issue = [&](int q) {
-    const int p = q < 3 * k.nkd ? q / k.nkd : 3, kc = p < 3 ? q - p * k.nkd : q - 3 * k.nkd;
-    const int slice = p < 3 ? k.sd : k.so, kb = p < 3 ? k.L.kbd : k.L.kbo;
+    const int p = q < 3 * nkd ? q / nkd : 3, kc = p < 3 ? q - p * nkd : q - 3 * nkd;
+    const int slice = p < 3 ? sd : so, kb = p < 3 ? L.kbd : L.kbo;
     fdh::mbar_expect_tx(k.full(q), (uint32_t)(kb * slice * 128));
-    fdh::tma_load_3d(k.addr(k.L.slot_bytes * (q % a.slots)), map(p), 0, k.c * slice, kc * kb,
-                     k.full(q));
+    fdh::tma_load_3d(k.slot(q), map(p), 0, k.c * slice, kc * kb, k.full(q));
   };
-  const int first = a.slots < k.total ? a.slots : k.total;
+  const int first = a.sh.slots < total ? a.sh.slots : total;
   if (producer && lane == 0) {  // the first chunks at once: only this block's barriers
     for (int p = 0; p < 4; ++p) fdh::tma_prefetch(map(p));
     for (int q = 0; q < first; ++q) issue(q);
@@ -504,8 +223,8 @@ stage_kernel(const __grid_constant__ CUtensorMap map_b, const __grid_constant__ 
 
   if (producer) {
     if (lane == 0) {
-      for (int q = first; q < k.total; ++q) {
-        fdh::mbar_wait(k.empty(q), (uint32_t)(((q - a.slots) / a.slots) & 1));  // chunk q - slots read
+      for (int q = first; q < total; ++q) {
+        fdh::mbar_wait(k.empty(q), (uint32_t)(((q - a.sh.slots) / a.sh.slots) & 1));  // chunk q - slots read
         issue(q);
       }
     }
@@ -515,7 +234,6 @@ stage_kernel(const __grid_constant__ CUtensorMap map_b, const __grid_constant__ 
     return;
   }
 
-  const int sd = k.sd;
   auto for_each = [&](auto&& f) {  // f(u, i, m, n) over the thread's values in the slice (m local)
 #pragma unroll
     for (int u = 0; u < MT; ++u)
@@ -527,7 +245,7 @@ stage_kernel(const __grid_constant__ CUtensorMap map_b, const __grid_constant__ 
           for (int e = 0; e < 2; ++e)
             if (k.col(u, h) < sd) f(u, 4 * j + 2 * h + e, k.col(u, h), k.row(j, e));
   };
-  const float2* mr = reinterpret_cast<const float2*>(base + k.L.mr);
+  const float2* mr = reinterpret_cast<const float2*>(base + L.mr);
 
   // The four products in one loop, so that each step's code (the exchange,
   // the product, the LayerNorms) exists once: every phase runs once a
@@ -542,14 +260,15 @@ stage_kernel(const __grid_constant__ CUtensorMap map_b, const __grid_constant__ 
   for_each([&](int u, int i, int, int) { acc[u][i] = xs[u][i]; });
   for (int p = 0; p < 4; ++p) {
     if (p >= 2) k.buffer_free(4 + p);
-    k.share(acc, k.qbuf(p & 1), p == 0 ? 0 : 2 + p);
+    k.share(acc, k.qbuf(p & 1), sd, p == 0 ? 0 : 2 + p);
     if (p == 3) fdh::cluster_arrive();  // nothing more comes into this block from the others
     FD_STAMP(p == 0 ? 2 : 4 + 2 * p);
-    k.product(p, k.qbuf(p & 1), vec + (p == 0 ? 0 : (4 + p) * sd), acc);
+    k.product(p < 3 ? p * nkd : 3 * nkd, p < 3 ? nkd : nko, p < 3 ? L.kbd : L.kbo,
+              p < 3 ? sd : so, k.qbuf(p & 1), vec + (p == 0 ? 0 : (4 + p) * sd), acc, p);
     FD_STAMP(p == 0 ? 3 : 5 + 2 * p);
     if (p == 0) {
       for (int ln = 0; ln < 2; ++ln) {
-        k.row_moments(acc, ln, 1 + ln);
+        k.row_moments(acc, ln, sd, 1 + ln, a.eps);
         FD_STAMP(ln == 0 ? 4 : 5);
         for_each([&](int u, int i, int m, int n) {
           const float2 st = mr[n];
@@ -581,9 +300,9 @@ stage_kernel(const __grid_constant__ CUtensorMap map_b, const __grid_constant__ 
       for (int j = 0; j < N / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int m = k.col(u, h), row = k.row0 + k.row(j, e);
-          if (k.lead && m < k.so && row < a.B)
-            a.out[(size_t)row * a.dout + k.c * k.so + m] = acc[u][4 * j + 2 * h + e];
+          const int m = k.col(u, h), row = row0 + k.row(j, e);
+          if (k.lead && m < so && row < a.B)
+            a.out[(size_t)row * a.dout + k.c * so + m] = acc[u][4 * j + 2 * h + e];
         }
   FD_STAMP(15);
   fdh::cluster_wait();  // no block leaves while another may still write to it
@@ -736,10 +455,10 @@ extern "C" int fd_stage_launch(const void* maps, const void* h, const void* row_
   a.B = B;
   a.d = d;
   a.dout = dout;
-  a.cols = cols;
-  a.rows = rows;
-  a.qbufs = qbufs;
-  a.slots = slots;
+  a.sh.rows = rows;
+  a.sh.cols = cols;
+  a.sh.slots = slots;
+  a.sh.qbufs = qbufs;
   a.eps = eps;
   const void* kernel = nullptr;
   cudaError_t err = rows == 128  ? stage_prepare<128, 1>(&kernel, smem)

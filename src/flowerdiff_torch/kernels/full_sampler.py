@@ -1,26 +1,27 @@
 """The ancestral reverse process on the kernels (port of
 flowerdiff/kernels/full_sampler.py).
 
-The Pallas kernel `_make_kernel` runs all T steps in one TPU kernel with
-every weight resident in VMEM, the latent projection `h = x Wl + bl`
-(`full_sampler.py:118`) included. On Hopper each step launches the port's
-own kernels and nothing else:
+The Pallas kernel `_make_kernel` runs all T steps in one TPU kernel with x
+and every weight resident in VMEM. Its counterpart here is one launch too:
+the reverse-process kernel (csrc/reverse_process.cu, `ReverseProcess`) runs
+every step of a bucket call, each cluster of blocks keeping its rows, its
+column slice of x and of the condition adds on chip for the whole launch.
+A step is the latent projection `h = bf16(x) Wl^T + bl` (with the CFG copy,
+and for a v2 model the global skip sigmoid(rw) (bf16(x) Wf^T + bf)), the
+four stages as the stage kernel computes them, the head in its table form,
+and the reverse step (the skip added to eps, CFG from the doubled batch, x0
+clipping, the posterior mean and the step noise, Philox4x32-10 +
+Box-Muller from a key in device memory). Its plan (`process_plan`: clusters,
+blocks a cluster, rows a cluster, ring, shared memory) is bound once per
+(batch, guided), its tensor maps encoded then.
 
-  1. the `latent_proj` kernel (csrc/latent_proj.cu): h = bf16(x) Wl^T + bl,
-     written to both halves of the stage input when guided (the CFG copy),
-     and for a v2 model the global skip sigmoid(rw) (bf16(x) Wf^T + bf);
-  2. the stage kernels (`fused_stage`), time adds read as one row of a
-     precomputed (T, d) table, condition adds as precomputed (rows, d);
-  3. the head kernel (`fused_head`);
-  4. the `reverse_step` kernel: the skip added to eps, CFG from the doubled
-     batch, x0 clipping, the posterior mean and the step noise, drawn in
-     the kernel by Philox4x32-10 + Box-Muller from a key in device memory.
-
-and the T steps' launches run as one launch structure: `SamplerGraph`
-captures `run_steps` once per (batch, guidance, clip, stochastic) as a CUDA
-graph and replays it for every request, as the TPU kernel runs its
-`fori_loop` in one launch. `fused_sample` is the same loop issued from the
-host (7 launches a step): the graph's oracle and the CPU's path.
+`fused_sample` is the same process as a host loop of the step's own kernels
+(7 launches a step): the projection (`latent_proj`, csrc/latent_proj.cu),
+the stage kernels (`fused_stage`), the head (`fused_head`) and
+`reverse_step` (csrc/reverse_step.cu). It is the reverse-process kernel's
+oracle on the card; on the CPU, where each wrapper runs its plain twin
+(`reverse_step_plain`: the same Philox stream in PyTorch integer ops,
+`latent_proj_plain`), it is the kernel's plain version.
 
 The time path (sinusoid -> time MLP -> per-stage projections) is computed
 once per sampler as (T, d) tables, and the condition path once per request
@@ -28,19 +29,11 @@ once per sampler as (T, d) tables, and the condition path once per request
 `full_sampler.py:200-226,280-291` do outside their kernel. Semantics follow
 the model (not the TPU kernel's shortcuts): the CFG null rows keep the
 projection biases, the v2 global skip is applied, LayerNorm eps is 1e-6.
-
-A persistent kernel (one grid-synchronised launch with the ~12.7 MB of
-bf16 weights L2-resident) is later performance work.
-
-`reverse_step` and `bind_latent_proj` launch their kernels for CUDA tensors
-and run their plain twins, `reverse_step_plain` (the same Philox stream in
-PyTorch integer ops) and `latent_proj_plain`, for CPU tensors.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-import time
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -49,7 +42,24 @@ import torch
 from flowerdiff_torch.diffusion.schedule import DiffusionSchedule
 from flowerdiff_torch.kernels import _build
 from flowerdiff_torch.kernels.denoiser_apply import _b, _w, head_weights, stage_weights
-from flowerdiff_torch.kernels.latent_stage import bind_head, bind_stage, fused_head, fused_stage
+from flowerdiff_torch.kernels.latent_stage import (
+    DSMEM_BYTES_PER_S,
+    EXCHANGE_US,
+    LN_EPS,
+    MAP_BYTES,
+    MAX_D,
+    MAX_SLOTS,
+    REQUEST_BYTES_PER_S,
+    REQUEST_US,
+    SMEM_LIMIT,
+    TILE_BYTES,
+    WGMMA_US,
+    bind_head,
+    bind_stage,
+    chunk_tiles,
+    fused_head,
+    fused_stage,
+)
 from flowerdiff_torch.models.latent_unet import ConditionalLatentDenoiser
 
 _M32 = 0xFFFFFFFF
@@ -379,8 +389,7 @@ def run_steps(prep: Dict, inputs: SamplerInputs, *, stochastic: bool = True,
     """The T reverse steps from `inputs`, each the projection, the stage,
     head and reverse-step kernels and nothing else (plain twins for CPU
     weights). Reads its inputs only from `inputs` and writes the final x
-    into `out` (a new tensor when None), so that a CUDA graph of it
-    (`SamplerGraph`) serves any request copied into the same tensors."""
+    into `out` (a new tensor when None)."""
     proj, head = prep["proj"], prep["head"]
     copies = 2 if guidance_scale is not None else 1
     x = inputs.x
@@ -404,8 +413,8 @@ def fused_sample(prep: Dict, batch: int, cond: torch.Tensor,
                  guidance_scale: Optional[float] = None) -> torch.Tensor:
     """Full ancestral sampling on the kernels as a host loop of launches
     (7 a step). The generator draws x_init (unless given) and the request's
-    Philox key. `SamplerGraph` replays the same launches; this loop is its
-    oracle and the CPU's path."""
+    Philox key. The reverse-process kernel runs the same process in one
+    launch; this loop is its oracle and, on the CPU, its plain version."""
     inputs = draw_request(prep, batch, cond, color, generator, x_init,
                           guided=guidance_scale is not None)
     return run_steps(prep, inputs, stochastic=stochastic, clip_x0=clip_x0,
@@ -413,77 +422,307 @@ def fused_sample(prep: Dict, batch: int, cond: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# The step loop as one CUDA graph
+# The whole reverse process in one launch (csrc/reverse_process.cu)
+
+# The kernel's limits (csrc/reverse_process.cu): stages, widths, m64 tiles
+# of a block's widest column slice, rows a cluster (the wgmma's N).
+MAX_STAGES = 4
+MAX_UNITS = 2
+PROCESS_ROWS = (8, 16, 32)
+PROCESS_COLS = (1, 2, 4, 8, 16)
+PROCESS_BARRIERS = 5
+MAX_MAPS = 2 + 4 * MAX_STAGES  # the kernel's parameter holds this many tensor maps
+# Clusters of `cols` blocks of one block an SM that the H100 runs at once
+# (cudaOccupancyMaxActiveClusters on the card: 7 of 16, 15 of 8; PERF.md);
+# a launch of more clusters runs them in waves.
+WAVE_CLUSTERS = {16: 7, 8: 15, 4: 32, 2: 66, 1: 132}
+
+
+class ProcessPlan(NamedTuple):
+    clusters: int  # clusters of the launch; each owns `rows` rows for all T steps
+    cols: int      # blocks of a cluster: each computes 1 / cols of each product's columns
+    rows: int      # rows a cluster (guided: its samples' conditional rows, then their null rows)
+    qbufs: int     # operand buffers: 2, or 1 rewritten after every reader's release
+    slots: int     # slots of the weight ring
+    smem: int      # dynamic shared memory of a block, bytes
+    waves: int     # ceil(clusters / WAVE_CLUSTERS[cols])
+
+
+def _products(latent: int, hidden, skip: bool, cols: int):
+    """(column slice, K) of each product of a step, in stream order: the
+    projection, the skip, each stage's Wb Wv Wo Wd, the head. Mirrors
+    csrc/reverse_process.cu::product_shape."""
+    n = len(hidden) - 1
+    out = [(hidden[0] // cols, latent)]
+    if skip:
+        out.append((latent // cols, latent))
+    for i in range(n):
+        out += [(hidden[i] // cols, hidden[i])] * 3 + [(hidden[i + 1] // cols, hidden[i])]
+    out.append((latent // cols, hidden[n]))
+    return out
+
+
+def process_smem(latent: int, hidden, skip: bool, cols: int, rows: int, qbufs: int,
+                 slots: int) -> int:
+    """A block's shared memory in bytes, the alignment included. Mirrors
+    csrc/reverse_process.cu::ProcessLayout."""
+    n = len(hidden) - 1
+    prods = _products(latent, hidden, skip, cols)
+    kbs = [chunk_tiles(sl, k) for sl, k in prods]
+    slot = max(kb * sl * 128 for (sl, _), kb in zip(prods, kbs))
+    reach = max((kb - 1) * sl * 128 + -(-sl // 64) * TILE_BYTES for (sl, _), kb in zip(prods, kbs))
+    units = -(-max(sl for sl, _ in prods) // 64)
+    dmax = max([latent] + [k for _, k in prods])
+    nvec = (hidden[0] + sum(7 * hidden[i] + hidden[i + 1] for i in range(n))
+            + 2 * hidden[n] + latent) // cols
+    nadds = sum(hidden) // cols
+    ring = slots * slot
+    total = (ring + qbufs * rows * dmax * 2 + 2 * cols * rows * 8 + 16 * rows * 4 + rows * 8
+             + 2 * 128 * units * (rows // 2) * 4 + -(-nvec * 4 // 16) * 16 + rows * nadds * 4
+             + 3 * rows * (latent // cols) * 4 + (2 * slots + PROCESS_BARRIERS) * 8)
+    return 1024 + total + max(0, reach - slot - (total - ring))
+
+
+def process_step_us(latent: int, hidden, skip: bool, plan: ProcessPlan) -> float:
+    """The plan's cost model, us a step of one cluster: the block's weight
+    requests (REQUEST_US each plus their bytes), which its producer issues
+    ahead of the consumers, against its wgmmas plus its exchanges: each
+    operand from the other blocks over distributed shared memory, the
+    LayerNorms' statistics and, with one operand buffer, the releases. The
+    rates are the stage kernel's (kernels/latent_stage.py)."""
+    n = len(hidden) - 1
+    weights = mma = 0.0
+    for sl, k in _products(latent, hidden, skip, plan.cols):
+        kb = chunk_tiles(sl, k)
+        weights += k // 64 // kb * (REQUEST_US + kb * sl * 128 / REQUEST_BYTES_PER_S * 1e6)
+        mma += -(-sl // 64) * k // 32 * WGMMA_US
+    operands = [latent] + [d for d in hidden[:-1] for _ in range(4)] + [hidden[n]]
+    share = (plan.cols - 1) / plan.cols * 2 * plan.rows / DSMEM_BYTES_PER_S * 1e6
+    exchanges = sum(EXCHANGE_US + w * share for w in operands) + (2 * n + 1) * EXCHANGE_US
+    if plan.qbufs == 1:
+        exchanges += (3 * n + 1) * EXCHANGE_US
+    return max(weights, mma + exchanges)
+
+
+def _widths_ok(latent: int, hidden, skip: bool, cols: int) -> bool:
+    widths = [latent] + list(hidden)
+    return (all(w % 64 == 0 and w <= MAX_D and w % cols == 0 and (w // cols) % 8 == 0
+                and w // cols <= 64 * MAX_UNITS for w in widths)
+            and (not skip or hidden[-1] == latent))
+
+
+def process_plans(latent: int, hidden, skip: bool, batch: int, guided: bool):
+    """Every plan the kernel takes for a bucket call of `batch` samples: each
+    column split with each row count a cluster, the most ring slots that
+    fit, two operand buffers where two slots still fit beside them."""
+    plans = []
+    for cols in PROCESS_COLS:
+        if not _widths_ok(latent, hidden, skip, cols):
+            continue
+        for rows in PROCESS_ROWS:
+            clusters = -(-batch // (rows // 2 if guided else rows))
+            slot = max(chunk_tiles(sl, k) * sl * 128
+                       for sl, k in _products(latent, hidden, skip, cols))
+            for qbufs in (2, 1):
+                fixed = process_smem(latent, hidden, skip, cols, rows, qbufs, 0)
+                slots = min(MAX_SLOTS, (SMEM_LIMIT - fixed) // slot)
+                while slots >= 2 and process_smem(latent, hidden, skip, cols, rows, qbufs,
+                                                  slots) > SMEM_LIMIT:
+                    slots -= 1
+                if slots >= 2:
+                    plans.append(ProcessPlan(
+                        clusters, cols, rows, qbufs, slots,
+                        process_smem(latent, hidden, skip, cols, rows, qbufs, slots),
+                        -(-clusters // WAVE_CLUSTERS[cols])))
+                    break
+    return plans
+
+
+def process_plan(latent: int, hidden, skip: bool, batch: int, guided: bool) -> ProcessPlan:
+    """The reverse-process kernel's plan for a bucket call of `batch`
+    samples, or ValueError: among `process_plans`, the least waves x
+    `process_step_us`, then the most column slices. A cluster's rows cost
+    exchange bytes every step; more clusters than fit in one wave run in
+    waves, each T steps long; each cluster reads every weight every step."""
+    if not 1 <= len(hidden) - 1 <= MAX_STAGES:
+        raise ValueError(f"{len(hidden) - 1} stages: the kernel takes 1 to {MAX_STAGES}")
+    if batch < 1:
+        raise ValueError(f"batch {batch} must be positive")
+    plans = process_plans(latent, hidden, skip, batch, guided)
+    if not plans:
+        raise ValueError(f"latent {latent}, hidden {tuple(hidden)}: no column split the "
+                         f"kernel takes (widths multiples of 64 up to {MAX_D}, slices of 8 "
+                         f"to {64 * MAX_UNITS}{', a skip needs hidden[-1] == latent' if skip else ''})")
+    return min(plans, key=lambda p: (p.waves * process_step_us(latent, hidden, skip, p),
+                                     -p.cols))
+
+
+def process_rows(plan: ProcessPlan, batch: int, guided: bool):
+    """The rows of the condition adds ((2 batch, d) when guided, else
+    (batch, d)) that each cluster of the plan holds, by cluster row, -1
+    past the batch. Guided, a cluster's first rows / 2 rows are its
+    samples' conditional rows and the rest their null rows, so the CFG
+    combine of sample b stays in its cluster. Mirrors the kernel's
+    `add_row`; sample s0 + r of cluster row r owns x's row s0 + r."""
+    samples = plan.rows // 2 if guided else plan.rows
+    out = []
+    for cl in range(plan.clusters):
+        rows = []
+        for r in range(plan.rows):
+            b = cl * samples + (r - samples if guided and r >= samples else r)
+            rows.append(-1 if b >= batch else batch + b if guided and r >= samples else b)
+        out.append(rows)
+    return out
+
+
+def process_map_encodes() -> int:
+    """Calls of cuTensorMapEncodeTiled by the loaded reverse-process library
+    so far: a plan's binding encodes its maps (once a column split), a launch
+    none."""
+    fn = _build.load("reverse_process").fd_process_map_encodes
+    fn.restype = ctypes.c_longlong
+    return fn()
+
+
+def process_max_clusters(plan: ProcessPlan) -> int:
+    """Clusters of the plan's shape the card runs at once
+    (cudaOccupancyMaxActiveClusters)."""
+    fn = _build.load("reverse_process").fd_process_max_clusters
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    _build.check(fn(plan.rows, plan.cols, plan.smem, ctypes.addressof(out)),
+                 "cudaOccupancyMaxActiveClusters")
+    return out.value
+
+
+class ReverseProcess:
+    """All T reverse steps of a bucket call in one launch of the
+    reverse-process kernel (csrc/reverse_process.cu), the weights of
+    `prep` fixed. For a CPU model a call is `run_steps` on the plain twins:
+    the kernel's plain version.
+
+    A plan is bound once per (batch, guided): its geometry chosen
+    (`process_plan`) and, where its column split is new, the tensor maps of
+    every weight encoded; `bound` lists the bound plans. A call reads the
+    request's `SamplerInputs` in place, launches once (adding one to
+    `reverse_process.launches`) and returns x_0, a new (B, L) tensor."""
+
+    def __init__(self, prep: Dict):
+        self.prep = prep
+        model = prep["model"]
+        self.device = model.latent_proj.weight.device
+        self.latent, self.hidden = model.latent_dim, tuple(model.hidden_dims)
+        self.skip = bool(model.global_skip)
+        self.bound: Dict[Tuple[int, bool], ProcessPlan] = {}
+        if self.device.type != "cuda":
+            return
+        n = len(self.hidden) - 1
+        wl, bl, _, _, rw = prep["proj"].weights
+        stages = [st.weights for st in prep["stages"]]
+        _, _, _, _, g, b, wf, bf = prep["head"].weights
+        # weights in map order: Wl, each stage's Wb Wv Wo Wd, the head's Wf
+        self._weights = [wl] + [st[i] for st in stages for i in (0, 6, 8, 10)] + [wf]
+        self._coefs = torch.tensor(prep["coefs"], dtype=torch.float32, device=self.device)
+        vecs = [[st[i] for i in (1, 2, 3, 4, 5, 7, 9, 11)] for st in stages]
+        self._fixed = [bl.data_ptr(), None if rw is None else rw.data_ptr(),
+                       prep["tadd_final"].data_ptr(), g.data_ptr(), b.data_ptr(), bf.data_ptr()]
+        self._stage_ptrs = [(prep["tadds"][i].data_ptr(), [v.data_ptr() for v in vecs[i]])
+                            for i in range(n)]
+        self._maps: Dict[int, int] = {}
+        self._map_buffers = []
+        self._launch = _build.load("reverse_process").fd_process_launch
+        self._launch.argtypes = [ctypes.c_void_p] * 5
+        self._launch.restype = ctypes.c_int
+
+    def _encode(self, cols: int) -> int:
+        n = len(self.hidden) - 1
+        fn = _build.load("reverse_process").fd_process_maps
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        buf = ctypes.create_string_buffer(MAX_MAPS * MAP_BYTES + 64)
+        at = -(-ctypes.addressof(buf) // 64) * 64  # a CUtensorMap is 64-byte aligned
+        ptrs = (ctypes.c_void_p * len(self._weights))(*[w.data_ptr() for w in self._weights])
+        dims = (ctypes.c_int * (n + 1))(*self.hidden)
+        _build.check(fn(ptrs, dims, n, self.latent, cols, at), "the sampler's tensor maps")
+        self._map_buffers.append(buf)
+        self._maps[cols] = at
+        return at
+
+    def plan_for(self, batch: int, guided: bool) -> ProcessPlan:
+        """The bound plan of a bucket call, bound at its first use."""
+        key = (batch, guided)
+        plan = self.bound.get(key)
+        if plan is None:
+            plan = process_plan(self.latent, self.hidden, self.skip, batch, guided)
+            if self.device.type == "cuda" and plan.cols not in self._maps:
+                self._encode(plan.cols)
+            self.bound[key] = plan
+        return plan
+
+    def __call__(self, inputs: SamplerInputs, *, stochastic: bool = True,
+                 clip_x0: Optional[float] = None, guidance_scale: Optional[float] = None,
+                 plan: Optional[ProcessPlan] = None) -> torch.Tensor:
+        """x_0 of the request. `plan`: one of `process_plans(...)` in place
+        of the bound one (a comparison's; its maps are encoded at its first
+        call where its column split is new)."""
+        kw = dict(stochastic=stochastic, clip_x0=clip_x0, guidance_scale=guidance_scale)
+        if self.device.type != "cuda":
+            return run_steps(self.prep, inputs, **kw)
+        guided = guidance_scale is not None
+        x = inputs.x
+        batch, n = x.shape[0], len(self.hidden) - 1
+        rows = batch * (2 if guided else 1)
+        want = ([("x", x, (batch, self.latent), torch.float32),
+                 ("key", inputs.key, (2,), torch.int32)]
+                + [(f"stage_adds[{i}]", a, (rows, self.hidden[i]), torch.float32)
+                   for i, a in enumerate(inputs.stage_adds)]
+                + [("final_add", inputs.final_add, (rows, self.hidden[n]), torch.float32)])
+        if len(inputs.stage_adds) != n:
+            raise ValueError(f"{len(inputs.stage_adds)} stage adds for {n} stages")
+        for name, v, shape, dtype in want:
+            if (tuple(v.shape) != shape or v.dtype != dtype or v.device != self.device
+                    or not v.is_contiguous() or v.data_ptr() % 16):
+                raise ValueError(f"{name}: expected a contiguous, 16-byte aligned {dtype} "
+                                 f"tensor of shape {shape} on {self.device}, got {v.dtype} "
+                                 f"{tuple(v.shape)} on {v.device}")
+        if plan is None:
+            plan = self.plan_for(batch, guided)
+        maps = self._maps.get(plan.cols) or self._encode(plan.cols)
+        out = torch.empty_like(x)
+        bl, rw, tadd_f, g, b, bf = self._fixed
+        ptrs = [x.data_ptr(), out.data_ptr(), inputs.key.data_ptr(), self._coefs.data_ptr(), bl,
+                rw, tadd_f, inputs.final_add.data_ptr(), g, b, bf]
+        for (tadd, vec), adds in zip(self._stage_ptrs, inputs.stage_adds):
+            ptrs += [tadd, adds.data_ptr()] + vec
+        ints = [n, batch, self.latent, self.prep["n_steps"], int(guided), int(clip_x0 is not None),
+                int(stochastic), plan.clusters, plan.cols, plan.rows, plan.qbufs, plan.slots,
+                plan.smem, *self.hidden]
+        floats = [float(guidance_scale or 0.0), float(clip_x0 or 0.0), LN_EPS]
+        code = self._launch(maps, (ctypes.c_void_p * len(ptrs))(*ptrs),
+                            (ctypes.c_int * len(ints))(*ints),
+                            (ctypes.c_float * len(floats))(*floats),
+                            torch.cuda.current_stream(self.device).cuda_stream)
+        _build.check(code, "reverse_process")
+        reverse_process.launches += 1
+        return out
+
+
+def reverse_process(prep: Dict, inputs: SamplerInputs, **kw) -> torch.Tensor:
+    """A one-off `ReverseProcess(prep)(inputs, **kw)`."""
+    return ReverseProcess(prep)(inputs, **kw)
+
+
+reverse_process.launches = 0
+
 
 def launch_counts() -> Dict[str, int]:
-    """The launch counters of the sampler step's kernels."""
+    """The launch counters of the sampler's kernels."""
     return {name: getattr(fn, attr) for name, (fn, attr) in _COUNTERS.items()}
 
 
-def _add_launches(delta: Dict[str, int], times: int = 1) -> None:
-    for name, (fn, attr) in _COUNTERS.items():
-        setattr(fn, attr, getattr(fn, attr) + times * delta[name])
-
-
-class SamplerGraph:
-    """`run_steps` for one (batch, guidance_scale, clip_x0, stochastic)
-    captured once as a CUDA graph and replayed for every request: the T
-    steps' 7 T launches in one `replay()`, as the TPU kernel runs them in
-    one launch. The request's x_init, key and condition rows are copied
-    into the graph's own input tensors before each replay; guidance, clip,
-    T and the schedule are baked in, as the TPU kernel bakes them per
-    compile.
-
-    Built from a first request's inputs: one eager `run_steps` on a side
-    stream (it builds the kernels and sets their attributes, so that the
-    capture makes no such call), then the capture. A failed capture raises.
-
-    Launch counts: the eager run counts as launched; the capture launches
-    nothing, so what it added to the counters is taken back and kept as
-    `captured` (the launches of one replay), and each replay adds it.
-    `replays` counts the replays; `warm_s` (the eager run), `capture_s`
-    (capture and instantiation) and `pool_bytes` (the memory the capture
-    reserved for the graph's pool) describe the build."""
-
-    def __init__(self, prep: Dict, inputs: SamplerInputs, *, stochastic: bool = True,
-                 clip_x0: Optional[float] = None, guidance_scale: Optional[float] = None):
-        dev = inputs.x.device
-        kw = dict(stochastic=stochastic, clip_x0=clip_x0, guidance_scale=guidance_scale)
-        self.inputs = inputs.clone()
-        self.out = torch.empty_like(inputs.x)
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            run_steps(prep, self.inputs, out=self.out, **kw)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
-        self.warm_s = time.perf_counter() - t0
-        before = launch_counts()
-        t0 = time.perf_counter()
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            reserved = torch.cuda.memory_reserved(dev)
-            run_steps(prep, self.inputs, out=self.out, **kw)
-        self.capture_s = time.perf_counter() - t0
-        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        after = launch_counts()
-        self.captured = {name: after[name] - before[name] for name in after}
-        _add_launches(self.captured, -1)
-        self.replays = 0
-
-    def __call__(self, inputs: SamplerInputs) -> torch.Tensor:
-        """The request's final x: a new tensor, since the next replay
-        rewrites the graph's own output."""
-        for dst, src in zip(self.inputs.tensors(), inputs.tensors()):
-            dst.copy_(src)
-        self.graph.replay()
-        _add_launches(self.captured)
-        self.replays += 1
-        return self.out.clone()
-
-
-_COUNTERS = {"latent_proj": (latent_proj, "launches"), "fused_stage": (fused_stage, "launches"),
+_COUNTERS = {"reverse_process": (reverse_process, "launches"),
+             "latent_proj": (latent_proj, "launches"), "fused_stage": (fused_stage, "launches"),
              "fused_head": (fused_head, "launches"),
              "fused_head_products": (fused_head, "product_launches"),
              "reverse_step": (reverse_step, "launches")}

@@ -15,9 +15,9 @@ as the reference does, or uint8 when the service quantizes.
 
 The sampler: `sampler_kind='ancestral'` runs the 1000 ancestral steps with
 CFG and x0 clip, on the kernel path (`FusedDiffusionSampler`) when
-`use_fused` (default: on a CUDA device), where the 1000 steps are one replay
-of the bucket's captured CUDA graph and `warmup` captures every bucket's
-graph before traffic; with `use_fused=False` it runs the plain f32 model.
+`use_fused` (default: on a CUDA device), where the 1000 steps are one launch
+of the reverse-process kernel and `warmup` binds every bucket's plan of it
+before traffic; with `use_fused=False` it runs the plain f32 model.
 `sampler_kind='ddim'` runs `ddim_steps` deterministic DDIM steps of the
 plain f32 model (a `DDIMSampler` outside the `NormalizedSampler`, as in the
 reference). `sample_async` issues every chunk before it fetches any;
@@ -43,16 +43,15 @@ from the same frames as viz/animation.py.
 
 Threads: each service holds one lock (`device_lock`) while it enqueues
 device work (a request's chunks, a decode, an animation's sampling) and
-releases it before it waits for the results. The lock keeps two threads
-from interleaving a CUDA graph's input copies and its replay, and keeps
-`deterministic_cudnn`'s process-wide flags to one thread at a time. It
-does not keep a graph's capture free of other threads' device calls: a
-fetch waits on its event outside the lock. So a threaded caller warms
-every bucket first (`warmup`; `unwarmed` lists what is left), and the HTTP
-server (serving_http.serve) refuses a service with a bucket left. Every
-call enqueues on the calling thread's current stream (the default stream
-for the HTTP server's threads), so a later replay cannot overtake an
-earlier copy out of a graph's output. `service_from_run` and
+releases it before it waits for the results. The lock keeps
+`deterministic_cudnn`'s process-wide flags to one thread at a time. A
+bucket's first call on the kernel path binds its plan (and may build the
+kernel), which a threaded caller keeps out of live traffic by warming every
+bucket first (`warmup`; `unwarmed` lists what is left); the HTTP server
+(serving_http.serve) refuses a service with a bucket left. Every call
+enqueues on the calling thread's current stream (the default stream for the
+HTTP server's threads), so later work cannot overtake an earlier copy of a
+result. `service_from_run` and
 `pixel_service_from_run` build a service from the run directory the
 runner (runner.py) leaves: the latest checkpoints, the latent statistics and
 the configuration the run trained with.
@@ -199,25 +198,24 @@ class SamplingService:
                with_colors: bool = False) -> None:
         """Run the live path once per bucket (default: all), host numpy
         classes in and images out, so that every kernel is built and, on
-        the kernel path, every bucket's CUDA graph captured before live
-        traffic."""
+        the kernel path, every bucket's plan of the reverse-process kernel
+        bound (its tensor maps encoded) before live traffic."""
         for b in buckets or self.buckets:
             classes = np.zeros((b,), np.int64)
             colors = np.zeros((b,), np.int64) if with_colors else None
             self.sample(classes, seed, colors, decode=True)
 
     def unwarmed(self) -> list:
-        """The buckets whose live request would still capture a CUDA graph
-        (the kernel path on the card; a v3 model's requests carry colors):
-        [] once `warmup` has run, and always off that path."""
+        """The buckets whose live request would still bind a plan of the
+        reverse-process kernel (the kernel path on the card): [] once
+        `warmup` has run, and always off that path."""
         sampler = self.sampler
         if isinstance(sampler, NormalizedSampler):
             sampler = sampler._inner
         if self.device.type != "cuda" or not isinstance(sampler, FusedDiffusionSampler):
             return []
-        colored = self.model.num_colors is not None
-        live = {key[0] for key in sampler.graphs if key[3] and key[4] == colored}
-        return [b for b in self.buckets if b not in live]
+        guided = sampler.guidance_scale is not None
+        return [b for b in self.buckets if (b, guided) not in sampler.process.bound]
 
     @torch.no_grad()
     def sample_async(self, classes, seed: int = 0, colors=None, decode: bool = True,
@@ -371,7 +369,7 @@ class PixelSamplingService:
             self.sample_images(b, seed)
 
     def unwarmed(self) -> list:
-        """[]: the pixel family's sampler captures no CUDA graph."""
+        """[]: the pixel family's sampler binds no kernel plan."""
         return []
 
     @torch.no_grad()

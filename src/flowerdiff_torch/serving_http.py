@@ -3,10 +3,10 @@
 
 - :class:`CoalescingBatcher`: concurrent requests queue up and are merged
   into ONE service call per dispatch window, so a burst of small requests
-  rides one bucket of the service's ladder (one CUDA-graph replay a chunk
-  on the card) instead of many. The merged batch still flows through the
-  service's `request_plan`, so no request mix captures a new graph once
-  `warmup` has run.
+  rides one bucket of the service's ladder (one launch of the
+  reverse-process kernel a chunk on the card) instead of many. The merged
+  batch still flows through the service's `request_plan`, so no request mix
+  binds a new kernel plan once `warmup` has run.
 - :func:`serve` / :class:`FlowerHTTPServer`: a ThreadingHTTPServer:
 
     GET  /healthz     -> {"ok": true, "backend": ..., "buckets": [...], ...}
@@ -47,7 +47,7 @@ Determinism: a dispatch's seed comes from a server-lifetime counter, so
 results depend on request arrival order; for reproducible output call the
 service with a seed. The services enqueue under their own lock
 (serving.py), so the batcher's two threads and the handlers' animations
-interleave safely on the card, provided no graph is captured under traffic:
+interleave safely on the card, and no kernel plan is bound under traffic:
 `serve` refuses a card service with a bucket not yet warmed
 (`service.unwarmed()`).
 """
@@ -547,12 +547,12 @@ def serve(service, seed: int, host: str = "0.0.0.0", port: int = 8000,
           class_names=None) -> FlowerHTTPServer:
     """Build the batcher and the server (does NOT block; call
     serve_forever()). The service must be warmed first (`warmup`): on the
-    card a bucket's first call captures its CUDA graph, which another
-    thread's device call during the capture would break, so a service
-    with `unwarmed()` buckets raises RuntimeError here."""
+    card a bucket's first call binds its plan of the reverse-process kernel
+    (and may build the kernel), which would stall the traffic behind it, so
+    a service with `unwarmed()` buckets raises RuntimeError here."""
     missing = service.unwarmed()
     if missing:
-        raise RuntimeError(f"buckets {missing} have no CUDA graph captured yet: call "
+        raise RuntimeError(f"buckets {missing} have no kernel plan bound yet: call "
                            f"service.warmup() before serving")
     batcher = CoalescingBatcher(service, seed, max_wait_ms=max_wait_ms, max_batch=max_batch)
     return FlowerHTTPServer((host, port), batcher, verbose=verbose, class_names=class_names)

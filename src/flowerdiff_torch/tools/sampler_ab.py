@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Time the flagship sampling service with its bucket calls as CUDA-graph
-replays against the same calls as a host loop of launches, in turns, in one
-process on one CUDA card.
+"""Time the flagship sampling service with its bucket calls as one launch
+of the reverse-process kernel against the same calls as a host loop of
+launches, in turns, in one process on one CUDA card.
 
-    python3 src/flowerdiff_torch/tools/sampler_ab.py [--rounds 2]
+    python3 src/flowerdiff_torch/tools/sampler_ab.py [--rounds 2] [--sweep]
 
 The host loop (`kernels/full_sampler.fused_sample`, 7 launches a step) is
-the path the graph replaced and stays in the tree as its oracle, so both
-run in one process: round r runs them in the order (loop, graph), the next
-round (graph, loop), i.e. A B B A for two rounds.
+the kernel's oracle and stays in the tree, so both run in one process:
+round r runs them in the order (loop, process), the next round (process,
+loop), i.e. A B B A for two rounds. A tree before the reverse-process
+kernel ran its CUDA-graph replay where this one runs the kernel; to set two
+trees side by side, run each tree's own copy of this script in turns.
 
 One `SamplingService` at flagship width (denoiser latent 256, hidden (256,
 512, 1024, 512, 256), 102 classes; decoder channels (64, 128, 256, 512);
@@ -22,11 +24,13 @@ a synchronise:
   - one bucket call (`sample` of the sampler: draws, condition rows, the
     1000 steps) at each bucket, three times, with CUDA events around it.
 Then, once a path, one profiled bucket call at each bucket (torch.profiler):
-wall, device busy and idle share a step; and the graph path's 64-bucket
+wall, device busy and idle share a step; and the kernel path's 64-bucket
 chunk split into its parts, each synchronised: the draws and condition rows,
-the replay (copies in, replay, clone), the decode with quantisation, the
-copy to the host. Prints one line a measurement, the card's name and power
-limit, and the mean of each measurement over the rounds per path.
+the launch, the decode with quantisation, the copy to the host. With
+--sweep, every plan the kernel takes at each bucket (`process_plans`, each
+with one operand buffer too) timed between CUDA events, beside the plan's
+cost model. Prints one line a measurement, the card's name and power limit,
+and the mean of each measurement over the rounds per path.
 """
 from __future__ import annotations
 
@@ -44,7 +48,13 @@ _ROOT = _PORT.parents[1]
 sys.path.insert(0, str(_PORT.parent))
 
 from flowerdiff_torch.diffusion import linear_schedule  # noqa: E402
-from flowerdiff_torch.kernels.full_sampler import draw_request, fused_sample  # noqa: E402
+from flowerdiff_torch.kernels.full_sampler import (  # noqa: E402
+    draw_request,
+    fused_sample,
+    process_plans,
+    process_smem,
+    process_step_us,
+)
 from flowerdiff_torch.serving import SamplingService  # noqa: E402
 from flowerdiff_torch.utils.weights import (  # noqa: E402
     denoiser_from_params,
@@ -103,6 +113,7 @@ def profiled(fn):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--sweep", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("sampler_ab: no CUDA device")
@@ -134,7 +145,7 @@ def main() -> int:
         print(f"[sampler_ab] {path}: {what} {value:.3f}", flush=True)
 
     for rnd in range(args.rounds):
-        for path in (("loop", "graph") if rnd % 2 == 0 else ("graph", "loop")):
+        for path in (("loop", "process") if rnd % 2 == 0 else ("process", "loop")):
             use(path)
             for _ in range(3):
                 ms = wall_ms(lambda: svc.sample_classes(range(10), 5, seed=rnd))
@@ -147,7 +158,7 @@ def main() -> int:
                            wall_ms(lambda: svc.sampler.sample(b, cls, generator=gen)))
                     record(path, f"bucket {b} call event ms",
                            event_ms(lambda: svc.sampler.sample(b, cls, generator=gen)))
-    for path in ("loop", "graph"):
+    for path in ("loop", "process"):
         use(path)
         for b in BUCKETS:
             cls = torch.arange(b, device="cuda") % FLAGSHIP["num_classes"]
@@ -157,9 +168,8 @@ def main() -> int:
                   f"ms ({busy * 1e3 / steps:.2f} us a step), idle share {1 - busy / wall:.4f}",
                   flush=True)
 
-    # the graph path's 64-bucket chunk, part by part
-    use("graph")
-    (graph,) = [g for key, g in inner.graphs.items() if key[0] == 64]
+    # the kernel path's 64-bucket chunk, part by part
+    use("process")
     cls = torch.arange(64, device="cuda") % FLAGSHIP["num_classes"]
     for _ in range(3):
         parts = {}
@@ -168,9 +178,9 @@ def main() -> int:
         torch.cuda.synchronize()
         parts["draws and condition rows"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        lat = graph(inputs)
+        lat = inner.process(inputs, clip_x0=CLIP, guidance_scale=GUIDANCE)
         torch.cuda.synchronize()
-        parts["replay (copies in, replay, clone)"] = time.perf_counter() - t0
+        parts["the launch"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         imgs = svc._decode(lat * svc.sampler.std + svc.sampler.mean)
         torch.cuda.synchronize()
@@ -178,8 +188,27 @@ def main() -> int:
         t0 = time.perf_counter()
         imgs.cpu().numpy()
         parts["copy to the host"] = time.perf_counter() - t0
-        print("[sampler_ab] graph: the 64-bucket chunk split, wall ms: " + ", ".join(
+        print("[sampler_ab] process: the 64-bucket chunk split, wall ms: " + ", ".join(
             f"{k} {v * 1e3:.3f}" for k, v in parts.items()), flush=True)
+
+    if args.sweep:
+        hidden, lat_dim = FLAGSHIP["hidden_dims"], FLAGSHIP["latent_dim"]
+        for b in BUCKETS:
+            cls = torch.arange(b, device="cuda") % FLAGSHIP["num_classes"]
+            inputs = draw_request(inner._prep, b, cls, None, gen, None, guided=True)
+            plans = process_plans(lat_dim, hidden, False, b, True)
+            plans += [p._replace(qbufs=1, smem=process_smem(lat_dim, hidden, False, p.cols,
+                                                            p.rows, 1, p.slots))
+                      for p in plans if p.qbufs == 2]
+            chosen = inner.process.plan_for(b, True)
+            for p in plans:
+                run = lambda: inner.process(inputs, clip_x0=CLIP, guidance_scale=GUIDANCE, plan=p)
+                run()
+                ms = [event_ms(run) for _ in range(2)]
+                model = p.waves * process_step_us(lat_dim, hidden, False, p) * steps / 1e3
+                print(f"[sampler_ab] sweep: bucket {b} {p}{' (bound)' if p == chosen else ''}: "
+                      f"{np.mean(ms):.3f} ms {[round(v, 3) for v in ms]}, cost model "
+                      f"{model:.1f} ms", flush=True)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()

@@ -3,8 +3,8 @@
 Builds the service from a finished run (`serving.service_from_run`, or
 `pixel_service_from_run` for v4/v5: the latest checkpoints, trained first
 where the VAE is missing), runs `warmup` over every bucket before the
-server binds (on the card: every bucket's CUDA graph is captured before any
-request), and serves it through the coalescing front end
+server binds (on the card: every bucket's plan of the reverse-process
+kernel is bound before any request), and serves it through the coalescing front end
 (serving_http.py).
 
     python -m flowerdiff_torch.tools.serve --results_dir results_v1 \\

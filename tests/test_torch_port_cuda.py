@@ -887,106 +887,188 @@ def _epoch_against_twin(gen, lane, moments, net):
 
 
 # ---------------------------------------------------------------------------
-# The reverse process as one CUDA graph (kernels/full_sampler.SamplerGraph)
+# The reverse process in one launch (kernels/full_sampler.ReverseProcess,
+# csrc/reverse_process.cu) against the host loop of the step's kernels
 
-_GRAPH_NET = dict(latent_dim=256, hidden_dims=(256, 512, 1024, 512, 256), time_emb_dim=256,
-                  num_classes=102, shared_cond_proj=True)
-_GRAPH_STEPS = 20
+_PROCESS_NET = dict(latent_dim=256, hidden_dims=(256, 512, 1024, 512, 256), time_emb_dim=256,
+                    num_classes=102, shared_cond_proj=True)
+_PROCESS_STEPS = 20
+# Against the host loop (`fused_sample`'s kernels), relative to max|host
+# loop|. Never bit-equal: the host loop's projection and head sum their
+# products on other tiles (csrc/latent_proj.cu, latent_head.cu) and its
+# stages split the columns by their own plans, so a value near a bf16
+# rounding boundary lands one ulp away and carries on. Guided, the scale
+# (7.0) multiplies the two branches' difference, and over 1000 steps the
+# differences carry further; 20 steps at flagship width read 1.4e-2 to
+# 1.8e-2 guided, 1.5e-3 to 1.8e-3 unguided, 1000 guided steps at the 8
+# bucket 3.6e-2. By (steps, guided).
+PROCESS_TOL = {(20, True): 3e-2, (20, False): 5e-3, (1000, True): 1e-1, (1000, False): 3e-2}
+_PROCESS_MODELS = {}
 
 
-def _graph_sampler(global_skip, guided, steps=_GRAPH_STEPS):
+def _process_sampler(global_skip, guided, steps=_PROCESS_STEPS):
     from flowerdiff_torch.diffusion import linear_schedule
     from flowerdiff_torch.diffusion.api import FusedDiffusionSampler
 
-    kw = dict(_GRAPH_NET, global_skip=global_skip)
-    model = denoiser_from_params(init_numpy_params("denoiser", seed=3, bias_std=0.3, **kw),
-                                 device="cuda", **kw)
-    return FusedDiffusionSampler(model, linear_schedule(steps), (256,), clip_x0=3.0,
-                                 guidance_scale=7.0 if guided else None, device="cuda")
+    kw = dict(_PROCESS_NET, global_skip=global_skip)
+    if global_skip not in _PROCESS_MODELS:
+        _PROCESS_MODELS[global_skip] = denoiser_from_params(
+            init_numpy_params("denoiser", seed=3, bias_std=0.3, **kw), device="cuda", **kw)
+    return FusedDiffusionSampler(_PROCESS_MODELS[global_skip], linear_schedule(steps), (256,),
+                                 clip_x0=3.0, guidance_scale=7.0 if guided else None,
+                                 device="cuda")
 
 
-def _host_loop(sampler, batch, cls, seed, x_init=None, stochastic=True):
-    from flowerdiff_torch.kernels.full_sampler import fused_sample
+def _inputs(sampler, batch, cls, seed, x_init=None):
+    from flowerdiff_torch.kernels.full_sampler import draw_request
 
-    return fused_sample(sampler._prep, batch, cls,
-                        generator=torch.Generator(device="cuda").manual_seed(seed),
-                        x_init=x_init, stochastic=stochastic, clip_x0=sampler.clip_x0,
-                        guidance_scale=sampler.guidance_scale)
-
-
-def _replay(sampler, batch, cls, seed, x_init=None, stochastic=True):
-    return sampler.sample(batch, cls, generator=torch.Generator(device="cuda").manual_seed(seed),
-                          x_init=x_init, stochastic=stochastic)
+    return draw_request(sampler._prep, batch, cls, None,
+                        torch.Generator(device="cuda").manual_seed(seed), x_init,
+                        guided=sampler.guidance_scale is not None)
 
 
-# (stage rows, guided, v2 global skip, step noise); unguided 8, 32 and 64:
-# the v1 service's buckets, on the stage plans of those rows
-@pytest.mark.parametrize("rows,guided,global_skip,stochastic",
-                         [(16, True, False, True), (128, True, True, False),
-                          (16, False, True, True), (128, False, False, False),
-                          (8, False, False, True), (32, False, False, True),
-                          (64, False, True, True)])
-def test_graph_replay_is_bit_equal_to_the_host_loop(gen, rows, guided, global_skip,
-                                                    stochastic):
-    """20 steps through the captured graph and through `fused_sample`'s host
-    loop, the same x_init and key: the same kernels in the same order give
-    the same bits. The counters: the first call counts its eager run and its
-    replay, the capture nothing; a replay adds what its graph captured."""
+def _host_loop(sampler, inputs, stochastic=True, prep=None, **over):
+    from flowerdiff_torch.kernels.full_sampler import run_steps
+
+    kw = dict(stochastic=stochastic, clip_x0=sampler.clip_x0,
+              guidance_scale=sampler.guidance_scale)
+    kw.update(over)
+    return run_steps(prep or sampler._prep, inputs, **kw)
+
+
+def _process(sampler, inputs, stochastic=True, **kw):
+    return sampler.process(inputs, stochastic=stochastic, clip_x0=sampler.clip_x0,
+                           guidance_scale=sampler.guidance_scale, **kw)
+
+
+def _held(got, ref, guided, steps=_PROCESS_STEPS):
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    tol = PROCESS_TOL[(steps, guided)] * float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    assert err <= tol, f"err {err} > {tol}"
+    return tol
+
+
+# (stage rows, guided, v2 global skip, step noise): every row count the
+# services launch, 8 to 256, guided and not
+@pytest.mark.parametrize("stochastic", [True, False])
+@pytest.mark.parametrize("global_skip", [False, True])
+@pytest.mark.parametrize("guided", [True, False])
+@pytest.mark.parametrize("rows", [8, 16, 32, 64, 128, 256])
+def test_reverse_process_holds_the_host_loop(gen, rows, guided, global_skip, stochastic):
+    """20 steps in one launch against `fused_sample`'s host loop of the
+    step's kernels from the same x_init and key, within PROCESS_TOL; a
+    repeat bit-equal; the counters: one launch of the reverse-process kernel
+    and no stage, head, projection or reverse-step launch."""
     from flowerdiff_torch.kernels.full_sampler import launch_counts
 
-    sampler = _graph_sampler(global_skip, guided)
+    sampler = _process_sampler(global_skip, guided)
     batch = rows // 2 if guided else rows
     cls = torch.arange(batch, device="cuda") % 102
     x0 = None if stochastic else _r(gen, batch, 256)
+    inputs = _inputs(sampler, batch, cls, 11, x0)
     before = launch_counts()
-    got = _replay(sampler, batch, cls, 11, x0, stochastic)
-    (graph,) = sampler.graphs.values()
-    step = {"latent_proj": 1, "fused_stage": 4, "fused_head": 1, "fused_head_products": 0,
-            "reverse_step": 1}
-    assert graph.captured == {k: _GRAPH_STEPS * v for k, v in step.items()}
+    got = _process(sampler, inputs, stochastic)
     after = launch_counts()
-    assert {k: after[k] - before[k] for k in after} == {
-        k: 2 * _GRAPH_STEPS * v for k, v in step.items()}
-    ref = _host_loop(sampler, batch, cls, 11, x0, stochastic)
-    assert got.shape == (batch, 256) and torch.isfinite(got).all()
-    assert torch.equal(got, ref)
-    before = launch_counts()
-    again = _replay(sampler, batch, cls, 11, x0, stochastic)
-    after = launch_counts()
-    assert {k: after[k] - before[k] for k in after} == graph.captured
-    assert torch.equal(again, ref) and graph.replays == 2 and len(sampler.graphs) == 1
+    assert {k: after[k] - before[k] for k in after} == dict(
+        dict.fromkeys(after, 0), reverse_process=1)
+    _held(got, _host_loop(sampler, inputs, stochastic), guided)
+    assert torch.equal(_process(sampler, inputs, stochastic), got)
+    assert list(sampler.process.bound) == [(batch, guided)]
 
 
-def test_graph_carries_each_request(gen):
-    """Two requests through one captured graph (other classes, x_init and
-    key): each equals its own host-loop result."""
-    sampler = _graph_sampler(False, True)
+def _left_out(sampler, inputs):
+    """The host loop with one term of the process left out at a time."""
+    from flowerdiff_torch.kernels.full_sampler import bind_latent_proj
+
+    out = {"CFG": _host_loop(sampler, inputs, guidance_scale=1.0),
+           "clip": _host_loop(sampler, inputs, clip_x0=None),
+           "noise": _host_loop(sampler, inputs, stochastic=False)}
+    adds = list(inputs.stage_adds)
+    adds[2] = torch.zeros_like(adds[2])
+    out["stage 2's condition add"] = _host_loop(sampler, inputs._replace(stage_adds=tuple(adds)))
+    if sampler.model.global_skip:
+        wl, bl = sampler._prep["proj"].weights[:2]
+        out["skip"] = _host_loop(sampler, inputs,
+                                 prep=dict(sampler._prep, proj=bind_latent_proj(wl, bl)))
+    return out
+
+
+@pytest.mark.parametrize("batch,steps", [(8, _PROCESS_STEPS), (64, _PROCESS_STEPS), (8, 1000),
+                                         (64, 1000)])
+def test_reverse_process_left_out_terms_sit_far_outside_its_limit(gen, batch, steps):
+    """The guided v2 process with noise, 20 and 1000 steps at the 8 and 64
+    buckets: within its limit of the host loop, and the host loop without
+    any one of CFG, the skip, the clip, the noise or one stage's condition
+    add more than twice the limit away."""
+    sampler = _process_sampler(True, True, steps)
+    cls = torch.arange(batch, device="cuda") % 102
+    inputs = _inputs(sampler, batch, cls, 17)
+    ref = _host_loop(sampler, inputs)
+    tol = _held(_process(sampler, inputs), ref, True, steps)
+    for term, other in _left_out(sampler, inputs).items():
+        assert float((other - ref).abs().max()) > 2 * tol, term
+
+
+@pytest.mark.parametrize("guided", [True, False])
+def test_reverse_process_1000_steps_at_both_buckets(gen, guided):
+    """The flagship's 1000 stochastic steps at the 8 and 64 buckets, v1,
+    within the limit of the host loop, repeats bit-equal."""
+    sampler = _process_sampler(False, guided, 1000)
+    for batch in (8, 64):
+        cls = torch.arange(batch, device="cuda") % 102
+        inputs = _inputs(sampler, batch, cls, 5)
+        got = _process(sampler, inputs)
+        _held(got, _host_loop(sampler, inputs), guided, 1000)
+        assert torch.equal(_process(sampler, inputs), got)
+
+
+def test_reverse_process_carries_each_request(gen):
+    """Three requests through one bound plan (other classes, x_init and
+    key): each holds its own host-loop result, and they differ."""
+    sampler = _process_sampler(False, True)
     cls_a = torch.arange(8, device="cuda") % 102
     cls_b = (torch.arange(8, device="cuda") * 13 + 5) % 102
-    x_c = _r(gen, 8, 256)
-    a = _replay(sampler, 8, cls_a, 21)
-    b = _replay(sampler, 8, cls_b, 22)
-    c = _replay(sampler, 8, cls_b, 23, x_init=x_c)
-    assert len(sampler.graphs) == 1
-    assert torch.equal(a, _host_loop(sampler, 8, cls_a, 21))
-    assert torch.equal(b, _host_loop(sampler, 8, cls_b, 22))
-    assert torch.equal(c, _host_loop(sampler, 8, cls_b, 23, x_init=x_c))
-    assert not torch.equal(a, b) and not torch.equal(b, c)
+    runs = [_inputs(sampler, 8, cls_a, 21), _inputs(sampler, 8, cls_b, 22),
+            _inputs(sampler, 8, cls_b, 23, _r(gen, 8, 256))]
+    got = [_process(sampler, i) for i in runs]
+    for g, i in zip(got, runs):
+        _held(g, _host_loop(sampler, i), True)
+    assert len(sampler.process.bound) == 1
+    assert not torch.equal(got[0], got[1]) and not torch.equal(got[1], got[2])
 
 
-def test_graph_buckets_replay_independently(gen):
-    """Bucket A, then B, then A: A's second result equals its first, and the
-    tensor A's first call returned is not rewritten by later replays."""
-    sampler = _graph_sampler(False, True)
-    cls_a = torch.arange(8, device="cuda") % 102
-    cls_b = torch.arange(64, device="cuda") % 102
-    a1 = _replay(sampler, 8, cls_a, 31)
-    kept = a1.clone()
-    b = _replay(sampler, 64, cls_b, 32)
-    a2 = _replay(sampler, 8, cls_a, 31)
-    assert len(sampler.graphs) == 2
-    assert torch.equal(a1, kept) and torch.equal(a2, kept)
-    assert torch.equal(b, _host_loop(sampler, 64, cls_b, 32))
+def test_reverse_process_every_plan_forced(gen):
+    """Every plan the kernel takes at the 64 bucket, guided, each with one
+    operand buffer too (the mbarrier that counts the blocks' releases), and
+    the unguided 8 bucket's: each within the limit of the host loop; a
+    bound plan's launches encode no tensor map; a plan claimed one wave fits
+    the card's cudaOccupancyMaxActiveClusters."""
+    from flowerdiff_torch.kernels.full_sampler import (
+        process_map_encodes,
+        process_max_clusters,
+        process_plans,
+        process_smem,
+    )
+
+    for guided, batch in ((True, 64), (False, 8)):
+        sampler = _process_sampler(True, guided)
+        inputs = _inputs(sampler, batch, torch.arange(batch, device="cuda") % 102, 41)
+        ref = _host_loop(sampler, inputs)
+        plans = process_plans(256, _PROCESS_NET["hidden_dims"], True, batch, guided)
+        for p in list(plans):
+            if p.qbufs == 2:
+                smem = process_smem(256, _PROCESS_NET["hidden_dims"], True, p.cols, p.rows, 1,
+                                    p.slots)
+                plans.append(p._replace(qbufs=1, smem=smem))
+        assert any(p.qbufs == 1 for p in plans)
+        for p in plans:
+            _held(_process(sampler, inputs, plan=p), ref, guided)
+            encodes = process_map_encodes()
+            _process(sampler, inputs, plan=p)
+            assert process_map_encodes() == encodes, p
+            if p.waves == 1:
+                assert p.clusters <= process_max_clusters(p), p
 
 
 def test_reverse_step_takes_the_key_from_device_memory(gen):
@@ -1021,22 +1103,25 @@ def _service(**kw):
 @pytest.mark.parametrize("decode", [False, True])
 def test_sample_async_equals_sample_on_the_card(gen, decode):
     """A request of three chunks: `sample_async`'s fetch equals `sample` bit
-    for bit (each chunk one replay of its bucket's graph), the decoded
+    for bit (each chunk one launch of the reverse-process kernel), the decoded
     images included: the service decodes under cuDNN's deterministic
     algorithms itself."""
     import numpy as np
+
+    from flowerdiff_torch.kernels.full_sampler import reverse_process
 
     svc = _service(quantize_uint8=True)
     assert svc.use_fused
     classes = np.arange(19) * 5 % 11
     assert svc.request_plan(19) == [8, 8, 4]
+    launches = reverse_process.launches
     svc.warmup()
-    assert sorted(k[0] for k in svc.sampler.graphs) == [4, 8]
+    assert sorted(k[0] for k in svc.sampler.process.bound) == [4, 8]
     got = svc.sample_async(classes, seed=3, decode=decode)()
     ref = svc.sample(classes, seed=3, decode=decode)
     assert got.shape == ((19, 64, 64, 3) if decode else (19, 64))
     np.testing.assert_array_equal(got, ref)
-    assert sum(g.replays for g in svc.sampler.graphs.values()) == 2 + 2 * 3
+    assert reverse_process.launches - launches == 2 + 2 * 3
     assert not torch.backends.cudnn.deterministic  # the service set no global flag
 
 
@@ -1413,13 +1498,11 @@ def test_cli_run_and_its_service_launch_the_kernels(gen, tmp_path, monkeypatch):
     svc = service_from_run(str(tmp_path), version="flagship", tiny=True, synthetic_size=64,
                            buckets=(8,), quantize_uint8=True)
     assert svc.use_fused and svc.sampler._inner.guidance_scale == 7.0
-    svc.warmup()  # the bucket's first call runs eagerly, then captures its graph
+    svc.warmup()  # the bucket's first call binds its plan of the reverse-process kernel
     counts = launch_counts()
     a = svc.sample(np.arange(6) % 5, seed=3)
     moved = {k: launch_counts()[k] - counts[k] for k in counts}
-    steps = svc.sched.n_steps
-    assert moved["fused_stage"] == 2 * steps and moved["reverse_step"] == steps, moved
-    assert moved["latent_proj"] == steps and moved["fused_head"] == steps, moved
+    assert moved == dict(dict.fromkeys(moved, 0), reverse_process=1), moved
     b = svc.sample(np.arange(6) % 5, seed=3)
     assert a.dtype == np.uint8 and a.shape == (6, 64, 64, 3)
     np.testing.assert_array_equal(a, b)
@@ -1430,10 +1513,8 @@ def test_http_server_under_concurrent_clients_equals_serial_calls(gen):
     concurrent /v1/animate against a tiny service on the card: every reply
     equals rows of a dispatch, each dispatch equals the service called
     directly, one call at a time, at that dispatch's seed, and the GIF equals
-    `animate` called directly, bit for bit; no graph is captured under the
-    traffic. This holds only if the service's lock keeps the threads from
-    interleaving a graph's input copies and its replay. Before `warmup` the
-    server refuses the service."""
+    `animate` called directly, bit for bit; no kernel plan is bound under
+    the traffic. Before `warmup` the server refuses the service."""
     import http.client
     import io
     import json
@@ -1443,11 +1524,11 @@ def test_http_server_under_concurrent_clients_equals_serial_calls(gen):
 
     svc = _service()
     assert svc.unwarmed() == [4, 8]
-    with pytest.raises(RuntimeError, match="no CUDA graph captured"):
-        serve(svc, 31, host="127.0.0.1", port=0)  # a capture under traffic
+    with pytest.raises(RuntimeError, match="no kernel plan bound"):
+        serve(svc, 31, host="127.0.0.1", port=0)  # a binding under traffic
     svc.warmup()
     assert svc.unwarmed() == []
-    graphs = dict(svc.sampler.graphs)
+    bound = dict(svc.sampler.process.bound)
     dispatches = []
     orig = svc.sample_async
 
@@ -1500,7 +1581,7 @@ def test_http_server_under_concurrent_clients_equals_serial_calls(gen):
         server.server_close()
         server.batcher.stop()
     assert not errors and len(replies) == 24
-    assert dict(svc.sampler.graphs) == graphs, "a graph was captured under traffic"
+    assert dict(svc.sampler.process.bound) == bound, "a plan was bound under traffic"
     assert not torch.backends.cudnn.deterministic, "two threads restored each other's flags"
     svc.sample_async = orig
     for entry in dispatches:  # each dispatch against the direct call

@@ -419,10 +419,10 @@ def test_live_round_trip_over_the_tiny_pixel_service():
 
 
 def test_serve_refuses_a_service_with_unwarmed_buckets():
-    """A bucket whose first call would capture a CUDA graph under traffic
-    keeps the server from being built; the CPU services capture none."""
+    """A bucket whose first call would bind a kernel plan under traffic
+    keeps the server from being built; the CPU services bind none."""
     stub = _StubService()
     stub.unwarmed = lambda: [8]
-    with pytest.raises(RuntimeError, match=r"buckets \[8\] have no CUDA graph"):
+    with pytest.raises(RuntimeError, match=r"buckets \[8\] have no kernel plan"):
         serve(stub, 0, host="127.0.0.1", port=0)
     assert _tiny_service(use_fused=True).unwarmed() == []
