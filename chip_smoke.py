@@ -26,8 +26,11 @@ Phases (any failure raises and the script exits nonzero without a result):
      against the host loop of the step's kernels with every left-out term
      (CFG, the skip, the clip, the noise, a stage's condition add) more than
      twice the limit away, repeats bit-equal, 5 steps against the plain
-     twins on the card, and a 1000-step call timed at both buckets beside
-     the twins' 1000 steps and the bound;
+     twins on the card; the same, guided at the 8 and 64 buckets, at each
+     denoiser of WIDTHS (the --tiny preset's widths, ragged widths, six
+     stages, latent 254 with and without the skip, a 2048-wide stage); and
+     a 1000-step call timed at both buckets beside the twins' 1000 steps
+     and the bound, and at the tiny preset's widths and latent 254;
   3. check the reverse-step noise against the closed-form variance of the
      zero-eps recursion (B = 128, latent 256, T = 1000);
   4. hold the kernel sampler against the plain f32 model on a short
@@ -52,7 +55,10 @@ Phases (any failure raises and the script exits nonzero without a result):
      bit-equal as uint8 and as f32 images (the service decodes under
      cuDNN's deterministic algorithms); the decode of 64 latents timed on
      cuDNN's default algorithms, the deterministic ones and in bf16, in
-     turns, and the bf16 decode within its limits of the f32 one;
+     turns, and the bf16 decode within its limits of the f32 one; then
+     SamplingService over the --tiny preset's model as configs.tiny_preset
+     makes it (`phase_tiny_service`): warmup, a 70-image uint8 request, one
+     launch a bucket call, repeated bit-equal;
   7. serve the same request with `sampler_kind='ddim'` (50 DDIM steps of the
      plain f32 model): latency, the latents against the same DDIM on the
      CPU from one x_init, two identical requests bit-equal;
@@ -459,13 +465,30 @@ def max_err(a, b) -> float:
 
 
 def phase_build():
+    """Build every library; print each kernel's registers and spills under
+    its name (template arguments as <...>)."""
     t0 = time.perf_counter()
     reports = _build.build_all()
     print(f"[build] {len(reports)} libraries in {time.perf_counter() - t0:.1f} s")
     for name, text in reports.items():
+        entry = "?"
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+            found = re.search(r"entry function '_ZN?(\w+)'", line)
+            if found:
+                entry = kernel_name(found.group(1))
+            elif "registers" in line or "spill" in line:
+                print(f"[build] {name}: {entry}: {line.strip()}")
+
+
+def kernel_name(mangled: str) -> str:
+    """The last name of a mangled kernel symbol (the text after _Z or _ZN),
+    with its integer template arguments as <...>."""
+    rest, name = mangled, mangled
+    while rest[:1].isdigit():
+        digits = re.match(r"\d+", rest).group(0)
+        name, rest = rest[len(digits):len(digits) + int(digits)], rest[len(digits) + int(digits):]
+    args = re.findall(r"L[ib](\d+)E", rest) if rest.startswith("I") else []
+    return name + (f"<{', '.join(args)}>" if args else "")
 
 
 def perturbed(weights: dict, gen) -> dict:
@@ -753,12 +776,14 @@ def plain_steps(prep, inputs, *, stochastic=True, clip_x0=None, guidance_scale=N
 
 
 def left_out(prep, inputs, kw):
-    """The host loop with one term of the process left out at a time."""
+    """The host loop with one term of the process left out at a time (the
+    condition add of stage 2, or of the last stage where there are fewer)."""
     adds = list(inputs.stage_adds)
-    adds[2] = torch.zeros_like(adds[2])
+    i = min(2, len(adds) - 1)
+    adds[i] = torch.zeros_like(adds[i])
     out = {"noise": run_steps(prep, inputs, **dict(kw, stochastic=False)),
-           "stage 2's condition add": run_steps(prep, inputs._replace(stage_adds=tuple(adds)),
-                                                **kw)}
+           f"stage {i}'s condition add": run_steps(prep, inputs._replace(stage_adds=tuple(adds)),
+                                                   **kw)}
     if kw["guidance_scale"] is not None:  # the clip binds under CFG 7.0
         out["CFG"] = run_steps(prep, inputs, **dict(kw, guidance_scale=1.0))
         out["clip"] = run_steps(prep, inputs, **dict(kw, clip_x0=None))
@@ -766,6 +791,64 @@ def left_out(prep, inputs, kw):
         wl, bl = prep["proj"].weights[:2]
         out["skip"] = run_steps(dict(prep, proj=bind_latent_proj(wl, bl)), inputs, **kw)
     return out
+
+
+# Denoisers the JAX package samples with its kernel, which the port's card
+# path takes (any width up to 2048, 1 to 8 stages): (name,
+# latent, hidden, v2 skip). A stage's input width is a multiple of its 8
+# attention heads, so latent 254 takes the skip with a last width of 254.
+WIDTHS = [("tiny preset", 32, (32, 64, 32), False),
+          ("ragged", 96, (96, 200, 96), False),
+          ("six stages", 64, (64, 128, 128, 128, 128, 128, 64), False),
+          ("latent 254", 254, (256, 512, 1024, 512, 256), False),
+          ("latent 254, skip", 254, (256, 512, 1024, 512, 254), True),
+          ("2048-wide stage", 256, (256, 2048, 256), False)]
+
+
+def width_model(latent, hidden, skip, seed=3):
+    """A seeded denoiser of the given widths (biases of std 0.3, so that each
+    condition add moves the result), 102 classes, on the card."""
+    kw = dict(latent_dim=latent, hidden_dims=hidden, time_emb_dim=32 if latent == 32 else 64,
+              num_classes=FLAGSHIP["num_classes"], shared_cond_proj=True, global_skip=skip)
+    return denoiser_from_params(init_numpy_params("denoiser", seed=seed, bias_std=0.3, **kw),
+                                device="cuda", **kw)
+
+
+def process_case(prep, process, b, guided, steps, gen, tag, dev):
+    """One bucket call of the reverse-process kernel: repeats bit-equal, no
+    encode a launch, against the host loop with its left-out terms (20
+    steps) or the plain twins (5 steps). Returns (err, tol, weakest, what)."""
+    kw = dict(stochastic=True, clip_x0=CLIP, guidance_scale=GUIDANCE if guided else None)
+    cls = torch.arange(b, device=dev) % FLAGSHIP["num_classes"]
+    inputs = draw_request(prep, b, cls, None, gen, None, guided)
+    process.plan_for(b, guided)
+    e0 = process_map_encodes()
+    got = process(inputs, **kw)
+    assert torch.equal(process(inputs, **kw), got), f"{tag}: repeats differ"
+    assert process_map_encodes() == e0, "a bound plan's launch encoded a tensor map"
+    if steps == 20:
+        ref, what = run_steps(prep, inputs, **kw), "host loop"
+        dropped = left_out(prep, inputs, kw)
+    else:
+        ref, what, dropped = plain_steps(prep, inputs, **kw), "twins", {}
+    tol_rel = PROCESS_TOL[(steps, guided)]
+    if dropped:
+        err, tol, weakest = held(tag, got, ref, tol_rel, dropped)
+    else:
+        err = max_err(got, ref)
+        tol, weakest = tol_rel * float(ref.abs().max()), "-"
+        assert torch.isfinite(got).all() and err <= tol, (tag, err, tol)
+    return err, tol, weakest, what
+
+
+def print_plan(tag, plan, b, guided, e_bind):
+    active = process_max_clusters(plan)
+    print(f"[kernels] {tag} plan B={b} guided={guided} ({b * (2 if guided else 1)} rows): "
+          f"{plan.clusters} cluster(s) of {plan.cols} blocks, {plan.rows} rows a cluster, "
+          f"{plan.qbufs} operand buffer(s), ring {plan.slots} slots, smem {plan.smem} B, "
+          f"{plan.waves} wave(s) (the card runs {active} such clusters at once); "
+          f"tensor-map encodes at bind {e_bind}")
+    assert plan.waves > 1 or plan.clusters <= active, (plan, active)
 
 
 def phase_process(prep, gen):
@@ -777,9 +860,11 @@ def phase_process(prep, gen):
     against the host loop of the step's kernels (`run_steps`) within
     PROCESS_TOL with every left-out term more than twice the limit away, a
     repeat bit-equal, no encode a launch; 5 steps against the plain twins on
-    the card. Then a 1000-step guided call at both buckets timed between
+    the card. The same at each denoiser of WIDTHS, guided, at the 8 and 64
+    buckets. Then a 1000-step guided call at both buckets timed between
     CUDA events beside the twins' 1000 steps at the 64 bucket and the
-    bound. The JSON row's error is the worst over every case."""
+    bound, and at the tiny preset's widths and latent 254. The JSON row's
+    error is the worst over every case."""
     dev = torch.device("cuda")
     row = {"name": "reverse_process", "route": "cuda",
            "source": "src/flowerdiff_torch/kernels/csrc/reverse_process.cu",
@@ -795,41 +880,37 @@ def phase_process(prep, gen):
             p = prepare_fused_sampler(mdl, linear_schedule(steps))
             process = ReverseProcess(p)
             for b, guided in cases:
-                kw = dict(stochastic=True, clip_x0=CLIP, guidance_scale=GUIDANCE if guided else None)
-                cls = torch.arange(b, device=dev) % FLAGSHIP["num_classes"]
-                inputs = draw_request(p, b, cls, None, gen, None, guided)
                 e0 = process_map_encodes()
                 plan = process.plan_for(b, guided)
-                e_bind = process_map_encodes() - e0
                 if steps == 20 and not skip:
-                    active = process_max_clusters(plan)
-                    print(f"[kernels] reverse_process plan B={b} guided={guided} "
-                          f"({b * (2 if guided else 1)} rows): {plan.clusters} cluster(s) of "
-                          f"{plan.cols} blocks, {plan.rows} rows a cluster, {plan.qbufs} operand "
-                          f"buffer(s), ring {plan.slots} slots, smem {plan.smem} B, "
-                          f"{plan.waves} wave(s) (the card runs {active} such clusters at once); "
-                          f"tensor-map encodes at bind {e_bind}")
-                    assert plan.waves > 1 or plan.clusters <= active, (plan, active)
-                e0 = process_map_encodes()
-                got = process(inputs, **kw)
-                assert torch.equal(process(inputs, **kw), got), f"B={b}: repeats differ"
-                assert process_map_encodes() == e0, "a bound plan's launch encoded a tensor map"
+                    print_plan("reverse_process", plan, b, guided, process_map_encodes() - e0)
                 tag = f"reverse_process B={b} guided={guided} skip={skip} T={steps}"
-                if steps == 20:
-                    ref, what = run_steps(p, inputs, **kw), "host loop"
-                    dropped = left_out(p, inputs, kw)
-                else:
-                    ref, what, dropped = plain_steps(p, inputs, **kw), "twins", {}
-                tol_rel = PROCESS_TOL[(steps, guided)]
-                if dropped:
-                    err, tol, weakest = held(tag, got, ref, tol_rel, dropped)
-                else:
-                    err = max_err(got, ref)
-                    tol, weakest = tol_rel * float(ref.abs().max()), "-"
-                    assert torch.isfinite(got).all() and err <= tol, (tag, err, tol)
+                err, tol, weakest, what = process_case(p, process, b, guided, steps, gen, tag,
+                                                       dev)
                 print(f"[kernels] {tag} against the {what}: max_abs_err {err:.3e} (tol "
                       f"{tol:.3e}; least move of a left-out term: {weakest}); repeat bit-equal")
                 row["max_abs_err"] = max(row["max_abs_err"], err)
+    # every width and depth: the bound plans, 20 steps against the host loop
+    # with the left-out terms, 5 against the twins
+    widths_err = 0.0
+    for name, lat, hidden, skip in WIDTHS:
+        mdl = width_model(lat, hidden, skip)
+        for steps in (20, 5):
+            p = prepare_fused_sampler(mdl, linear_schedule(steps))
+            process = ReverseProcess(p)
+            for b in (8, 64):
+                e0 = process_map_encodes()
+                plan = process.plan_for(b, True)
+                tag = f"reverse_process {name} (latent {lat}, hidden {hidden}) B={b} T={steps}"
+                if steps == 20:
+                    print_plan(f"reverse_process {name}", plan, b, True,
+                               process_map_encodes() - e0)
+                err, tol, weakest, what = process_case(p, process, b, True, steps, gen, tag, dev)
+                print(f"[kernels] {tag} against the {what}: max_abs_err {err:.3e} (tol "
+                      f"{tol:.3e}; least move of a left-out term: {weakest}); repeat bit-equal")
+                widths_err = max(widths_err, err)
+    row["max_abs_err"] = max(row["max_abs_err"], widths_err)
+    row["max_abs_err_widths"] = widths_err
     # the 1000-step calls: the kernel at both buckets, the twins at 64
     for b in (8, 64):
         inputs = draw_request(prep, b, torch.arange(b, device=dev) % FLAGSHIP["num_classes"],
@@ -848,6 +929,22 @@ def phase_process(prep, gen):
         else:
             row["ms_bucket_8"] = float(np.mean(ms))
         print(line)
+    # the same 1000-step calls at the tiny preset's widths and at latent 254
+    sched = linear_schedule(1000)
+    for name, lat, hidden, skip in (WIDTHS[0], WIDTHS[3]):
+        p = prepare_fused_sampler(width_model(lat, hidden, skip), sched.to("cuda"))
+        process = ReverseProcess(p)
+        for b in (8, 64):
+            inputs = draw_request(p, b, torch.arange(b, device=dev) % FLAGSHIP["num_classes"],
+                                  None, gen, None, True)
+            kw = dict(stochastic=True, clip_x0=CLIP, guidance_scale=GUIDANCE)
+            process(inputs, **kw)
+            ms = [event_ms(lambda: process(inputs, **kw), 1) for _ in range(3)]
+            b_ms, b_by = sampler_bound_ms(p, b)
+            print(f"[kernels] reverse_process {name} (latent {lat}, hidden {hidden}) B={b} "
+                  f"guided, 1000 steps: ms {np.mean(ms):.3f} (runs {[round(v, 3) for v in ms]}) "
+                  f"bound_ms {b_ms:.4f} ({b_by}); plan {process.plan_for(b, True)}")
+            row[f"ms_{name.replace(' ', '_')}_bucket_{b}"] = float(np.mean(ms))
     return row
 
 
@@ -931,23 +1028,29 @@ def phase_profile(model):
                   f"x{e.count // steps:<3d} {e.key[:90]}")
 
 
-def device_profile(fn):
+def device_profile(fn, tries: int = 3):
     """Run fn() once under torch.profiler: (wall seconds, device-side kernel
     rows). Only DeviceType.CUDA rows count: an aten op's row repeats its
-    kernels' time."""
+    kernels' time. A profile that hands back no device row at all (CUPTI
+    did so for one profile of a dozen on the H100's machine, the launches
+    counted and run) is taken again, up to `tries` profiles; the rows of
+    the first that has any are returned."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    assert kernels, "the profiler recorded no kernel on the card"
-    return wall, kernels
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        if kernels:
+            return wall, kernels
+        print("[profile] a profile recorded no kernel on the card; again", flush=True)
+    raise AssertionError(f"the profiler recorded no kernel on the card in {tries} profiles")
 
 
 def bound_plans(sampler) -> dict:
@@ -1008,7 +1111,7 @@ def sampler_bound_ms(prep, batch: int, guided: bool = True):
     peak (operations)."""
     model = prep["model"]
     rows, lat, steps = batch * (2 if guided else 1), model.latent_dim, prep["n_steps"]
-    hidden = FLAGSHIP["hidden_dims"]
+    hidden = tuple(model.hidden_dims)
     # the kernels' matrices in bf16, their vectors in f32 (the time and
     # condition paths' parameters counted too: a slight over-count)
     weights = sum(w.numel() * (2 if w.ndim == 2 else 4) for w in model.parameters())
@@ -1196,6 +1299,47 @@ def phase_service(model, vae, stats):
           f"(limit {16 / 255:.2e})")
     assert img16.dtype == torch.float32 and mae < 1 / 255 and mx < 16 / 255
     return got, host, calls
+
+
+def phase_tiny_service():
+    """SamplingService over the --tiny preset as configs.tiny_preset makes it
+    from the flagship's (denoiser latent 32, hidden (32, 64, 32), time 32,
+    50 steps, CFG 7.0, clip 3.0; decoder latent 32, channels (8, 16, 24,
+    32)), weights from seeds, buckets 8 and 64, uint8: `warmup` binds each
+    bucket's plan, then one 70-image request (a 64 and an 8 bucket call) is
+    one launch of the reverse-process kernel a bucket call and none of the
+    step's own kernels; its images are uint8 of the decoder's shape, and the
+    same request again is bit-equal."""
+    from flowerdiff_torch import configs
+    from flowerdiff_torch.train.latent_ddpm import create_latent_diffusion_state
+
+    preset = configs.tiny_preset(configs.get_preset("flagship"))
+    cfg = preset.latent
+    _, model, sched = create_latent_diffusion_state(0, cfg, device="cuda")
+    vae_kw = dict(latent_dim=preset.vae.latent_dim, channels=tuple(preset.vae.channels),
+                  head_width=preset.vae.head_width, base_size=8)
+    vae = vae_from_params(init_numpy_params("vae", seed=1, **vae_kw), device="cuda", **vae_kw)
+    svc = SamplingService(model, vae, sched=sched, buckets=(8, 64), clip_x0=cfg.clip_denoised,
+                          guidance_scale=cfg.guidance_scale, quantize_uint8=True, device="cuda")
+    t0 = time.perf_counter()
+    svc.warmup()
+    warm = time.perf_counter() - t0
+    plans = bound_plans(svc.sampler)
+    assert set(plans) == {(8, True), (64, True)}, plans
+    calls = svc.request_plan(70)
+    reset_counts()
+    t0 = time.perf_counter()
+    images = svc.sample(np.arange(70) % FLAGSHIP["num_classes"], seed=2)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    assert counts == sampler_counts(len(calls)), counts
+    assert images.dtype == np.uint8 and images.shape == (70, 64, 64, 3), images.shape
+    again = svc.sample(np.arange(70) % FLAGSHIP["num_classes"], seed=2)
+    np.testing.assert_array_equal(images, again)
+    print(f"[tiny_service] latent {cfg.latent_dim}, hidden {tuple(cfg.hidden_dims)}, time "
+          f"{cfg.time_emb_dim}, T={sched.n_steps}, CFG {cfg.guidance_scale}: warmup {warm:.2f} s "
+          f"binds {plans}; 70 images (bucket calls {calls}) in {wall * 1e3:.1f} ms, launches "
+          f"{counts}; uint8 {images.shape}, repeat bit-equal")
 
 
 def event_ms(fn, iters: int) -> float:
@@ -3475,6 +3619,7 @@ def main() -> int:
     stats = np.load(STATS)
     stats = (stats["mean"], stats["std"])
     launches, host, calls = phase_service(model, vae, stats)
+    phase_tiny_service()
     for row in kernel_rows:
         if row["name"] == "reverse_process":  # kernel 3: the whole reverse process
             row["launches"] = launches[row["name"]]

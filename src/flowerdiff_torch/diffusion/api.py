@@ -174,8 +174,11 @@ class FusedDiffusionSampler(DiffusionSampler):
     On a CUDA device every call is one launch of the reverse-process kernel
     (`process`, a `ReverseProcess`): all T steps of the call, its plan bound
     at the first call of each (batch, guided) and listed in
-    `process.bound`; a kernel that fails to build or launch raises. On the
-    CPU the same call runs the step loop on the kernels' plain twins."""
+    `process.bound`; a kernel that fails to build or launch raises. The
+    kernel takes every denoiser of 1 to 8 stages whose widths are at most
+    2048 (`kernels.full_sampler.process_plan`, which raises past them,
+    naming the bound). On the CPU the same call runs the step loop on the
+    kernels' plain twins."""
 
     def __init__(self, model, sched: DiffusionSchedule, event_shape: Tuple[int, ...],
                  clip_x0: Optional[float] = None,

@@ -278,18 +278,23 @@ struct Phases {
     send(qb, sd, x, parity, arm);
   }
 
-  // (mean, rstd) of each of the thread's rows of v over the whole row
-  // (cols slices of sd), in mr: the block's (mean, m2) of its slice (two
-  // passes), exchanged through stats[which] and mbarrier x, combined in
-  // rank order by one thread a row.
-  __device__ __forceinline__ void row_moments(const float (&v)[MT][V], int which, int sd, int x,
-                                              float eps, uint32_t parity = 0,
+  // (mean, rstd) of each of the thread's rows of v over the row's `width`
+  // true columns (cols slices of sd; where width < cols sd, the columns
+  // past it are padding and count for nothing), in mr: the block's (mean,
+  // m2) of its slice's true columns (two passes), exchanged through
+  // stats[which] and mbarrier x, combined in rank order by one thread a
+  // row, each block weighted by its count (Chan et al.). kWhole: the
+  // caller knows width == cols sd, and the code has no other case.
+  template <bool kWhole = false>
+  __device__ __forceinline__ void row_moments(const float (&v)[MT][V], int which, int sd,
+                                              int width, int x, float eps, uint32_t parity = 0,
                                               bool arm = false) const {
     float* red = reinterpret_cast<float*>(base + lay.red);
     float2* stats = reinterpret_cast<float2*>(base + lay.stats) + which * sh.cols * sh.rows;
     float2* mr = reinterpret_cast<float2*>(base + lay.mr);
     if (arm && tid == 0)
       fdh::mbar_expect_tx(xbar(x), (uint32_t)((sh.cols - 1) * sh.rows * 8));
+    const int own = kWhole ? sd : min(sd, max(0, width - c * sd));  // this block's true columns
     float mean[N / 8][2];
 #pragma unroll
     for (int pass = 0; pass < 2; ++pass) {
@@ -303,7 +308,7 @@ struct Phases {
           for (int u = 0; u < MT; ++u)
 #pragma unroll
             for (int h = 0; h < 2; ++h)
-              if (col(u, h) < sd) {
+              if (col(u, h) < own) {
                 const float x0 = v[u][4 * j + 2 * h + e];
                 s += pass ? (x0 - mean[j][e]) * (x0 - mean[j][e]) : x0;
               }
@@ -320,7 +325,7 @@ struct Phases {
           const int n = 8 * j + 2 * t + e;
           const float s = rp[n] + rp[N + n] + rp[2 * N + n] + rp[3 * N + n];
           if (pass == 0) {
-            mean[j][e] = s / sd;
+            mean[j][e] = kWhole ? s / sd : own > 0 ? s / own : 0.f;
           } else if (lead) {
             // thread (w, gq) sends the row's pair to column slice 8 w + gq
             const int to = 8 * w + gq;
@@ -336,16 +341,26 @@ struct Phases {
     if (tid < sh.rows) {
       fdh::mbar_wait(xbar(x), parity);
       const float2* st = stats + tid;
-      float m = 0.f;
-      for (int j = 0; j < sh.cols; ++j) m += st[j * sh.rows].x;
-      m /= sh.cols;
-      float m2 = 0.f;
-      for (int j = 0; j < sh.cols; ++j) {
-        const float2 sj = st[j * sh.rows];
-        const float e = sj.x - m;
-        m2 += sj.y + sd * e * e;
+      float m = 0.f, m2 = 0.f;
+      if (kWhole || width == sd * sh.cols) {  // every slice whole: equal weights
+        for (int j = 0; j < sh.cols; ++j) m += st[j * sh.rows].x;
+        m /= sh.cols;
+        for (int j = 0; j < sh.cols; ++j) {
+          const float2 sj = st[j * sh.rows];
+          const float e = sj.x - m;
+          m2 += sj.y + sd * e * e;
+        }
+        mr[tid] = make_float2(m, rsqrtf(m2 / (sd * sh.cols) + eps));
+      } else {
+        for (int j = 0; j < sh.cols; ++j) m += min(sd, max(0, width - j * sd)) * st[j * sh.rows].x;
+        m /= width;
+        for (int j = 0; j < sh.cols; ++j) {
+          const float2 sj = st[j * sh.rows];
+          const float e = sj.x - m;
+          m2 += sj.y + min(sd, max(0, width - j * sd)) * e * e;
+        }
+        mr[tid] = make_float2(m, rsqrtf(m2 / width + eps));
       }
-      mr[tid] = make_float2(m, rsqrtf(m2 / (sd * sh.cols) + eps));
     }
     sync_all();
   }

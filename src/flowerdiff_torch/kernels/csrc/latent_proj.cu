@@ -28,6 +28,12 @@
 // warps' partial tiles meet in shared memory and are added in warp order, so
 // a repeat gives the same bits (no atomics); the epilogue adds the bias (or
 // applies the skip's gate) and writes the CFG copies.
+//
+// Widths: any L up to 2048 and any H. The weights' rows are padded with
+// zeros to ldw, L rounded up to a multiple of 8, at bind
+// (kernels/full_sampler.py::bind_latent_proj), so every 16-byte weight load
+// is aligned and whole; where L is not a multiple of 8, x is read a float at
+// a time, zero past L.
 #include "rows.cuh"
 
 namespace {
@@ -38,7 +44,7 @@ constexpr int kTileRows = 16;    // rows of x a block: one m16 tile
 constexpr int kTileCols = 16;    // output columns a block: two n8 tiles
 constexpr int kNTiles = kTileCols / 8;
 constexpr int kChunk = 32;       // k's of a chunk: two m16n8k16 steps
-constexpr int kMaxLatent = 1024; // 8 warps x 4 chunks x 32
+constexpr int kMaxLatent = 2048; // 8 warps x 8 chunks x 32
 
 // f32 (lo, hi) -> packed bf16x2, round to nearest even, lo in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -56,7 +62,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // 8t+4..8t+7 those of the second, the same on both sides.
 template <int C>
 __global__ void __launch_bounds__(kThreads)
-latent_proj_kernel(const float* __restrict__ x, int B, int L,
+latent_proj_kernel(const float* __restrict__ x, int B, int L, int ldw,
                    const __nv_bfloat16* __restrict__ wl, const float* __restrict__ bl, int H,
                    float* __restrict__ h, int copies, const __nv_bfloat16* __restrict__ wf,
                    const float* __restrict__ bf, const float* __restrict__ rw,
@@ -80,7 +86,8 @@ latent_proj_kernel(const float* __restrict__ x, int B, int L,
     for (int i = 0; i < kNTiles; ++i) {
       const int n = n0 + 8 * i + g;
       wq[c][i] = make_uint4(0u, 0u, 0u, 0u);
-      if (k < L && n < N) wq[c][i] = __ldg(reinterpret_cast<const uint4*>(W + (size_t)n * L + k));
+      if (k < ldw && n < N)
+        wq[c][i] = __ldg(reinterpret_cast<const uint4*>(W + (size_t)n * ldw + k));
     }
   }
 #pragma unroll
@@ -91,8 +98,16 @@ latent_proj_kernel(const float* __restrict__ x, int B, int L,
       const int row = r0 + g + 8 * half;
       const bool in = k < L && row < B;
       const float* p = x + (size_t)row * L + k;
-      xq[c][2 * half] = in ? fd::ldg4(p) : make_float4(0.f, 0.f, 0.f, 0.f);
-      xq[c][2 * half + 1] = in ? fd::ldg4(p + 4) : make_float4(0.f, 0.f, 0.f, 0.f);
+      if (L % 8 == 0) {
+        xq[c][2 * half] = in ? fd::ldg4(p) : make_float4(0.f, 0.f, 0.f, 0.f);
+        xq[c][2 * half + 1] = in ? fd::ldg4(p + 4) : make_float4(0.f, 0.f, 0.f, 0.f);
+      } else {
+        float v[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = in && k + e < L ? __ldg(p + e) : 0.f;
+        xq[c][2 * half] = make_float4(v[0], v[1], v[2], v[3]);
+        xq[c][2 * half + 1] = make_float4(v[4], v[5], v[6], v[7]);
+      }
     }
   }
 
@@ -149,25 +164,28 @@ dim3 proj_grid(int B, int L, int H, bool with_skip) {
 
 }  // namespace
 
-// x (B, L) f32; wl (H, L) bf16, bl (H) f32 -> h (copies * B, H) f32, the
-// projection repeated `copies` times along the rows. wf (L, L) bf16, bf (L),
-// rw (1) f32 and skip (B, L) f32, all null or all given: the v2 skip.
-// L: a multiple of 8, at most 1024.
+// x (B, L) f32; wl (H, ldw) bf16, bl (H) f32 -> h (copies * B, H) f32, the
+// projection repeated `copies` times along the rows. wf (L, ldw) bf16, bf
+// (L), rw (1) f32 and skip (B, L) f32, all null or all given: the v2 skip.
+// L: 1 to 2048; ldw: L rounded up to a multiple of 8 (the weights' columns
+// from L on zero).
 extern "C" int fd_latent_proj_launch(const void* x, const void* wl, const void* bl,
                                      const void* wf, const void* bf, const void* rw,
-                                     void* h, void* skip, int B, int L, int H, int copies,
-                                     void* stream) {
-  if (B < 1 || L < 8 || L % 8 || L > kMaxLatent || H < 1 || copies < 1 || copies > 2 ||
-      ((wf == nullptr) != (skip == nullptr)))
+                                     void* h, void* skip, int B, int L, int ldw, int H,
+                                     int copies, void* stream) {
+  if (B < 1 || L < 1 || L > kMaxLatent || ldw != (L + 7) / 8 * 8 || H < 1 || copies < 1 ||
+      copies > 2 || ((wf == nullptr) != (skip == nullptr)))
     return (int)cudaErrorInvalidValue;
   const dim3 grid = proj_grid(B, L, H, skip != nullptr);
   const int h_tiles = (H + kTileCols - 1) / kTileCols;
   const int chunks = (L + kWarps * kChunk - 1) / (kWarps * kChunk);  // a warp's
   decltype(&latent_proj_kernel<1>) kernel =
-      chunks <= 1 ? &latent_proj_kernel<1>
-                  : chunks <= 2 ? &latent_proj_kernel<2> : &latent_proj_kernel<4>;
+      chunks <= 1   ? &latent_proj_kernel<1>
+      : chunks <= 2 ? &latent_proj_kernel<2>
+      : chunks <= 4 ? &latent_proj_kernel<4>
+                    : &latent_proj_kernel<8>;
   kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, B, L, (const __nv_bfloat16*)wl, (const float*)bl, H, (float*)h, copies,
+      (const float*)x, B, L, ldw, (const __nv_bfloat16*)wl, (const float*)bl, H, (float*)h, copies,
       (const __nv_bfloat16*)wf, (const float*)bf, (const float*)rw, (float*)skip, h_tiles);
   return (int)cudaGetLastError();
 }

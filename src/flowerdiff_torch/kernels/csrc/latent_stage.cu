@@ -57,8 +57,11 @@
 //
 // Head design (the form with the t_base / c_base products, which are added
 // to whole rows before the LayerNorm): one block owns 16 whole rows and all
-// columns (the head's products are at most 512 wide). The sampler's form,
-// with its adds from tables, runs on csrc/latent_head.cu's column tiles.
+// columns, each product computed in column passes of at most 512. Its
+// weights and vectors are padded with zeros at bind (dl, de to multiples of
+// 32, the latent to one of 8), its activations read at their own widths.
+// The sampler's form, with its adds from tables, runs on
+// csrc/latent_head.cu's column tiles.
 #include "cluster_stage.cuh"
 
 using fd::kPad;
@@ -112,7 +115,8 @@ struct StageLayout {
 struct StageArgs {
   const float *h, *row_add, *rows_add, *bb, *g1, *b1, *g2, *b2, *bv, *bo, *bd;
   float* out;
-  int B, d, dout;
+  int B, d, dout;      // the padded widths the weights and vectors have
+  int width, width_out;  // the stage's widths: h, the adds and out have these
   fdc::Shape sh;  // rows a block, blocks a cluster, ring slots, operand buffers
   float eps;
 };
@@ -144,7 +148,19 @@ stage_kernel(const __grid_constant__ CUtensorMap map_b, const __grid_constant__ 
   float* vec = reinterpret_cast<float*>(base + L.vec);
   float* stage = reinterpret_cast<float*>(base + L.part);
   float xs[MT][N / 2], acc[MT][N / 2];
-  if (!producer) {
+  if (!producer && a.width != a.d) {  // padded: scalar reads at the true stride, zeros past it
+    for (int i = threadIdx.x; i < a.sh.rows * sd; i += 256) {
+      const int r = i / sd, row = row0 + r, cc = k.c * sd + (i - r * sd);
+      float v = 0.f;
+      if (row < a.B && cc < a.width) {
+        const size_t at = (size_t)row * a.width + cc;
+        v = __ldg(a.h + at);
+        if (a.row_add) v += __ldg(a.row_add + cc);
+        if (a.rows_add) v += __ldg(a.rows_add + at);
+      }
+      stage[i] = v;
+    }
+  } else if (!producer) {
     const int q4 = sd / 4;
     for (int i = threadIdx.x; i < a.sh.rows * q4; i += 256) {
       const int r = i / q4, row = row0 + r, cc = k.c * sd + 4 * (i - r * q4);
@@ -157,6 +173,8 @@ stage_kernel(const __grid_constant__ CUtensorMap map_b, const __grid_constant__ 
       }
       fd::st4(stage + 4 * i, v);
     }
+  }
+  if (!producer) {
     // (7 sd + so <= 2048: at most 8 a thread, all loaded before any is stored)
     float t8[8];
 #pragma unroll
@@ -268,7 +286,7 @@ stage_kernel(const __grid_constant__ CUtensorMap map_b, const __grid_constant__ 
     FD_STAMP(p == 0 ? 3 : 5 + 2 * p);
     if (p == 0) {
       for (int ln = 0; ln < 2; ++ln) {
-        k.row_moments(acc, ln, sd, 1 + ln, a.eps);
+        k.row_moments(acc, ln, sd, a.width, 1 + ln, a.eps);
         FD_STAMP(ln == 0 ? 4 : 5);
         for_each([&](int u, int i, int m, int n) {
           const float2 st = mr[n];
@@ -300,13 +318,20 @@ stage_kernel(const __grid_constant__ CUtensorMap map_b, const __grid_constant__ 
       for (int j = 0; j < N / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int m = k.col(u, h), row = row0 + k.row(j, e);
-          if (k.lead && m < so && row < a.B)
-            a.out[(size_t)row * a.dout + k.c * so + m] = acc[u][4 * j + 2 * h + e];
+          const int m = k.col(u, h), row = row0 + k.row(j, e), col = k.c * so + m;
+          if (k.lead && m < so && col < a.width_out && row < a.B)
+            a.out[(size_t)row * a.width_out + col] = acc[u][4 * j + 2 * h + e];
         }
   FD_STAMP(15);
   fdh::cluster_wait();  // no block leaves while another may still write to it
 }
+
+// The head's widths: the activations' own (dl, de, latent) and the padded
+// ones of its weights and vectors (dlp, dep: multiples of 32; latp: of 8),
+// and the columns of a product pass (chunk: a multiple of 8, at most 512).
+struct HeadDims {
+  int dl, de, latent, dlp, dep, latp, chunk;
+};
 
 __global__ void __launch_bounds__(kThreads)
 head_kernel(const float* __restrict__ h, const float* __restrict__ row_add,
@@ -317,35 +342,45 @@ head_kernel(const float* __restrict__ h, const float* __restrict__ row_add,
             const float* __restrict__ bc,
             const float* __restrict__ g, const float* __restrict__ b,
             const __nv_bfloat16* __restrict__ wf, const float* __restrict__ bf,
-            float* __restrict__ out, int B, int dl, int de, int latent, float eps) {
+            float* __restrict__ out, int B, HeadDims n, float eps) {
   extern __shared__ __align__(16) float smem[];
-  int dm = dl > de ? dl : de;
-  dm = dm > latent ? dm : latent;
-  float* X = smem;                  // kRows x dl: h
-  float* U = X + kRows * dl;        // kRows x dm: inputs and product results
-  float* red = U + kRows * dm;
+  float* X = smem;                  // kRows x dlp: h, zeros past dl
+  float* U = X + kRows * n.dlp;     // kRows x chunk: a product pass's results
+  float* red = U + kRows * n.chunk;
   __nv_bfloat16* Q = reinterpret_cast<__nv_bfloat16*>(red + fd::kRedFloats);
   const int row0 = blockIdx.x * kRows;
   const int tid = threadIdx.x;
 
-  fd::load_rows(X, h, row_add, rows_add, row0, B, dl);
+  if (n.dl == n.dlp) {
+    fd::load_rows(X, h, row_add, rows_add, row0, B, n.dl);
+  } else {
+    fd::load_rows_ragged(X, h, row_add, rows_add, row0, B, n.dl, n.dlp);
+  }
   const float* bases[2] = {t_base, c_base};
   const __nv_bfloat16* ws[2] = {wt, wc};
   const float* bs[2] = {bt, bc};
   for (int j = 0; j < 2; ++j) {
     if (!bases[j]) continue;
-    fd::load_rows(U, bases[j], nullptr, nullptr, row0, B, de);
-    fd::to_operand(U, Q, de);
-    fd::gemm_tc(Q, de, ws[j], de, 0, dl, U, red);
-    for (int i = tid; i < kRows * dl; i += kThreads) X[i] += U[i] + bs[j][i % dl];
-    __syncthreads();
+    fd::load_operand(Q, bases[j], row0, B, n.de, n.dep);
+    for (int c0 = 0; c0 < n.dlp; c0 += n.chunk) {
+      const int cols = n.dlp - c0 < n.chunk ? n.dlp - c0 : n.chunk;
+      fd::gemm_tc(Q, n.dep, ws[j], n.dep, c0, cols, U, red);
+      for (int i = tid; i < kRows * cols; i += kThreads) {
+        const int r = i / cols, m = c0 + i - r * cols;
+        X[r * n.dlp + m] += U[i] + bs[j][m];
+      }
+      __syncthreads();
+    }
   }
-  fd::rows_layernorm(X, U, dl, g, b, eps, false);
-  fd::to_operand(U, Q, dl);
-  fd::gemm_tc(Q, dl, wf, dl, 0, latent, U, red);
-  for (int i = tid; i < kRows * latent; i += kThreads) {
-    const int r = i / latent, n = i - r * latent, row = row0 + r;
-    if (row < B) out[(size_t)row * latent + n] = U[i] + bf[n];
+  fd::rows_layernorm_operand(X, n.dl, n.dlp, g, b, eps, Q);
+  for (int c0 = 0; c0 < n.latp; c0 += n.chunk) {
+    const int cols = n.latp - c0 < n.chunk ? n.latp - c0 : n.chunk;
+    fd::gemm_tc(Q, n.dlp, wf, n.dlp, c0, cols, U, red);
+    for (int i = tid; i < kRows * cols; i += kThreads) {
+      const int r = i / cols, m = c0 + i - r * cols, row = row0 + r;
+      if (row < B && m < n.latent) out[(size_t)row * n.latent + m] = U[i] + bf[m];
+    }
+    __syncthreads();
   }
 }
 
@@ -389,10 +424,13 @@ int stage_units(int rows) { return rows == 128 ? 1 : rows == 64 ? 2 : 4; }
 
 // The plan's fields, checked against what the kernel assumes
 // (kernels/latent_stage.py::stage_plan makes them).
-bool plan_ok(int B, int d, int dout, int tiles, int cols, int rows, int qbufs,
-             int slots, int smem) {
-  if (d < 64 || d > 1024 || d % 64 || dout < 8 || cols < 1 || cols > kMaxCluster ||
+bool plan_ok(int B, int d, int dout, int width, int width_out, int tiles, int cols, int rows,
+             int qbufs, int slots, int smem) {
+  if (d < 64 || d > 2048 || d % 64 || dout < 8 || cols < 1 || cols > kMaxCluster ||
       d % cols || dout % cols)
+    return false;
+  if (width < 1 || width > d || d - width >= 64 || width_out < 1 || width_out > dout ||
+      dout - width_out >= 64)
     return false;
   const int sd = d / cols, so = dout / cols;
   if (sd % 8 || so % 8 || sd > 256 || so > 256) return false;
@@ -428,15 +466,18 @@ extern "C" int fd_stage_maps(const void* wb, const void* wv, const void* wo, con
 extern "C" long long fd_stage_map_encodes() { return fdh::map_encodes(); }
 
 // One stage launch on the plan's geometry, from the maps fd_stage_maps
-// encoded. A plan the kernel cannot run returns cudaErrorInvalidValue, and a
-// launch the card refuses returns its error. Nothing retries.
+// encoded. d, dout: the padded widths of the weights and vectors (multiples
+// of 64 past width, width_out by less than 64: their columns are zeros);
+// h, row_add, rows_add and out have the stage's own widths. A plan the
+// kernel cannot run returns cudaErrorInvalidValue, and a launch the card
+// refuses returns its error. Nothing retries.
 extern "C" int fd_stage_launch(const void* maps, const void* h, const void* row_add,
                                const void* rows_add, const void* bb, const void* g1,
                                const void* b1, const void* g2, const void* b2, const void* bv,
                                const void* bo, const void* bd, void* out, int B, int d,
-                               int dout, int tiles, int cols, int rows, int qbufs,
-                               int slots, int smem, float eps, void* stream) {
-  if (!plan_ok(B, d, dout, tiles, cols, rows, qbufs, slots, smem) || !maps)
+                               int dout, int width, int width_out, int tiles, int cols, int rows,
+                               int qbufs, int slots, int smem, float eps, void* stream) {
+  if (!plan_ok(B, d, dout, width, width_out, tiles, cols, rows, qbufs, slots, smem) || !maps)
     return (int)cudaErrorInvalidValue;
   const CUtensorMap* m = static_cast<const CUtensorMap*>(maps);
   StageArgs a;
@@ -455,6 +496,8 @@ extern "C" int fd_stage_launch(const void* maps, const void* h, const void* row_
   a.B = B;
   a.d = d;
   a.dout = dout;
+  a.width = width;
+  a.width_out = width_out;
   a.sh.rows = rows;
   a.sh.cols = cols;
   a.sh.slots = slots;
@@ -485,16 +528,26 @@ extern "C" int fd_stage_launch(const void* maps, const void* h, const void* row_
   return (int)cudaGetLastError();
 }
 
-// dl, de: multiples of 32; latent: a multiple of 8; all <= 512.
+// h (B, dl), rows_add (B, dl), row_add (dl), t_base and c_base (B, de) f32,
+// any but h null; the weights and vectors padded with zeros to dlp, dep
+// (dl, de rounded up to multiples of 32) and latp (latent rounded up to a
+// multiple of 8): wt, wc (dlp, dep), bt, bc, g, b (dlp), wf (latp, dlp), bf
+// (latp). dl, de, latent: 1 to 2048.
 extern "C" int fd_head_launch(const void* h, const void* row_add, const void* rows_add,
                               const void* t_base, const void* wt, const void* bt,
                               const void* c_base, const void* wc, const void* bc,
                               const void* g, const void* b, const void* wf,
                               const void* bf, void* out, int B, int dl, int de,
                               int latent, float eps, void* stream) {
-  int dm = dl > de ? dl : de;
-  dm = dm > latent ? dm : latent;
-  const size_t smem = smem_bytes(dl + dm, dm);
+  HeadDims n = {dl, de, latent, (dl + 31) / 32 * 32, (de + 31) / 32 * 32, (latent + 7) / 8 * 8,
+                512};
+  if (B < 1 || dl < 1 || de < 1 || latent < 1 || dl > 2048 || de > 2048 || latent > 2048)
+    return (int)cudaErrorInvalidValue;
+  const int widest = n.dlp > n.latp ? n.dlp : n.latp;
+  if (widest < n.chunk) n.chunk = widest;
+  const int q = n.dlp > n.dep ? n.dlp : n.dep;
+  if (smem_bytes(n.dlp + n.chunk, q) > 232448) n.chunk = 256;
+  const size_t smem = smem_bytes(n.dlp + n.chunk, q);
   cudaError_t err = reserve_smem(head_kernel, smem, &g_head_smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((B + kRows - 1) / kRows);
@@ -503,6 +556,6 @@ extern "C" int fd_head_launch(const void* h, const void* row_add, const void* ro
       (const float*)t_base, (const __nv_bfloat16*)wt, (const float*)bt,
       (const float*)c_base, (const __nv_bfloat16*)wc, (const float*)bc,
       (const float*)g, (const float*)b, (const __nv_bfloat16*)wf, (const float*)bf,
-      (float*)out, B, dl, de, latent, eps);
+      (float*)out, B, n, eps);
   return (int)cudaGetLastError();
 }

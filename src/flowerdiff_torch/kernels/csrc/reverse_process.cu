@@ -41,8 +41,26 @@
 //
 // The noise: Philox4x32-10 under the request's key (device memory), counter
 // (element index / 4 in the (B, L) layout, t, 0, 0), as reverse_step.cu
-// draws it; a block's slice of x is a multiple of 8 columns wide, so each
-// group of 4 lies in one block.
+// draws it. Where the latent is unpadded, each group of 4 lies in one
+// block's slice (a multiple of 8 columns) and one call serves it; else a
+// group may span two rows, which may lie in two clusters, so each element
+// draws its own group and keeps its lane (Philox is stateless).
+//
+// Widths. The kernel tiles with padded widths (`dims`, `L`): each a
+// multiple of 64, or of 128 at 16 blocks a cluster, so every block's slice
+// is a whole number of 8-column units. The weights, biases, LayerNorm
+// affines and time tables are padded with zeros at bind
+// (kernels/full_sampler.py::pad_process), so the padded columns of h stay
+// exactly 0 through every product, LayerNorm (its affine is 0 there) and
+// swish(0) = 0. The model's own widths (`wid`, `lat`) bound what is read
+// from and written to the request's tensors (x, the condition rows, x_0),
+// which the kernel reads at their own strides, and the LayerNorms count
+// only the true columns (cluster_stage.cuh::row_moments). A denoiser that
+// needs no padding (the flagship) runs the instances without that case
+// (`kExact`), whose code is the kernel's before widths were padded: the
+// padded case, present but not taken, slowed the flagship's step by ~3%.
+// A denoiser wider than 1024 may take slices of 4 m64 tiles at 8 and 16
+// rows (kernels/full_sampler.py::process_units).
 //
 // Bound on the card: operations, 1.652 ms for 1000 steps at 128 rows with
 // every weight read once (chip_smoke.py::sampler_bound_ms). Each cluster
@@ -67,10 +85,12 @@ using fdc::kMaxSlots;
 using fdc::kStageThreads;
 using fdc::swish;
 
-constexpr int kMaxStages = 4;
+constexpr int kMaxStages = 8;
 constexpr int kMaxMaps = 2 + 4 * kMaxStages;  // Wl, four a stage, Wf
-constexpr int kMaxDim = 1024;
-constexpr int kMaxUnits = 2;                   // m64 tiles of a block's widest slice
+constexpr int kMaxDim = 2048;
+// m64 tiles of a block's widest slice at `rows` rows a cluster: the
+// instances hold at most 64 accumulators a thread (MT x rows / 2 x 2)
+__host__ __device__ inline int max_units(int rows) { return rows <= 16 ? 4 : 2; }
 constexpr int kBars = 5;
 enum { kOp0 = 0, kOp1 = 1, kSt0 = 2, kSt1 = 3, kFree = 4 };
 
@@ -162,7 +182,9 @@ struct ProcessArgs {
   const float* tadd[kMaxStages];
   const float* adds[kMaxStages];
   const float* vec[kMaxStages][8];  // bb g1 b1 g2 b2 bv bo bd
-  int dims[kMaxStages + 1];         // the hidden widths
+  int dims[kMaxStages + 1];         // the hidden widths, padded
+  int wid[kMaxStages + 1];          // the hidden widths
+  int lat;                          // the latent width (L: padded)
   int n, B, L, T, guided, clip, stochastic;
   float scale, clip_val, eps;
   int cols, rows, qbufs, slots;
@@ -171,7 +193,10 @@ struct ProcessArgs {
   fdc::Offsets off;
 };
 
-template <int N, int MT>
+// kExact: every width is its own padded width (the flagship's), and the
+// code has no padded case: the loads, LayerNorms and reverse step of a
+// denoiser that needs no padding, as before widths were padded.
+template <int N, int MT, bool kExact>
 __global__ void __launch_bounds__(kStageThreads, 1)
 process_kernel(const __grid_constant__ Maps maps, const __grid_constant__ ProcessArgs a) {
   FD_STAMP_BEGIN;
@@ -205,21 +230,38 @@ process_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Proces
   };
 
   if (!producer) {
-    for (int i = tid; i < S * sl; i += 256) {
-      const int r = i / sl, b = s0 + r;
-      xs_s[i] = b < a.B ? __ldg(a.x + (size_t)b * a.L + c * sl + (i - r * sl)) : 0.f;
-    }
-    int off = 0;
-    for (int st = 0; st <= n; ++st) {
-      const int d = a.dims[st], sd = d / cols, q4 = sd / 4;
-      const float* src = st < n ? a.adds[st] : a.adds_f;
-      for (int i = tid; i < N * q4; i += 256) {
-        const int r = i / q4, m = 4 * (i - r * q4), gr = add_row(r);
-        const float4 v = gr >= 0 ? fd::ldg4(src + (size_t)gr * d + c * sd + m)
-                                 : make_float4(0.f, 0.f, 0.f, 0.f);
-        fd::st4(adds + off + r * sd + m, v);
+    if constexpr (kExact) {
+      for (int i = tid; i < S * sl; i += 256) {
+        const int r = i / sl, b = s0 + r;
+        xs_s[i] = b < a.B ? __ldg(a.x + (size_t)b * a.L + c * sl + (i - r * sl)) : 0.f;
       }
-      off += N * sd;
+      int off = 0;
+      for (int st = 0; st <= n; ++st) {
+        const int d = a.dims[st], sd = d / cols, q4 = sd / 4;
+        const float* src = st < n ? a.adds[st] : a.adds_f;
+        for (int i = tid; i < N * q4; i += 256) {
+          const int r = i / q4, m = 4 * (i - r * q4), gr = add_row(r);
+          const float4 v = gr >= 0 ? fd::ldg4(src + (size_t)gr * d + c * sd + m)
+                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+          fd::st4(adds + off + r * sd + m, v);
+        }
+        off += N * sd;
+      }
+    } else {  // padded: the request's tensors at their own widths, zeros past them
+      for (int i = tid; i < S * sl; i += 256) {
+        const int r = i / sl, b = s0 + r, col = c * sl + (i - r * sl);
+        xs_s[i] = b < a.B && col < a.lat ? __ldg(a.x + (size_t)b * a.lat + col) : 0.f;
+      }
+      int off = 0;
+      for (int st = 0; st <= n; ++st) {
+        const int w = a.wid[st], sd = a.dims[st] / cols;
+        const float* src = st < n ? a.adds[st] : a.adds_f;
+        for (int i = tid; i < N * sd; i += 256) {
+          const int r = i / sd, col = c * sd + (i - r * sd), gr = add_row(r);
+          adds[off + i] = gr >= 0 && col < w ? __ldg(src + (size_t)gr * w + col) : 0.f;
+        }
+        off += N * sd;
+      }
     }
     int vo = 0;
     load(vec, a.bl + c * sh0, sh0);
@@ -315,8 +357,9 @@ process_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Proces
     ++ops;
     read = false;
   };
-  auto moments = [&](const float(&v)[MT][N / 2], int which, int sd) {
-    k.row_moments(v, which, sd, kSt0 + which, a.eps, parity(kSt0 + which), true);
+  auto moments = [&](const float(&v)[MT][N / 2], int which, int sd, int width) {
+    k.template row_moments<kExact>(v, which, sd, width, kSt0 + which, a.eps,
+                                   parity(kSt0 + which), true);
     read = false;
   };
   auto product = [&](int p, const uint8_t* qb, const float* bias, float(&out)[MT][N / 2]) {
@@ -377,7 +420,7 @@ process_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Proces
         FD_STEP_STAMP(5 + 10 * st + (p == 0 ? 1 : 3 + 2 * p));
         if (p == 0) {
           for (int ln = 0; ln < 2; ++ln) {
-            moments(acc, ln, sd);
+            moments(acc, ln, sd, a.wid[st]);
             FD_STEP_STAMP(5 + 10 * st + 2 + ln);
             each(sd, [&](int u, int i, int m, int r) {
               const float2 ms = mr[r];
@@ -414,7 +457,7 @@ process_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Proces
       each(sdl, [&](int u, int i, int m, int r) {
         xs[u][i] = (xs[u][i] + __ldg(tadd + m)) + add[r * sdl + m];
       });
-      moments(xs, 0, sdl);
+      moments(xs, 0, sdl, a.wid[n]);
       FD_STEP_STAMP(5 + 10 * n);
       each(sdl, [&](int u, int i, int m, int r) {
         const float2 ms = mr[r];
@@ -434,22 +477,36 @@ process_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Proces
       const float at = __ldg(a.coefs + 3 * t), abt = __ldg(a.coefs + 3 * t + 1),
                   bt = __ldg(a.coefs + 3 * t + 2);
       const bool noisy = a.stochastic && t > 0;
-      const int groups = sl / 4;
-      for (int i = tid; i < S * groups; i += 256) {
-        const int r = i / groups, m0 = 4 * (i - r * groups), b = s0 + r;
-        if (b >= a.B) continue;
-        float z[4] = {0.f, 0.f, 0.f, 0.f};
-        if (noisy)
-          fd::step_noise((uint32_t)(((size_t)b * a.L + c * sl + m0) / 4), t, a.key, z);
+      if constexpr (kExact) {  // whole Philox groups of 4 in each slice
+        const int groups = sl / 4;
+        for (int i = tid; i < S * groups; i += 256) {
+          const int r = i / groups, m0 = 4 * (i - r * groups), b = s0 + r;
+          if (b >= a.B) continue;
+          float z[4] = {0.f, 0.f, 0.f, 0.f};
+          if (noisy)
+            fd::step_noise((uint32_t)(((size_t)b * a.L + c * sl + m0) / 4), t, a.key, z);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int m = m0 + j;
+          for (int j = 0; j < 4; ++j) {
+            const int m = m0 + j;
+            const float v = fd::step_mean(
+                xs_s[r * sl + m], eps_s[r * sl + m], a.guided ? eps_s[(r + S) * sl + m] : 0.f,
+                with_skip ? skip_s[r * sl + m] : 0.f, a.guided != 0, a.scale, a.clip != 0,
+                a.clip_val, at, abt, bt, noisy, z[j]);
+            xs_s[r * sl + m] = v;
+            if (t == 0) a.out[(size_t)b * a.L + c * sl + m] = v;
+          }
+        }
+      } else {  // padded: the true columns only (padding keeps x = 0), a draw each
+        for (int i = tid; i < S * sl; i += 256) {
+          const int r = i / sl, m = i - r * sl, b = s0 + r, col = c * sl + m;
+          if (b >= a.B || col >= a.lat) continue;
+          const size_t at0 = (size_t)b * a.lat + col;
           const float v = fd::step_mean(
               xs_s[r * sl + m], eps_s[r * sl + m], a.guided ? eps_s[(r + S) * sl + m] : 0.f,
               with_skip ? skip_s[r * sl + m] : 0.f, a.guided != 0, a.scale, a.clip != 0,
-              a.clip_val, at, abt, bt, noisy, z[j]);
+              a.clip_val, at, abt, bt, noisy, noisy ? fd::element_noise(at0, t, a.key) : 0.f);
           xs_s[r * sl + m] = v;
-          if (t == 0) a.out[(size_t)b * a.L + c * sl + m] = v;
+          if (t == 0) a.out[at0] = v;
         }
       }
     }
@@ -477,43 +534,59 @@ cudaError_t prepare(Kernel kernel, size_t smem, size_t* configured, bool* nonpor
   return err;
 }
 
-// The kernel's instance for `rows` rows a cluster, its attributes set for
-// `smem` bytes (once an instance).
-cudaError_t instance(int rows, size_t smem, const void** kernel) {
-  static size_t configured[3] = {0, 0, 0};
-  static bool nonportable[3] = {false, false, false};
-  switch (rows) {
-    case 8:
-      *kernel = (const void*)process_kernel<8, kMaxUnits>;
-      return prepare(process_kernel<8, kMaxUnits>, smem, &configured[0], &nonportable[0]);
-    case 16:
-      *kernel = (const void*)process_kernel<16, kMaxUnits>;
-      return prepare(process_kernel<16, kMaxUnits>, smem, &configured[1], &nonportable[1]);
-    case 32:
-      *kernel = (const void*)process_kernel<32, kMaxUnits>;
-      return prepare(process_kernel<32, kMaxUnits>, smem, &configured[2], &nonportable[2]);
-    default:
-      return cudaErrorInvalidValue;
+// The instance <N, MT, kExact>, its attributes set for `smem` bytes (once
+// an instance).
+template <int N, int MT, bool kExact>
+cudaError_t pick(size_t smem, const void** kernel) {
+  static size_t configured = 0;
+  static bool nonportable = false;
+  *kernel = (const void*)process_kernel<N, MT, kExact>;
+  return prepare(process_kernel<N, MT, kExact>, smem, &configured, &nonportable);
+}
+
+// The kernel's instance for `rows` rows a cluster, slices of up to `units`
+// m64 tiles (2, or 4 at 8 and 16 rows) and, where `exact` (no width
+// padded) at 2 units, the instance with no padded case.
+cudaError_t instance(int rows, int units, bool exact, size_t smem, const void** kernel) {
+  if (units <= 2 && exact) {
+    if (rows == 8) return pick<8, 2, true>(smem, kernel);
+    if (rows == 16) return pick<16, 2, true>(smem, kernel);
+    if (rows == 32) return pick<32, 2, true>(smem, kernel);
+  } else if (units <= 2) {
+    if (rows == 8) return pick<8, 2, false>(smem, kernel);
+    if (rows == 16) return pick<16, 2, false>(smem, kernel);
+    if (rows == 32) return pick<32, 2, false>(smem, kernel);
+  } else if (units <= 4) {
+    if (rows == 8) return pick<8, 4, false>(smem, kernel);
+    if (rows == 16) return pick<16, 4, false>(smem, kernel);
   }
+  return cudaErrorInvalidValue;
+}
+
+// Whether `pad` is the padded width the kernel tiles `width` with at `cols`
+// blocks a cluster (kernels/full_sampler.py::process_width).
+bool padded_ok(int width, int pad, int cols) {
+  const int unit = 8 * cols > 64 ? 8 * cols : 64;
+  return width >= 1 && width <= kMaxDim && pad >= width && pad - width < unit && pad % unit == 0;
 }
 
 // The widths and the plan's fields, checked against what the kernel
 // assumes (kernels/full_sampler.py::process_plan makes them).
-bool plan_ok(const int* dims, int n, int L, bool with_skip, int B, int T, int guided,
-             int clusters, int cols, int rows, int qbufs, int slots, int smem) {
-  if (n < 1 || n > kMaxStages || L < 64 || L > kMaxDim || L % 64 || B < 1 || T < 1) return false;
-  if (cols < 1 || cols > kMaxCluster || L % cols || (L / cols) % 8) return false;
+bool plan_ok(const int* dims, const int* wid, int n, int L, int lat, bool with_skip, int B,
+             int T, int guided, int clusters, int cols, int rows, int qbufs, int slots, int smem) {
+  if (n < 1 || n > kMaxStages || B < 1 || T < 1 || cols < 1 || cols > kMaxCluster ||
+      (cols & (cols - 1)))
+    return false;
+  if (!padded_ok(lat, L, cols)) return false;
   for (int i = 0; i <= n; ++i)
-    if (dims[i] < 64 || dims[i] > kMaxDim || dims[i] % 64 || dims[i] % cols ||
-        (dims[i] / cols) % 8 || dims[i] / cols > 64 * kMaxUnits)
-      return false;
-  if (L / cols > 64 * kMaxUnits || (with_skip && dims[n] != L)) return false;
+    if (!padded_ok(wid[i], dims[i], cols)) return false;
+  if (with_skip && (wid[n] != lat || dims[n] != L)) return false;
   if (rows != 8 && rows != 16 && rows != 32) return false;
   const int samples = guided ? rows / 2 : rows;
   if (clusters < 1 || (long long)clusters * samples < B) return false;
   if (qbufs < 1 || qbufs > 2 || slots < 2 || slots > kMaxSlots) return false;
   const ProcessLayout Lay(dims, n, L, with_skip, cols, rows, qbufs, slots);
-  return smem >= 1024 + Lay.total && smem <= 232448;
+  return Lay.units <= max_units(rows) && smem >= 1024 + Lay.total && smem <= 232448;
 }
 
 }  // namespace
@@ -546,10 +619,11 @@ extern "C" int fd_process_maps(const void* const* weights, const int* dims, int 
 extern "C" long long fd_process_map_encodes() { return fdh::map_encodes(); }
 
 // Clusters of `cols` blocks of `smem` bytes at `rows` rows a cluster that the
-// card runs at once (cudaOccupancyMaxActiveClusters), into *out.
+// card runs at once (cudaOccupancyMaxActiveClusters), into *out. Asked of
+// the exact 2-unit instance: every instance runs one block an SM.
 extern "C" int fd_process_max_clusters(int rows, int cols, int smem, int* out) {
   const void* kernel = nullptr;
-  cudaError_t err = instance(rows, (size_t)smem, &kernel);
+  cudaError_t err = instance(rows, 2, true, (size_t)smem, &kernel);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cols, 1);
@@ -568,8 +642,10 @@ extern "C" int fd_process_max_clusters(int rows, int cols, int smem, int* out) {
 // One launch: all T steps of a bucket call. ptrs: x, out, key, coefs, bl,
 // rw (null: no skip), tadd_f, adds_f, hg, hb, hbf, then per stage tadd,
 // adds, bb, g1, b1, g2, b2, bv, bo, bd. ints: n, B, L, T, guided, clip,
-// stochastic, clusters, cols, rows, qbufs, slots, smem, dims[0..n].
-// floats: scale, clip_val, eps. A plan the kernel cannot run returns
+// stochastic, clusters, cols, rows, qbufs, slots, smem, dims[0..n] (padded,
+// the widths the weights were padded to), lat, wid[0..n] (the model's
+// widths: x, out and the condition rows have these). floats: scale,
+// clip_val, eps. A plan the kernel cannot run returns
 // cudaErrorInvalidValue, and a launch the card refuses returns its error.
 extern "C" int fd_process_launch(const void* maps, const void* const* ptrs, const int* ints,
                                  const float* floats, void* stream) {
@@ -605,18 +681,22 @@ extern "C" int fd_process_launch(const void* maps, const void* const* ptrs, cons
   a.slots = ints[11];
   const int smem = ints[12];
   for (int i = 0; i <= a.n; ++i) a.dims[i] = ints[13 + i];
+  a.lat = ints[14 + a.n];
+  for (int i = 0; i <= a.n; ++i) a.wid[i] = ints[15 + a.n + i];
   a.scale = floats[0];
   a.clip_val = floats[1];
   a.eps = floats[2];
-  if (!plan_ok(a.dims, a.n, a.L, a.rw != nullptr, a.B, a.T, a.guided, clusters, a.cols, a.rows,
-               a.qbufs, a.slots, smem))
+  if (!plan_ok(a.dims, a.wid, a.n, a.L, a.lat, a.rw != nullptr, a.B, a.T, a.guided, clusters,
+               a.cols, a.rows, a.qbufs, a.slots, smem))
     return (int)cudaErrorInvalidValue;
   a.lay = ProcessLayout(a.dims, a.n, a.L, a.rw != nullptr, a.cols, a.rows, a.qbufs, a.slots);
   a.sh = {a.rows, a.cols, a.slots, a.qbufs};
   a.off = {a.lay.slot_bytes, a.lay.q,    a.lay.q_bytes, a.lay.stats, a.lay.red,
            a.lay.mr,         a.lay.part, a.lay.units,   a.lay.bars,  a.lay.chunks * a.T};
   const void* kernel = nullptr;
-  cudaError_t err = instance(a.rows, (size_t)smem, &kernel);
+  bool exact = a.lat == a.L;
+  for (int i = 0; i <= a.n; ++i) exact = exact && a.wid[i] == a.dims[i];
+  cudaError_t err = instance(a.rows, a.lay.units, exact, (size_t)smem, &kernel);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.cols, clusters);

@@ -42,6 +42,15 @@ __device__ __forceinline__ void step_noise(uint32_t group, int t, const uint32_t
   box_muller(c[2], c[3], &z[2], &z[3]);
 }
 
+// The normal of element i of the (B, L) state at step t: lane i % 4 of group
+// i / 4, whatever row or block the group's other elements lie in.
+__device__ __forceinline__ float element_noise(size_t i, int t, const uint32_t* key) {
+  float z[4];
+  step_noise((uint32_t)(i / 4), t, key, z);
+  const int lane = (int)(i & 3);
+  return lane == 0 ? z[0] : lane == 1 ? z[1] : lane == 2 ? z[2] : z[3];
+}
+
 // x_{t-1} of one element: x_t, eps (conditional when guided), eps_u (the
 // null half's, read only when guided), skip (0 without the v2 skip).
 __device__ __forceinline__ float step_mean(float xv, float e, float eu, float skip, bool guided,

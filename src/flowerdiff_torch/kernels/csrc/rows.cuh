@@ -14,9 +14,9 @@
 // Every phase is latency-bound at these sizes, so each thread issues all of
 // a batch of independent loads before it uses any of them: 8 weight loads
 // in flight a lane in the products (16 made the kernels spill registers),
-// 8 float4 loads a thread in the row copies, one register-resident row a
-// warp in LayerNorm. Widths are multiples of 4 floats and rows start on
-// 16-byte boundaries.
+// 8 float4 loads a thread in the row copies. Widths are multiples of 4
+// floats and rows start on 16-byte boundaries, but in the `_ragged` and
+// operand loads, which read a float at a time.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -31,7 +31,6 @@ constexpr int kRows = 16;       // rows per block: one m16 tile
 constexpr int kPad = 32;        // bf16 elements of padding per operand row
 constexpr int kRedFloats = kRows * 64;  // split-K partials (fewer than 8 tiles)
 constexpr int kBatch = 8;       // float4 loads in flight a thread in row copies
-constexpr int kLnVec = 8;       // float4s of a row a lane holds: rows up to 1024
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -175,74 +174,72 @@ __device__ void gemm_tc(const __nv_bfloat16* A, int K, const __nv_bfloat16* __re
   }
 }
 
-// dst (bf16, row stride n + kPad) = bf16(src) for the kRows x n floats of src.
-__device__ __forceinline__ void to_operand(const float* src, __nv_bfloat16* dst, int n) {
-  const int q = n / 4;
-  for (int i = threadIdx.x; i < kRows * q; i += kThreads) {
-    const int r = i / q, c = 4 * (i - r * q);
-    const float4 v = ld4(src + 4 * i);
-    __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(dst + r * (n + kPad) + c);
-    d[0] = __floats2bfloat162_rn(v.x, v.y);
-    d[1] = __floats2bfloat162_rn(v.z, v.w);
+// Q (bf16, row stride ld + kPad) = LayerNorm(X[r]) * g + b over the first n
+// of the ld columns of each of the kRows rows of X (f32, row stride ld, a
+// multiple of 4, zeros past n), g and b (ld, zeros past n: so are those
+// columns of Q). One warp a row: biased variance as a two-pass mean and
+// centred square, each lane summing its float4s c = lane + 32 j in order.
+__device__ void rows_layernorm_operand(const float* X, int n, int ld,
+                                       const float* __restrict__ g,
+                                       const float* __restrict__ b, float eps,
+                                       __nv_bfloat16* Q) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = ld / 4;
+  for (int r = warp; r < kRows; r += kWarps) {
+    const float* x = X + r * ld;
+    float s = 0.f;
+    for (int c = lane; c < q; c += 32) {
+      const float4 v = ld4(x + 4 * c);
+      s += (v.x + v.y) + (v.z + v.w);
+    }
+    const float mean = warp_sum(s) / n;
+    float v = 0.f;
+    for (int c = lane; c < q; c += 32) {
+      const float4 xv = ld4(x + 4 * c);
+      const float d0 = 4 * c < n ? xv.x - mean : 0.f, d1 = 4 * c + 1 < n ? xv.y - mean : 0.f,
+                  d2 = 4 * c + 2 < n ? xv.z - mean : 0.f, d3 = 4 * c + 3 < n ? xv.w - mean : 0.f;
+      v += (d0 * d0 + d1 * d1) + (d2 * d2 + d3 * d3);
+    }
+    const float rstd = rsqrtf(warp_sum(v) / n + eps);
+    for (int c = lane; c < q; c += 32) {
+      const float4 xv = ld4(x + 4 * c), gv = ldg4(g + 4 * c), bv = ldg4(b + 4 * c);
+      __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(Q + r * (ld + kPad) + 4 * c);
+      d[0] = __floats2bfloat162_rn((xv.x - mean) * rstd * gv.x + bv.x,
+                                   (xv.y - mean) * rstd * gv.y + bv.y);
+      d[1] = __floats2bfloat162_rn((xv.z - mean) * rstd * gv.z + bv.z,
+                                   (xv.w - mean) * rstd * gv.w + bv.w);
+    }
   }
   __syncthreads();
 }
 
-// dst[r] = LayerNorm(src[r]) * g + b (then swish if asked) for the kRows
-// rows, one warp a row, the row and the affine held in registers (n <= 4 *
-// 32 * kLnVec); biased variance, as a two-pass mean / centred square. dst
-// may equal src.
-__device__ void rows_layernorm(const float* src, float* dst, int n,
-                               const float* __restrict__ g, const float* __restrict__ b,
-                               float eps, bool swish) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q = n / 4;
-  float4 gv[kLnVec], bv[kLnVec];
-#pragma unroll
-  for (int j = 0; j < kLnVec; ++j) {
-    const int c = lane + 32 * j;
-    if (c < q) {
-      gv[j] = ldg4(g + 4 * c);
-      bv[j] = ldg4(b + 4 * c);
-    }
+// Q (bf16, row stride ld + kPad) = bf16 of rows [row0, row0 + kRows) of src
+// (B x n), zero past n up to ld and for rows past B.
+__device__ __forceinline__ void load_operand(__nv_bfloat16* Q, const float* __restrict__ src,
+                                             int row0, int B, int n, int ld) {
+  for (int i = threadIdx.x; i < kRows * ld; i += kThreads) {
+    const int r = i / ld, k = i - r * ld, row = row0 + r;
+    Q[r * (ld + kPad) + k] = __float2bfloat16_rn(row < B && k < n ? __ldg(src + (size_t)row * n + k)
+                                                                 : 0.f);
   }
-  for (int r = warp; r < kRows; r += kWarps) {
-    float4 x[kLnVec];
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < kLnVec; ++j) {
-      const int c = lane + 32 * j;
-      if (c < q) {
-        x[j] = ld4(src + r * n + 4 * c);
-        s += (x[j].x + x[j].y) + (x[j].z + x[j].w);
-      }
-    }
-    const float mean = warp_sum(s) / n;
+  __syncthreads();
+}
+
+// load_rows for a width n that need not be a multiple of 4: X (row stride
+// ld >= n) from a float at a time, zero past n.
+__device__ __forceinline__ void load_rows_ragged(float* X, const float* __restrict__ src,
+                                                 const float* __restrict__ row_add,
+                                                 const float* __restrict__ rows_add,
+                                                 int row0, int B, int n, int ld) {
+  for (int i = threadIdx.x; i < kRows * ld; i += kThreads) {
+    const int r = i / ld, k = i - r * ld, row = row0 + r;
     float v = 0.f;
-#pragma unroll
-    for (int j = 0; j < kLnVec; ++j) {
-      if (lane + 32 * j < q) {
-        const float d0 = x[j].x - mean, d1 = x[j].y - mean, d2 = x[j].z - mean,
-                    d3 = x[j].w - mean;
-        v += (d0 * d0 + d1 * d1) + (d2 * d2 + d3 * d3);
-      }
+    if (row < B && k < n) {
+      v = __ldg(src + (size_t)row * n + k);
+      if (row_add) v += __ldg(row_add + k);
+      if (rows_add) v += __ldg(rows_add + (size_t)row * n + k);
     }
-    const float rstd = rsqrtf(warp_sum(v) / n + eps);
-#pragma unroll
-    for (int j = 0; j < kLnVec; ++j) {
-      const int c = lane + 32 * j;
-      if (c < q) {
-        float o[4] = {(x[j].x - mean) * rstd * gv[j].x + bv[j].x,
-                      (x[j].y - mean) * rstd * gv[j].y + bv[j].y,
-                      (x[j].z - mean) * rstd * gv[j].z + bv[j].z,
-                      (x[j].w - mean) * rstd * gv[j].w + bv[j].w};
-        if (swish) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) o[e] = o[e] / (1.f + expf(-o[e]));
-        }
-        st4(dst + r * n + 4 * c, make_float4(o[0], o[1], o[2], o[3]));
-      }
-    }
+    X[i] = v;
   }
   __syncthreads();
 }

@@ -8,12 +8,15 @@ every step of a bucket call, each cluster of blocks keeping its rows, its
 column slice of x and of the condition adds on chip for the whole launch.
 A step is the latent projection `h = bf16(x) Wl^T + bl` (with the CFG copy,
 and for a v2 model the global skip sigmoid(rw) (bf16(x) Wf^T + bf)), the
-four stages as the stage kernel computes them, the head in its table form,
+stages (1 to 8) as the stage kernel computes them, the head in its table form,
 and the reverse step (the skip added to eps, CFG from the doubled batch, x0
 clipping, the posterior mean and the step noise, Philox4x32-10 +
 Box-Muller from a key in device memory). Its plan (`process_plan`: clusters,
 blocks a cluster, rows a cluster, ring, shared memory) is bound once per
-(batch, guided), its tensor maps encoded then.
+(batch, guided), its tensor maps encoded then. Any latent and hidden width
+up to 2048 runs: the weights, vectors and time tables are padded with zeros
+to the widths the plan's column split tiles (`pad_process`), the request's
+tensors read at their own widths.
 
 `fused_sample` is the same process as a host loop of the step's own kernels
 (7 launches a step): the projection (`latent_proj`, csrc/latent_proj.cu),
@@ -47,7 +50,6 @@ from flowerdiff_torch.kernels.latent_stage import (
     EXCHANGE_US,
     LN_EPS,
     MAP_BYTES,
-    MAX_D,
     MAX_SLOTS,
     REQUEST_BYTES_PER_S,
     REQUEST_US,
@@ -59,6 +61,7 @@ from flowerdiff_torch.kernels.latent_stage import (
     chunk_tiles,
     fused_head,
     fused_stage,
+    padded,
 )
 from flowerdiff_torch.models.latent_unet import ConditionalLatentDenoiser
 
@@ -245,14 +248,16 @@ def bind_latent_proj(wl, bl, wf=None, bf=None, rw=None):
     `run` is the plain twin. Each launch adds one to `latent_proj.launches`."""
     if (wf is None) != (bf is None) or (wf is None) != (rw is None):
         raise ValueError("wf, bf and rw go together (the v2 skip)")
+    weights = (wl, bl, wf, bf, rw)
     if not wl.is_cuda:
         def plain(x, copies=1):
             return latent_proj_plain(x, wl, bl, copies=copies, wf=wf, bf=bf, rw=rw)
+        plain.weights = weights
         return plain
     dev = wl.device
     hid, lat = wl.shape
-    if lat % 8 or lat > 1024:
-        raise ValueError(f"latent width {lat}: the kernel takes multiples of 8 up to 1024")
+    if lat > MAX_WIDTH:
+        raise ValueError(f"latent width {lat}: the kernel takes 1 to {MAX_WIDTH}")
     want = [("wl", wl, (hid, lat), torch.bfloat16), ("bl", bl, (hid,), torch.float32)]
     if wf is not None:
         want += [("wf", wf, (lat, lat), torch.bfloat16), ("bf", bf, (lat,), torch.float32),
@@ -262,11 +267,13 @@ def bind_latent_proj(wl, bl, wf=None, bf=None, rw=None):
                 or not w.is_contiguous()):
             raise ValueError(f"{name}: expected a contiguous {dtype} tensor of shape {shape} "
                              f"on {dev}, got {w.dtype} {tuple(w.shape)} on {w.device}")
-    weights = (wl, bl, wf, bf, rw)
-    ptrs = [None if w is None else w.data_ptr() for w in weights]
+    # the weights' rows padded with zeros to whole 16-byte loads
+    ldw = -(-lat // 8) * 8
+    pads = (padded(wl, (hid, ldw)), bl, None if wf is None else padded(wf, (lat, ldw)), bf, rw)
+    ptrs = [None if w is None else w.data_ptr() for w in pads]
     fn = _build.load("latent_proj").fd_latent_proj_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
 
     def run(x, copies=1):
@@ -277,12 +284,13 @@ def bind_latent_proj(wl, bl, wf=None, bf=None, rw=None):
         h = torch.empty((copies * b, hid), dtype=torch.float32, device=dev)
         skip = None if wf is None else torch.empty((b, lat), dtype=torch.float32, device=dev)
         code = fn(x.data_ptr(), *ptrs, h.data_ptr(), None if skip is None else skip.data_ptr(),
-                  b, lat, hid, copies, torch.cuda.current_stream(dev).cuda_stream)
+                  b, lat, ldw, hid, copies, torch.cuda.current_stream(dev).cuda_stream)
         _build.check(code, "latent_proj")
         latent_proj.launches += 1
         return h, skip
 
-    run.weights = weights  # the tensors behind `ptrs` live as long as run
+    run.weights = weights  # the projection's own, unpadded
+    run.padded = pads  # the tensors behind `ptrs` live as long as run
     return run
 
 
@@ -424,11 +432,20 @@ def fused_sample(prep: Dict, batch: int, cond: torch.Tensor,
 # ---------------------------------------------------------------------------
 # The whole reverse process in one launch (csrc/reverse_process.cu)
 
-# The kernel's limits (csrc/reverse_process.cu): stages, widths, m64 tiles
-# of a block's widest column slice, rows a cluster (the wgmma's N).
-MAX_STAGES = 4
-MAX_UNITS = 2
+# The kernel's limits (csrc/reverse_process.cu): stages, widths, rows a
+# cluster (the wgmma's N).
+MAX_STAGES = 8
+MAX_WIDTH = 2048
 PROCESS_ROWS = (8, 16, 32)
+
+
+def process_units(rows: int, widest: int) -> int:
+    """The m64 tiles a block's widest column slice may have at `rows` rows
+    a cluster for a denoiser whose widest width is `widest`: 2, the
+    instances the flagship's plans were measured on; 4 at 8 and 16 rows
+    (at most 64 accumulators a thread) for one wider than 1024, which at 2
+    would need 16 blocks a cluster, of which the card runs 7 at once."""
+    return 4 if rows <= 16 and widest > 1024 else 2
 PROCESS_COLS = (1, 2, 4, 8, 16)
 PROCESS_BARRIERS = 5
 MAX_MAPS = 2 + 4 * MAX_STAGES  # the kernel's parameter holds this many tensor maps
@@ -448,10 +465,24 @@ class ProcessPlan(NamedTuple):
     waves: int     # ceil(clusters / WAVE_CLUSTERS[cols])
 
 
+def process_width(width: int, cols: int) -> int:
+    """The padded width the kernel tiles `width` with at `cols` blocks a
+    cluster: a multiple of 64 (whole k64 tiles) and of 8 cols (every
+    block's slice whole 8-column units). A width that is one already is
+    its own (the flagship's are). Mirrors csrc/reverse_process.cu::padded_ok."""
+    unit = max(64, 8 * cols)
+    return -(-width // unit) * unit
+
+
+def process_widths(latent: int, hidden, cols: int):
+    """(latent, hidden) padded for `cols` blocks a cluster (`process_width`)."""
+    return process_width(latent, cols), tuple(process_width(w, cols) for w in hidden)
+
+
 def _products(latent: int, hidden, skip: bool, cols: int):
     """(column slice, K) of each product of a step, in stream order: the
-    projection, the skip, each stage's Wb Wv Wo Wd, the head. Mirrors
-    csrc/reverse_process.cu::product_shape."""
+    projection, the skip, each stage's Wb Wv Wo Wd, the head; the kernel's
+    (padded) widths. Mirrors csrc/reverse_process.cu::product_shape."""
     n = len(hidden) - 1
     out = [(hidden[0] // cols, latent)]
     if skip:
@@ -464,8 +495,8 @@ def _products(latent: int, hidden, skip: bool, cols: int):
 
 def process_smem(latent: int, hidden, skip: bool, cols: int, rows: int, qbufs: int,
                  slots: int) -> int:
-    """A block's shared memory in bytes, the alignment included. Mirrors
-    csrc/reverse_process.cu::ProcessLayout."""
+    """A block's shared memory in bytes, the alignment included, at the
+    kernel's (padded) widths. Mirrors csrc/reverse_process.cu::ProcessLayout."""
     n = len(hidden) - 1
     prods = _products(latent, hidden, skip, cols)
     kbs = [chunk_tiles(sl, k) for sl, k in prods]
@@ -489,7 +520,9 @@ def process_step_us(latent: int, hidden, skip: bool, plan: ProcessPlan) -> float
     ahead of the consumers, against its wgmmas plus its exchanges: each
     operand from the other blocks over distributed shared memory, the
     LayerNorms' statistics and, with one operand buffer, the releases. The
-    rates are the stage kernel's (kernels/latent_stage.py)."""
+    rates are the stage kernel's (kernels/latent_stage.py). Widths are
+    padded for the plan's column split first."""
+    latent, hidden = process_widths(latent, hidden, plan.cols)
     n = len(hidden) - 1
     weights = mma = 0.0
     for sl, k in _products(latent, hidden, skip, plan.cols):
@@ -504,35 +537,30 @@ def process_step_us(latent: int, hidden, skip: bool, plan: ProcessPlan) -> float
     return max(weights, mma + exchanges)
 
 
-def _widths_ok(latent: int, hidden, skip: bool, cols: int) -> bool:
-    widths = [latent] + list(hidden)
-    return (all(w % 64 == 0 and w <= MAX_D and w % cols == 0 and (w // cols) % 8 == 0
-                and w // cols <= 64 * MAX_UNITS for w in widths)
-            and (not skip or hidden[-1] == latent))
-
-
 def process_plans(latent: int, hidden, skip: bool, batch: int, guided: bool):
     """Every plan the kernel takes for a bucket call of `batch` samples: each
-    column split with each row count a cluster, the most ring slots that
-    fit, two operand buffers where two slots still fit beside them."""
+    column split with each row count a cluster at which the padded slices
+    are at most 64 `process_units` columns, the most ring slots that fit,
+    two operand buffers where two slots still fit beside them."""
     plans = []
     for cols in PROCESS_COLS:
-        if not _widths_ok(latent, hidden, skip, cols):
-            continue
+        lat_p, hid_p = process_widths(latent, hidden, cols)
         for rows in PROCESS_ROWS:
+            if max(lat_p, *hid_p) // cols > 64 * process_units(rows, max(latent, *hidden)):
+                continue
             clusters = -(-batch // (rows // 2 if guided else rows))
             slot = max(chunk_tiles(sl, k) * sl * 128
-                       for sl, k in _products(latent, hidden, skip, cols))
+                       for sl, k in _products(lat_p, hid_p, skip, cols))
             for qbufs in (2, 1):
-                fixed = process_smem(latent, hidden, skip, cols, rows, qbufs, 0)
+                fixed = process_smem(lat_p, hid_p, skip, cols, rows, qbufs, 0)
                 slots = min(MAX_SLOTS, (SMEM_LIMIT - fixed) // slot)
-                while slots >= 2 and process_smem(latent, hidden, skip, cols, rows, qbufs,
+                while slots >= 2 and process_smem(lat_p, hid_p, skip, cols, rows, qbufs,
                                                   slots) > SMEM_LIMIT:
                     slots -= 1
                 if slots >= 2:
                     plans.append(ProcessPlan(
                         clusters, cols, rows, qbufs, slots,
-                        process_smem(latent, hidden, skip, cols, rows, qbufs, slots),
+                        process_smem(lat_p, hid_p, skip, cols, rows, qbufs, slots),
                         -(-clusters // WAVE_CLUSTERS[cols])))
                     break
     return plans
@@ -543,18 +571,62 @@ def process_plan(latent: int, hidden, skip: bool, batch: int, guided: bool) -> P
     samples, or ValueError: among `process_plans`, the least waves x
     `process_step_us`, then the most column slices. A cluster's rows cost
     exchange bytes every step; more clusters than fit in one wave run in
-    waves, each T steps long; each cluster reads every weight every step."""
+    waves, each T steps long; each cluster reads every weight every step.
+    The kernel takes 1 to MAX_STAGES stages and widths 1 to MAX_WIDTH,
+    padded (`process_width`); a v2 skip needs hidden[-1] == latent."""
     if not 1 <= len(hidden) - 1 <= MAX_STAGES:
         raise ValueError(f"{len(hidden) - 1} stages: the kernel takes 1 to {MAX_STAGES}")
+    if not all(1 <= w <= MAX_WIDTH for w in (latent, *hidden)):
+        raise ValueError(f"latent {latent}, hidden {tuple(hidden)}: the kernel takes widths "
+                         f"1 to {MAX_WIDTH}")
+    if skip and hidden[-1] != latent:
+        raise ValueError(f"a v2 skip needs hidden[-1] == latent, got {hidden[-1]} and {latent}")
     if batch < 1:
         raise ValueError(f"batch {batch} must be positive")
     plans = process_plans(latent, hidden, skip, batch, guided)
     if not plans:
-        raise ValueError(f"latent {latent}, hidden {tuple(hidden)}: no column split the "
-                         f"kernel takes (widths multiples of 64 up to {MAX_D}, slices of 8 "
-                         f"to {64 * MAX_UNITS}{', a skip needs hidden[-1] == latent' if skip else ''})")
+        raise ValueError(f"latent {latent}, hidden {tuple(hidden)}: no plan fits a block's "
+                         f"{SMEM_LIMIT} bytes of shared memory")
     return min(plans, key=lambda p: (p.waves * process_step_us(latent, hidden, skip, p),
                                      -p.cols))
+
+
+class ProcessOperands(NamedTuple):
+    """The reverse-process kernel's operands for one column split, padded
+    with zeros to its widths (`process_widths`): each tensor the prep's own
+    where it needs no padding."""
+    latent: int
+    hidden: Tuple[int, ...]
+    weights: Tuple[torch.Tensor, ...]  # bf16, in map order: Wl, each stage's Wb Wv Wo Wd, Wf
+    fixed: Tuple[Optional[torch.Tensor], ...]  # bl, rw (None: no skip), tadd_f, g, b, bf
+    # each stage's (tadd, (bb, g1, b1, g2, b2, bv, bo, bd))
+    stages: Tuple[Tuple[torch.Tensor, Tuple[torch.Tensor, ...]], ...]
+
+
+def pad_process(prep: Dict, cols: int) -> ProcessOperands:
+    """The prep's weights, vectors and time tables padded for `cols` blocks a
+    cluster. Zeros in every padded column keep the padded columns of h at
+    exactly 0 through each step, so the kernel's true columns compute what
+    the unpadded model does."""
+    model = prep["model"]
+    hidden = tuple(model.hidden_dims)
+    lat, dims = process_widths(model.latent_dim, hidden, cols)
+    n, steps = len(hidden) - 1, prep["n_steps"]
+    wl, bl, _, _, rw = prep["proj"].weights
+    stages = [st.weights for st in prep["stages"]]
+    _, _, _, _, g, b, wf, bf = prep["head"].weights
+    weights = [padded(wl, (dims[0], lat))]
+    vecs = []
+    for i, st in enumerate(stages):
+        d, do = dims[i], dims[i + 1]
+        weights += [padded(st[j], (d, d)) for j in (0, 6, 8)] + [padded(st[10], (do, d))]
+        vecs.append((padded(prep["tadds"][i], (steps, d)),
+                     tuple(padded(st[j], (d,)) for j in (1, 2, 3, 4, 5, 7, 9))
+                     + (padded(st[11], (do,)),)))
+    weights.append(padded(wf, (lat, dims[n])))
+    fixed = (padded(bl, (dims[0],)), rw, padded(prep["tadd_final"], (steps, dims[n])),
+             padded(g, (dims[n],)), padded(b, (dims[n],)), padded(bf, (lat,)))
+    return ProcessOperands(lat, dims, tuple(weights), fixed, tuple(vecs))
 
 
 def process_rows(plan: ProcessPlan, batch: int, guided: bool):
@@ -599,14 +671,16 @@ def process_max_clusters(plan: ProcessPlan) -> int:
 class ReverseProcess:
     """All T reverse steps of a bucket call in one launch of the
     reverse-process kernel (csrc/reverse_process.cu), the weights of
-    `prep` fixed. For a CPU model a call is `run_steps` on the plain twins:
-    the kernel's plain version.
+    `prep` fixed: any latent and hidden widths up to MAX_WIDTH and 1 to
+    MAX_STAGES stages (`process_plan`). For a CPU model a call is
+    `run_steps` on the plain twins: the kernel's plain version.
 
     A plan is bound once per (batch, guided): its geometry chosen
-    (`process_plan`) and, where its column split is new, the tensor maps of
-    every weight encoded; `bound` lists the bound plans. A call reads the
-    request's `SamplerInputs` in place, launches once (adding one to
-    `reverse_process.launches`) and returns x_0, a new (B, L) tensor."""
+    (`process_plan`) and, where its column split is new, the weights padded
+    for it (`pad_process`) and their tensor maps encoded; `bound` lists the
+    bound plans. A call reads the request's `SamplerInputs` in place,
+    launches once (adding one to `reverse_process.launches`) and returns
+    x_0, a new (B, L) tensor."""
 
     def __init__(self, prep: Dict):
         self.prep = prep
@@ -617,37 +691,26 @@ class ReverseProcess:
         self.bound: Dict[Tuple[int, bool], ProcessPlan] = {}
         if self.device.type != "cuda":
             return
-        n = len(self.hidden) - 1
-        wl, bl, _, _, rw = prep["proj"].weights
-        stages = [st.weights for st in prep["stages"]]
-        _, _, _, _, g, b, wf, bf = prep["head"].weights
-        # weights in map order: Wl, each stage's Wb Wv Wo Wd, the head's Wf
-        self._weights = [wl] + [st[i] for st in stages for i in (0, 6, 8, 10)] + [wf]
         self._coefs = torch.tensor(prep["coefs"], dtype=torch.float32, device=self.device)
-        vecs = [[st[i] for i in (1, 2, 3, 4, 5, 7, 9, 11)] for st in stages]
-        self._fixed = [bl.data_ptr(), None if rw is None else rw.data_ptr(),
-                       prep["tadd_final"].data_ptr(), g.data_ptr(), b.data_ptr(), bf.data_ptr()]
-        self._stage_ptrs = [(prep["tadds"][i].data_ptr(), [v.data_ptr() for v in vecs[i]])
-                            for i in range(n)]
-        self._maps: Dict[int, int] = {}
-        self._map_buffers = []
+        # by column split: (the maps' address, the padded operands, their map buffer)
+        self._split: Dict[int, Tuple[int, ProcessOperands, ctypes.Array]] = {}
         self._launch = _build.load("reverse_process").fd_process_launch
         self._launch.argtypes = [ctypes.c_void_p] * 5
         self._launch.restype = ctypes.c_int
 
-    def _encode(self, cols: int) -> int:
+    def _encode(self, cols: int):
+        ops = pad_process(self.prep, cols)
         n = len(self.hidden) - 1
         fn = _build.load("reverse_process").fd_process_maps
         fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         buf = ctypes.create_string_buffer(MAX_MAPS * MAP_BYTES + 64)
         at = -(-ctypes.addressof(buf) // 64) * 64  # a CUtensorMap is 64-byte aligned
-        ptrs = (ctypes.c_void_p * len(self._weights))(*[w.data_ptr() for w in self._weights])
-        dims = (ctypes.c_int * (n + 1))(*self.hidden)
-        _build.check(fn(ptrs, dims, n, self.latent, cols, at), "the sampler's tensor maps")
-        self._map_buffers.append(buf)
-        self._maps[cols] = at
-        return at
+        ptrs = (ctypes.c_void_p * len(ops.weights))(*[w.data_ptr() for w in ops.weights])
+        dims = (ctypes.c_int * (n + 1))(*ops.hidden)
+        _build.check(fn(ptrs, dims, n, ops.latent, cols, at), "the sampler's tensor maps")
+        self._split[cols] = (at, ops, buf)
+        return self._split[cols]
 
     def plan_for(self, batch: int, guided: bool) -> ProcessPlan:
         """The bound plan of a bucket call, bound at its first use."""
@@ -655,7 +718,7 @@ class ReverseProcess:
         plan = self.bound.get(key)
         if plan is None:
             plan = process_plan(self.latent, self.hidden, self.skip, batch, guided)
-            if self.device.type == "cuda" and plan.cols not in self._maps:
+            if self.device.type == "cuda" and plan.cols not in self._split:
                 self._encode(plan.cols)
             self.bound[key] = plan
         return plan
@@ -664,8 +727,8 @@ class ReverseProcess:
                  clip_x0: Optional[float] = None, guidance_scale: Optional[float] = None,
                  plan: Optional[ProcessPlan] = None) -> torch.Tensor:
         """x_0 of the request. `plan`: one of `process_plans(...)` in place
-        of the bound one (a comparison's; its maps are encoded at its first
-        call where its column split is new)."""
+        of the bound one (a comparison's; its operands are padded and its
+        maps encoded at its first call where its column split is new)."""
         kw = dict(stochastic=stochastic, clip_x0=clip_x0, guidance_scale=guidance_scale)
         if self.device.type != "cuda":
             return run_steps(self.prep, inputs, **kw)
@@ -688,16 +751,16 @@ class ReverseProcess:
                                  f"{tuple(v.shape)} on {v.device}")
         if plan is None:
             plan = self.plan_for(batch, guided)
-        maps = self._maps.get(plan.cols) or self._encode(plan.cols)
+        maps, ops, _ = self._split.get(plan.cols) or self._encode(plan.cols)
         out = torch.empty_like(x)
-        bl, rw, tadd_f, g, b, bf = self._fixed
+        bl, rw, tadd_f, g, b, bf = (None if v is None else v.data_ptr() for v in ops.fixed)
         ptrs = [x.data_ptr(), out.data_ptr(), inputs.key.data_ptr(), self._coefs.data_ptr(), bl,
                 rw, tadd_f, inputs.final_add.data_ptr(), g, b, bf]
-        for (tadd, vec), adds in zip(self._stage_ptrs, inputs.stage_adds):
-            ptrs += [tadd, adds.data_ptr()] + vec
-        ints = [n, batch, self.latent, self.prep["n_steps"], int(guided), int(clip_x0 is not None),
-                int(stochastic), plan.clusters, plan.cols, plan.rows, plan.qbufs, plan.slots,
-                plan.smem, *self.hidden]
+        for (tadd, vec), adds in zip(ops.stages, inputs.stage_adds):
+            ptrs += [tadd.data_ptr(), adds.data_ptr()] + [v.data_ptr() for v in vec]
+        ints = [n, batch, ops.latent, self.prep["n_steps"], int(guided),
+                int(clip_x0 is not None), int(stochastic), plan.clusters, plan.cols, plan.rows,
+                plan.qbufs, plan.slots, plan.smem, *ops.hidden, self.latent, *self.hidden]
         floats = [float(guidance_scale or 0.0), float(clip_x0 or 0.0), LN_EPS]
         code = self._launch(maps, (ctypes.c_void_p * len(ptrs))(*ptrs),
                             (ctypes.c_int * len(ints))(*ints),

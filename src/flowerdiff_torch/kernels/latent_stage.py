@@ -33,8 +33,11 @@ rows before the LayerNorm, a block owns 16 whole rows and all the columns
 (csrc/latent_stage.cu::head_kernel). `stage_plan` makes a stage launch's
 plan on the host: `bind_stage` makes those of the row counts up to 128 once.
 
-`bind_stage` / `bind_head` fix a kernel's weights (checked once) and return
-the per-call launcher; for CPU weights they return the plain twin
+`bind_stage` / `bind_head` fix a kernel's weights (checked once, and padded
+with zeros to the widths the kernels tile, so any width up to MAX_D = 2048
+runs: `padded`, `stage_widths`) and return the per-call launcher, which
+reads the activations at their own widths; for CPU weights they return the
+plain twin
 (`fused_stage_plain` / `fused_head_plain`, same arithmetic in PyTorch ops).
 `fused_stage` / `fused_head` are one-off calls through them. Each kernel
 launch adds one to `fused_stage.launches` / `fused_head.launches`; a launch
@@ -96,9 +99,10 @@ def _ptr(x: Optional[torch.Tensor]):
     return None if x is None else x.data_ptr()
 
 
-def _check(name: str, x: Optional[torch.Tensor], shape, dtype, device) -> None:
+def _check(name: str, x: Optional[torch.Tensor], shape, dtype, device,
+           aligned: bool = True) -> None:
     """Raise unless x is None or matches: device, dtype, shape, contiguous,
-    16-byte aligned."""
+    16-byte aligned (with `aligned`; else 4-byte)."""
     if x is None:
         return
     if x.device != device:
@@ -109,13 +113,8 @@ def _check(name: str, x: Optional[torch.Tensor], shape, dtype, device) -> None:
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if x.data_ptr() % 16:  # the kernels read rows as float4 / 16-byte vectors
-        raise ValueError(f"{name} must start on a 16-byte boundary")
-
-
-def _check_width(name: str, n: int, multiple: int = 8) -> None:
-    if n % multiple:
-        raise ValueError(f"{name} width {n} must be a multiple of {multiple}")
+    if x.data_ptr() % (16 if aligned else 4):  # float4 / 16-byte vectors where aligned
+        raise ValueError(f"{name} must start on a {16 if aligned else 4}-byte boundary")
 
 
 def _check_max(name: str, n: int, most: int) -> None:
@@ -136,7 +135,7 @@ _F32, _BF16 = torch.float32, torch.bfloat16
 SMEM_LIMIT = 232_448   # bytes of shared memory a block may have on the H100
 MAX_CLUSTER = 16       # non-portable cluster size
 MAX_SLOTS = 32
-MAX_D = 1024
+MAX_D = 2048           # the widest d (padded) the stage kernel tiles
 MAX_SLICE = 256        # columns a block computes of one product: a TMA box's lines
 ROW_CHOICES = (8, 16, 32, 64, 128)  # rows a block: N of its warpgroups' products
 TILE_BYTES, CHUNK_BYTES, BARRIERS = 8192, 32768, 8
@@ -215,9 +214,38 @@ def stage_cost_us(d: int, dout: int, plan: StagePlan) -> float:
     return max(weights, mma) + exchanges
 
 
+def padded(x: torch.Tensor, shape) -> torch.Tensor:
+    """x (1-D or 2-D) with zeros appended up to `shape`, contiguous: x
+    itself where it has that shape. The kernels tile with padded widths;
+    padded weights, biases and LayerNorm affines keep the padded columns
+    of every activation exactly 0."""
+    if tuple(x.shape) == tuple(shape):
+        return x
+    out = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    out[tuple(slice(0, n) for n in x.shape)] = x
+    return out
+
+
+def _up(n: int, unit: int) -> int:
+    return -(-n // unit) * unit
+
+
+def stage_widths(d: int, dout: int):
+    """The widths (d, d_out) the stage kernel tiles a stage of widths d ->
+    dout with: d up to a multiple of 64 (its k64 tiles), d_out up to a
+    multiple of 8 where every row count has a plan, else of 64. The
+    flagship's widths are their own. ValueError past MAX_D."""
+    if not 1 <= d <= MAX_D or not 1 <= dout <= MAX_D:
+        raise ValueError(f"stage {d} -> {dout}: the kernel takes widths 1 to {MAX_D}")
+    dk = _up(d, 64)
+    if all(stage_plans(dk, _up(dout, 8), rows) for rows in ROW_CHOICES):
+        return dk, _up(dout, 8)
+    return dk, _up(dout, 64)
+
+
 def stage_plan(d: int, dout: int, rows: int = 16) -> StagePlan:
-    """The stage kernel's launch plan for widths d -> dout at `rows` rows,
-    or ValueError.
+    """The stage kernel's launch plan for the kernel's widths d -> dout
+    (`stage_widths` of the stage's own) at `rows` rows, or ValueError.
 
     Geometry: `tiles` clusters along the rows, each of `cols` blocks (at most
     16) that share `rows` rows (one of ROW_CHOICES). Column slice c computes
@@ -317,28 +345,43 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def pad_stage(d: int, dout: int, weights):
+    """A stage's twelve operands (`bind_stage`'s order) padded with zeros
+    to the kernel's widths (dk, dok) = `stage_widths(d, dout)`: each tensor
+    itself where it needs no padding."""
+    dk, dok = stage_widths(d, dout)
+    shapes = [(dk, dk), (dk,), (dk,), (dk,), (dk,), (dk,), (dk, dk), (dk,), (dk, dk), (dk,),
+              (dok, dk), (dok,)]
+    return [padded(w, shape) for w, shape in zip(weights, shapes)]
+
+
 def bind_stage(wb, bb, g1, b1, g2, b2, wv, bv, wo, bo, wd, bd, *,
                eps: float = LN_EPS):
     """`fused_stage` with its weights fixed: returns run(h, tc=None,
-    row_add=None). CUDA weights are checked here, once, the plans of the
-    row counts up to 128 made and the tensor maps of their column slices
-    encoded (`run.maps`, held by `run`), so a call checks only its
+    row_add=None). CUDA weights are checked here, once, padded to the
+    kernel's widths (`pad_stage`: any d and d_out up to MAX_D), the plans
+    of the row counts up to 128 made and the tensor maps of their column
+    slices encoded (`run.maps`, held by `run`), so a call checks only its
     activations and encodes nothing (a CUDA graph's capture stays valid).
     For CPU weights `run` is the plain twin."""
     weights = (wb, bb, g1, b1, g2, b2, wv, bv, wo, bo, wd, bd)
     if not wb.is_cuda:
-        return lambda h, tc=None, row_add=None: fused_stage_plain(
-            h, tc, *weights, row_add=row_add, eps=eps)
+        def plain(h, tc=None, row_add=None):
+            return fused_stage_plain(h, tc, *weights, row_add=row_add, eps=eps)
+        plain.weights = weights
+        return plain
     dev = wb.device
-    d, dout = wb.shape[1], wd.shape[0]
-    plans = {rows: stage_plan(d, dout, rows) for rows in ROW_CHOICES}
+    width, width_out = wb.shape[1], wd.shape[0]
     for name, w in (("wb", wb), ("wv", wv), ("wo", wo)):
-        _check(name, w, (d, d), _BF16, dev)
-    _check("wd", wd, (dout, d), _BF16, dev)
+        _check(name, w, (width, width), _BF16, dev)
+    _check("wd", wd, (width_out, width), _BF16, dev)
     for name, v in (("bb", bb), ("g1", g1), ("b1", b1), ("g2", g2), ("b2", b2),
                     ("bv", bv), ("bo", bo)):
-        _check(name, v, (d,), _F32, dev)
-    _check("bd", bd, (dout,), _F32, dev)
+        _check(name, v, (width,), _F32, dev)
+    _check("bd", bd, (width_out,), _F32, dev)
+    wb, bb, g1, b1, g2, b2, wv, bv, wo, bo, wd, bd = pad_stage(width, width_out, weights)
+    d, dout = wb.shape[1], wd.shape[0]
+    plans = {rows: stage_plan(d, dout, rows) for rows in ROW_CHOICES}
     encode = _build.load("latent_stage").fd_stage_maps
     encode.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     encode.restype = ctypes.c_int
@@ -362,28 +405,31 @@ def bind_stage(wb, bb, g1, b1, g2, b2, wv, bv, wo, bo, wd, bd, *,
             base = plans[next((r for r in ROW_CHOICES if r >= rows), ROW_CHOICES[-1])]
             plan = chosen[rows] = (base if rows <= ROW_CHOICES[-1] else stage_plan(d, dout, rows))
         return plan
-    fn = _fn("fd_stage_launch", 13, 9)
+    fn = _fn("fd_stage_launch", 13, 11)
 
     def run(h, tc=None, row_add=None, plan=None):
-        """`plan`: one of `stage_plans(d, dout, rows)` in place of the
-        bound one (a comparison's; its maps are encoded at its first call
-        where its column slices are new)."""
+        """`plan`: one of `stage_plans(*run.widths, rows)` in place of
+        the bound one (a comparison's; its maps are encoded at its first
+        call where its column slices are new)."""
         bsz = h.shape[0]
-        _check("h", h, (bsz, d), _F32, dev)
-        _check("tc", tc, (bsz, d), _F32, dev)
-        _check("row_add", row_add, (d,), _F32, dev)
-        out = torch.empty((bsz, dout), dtype=_F32, device=dev)
+        # 4-byte aligned only where the width is ragged (the kernel reads it a float at a time)
+        _check("h", h, (bsz, width), _F32, dev, width == d)
+        _check("tc", tc, (bsz, width), _F32, dev, width == d)
+        _check("row_add", row_add, (width,), _F32, dev, width == d)
+        out = torch.empty((bsz, width_out), dtype=_F32, device=dev)
         if plan is None:
             plan = plan_for(bsz)
         elif plan.cols not in maps:
             encode_maps(plan.cols)
         code = fn(maps[plan.cols], h.data_ptr(), _ptr(row_add), _ptr(tc), *vecs, out.data_ptr(),
-                  bsz, d, dout, *plan, float(eps), _stream(dev))
+                  bsz, d, dout, width, width_out, *plan, float(eps), _stream(dev))
         _build.check(code, "fused_stage")
         fused_stage.launches += 1
         return out
 
-    run.weights = weights  # the tensors behind the maps and pointers live as long as run
+    run.weights = weights  # the stage's own, unpadded
+    run.padded = (wb, bb, g1, b1, g2, b2, wv, bv, wo, bo, wd, bd)  # behind the maps and pointers
+    run.widths = (d, dout)
     run.maps = buffers
     run.plan_for = plan_for
     return run
@@ -406,25 +452,22 @@ def bind_head(wt, bt, wc, bc, g, b, wf, bf, *, eps: float = LN_EPS):
     """`fused_head` with its weights fixed: returns run(h, t_base=None,
     c_base=None, row_add=None, rows_add=None); wt/bt and wc/bc may be None
     when the calls pass no t_base or c_base. Weights are checked once, as in
-    `bind_stage`. A call with neither base runs the column-tile kernel
-    (csrc/latent_head.cu), a call with either the whole-row kernel
-    (csrc/latent_stage.cu::head_kernel). For CPU weights `run` is the plain
-    twin."""
+    `bind_stage`, and padded with zeros (d_last and d_emb to multiples of
+    32, the latent to one of 8): any width up to MAX_D. A call with neither
+    base runs the column-tile kernel (csrc/latent_head.cu), a call with
+    either the whole-row kernel (csrc/latent_stage.cu::head_kernel). For CPU
+    weights `run` is the plain twin."""
     if not wf.is_cuda:
         def plain(h, t_base=None, c_base=None, row_add=None, rows_add=None):
             return fused_head_plain(h, t_base, c_base, wt, bt, wc, bc, g, b, wf, bf,
                                     row_add=row_add, rows_add=rows_add, eps=eps)
+        plain.weights = (wt, bt, wc, bc, g, b, wf, bf)
         return plain
     dev = wf.device
     latent, dl = wf.shape
     de = next((w.shape[1] for w in (wt, wc) if w is not None), dl)
-    _check_width("d_last", dl, 32)  # 32-wide k chunks of the products
-    _check_width("d_emb", de, 32)
-    _check_width("latent", latent)
     for name, n in (("d_last", dl), ("d_emb", de), ("latent", latent)):
-        # the whole-row kernel: one block all columns; the column kernel: a
-        # warp holds two rows of d_last in registers
-        _check_max(name, n, 512)
+        _check_max(name, n, MAX_D)
     for w, bias, tag in ((wt, bt, "t"), (wc, bc, "c")):
         if w is not None:
             _check(f"w{tag}", w, (dl, de), _BF16, dev)
@@ -434,19 +477,25 @@ def bind_head(wt, bt, wc, bc, g, b, wf, bf, *, eps: float = LN_EPS):
     _check("wf", wf, (latent, dl), _BF16, dev)
     _check("bf", bf, (latent,), _F32, dev)
     weights = (wt, bt, wc, bc, g, b, wf, bf)
-    ptrs = [_ptr(w) for w in weights]
+    # padded with zeros: d_last and d_emb to whole 32-wide k chunks, the
+    # latent to whole n8 tiles of the products
+    dlp, dep, latp = _up(dl, 32), _up(de, 32), _up(latent, 8)
+    shapes = [(dlp, dep), (dlp,), (dlp, dep), (dlp,), (dlp,), (dlp,), (latp, dlp), (latp,)]
+    pads = [None if w is None else padded(w, shape) for w, shape in zip(weights, shapes)]
+    ptrs = [_ptr(w) for w in pads]
+    aligned = dl % 32 == 0  # else the kernels read the rows a float at a time
     fn_rows = _fn("fd_head_launch", 14, 4)
-    fn_cols = _fn("fd_head_cols_launch", 8, 3, lib="latent_head")
+    fn_cols = _fn("fd_head_cols_launch", 8, 4, lib="latent_head")
 
     def run(h, t_base=None, c_base=None, row_add=None, rows_add=None):
         bsz = h.shape[0]
-        _check("h", h, (bsz, dl), _F32, dev)
-        _check("row_add", row_add, (dl,), _F32, dev)
-        _check("rows_add", rows_add, (bsz, dl), _F32, dev)
+        _check("h", h, (bsz, dl), _F32, dev, aligned)
+        _check("row_add", row_add, (dl,), _F32, dev, aligned)
+        _check("rows_add", rows_add, (bsz, dl), _F32, dev, aligned)
         for base, w, tag in ((t_base, wt, "t"), (c_base, wc, "c")):
             if base is not None and w is None:
                 raise ValueError(f"{tag}_base given but no w{tag} bound")
-            _check(f"{tag}_base", base, (bsz, de), _F32, dev)
+            _check(f"{tag}_base", base, (bsz, de), _F32, dev, False)
         use_t, use_c = t_base is not None, c_base is not None
         out = torch.empty((bsz, latent), dtype=_F32, device=dev)
         if use_t or use_c:
@@ -459,12 +508,13 @@ def bind_head(wt, bt, wc, bc, g, b, wf, bf, *, eps: float = LN_EPS):
             fused_head.product_launches += 1
         else:
             code = fn_cols(h.data_ptr(), _ptr(row_add), _ptr(rows_add), *ptrs[4:],
-                           out.data_ptr(), bsz, dl, latent, float(eps), _stream(dev))
+                           out.data_ptr(), bsz, dl, dlp, latent, float(eps), _stream(dev))
             _build.check(code, "fused_head")
         fused_head.launches += 1
         return out
 
-    run.weights = weights  # the tensors behind `ptrs` live as long as run
+    run.weights = weights  # the head's own, unpadded
+    run.padded = pads  # the tensors behind `ptrs` live as long as run
     return run
 
 

@@ -27,6 +27,8 @@ from flowerdiff_torch.kernels.full_sampler import (
     process_rows,
     process_smem,
     process_step_us,
+    process_units,
+    process_widths,
     run_steps,
 )
 from flowerdiff_torch.kernels.latent_stage import SMEM_LIMIT
@@ -103,12 +105,39 @@ def test_process_plan_ranks_by_waves_and_cost():
         assert all(cost <= p.waves * process_step_us(LATENT, HIDDEN, False, p) for p in plans)
 
 
-@pytest.mark.parametrize("hidden,latent,skip", [((256, 512, 1024, 512, 256, 256), 256, False),
-                                                ((96, 192, 96), 96, False),
+@pytest.mark.parametrize("hidden,latent,skip", [((256, 512, 2049, 512, 256), 256, False),
+                                                ((64,) * 10, 64, False),
                                                 ((256, 512, 128), 256, True)])
 def test_process_plan_refuses_widths_the_kernel_cannot_take(hidden, latent, skip):
+    """Past the kernel's bounds: a width above MAX_WIDTH, 9 stages, a v2
+    skip whose last hidden width is not the latent's."""
     with pytest.raises(ValueError):
         process_plan(latent, hidden, skip, 8, True)
+
+
+# Denoisers the JAX kernels sample (full_sampler.py holds whole arrays in
+# VMEM): the --tiny preset, ragged widths, six stages, latent 254 with the
+# flagship's hidden widths, with and without a skip of 254, a 2048-wide stage.
+WIDTHS = [(32, (32, 64, 32), False), (96, (96, 200, 96), False),
+          (64, (64, 128, 128, 128, 128, 128, 64), False), (254, HIDDEN, False),
+          (254, (254, 512, 1024, 512, 254), True), (256, (256, 2048, 256), False)]
+
+
+@pytest.mark.parametrize("batch", [8, 64])
+@pytest.mark.parametrize("guided", [True, False])
+@pytest.mark.parametrize("latent,hidden,skip", WIDTHS)
+def test_process_plan_takes_every_denoiser_the_jax_kernel_takes(latent, hidden, skip, batch,
+                                                                guided):
+    plan = process_plan(latent, hidden, skip, batch, guided)
+    assert plan.waves == 1 and plan.smem <= SMEM_LIMIT == 232448
+    lat_p, hid_p = process_widths(latent, hidden, plan.cols)
+    assert plan.smem == process_smem(lat_p, hid_p, skip, plan.cols, plan.rows, plan.qbufs,
+                                     plan.slots)
+    for w, p in zip((latent, *hidden), (lat_p, *hid_p)):
+        # whole k64 tiles and 8-column slices, the padding less than one unit
+        assert p % 64 == 0 and p % (8 * plan.cols) == 0 and 0 <= p - w < max(64, 8 * plan.cols)
+        assert p // plan.cols <= 64 * process_units(plan.rows, max(latent, *hidden)) <= 256
+    assert process_rows(plan, batch, guided)[0][0] == 0
 
 
 # The plain version against the JAX package's fused sampler
