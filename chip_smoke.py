@@ -26,11 +26,14 @@ Phases (any failure raises and the script exits nonzero without a result):
      against the host loop of the step's kernels with every left-out term
      (CFG, the skip, the clip, the noise, a stage's condition add) more than
      twice the limit away, repeats bit-equal, 5 steps against the plain
-     twins on the card; the same, guided at the 8 and 64 buckets, at each
-     denoiser of WIDTHS (the --tiny preset's widths, ragged widths, six
-     stages, latent 254 with and without the skip, a 2048-wide stage); and
-     a 1000-step call timed at both buckets beside the twins' 1000 steps
-     and the bound, and at the tiny preset's widths and latent 254;
+     twins on the card; the streamed layout forced on the flagship's bound
+     plans, bit-equal to the resident one; the same, guided at the 8 and 64
+     buckets, at each denoiser of WIDTHS (the --tiny preset's widths, ragged
+     widths, six stages, latent 254 with and without the skip, a 2048-wide
+     stage, and DEEP_WIDTHS: 63, 340 and 23 stages, a 3456-wide middle,
+     latent 2560, a 12-stage v2 net); and a 1000-step call timed at both
+     buckets beside the twins' 1000 steps and the bound, at the tiny
+     preset's widths and latent 254, and at the 8 bucket at DEEP_WIDTHS;
   3. check the reverse-step noise against the closed-form variance of the
      zero-eps recursion (B = 128, latent 256, T = 1000);
   4. hold the kernel sampler against the plain f32 model on a short
@@ -76,7 +79,8 @@ Phases (any failure raises and the script exits nonzero without a result):
      count the tensor-map encodes: the binding encodes each map once, a step
      after it none; hold the bf16 step at latent and time embedding 254
      (rows tensor maps cannot read: their products on split-K and mma_dw)
-     against its twin at the bf16 limit, v1 and v2;
+     against its twin at the bf16 limit, v1 and v2; bind the step of a
+     40-stage net of 128 (DEEP_TRAIN) in both lanes against its twin;
  11. train the flagship latent DDPM as users run it, on augmented images
      (rotation 10 degrees, jitter 0.2), for 10 epochs (150 steps) on a
      K = 8 pool of cached latents of 1020 synthetic images through
@@ -100,6 +104,7 @@ Phases (any failure raises and the script exits nonzero without a result):
      check the draws' distribution and bit-equal reruns; train 150 steps
      (no tensor-map encode after the first epoch) and sample from the EMA
      weights; time an epoch (wall and busy) beside the per-step kernel body;
+     hold an epoch of the 40-stage net against its twin and time it;
  14. train the flagship VAE-GAN (`phase_vae_gan`: channels (64, 128, 256,
      512), latent 256, 102 classes, VGG from the in-repo asset, B = 64, the
      gates of epoch 200 of 1200, so every term is on and the centers update):
@@ -249,6 +254,8 @@ from flowerdiff_torch.kernels.full_sampler import (  # noqa: E402
     prepare_fused_sampler,
     process_map_encodes,
     process_max_clusters,
+    process_smem,
+    process_widths,
     reverse_process,
     reverse_step,
     reverse_step_plain,
@@ -280,6 +287,7 @@ from flowerdiff_torch.train.fused import (  # noqa: E402
 from flowerdiff_torch.train.latent_ddpm import (  # noqa: E402
     LatentDiffusionConfig,
     LatentDiffusionTrainer,
+    create_latent_diffusion_state,
 )
 from flowerdiff_torch.models import VGGPerceptual  # noqa: E402
 from flowerdiff_torch.train import pixel_ddpm as px  # noqa: E402
@@ -292,6 +300,7 @@ from flowerdiff_torch.utils.weights import (  # noqa: E402
     denoiser_from_params,
     init_numpy_params,
     pixel_unet_from_params,
+    residual_stream,
     state_dict_to_flax,
     vae_from_params,
 )
@@ -777,9 +786,10 @@ def plain_steps(prep, inputs, *, stochastic=True, clip_x0=None, guidance_scale=N
 
 def left_out(prep, inputs, kw):
     """The host loop with one term of the process left out at a time (the
-    condition add of stage 2, or of the last stage where there are fewer)."""
+    condition add of stage 2, or of the last stage where there are fewer, or
+    more than 8: deep in the chain one stage's add washes out)."""
     adds = list(inputs.stage_adds)
-    i = min(2, len(adds) - 1)
+    i = min(2, len(adds) - 1) if len(adds) <= 8 else len(adds) - 1
     adds[i] = torch.zeros_like(adds[i])
     out = {"noise": run_steps(prep, inputs, **dict(kw, stochastic=False)),
            f"stage {i}'s condition add": run_steps(prep, inputs._replace(stage_adds=tuple(adds)),
@@ -794,24 +804,37 @@ def left_out(prep, inputs, kw):
 
 
 # Denoisers the JAX package samples with its kernel, which the port's card
-# path takes (any width up to 2048, 1 to 8 stages): (name,
-# latent, hidden, v2 skip). A stage's input width is a multiple of its 8
-# attention heads, so latent 254 takes the skip with a last width of 254.
+# path takes (any width up to 4096, any depth): (name, latent, hidden, v2
+# skip). A stage's input width is a multiple of its 8 attention heads, so
+# latent 254 takes the skip with a last width of 254. DEEP_WIDTHS: past the
+# resident layout's 8 stages or 2048 wide, at the JAX kernel's edge (its
+# 100 MiB at the 64 bucket), each also timed at 1000 steps.
+DEEP_WIDTHS = [("63 stages of 256", 256, (256,) * 64, False),
+               ("340 stages of 64", 64, (64,) * 341, False),
+               ("23 stages of 512", 512, (512,) * 24, False),
+               ("3456-wide middle", 256, (256, 512, 3456, 512, 256), False),
+               ("latent 2560", 2560, (2560, 2560), False),
+               ("12 stages, skip", 64, (64,) * 13, True)]
 WIDTHS = [("tiny preset", 32, (32, 64, 32), False),
           ("ragged", 96, (96, 200, 96), False),
           ("six stages", 64, (64, 128, 128, 128, 128, 128, 64), False),
           ("latent 254", 254, (256, 512, 1024, 512, 256), False),
           ("latent 254, skip", 254, (256, 512, 1024, 512, 254), True),
-          ("2048-wide stage", 256, (256, 2048, 256), False)]
+          ("2048-wide stage", 256, (256, 2048, 256), False)] + DEEP_WIDTHS
 
 
 def width_model(latent, hidden, skip, seed=3):
     """A seeded denoiser of the given widths (biases of std 0.3, so that each
-    condition add moves the result), 102 classes, on the card."""
+    condition add moves the result), 102 classes, on the card; past 8 stages
+    a residual stream (`residual_stream`: the plain seeded tree is chaotic
+    there, a bf16 rounding landing the other way moves a guided sample past
+    PROCESS_TOL, and at 340 stages it overflows)."""
     kw = dict(latent_dim=latent, hidden_dims=hidden, time_emb_dim=32 if latent == 32 else 64,
               num_classes=FLAGSHIP["num_classes"], shared_cond_proj=True, global_skip=skip)
-    return denoiser_from_params(init_numpy_params("denoiser", seed=seed, bias_std=0.3, **kw),
-                                device="cuda", **kw)
+    tree = init_numpy_params("denoiser", seed=seed, bias_std=0.3, **kw)
+    if len(hidden) > 9:
+        residual_stream(tree)
+    return denoiser_from_params(tree, device="cuda", **kw)
 
 
 def process_case(prep, process, b, guided, steps, gen, tag, dev):
@@ -849,6 +872,27 @@ def print_plan(tag, plan, b, guided, e_bind):
           f"{plan.waves} wave(s) (the card runs {active} such clusters at once); "
           f"tensor-map encodes at bind {e_bind}")
     assert plan.waves > 1 or plan.clusters <= active, (plan, active)
+
+
+def streamed_bit_equal(prep, process, skip, dev):
+    """The streamed layout (maps, widths and time tables in device memory,
+    vectors and condition rows read from L2), forced at the bound plan's
+    geometry of the flagship's guided buckets: the same bits as the
+    resident launch. Its requests draw from a generator of their own."""
+    model = prep["model"]
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for b in (8, 64):
+        plan = process.plan_for(b, True)
+        lat_p, hid_p = process_widths(model.latent_dim, model.hidden_dims, plan.cols)
+        streamed = plan._replace(streamed=True, smem=process_smem(
+            lat_p, hid_p, skip, plan.cols, plan.rows, plan.qbufs, plan.slots, True))
+        inputs = draw_request(prep, b, torch.arange(b, device=dev) % FLAGSHIP["num_classes"],
+                              None, gen, None, True)
+        kw = dict(stochastic=True, clip_x0=CLIP, guidance_scale=GUIDANCE)
+        same = torch.equal(process(inputs, plan=streamed, **kw), process(inputs, **kw))
+        print(f"[kernels] reverse_process skip={skip} B={b}: the streamed layout at the bound "
+              f"plan's geometry bit-equal to the resident one: {same}")
+        assert same, f"streamed and resident layouts differ at B={b} skip={skip}"
 
 
 def phase_process(prep, gen):
@@ -890,11 +934,17 @@ def phase_process(prep, gen):
                 print(f"[kernels] {tag} against the {what}: max_abs_err {err:.3e} (tol "
                       f"{tol:.3e}; least move of a left-out term: {weakest}); repeat bit-equal")
                 row["max_abs_err"] = max(row["max_abs_err"], err)
+            if steps == 20:
+                streamed_bit_equal(p, process, skip, dev)
     # every width and depth: the bound plans, 20 steps against the host loop
     # with the left-out terms, 5 against the twins
     widths_err = 0.0
+    # the nets past 8 stages or 2048 draw from a generator of their own, so
+    # the later phases draw what they drew before them
+    deep_gen = torch.Generator(device=dev).manual_seed(20)
     for name, lat, hidden, skip in WIDTHS:
         mdl = width_model(lat, hidden, skip)
+        g = deep_gen if (name, lat, hidden, skip) in DEEP_WIDTHS else gen
         for steps in (20, 5):
             p = prepare_fused_sampler(mdl, linear_schedule(steps))
             process = ReverseProcess(p)
@@ -905,7 +955,7 @@ def phase_process(prep, gen):
                 if steps == 20:
                     print_plan(f"reverse_process {name}", plan, b, True,
                                process_map_encodes() - e0)
-                err, tol, weakest, what = process_case(p, process, b, True, steps, gen, tag, dev)
+                err, tol, weakest, what = process_case(p, process, b, True, steps, g, tag, dev)
                 print(f"[kernels] {tag} against the {what}: max_abs_err {err:.3e} (tol "
                       f"{tol:.3e}; least move of a left-out term: {weakest}); repeat bit-equal")
                 widths_err = max(widths_err, err)
@@ -929,6 +979,24 @@ def phase_process(prep, gen):
         else:
             row["ms_bucket_8"] = float(np.mean(ms))
         print(line)
+        # the streamed layout forced at the bound plan's geometry, in turns
+        # with the resident one: what the flagship's resident layout buys
+        plan = process.plan_for(b, True)
+        lat_p, hid_p = process_widths(prep["model"].latent_dim, prep["model"].hidden_dims,
+                                      plan.cols)
+        streamed = plan._replace(streamed=True, smem=process_smem(
+            lat_p, hid_p, False, plan.cols, plan.rows, plan.qbufs, plan.slots, True))
+        process(inputs, plan=streamed, **kw)
+        turns = {"resident": [], "streamed": []}
+        for kind in ("resident", "streamed", "streamed", "resident") * 2:
+            turns[kind].append(event_ms(lambda: process(
+                inputs, plan=streamed if kind == "streamed" else None, **kw), 1))
+        res, stm = (float(np.mean(turns[k])) for k in ("resident", "streamed"))
+        print(f"[kernels] reverse_process B={b} guided, 1000 steps, in turns: resident "
+              f"{res:.3f} ms {[round(v, 3) for v in turns['resident']]}, streamed forced "
+              f"{stm:.3f} ms {[round(v, 3) for v in turns['streamed']]} "
+              f"({100 * (stm / res - 1):+.2f}%)")
+        row[f"ms_in_turns_bucket_{b}"] = {"resident": res, "streamed": stm}
     # the same 1000-step calls at the tiny preset's widths and at latent 254
     sched = linear_schedule(1000)
     for name, lat, hidden, skip in (WIDTHS[0], WIDTHS[3]):
@@ -945,6 +1013,30 @@ def phase_process(prep, gen):
                   f"guided, 1000 steps: ms {np.mean(ms):.3f} (runs {[round(v, 3) for v in ms]}) "
                   f"bound_ms {b_ms:.4f} ({b_by}); plan {process.plan_for(b, True)}")
             row[f"ms_{name.replace(' ', '_')}_bucket_{b}"] = float(np.mean(ms))
+    # one 1000-step guided call at the 8 bucket of each net past 8 stages or 2048
+    for name, lat, hidden, skip in DEEP_WIDTHS:
+        p = prepare_fused_sampler(width_model(lat, hidden, skip), sched.to("cuda"))
+        process = ReverseProcess(p)
+        inputs = draw_request(p, 8, torch.arange(8, device=dev) % FLAGSHIP["num_classes"],
+                              None, deep_gen, None, True)
+        kw = dict(stochastic=True, clip_x0=CLIP, guidance_scale=GUIDANCE)
+        got = process(inputs, **kw)  # binds, and warms up
+        assert torch.isfinite(got).all(), name
+        ms = []
+        for _ in range(3):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            process(inputs, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        b_ms, b_by = sampler_bound_ms(p, 8)
+        plan = process.plan_for(8, True)
+        print(f"[kernels] reverse_process {name} (latent {lat}, {len(hidden) - 1} stages, "
+              f"widest {max(hidden)}) B=8 guided, 1000 steps: ms {np.mean(ms):.3f} (runs "
+              f"{[round(v, 3) for v in ms]}) bound_ms {b_ms:.4f} ({b_by}); plan {plan}")
+        row[f"ms_{name.replace(' ', '_').replace(',', '')}_bucket_8"] = float(np.mean(ms))
+        del p, process
     return row
 
 
@@ -1553,6 +1645,67 @@ def ragged_train_step(gen) -> dict:
     return out
 
 
+# 40 stages of 128: ~27 MiB of f32 weights and gradients, which the JAX
+# train kernels hold in their 120 MiB of VMEM; past the 16 stages the train
+# kernels' host structs once held. The step's net is a residual stream
+# (`residual_stream`): from the plain seeded tree the bf16 lane's rounding
+# of each incoming gradient before its products, where the twin rounds
+# after them, builds up over 40 stages to 1.98e-2 of wl's largest gradient
+# on an H100 (PERF.md) against TRAIN_BF16_REL; the f32 lane agrees either
+# way (tools/depth_probe.py shows it on the CPU).
+DEEP_TRAIN = dict(latent_dim=128, hidden_dims=(128,) * 41, time_emb_dim=64,
+                  num_classes=FLAGSHIP["num_classes"])
+
+
+def deep_train_step() -> dict:
+    """The train-step kernel bound to the 40-stage net (a residual stream)
+    at B = 64, both lanes: one launch a step, no encode a step, loss and
+    every leaf against
+    autograd on the twin (f32: the per-leaf limits; bf16: TRAIN_BF16_REL of
+    the leaf's largest gradient), ms in a CUDA graph."""
+    gen = torch.Generator(device="cuda").manual_seed(22)  # the later phases' draws as before
+    model = denoiser_from_params(
+        residual_stream(init_numpy_params("denoiser", seed=3, **DEEP_TRAIN)), device="cuda",
+        **DEEP_TRAIN)
+    _perturb_module(model, gen)
+    named = dict(ts.weights_spec(model))
+    assert len(named) == 11 + 14 * 40 + 9
+    data, masks = _train_case(model, gen)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        lane = "f32" if dtype == torch.float32 else "bf16"
+        run = ts.bind_train_step(named, TRAIN_BATCH, dtype=dtype)
+        before = ts.kernel_loss_and_grads.launches
+        loss, grads = run(data, masks)
+        torch.cuda.synchronize()
+        assert ts.kernel_loss_and_grads.launches == before + 1
+        e0 = ts.tensor_map_encodes()
+        ref_loss, ref = ts.twin_loss_and_grads(named, data, masks, dtype=dtype)
+        assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads.values())
+        worst_rel, worst_leaf, worst_abs = _worst_leaf(grads, ref)
+        loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+        if dtype == torch.float32:
+            for k, r in ref.items():
+                err = (grads[k].reshape(r.shape) - r).abs()
+                over = float((err - (TRAIN_F32_ATOL + TRAIN_F32_RTOL * r.abs())).max())
+                assert over <= 0, f"deep train_step f32: leaf {k} over by {over}"
+            assert loss_rel <= 1e-5, f"deep train_step f32 loss off by {loss_rel}"
+        else:
+            assert worst_rel <= TRAIN_BF16_REL, (
+                f"deep train_step bf16: leaf {worst_leaf} off by {worst_rel} x max|twin grad| "
+                f"> {TRAIN_BF16_REL}")
+            assert loss_rel <= TRAIN_BF16_REL
+        ms = cuda_ms(lambda: run(data, masks), iters=10)
+        torch.cuda.synchronize()
+        assert ts.tensor_map_encodes() == e0, "a bound deep step encoded a tensor map"
+        print(f"[train_kernel] 40 stages of 128 {lane}: {len(run.products())} products; loss "
+              f"{float(loss):.6f} (twin {float(ref_loss):.6f}, rel {loss_rel:.2e}); worst leaf "
+              f"{worst_leaf} {worst_rel:.3e} x max|twin grad| (abs {worst_abs:.3e}); ms "
+              f"{ms:.4f}; tensor-map encodes a step 0")
+        out[lane] = dict(ms=ms, max_rel_err=worst_rel)
+    return out
+
+
 def _moved(grads, ref):
     """The largest change of any gradient leaf, relative to the leaf's max."""
     return max(float((grads[k] - ref[k]).abs().max() / (ref[k].abs().max() + 1e-30))
@@ -1764,6 +1917,7 @@ def phase_train_kernel(gen):
           f"product) {row['library_ms']:.4f}")
     row["max_rel_err"] = worst_bf16
     row["ragged"] = ragged_train_step(gen)
+    row["deep"] = deep_train_step()
     return row
 
 
@@ -2308,7 +2462,56 @@ def phase_train_epoch(vae, stats, pool, dataset):
                per_step_body_wall_ms=float(np.mean(walls["body"])),
                encodes_an_epoch_after_bind=e_later / (epochs - 1))
     print(f"[train_epoch] the twin's epoch, eager: {twin_ms:.1f} ms")
+    row["deep"] = deep_train_epoch()
     return row
+
+
+def deep_train_epoch() -> dict:
+    """The epoch kernel over the 40-stage net of DEEP_TRAIN (its draws in
+    more than one launch a step; a residual stream from the trainer's
+    initial tree: the plain tree's drift is chaos, tools/depth_probe.py
+    --epoch), S = EPOCH_STEPS steps of B = 64 in the f32 lane with f32
+    moments, against the twin epoch on the draws the kernel makes, in units
+    of the flagship epoch's f32 limits (`_epoch_readings`: losses, weights,
+    moments, q and k); the epoch timed between CUDA events."""
+    steps, batch, seed = EPOCH_STEPS, TRAIN_BATCH, 7
+    cfg = LatentDiffusionConfig(**{**DEEP_TRAIN, "n_steps": 1000, "steps_per_epoch": steps,
+                                   "dropout_rate": 0.3, "cond_dropout": 0.25})
+    tree = init_numpy_params("denoiser", seed=3, bias_std=0.0, **DEEP_TRAIN)
+    params = residual_stream(tree)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    z = torch.randn((steps, batch, cfg.latent_dim), generator=gen, device="cuda")
+    labels = torch.randint(0, cfg.num_classes, (steps, batch), generator=gen, device="cuda")
+    runs = {}
+    for kind in ("kernel", "twin"):
+        state, model, sched = create_latent_diffusion_state(3, cfg, device="cuda", params=params)
+        if kind == "kernel":
+            fn = te.make_mega_epoch_fn(model, cfg, steps, batch, dtype=torch.float32,
+                                       moments_dtype=torch.float32)
+            losses = fn(state, sched, z, labels, seed)
+            assert fn.launches == 1
+        else:
+            draws = te.epoch_draws(model, cfg, sched, steps, batch, seed, 0)
+            losses, _ = te.mega_epoch_plain(state, sched, z, labels, draws, dtype=torch.float32,
+                                            moments_dtype=torch.float32)
+        torch.cuda.synchronize()
+        runs[kind] = (losses, state)
+    (lk, sk), (lt, st) = runs["kernel"], runs["twin"]
+    assert torch.isfinite(lk).all()
+    sum_lr = float(te.epoch_tables(st.schedule, 0, steps)[0].sum())
+    readings = _epoch_readings(lk, sk, lt, st, sum_lr)[0]
+    worst = max(readings, key=readings.get)
+    state, model, sched = create_latent_diffusion_state(3, cfg, device="cuda", params=params)
+    fn = te.make_mega_epoch_fn(model, cfg, steps, batch, dtype=torch.float32,
+                               moments_dtype=torch.float32)
+    ms = [event_ms(lambda: fn(state, sched, z, labels, seed), 1) for _ in range(2)]
+    print(f"[train_epoch] 40 stages of 128 (a residual stream, S={steps}), f32 lane: losses "
+          f"{float(lk[0]):.5f} .. {float(lk[-1]):.5f} (twin {float(lt[0]):.5f} .. "
+          f"{float(lt[-1]):.5f}); in units of the limits "
+          f"{ {k: round(v, 4) for k, v in readings.items()} }; an epoch of {steps} steps "
+          f"{np.mean(ms):.3f} ms between CUDA events (runs {[round(v, 3) for v in ms]})")
+    assert readings[worst] <= 1.0, f"deep epoch: {worst} at {readings[worst]:.3f} of its limit"
+    return dict(ms=float(np.mean(ms)), readings=readings)
 
 
 def card_line() -> str:

@@ -175,9 +175,10 @@ class FusedDiffusionSampler(DiffusionSampler):
     (`process`, a `ReverseProcess`): all T steps of the call, its plan bound
     at the first call of each (batch, guided) and listed in
     `process.bound`; a kernel that fails to build or launch raises. The
-    kernel takes every denoiser of 1 to 8 stages whose widths are at most
-    2048 (`kernels.full_sampler.process_plan`, which raises past them,
-    naming the bound). On the CPU the same call runs the step loop on the
+    kernel takes every denoiser the JAX kernel holds in its 100 MiB of VMEM
+    whose widths are at most 4096, at any depth up to 32768 stages
+    (`kernels.full_sampler.process_plan`, which raises past them, naming
+    the bound). On the CPU the same call runs the step loop on the
     kernels' plain twins."""
 
     def __init__(self, model, sched: DiffusionSchedule, event_shape: Tuple[int, ...],

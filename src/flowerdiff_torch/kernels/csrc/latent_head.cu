@@ -34,7 +34,7 @@
 // Widths. Wf's rows are padded with zeros to ldw, a multiple of 32, at bind
 // (kernels/latent_stage.py::bind_head), so every k chunk is whole and its
 // 16-byte loads aligned. Up to dl = 512 in whole 32-column chunks a warp
-// holds its two rows in registers, as above; any other dl up to 2048 (a
+// holds its two rows in registers, as above; any other dl up to 4096 (a
 // ragged one, or one whose rows would not fit a lane's registers) is read
 // in three passes over the row (sum, centred square, the normalised bf16
 // operand), a float a lane at a time at the rows' own stride, the operand's
@@ -50,7 +50,7 @@ using fd::kWarps;
 constexpr int kCols = 16;           // output columns a block: two n8 tiles
 constexpr int kNTiles = kCols / 8;
 constexpr int kChunk = 32;          // k's of a chunk: two m16n8k16 steps
-constexpr int kMaxDl = 2048;
+constexpr int kMaxDl = 4096;       // 8 warps x 16 chunks x 32
 constexpr int kRegDl = 512;         // rows held in registers up to this width
 constexpr int kRowsPerWarp = kRows / kWarps;
 
@@ -216,18 +216,19 @@ using HeadKernel = decltype(&head_cols_kernel<2, 1>);
 
 // The instance for (dl, ldw), its dynamic shared memory allowed once.
 cudaError_t head_instance(int dl, int ldw, size_t smem, HeadKernel* kernel) {
-  static size_t configured[6] = {};
+  static size_t configured[7] = {};
   int i;
   if (dl % kChunk == 0 && dl <= kRegDl) {
     i = dl <= 256 ? 0 : 1;
     *kernel = dl <= 256 ? &head_cols_kernel<2, 1> : &head_cols_kernel<4, 2>;
   } else {
     const int c = (ldw + kWarps * kChunk - 1) / (kWarps * kChunk);
-    i = c <= 1 ? 2 : c <= 2 ? 3 : c <= 4 ? 4 : 5;
+    i = c <= 1 ? 2 : c <= 2 ? 3 : c <= 4 ? 4 : c <= 8 ? 5 : 6;
     *kernel = c <= 1   ? &head_cols_kernel<0, 1>
               : c <= 2 ? &head_cols_kernel<0, 2>
               : c <= 4 ? &head_cols_kernel<0, 4>
-                       : &head_cols_kernel<0, 8>;
+              : c <= 8 ? &head_cols_kernel<0, 8>
+                       : &head_cols_kernel<0, 16>;
   }
   if (smem <= 48 * 1024 || smem <= configured[i]) return cudaSuccess;
   const cudaError_t err =
@@ -240,7 +241,7 @@ cudaError_t head_instance(int dl, int ldw, size_t smem, HeadKernel* kernel) {
 
 // h (B, dl), rows_add (B, dl) and row_add (dl) f32, either add may be null;
 // g, b (dl), bf (latent) f32; wf (latent, ldw) bf16, its columns from dl on
-// zero -> out (B, latent) f32. dl: 1 to 2048; ldw: dl rounded up to a
+// zero -> out (B, latent) f32. dl: 1 to 4096; ldw: dl rounded up to a
 // multiple of 32; latent: any.
 extern "C" int fd_head_cols_launch(const void* h, const void* row_add, const void* rows_add,
                                    const void* g, const void* b, const void* wf,

@@ -29,11 +29,13 @@
 // a repeat gives the same bits (no atomics); the epilogue adds the bias (or
 // applies the skip's gate) and writes the CFG copies.
 //
-// Widths: any L up to 2048 and any H. The weights' rows are padded with
+// Widths: any L up to 4096 and any H. The weights' rows are padded with
 // zeros to ldw, L rounded up to a multiple of 8, at bind
 // (kernels/full_sampler.py::bind_latent_proj), so every 16-byte weight load
 // is aligned and whole; where L is not a multiple of 8, x is read a float at
-// a time, zero past L.
+// a time, zero past L. Above 2048 (8 warps x 8 chunks x 32) a block sums
+// K in passes of 2048, each loading its fragments as above, in the
+// instance of its own (P = 2), so the narrower ones keep their code.
 #include "rows.cuh"
 
 namespace {
@@ -44,7 +46,8 @@ constexpr int kTileRows = 16;    // rows of x a block: one m16 tile
 constexpr int kTileCols = 16;    // output columns a block: two n8 tiles
 constexpr int kNTiles = kTileCols / 8;
 constexpr int kChunk = 32;       // k's of a chunk: two m16n8k16 steps
-constexpr int kMaxLatent = 2048; // 8 warps x 8 chunks x 32
+constexpr int kPassK = 2048;     // 8 warps x 8 chunks x 32
+constexpr int kMaxLatent = 2 * kPassK;
 
 // f32 (lo, hi) -> packed bf16x2, round to nearest even, lo in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -53,14 +56,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // Blocks [0, h_tiles) along x compute columns of h, the others columns of
-// the skip. C: the k chunks a warp takes (L <= 256 C).
+// the skip. C: the k chunks a warp takes a pass (L <= 256 C P); P: passes
+// of kPassK.
 //
 // Fragments (the relabelling of fd::gemm_tc): within a 32-wide chunk, lane
 // (g = lane / 4, t = lane % 4) holds the 8 contiguous k's 8t..8t+7 of x rows
 // g and g + 8 and of weight row g of each n8 tile; its k's 8t..8t+3 serve as
 // the logical k's {2t, 2t+1, 2t+8, 2t+9} of the first m16n8k16 step and
 // 8t+4..8t+7 those of the second, the same on both sides.
-template <int C>
+template <int C, int P = 1>
 __global__ void __launch_bounds__(kThreads)
 latent_proj_kernel(const float* __restrict__ x, int B, int L, int ldw,
                    const __nv_bfloat16* __restrict__ wl, const float* __restrict__ bl, int H,
@@ -76,56 +80,60 @@ latent_proj_kernel(const float* __restrict__ x, int B, int L, int ldw,
   const __nv_bfloat16* W = is_skip ? wf : wl;
   const int r0 = blockIdx.y * kTileRows;
 
-  // every load of the block in flight before the first product: weights first
-  uint4 wq[C][kNTiles];
-  float4 xq[C][4];  // rows g (k 8t..8t+3, 8t+4..8t+7), then g + 8
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const int k = (warp + kWarps * c) * kChunk + 8 * t;
-#pragma unroll
-    for (int i = 0; i < kNTiles; ++i) {
-      const int n = n0 + 8 * i + g;
-      wq[c][i] = make_uint4(0u, 0u, 0u, 0u);
-      if (k < ldw && n < N)
-        wq[c][i] = __ldg(reinterpret_cast<const uint4*>(W + (size_t)n * ldw + k));
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const int k = (warp + kWarps * c) * kChunk + 8 * t;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = r0 + g + 8 * half;
-      const bool in = k < L && row < B;
-      const float* p = x + (size_t)row * L + k;
-      if (L % 8 == 0) {
-        xq[c][2 * half] = in ? fd::ldg4(p) : make_float4(0.f, 0.f, 0.f, 0.f);
-        xq[c][2 * half + 1] = in ? fd::ldg4(p + 4) : make_float4(0.f, 0.f, 0.f, 0.f);
-      } else {
-        float v[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = in && k + e < L ? __ldg(p + e) : 0.f;
-        xq[c][2 * half] = make_float4(v[0], v[1], v[2], v[3]);
-        xq[c][2 * half + 1] = make_float4(v[4], v[5], v[6], v[7]);
-      }
-    }
-  }
-
   float acc[kNTiles][4];
 #pragma unroll
   for (int i = 0; i < kNTiles; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+#pragma unroll 1
+  for (int pass = 0; pass < P; ++pass) {
+    const int k0 = pass * kPassK;
+    // every load of the block in flight before the first product: weights first
+    uint4 wq[C][kNTiles];
+    float4 xq[C][4];  // rows g (k 8t..8t+3, 8t+4..8t+7), then g + 8
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    if ((warp + kWarps * c) * kChunk >= L) break;
-    const float4 lo0 = xq[c][0], lo1 = xq[c][1], hi0 = xq[c][2], hi1 = xq[c][3];
-    const uint32_t a_lo[4] = {pack_bf16(lo0.x, lo0.y), pack_bf16(lo0.z, lo0.w),
-                              pack_bf16(lo1.x, lo1.y), pack_bf16(lo1.z, lo1.w)};
-    const uint32_t a_hi[4] = {pack_bf16(hi0.x, hi0.y), pack_bf16(hi0.z, hi0.w),
-                              pack_bf16(hi1.x, hi1.y), pack_bf16(hi1.z, hi1.w)};
+    for (int c = 0; c < C; ++c) {
+      const int k = k0 + (warp + kWarps * c) * kChunk + 8 * t;
 #pragma unroll
-    for (int i = 0; i < kNTiles; ++i) {
-      fd::mma_bf16(acc[i], a_lo[0], a_hi[0], a_lo[1], a_hi[1], wq[c][i].x, wq[c][i].y);
-      fd::mma_bf16(acc[i], a_lo[2], a_hi[2], a_lo[3], a_hi[3], wq[c][i].z, wq[c][i].w);
+      for (int i = 0; i < kNTiles; ++i) {
+        const int n = n0 + 8 * i + g;
+        wq[c][i] = make_uint4(0u, 0u, 0u, 0u);
+        if (k < ldw && n < N)
+          wq[c][i] = __ldg(reinterpret_cast<const uint4*>(W + (size_t)n * ldw + k));
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int k = k0 + (warp + kWarps * c) * kChunk + 8 * t;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = r0 + g + 8 * half;
+        const bool in = k < L && row < B;
+        const float* p = x + (size_t)row * L + k;
+        if (L % 8 == 0) {
+          xq[c][2 * half] = in ? fd::ldg4(p) : make_float4(0.f, 0.f, 0.f, 0.f);
+          xq[c][2 * half + 1] = in ? fd::ldg4(p + 4) : make_float4(0.f, 0.f, 0.f, 0.f);
+        } else {
+          float v[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[e] = in && k + e < L ? __ldg(p + e) : 0.f;
+          xq[c][2 * half] = make_float4(v[0], v[1], v[2], v[3]);
+          xq[c][2 * half + 1] = make_float4(v[4], v[5], v[6], v[7]);
+        }
+      }
+    }
+
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      if (k0 + (warp + kWarps * c) * kChunk >= L) break;
+      const float4 lo0 = xq[c][0], lo1 = xq[c][1], hi0 = xq[c][2], hi1 = xq[c][3];
+      const uint32_t a_lo[4] = {pack_bf16(lo0.x, lo0.y), pack_bf16(lo0.z, lo0.w),
+                                pack_bf16(lo1.x, lo1.y), pack_bf16(lo1.z, lo1.w)};
+      const uint32_t a_hi[4] = {pack_bf16(hi0.x, hi0.y), pack_bf16(hi0.z, hi0.w),
+                                pack_bf16(hi1.x, hi1.y), pack_bf16(hi1.z, hi1.w)};
+#pragma unroll
+      for (int i = 0; i < kNTiles; ++i) {
+        fd::mma_bf16(acc[i], a_lo[0], a_hi[0], a_lo[1], a_hi[1], wq[c][i].x, wq[c][i].y);
+        fd::mma_bf16(acc[i], a_lo[2], a_hi[2], a_lo[3], a_hi[3], wq[c][i].z, wq[c][i].w);
+      }
     }
   }
 #pragma unroll
@@ -167,7 +175,7 @@ dim3 proj_grid(int B, int L, int H, bool with_skip) {
 // x (B, L) f32; wl (H, ldw) bf16, bl (H) f32 -> h (copies * B, H) f32, the
 // projection repeated `copies` times along the rows. wf (L, ldw) bf16, bf
 // (L), rw (1) f32 and skip (B, L) f32, all null or all given: the v2 skip.
-// L: 1 to 2048; ldw: L rounded up to a multiple of 8 (the weights' columns
+// L: 1 to 4096; ldw: L rounded up to a multiple of 8 (the weights' columns
 // from L on zero).
 extern "C" int fd_latent_proj_launch(const void* x, const void* wl, const void* bl,
                                      const void* wf, const void* bf, const void* rw,
@@ -183,7 +191,8 @@ extern "C" int fd_latent_proj_launch(const void* x, const void* wl, const void* 
       chunks <= 1   ? &latent_proj_kernel<1>
       : chunks <= 2 ? &latent_proj_kernel<2>
       : chunks <= 4 ? &latent_proj_kernel<4>
-                    : &latent_proj_kernel<8>;
+      : chunks <= 8 ? &latent_proj_kernel<8>
+                    : &latent_proj_kernel<8, 2>;
   kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)x, B, L, ldw, (const __nv_bfloat16*)wl, (const float*)bl, H, (float*)h, copies,
       (const __nv_bfloat16*)wf, (const float*)bf, (const float*)rw, (float*)skip, h_tiles);

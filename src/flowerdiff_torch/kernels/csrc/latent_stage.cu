@@ -426,11 +426,12 @@ int stage_units(int rows) { return rows == 128 ? 1 : rows == 64 ? 2 : 4; }
 // (kernels/latent_stage.py::stage_plan makes them).
 bool plan_ok(int B, int d, int dout, int width, int width_out, int tiles, int cols, int rows,
              int qbufs, int slots, int smem) {
-  if (d < 64 || d > 2048 || d % 64 || dout < 8 || cols < 1 || cols > kMaxCluster ||
+  if (d < 64 || d > 4096 || d % 64 || dout < 8 || cols < 1 || cols > kMaxCluster ||
       d % cols || dout % cols)
     return false;
-  if (width < 1 || width > d || d - width >= 64 || width_out < 1 || width_out > dout ||
-      dout - width_out >= 64)
+  // padded by less than 128 (whole 8-column units in 16 slices past 2048)
+  if (width < 1 || width > d || d - width >= 128 || width_out < 1 || width_out > dout ||
+      dout - width_out >= 128)
     return false;
   const int sd = d / cols, so = dout / cols;
   if (sd % 8 || so % 8 || sd > 256 || so > 256) return false;
@@ -466,8 +467,9 @@ extern "C" int fd_stage_maps(const void* wb, const void* wv, const void* wo, con
 extern "C" long long fd_stage_map_encodes() { return fdh::map_encodes(); }
 
 // One stage launch on the plan's geometry, from the maps fd_stage_maps
-// encoded. d, dout: the padded widths of the weights and vectors (multiples
-// of 64 past width, width_out by less than 64: their columns are zeros);
+// encoded. d, dout: the padded widths of the weights and vectors (d a
+// multiple of 64 up to 4096, each past width, width_out by less than 128:
+// their columns are zeros);
 // h, row_add, rows_add and out have the stage's own widths. A plan the
 // kernel cannot run returns cudaErrorInvalidValue, and a launch the card
 // refuses returns its error. Nothing retries.

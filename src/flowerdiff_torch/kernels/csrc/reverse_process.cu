@@ -60,7 +60,19 @@
 // (`kExact`), whose code is the kernel's before widths were padded: the
 // padded case, present but not taken, slowed the flagship's step by ~3%.
 // A denoiser wider than 1024 may take slices of 4 m64 tiles at 8 and 16
-// rows (kernels/full_sampler.py::process_units).
+// rows (kernels/full_sampler.py::process_units), which at 16 blocks a
+// cluster reach widths of 4096.
+//
+// Depth. A denoiser of up to 8 stages whose vectors and condition adds fit
+// beside the ring keeps them resident, its tensor maps and per-stage
+// pointers in the launch's parameters. A deeper one, or one whose resident
+// slices would not fit (`kStream`), keeps none of them on chip: its tensor
+// maps, widths and time-table pointers lie in device memory written at bind,
+// its vectors in one (cols, slice) table a block reads from L2 (each block's
+// row laid out as the resident slices are), its condition adds are read
+// from the request's rows where they are added, through a table of their
+// pointers that each launch writes ahead of itself on its stream. Nothing on
+// chip then grows with depth, and the parameters stay the same size.
 //
 // Bound on the card: operations, 1.652 ms for 1000 steps at 128 rows with
 // every weight read once (chip_smoke.py::sampler_bound_ms). Each cluster
@@ -85,9 +97,10 @@ using fdc::kMaxSlots;
 using fdc::kStageThreads;
 using fdc::swish;
 
-constexpr int kMaxStages = 8;
+constexpr int kMaxStages = 8;                 // resident: maps and pointers in the parameters
 constexpr int kMaxMaps = 2 + 4 * kMaxStages;  // Wl, four a stage, Wf
-constexpr int kMaxDim = 2048;
+constexpr int kMaxStreamStages = 32768;       // streamed
+constexpr int kMaxDim = 4096;                 // 16 blocks of 4 m64 tiles
 // m64 tiles of a block's widest slice at `rows` rows a cluster: the
 // instances hold at most 64 accumulators a thread (MT x rows / 2 x 2)
 __host__ __device__ inline int max_units(int rows) { return rows <= 16 ? 4 : 2; }
@@ -118,14 +131,16 @@ __host__ __device__ inline void product_shape(const int* dims, int n, int L, int
 // stage bb g1 b1 g2 b2 bv bo, then bd; the head's g, b and bf), of the
 // condition adds (rows x each stage's slice, then the head's), its slice of
 // x, eps and the skip (rows x L / cols f32 each), the mbarriers, and padding
-// where the last slot's reads would reach past the end.
+// where the last slot's reads would reach past the end. Streamed, the
+// vectors and adds take no room (`vec_floats`, the floats of a block's row
+// of the vector table, is counted all the same).
 // kernels/full_sampler.py::process_smem computes the same.
 struct ProcessLayout {
-  int units, slot_bytes, chunks, q, q_bytes, stats, red, mr, part, vec, adds, xs, eps, skip,
-      bars, total;
+  int units, slot_bytes, chunks, vec_floats, q, q_bytes, stats, red, mr, part, vec, adds, xs, eps,
+      skip, bars, total;
   ProcessLayout() = default;
   __host__ __device__ ProcessLayout(const int* dims, int n, int L, bool with_skip, int cols,
-                                    int rows, int qbufs, int slots) {
+                                    int rows, int qbufs, int slots, bool streamed = false) {
     int widest = 0, dmax = L, reach = 0, nvec = dims[0] / cols, nadds = 0;
     slot_bytes = chunks = 0;
     for (int p = 0; p < 3 + 4 * n; ++p) {
@@ -145,6 +160,8 @@ struct ProcessLayout {
     }
     nvec += 2 * dims[n] / cols + L / cols;
     nadds += dims[n] / cols;
+    vec_floats = nvec;
+    if (streamed) nvec = nadds = 0;
     units = (widest + 63) / 64;
     q = slots * slot_bytes;
     q_bytes = rows * dmax * 2;
@@ -191,14 +208,22 @@ struct ProcessArgs {
   ProcessLayout lay;  // set at launch, read from the parameters
   fdc::Shape sh;      // the phases' view of them
   fdc::Offsets off;
+  // streamed (kStream): device memory in place of the arrays above
+  const CUtensorMap* smaps;    // 2 + 4 n maps, 64-byte aligned, in stream order
+  const int* sdims;            // dims[0..n], then wid[0..n]
+  const float* const* stadd;   // (n) the stages' time tables
+  const float* const* sadds;   // (n) the stages' condition adds, a table of the launch's own
+  const float* svec;           // (cols, lay.vec_floats) each block's vector slices
 };
 
 // kExact: every width is its own padded width (the flagship's), and the
 // code has no padded case: the loads, LayerNorms and reverse step of a
-// denoiser that needs no padding, as before widths were padded.
-template <int N, int MT, bool kExact>
+// denoiser that needs no padding, as before widths were padded. kStream:
+// the streamed layout (any depth; padded code), in instances of its own.
+template <int N, int MT, bool kExact, bool kStream = false>
 __global__ void __launch_bounds__(kStageThreads, 1)
 process_kernel(const __grid_constant__ Maps maps, const __grid_constant__ ProcessArgs a) {
+  static_assert(!(kExact && kStream), "the streamed instances take the padded code");
   FD_STAMP_BEGIN;
   FD_STAMP(0);
   extern __shared__ uint8_t process_raw[];
@@ -212,8 +237,12 @@ process_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Proces
   const bool producer = tid >= 256;
   const int S = a.guided ? N / 2 : N;  // samples a cluster
   const int s0 = (int)blockIdx.y * S;  // its first sample
-  const int sl = a.L / cols, sh0 = a.dims[0] / cols, sdl = a.dims[n] / cols;
-  float* vec = reinterpret_cast<float*>(base + L.vec);
+  const int* const dims = kStream ? a.sdims : a.dims;
+  const int* const wid = kStream ? a.sdims + n + 1 : a.wid;
+  const CUtensorMap* const mp = kStream ? a.smaps : maps.m;
+  const int sl = a.L / cols, sh0 = dims[0] / cols, sdl = dims[n] / cols;
+  float* vec_s = reinterpret_cast<float*>(base + L.vec);
+  const float* vec = kStream ? a.svec + (size_t)c * L.vec_floats : vec_s;
   float* adds = reinterpret_cast<float*>(base + L.adds);
   float* xs_s = reinterpret_cast<float*>(base + L.xs);
   float* eps_s = reinterpret_cast<float*>(base + L.eps);
@@ -229,7 +258,12 @@ process_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Proces
     for (int i = tid; i < count; i += 256) dst[i] = __ldg(src + i);
   };
 
-  if (!producer) {
+  if (!producer && kStream) {  // x only: the vectors and adds stay in device memory
+    for (int i = tid; i < S * sl; i += 256) {
+      const int r = i / sl, b = s0 + r, col = c * sl + (i - r * sl);
+      xs_s[i] = b < a.B && col < a.lat ? __ldg(a.x + (size_t)b * a.lat + col) : 0.f;
+    }
+  } else if (!producer) {
     if constexpr (kExact) {
       for (int i = tid; i < S * sl; i += 256) {
         const int r = i / sl, b = s0 + r;
@@ -264,17 +298,17 @@ process_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Proces
       }
     }
     int vo = 0;
-    load(vec, a.bl + c * sh0, sh0);
+    load(vec_s, a.bl + c * sh0, sh0);
     vo += sh0;
     for (int st = 0; st < n; ++st) {
       const int sd = a.dims[st] / cols, so = a.dims[st + 1] / cols;
-      for (int v = 0; v < 7; ++v, vo += sd) load(vec + vo, a.vec[st][v] + c * sd, sd);
-      load(vec + vo, a.vec[st][7] + c * so, so);
+      for (int v = 0; v < 7; ++v, vo += sd) load(vec_s + vo, a.vec[st][v] + c * sd, sd);
+      load(vec_s + vo, a.vec[st][7] + c * so, so);
       vo += so;
     }
-    load(vec + vo, a.hg + c * sdl, sdl);
-    load(vec + vo + sdl, a.hb + c * sdl, sdl);
-    load(vec + vo + 2 * sdl, a.hbf + c * sl, sl);
+    load(vec_s + vo, a.hg + c * sdl, sdl);
+    load(vec_s + vo + sdl, a.hb + c * sdl, sdl);
+    load(vec_s + vo + 2 * sdl, a.hbf + c * sl, sl);
   }
   if (tid == 0) {
     for (int s = 0; s < a.slots; ++s) {
@@ -297,20 +331,20 @@ process_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Proces
       for (int p = 0; p < 3 + 4 * n; ++p) {
         if (p == 1 && !with_skip) continue;
         int map, slice, K;
-        product_shape(a.dims, n, a.L, cols, p, &map, &slice, &K);
+        product_shape(dims, n, a.L, cols, p, &map, &slice, &K);
         const int kb = chunk_tiles(slice, K), nk = K / 64 / kb;
         for (int kc = 0; kc < nk; ++kc, ++q) {
           if (q >= hi) return;
           if (q < lo) continue;
           if (q >= a.slots) fdh::mbar_wait(k.empty(q), (uint32_t)(((q - a.slots) / a.slots) & 1));
           fdh::mbar_expect_tx(k.full(q), (uint32_t)(kb * slice * 128));
-          fdh::tma_load_3d(k.slot(q), &maps.m[map], 0, c * slice, kc * kb, k.full(q));
+          fdh::tma_load_3d(k.slot(q), mp + map, 0, c * slice, kc * kb, k.full(q));
         }
       }
   };
   const int first = a.slots < a.off.total ? a.slots : a.off.total;
   if (producer && lane == 0) {  // the first chunks at once: only this block's barriers
-    for (int i = 0; i < 2 + 4 * n; ++i) fdh::tma_prefetch(&maps.m[i]);
+    for (int i = 0; i < 2 + 4 * n && i < kMaxMaps; ++i) fdh::tma_prefetch(mp + i);
     walk(0, first);
   }
   fdh::cluster_wait();
@@ -364,7 +398,7 @@ process_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Proces
   };
   auto product = [&](int p, const uint8_t* qb, const float* bias, float(&out)[MT][N / 2]) {
     int map, slice, K;
-    product_shape(a.dims, n, a.L, cols, p, &map, &slice, &K);
+    product_shape(dims, n, a.L, cols, p, &map, &slice, &K);
     const int kb = chunk_tiles(slice, K), nk = K / 64 / kb;
     k.product(q, nk, kb, slice, qb, bias, out, p < 2 ? p : p < 2 + 4 * n ? 2 + (p - 2) % 4 : 6);
     q += nk;
@@ -373,7 +407,7 @@ process_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Proces
   const float gate = with_skip ? 1.f / (1.f + expf(-__ldg(a.rw))) : 0.f;
   const int hoff = sh0 + [&] {
     int v = 0;
-    for (int st = 0; st < n; ++st) v += (7 * a.dims[st] + a.dims[st + 1]) / cols;
+    for (int st = 0; st < n; ++st) v += (7 * dims[st] + dims[st + 1]) / cols;
     return v;
   }();
 
@@ -403,14 +437,25 @@ process_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Proces
     // the stages
     int voff = sh0, aoff = 0;
     for (int st = 0; st < n; ++st) {
-      const int d = a.dims[st], sd = d / cols, so = a.dims[st + 1] / cols;
-      const float* tadd = a.tadd[st] + (size_t)t * d + c * sd;
+      const int d = dims[st], sd = d / cols, so = dims[st + 1] / cols;
+      const float* tadd = (kStream ? a.stadd[st] : a.tadd[st]) + (size_t)t * d + c * sd;
       const float* add = adds + aoff;
       const float* sv = vec + voff;
-      each(sd, [&](int u, int i, int m, int r) {
-        xs[u][i] = (xs[u][i] + __ldg(tadd + m)) + add[r * sd + m];
-        acc[u][i] = xs[u][i];
-      });
+      if constexpr (kStream) {  // the request's rows, where they are added
+        const float* src = a.sadds[st];
+        const int w = wid[st];
+        each(sd, [&](int u, int i, int m, int r) {
+          const int gr = add_row(r), col = c * sd + m;
+          xs[u][i] = (xs[u][i] + __ldg(tadd + m)) +
+                     (gr >= 0 && col < w ? __ldg(src + (size_t)gr * w + col) : 0.f);
+          acc[u][i] = xs[u][i];
+        });
+      } else {
+        each(sd, [&](int u, int i, int m, int r) {
+          xs[u][i] = (xs[u][i] + __ldg(tadd + m)) + add[r * sd + m];
+          acc[u][i] = xs[u][i];
+        });
+      }
       for (int p = 0; p < 4; ++p) {
         uint8_t* qb = next_operand();
         k.write_own(acc, qb, sd);
@@ -420,7 +465,7 @@ process_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Proces
         FD_STEP_STAMP(5 + 10 * st + (p == 0 ? 1 : 3 + 2 * p));
         if (p == 0) {
           for (int ln = 0; ln < 2; ++ln) {
-            moments(acc, ln, sd, a.wid[st]);
+            moments(acc, ln, sd, wid[st]);
             FD_STEP_STAMP(5 + 10 * st + 2 + ln);
             each(sd, [&](int u, int i, int m, int r) {
               const float2 ms = mr[r];
@@ -450,14 +495,23 @@ process_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Proces
     }
     // the head: eps = bf16(LN(h + tadd_f[t] + cond_f)) Wf^T + bf
     {
-      const int dl = a.dims[n];
+      const int dl = dims[n];
       const float* tadd = a.tadd_f + (size_t)t * dl + c * sdl;
       const float* add = adds + aoff;
       const float* hv = vec + hoff;
-      each(sdl, [&](int u, int i, int m, int r) {
-        xs[u][i] = (xs[u][i] + __ldg(tadd + m)) + add[r * sdl + m];
-      });
-      moments(xs, 0, sdl, a.wid[n]);
+      if constexpr (kStream) {
+        const int w = wid[n];
+        each(sdl, [&](int u, int i, int m, int r) {
+          const int gr = add_row(r), col = c * sdl + m;
+          xs[u][i] = (xs[u][i] + __ldg(tadd + m)) +
+                     (gr >= 0 && col < w ? __ldg(a.adds_f + (size_t)gr * w + col) : 0.f);
+        });
+      } else {
+        each(sdl, [&](int u, int i, int m, int r) {
+          xs[u][i] = (xs[u][i] + __ldg(tadd + m)) + add[r * sdl + m];
+        });
+      }
+      moments(xs, 0, sdl, wid[n]);
       FD_STEP_STAMP(5 + 10 * n);
       each(sdl, [&](int u, int i, int m, int r) {
         const float2 ms = mr[r];
@@ -534,21 +588,29 @@ cudaError_t prepare(Kernel kernel, size_t smem, size_t* configured, bool* nonpor
   return err;
 }
 
-// The instance <N, MT, kExact>, its attributes set for `smem` bytes (once
-// an instance).
-template <int N, int MT, bool kExact>
+// The instance <N, MT, kExact, kStream>, its attributes set for `smem`
+// bytes (once an instance).
+template <int N, int MT, bool kExact, bool kStream = false>
 cudaError_t pick(size_t smem, const void** kernel) {
   static size_t configured = 0;
   static bool nonportable = false;
-  *kernel = (const void*)process_kernel<N, MT, kExact>;
-  return prepare(process_kernel<N, MT, kExact>, smem, &configured, &nonportable);
+  *kernel = (const void*)process_kernel<N, MT, kExact, kStream>;
+  return prepare(process_kernel<N, MT, kExact, kStream>, smem, &configured, &nonportable);
 }
 
 // The kernel's instance for `rows` rows a cluster, slices of up to `units`
 // m64 tiles (2, or 4 at 8 and 16 rows) and, where `exact` (no width
-// padded) at 2 units, the instance with no padded case.
-cudaError_t instance(int rows, int units, bool exact, size_t smem, const void** kernel) {
-  if (units <= 2 && exact) {
+// padded) at 2 units, the instance with no padded case; `streamed`: the
+// streamed layout's instances.
+cudaError_t instance(int rows, int units, bool exact, bool streamed, size_t smem,
+                     const void** kernel) {
+  if (streamed) {
+    if (units <= 2 && rows == 8) return pick<8, 2, false, true>(smem, kernel);
+    if (units <= 2 && rows == 16) return pick<16, 2, false, true>(smem, kernel);
+    if (units <= 2 && rows == 32) return pick<32, 2, false, true>(smem, kernel);
+    if (units <= 4 && rows == 8) return pick<8, 4, false, true>(smem, kernel);
+    if (units <= 4 && rows == 16) return pick<16, 4, false, true>(smem, kernel);
+  } else if (units <= 2 && exact) {
     if (rows == 8) return pick<8, 2, true>(smem, kernel);
     if (rows == 16) return pick<16, 2, true>(smem, kernel);
     if (rows == 32) return pick<32, 2, true>(smem, kernel);
@@ -573,9 +635,10 @@ bool padded_ok(int width, int pad, int cols) {
 // The widths and the plan's fields, checked against what the kernel
 // assumes (kernels/full_sampler.py::process_plan makes them).
 bool plan_ok(const int* dims, const int* wid, int n, int L, int lat, bool with_skip, int B,
-             int T, int guided, int clusters, int cols, int rows, int qbufs, int slots, int smem) {
-  if (n < 1 || n > kMaxStages || B < 1 || T < 1 || cols < 1 || cols > kMaxCluster ||
-      (cols & (cols - 1)))
+             int T, int guided, int clusters, int cols, int rows, int qbufs, int slots, int smem,
+             bool streamed) {
+  if (n < 1 || n > (streamed ? kMaxStreamStages : kMaxStages) || B < 1 || T < 1 || cols < 1 ||
+      cols > kMaxCluster || (cols & (cols - 1)))
     return false;
   if (!padded_ok(lat, L, cols)) return false;
   for (int i = 0; i <= n; ++i)
@@ -585,8 +648,10 @@ bool plan_ok(const int* dims, const int* wid, int n, int L, int lat, bool with_s
   const int samples = guided ? rows / 2 : rows;
   if (clusters < 1 || (long long)clusters * samples < B) return false;
   if (qbufs < 1 || qbufs > 2 || slots < 2 || slots > kMaxSlots) return false;
-  const ProcessLayout Lay(dims, n, L, with_skip, cols, rows, qbufs, slots);
-  return Lay.units <= max_units(rows) && smem >= 1024 + Lay.total && smem <= 232448;
+  const ProcessLayout Lay(dims, n, L, with_skip, cols, rows, qbufs, slots, streamed);
+  // the launch's chunk count (every chunk of every step) is an int
+  return Lay.units <= max_units(rows) && smem >= 1024 + Lay.total && smem <= 232448 &&
+         (long long)Lay.chunks * T < (1LL << 31);
 }
 
 }  // namespace
@@ -598,7 +663,7 @@ bool plan_ok(const int* dims, const int* wid, int n, int L, int lat, bool with_s
 // (2 + 4 n CUtensorMap, 64-byte aligned), once, when the plan is bound.
 extern "C" int fd_process_maps(const void* const* weights, const int* dims, int n, int L,
                                int cols, void* maps) {
-  if (n < 1 || n > kMaxStages || cols < 1 || (uintptr_t)maps % 64)
+  if (n < 1 || n > kMaxStreamStages || cols < 1 || (uintptr_t)maps % 64)
     return (int)cudaErrorInvalidValue;
   CUtensorMap* m = static_cast<CUtensorMap*>(maps);
   for (int i = 0; i < 2 + 4 * n; ++i) {
@@ -623,7 +688,7 @@ extern "C" long long fd_process_map_encodes() { return fdh::map_encodes(); }
 // the exact 2-unit instance: every instance runs one block an SM.
 extern "C" int fd_process_max_clusters(int rows, int cols, int smem, int* out) {
   const void* kernel = nullptr;
-  cudaError_t err = instance(rows, 2, true, (size_t)smem, &kernel);
+  cudaError_t err = instance(rows, 2, true, false, (size_t)smem, &kernel);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cols, 1);
@@ -640,18 +705,30 @@ extern "C" int fd_process_max_clusters(int rows, int cols, int smem, int* out) {
 }
 
 // One launch: all T steps of a bucket call. ptrs: x, out, key, coefs, bl,
-// rw (null: no skip), tadd_f, adds_f, hg, hb, hbf, then per stage tadd,
-// adds, bb, g1, b1, g2, b2, bv, bo, bd. ints: n, B, L, T, guided, clip,
+// rw (null: no skip), tadd_f, adds_f, hg, hb, hbf, then resident: per stage
+// tadd, adds, bb, g1, b1, g2, b2, bv, bo, bd; streamed: the device tables
+// smaps (2 + 4 n tensor maps), sdims (dims then wid, int32), stadd (n
+// pointers), svec ((cols, vec_floats) f32), sadds (the n stages' condition
+// adds: a table of this launch's own, written on `stream` ahead of it, so
+// that launches on other streams cannot overwrite what it reads). ints:
+// n, B, L, T, guided, clip,
 // stochastic, clusters, cols, rows, qbufs, slots, smem, dims[0..n] (padded,
 // the widths the weights were padded to), lat, wid[0..n] (the model's
-// widths: x, out and the condition rows have these). floats: scale,
-// clip_val, eps. A plan the kernel cannot run returns
-// cudaErrorInvalidValue, and a launch the card refuses returns its error.
+// widths: x, out and the condition rows have these), streamed. floats:
+// scale, clip_val, eps. `maps`: the resident launch's 2 + 4 n tensor maps
+// (host memory, copied into the parameters); streamed, unused. A plan the
+// kernel cannot run returns cudaErrorInvalidValue, and a launch the card
+// refuses returns its error.
 extern "C" int fd_process_launch(const void* maps, const void* const* ptrs, const int* ints,
                                  const float* floats, void* stream) {
+  static const Maps kNoMaps = {};
   ProcessArgs a = {};
   a.n = ints[0];
-  if (!maps || a.n < 1 || a.n > kMaxStages) return (int)cudaErrorInvalidValue;
+  if (a.n < 1 || a.n > kMaxStreamStages) return (int)cudaErrorInvalidValue;
+  const int* dims = ints + 13;
+  const int* wid = ints + 15 + a.n;
+  const bool streamed = ints[16 + 2 * a.n] != 0;
+  if (!streamed && (!maps || a.n > kMaxStages)) return (int)cudaErrorInvalidValue;
   a.x = (const float*)ptrs[0];
   a.out = (float*)ptrs[1];
   a.key = (const uint32_t*)ptrs[2];
@@ -663,10 +740,24 @@ extern "C" int fd_process_launch(const void* maps, const void* const* ptrs, cons
   a.hg = (const float*)ptrs[8];
   a.hb = (const float*)ptrs[9];
   a.hbf = (const float*)ptrs[10];
-  for (int i = 0; i < a.n; ++i) {
-    a.tadd[i] = (const float*)ptrs[11 + 10 * i];
-    a.adds[i] = (const float*)ptrs[12 + 10 * i];
-    for (int v = 0; v < 8; ++v) a.vec[i][v] = (const float*)ptrs[13 + 10 * i + v];
+  if (streamed) {
+    a.smaps = (const CUtensorMap*)ptrs[11];
+    a.sdims = (const int*)ptrs[12];
+    a.stadd = (const float* const*)ptrs[13];
+    a.svec = (const float*)ptrs[14];
+    a.sadds = (const float* const*)ptrs[15];
+    if (!a.smaps || (uintptr_t)a.smaps % 64 || !a.sdims || !a.stadd || !a.svec || !a.sadds)
+      return (int)cudaErrorInvalidValue;
+  } else {
+    for (int i = 0; i < a.n; ++i) {
+      a.tadd[i] = (const float*)ptrs[11 + 10 * i];
+      a.adds[i] = (const float*)ptrs[12 + 10 * i];
+      for (int v = 0; v < 8; ++v) a.vec[i][v] = (const float*)ptrs[13 + 10 * i + v];
+    }
+    for (int i = 0; i <= a.n; ++i) {
+      a.dims[i] = dims[i];
+      a.wid[i] = wid[i];
+    }
   }
   a.B = ints[1];
   a.L = ints[2];
@@ -680,23 +771,22 @@ extern "C" int fd_process_launch(const void* maps, const void* const* ptrs, cons
   a.qbufs = ints[10];
   a.slots = ints[11];
   const int smem = ints[12];
-  for (int i = 0; i <= a.n; ++i) a.dims[i] = ints[13 + i];
   a.lat = ints[14 + a.n];
-  for (int i = 0; i <= a.n; ++i) a.wid[i] = ints[15 + a.n + i];
   a.scale = floats[0];
   a.clip_val = floats[1];
   a.eps = floats[2];
-  if (!plan_ok(a.dims, a.wid, a.n, a.L, a.lat, a.rw != nullptr, a.B, a.T, a.guided, clusters,
-               a.cols, a.rows, a.qbufs, a.slots, smem))
+  if (!plan_ok(dims, wid, a.n, a.L, a.lat, a.rw != nullptr, a.B, a.T, a.guided, clusters,
+               a.cols, a.rows, a.qbufs, a.slots, smem, streamed))
     return (int)cudaErrorInvalidValue;
-  a.lay = ProcessLayout(a.dims, a.n, a.L, a.rw != nullptr, a.cols, a.rows, a.qbufs, a.slots);
+  a.lay = ProcessLayout(dims, a.n, a.L, a.rw != nullptr, a.cols, a.rows, a.qbufs, a.slots,
+                        streamed);
   a.sh = {a.rows, a.cols, a.slots, a.qbufs};
   a.off = {a.lay.slot_bytes, a.lay.q,    a.lay.q_bytes, a.lay.stats, a.lay.red,
            a.lay.mr,         a.lay.part, a.lay.units,   a.lay.bars,  a.lay.chunks * a.T};
   const void* kernel = nullptr;
   bool exact = a.lat == a.L;
-  for (int i = 0; i <= a.n; ++i) exact = exact && a.wid[i] == a.dims[i];
-  cudaError_t err = instance(a.rows, a.lay.units, exact, (size_t)smem, &kernel);
+  for (int i = 0; i <= a.n; ++i) exact = exact && wid[i] == dims[i];
+  cudaError_t err = instance(a.rows, a.lay.units, exact, streamed, (size_t)smem, &kernel);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.cols, clusters);
@@ -710,7 +800,7 @@ extern "C" int fd_process_launch(const void* maps, const void* const* ptrs, cons
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  void* args[] = {const_cast<void*>(maps), (void*)&a};
+  void* args[] = {const_cast<void*>(streamed ? (const void*)&kNoMaps : maps), (void*)&a};
   err = cudaLaunchKernelExC(&cfg, kernel, args);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

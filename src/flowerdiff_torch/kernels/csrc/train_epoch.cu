@@ -209,7 +209,11 @@ struct DrawSeg {
   float scale;   // value of a kept element
 };
 
-constexpr int kMaxSegs = 3 + 2 * kMaxStages;
+// Segments a launch of the draws takes in its parameters (the flagship's 4
+// stages need 11). A step of a deeper net draws in several launches, each a
+// window of its segments: a draw's counter does not depend on the launch
+// it lies in, so the bits are the same.
+constexpr int kMaxSegs = 3 + 2 * 16;
 
 struct DrawPlan {
   DrawSeg seg[kMaxSegs];
@@ -220,6 +224,7 @@ struct DrawPlan {
   const float* abar;
   int n_sched;
 };
+
 
 // Box-Muller as the reference writes it: 24-bit uniforms, u1 >= 1e-7, the
 // cosine branch.
@@ -282,20 +287,17 @@ draws_kernel(DrawPlan p, uint32_t key0, uint32_t key1, uint32_t gstep) {
   }
 }
 
-// bufs: t_f, sa, s1a, eps, cond_mask, then block and attention mask a stage.
+// A step's draws as launches of at most kMaxSegs segments, each numbering
+// its blocks from 0. bufs: t_f, sa, s1a, eps, cond_mask, then block and
+// attention mask a stage.
 bool make_plan(const Dims& d, float* const* bufs, const float* abar, int n_sched, float rate,
-               float mask_scale, float cond_dropout, DrawPlan* p) {
-  p->n_seg = 0;
-  p->blocks = 0;
-  p->sa = bufs[1];
-  p->s1a = bufs[2];
-  p->abar = abar;
-  p->n_sched = n_sched;
-  auto add = [&](float* out, int kind, int n, int width, int stream, float thresh,
-                 float scale) {
+               float mask_scale, float cond_dropout, std::vector<DrawPlan>* launches) {
+  std::vector<DrawSeg> segs;
+  int blocks = 0;
+  auto add = [&](float* o, int kind, int n, int width, int stream, float thresh, float scale) {
     const int per = kind == kDrawEps ? 2 : 4;
-    p->seg[p->n_seg++] = DrawSeg{out, kind, n, width, stream, p->blocks, thresh, scale};
-    p->blocks += ((n + per - 1) / per + kOptThreads - 1) / kOptThreads;
+    segs.push_back(DrawSeg{o, kind, n, width, stream, blocks, thresh, scale});
+    blocks += ((n + per - 1) / per + kOptThreads - 1) / kOptThreads;
   };
   add(bufs[0], kDrawT, d.B, 1, 0, 0.f, 0.f);
   add(bufs[4], cond_dropout > 0.f ? kDrawKeep : kDrawOnes, d.B, 1, 1, cond_dropout, 1.f);
@@ -308,6 +310,23 @@ bool make_plan(const Dims& d, float* const* bufs, const float* abar, int n_sched
         mask_scale);
     add(bufs[6 + 2 * i], drop ? kDrawHeadMask : kDrawOnes, d.B * di, di, 4 + 2 * i, rate,
         mask_scale);
+  }
+  segs.push_back(DrawSeg{nullptr, 0, 0, 0, 0, blocks, 0.f, 0.f});  // the end
+  launches->clear();
+  for (size_t s0 = 0; s0 + 1 < segs.size(); s0 += kMaxSegs) {
+    const size_t s1 = std::min(segs.size() - 1, s0 + kMaxSegs);
+    DrawPlan p{};
+    p.n_seg = (int)(s1 - s0);
+    p.blocks = segs[s1].first_block - segs[s0].first_block;
+    for (size_t j = s0; j < s1; ++j) {
+      p.seg[j - s0] = segs[j];
+      p.seg[j - s0].first_block -= segs[s0].first_block;
+    }
+    p.sa = bufs[1];
+    p.s1a = bufs[2];
+    p.abar = abar;
+    p.n_sched = n_sched;
+    launches->push_back(p);
   }
   return true;
 }
@@ -360,9 +379,9 @@ extern "C" int fd_train_epoch_launch(const EpochArgs* a, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   float* const* bufs = (float* const*)a->draw_bufs;
   const float* const* inj = (const float* const*)a->injected;
-  DrawPlan plan;
+  std::vector<DrawPlan> draws;
   if (!make_plan(d, bufs, a->abar, a->n_sched, a->dropout, a->mask_scale, a->cond_dropout,
-                 &plan))
+                 &draws))
     return (int)cudaErrorInvalidValue;
   if (!a->stochastic && !inj) return (int)cudaErrorInvalidValue;
   const Leaf* leaves = (const Leaf*)a->leaves;
@@ -378,16 +397,17 @@ extern "C" int fd_train_epoch_launch(const EpochArgs* a, void* stream) {
   }
   for (int i = 0; i < a->steps; ++i) {
     const void* data[8];
-    const void* masks[2 * kMaxStages];
+    std::vector<const void*> masks(2 * (size_t)d.n_stages);
     data[0] = a->z_rows + i * B * L;
     data[2] = bufs[1];
     data[3] = bufs[2];
     data[5] = a->labels + i * B;
     data[7] = a->freqs;
     if (a->stochastic) {
-      draws_kernel<<<plan.blocks, kOptThreads, 0, st>>>(plan, key0, key1,
-                                                       (uint32_t)(a->count0 + i));
-      note();
+      for (const DrawPlan& p : draws) {
+        draws_kernel<<<p.blocks, kOptThreads, 0, st>>>(p, key0, key1, (uint32_t)(a->count0 + i));
+        note();
+      }
       data[1] = bufs[0];
       data[4] = bufs[3];
       data[6] = bufs[4];
@@ -401,7 +421,7 @@ extern "C" int fd_train_epoch_launch(const EpochArgs* a, void* stream) {
                                                      bufs[2], d.B, a->n_sched);
       note();
     }
-    note(train_step_enqueue(step, data, masks, a->losses + i, st));
+    note(train_step_enqueue(step, data, masks.data(), a->losses + i, st));
     sumsq_kernel<<<a->n_leaf_chunks, kOptThreads, 0, st>>>(leaves, chunks, a->partials);
     note();
     norm_kernel<<<1, 1024, 0, st>>>(a->partials, a->n_leaf_chunks, a->gnorms + i);
@@ -442,14 +462,18 @@ extern "C" int fd_epoch_draws_launch(void* const* draw_bufs, const void* abar, c
                                      float cond_dropout, unsigned long long seed,
                                      long long gstep, void* stream) {
   Dims d;
-  DrawPlan plan;
+  std::vector<DrawPlan> draws;
   if (!read_dims(dims, &d) || n_sched < 1 ||
       !make_plan(d, (float* const*)draw_bufs, (const float*)abar, n_sched, dropout, mask_scale,
-                 cond_dropout, &plan))
+                 cond_dropout, &draws))
     return (int)cudaErrorInvalidValue;
-  draws_kernel<<<plan.blocks, kOptThreads, 0, (cudaStream_t)stream>>>(
-      plan, (uint32_t)seed, (uint32_t)(seed >> 32), (uint32_t)gstep);
-  return (int)cudaGetLastError();
+  for (const DrawPlan& p : draws) {
+    draws_kernel<<<p.blocks, kOptThreads, 0, (cudaStream_t)stream>>>(
+        p, (uint32_t)seed, (uint32_t)(seed >> 32), (uint32_t)gstep);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 // The gradient norm alone, for tests: gnorm[0] = sqrt(sum over the leaves of sum g^2).

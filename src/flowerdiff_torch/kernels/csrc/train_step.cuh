@@ -1165,11 +1165,13 @@ inline cudaError_t allow_smem(const void* kernel, size_t bytes) {
 
 inline size_t wg_smem_max() { return std::max(wg_smem_bytes(1), wg_smem_bytes(2)); }
 
-constexpr int kMaxStages = 16;
+// Host structs sized from the stage count at bind: any depth. The bound
+// keeps a step's leaf and product counts in an int.
+constexpr int kMaxStages = 1 << 16;
 
 struct Dims {
   int B, latent, te, classes, n_stages;
-  int hidden[kMaxStages + 1];
+  std::vector<int> hidden;  // n_stages + 1
 };
 
 bool read_dims(const int* dims, Dims* d) {
@@ -1179,7 +1181,7 @@ bool read_dims(const int* dims, Dims* d) {
   d->classes = dims[3];
   d->n_stages = dims[4];
   if (d->n_stages < 1 || d->n_stages > kMaxStages || d->B < 1 || d->te % 2) return false;
-  for (int i = 0; i <= d->n_stages; ++i) d->hidden[i] = dims[5 + i];
+  d->hidden.assign(dims + 5, dims + 6 + d->n_stages);
   return true;
 }
 
@@ -1189,8 +1191,8 @@ struct StageBufs {
 
 struct Workspace {
   float *x_t, *sin_emb, *a1, *s1, *t_base, *e_c, *c1, *sc, *c2, *c_base, *tc;
-  float* hin[kMaxStages + 1];  // the input of each stage; hin[n] is the head's
-  StageBufs st[kMaxStages];
+  std::vector<float*> hin;     // the input of each stage; hin[n] is the head's
+  std::vector<StageBufs> st;
   float *hf, *meanf, *rstdf, *hnf, *out, *skipv, *hsk, *dout, *rowbuf;
   float *d_t, *d_c, *d_tc, *d_c2, *d_wide, *d_mlp, *d_ec;
   float *G[2], *T[5];
@@ -1218,6 +1220,8 @@ void layout(const Dims& d, float* base, Workspace* w) {
   w->c_base = take(B * te);
   w->tc = take(B * te);
   size_t dmax = L;
+  w->hin.assign(d.n_stages + 1, nullptr);
+  w->st.assign(d.n_stages, StageBufs{});
   for (int i = 0; i <= d.n_stages; ++i) {
     w->hin[i] = take(B * d.hidden[i]);
     if ((size_t)d.hidden[i] > dmax) dmax = d.hidden[i];
@@ -1643,8 +1647,8 @@ StepPlan* make_step_plan(const void* const* weights, void* const* grads, void* w
   p->workspace = workspace;
   Run run{nullptr, p->f32, cudaSuccess};
   run.rec = p.get();
-  const void* none[8 + 2 * kMaxStages] = {};
-  step_sequence(run, *p, none, none, nullptr);
+  const std::vector<const void*> none(8 + 2 * (size_t)p->d.n_stages, nullptr);
+  step_sequence(run, *p, none.data(), none.data(), nullptr);
   *err = run.err;
   return run.err == cudaSuccess ? p.release() : nullptr;
 }

@@ -8,15 +8,20 @@ every step of a bucket call, each cluster of blocks keeping its rows, its
 column slice of x and of the condition adds on chip for the whole launch.
 A step is the latent projection `h = bf16(x) Wl^T + bl` (with the CFG copy,
 and for a v2 model the global skip sigmoid(rw) (bf16(x) Wf^T + bf)), the
-stages (1 to 8) as the stage kernel computes them, the head in its table form,
+stages as the stage kernel computes them, the head in its table form,
 and the reverse step (the skip added to eps, CFG from the doubled batch, x0
 clipping, the posterior mean and the step noise, Philox4x32-10 +
 Box-Muller from a key in device memory). Its plan (`process_plan`: clusters,
 blocks a cluster, rows a cluster, ring, shared memory) is bound once per
 (batch, guided), its tensor maps encoded then. Any latent and hidden width
-up to 2048 runs: the weights, vectors and time tables are padded with zeros
-to the widths the plan's column split tiles (`pad_process`), the request's
-tensors read at their own widths.
+up to MAX_WIDTH = 4096 and any depth up to MAX_STAGES runs, which holds every
+denoiser the JAX kernel holds in its 100 MiB of VMEM whose widths are at
+most 4096: the weights, vectors and time tables are padded with zeros to
+the widths the plan's column split tiles (`pad_process`), the request's
+tensors read at their own widths. A denoiser of up to 8 stages whose slices
+fit keeps its vectors and condition adds resident on chip; any other runs
+the streamed layout (`ProcessPlan.streamed`: tensor maps and tables in
+device memory, vectors and adds read from L2 where they are used).
 
 `fused_sample` is the same process as a host loop of the step's own kernels
 (7 launches a step): the projection (`latent_proj`, csrc/latent_proj.cu),
@@ -432,10 +437,13 @@ def fused_sample(prep: Dict, batch: int, cond: torch.Tensor,
 # ---------------------------------------------------------------------------
 # The whole reverse process in one launch (csrc/reverse_process.cu)
 
-# The kernel's limits (csrc/reverse_process.cu): stages, widths, rows a
-# cluster (the wgmma's N).
-MAX_STAGES = 8
-MAX_WIDTH = 2048
+# The kernel's limits (csrc/reverse_process.cu): stages (resident: tensor
+# maps and per-stage pointers in the launch's parameters; streamed: in device
+# memory), widths (16 blocks of at most 4 m64 tiles), rows a cluster (the
+# wgmma's N).
+MAX_RESIDENT_STAGES = 8
+MAX_STAGES = 32768
+MAX_WIDTH = 4096
 PROCESS_ROWS = (8, 16, 32)
 
 
@@ -448,7 +456,7 @@ def process_units(rows: int, widest: int) -> int:
     return 4 if rows <= 16 and widest > 1024 else 2
 PROCESS_COLS = (1, 2, 4, 8, 16)
 PROCESS_BARRIERS = 5
-MAX_MAPS = 2 + 4 * MAX_STAGES  # the kernel's parameter holds this many tensor maps
+MAX_MAPS = 2 + 4 * MAX_RESIDENT_STAGES  # the resident launch's parameter holds this many maps
 # Clusters of `cols` blocks of one block an SM that the H100 runs at once
 # (cudaOccupancyMaxActiveClusters on the card: 7 of 16, 15 of 8; PERF.md);
 # a launch of more clusters runs them in waves.
@@ -463,6 +471,7 @@ class ProcessPlan(NamedTuple):
     slots: int     # slots of the weight ring
     smem: int      # dynamic shared memory of a block, bytes
     waves: int     # ceil(clusters / WAVE_CLUSTERS[cols])
+    streamed: bool = False  # vectors and condition adds read from L2, maps in device memory
 
 
 def process_width(width: int, cols: int) -> int:
@@ -493,10 +502,20 @@ def _products(latent: int, hidden, skip: bool, cols: int):
     return out
 
 
+def process_vec_floats(latent: int, hidden, cols: int) -> int:
+    """Floats of a block's slices of every vector (bl; each stage's bb g1 b1
+    g2 b2 bv bo and bd; the head's g, b and bf) at the kernel's widths: its
+    resident room, or its row of the streamed layout's vector table."""
+    n = len(hidden) - 1
+    return (hidden[0] + sum(7 * hidden[i] + hidden[i + 1] for i in range(n))
+            + 2 * hidden[n] + latent) // cols
+
+
 def process_smem(latent: int, hidden, skip: bool, cols: int, rows: int, qbufs: int,
-                 slots: int) -> int:
+                 slots: int, streamed: bool = False) -> int:
     """A block's shared memory in bytes, the alignment included, at the
-    kernel's (padded) widths. Mirrors csrc/reverse_process.cu::ProcessLayout."""
+    kernel's (padded) widths; streamed, without the resident vectors and
+    condition adds. Mirrors csrc/reverse_process.cu::ProcessLayout."""
     n = len(hidden) - 1
     prods = _products(latent, hidden, skip, cols)
     kbs = [chunk_tiles(sl, k) for sl, k in prods]
@@ -504,9 +523,8 @@ def process_smem(latent: int, hidden, skip: bool, cols: int, rows: int, qbufs: i
     reach = max((kb - 1) * sl * 128 + -(-sl // 64) * TILE_BYTES for (sl, _), kb in zip(prods, kbs))
     units = -(-max(sl for sl, _ in prods) // 64)
     dmax = max([latent] + [k for _, k in prods])
-    nvec = (hidden[0] + sum(7 * hidden[i] + hidden[i + 1] for i in range(n))
-            + 2 * hidden[n] + latent) // cols
-    nadds = sum(hidden) // cols
+    nvec = 0 if streamed else process_vec_floats(latent, hidden, cols)
+    nadds = 0 if streamed else sum(hidden) // cols
     ring = slots * slot
     total = (ring + qbufs * rows * dmax * 2 + 2 * cols * rows * 8 + 16 * rows * 4 + rows * 8
              + 2 * 128 * units * (rows // 2) * 4 + -(-nvec * 4 // 16) * 16 + rows * nadds * 4
@@ -541,7 +559,15 @@ def process_plans(latent: int, hidden, skip: bool, batch: int, guided: bool):
     """Every plan the kernel takes for a bucket call of `batch` samples: each
     column split with each row count a cluster at which the padded slices
     are at most 64 `process_units` columns, the most ring slots that fit,
-    two operand buffers where two slots still fit beside them."""
+    two operand buffers where two slots still fit beside them. Resident
+    plans where the denoiser has up to MAX_RESIDENT_STAGES stages and any
+    fits (the layout does not depend on the batch), else streamed ones."""
+    resident = len(hidden) - 1 <= MAX_RESIDENT_STAGES
+    plans = _plans(latent, hidden, skip, batch, guided, False) if resident else []
+    return plans or _plans(latent, hidden, skip, batch, guided, True)
+
+
+def _plans(latent: int, hidden, skip: bool, batch: int, guided: bool, streamed: bool):
     plans = []
     for cols in PROCESS_COLS:
         lat_p, hid_p = process_widths(latent, hidden, cols)
@@ -551,17 +577,17 @@ def process_plans(latent: int, hidden, skip: bool, batch: int, guided: bool):
             clusters = -(-batch // (rows // 2 if guided else rows))
             slot = max(chunk_tiles(sl, k) * sl * 128
                        for sl, k in _products(lat_p, hid_p, skip, cols))
+
+            def smem(qbufs, slots):
+                return process_smem(lat_p, hid_p, skip, cols, rows, qbufs, slots, streamed)
             for qbufs in (2, 1):
-                fixed = process_smem(lat_p, hid_p, skip, cols, rows, qbufs, 0)
-                slots = min(MAX_SLOTS, (SMEM_LIMIT - fixed) // slot)
-                while slots >= 2 and process_smem(lat_p, hid_p, skip, cols, rows, qbufs,
-                                                  slots) > SMEM_LIMIT:
+                slots = min(MAX_SLOTS, (SMEM_LIMIT - smem(qbufs, 0)) // slot)
+                while slots >= 2 and smem(qbufs, slots) > SMEM_LIMIT:
                     slots -= 1
                 if slots >= 2:
-                    plans.append(ProcessPlan(
-                        clusters, cols, rows, qbufs, slots,
-                        process_smem(lat_p, hid_p, skip, cols, rows, qbufs, slots),
-                        -(-clusters // WAVE_CLUSTERS[cols])))
+                    plans.append(ProcessPlan(clusters, cols, rows, qbufs, slots,
+                                             smem(qbufs, slots),
+                                             -(-clusters // WAVE_CLUSTERS[cols]), streamed))
                     break
     return plans
 
@@ -573,7 +599,9 @@ def process_plan(latent: int, hidden, skip: bool, batch: int, guided: bool) -> P
     exchange bytes every step; more clusters than fit in one wave run in
     waves, each T steps long; each cluster reads every weight every step.
     The kernel takes 1 to MAX_STAGES stages and widths 1 to MAX_WIDTH,
-    padded (`process_width`); a v2 skip needs hidden[-1] == latent."""
+    padded (`process_width`): every denoiser the JAX kernel holds in its
+    100 MiB of VMEM but one whose latent or last hidden width passes 4096
+    beside narrow stages. A v2 skip needs hidden[-1] == latent."""
     if not 1 <= len(hidden) - 1 <= MAX_STAGES:
         raise ValueError(f"{len(hidden) - 1} stages: the kernel takes 1 to {MAX_STAGES}")
     if not all(1 <= w <= MAX_WIDTH for w in (latent, *hidden)):
@@ -629,6 +657,16 @@ def pad_process(prep: Dict, cols: int) -> ProcessOperands:
     return ProcessOperands(lat, dims, tuple(weights), fixed, tuple(vecs))
 
 
+def process_vec_table(ops: ProcessOperands, cols: int) -> torch.Tensor:
+    """The streamed layout's vector table, (cols, `process_vec_floats`) f32:
+    row c holds block c's slices of every vector in the order the resident
+    layout keeps them (bl; each stage's bb g1 b1 g2 b2 bv bo, then bd; the
+    head's g, b and bf), so the kernel reads them at the same offsets."""
+    bl, _, _, g, b, bf = ops.fixed
+    vecs = [bl] + [v for _, stage in ops.stages for v in stage] + [g, b, bf]
+    return torch.cat([v.reshape(cols, -1) for v in vecs], dim=1).contiguous()
+
+
 def process_rows(plan: ProcessPlan, batch: int, guided: bool):
     """The rows of the condition adds ((2 batch, d) when guided, else
     (batch, d)) that each cluster of the plan holds, by cluster row, -1
@@ -672,15 +710,19 @@ class ReverseProcess:
     """All T reverse steps of a bucket call in one launch of the
     reverse-process kernel (csrc/reverse_process.cu), the weights of
     `prep` fixed: any latent and hidden widths up to MAX_WIDTH and 1 to
-    MAX_STAGES stages (`process_plan`). For a CPU model a call is
-    `run_steps` on the plain twins: the kernel's plain version.
+    MAX_STAGES stages (`process_plan`), every denoiser the JAX kernel holds
+    in its 100 MiB of VMEM whose widths are at most 4096. For a CPU model a
+    call is `run_steps` on the plain twins: the kernel's plain version.
 
     A plan is bound once per (batch, guided): its geometry chosen
     (`process_plan`) and, where its column split is new, the weights padded
-    for it (`pad_process`) and their tensor maps encoded; `bound` lists the
-    bound plans. A call reads the request's `SamplerInputs` in place,
-    launches once (adding one to `reverse_process.launches`) and returns
-    x_0, a new (B, L) tensor."""
+    for it (`pad_process`) and their tensor maps encoded; a streamed plan's
+    maps, widths, time-table pointers and vector table (`process_vec_table`)
+    are copied to device memory then. `bound` lists the bound plans. A call
+    reads the request's `SamplerInputs` in place, launches once (adding one
+    to `reverse_process.launches`; a streamed launch first copies the
+    pointers of the request's condition adds into a device table of its
+    own on the same stream) and returns x_0, a new (B, L) tensor."""
 
     def __init__(self, prep: Dict):
         self.prep = prep
@@ -692,25 +734,40 @@ class ReverseProcess:
         if self.device.type != "cuda":
             return
         self._coefs = torch.tensor(prep["coefs"], dtype=torch.float32, device=self.device)
-        # by column split: (the maps' address, the padded operands, their map buffer)
-        self._split: Dict[int, Tuple[int, ProcessOperands, ctypes.Array]] = {}
+        # by (column split, streamed): (the maps' address, the padded operands,
+        # what the launch's pointers point into)
+        self._split: Dict[Tuple[int, bool], Tuple[int, ProcessOperands, tuple]] = {}
         self._launch = _build.load("reverse_process").fd_process_launch
         self._launch.argtypes = [ctypes.c_void_p] * 5
         self._launch.restype = ctypes.c_int
 
-    def _encode(self, cols: int):
+    def _encode(self, cols: int, streamed: bool):
         ops = pad_process(self.prep, cols)
         n = len(self.hidden) - 1
         fn = _build.load("reverse_process").fd_process_maps
         fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        buf = ctypes.create_string_buffer(MAX_MAPS * MAP_BYTES + 64)
+        # the resident launch copies MAX_MAPS maps into its parameters
+        buf = ctypes.create_string_buffer(max(2 + 4 * n, MAX_MAPS) * MAP_BYTES + 64)
         at = -(-ctypes.addressof(buf) // 64) * 64  # a CUtensorMap is 64-byte aligned
         ptrs = (ctypes.c_void_p * len(ops.weights))(*[w.data_ptr() for w in ops.weights])
         dims = (ctypes.c_int * (n + 1))(*ops.hidden)
         _build.check(fn(ptrs, dims, n, ops.latent, cols, at), "the sampler's tensor maps")
-        self._split[cols] = (at, ops, buf)
-        return self._split[cols]
+        keep: tuple = (buf,)
+        if streamed:
+            # the maps, widths, time tables' pointers and vector slices in
+            # device memory (a tensor is at least 256-byte aligned)
+            raw = ctypes.string_at(at, (2 + 4 * n) * MAP_BYTES)
+            smaps = torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(self.device)
+            sdims = torch.tensor(ops.hidden + self.hidden, dtype=torch.int32,
+                                 device=self.device)
+            stadd = torch.tensor([tadd.data_ptr() for tadd, _ in ops.stages], dtype=torch.int64,
+                                 device=self.device)
+            svec = process_vec_table(ops, cols)
+            keep = (smaps, sdims, stadd, svec)
+            at = smaps.data_ptr()
+        self._split[cols, streamed] = (at, ops, keep)
+        return self._split[cols, streamed]
 
     def plan_for(self, batch: int, guided: bool) -> ProcessPlan:
         """The bound plan of a bucket call, bound at its first use."""
@@ -718,8 +775,8 @@ class ReverseProcess:
         plan = self.bound.get(key)
         if plan is None:
             plan = process_plan(self.latent, self.hidden, self.skip, batch, guided)
-            if self.device.type == "cuda" and plan.cols not in self._split:
-                self._encode(plan.cols)
+            if self.device.type == "cuda" and (plan.cols, plan.streamed) not in self._split:
+                self._encode(plan.cols, plan.streamed)
             self.bound[key] = plan
         return plan
 
@@ -751,18 +808,31 @@ class ReverseProcess:
                                  f"{tuple(v.shape)} on {v.device}")
         if plan is None:
             plan = self.plan_for(batch, guided)
-        maps, ops, _ = self._split.get(plan.cols) or self._encode(plan.cols)
+        maps, ops, keep = (self._split.get((plan.cols, plan.streamed))
+                           or self._encode(plan.cols, plan.streamed))
         out = torch.empty_like(x)
         bl, rw, tadd_f, g, b, bf = (None if v is None else v.data_ptr() for v in ops.fixed)
         ptrs = [x.data_ptr(), out.data_ptr(), inputs.key.data_ptr(), self._coefs.data_ptr(), bl,
                 rw, tadd_f, inputs.final_add.data_ptr(), g, b, bf]
-        for (tadd, vec), adds in zip(ops.stages, inputs.stage_adds):
-            ptrs += [tadd.data_ptr(), adds.data_ptr()] + [v.data_ptr() for v in vec]
+        if plan.streamed:
+            # the condition adds' pointers in a table of this launch's own,
+            # copied on the launch's stream from pinned memory: a table
+            # shared by the binding could be overwritten by a launch on
+            # another stream while this one still reads it
+            sadds = torch.tensor([a.data_ptr() for a in inputs.stage_adds],
+                                 dtype=torch.int64).pin_memory()
+            sadds = sadds.to(self.device, non_blocking=True)
+            ptrs += [t.data_ptr() for t in keep] + [sadds.data_ptr()]
+        else:
+            for (tadd, vec), adds in zip(ops.stages, inputs.stage_adds):
+                ptrs += [tadd.data_ptr(), adds.data_ptr()] + [v.data_ptr() for v in vec]
         ints = [n, batch, ops.latent, self.prep["n_steps"], int(guided),
                 int(clip_x0 is not None), int(stochastic), plan.clusters, plan.cols, plan.rows,
-                plan.qbufs, plan.slots, plan.smem, *ops.hidden, self.latent, *self.hidden]
+                plan.qbufs, plan.slots, plan.smem, *ops.hidden, self.latent, *self.hidden,
+                int(plan.streamed)]
         floats = [float(guidance_scale or 0.0), float(clip_x0 or 0.0), LN_EPS]
-        code = self._launch(maps, (ctypes.c_void_p * len(ptrs))(*ptrs),
+        code = self._launch(None if plan.streamed else maps,
+                            (ctypes.c_void_p * len(ptrs))(*ptrs),
                             (ctypes.c_int * len(ints))(*ints),
                             (ctypes.c_float * len(floats))(*floats),
                             torch.cuda.current_stream(self.device).cuda_stream)

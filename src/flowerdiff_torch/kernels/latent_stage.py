@@ -34,8 +34,9 @@ rows before the LayerNorm, a block owns 16 whole rows and all the columns
 plan on the host: `bind_stage` makes those of the row counts up to 128 once.
 
 `bind_stage` / `bind_head` fix a kernel's weights (checked once, and padded
-with zeros to the widths the kernels tile, so any width up to MAX_D = 2048
-runs: `padded`, `stage_widths`) and return the per-call launcher, which
+with zeros to the widths the kernels tile, so any width up to MAX_D = 4096
+runs: `padded`, `stage_widths`; the head's form with the t_base / c_base
+products up to MAX_HEAD_D = 2048) and return the per-call launcher, which
 reads the activations at their own widths; for CPU weights they return the
 plain twin
 (`fused_stage_plain` / `fused_head_plain`, same arithmetic in PyTorch ops).
@@ -135,7 +136,8 @@ _F32, _BF16 = torch.float32, torch.bfloat16
 SMEM_LIMIT = 232_448   # bytes of shared memory a block may have on the H100
 MAX_CLUSTER = 16       # non-portable cluster size
 MAX_SLOTS = 32
-MAX_D = 2048           # the widest d (padded) the stage kernel tiles
+MAX_D = 4096           # the widest d (padded): 16 column slices of MAX_SLICE
+MAX_HEAD_D = 2048      # the head's product form (csrc/latent_stage.cu::head_kernel)
 MAX_SLICE = 256        # columns a block computes of one product: a TMA box's lines
 ROW_CHOICES = (8, 16, 32, 64, 128)  # rows a block: N of its warpgroups' products
 TILE_BYTES, CHUNK_BYTES, BARRIERS = 8192, 32768, 8
@@ -233,14 +235,18 @@ def _up(n: int, unit: int) -> int:
 def stage_widths(d: int, dout: int):
     """The widths (d, d_out) the stage kernel tiles a stage of widths d ->
     dout with: d up to a multiple of 64 (its k64 tiles), d_out up to a
-    multiple of 8 where every row count has a plan, else of 64. The
-    flagship's widths are their own. ValueError past MAX_D."""
+    multiple of 8 where every row count has a plan, else of 64, else of
+    128 (and d too, where a width above 2048 needs 16 slices of whole
+    8-column units). The flagship's widths are their own. ValueError past
+    MAX_D."""
     if not 1 <= d <= MAX_D or not 1 <= dout <= MAX_D:
         raise ValueError(f"stage {d} -> {dout}: the kernel takes widths 1 to {MAX_D}")
-    dk = _up(d, 64)
-    if all(stage_plans(dk, _up(dout, 8), rows) for rows in ROW_CHOICES):
-        return dk, _up(dout, 8)
-    return dk, _up(dout, 64)
+    for unit in (64, 128):  # above 2048, whole 8-column units a slice of 16 need 128
+        dk = _up(d, unit)
+        for dok in (_up(dout, 8), _up(dout, 64), _up(dout, 128)):
+            if all(stage_plans(dk, dok, rows) for rows in ROW_CHOICES):
+                return dk, dok
+    raise ValueError(f"stage {d} -> {dout}: no plan of the kernel takes it")
 
 
 def stage_plan(d: int, dout: int, rows: int = 16) -> StagePlan:
@@ -253,7 +259,9 @@ def stage_plan(d: int, dout: int, rows: int = 16) -> StagePlan:
     [c so, (c + 1) so) of the last (so = dout / cols): multiples of 8 (an
     exchange moves 16-byte units), at most 256 (a TMA box's lines), and at
     most _units(rows) m64 tiles. Up to 128 rows a launch takes at most
-    WAVE_BLOCKS blocks; above, the 128-row plan repeats over more clusters.
+    WAVE_BLOCKS blocks where any plan fits them (a stage wider than 2048
+    fits none at 128 rows); above, the 128-row plan repeats over more
+    clusters.
 
     Shared memory (bytes, csrc/latent_stage.cu::StageLayout): slots x a
     chunk (kb x slice x 128, kb = chunk_tiles: up to 32 KB) of ring +
@@ -291,8 +299,9 @@ def stage_plans(d: int, dout: int, rows: int):
     """Every plan the kernel takes for widths d -> dout at `rows` (at most
     128) rows: each column split with each row count a block (at most as
     many as the rows need), the most ring slots that fit, two operand
-    buffers where two slots still fit beside them."""
-    plans = []
+    buffers where two slots still fit beside them; within WAVE_BLOCKS blocks
+    where any plan is."""
+    plans, waves = [], []
     most = next((r for r in ROW_CHOICES if r >= rows), ROW_CHOICES[-1])
     for cols in range(1, MAX_CLUSTER + 1):
         if d % cols or dout % cols:
@@ -306,8 +315,6 @@ def stage_plans(d: int, dout: int, rows: int):
             tiles = -(-rows // rb)
             if rb > most or -(-max(sd, so) // 64) > _units(rb):
                 continue
-            if tiles > 1 and tiles * cols > WAVE_BLOCKS:
-                continue
             for qbufs in (2, 1):
                 fixed = _stage_smem(d, dout, cols, rb, qbufs, 0)
                 slots = min(MAX_SLOTS, 3 * d // 64 // kbd + d // 64 // kbo,
@@ -315,10 +322,13 @@ def stage_plans(d: int, dout: int, rows: int):
                 while slots >= 2 and _stage_smem(d, dout, cols, rb, qbufs, slots) > SMEM_LIMIT:
                     slots -= 1
                 if slots >= 2:
-                    plans.append(StagePlan(tiles, cols, rb, qbufs, slots,
-                                           _stage_smem(d, dout, cols, rb, qbufs, slots)))
+                    plan = StagePlan(tiles, cols, rb, qbufs, slots,
+                                     _stage_smem(d, dout, cols, rb, qbufs, slots))
+                    (waves if tiles > 1 and tiles * cols > WAVE_BLOCKS else plans).append(plan)
                     break
-    return plans
+    # more than a wave of blocks only where no plan keeps to one (a stage
+    # wider than 2048 at 128 rows)
+    return plans or waves
 
 
 MAP_BYTES = 128  # a CUtensorMap
@@ -453,7 +463,9 @@ def bind_head(wt, bt, wc, bc, g, b, wf, bf, *, eps: float = LN_EPS):
     c_base=None, row_add=None, rows_add=None); wt/bt and wc/bc may be None
     when the calls pass no t_base or c_base. Weights are checked once, as in
     `bind_stage`, and padded with zeros (d_last and d_emb to multiples of
-    32, the latent to one of 8): any width up to MAX_D. A call with neither
+    32, the latent to one of 8): any width up to MAX_D; a call with t_base
+    or c_base up to MAX_HEAD_D (its whole-row kernel keeps a row in shared
+    memory). A call with neither
     base runs the column-tile kernel (csrc/latent_head.cu), a call with
     either the whole-row kernel (csrc/latent_stage.cu::head_kernel). For CPU
     weights `run` is the plain twin."""
@@ -497,6 +509,9 @@ def bind_head(wt, bt, wc, bc, g, b, wf, bf, *, eps: float = LN_EPS):
                 raise ValueError(f"{tag}_base given but no w{tag} bound")
             _check(f"{tag}_base", base, (bsz, de), _F32, dev, False)
         use_t, use_c = t_base is not None, c_base is not None
+        if (use_t or use_c) and max(dl, de, latent) > MAX_HEAD_D:
+            raise ValueError(f"d_last {dl}, d_emb {de}, latent {latent}: the head's form with "
+                             f"t_base or c_base takes widths up to {MAX_HEAD_D}")
         out = torch.empty((bsz, latent), dtype=_F32, device=dev)
         if use_t or use_c:
             code = fn_rows(h.data_ptr(), _ptr(row_add), _ptr(rows_add),

@@ -331,7 +331,8 @@ def bind_train_step(w_named: Dict[str, torch.Tensor], batch: int, *,
     lib = _lib()
     n_floats = lib.fd_train_step_workspace_floats(dims)
     if n_floats <= 0:
-        raise ValueError(f"the train-step kernel does not take dims {list(dims)}")
+        raise ValueError(f"the train-step kernel takes a batch of at least 1, an even "
+                         f"time_emb_dim and 1 to 65536 stages, got dims {list(dims)}")
     workspace = torch.empty(n_floats, dtype=_F32, device=dev)
     loss = torch.zeros((), dtype=_F32, device=dev)
     err = ctypes.c_int()

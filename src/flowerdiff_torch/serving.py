@@ -138,9 +138,9 @@ class SamplingService:
         device, a quarter of the bytes to the host) instead of the decoder's
         float32 output. use_fused: the kernel path for ancestral `sample`;
         None picks it on a CUDA device and the plain model elsewhere. On the
-        card the kernel path takes every denoiser of 1 to 8 stages whose
-        widths are at most 2048 (the --tiny preset's and the flagship's
-        among them; `kernels.full_sampler.process_plan`).
+        card the kernel path takes every denoiser the JAX kernel holds in its
+        100 MiB of VMEM whose widths are at most 4096 (the --tiny preset's
+        and the flagship's among them; `kernels.full_sampler.process_plan`).
         sampler_kind: 'ancestral' or 'ddim' (`ddim_steps` strided steps).
         decode_bf16: the decoder under bf16 autocast, output f32."""
         self.device = resolve_device(device)

@@ -3,7 +3,7 @@
 of the reverse-process kernel against the same calls as a host loop of
 launches, in turns, in one process on one CUDA card.
 
-    python3 src/flowerdiff_torch/tools/sampler_ab.py [--rounds 2] [--sweep]
+    python3 src/flowerdiff_torch/tools/sampler_ab.py [--rounds 2] [--sweep] [--sweep-nets]
 
 The host loop (`kernels/full_sampler.fused_sample`, 7 launches a step) is
 the kernel's oracle and stays in the tree, so both run in one process:
@@ -29,8 +29,11 @@ chunk split into its parts, each synchronised: the draws and condition rows,
 the launch, the decode with quantisation, the copy to the host. With
 --sweep, every plan the kernel takes at each bucket (`process_plans`, each
 with one operand buffer too) timed between CUDA events, beside the plan's
-cost model. Prints one line a measurement, the card's name and power limit,
-and the mean of each measurement over the rounds per path.
+cost model. With --sweep-nets, the same at the 8 bucket for denoisers past
+the flagship's shape (SWEEP_NETS: 63 stages of 256 and 23 of 512, streamed
+residual streams, and the flagship's shape with a 3456-wide middle), each
+plan's 1000-step call twice. Prints one line a measurement, the card's name
+and power limit, and the mean of each measurement over the rounds per path.
 """
 from __future__ import annotations
 
@@ -49,16 +52,20 @@ sys.path.insert(0, str(_PORT.parent))
 
 from flowerdiff_torch.diffusion import linear_schedule  # noqa: E402
 from flowerdiff_torch.kernels.full_sampler import (  # noqa: E402
+    ReverseProcess,
     draw_request,
     fused_sample,
+    prepare_fused_sampler,
     process_plans,
     process_smem,
     process_step_us,
+    process_widths,
 )
 from flowerdiff_torch.serving import SamplingService  # noqa: E402
 from flowerdiff_torch.utils.weights import (  # noqa: E402
     denoiser_from_params,
     init_numpy_params,
+    residual_stream,
     vae_from_params,
 )
 
@@ -67,6 +74,40 @@ FLAGSHIP = dict(latent_dim=256, hidden_dims=(256, 512, 1024, 512, 256), time_emb
 VAE = dict(latent_dim=256, channels=(64, 128, 256, 512), head_width=512, base_size=8)
 STATS = _ROOT / "artifacts" / "flagship_r5b" / "run" / "latent_stats.npz"
 GUIDANCE, CLIP, BUCKETS = 7.0, 3.0, (8, 64)
+# (latent, hidden) of --sweep-nets
+SWEEP_NETS = [(256, (256,) * 64), (512, (512,) * 24), (256, (256, 512, 3456, 512, 256))]
+
+
+def sweep_net(latent, hidden) -> None:
+    """Every plan of the 8 bucket, guided, for one denoiser (a residual
+    stream past 8 stages), each plan's 1000-step call timed twice between
+    CUDA events after a warm-up, beside its cost model."""
+    kw = dict(latent_dim=latent, hidden_dims=hidden, time_emb_dim=64, num_classes=102,
+              shared_cond_proj=True, global_skip=False)
+    tree = init_numpy_params("denoiser", seed=3, bias_std=0.3, **kw)
+    if len(hidden) > 9:
+        residual_stream(tree)
+    prep = prepare_fused_sampler(denoiser_from_params(tree, device="cuda", **kw),
+                                 linear_schedule(1000).to("cuda"))
+    process = ReverseProcess(prep)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    inputs = draw_request(prep, 8, torch.arange(8, device="cuda") % 102, None, gen, None, True)
+    chosen = process.plan_for(8, True)
+    plans = process_plans(latent, hidden, False, 8, True)
+    for p in list(plans):
+        if p.qbufs == 2:
+            lat_p, hid_p = process_widths(latent, hidden, p.cols)
+            plans.append(p._replace(qbufs=1, smem=process_smem(
+                lat_p, hid_p, False, p.cols, p.rows, 1, p.slots, p.streamed)))
+    for p in plans:
+        run = lambda: process(inputs, clip_x0=CLIP, guidance_scale=GUIDANCE, plan=p)  # noqa: E731
+        run()
+        ms = [event_ms(run) for _ in range(2)]
+        model = p.waves * process_step_us(latent, hidden, False, p)
+        print(f"[sampler_ab] sweep-nets: latent {latent}, {len(hidden) - 1} stages, widest "
+              f"{max(hidden)}: bucket 8 {p}{' (bound)' if p == chosen else ''}: "
+              f"{np.mean(ms):.3f} ms {[round(v, 3) for v in ms]}, cost model {model:.1f} ms",
+              flush=True)
 
 
 def host_loop(inner):
@@ -114,6 +155,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--sweep-nets", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("sampler_ab: no CUDA device")
@@ -209,6 +251,10 @@ def main() -> int:
                 print(f"[sampler_ab] sweep: bucket {b} {p}{' (bound)' if p == chosen else ''}: "
                       f"{np.mean(ms):.3f} ms {[round(v, 3) for v in ms]}, cost model "
                       f"{model:.1f} ms", flush=True)
+
+    if args.sweep_nets:
+        for latent, hidden in SWEEP_NETS:
+            sweep_net(latent, hidden)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()

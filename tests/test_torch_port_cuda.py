@@ -3,7 +3,7 @@
 Marked `cuda`: each test skips where torch sees no CUDA device. Run them on
 a machine with an H100 with `python -m pytest tests/test_torch_port_cuda.py`.
 Widths are small, ragged ones among them (the kernels pad at bind), and up
-to 2048; chip_smoke.py covers the flagship shapes.
+to 4096, depths up to 340 stages; chip_smoke.py covers the flagship shapes.
 """
 import re
 
@@ -34,6 +34,7 @@ from flowerdiff_torch.kernels.latent_stage import (
 from flowerdiff_torch.utils.weights import (
     denoiser_from_params,
     init_numpy_params,
+    residual_stream,
     vae_from_params,
 )
 
@@ -91,6 +92,11 @@ OTHER_STAGES = [(16, 1024, 768), (128, 1024, 768), (128, 512, 1536)]
 RAGGED_STAGES = [(8, 32, 64), (16, 64, 32), (13, 96, 200), (16, 200, 96), (128, 254, 512),
                  (16, 512, 254), (3, 1, 7), (16, 2048, 256), (128, 256, 2048),
                  (32, 2047, 2048)]
+# Past 2048 (16 column slices of up to 256; at 128 rows in more than one
+# wave): the flagship's shape with a 3456-wide middle, latent 2560, the
+# widest one-stage net the JAX kernel holds, 4096, a 2112-wide stage.
+WIDE_STAGES = [(16, 512, 3456), (128, 3456, 512), (16, 2560, 2560), (128, 2601, 2601),
+               (8, 4096, 4096), (16, 2112, 64), (16, 64, 2112)]
 # The sampler's row counts: the 8 and 64 buckets with CFG (16, 128), the
 # unguided v1 service's 8, 32 and 64.
 SAMPLER_ROWS = (8, 16, 32, 64, 128)
@@ -99,7 +105,7 @@ SAMPLER_ROWS = (8, 16, 32, 64, 128)
 @pytest.mark.parametrize("b,d,d_out", [(1, 64, 64), (13, 128, 256), (32, 256, 64)]
                          + [(b, d, o) for d, o in FLAGSHIP_STAGES
                             for b in sorted({1, 100, *SAMPLER_ROWS})]
-                         + OTHER_STAGES + RAGGED_STAGES)
+                         + OTHER_STAGES + RAGGED_STAGES + WIDE_STAGES)
 def test_stage_kernel_matches_twin(gen, b, d, d_out):
     args = _stage_args(gen, b, d, d_out)
     row = _r(gen, d)
@@ -271,12 +277,14 @@ def _proj_case(gen, b, lat, hid, with_skip):
 @pytest.mark.parametrize("b,lat,hid", [(b, 256, 256) for b in STEP_BATCHES]
                          + [(3, 24, 40), (5, 200, 100), (64, 520, 256), (8, 1024, 72),
                             (8, 254, 512), (64, 254, 256), (16, 2048, 256), (3, 2047, 2048),
-                            (5, 30, 32)])
+                            (5, 30, 32), (16, 2560, 2560), (3, 4095, 64), (64, 2601, 2601),
+                            (8, 4096, 256)])
 def test_latent_proj_tiles_match_twin_and_repeat(gen, b, lat, hid, guided, with_skip):
     """The projection's 16 x 16 tiles at every batch of the step (ragged row
     tiles), and at widths with ragged column tiles (H not a multiple of 16),
-    ragged k chunks (L not a multiple of 32) and two or four k chunks a warp
-    (L above 256 or 512); limits as test_latent_proj_kernel_matches_twin.
+    ragged k chunks (L not a multiple of 32), two or four k chunks a warp
+    (L above 256 or 512) and two passes of 2048 (L above 2048); limits as
+    test_latent_proj_kernel_matches_twin.
     The same call twice gives the same bits."""
     x, wl, bl, skip_w = _proj_case(gen, b, lat, hid, with_skip)
     copies = 2 if guided else 1
@@ -305,7 +313,8 @@ def _head_case(gen, rows, dl, lat, de=32):
 @pytest.mark.parametrize("guided", [False, True])
 @pytest.mark.parametrize("b,dl,lat", [(b, 256, 256) for b in STEP_BATCHES]
                          + [(3, 96, 40), (8, 512, 264), (64, 32, 8), (8, 1024, 256),
-                            (64, 2048, 254), (3, 254, 254), (8, 200, 96), (5, 30, 7)])
+                            (64, 2048, 254), (3, 254, 254), (8, 200, 96), (5, 30, 7),
+                            (8, 3456, 256), (16, 2560, 2560), (3, 4095, 7), (64, 4096, 256)])
 def test_head_table_form_tiles_match_twin_and_repeat(gen, b, dl, lat, guided):
     """The sampler's head (no base products; time row and condition rows as
     adds) on the column-tile kernel: 16 rows x 16 columns a block, at every
@@ -351,16 +360,20 @@ def test_wrappers_reject_bad_cuda_inputs(gen):
         reverse_step(_r(gen, 4, d), h, 3, (0.9, 0.5, 0.1), guidance_scale=2.0)
     with pytest.raises(ValueError):
         reverse_step(_r(gen, d, 4).t(), h, 3, (0.9, 0.5, 0.1))
-    # the widths past the kernels' 2048: the projection's L, the head's
-    # d_last and latent, the stage's d and d_out
-    for lat in (2049, 4096):
+    # the widths past the kernels' 4096: the projection's L, the head's
+    # d_last and latent, the stage's d and d_out; the head's form with t/c
+    # products past its 2048, at the call
+    for lat in (4097, 5000):
         with pytest.raises(ValueError, match="latent width"):
             bind_latent_proj(_r(gen, 16, lat, dtype=bf), _r(gen, 16))
-    for dl, lat in ((2080, 64), (64, 2056)):
+    for dl, lat in ((4128, 64), (64, 4104)):
         hw = _head_case(gen, 4, dl, lat)[3]
         with pytest.raises(ValueError, match="width"):
             bind_head(**{**hw, "wt": None, "bt": None, "wc": None, "bc": None})
-    for d, d_out in ((2049, 64), (64, 2049)):
+    h, _, _, hw = _head_case(gen, 4, 2080, 64)
+    with pytest.raises(ValueError, match="2048"):
+        bind_head(**hw)(h, t_base=_r(gen, 4, 32))
+    for d, d_out in ((4097, 64), (64, 4097)):
         with pytest.raises(ValueError, match="widths"):
             bind_stage(*_stage_args(gen, 1, d, d_out)[2:])
 
@@ -557,8 +570,10 @@ _FLAGSHIP_NET = dict(latent_dim=256, hidden_dims=(256, 512, 1024, 512, 256), tim
 def _net_case(gen, kw, batch):
     """A denoiser of widths `kw` with nonzero biases and perturbed LN affines,
     one step's data (a condition mask with zeros) and dropout masks."""
-    model = denoiser_from_params(init_numpy_params("denoiser", seed=2, bias_std=0.3, **kw),
-                                 device="cuda", **kw)
+    tree = init_numpy_params("denoiser", seed=2, bias_std=0.3, **kw)
+    if len(kw["hidden_dims"]) > 9:  # a residual stream past 8 stages, as _width_sampler's
+        residual_stream(tree)
+    model = denoiser_from_params(tree, device="cuda", **kw)
     with torch.no_grad():
         for name, p in model.named_parameters():
             if "_ln_" in name or "final_norm" in name:
@@ -577,6 +592,36 @@ def _net_case(gen, kw, batch):
             "cond_mask": (torch.arange(batch, device="cuda") % 3 != 0).float()[:, None],
             "freqs": ts.sinusoid_freqs(te, "cuda")}
     return model, data, masks
+
+
+# 40 stages of 128 (~27 MiB of f32 weights and gradients: the JAX step
+# holds it in its 120 MiB of VMEM), past the 16 stages the host structs of
+# the train kernels once held. The step's net is a residual stream
+# (`_net_case`): from the plain seeded tree the bf16 lane, which rounds
+# each incoming gradient before its products where the twin rounds after
+# them, drifts over 40 stages to ~2e-2 of a leaf's largest gradient.
+_DEEP_NET = dict(latent_dim=128, hidden_dims=(128,) * 41, time_emb_dim=64, num_classes=7)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-4), (torch.bfloat16, 1.5e-2)])
+def test_train_step_kernel_at_40_stages_matches_twin(gen, dtype, tol):
+    """The bound step of the deep net at the flagship's batch of 64 in both
+    lanes: loss and every gradient leaf against autograd on the plain twin
+    on the card; f32 at the limit of `test_train_step_kernel_matches_twin`,
+    bf16 at `chip_smoke.py`'s TRAIN_BF16_REL (1.5e-2)."""
+    model, data, masks = _net_case(gen, _DEEP_NET, 64)
+    named = dict(ts.weights_spec(model))
+    run = ts.bind_train_step(named, 64, dtype=dtype)
+    before = ts.tensor_map_encodes()
+    loss, grads = run(data, masks)
+    assert ts.tensor_map_encodes() == before
+    assert len(grads) == 11 + 14 * 40 + 9
+    ref_loss, ref = ts.twin_loss_and_grads(named, data, masks, dtype=dtype)
+    assert torch.isfinite(loss)
+    assert abs(float(loss) - float(ref_loss)) <= tol * abs(float(ref_loss))
+    for k, r in ref.items():
+        g = grads[k].reshape(r.shape)
+        assert float((g - r).abs().max()) <= tol * float(r.abs().max()) + 1e-9, k
 
 
 @pytest.mark.parametrize("name,kw,batch", RAGGED_NETS, ids=[n for n, _, _ in RAGGED_NETS])
@@ -863,6 +908,15 @@ def test_epoch_kernel_matches_twin_at_ragged_widths(gen, lane, moments):
     _epoch_against_twin(gen, lane, moments, _RAGGED_EPOCH_NET)
 
 
+@pytest.mark.parametrize("lane,moments", [(torch.float32, torch.float32),
+                                          (torch.bfloat16, torch.bfloat16)])
+def test_epoch_kernel_matches_twin_at_40_stages(gen, lane, moments):
+    """The same epoch over 40 stages of 128 (its draws in more than one
+    launch a step), at the limits of
+    `test_epoch_kernel_matches_twin_at_small_width`."""
+    _epoch_against_twin(gen, lane, moments, _DEEP_NET)
+
+
 def _epoch_against_twin(gen, lane, moments, net):
     from flowerdiff_torch.kernels import train_epoch as te
 
@@ -1098,8 +1152,19 @@ def test_reverse_process_every_plan_forced(gen):
 WIDTH_NETS = [(32, (32, 64, 32)), (96, (96, 200, 96)), (64, (64, 128, 128, 128, 128, 128, 64)),
               (254, (256, 512, 1024, 512, 256)), (254, (256, 512, 1024, 512, 254)),
               (256, (256, 2048, 256))]
+# Nets past the resident layout's 8 stages and 2048 wide, at the JAX
+# kernel's edge (its 100 MiB at the 64 bucket): 63 stages of 256, 340 of 64,
+# 23 of 512, the flagship's shape with a 3456-wide middle, latent 2560, and
+# a 12-stage v2 net; (latent, hidden, skip). The deep ones are residual
+# streams (`residual_stream`): from the plain seeded tree a bf16 rounding
+# that lands the other way in one of their thousands of products moves the
+# guided sample past PROCESS_TOL (the host loop's own sums in f64 do, on the
+# CPU), and 340 stages overflow.
+DEEP_CASES = [(256, (256,) * 64, False), (64, (64,) * 341, False), (512, (512,) * 24, False),
+              (256, (256, 512, 3456, 512, 256), False), (2560, (2560, 2560), False),
+              (64, (64,) * 13, True)]
 WIDTH_CASES = [(lat, hid, skip) for lat, hid in WIDTH_NETS
-               for skip in ((False, True) if hid[-1] == lat else (False,))]
+               for skip in ((False, True) if hid[-1] == lat else (False,))] + DEEP_CASES
 _WIDTH_MODELS = {}
 
 
@@ -1111,8 +1176,10 @@ def _width_sampler(latent, hidden, skip, guided, steps):
               num_classes=11, shared_cond_proj=True, global_skip=skip)
     key = (latent, hidden, skip)
     if key not in _WIDTH_MODELS:
-        _WIDTH_MODELS[key] = denoiser_from_params(
-            init_numpy_params("denoiser", seed=3, bias_std=0.3, **kw), device="cuda", **kw)
+        tree = init_numpy_params("denoiser", seed=3, bias_std=0.3, **kw)
+        if len(hidden) > 9:  # past 8 stages a residual stream: the plain tree is chaotic
+            residual_stream(tree)
+        _WIDTH_MODELS[key] = denoiser_from_params(tree, device="cuda", **kw)
     return FusedDiffusionSampler(_WIDTH_MODELS[key], linear_schedule(steps), (latent,),
                                  clip_x0=3.0, guidance_scale=7.0 if guided else None,
                                  device="cuda")
@@ -1143,8 +1210,9 @@ def _plain_steps(sampler, inputs):
 @pytest.mark.parametrize("guided", [True, False])
 @pytest.mark.parametrize("latent,hidden,skip", WIDTH_CASES)
 def test_reverse_process_takes_every_width_and_depth(gen, latent, hidden, skip, guided, batch):
-    """At each denoiser of WIDTH_CASES, both buckets, guided and not, with
-    noise: 20 steps in one launch against the host loop within PROCESS_TOL,
+    """At each denoiser of WIDTH_CASES (DEEP_CASES among them), both
+    buckets, guided and not, with noise: 20 steps in one launch against the
+    host loop within PROCESS_TOL,
     every left-out term (CFG and the clip when guided, the noise, the last
     stage's condition add, the skip) more than twice the limit away, a
     repeat bit-equal, one launch; 5 steps against the plain twins on the
@@ -1154,6 +1222,8 @@ def test_reverse_process_takes_every_width_and_depth(gen, latent, hidden, skip, 
     sampler = _width_sampler(latent, hidden, skip, guided, _PROCESS_STEPS)
     cls = torch.arange(batch, device="cuda") % 11
     inputs = _inputs(sampler, batch, cls, 31)
+    # past 8 stages the streamed layout (maps and tables in device memory)
+    assert sampler.process.plan_for(batch, guided).streamed == (len(hidden) > 9)
     before = launch_counts()
     got = _process(sampler, inputs)
     after = launch_counts()
@@ -1179,6 +1249,59 @@ def test_reverse_process_takes_every_width_and_depth(gen, latent, hidden, skip, 
     short = _width_sampler(latent, hidden, skip, guided, 5)
     inputs = _inputs(short, batch, cls, 32)
     _held(_process(short, inputs), _plain_steps(short, inputs), guided)
+
+
+@pytest.mark.parametrize("batch", [8, 64])
+@pytest.mark.parametrize("latent,hidden,skip", [(256, (256, 512, 1024, 512, 256), False),
+                                                (64, (64, 128, 128, 128, 128, 128, 64), True),
+                                                (96, (96, 200, 96), False)])
+def test_streamed_layout_is_bit_equal_to_the_resident_one(gen, latent, hidden, skip, batch):
+    """The streamed layout (maps, widths and time tables in device memory,
+    vectors and condition rows read from L2) on a net that fits the
+    resident one, at the bound plan's geometry: the same arithmetic in the
+    same order, so the same bits, guided with noise and the clip."""
+    from flowerdiff_torch.kernels.full_sampler import launch_counts, process_smem, process_widths
+
+    sampler = _width_sampler(latent, hidden, skip, True, _PROCESS_STEPS)
+    inputs = _inputs(sampler, batch, torch.arange(batch, device="cuda") % 11, 33)
+    plan = sampler.process.plan_for(batch, True)
+    assert not plan.streamed
+    lat_p, hid_p = process_widths(latent, hidden, plan.cols)
+    streamed = plan._replace(streamed=True, smem=process_smem(
+        lat_p, hid_p, skip, plan.cols, plan.rows, plan.qbufs, plan.slots, True))
+    resident = _process(sampler, inputs)
+    before = launch_counts()["reverse_process"]
+    got = _process(sampler, inputs, plan=streamed)
+    assert launch_counts()["reverse_process"] == before + 1
+    assert torch.equal(got, resident)
+
+
+def test_streamed_launches_on_two_streams_keep_their_own_condition_rows(gen):
+    """Two requests of the 12-stage v2 net (the streamed layout, which
+    reads each stage's condition adds through a pointer table) launched
+    together on two streams, three times: each x_0 bit-equal to its launch
+    alone, which holds its own host loop within PROCESS_TOL. A table shared
+    by the binding would let the second launch's pointers reach the first
+    while it still runs."""
+    sampler = _width_sampler(64, (64,) * 13, True, True, _PROCESS_STEPS)
+    batch = 8
+    assert sampler.process.plan_for(batch, True).streamed
+    reqs = [_inputs(sampler, batch, (torch.arange(batch, device="cuda") + 5 * k) % 11, 40 + k)
+            for k in range(2)]
+    alone = [_process(sampler, r) for r in reqs]
+    for r, x in zip(reqs, alone):
+        _held(x, _host_loop(sampler, r), True)
+    assert not torch.equal(*alone)
+    streams = [torch.cuda.Stream() for _ in reqs]
+    for _ in range(3):
+        torch.cuda.synchronize()
+        outs = []
+        for s, r in zip(streams, reqs):
+            with torch.cuda.stream(s):
+                outs.append(_process(sampler, r))
+        torch.cuda.synchronize()
+        for got, x in zip(outs, alone):
+            assert torch.equal(got, x)
 
 
 def test_reverse_step_takes_the_key_from_device_memory(gen):

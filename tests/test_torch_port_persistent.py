@@ -16,6 +16,7 @@ from flowerdiff.kernels.full_sampler import fused_sample as jax_fused_sample
 from flowerdiff.models import ConditionalLatentDenoiser as JaxDenoiser
 from flowerdiff_torch.diffusion import linear_schedule
 from flowerdiff_torch.kernels.full_sampler import (
+    MAX_STAGES,
     PROCESS_ROWS,
     ReverseProcess,
     WAVE_CLUSTERS,
@@ -105,12 +106,12 @@ def test_process_plan_ranks_by_waves_and_cost():
         assert all(cost <= p.waves * process_step_us(LATENT, HIDDEN, False, p) for p in plans)
 
 
-@pytest.mark.parametrize("hidden,latent,skip", [((256, 512, 2049, 512, 256), 256, False),
-                                                ((64,) * 10, 64, False),
+@pytest.mark.parametrize("hidden,latent,skip", [((256, 512, 4097, 512, 256), 256, False),
+                                                ((64,) * (MAX_STAGES + 2), 64, False),
                                                 ((256, 512, 128), 256, True)])
 def test_process_plan_refuses_widths_the_kernel_cannot_take(hidden, latent, skip):
-    """Past the kernel's bounds: a width above MAX_WIDTH, 9 stages, a v2
-    skip whose last hidden width is not the latent's."""
+    """Past the kernel's bounds: a width above MAX_WIDTH (4096), MAX_STAGES +
+    1 stages, a v2 skip whose last hidden width is not the latent's."""
     with pytest.raises(ValueError):
         process_plan(latent, hidden, skip, 8, True)
 
