@@ -255,6 +255,7 @@ from flowerdiff_torch.kernels.full_sampler import (  # noqa: E402
     process_map_encodes,
     process_max_clusters,
     process_smem,
+    process_step_us,
     process_widths,
     reverse_process,
     reverse_step,
@@ -294,6 +295,12 @@ from flowerdiff_torch.train import pixel_ddpm as px  # noqa: E402
 from flowerdiff_torch.train import vae_gan as vg  # noqa: E402
 from flowerdiff_torch.train.schedules import vae_gan_loss_gates  # noqa: E402
 from flowerdiff_torch.tools.gemm_ab import step_products  # noqa: E402
+from flowerdiff_torch.tools.train_gate import (  # noqa: E402
+    PRE_LN_BIAS_SCALE,
+    left_out_moves,
+    moved,
+    perturb_module,
+)
 from flowerdiff_torch.utils.device import derived_generator  # noqa: E402
 from flowerdiff_torch.utils.timing import cuda_ms  # noqa: E402
 from flowerdiff_torch.utils.weights import (  # noqa: E402
@@ -823,6 +830,30 @@ WIDTHS = [("tiny preset", 32, (32, 64, 32), False),
           ("2048-wide stage", 256, (256, 2048, 256), False)] + DEEP_WIDTHS
 
 
+# Lopsided denoisers the JAX kernel holds past 4096, beside narrow stages:
+# a last hidden width and a latent at its edge at the 8 bucket (25,706 and
+# 1,047,802; tests/test_torch_port_wide.py), the flagship's hidden widths
+# under a 16,384-wide latent (a 4x64x64 latent, flattened), a v2 net at 5120.
+# The reverse-process kernel runs them on its wide layout; its host loop,
+# the oracle, runs the stage, head and projection kernels in their passes.
+# (name, latent, hidden, v2 skip, the buckets the JAX kernel holds it at
+# that are sampled here)
+WIDE = [("last width 25706", 8, (8, 8, 25706), False, (8,)),
+        ("latent 1047802", 1047802, (8, 8), False, (8,)),
+        ("latent 16384", 16384, FLAGSHIP["hidden_dims"], False, (8, 64)),
+        ("v2 latent 5120", 5120, (256, 512, 5120), True, (8, 64))]
+# The product-form head past 2048 (make_fast_denoiser's): (rows, d_last,
+# d_emb, latent)
+WIDE_HEADS = [(16, 2112, 2080, 2056), (128, 4500, 256, 256), (16, 256, 256, 16384)]
+# The host loop's kernels at the WIDE nets' shapes, guided at the 8 bucket:
+# the stages (rows, d, d_out) whose Wd runs in passes, the head's table form
+# (rows, d_last, latent) with K in passes or a 16384-wide output, the
+# projection (samples, latent, hidden[0]) with L past 4096
+WIDE_STAGES = [(16, 8, 25706), (16, 512, 5120)]
+WIDE_TABLE_HEADS = [(16, 25706, 8), (16, 256, 16384), (16, 5120, 5120)]
+WIDE_PROJECTIONS = [(8, 1047802, 8), (8, 16384, 256)]
+
+
 def width_model(latent, hidden, skip, seed=3):
     """A seeded denoiser of the given widths (biases of std 0.3, so that each
     condition add moves the result), 102 classes, on the card; past 8 stages
@@ -1040,6 +1071,190 @@ def phase_process(prep, gen):
     return row
 
 
+def phase_wide():
+    """The lopsided nets of WIDE on the reverse-process kernel's wide layout,
+    guided, at their buckets: each bucket's plan printed; 20 steps against
+    the host loop (whose stage, head and projection kernels run their
+    passes past 4096) within PROCESS_TOL with every left-out term more than
+    twice the limit away, 5 against the plain twins on the card; repeats
+    bit-equal; the launch counts of each run read from zero (kernel 3 once a
+    call; the host loop's kernels each launched). Then one 1000-step call at
+    the 8 bucket timed between CUDA events beside its bound and the cost
+    model's figure, its counts from zero (one launch, nothing else). Then
+    the host loop's kernels at the nets' shapes (WIDE_STAGES,
+    WIDE_TABLE_HEADS, WIDE_PROJECTIONS) and the product-form head past 2048
+    (WIDE_HEADS), each against its twin with its left-out terms, timed
+    beside its bound. Returns the numbers for the kernels line."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(24)  # the later phases draw what they drew
+    out = {name: {"max_abs_err": 0.0}
+           for name in ("reverse_process", "fused_stage", "fused_head", "latent_proj")}
+    out["launches"] = dict.fromkeys(launch_counts(), 0)
+    kw = dict(stochastic=True, clip_x0=CLIP, guidance_scale=GUIDANCE)
+    for name, lat, hidden, skip, buckets in WIDE:
+        mdl = width_model(lat, hidden, skip)
+        for steps in (20, 5):
+            p = prepare_fused_sampler(mdl, linear_schedule(steps))
+            process = ReverseProcess(p)
+            for b in buckets:
+                e0 = process_map_encodes()
+                plan = process.plan_for(b, True)
+                assert plan.wide, (name, plan)
+                if steps == 20:
+                    print_plan(f"reverse_process {name}", plan, b, True,
+                               process_map_encodes() - e0)
+                tag = f"reverse_process {name} (latent {lat}, hidden {hidden}) B={b} T={steps}"
+                reset_counts()
+                err, tol, weakest, what = process_case(p, process, b, True, steps, gen, tag, dev)
+                counts = launch_counts()
+                assert counts["reverse_process"] == 2, (tag, counts)  # the call and its repeat
+                host = {k: counts[k] for k in ("latent_proj", "fused_stage", "fused_head",
+                                               "reverse_step")}
+                assert all(host.values()) if steps == 20 else not any(host.values()), (tag, counts)
+                for k, v in counts.items():
+                    out["launches"][k] += v
+                print(f"[wide] {tag} against the {what}: max_abs_err {err:.3e} (tol {tol:.3e}; "
+                      f"least move of a left-out term: {weakest}); repeat bit-equal; launches "
+                      f"from zero {counts}")
+                out["reverse_process"]["max_abs_err"] = max(
+                    out["reverse_process"]["max_abs_err"], err)
+        # one 1000-step guided call at the 8 bucket, timed
+        p = prepare_fused_sampler(mdl, linear_schedule(1000).to("cuda"))
+        process = ReverseProcess(p)
+        inputs = draw_request(p, 8, torch.arange(8, device=dev) % FLAGSHIP["num_classes"],
+                              None, gen, None, True)
+        plan = process.plan_for(8, True)
+        reset_counts()
+        got = process(inputs, **kw)
+        counts = launch_counts()
+        assert counts == dict(dict.fromkeys(counts, 0), reverse_process=1), (name, counts)
+        assert torch.isfinite(got).all() and got.shape == (8, lat), name
+        assert torch.equal(process(inputs, **kw), got), f"{name}: 1000-step repeats differ"
+        ms = [event_ms(lambda: process(inputs, **kw), 1) for _ in range(2)]
+        b_ms, b_by = sampler_bound_ms(p, 8)
+        model_ms = process_step_us(lat, hidden, skip, plan) * plan.waves
+        print(f"[wide] reverse_process {name} (latent {lat}, hidden {hidden}, skip {skip}) B=8 "
+              f"guided, 1000 steps: ms {np.mean(ms):.3f} (runs {[round(v, 3) for v in ms]}) "
+              f"bound_ms {b_ms:.4f} ({b_by}); the cost model's {model_ms:.1f} ms; plan {plan}")
+        out["reverse_process"][f"ms_{name.replace(' ', '_')}_bucket_8"] = float(np.mean(ms))
+        out["reverse_process"][f"bound_ms_{name.replace(' ', '_')}_bucket_8"] = b_ms
+        del p, process, mdl, inputs, got
+        torch.cuda.empty_cache()
+    def r(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    # the host loop's own kernels at the wide nets' shapes, each against its
+    # twin with its left-out terms, timed beside its bound: the stage with
+    # Wd in column passes, the head's table form with K in passes (and a
+    # 16384-wide output), the projection with L in passes of 2048 (its
+    # limit grows as sqrt(L / 4096): f32 sums of L exact products in
+    # another order)
+    for rows, d, dout in WIDE_STAGES:
+        w = dict(scale=d ** -0.5, dtype=torch.bfloat16)
+        sw = dict(wb=r(d, d, **w), bb=r(d, scale=0.5), g1=1 + r(d, scale=0.2),
+                  b1=r(d, scale=0.5), g2=1 + r(d, scale=0.2), b2=r(d, scale=0.5),
+                  wv=r(d, d, **w), bv=r(d, scale=0.5), wo=r(d, d, **w), bo=r(d, scale=0.5),
+                  wd=r(dout, d, **w), bd=r(dout, scale=0.5))
+        h, tc, row = r(rows, d), r(rows, d, scale=0.5), r(d)
+
+        def stwin(tc=tc, row=row, **drop):
+            return fused_stage_plain(h, tc, **{**sw, **drop}, row_add=row, eps=LN_EPS)
+        run = bind_stage(**sw)
+        dropped = {"tc": stwin(tc=None), "row_add": stwin(row=None),
+                   "bb": stwin(bb=torch.zeros_like(sw["bb"])),
+                   "bd": stwin(bd=torch.zeros_like(sw["bd"]))}
+        tag = f"fused_stage {d}->{dout} B={rows}"
+        err, tol, weakest = held(tag, run(h, tc, row), stwin(), STAGE_TOL, dropped)
+        ms, plain = cuda_ms(lambda: run(h, tc, row)), cuda_ms(stwin)
+        n_bytes = 4 * (2 * rows * d + 8 * d + dout + rows * dout) + 2 * (3 * d * d + d * dout)
+        b_ms, b_by = bound_ms(n_bytes, 2 * rows * d * (3 * d + dout), BF16_FLOP_PER_S)
+        print(f"[wide] {tag} (Wd in passes; plan {run.plan_for(rows)}): max_abs_err {err:.3e} "
+              f"(tol {tol:.3e}; least move: {weakest}) ms {ms:.4f} plain_ms {plain:.4f} "
+              f"bound_ms {b_ms:.5f} ({b_by})")
+        out["fused_stage"]["max_abs_err"] = max(out["fused_stage"]["max_abs_err"], err)
+        out["fused_stage"][f"ms_{d}_{dout}_rows_{rows}"] = ms
+        out["fused_stage"][f"bound_ms_{d}_{dout}_rows_{rows}"] = b_ms
+    for rows, dl, lat in WIDE_TABLE_HEADS:
+        hw = dict(g=1 + r(dl, scale=0.2), b=r(dl, scale=0.5),
+                  wf=r(lat, dl, scale=dl ** -0.5, dtype=torch.bfloat16), bf=r(lat, scale=0.5))
+        h, row, ra = r(rows, dl), r(dl), r(rows, dl, scale=0.5)
+
+        def htwin(row=row, ra=ra, **drop):
+            return fused_head_plain(h, None, None, None, None, None, None,
+                                    **{**hw, **drop}, row_add=row, rows_add=ra, eps=LN_EPS)
+        run = bind_head(None, None, None, None, **hw)
+        dropped = {"row_add": htwin(row=None), "rows_add": htwin(ra=None),
+                   "g": htwin(g=torch.ones_like(hw["g"])), "b": htwin(b=torch.zeros_like(hw["b"])),
+                   "bf": htwin(bf=torch.zeros_like(hw["bf"]))}
+        tag = f"fused_head (table adds) {dl}->{lat} B={rows}"
+        err, tol, weakest = held(tag, run(h, None, None, row, ra), htwin(), HEAD_TOL, dropped)
+        ms, plain = cuda_ms(lambda: run(h, None, None, row, ra)), cuda_ms(htwin)
+        n_bytes = 4 * (2 * rows * dl + 3 * dl + lat + rows * lat) + 2 * dl * lat
+        b_ms, b_by = bound_ms(n_bytes, 2 * rows * dl * lat, BF16_FLOP_PER_S)
+        print(f"[wide] {tag}: max_abs_err {err:.3e} (tol {tol:.3e}; least move: {weakest}) "
+              f"ms {ms:.4f} plain_ms {plain:.4f} bound_ms {b_ms:.5f} ({b_by})")
+        out["fused_head"]["max_abs_err"] = max(out["fused_head"]["max_abs_err"], err)
+        out["fused_head"][f"table_ms_{dl}_{lat}_rows_{rows}"] = ms
+        out["fused_head"][f"table_bound_ms_{dl}_{lat}_rows_{rows}"] = b_ms
+    for b, lat, hid in WIDE_PROJECTIONS:
+        x, wl, bl = r(b, lat), r(hid, lat, scale=lat ** -0.5, dtype=torch.bfloat16), r(hid)
+        run = bind_latent_proj(wl, bl)
+        ref = latent_proj_plain(x, wl, bl, copies=2)[0]
+        dropped = {"bl": latent_proj_plain(x, wl, torch.zeros_like(bl), copies=2)[0]}
+        tag = f"latent_proj {lat}->{hid} B={b} guided"
+        rel = PROJ_TOL * max(1.0, (lat / 4096) ** 0.5)
+        err, tol, weakest = held(tag, run(x, 2)[0], ref, rel, dropped)
+        ms, plain = cuda_ms(lambda: run(x, 2)), cuda_ms(lambda: latent_proj_plain(x, wl, bl,
+                                                                                copies=2))
+        b_ms, b_by = bound_ms(4 * (b * lat + hid + 2 * b * hid) + 2 * hid * lat,
+                              2 * b * lat * hid, BF16_FLOP_PER_S)
+        print(f"[wide] {tag}: max_abs_err {err:.3e} (tol {tol:.3e}; least move: {weakest}) "
+              f"ms {ms:.4f} plain_ms {plain:.4f} bound_ms {b_ms:.5f} ({b_by})")
+        out["latent_proj"]["max_abs_err"] = max(out["latent_proj"]["max_abs_err"], err)
+        out["latent_proj"][f"ms_{lat}_{hid}_rows_{b}"] = ms
+        out["latent_proj"][f"bound_ms_{lat}_{hid}_rows_{b}"] = b_ms
+    # the product-form head past 2048 (make_fast_denoiser's): the whole rows
+    # in device memory
+    for rows, dl, de, lat in WIDE_HEADS:
+        w = dict(scale=dl ** -0.5, dtype=torch.bfloat16)
+        weights = dict(wt=r(dl, de, scale=de ** -0.5, dtype=torch.bfloat16), bt=r(dl, scale=0.5),
+                       wc=r(dl, de, scale=de ** -0.5, dtype=torch.bfloat16), bc=r(dl, scale=0.5),
+                       g=1 + r(dl, scale=0.2), b=r(dl, scale=0.5), wf=r(lat, dl, **w),
+                       bf=r(lat, scale=0.5))
+        h, tb, cb = r(rows, dl), r(rows, de), r(rows, de)
+        row, ra = r(dl), r(rows, dl, scale=0.5)
+
+        def twin(w_=weights, tb=tb, cb=cb, row=row, ra=ra, **drop):
+            return fused_head_plain(h, tb, cb, **{**w_, **drop}, row_add=row, rows_add=ra,
+                                    eps=LN_EPS)
+        ref = twin()
+        dropped = {"t_base": twin(tb=None), "c_base": twin(cb=None), "row_add": twin(row=None),
+                   "rows_add": twin(ra=None), "bt": twin(bt=torch.zeros_like(weights["bt"])),
+                   "bc": twin(bc=torch.zeros_like(weights["bc"])),
+                   "g": twin(g=torch.ones_like(weights["g"])),
+                   "b": twin(b=torch.zeros_like(weights["b"])),
+                   "bf": twin(bf=torch.zeros_like(weights["bf"]))}
+        run = bind_head(**weights)
+        reset_counts()
+        got = run(h, tb, cb, row, ra)
+        counts = launch_counts()
+        assert counts["fused_head_products"] == 1 == counts["fused_head"], counts
+        tag = f"fused_head (t, c products) {dl}/{de}->{lat} B={rows}"
+        err, tol, weakest = held(tag, got, ref, HEAD_TOL, dropped)
+        assert torch.equal(run(h, tb, cb, row, ra), got), f"{tag}: repeats differ"
+        ms = cuda_ms(lambda: run(h, tb, cb, row, ra))
+        plain = cuda_ms(lambda: twin())
+        n_bytes = (4 * (2 * rows * dl + 2 * rows * de + 4 * dl + lat + rows * lat)
+                   + 2 * (2 * dl * de + dl * lat))
+        b_ms, b_by = bound_ms(n_bytes, 2 * rows * (2 * de * dl + dl * lat), BF16_FLOP_PER_S)
+        print(f"[wide] {tag}: max_abs_err {err:.3e} (tol {tol:.3e}; least move: {weakest}); "
+              f"repeat bit-equal; ms {ms:.4f} plain_ms {plain:.4f} bound_ms {b_ms:.5f} ({b_by})")
+        out["fused_head"]["max_abs_err"] = max(out["fused_head"]["max_abs_err"], err)
+        out["fused_head"][f"products_ms_{dl}_{de}_{lat}_rows_{rows}"] = ms
+        out["fused_head"][f"products_bound_ms_{dl}_{de}_{lat}_rows_{rows}"] = b_ms
+    return out
+
+
 def phase_noise(sched):
     """Zero eps, x_init = 0: x_{t-1} = x_t / sqrt(a_t) + sqrt(b_t) z_t, so
     the variance follows v <- v / a_t + b_t (no noise at t = 0)."""
@@ -1178,7 +1393,8 @@ def host_loop_counts(n_steps, calls=1):
 # product form.
 PROFILE_NAMES = {"process_kernel": "reverse_process", "latent_proj_kernel": "latent_proj",
                  "stage_kernel": "fused_stage", "head_cols_kernel": "fused_head",
-                 "head_kernel": "fused_head_products", "reverse_step_kernel": "reverse_step"}
+                 "head_cols_pass_kernel": "fused_head", "head_kernel": "fused_head_products",
+                 "reverse_step_kernel": "reverse_step"}
 
 
 def profiled_launches(kernels):
@@ -1555,20 +1771,6 @@ def phase_augment(dataset):
         assert abs(m - c) <= 5 * se, f"{k}: mean {m} off {c}"
 
 
-def _perturb_module(model, gen):
-    """Biases and LN shifts z, LN scales 1 + 0.2 z, in place: values at which
-    a dropped vector shows (`perturbed` does the same for the stage and head
-    operands; the shifts are twice as large here, because a bias in front of
-    the 1024-wide LayerNorm moves the gradients least of all terms)."""
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if p.ndim != 1:
-                continue
-            z = torch.randn(p.shape, generator=gen, device=p.device)
-            is_scale = name.endswith(".weight")  # a 1-D weight is a LayerNorm scale
-            p.copy_(1 + 0.2 * z if is_scale else z)
-
-
 def _train_case(model, gen):
     """One step's inputs at B = 64 for the model's widths: draws at dropout
     0.3, and a condition keep-mask with every fourth row zero."""
@@ -1611,7 +1813,7 @@ def ragged_train_step(gen) -> dict:
                   hidden_dims=hidden, global_skip=skip)
         model = denoiser_from_params(init_numpy_params("denoiser", seed=3, **kw),
                                      device="cuda", **kw)
-        _perturb_module(model, gen)
+        perturb_module(model, gen)
         named = dict(ts.weights_spec(model))
         data, masks = _train_case(model, gen)
         run = ts.bind_train_step(named, TRAIN_BATCH, dtype=torch.bfloat16, global_skip=skip)
@@ -1667,7 +1869,7 @@ def deep_train_step() -> dict:
     model = denoiser_from_params(
         residual_stream(init_numpy_params("denoiser", seed=3, **DEEP_TRAIN)), device="cuda",
         **DEEP_TRAIN)
-    _perturb_module(model, gen)
+    perturb_module(model, gen)
     named = dict(ts.weights_spec(model))
     assert len(named) == 11 + 14 * 40 + 9
     data, masks = _train_case(model, gen)
@@ -1698,18 +1900,16 @@ def deep_train_step() -> dict:
         ms = cuda_ms(lambda: run(data, masks), iters=10)
         torch.cuda.synchronize()
         assert ts.tensor_map_encodes() == e0, "a bound deep step encoded a tensor map"
+        n_bytes, flops = train_step_counts(named, TRAIN_BATCH)
+        b_ms, b_by = bound_ms(n_bytes, flops, F32_FLOP_PER_S if dtype == torch.float32
+                              else BF16_FLOP_PER_S)
         print(f"[train_kernel] 40 stages of 128 {lane}: {len(run.products())} products; loss "
               f"{float(loss):.6f} (twin {float(ref_loss):.6f}, rel {loss_rel:.2e}); worst leaf "
               f"{worst_leaf} {worst_rel:.3e} x max|twin grad| (abs {worst_abs:.3e}); ms "
-              f"{ms:.4f}; tensor-map encodes a step 0")
-        out[lane] = dict(ms=ms, max_rel_err=worst_rel)
+              f"{ms:.4f}; bound {b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB, "
+              f"{flops / 1e9:.3f} GFLOP at the {lane} peak); tensor-map encodes a step 0")
+        out[lane] = dict(ms=ms, max_rel_err=worst_rel, bound_ms=b_ms, bound_by=b_by)
     return out
-
-
-def _moved(grads, ref):
-    """The largest change of any gradient leaf, relative to the leaf's max."""
-    return max(float((grads[k] - ref[k]).abs().max() / (ref[k].abs().max() + 1e-30))
-               for k in ref)
 
 
 def train_step_counts(named, batch):
@@ -1784,7 +1984,9 @@ def phase_train_kernel(gen):
         kw = dict(FLAGSHIP, global_skip=skip)
         model = denoiser_from_params(init_numpy_params("denoiser", seed=3, **kw),
                                      device="cuda", **kw)
-        _perturb_module(model, gen)
+        # the biases a LayerNorm reads next drawn wider, so that leaving any
+        # one out shows on any draw (tools/train_gate.py)
+        perturb_module(model, gen, PRE_LN_BIAS_SCALE)
         named = dict(ts.weights_spec(model))
         assert len(named) == 76
         data, masks = _train_case(model, gen)
@@ -1839,28 +2041,7 @@ def phase_train_kernel(gen):
         if skip:
             continue
         # leaving out any one term moves some gradient past twice the limit
-        _, ref = ts.twin_loss_and_grads(named, data, masks, dtype=torch.float32)
-
-        def variant(weights=None, masks_=None, data_=None):
-            w = dict(named, **(weights or {}))
-            return ts.twin_loss_and_grads(w, data_ or data, masks_ or masks,
-                                          dtype=torch.float32)[1]
-
-        moves = {"cond_mask": _moved(variant(data_=dict(
-            data, cond_mask=torch.ones_like(data["cond_mask"]))), ref)}
-        for i, m in enumerate(masks):
-            ones = list(masks)
-            ones[i] = torch.ones_like(m)
-            moves[f"mask {i}"] = _moved(variant(masks_=ones), ref)
-        for k, v in named.items():
-            if v.ndim != 1:
-                continue
-            if k.endswith(".bt"):  # a kernel using bt once: forward of bt / 2, half the gradient
-                g = variant({k: 0.5 * v})
-                g[k] = 0.5 * g[k]
-                moves[f"2*{k}"] = _moved(g, ref)
-            moves[k] = _moved(variant({k: (torch.ones_like if k.split(".")[-1].startswith("g")
-                                           else torch.zeros_like)(v)}), ref)
+        moves = left_out_moves(named, data, masks)
         weakest = min(moves, key=moves.get)
         print(f"[train_kernel] {len(moves)} left-out terms; the least move of any: {weakest} "
               f"{moves[weakest]:.3g} x max|grad| (limit {TRAIN_BF16_REL})")
@@ -2131,8 +2312,8 @@ def _epoch_readings(got_losses, got, ref_losses, ref, sum_lr):
     w_mean = max(float((g - r).abs().mean()) for g, r in zip(w_got, w_ref))
     w_max = max(float((g - r).abs().max()) for g, r in zip(w_got, w_ref))
     bf16 = {"loss": loss_rel / EPOCH_BF16_LOSS_REL,
-            "mu": _moved(by_slot(got.mu), by_slot(ref.mu)) / EPOCH_BF16_MOMENT_REL,
-            "nu": _moved(by_slot(got.nu), by_slot(ref.nu)) / EPOCH_BF16_MOMENT_REL,
+            "mu": moved(by_slot(got.mu), by_slot(ref.mu)) / EPOCH_BF16_MOMENT_REL,
+            "nu": moved(by_slot(got.nu), by_slot(ref.nu)) / EPOCH_BF16_MOMENT_REL,
             "w mean": w_mean / (EPOCH_BF16_W_MEAN * sum_lr),
             "w max": w_max / (2 * sum_lr + 1e-6),
             "q, k": f32["q, k"]}
@@ -2505,13 +2686,17 @@ def deep_train_epoch() -> dict:
     fn = te.make_mega_epoch_fn(model, cfg, steps, batch, dtype=torch.float32,
                                moments_dtype=torch.float32)
     ms = [event_ms(lambda: fn(state, sched, z, labels, seed), 1) for _ in range(2)]
+    n_bytes, flops, _ = epoch_counts(dict(ts.weights_spec(model)), batch, steps, False)
+    b_ms, b_by = bound_ms(n_bytes, flops, F32_FLOP_PER_S)
     print(f"[train_epoch] 40 stages of 128 (a residual stream, S={steps}), f32 lane: losses "
           f"{float(lk[0]):.5f} .. {float(lk[-1]):.5f} (twin {float(lt[0]):.5f} .. "
           f"{float(lt[-1]):.5f}); in units of the limits "
           f"{ {k: round(v, 4) for k, v in readings.items()} }; an epoch of {steps} steps "
-          f"{np.mean(ms):.3f} ms between CUDA events (runs {[round(v, 3) for v in ms]})")
+          f"{np.mean(ms):.3f} ms between CUDA events (runs {[round(v, 3) for v in ms]}); bound "
+          f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP at the f32 "
+          f"peak)")
     assert readings[worst] <= 1.0, f"deep epoch: {worst} at {readings[worst]:.3f} of its limit"
-    return dict(ms=float(np.mean(ms)), readings=readings)
+    return dict(ms=float(np.mean(ms)), readings=readings, bound_ms=b_ms, bound_by=b_by)
 
 
 def card_line() -> str:
@@ -3816,6 +4001,7 @@ def main() -> int:
 
     kernel_rows = phase_kernels(model, prep, gen)
     kernel_rows.append(phase_process(prep, gen))
+    wide = phase_wide()
     phase_noise(sched)
     phase_short_parity(model, gen)
     phase_profile(model)
@@ -3833,6 +4019,12 @@ def main() -> int:
         else:  # the step's own kernels: the host loop, the reverse process's oracle
             row["launches"] = host[row["name"]]
             row["path"] = "phase_service: the host loop (fused_sample), one 64-bucket call"
+        # phase_wide: the lopsided nets past 4096 (counts from zero a run)
+        row["wide_launches"] = wide["launches"].get(row["name"], 0)
+        if row["name"] == "fused_head":
+            row["wide_products_launches"] = wide["launches"]["fused_head_products"]
+        for k, v in wide.get(row["name"], {}).items():
+            row["wide_" + k if k == "max_abs_err" else k] = v
     phase_ddim(model, vae, stats, den_params)
     phase_partial(model)
     images, labels = synthetic_flowers(1020, FLAGSHIP["num_classes"], 64, seed=0)

@@ -38,7 +38,11 @@
 // ragged one, or one whose rows would not fit a lane's registers) is read
 // in three passes over the row (sum, centred square, the normalised bf16
 // operand), a float a lane at a time at the rows' own stride, the operand's
-// columns past dl zero.
+// columns past dl zero. Past 4096 (head_cols_pass_kernel) the statistics
+// take a pass of their own over the row, then K runs in passes of 4096,
+// each normalising its columns into the operand and loading their weight
+// fragments before its products, the sums carried across the passes in
+// the same chunk order; the latent is any width (its 16-column tiles).
 #include "rows.cuh"
 
 namespace {
@@ -205,6 +209,111 @@ head_cols_kernel(const float* __restrict__ h, const float* __restrict__ row_add,
   }
 }
 
+// The head past kMaxDl: LayerNorm statistics in a pass over the row, then K
+// in passes of kMaxDl (16 chunks a warp), each its operand's columns
+// normalised into Q (kRows x (kMaxDl + kPad)) and its weight fragments
+// loaded, then its products; a warp's chunks in the order of one pass over
+// all of K (warp w: chunks w, w + 8, ...), the partials added in warp order.
+__global__ void __launch_bounds__(kThreads)
+head_cols_pass_kernel(const float* __restrict__ h, const float* __restrict__ row_add,
+                      const float* __restrict__ rows_add, const float* __restrict__ g,
+                      const float* __restrict__ b, const __nv_bfloat16* __restrict__ wf,
+                      const float* __restrict__ bf, float* __restrict__ out, int B, int dl,
+                      int ldw, int latent, float eps) {
+  constexpr int C = kMaxDl / (kWarps * kChunk);  // a warp's chunks a pass
+  extern __shared__ __align__(16) __nv_bfloat16 Q[];  // kRows x (kMaxDl + kPad)
+  __shared__ __align__(16) float red[kWarps][kRows * kCols];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * kCols, row0 = blockIdx.y * kRows;
+  const int lda = kMaxDl + kPad;
+
+  // the warp's two rows: h + row_add + rows_add a float at a time
+  auto x = [&](int s, int i) {
+    const int row = row0 + warp + kWarps * s;
+    if (row >= B) return 0.f;
+    float v = h[(size_t)row * dl + i];
+    if (row_add) v += row_add[i];
+    if (rows_add) v += rows_add[(size_t)row * dl + i];
+    return v;
+  };
+  // 1. their statistics: sum, then centred square
+  float mean[kRowsPerWarp], rstd[kRowsPerWarp];
+#pragma unroll
+  for (int s = 0; s < kRowsPerWarp; ++s) {
+    float sum = 0.f;
+    for (int i = lane; i < dl; i += 32) sum += x(s, i);
+    mean[s] = fd::warp_sum(sum) / dl;
+    float var = 0.f;
+    for (int i = lane; i < dl; i += 32) {
+      const float d0 = x(s, i) - mean[s];
+      var += d0 * d0;
+    }
+    rstd[s] = rsqrtf(fd::warp_sum(var) / dl + eps);
+  }
+  float acc[kNTiles][4];
+#pragma unroll
+  for (int i = 0; i < kNTiles; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+#pragma unroll 1
+  for (int k0 = 0; k0 < ldw; k0 += kMaxDl) {
+    const int kw = ldw - k0 < kMaxDl ? ldw - k0 : kMaxDl;
+    // 2. the pass's weight fragments (16-byte loads) and its normalised operand
+    uint4 wq[C][kNTiles];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int k = (warp + kWarps * c) * kChunk + 8 * t;
+#pragma unroll
+      for (int i = 0; i < kNTiles; ++i) {
+        const int n = n0 + 8 * i + gq;
+        wq[c][i] = make_uint4(0u, 0u, 0u, 0u);
+        if (k < kw && n < latent)
+          wq[c][i] = __ldg(reinterpret_cast<const uint4*>(wf + (size_t)n * ldw + k0 + k));
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kRowsPerWarp; ++s) {
+      const int r = warp + kWarps * s;
+      for (int i = lane; i < kw; i += 32) {
+        const int col = k0 + i;
+        Q[r * lda + i] = __float2bfloat16_rn(
+            col < dl ? (x(s, col) - mean[s]) * rstd[s] * g[col] + b[col] : 0.f);
+      }
+    }
+    __syncthreads();
+    // 3. the warp's chunks of the pass
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int k = (warp + kWarps * c) * kChunk;
+      if (k >= kw) break;
+      const uint4 alo = fd::lds128(Q + gq * lda + k + 8 * t);
+      const uint4 ahi = fd::lds128(Q + (gq + 8) * lda + k + 8 * t);
+#pragma unroll
+      for (int i = 0; i < kNTiles; ++i) {
+        fd::mma_bf16(acc[i], alo.x, ahi.x, alo.y, ahi.y, wq[c][i].x, wq[c][i].y);
+        fd::mma_bf16(acc[i], alo.z, ahi.z, alo.w, ahi.w, wq[c][i].z, wq[c][i].w);
+      }
+    }
+    __syncthreads();  // the operand read before the next pass rewrites it
+  }
+#pragma unroll
+  for (int i = 0; i < kNTiles; ++i) {
+    const int n = 8 * i + 2 * t;
+    *reinterpret_cast<float2*>(&red[warp][gq * kCols + n]) = make_float2(acc[i][0], acc[i][1]);
+    *reinterpret_cast<float2*>(&red[warp][(gq + 8) * kCols + n]) =
+        make_float2(acc[i][2], acc[i][3]);
+  }
+  __syncthreads();
+  // 4. the partials in warp order, the bias, the store
+  for (int e = tid; e < kRows * kCols; e += kThreads) {
+    const int r = e / kCols, col = n0 + e % kCols, row = row0 + r;
+    if (row >= B || col >= latent) continue;
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) v += red[w][e];
+    out[(size_t)row * latent + col] = v + bf[col];
+  }
+}
+
 // The launch floor of the same grid: no loads, no work.
 __global__ void __launch_bounds__(kThreads) empty_kernel() {}
 
@@ -241,15 +350,29 @@ cudaError_t head_instance(int dl, int ldw, size_t smem, HeadKernel* kernel) {
 
 // h (B, dl), rows_add (B, dl) and row_add (dl) f32, either add may be null;
 // g, b (dl), bf (latent) f32; wf (latent, ldw) bf16, its columns from dl on
-// zero -> out (B, latent) f32. dl: 1 to 4096; ldw: dl rounded up to a
-// multiple of 32; latent: any.
+// zero -> out (B, latent) f32. dl: any (past 4096 in K passes); ldw: dl
+// rounded up to a multiple of 32; latent: any.
 extern "C" int fd_head_cols_launch(const void* h, const void* row_add, const void* rows_add,
                                    const void* g, const void* b, const void* wf,
                                    const void* bf, void* out, int B, int dl, int ldw, int latent,
                                    float eps, void* stream) {
-  if (B < 1 || dl < 1 || dl > kMaxDl || ldw % kChunk || ldw < dl || ldw - dl >= kChunk ||
-      latent < 1)
+  if (B < 1 || dl < 1 || ldw % kChunk || ldw < dl || ldw - dl >= kChunk || latent < 1)
     return (int)cudaErrorInvalidValue;
+  if (dl > kMaxDl) {
+    static size_t configured = 0;
+    const size_t smem = sizeof(__nv_bfloat16) * kRows * (size_t)(kMaxDl + kPad);
+    if (smem > configured) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          head_cols_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      configured = smem;
+    }
+    head_cols_pass_kernel<<<head_grid(B, latent), kThreads, smem, (cudaStream_t)stream>>>(
+        (const float*)h, (const float*)row_add, (const float*)rows_add, (const float*)g,
+        (const float*)b, (const __nv_bfloat16*)wf, (const float*)bf, (float*)out, B, dl, ldw,
+        latent, eps);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = sizeof(__nv_bfloat16) * kRows * (size_t)(ldw + kPad);
   HeadKernel kernel = nullptr;
   const cudaError_t err = head_instance(dl, ldw, smem, &kernel);

@@ -29,13 +29,14 @@
 // a repeat gives the same bits (no atomics); the epilogue adds the bias (or
 // applies the skip's gate) and writes the CFG copies.
 //
-// Widths: any L up to 4096 and any H. The weights' rows are padded with
-// zeros to ldw, L rounded up to a multiple of 8, at bind
+// Widths: any L and any H. The weights' rows are padded with zeros to ldw,
+// L rounded up to a multiple of 8, at bind
 // (kernels/full_sampler.py::bind_latent_proj), so every 16-byte weight load
 // is aligned and whole; where L is not a multiple of 8, x is read a float at
 // a time, zero past L. Above 2048 (8 warps x 8 chunks x 32) a block sums
-// K in passes of 2048, each loading its fragments as above, in the
-// instance of its own (P = 2), so the narrower ones keep their code.
+// K in passes of 2048, as many as L needs, each loading its fragments as
+// above, in the instance of its own (P = 0), so the narrower ones keep
+// their code.
 #include "rows.cuh"
 
 namespace {
@@ -47,7 +48,6 @@ constexpr int kTileCols = 16;    // output columns a block: two n8 tiles
 constexpr int kNTiles = kTileCols / 8;
 constexpr int kChunk = 32;       // k's of a chunk: two m16n8k16 steps
 constexpr int kPassK = 2048;     // 8 warps x 8 chunks x 32
-constexpr int kMaxLatent = 2 * kPassK;
 
 // f32 (lo, hi) -> packed bf16x2, round to nearest even, lo in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -57,7 +57,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // Blocks [0, h_tiles) along x compute columns of h, the others columns of
 // the skip. C: the k chunks a warp takes a pass (L <= 256 C P); P: passes
-// of kPassK.
+// of kPassK, or 0: as many as L needs.
 //
 // Fragments (the relabelling of fd::gemm_tc): within a 32-wide chunk, lane
 // (g = lane / 4, t = lane % 4) holds the 8 contiguous k's 8t..8t+7 of x rows
@@ -83,8 +83,9 @@ latent_proj_kernel(const float* __restrict__ x, int B, int L, int ldw,
   float acc[kNTiles][4];
 #pragma unroll
   for (int i = 0; i < kNTiles; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  const int passes = P ? P : (L + kPassK - 1) / kPassK;
 #pragma unroll 1
-  for (int pass = 0; pass < P; ++pass) {
+  for (int pass = 0; pass < passes; ++pass) {
     const int k0 = pass * kPassK;
     // every load of the block in flight before the first product: weights first
     uint4 wq[C][kNTiles];
@@ -175,13 +176,13 @@ dim3 proj_grid(int B, int L, int H, bool with_skip) {
 // x (B, L) f32; wl (H, ldw) bf16, bl (H) f32 -> h (copies * B, H) f32, the
 // projection repeated `copies` times along the rows. wf (L, ldw) bf16, bf
 // (L), rw (1) f32 and skip (B, L) f32, all null or all given: the v2 skip.
-// L: 1 to 4096; ldw: L rounded up to a multiple of 8 (the weights' columns
-// from L on zero).
+// L: any; ldw: L rounded up to a multiple of 8 (the weights' columns from L
+// on zero).
 extern "C" int fd_latent_proj_launch(const void* x, const void* wl, const void* bl,
                                      const void* wf, const void* bf, const void* rw,
                                      void* h, void* skip, int B, int L, int ldw, int H,
                                      int copies, void* stream) {
-  if (B < 1 || L < 1 || L > kMaxLatent || ldw != (L + 7) / 8 * 8 || H < 1 || copies < 1 ||
+  if (B < 1 || L < 1 || ldw != (L + 7) / 8 * 8 || H < 1 || copies < 1 ||
       copies > 2 || ((wf == nullptr) != (skip == nullptr)))
     return (int)cudaErrorInvalidValue;
   const dim3 grid = proj_grid(B, L, H, skip != nullptr);
@@ -192,7 +193,7 @@ extern "C" int fd_latent_proj_launch(const void* x, const void* wl, const void* 
       : chunks <= 2 ? &latent_proj_kernel<2>
       : chunks <= 4 ? &latent_proj_kernel<4>
       : chunks <= 8 ? &latent_proj_kernel<8>
-                    : &latent_proj_kernel<8, 2>;
+                    : &latent_proj_kernel<8, 0>;
   kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)x, B, L, ldw, (const __nv_bfloat16*)wl, (const float*)bl, H, (float*)h, copies,
       (const __nv_bfloat16*)wf, (const float*)bf, (const float*)rw, (float*)skip, h_tiles);

@@ -13,15 +13,20 @@ and the reverse step (the skip added to eps, CFG from the doubled batch, x0
 clipping, the posterior mean and the step noise, Philox4x32-10 +
 Box-Muller from a key in device memory). Its plan (`process_plan`: clusters,
 blocks a cluster, rows a cluster, ring, shared memory) is bound once per
-(batch, guided), its tensor maps encoded then. Any latent and hidden width
-up to MAX_WIDTH = 4096 and any depth up to MAX_STAGES runs, which holds every
-denoiser the JAX kernel holds in its 100 MiB of VMEM whose widths are at
-most 4096: the weights, vectors and time tables are padded with zeros to
-the widths the plan's column split tiles (`pad_process`), the request's
-tensors read at their own widths. A denoiser of up to 8 stages whose slices
-fit keeps its vectors and condition adds resident on chip; any other runs
-the streamed layout (`ProcessPlan.streamed`: tensor maps and tables in
-device memory, vectors and adds read from L2 where they are used).
+(batch, guided), its tensor maps encoded then. Any depth up to MAX_STAGES,
+any stage input width up to MAX_STAGE_WIDTH = 4096 and any latent and last
+hidden width up to MAX_WIDTH = 2**22 runs, which holds every denoiser the
+JAX kernel holds in its 100 MiB of VMEM: the weights, vectors and time
+tables are padded with zeros to the widths the plan's column split tiles
+(`pad_process`), the request's tensors read at their own widths. A denoiser
+of up to 8 stages whose slices fit keeps its vectors and condition adds
+resident on chip; any other runs the streamed layout
+(`ProcessPlan.streamed`: tensor maps and tables in device memory, vectors
+and adds read from L2 where they are used); one whose latent or last width
+a block's slice or shared memory cannot hold (past 4096 beside narrow
+stages) runs the wide layout (`ProcessPlan.wide`: those two widths split
+by m64 units and taken in column passes, their rows in a scratch in device
+memory, the wide products' operands read through the ring).
 
 `fused_sample` is the same process as a host loop of the step's own kernels
 (7 launches a step): the projection (`latent_proj`, csrc/latent_proj.cu),
@@ -261,8 +266,6 @@ def bind_latent_proj(wl, bl, wf=None, bf=None, rw=None):
         return plain
     dev = wl.device
     hid, lat = wl.shape
-    if lat > MAX_WIDTH:
-        raise ValueError(f"latent width {lat}: the kernel takes 1 to {MAX_WIDTH}")
     want = [("wl", wl, (hid, lat), torch.bfloat16), ("bl", bl, (hid,), torch.float32)]
     if wf is not None:
         want += [("wf", wf, (lat, lat), torch.bfloat16), ("bf", bf, (lat,), torch.float32),
@@ -439,21 +442,32 @@ def fused_sample(prep: Dict, batch: int, cond: torch.Tensor,
 
 # The kernel's limits (csrc/reverse_process.cu): stages (resident: tensor
 # maps and per-stage pointers in the launch's parameters; streamed: in device
-# memory), widths (16 blocks of at most 4 m64 tiles), rows a cluster (the
-# wgmma's N).
+# memory), a stage's input width (16 blocks of at most 4 m64 tiles), the
+# latent and the last hidden width (the wide layout: m64 units in passes,
+# rows in device memory), rows a cluster (the wgmma's N). Past every width
+# the JAX kernel holds in 100 MiB at any batch: its time table alone (T x d
+# f32) bounds a last width near 26,000 at T = 1000, its Wl, Wf and the rows
+# of x a latent near 3.5 M at one sample, and three d x d weights a stage's
+# input near 4180 (~3852 at T = 1000).
 MAX_RESIDENT_STAGES = 8
 MAX_STAGES = 32768
-MAX_WIDTH = 4096
+MAX_STAGE_WIDTH = 4096
+MAX_WIDTH = 1 << 22
 PROCESS_ROWS = (8, 16, 32)
+# A wide chunk's slot (weights and operand rows), bytes; the scratch's own
+# rate a block reads and writes at, for the cost model only (not measured:
+# the rows of x, the skip and the pre-LN head rows go through L1 and L2)
+WIDE_CHUNK = 36864
+SCRATCH_BYTES_PER_S = 200e9
 
 
 def process_units(rows: int, widest: int) -> int:
     """The m64 tiles a block's widest column slice may have at `rows` rows
     a cluster for a denoiser whose widest width is `widest`: 2, the
-    instances the flagship's plans were measured on; 4 at 8 and 16 rows
-    (at most 64 accumulators a thread) for one wider than 1024, which at 2
-    would need 16 blocks a cluster, of which the card runs 7 at once."""
-    return 4 if rows <= 16 and widest > 1024 else 2
+    instances the flagship's plans were measured on; `max_units` (4 at 8
+    and 16 rows) for one wider than 1024, which at 2 would need 16 blocks a
+    cluster, of which the card runs 7 at once."""
+    return max_units(rows) if widest > 1024 else 2
 PROCESS_COLS = (1, 2, 4, 8, 16)
 PROCESS_BARRIERS = 5
 MAX_MAPS = 2 + 4 * MAX_RESIDENT_STAGES  # the resident launch's parameter holds this many maps
@@ -472,6 +486,7 @@ class ProcessPlan(NamedTuple):
     smem: int      # dynamic shared memory of a block, bytes
     waves: int     # ceil(clusters / WAVE_CLUSTERS[cols])
     streamed: bool = False  # vectors and condition adds read from L2, maps in device memory
+    wide: bool = False  # the latent and the last width in passes, their rows in device memory
 
 
 def process_width(width: int, cols: int) -> int:
@@ -483,9 +498,78 @@ def process_width(width: int, cols: int) -> int:
     return -(-width // unit) * unit
 
 
-def process_widths(latent: int, hidden, cols: int):
-    """(latent, hidden) padded for `cols` blocks a cluster (`process_width`)."""
+def process_widths(latent: int, hidden, cols: int, wide: bool = False):
+    """(latent, hidden) padded for `cols` blocks a cluster (`process_width`);
+    `wide`: the latent and the last hidden width to multiples of 64 (the
+    wide layout's m64 units). Mirrors csrc/reverse_process.cu::padded_ok."""
+    if wide:
+        return (-(-latent // 64) * 64, tuple(process_width(w, cols) for w in hidden[:-1])
+                + (-(-hidden[-1] // 64) * 64,))
     return process_width(latent, cols), tuple(process_width(w, cols) for w in hidden)
+
+
+def wide_passes(width: int, cols: int, units: int) -> int:
+    """The column passes of a wide output `width` (a multiple of 64) on the
+    wide layout: its m64 units split among `cols` blocks, `units` a pass,
+    every block running the most any block needs. Mirrors
+    csrc/reverse_process.cu::wide_passes."""
+    most = -(-(width // 64) // cols)  # a block's units
+    return -(-most // units)
+
+
+def wide_tiles(lines: int, rows: int, k: int) -> int:
+    """k64 tiles of a wide chunk of `lines` weight rows and `rows` operand
+    rows: the most, a power of two dividing k / 64, within WIDE_CHUNK bytes
+    (one tile where one is larger). Mirrors csrc/reverse_process.cu."""
+    kb = 1
+    while (k // 64) % (2 * kb) == 0 and 2 * kb * (lines + rows) * 128 <= WIDE_CHUNK:
+        kb *= 2
+    return kb
+
+
+def _wide_products(latent: int, hidden, skip: bool, cols: int, rows: int):
+    """(weight rows a chunk, K, k64 tiles a chunk, passes, operand rows a
+    chunk) of each product of a step on the wide layout, in stream order, at
+    the kernel's (padded) widths: the projection and the head read their
+    operand through the ring (the skip too), the stages from their buffers;
+    the skip, the last Wd and the head run the wide output's passes. Mirrors
+    csrc/reverse_process.cu::wide_shape."""
+    n, units = len(hidden) - 1, max_units(rows)
+    tw = 64 * units
+    lines = hidden[0] // cols
+    out = [(lines, latent, wide_tiles(lines, rows, latent), 1, rows)]
+    wf_lines = min(tw, latent)
+    if skip:
+        out.append((wf_lines, latent, wide_tiles(wf_lines, rows, latent),
+                    wide_passes(latent, cols, units), rows))
+    for i in range(n):
+        d = hidden[i]
+        out += [(d // cols, d, chunk_tiles(d // cols, d), 1, 0)] * 3
+        if i < n - 1:
+            out.append((hidden[i + 1] // cols, d, chunk_tiles(hidden[i + 1] // cols, d), 1, 0))
+        else:
+            wl = min(tw, hidden[n])
+            out.append((wl, d, chunk_tiles(wl, d), wide_passes(hidden[n], cols, units), 0))
+    out.append((wf_lines, hidden[n], wide_tiles(wf_lines, rows, hidden[n]),
+                wide_passes(latent, cols, units), rows))
+    return out
+
+
+def max_units(rows: int) -> int:
+    """m64 tiles a block's slice or pass may have at `rows` rows a cluster
+    (at most 64 accumulators a thread). Mirrors csrc/reverse_process.cu."""
+    return 4 if rows <= 16 else 2
+
+
+def process_scratch(latent: int, hidden, skip: bool, plan: ProcessPlan, guided: bool) -> int:
+    """Bytes of a wide launch's scratch in device memory at the kernel's
+    (padded) widths: per cluster bf16(x) and the head's operand (rows x L and
+    rows x hidden[-1] bf16), the head's pre-LN rows (f32) and the skip (its
+    samples x L f32). Mirrors csrc/reverse_process.cu::WideScratch."""
+    c, r = plan.clusters, plan.rows
+    s = r // 2 if guided else r
+    return c * r * (latent + hidden[-1]) * 2 + c * r * hidden[-1] * 4 + (c * s * latent * 4
+                                                                         if skip else 0)
 
 
 def _products(latent: int, hidden, skip: bool, cols: int):
@@ -512,11 +596,25 @@ def process_vec_floats(latent: int, hidden, cols: int) -> int:
 
 
 def process_smem(latent: int, hidden, skip: bool, cols: int, rows: int, qbufs: int,
-                 slots: int, streamed: bool = False) -> int:
+                 slots: int, streamed: bool = False, wide: bool = False) -> int:
     """A block's shared memory in bytes, the alignment included, at the
     kernel's (padded) widths; streamed, without the resident vectors and
-    condition adds. Mirrors csrc/reverse_process.cu::ProcessLayout."""
+    condition adds; wide, without x, eps and the skip too (a pass's eps
+    instead), the operand buffers as wide as the stages' inputs, a wide
+    chunk's slot holding its operand rows. Mirrors
+    csrc/reverse_process.cu::ProcessLayout."""
     n = len(hidden) - 1
+    if wide:
+        prods = _wide_products(latent, hidden, skip, cols, rows)
+        slot = max(kb * (ln + op) * 128 for ln, _, kb, _, op in prods)
+        reach = max((kb - 1) * ln * 128 + -(-ln // 64) * TILE_BYTES for ln, _, kb, _, _ in prods)
+        dmax = max([64] + list(hidden[:n]))
+        units = max_units(rows)
+        ring = slots * slot
+        total = (ring + qbufs * rows * dmax * 2 + 2 * cols * rows * 8 + 16 * rows * 4 + rows * 8
+                 + 2 * 128 * units * (rows // 2) * 4 + rows * 64 * units * 4
+                 + (2 * slots + PROCESS_BARRIERS + 2) * 8)
+        return 1024 + total + max(0, reach - slot - (total - ring))
     prods = _products(latent, hidden, skip, cols)
     kbs = [chunk_tiles(sl, k) for sl, k in prods]
     slot = max(kb * sl * 128 for (sl, _), kb in zip(prods, kbs))
@@ -539,9 +637,27 @@ def process_step_us(latent: int, hidden, skip: bool, plan: ProcessPlan) -> float
     operand from the other blocks over distributed shared memory, the
     LayerNorms' statistics and, with one operand buffer, the releases. The
     rates are the stage kernel's (kernels/latent_stage.py). Widths are
-    padded for the plan's column split first."""
-    latent, hidden = process_widths(latent, hidden, plan.cols)
+    padded for the plan's column split first. On the wide layout a wide
+    chunk is two requests (its weights, its operand rows from L2), a block
+    reads the rows of x, the skip and the head's pre-LN rows of its columns
+    from the scratch and writes them back (SCRATCH_BYTES_PER_S), and the
+    projection's operand and the head's are published instead of exchanged."""
+    latent, hidden = process_widths(latent, hidden, plan.cols, plan.wide)
     n = len(hidden) - 1
+    if plan.wide:
+        weights = mma = 0.0
+        for ln, k, kb, passes, op in _wide_products(latent, hidden, skip, plan.cols, plan.rows):
+            chunks = passes * (k // 64 // kb)
+            weights += chunks * ((1 + (op > 0)) * REQUEST_US
+                                 + kb * (ln + op) * 128 / REQUEST_BYTES_PER_S * 1e6)
+            mma += passes * -(-ln // 64) * k // 32 * WGMMA_US
+        operands = [d for d in hidden[:-1] for _ in range(4)]
+        share = (plan.cols - 1) / plan.cols * 2 * plan.rows / DSMEM_BYTES_PER_S * 1e6
+        exchanges = sum(EXCHANGE_US + w * share for w in operands) + (2 * n + 3) * EXCHANGE_US
+        if plan.qbufs == 1:
+            exchanges += 3 * n * EXCHANGE_US
+        scratch = plan.rows * (latent * (2 + 3 * 4) + hidden[n] * (2 + 3 * 4)) / plan.cols
+        return max(weights, mma + exchanges) + scratch / SCRATCH_BYTES_PER_S * 1e6
     weights = mma = 0.0
     for sl, k in _products(latent, hidden, skip, plan.cols):
         kb = chunk_tiles(sl, k)
@@ -561,25 +677,35 @@ def process_plans(latent: int, hidden, skip: bool, batch: int, guided: bool):
     are at most 64 `process_units` columns, the most ring slots that fit,
     two operand buffers where two slots still fit beside them. Resident
     plans where the denoiser has up to MAX_RESIDENT_STAGES stages and any
-    fits (the layout does not depend on the batch), else streamed ones."""
+    fits (the layout does not depend on the batch), else streamed ones,
+    else (a latent or last width past a block's slices or shared memory)
+    wide ones."""
     resident = len(hidden) - 1 <= MAX_RESIDENT_STAGES
     plans = _plans(latent, hidden, skip, batch, guided, False) if resident else []
-    return plans or _plans(latent, hidden, skip, batch, guided, True)
+    return (plans or _plans(latent, hidden, skip, batch, guided, True)
+            or _plans(latent, hidden, skip, batch, guided, True, True))
 
 
-def _plans(latent: int, hidden, skip: bool, batch: int, guided: bool, streamed: bool):
+def _plans(latent: int, hidden, skip: bool, batch: int, guided: bool, streamed: bool,
+           wide: bool = False):
     plans = []
     for cols in PROCESS_COLS:
-        lat_p, hid_p = process_widths(latent, hidden, cols)
+        lat_p, hid_p = process_widths(latent, hidden, cols, wide)
         for rows in PROCESS_ROWS:
-            if max(lat_p, *hid_p) // cols > 64 * process_units(rows, max(latent, *hidden)):
+            if wide:
+                if max(hid_p[:-1]) // cols > 64 * max_units(rows):
+                    continue
+                slot = max(kb * (ln + op) * 128
+                           for ln, _, kb, _, op in _wide_products(lat_p, hid_p, skip, cols, rows))
+            elif max(lat_p, *hid_p) // cols > 64 * process_units(rows, max(latent, *hidden)):
                 continue
+            else:
+                slot = max(chunk_tiles(sl, k) * sl * 128
+                           for sl, k in _products(lat_p, hid_p, skip, cols))
             clusters = -(-batch // (rows // 2 if guided else rows))
-            slot = max(chunk_tiles(sl, k) * sl * 128
-                       for sl, k in _products(lat_p, hid_p, skip, cols))
 
             def smem(qbufs, slots):
-                return process_smem(lat_p, hid_p, skip, cols, rows, qbufs, slots, streamed)
+                return process_smem(lat_p, hid_p, skip, cols, rows, qbufs, slots, streamed, wide)
             for qbufs in (2, 1):
                 slots = min(MAX_SLOTS, (SMEM_LIMIT - smem(qbufs, 0)) // slot)
                 while slots >= 2 and smem(qbufs, slots) > SMEM_LIMIT:
@@ -587,7 +713,8 @@ def _plans(latent: int, hidden, skip: bool, batch: int, guided: bool, streamed: 
                 if slots >= 2:
                     plans.append(ProcessPlan(clusters, cols, rows, qbufs, slots,
                                              smem(qbufs, slots),
-                                             -(-clusters // WAVE_CLUSTERS[cols]), streamed))
+                                             -(-clusters // WAVE_CLUSTERS[cols]), streamed,
+                                             wide))
                     break
     return plans
 
@@ -598,15 +725,18 @@ def process_plan(latent: int, hidden, skip: bool, batch: int, guided: bool) -> P
     `process_step_us`, then the most column slices. A cluster's rows cost
     exchange bytes every step; more clusters than fit in one wave run in
     waves, each T steps long; each cluster reads every weight every step.
-    The kernel takes 1 to MAX_STAGES stages and widths 1 to MAX_WIDTH,
-    padded (`process_width`): every denoiser the JAX kernel holds in its
-    100 MiB of VMEM but one whose latent or last hidden width passes 4096
-    beside narrow stages. A v2 skip needs hidden[-1] == latent."""
+    The kernel takes 1 to MAX_STAGES stages, stage input widths (hidden[:-1])
+    1 to MAX_STAGE_WIDTH and a latent and last hidden width 1 to MAX_WIDTH,
+    padded (`process_widths`): every denoiser the JAX kernel holds in its
+    100 MiB of VMEM, at any batch. A v2 skip needs hidden[-1] == latent."""
     if not 1 <= len(hidden) - 1 <= MAX_STAGES:
         raise ValueError(f"{len(hidden) - 1} stages: the kernel takes 1 to {MAX_STAGES}")
-    if not all(1 <= w <= MAX_WIDTH for w in (latent, *hidden)):
-        raise ValueError(f"latent {latent}, hidden {tuple(hidden)}: the kernel takes widths "
-                         f"1 to {MAX_WIDTH}")
+    if not all(1 <= w <= MAX_STAGE_WIDTH for w in hidden[:-1]):
+        raise ValueError(f"hidden {tuple(hidden)}: the kernel takes stage input widths 1 to "
+                         f"{MAX_STAGE_WIDTH}")
+    if not all(1 <= w <= MAX_WIDTH for w in (latent, hidden[-1])):
+        raise ValueError(f"latent {latent}, last width {hidden[-1]}: the kernel takes 1 to "
+                         f"{MAX_WIDTH}")
     if skip and hidden[-1] != latent:
         raise ValueError(f"a v2 skip needs hidden[-1] == latent, got {hidden[-1]} and {latent}")
     if batch < 1:
@@ -631,14 +761,14 @@ class ProcessOperands(NamedTuple):
     stages: Tuple[Tuple[torch.Tensor, Tuple[torch.Tensor, ...]], ...]
 
 
-def pad_process(prep: Dict, cols: int) -> ProcessOperands:
+def pad_process(prep: Dict, cols: int, wide: bool = False) -> ProcessOperands:
     """The prep's weights, vectors and time tables padded for `cols` blocks a
-    cluster. Zeros in every padded column keep the padded columns of h at
-    exactly 0 through each step, so the kernel's true columns compute what
-    the unpadded model does."""
+    cluster (`wide`: the wide layout's widths). Zeros in every padded column
+    keep the padded columns of h at exactly 0 through each step, so the
+    kernel's true columns compute what the unpadded model does."""
     model = prep["model"]
     hidden = tuple(model.hidden_dims)
-    lat, dims = process_widths(model.latent_dim, hidden, cols)
+    lat, dims = process_widths(model.latent_dim, hidden, cols, wide)
     n, steps = len(hidden) - 1, prep["n_steps"]
     wl, bl, _, _, rw = prep["proj"].weights
     stages = [st.weights for st in prep["stages"]]
@@ -709,10 +839,11 @@ def process_max_clusters(plan: ProcessPlan) -> int:
 class ReverseProcess:
     """All T reverse steps of a bucket call in one launch of the
     reverse-process kernel (csrc/reverse_process.cu), the weights of
-    `prep` fixed: any latent and hidden widths up to MAX_WIDTH and 1 to
-    MAX_STAGES stages (`process_plan`), every denoiser the JAX kernel holds
-    in its 100 MiB of VMEM whose widths are at most 4096. For a CPU model a
-    call is `run_steps` on the plain twins: the kernel's plain version.
+    `prep` fixed: any stage input width up to MAX_STAGE_WIDTH, any latent
+    and last hidden width up to MAX_WIDTH and 1 to MAX_STAGES stages
+    (`process_plan`), every denoiser the JAX kernel holds in its 100 MiB of
+    VMEM. For a CPU model a call is `run_steps` on the plain twins: the
+    kernel's plain version.
 
     A plan is bound once per (batch, guided): its geometry chosen
     (`process_plan`) and, where its column split is new, the weights padded
@@ -722,7 +853,8 @@ class ReverseProcess:
     reads the request's `SamplerInputs` in place, launches once (adding one
     to `reverse_process.launches`; a streamed launch first copies the
     pointers of the request's condition adds into a device table of its
-    own on the same stream) and returns x_0, a new (B, L) tensor."""
+    own on the same stream; a wide launch allocates its scratch there too)
+    and returns x_0, a new (B, L) tensor."""
 
     def __init__(self, prep: Dict):
         self.prep = prep
@@ -734,25 +866,33 @@ class ReverseProcess:
         if self.device.type != "cuda":
             return
         self._coefs = torch.tensor(prep["coefs"], dtype=torch.float32, device=self.device)
-        # by (column split, streamed): (the maps' address, the padded operands,
-        # what the launch's pointers point into)
-        self._split: Dict[Tuple[int, bool], Tuple[int, ProcessOperands, tuple]] = {}
+        # by `_split_key`: (the maps' address, the padded operands, what the
+        # launch's pointers point into)
+        self._split: Dict[Tuple[int, bool, int], Tuple[int, ProcessOperands, tuple]] = {}
         self._launch = _build.load("reverse_process").fd_process_launch
         self._launch.argtypes = [ctypes.c_void_p] * 5
         self._launch.restype = ctypes.c_int
 
-    def _encode(self, cols: int, streamed: bool):
-        ops = pad_process(self.prep, cols)
+    @staticmethod
+    def _split_key(plan: ProcessPlan) -> Tuple[int, bool, int]:
+        """What a plan's operands and maps depend on: its column split, its
+        layout and, wide, its rows (a wide chunk's box holds them)."""
+        return plan.cols, plan.streamed, plan.rows if plan.wide else 0
+
+    def _encode(self, key: Tuple[int, bool, int]):
+        cols, streamed, wide_rows = key
+        ops = pad_process(self.prep, cols, bool(wide_rows))
         n = len(self.hidden) - 1
         fn = _build.load("reverse_process").fd_process_maps
-        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         # the resident launch copies MAX_MAPS maps into its parameters
         buf = ctypes.create_string_buffer(max(2 + 4 * n, MAX_MAPS) * MAP_BYTES + 64)
         at = -(-ctypes.addressof(buf) // 64) * 64  # a CUtensorMap is 64-byte aligned
         ptrs = (ctypes.c_void_p * len(ops.weights))(*[w.data_ptr() for w in ops.weights])
         dims = (ctypes.c_int * (n + 1))(*ops.hidden)
-        _build.check(fn(ptrs, dims, n, ops.latent, cols, at), "the sampler's tensor maps")
+        _build.check(fn(ptrs, dims, n, ops.latent, cols, wide_rows, at),
+                     "the sampler's tensor maps")
         keep: tuple = (buf,)
         if streamed:
             # the maps, widths, time tables' pointers and vector slices in
@@ -766,8 +906,8 @@ class ReverseProcess:
             svec = process_vec_table(ops, cols)
             keep = (smaps, sdims, stadd, svec)
             at = smaps.data_ptr()
-        self._split[cols, streamed] = (at, ops, keep)
-        return self._split[cols, streamed]
+        self._split[key] = (at, ops, keep)
+        return self._split[key]
 
     def plan_for(self, batch: int, guided: bool) -> ProcessPlan:
         """The bound plan of a bucket call, bound at its first use."""
@@ -775,8 +915,8 @@ class ReverseProcess:
         plan = self.bound.get(key)
         if plan is None:
             plan = process_plan(self.latent, self.hidden, self.skip, batch, guided)
-            if self.device.type == "cuda" and (plan.cols, plan.streamed) not in self._split:
-                self._encode(plan.cols, plan.streamed)
+            if self.device.type == "cuda" and self._split_key(plan) not in self._split:
+                self._encode(self._split_key(plan))
             self.bound[key] = plan
         return plan
 
@@ -808,8 +948,8 @@ class ReverseProcess:
                                  f"{tuple(v.shape)} on {v.device}")
         if plan is None:
             plan = self.plan_for(batch, guided)
-        maps, ops, keep = (self._split.get((plan.cols, plan.streamed))
-                           or self._encode(plan.cols, plan.streamed))
+        maps, ops, keep = (self._split.get(self._split_key(plan))
+                           or self._encode(self._split_key(plan)))
         out = torch.empty_like(x)
         bl, rw, tadd_f, g, b, bf = (None if v is None else v.data_ptr() for v in ops.fixed)
         ptrs = [x.data_ptr(), out.data_ptr(), inputs.key.data_ptr(), self._coefs.data_ptr(), bl,
@@ -823,13 +963,21 @@ class ReverseProcess:
                                  dtype=torch.int64).pin_memory()
             sadds = sadds.to(self.device, non_blocking=True)
             ptrs += [t.data_ptr() for t in keep] + [sadds.data_ptr()]
+            if plan.wide:
+                # the last stage's bd, and the launch's own scratch (rows of x,
+                # the skip, the head's, and the wide operands), allocated on
+                # its stream
+                scratch = torch.empty(process_scratch(ops.latent, ops.hidden, self.skip, plan,
+                                                      guided), dtype=torch.uint8,
+                                      device=self.device)
+                ptrs += [ops.stages[-1][1][7].data_ptr(), scratch.data_ptr()]
         else:
             for (tadd, vec), adds in zip(ops.stages, inputs.stage_adds):
                 ptrs += [tadd.data_ptr(), adds.data_ptr()] + [v.data_ptr() for v in vec]
         ints = [n, batch, ops.latent, self.prep["n_steps"], int(guided),
                 int(clip_x0 is not None), int(stochastic), plan.clusters, plan.cols, plan.rows,
                 plan.qbufs, plan.slots, plan.smem, *ops.hidden, self.latent, *self.hidden,
-                int(plan.streamed)]
+                int(plan.streamed), int(plan.wide)]
         floats = [float(guidance_scale or 0.0), float(clip_x0 or 0.0), LN_EPS]
         code = self._launch(None if plan.streamed else maps,
                             (ctypes.c_void_p * len(ptrs))(*ptrs),

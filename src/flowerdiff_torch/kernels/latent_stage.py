@@ -30,15 +30,18 @@ sampler's step, whose time and condition adds come from tables) a block
 owns 16 rows and 16 output columns and computes its rows' LayerNorm itself
 (csrc/latent_head.cu); with either product, which must be added to whole
 rows before the LayerNorm, a block owns 16 whole rows and all the columns
-(csrc/latent_stage.cu::head_kernel). `stage_plan` makes a stage launch's
-plan on the host: `bind_stage` makes those of the row counts up to 128 once.
+(csrc/latent_stage.cu::head_kernel, the rows in device memory).
+`stage_plan` makes a stage launch's plan on the host: `bind_stage` makes
+those of the row counts up to 128 once.
 
 `bind_stage` / `bind_head` fix a kernel's weights (checked once, and padded
-with zeros to the widths the kernels tile, so any width up to MAX_D = 4096
-runs: `padded`, `stage_widths`; the head's form with the t_base / c_base
-products up to MAX_HEAD_D = 2048) and return the per-call launcher, which
-reads the activations at their own widths; for CPU weights they return the
-plain twin
+with zeros to the widths the kernels tile: `padded`, `stage_widths`) and
+return the per-call launcher, which reads the activations at their own
+widths. A stage's input width d runs up to MAX_D = 4096 (past the ~3852 the
+JAX kernel's 100 MiB of VMEM holds at T = 1000: three d x d weights), its
+output width and every width of the head up to MAX_WIDTH = 2**22 (Wd's
+rows in column passes past a block's slice; the head's K in passes). For
+CPU weights they return the plain twin
 (`fused_stage_plain` / `fused_head_plain`, same arithmetic in PyTorch ops).
 `fused_stage` / `fused_head` are one-off calls through them. Each kernel
 launch adds one to `fused_stage.launches` / `fused_head.launches`; a launch
@@ -137,7 +140,7 @@ SMEM_LIMIT = 232_448   # bytes of shared memory a block may have on the H100
 MAX_CLUSTER = 16       # non-portable cluster size
 MAX_SLOTS = 32
 MAX_D = 4096           # the widest d (padded): 16 column slices of MAX_SLICE
-MAX_HEAD_D = 2048      # the head's product form (csrc/latent_stage.cu::head_kernel)
+MAX_WIDTH = 1 << 22    # a stage's d_out, the head's widths
 MAX_SLICE = 256        # columns a block computes of one product: a TMA box's lines
 ROW_CHOICES = (8, 16, 32, 64, 128)  # rows a block: N of its warpgroups' products
 TILE_BYTES, CHUNK_BYTES, BARRIERS = 8192, 32768, 8
@@ -181,18 +184,25 @@ def chunk_tiles(slice_: int, d: int) -> int:
     return kb
 
 
+def stage_pass(so: int, rows: int) -> int:
+    """Wd's rows a pass of a block whose slice of Wd is `so` rows at `rows`
+    rows: the slice, or the m64 tiles its accumulators hold where the slice
+    is wider (the wide instances, csrc/latent_stage.cu::StageLayout)."""
+    return min(so, 64 * _units(rows))
+
+
 def _stage_smem(d: int, dout: int, cols: int, rows: int, qbufs: int, slots: int) -> int:
     """Mirrors csrc/latent_stage.cu::StageLayout, plus the alignment."""
-    sd, so = d // cols, dout // cols
-    kbd, kbo = chunk_tiles(sd, d), chunk_tiles(so, d)
-    slot = max(kbd * sd, kbo * so) * 128
+    sd, pw = d // cols, stage_pass(dout // cols, rows)
+    kbd, kbo = chunk_tiles(sd, d), chunk_tiles(pw, d)
+    slot = max(kbd * sd, kbo * pw) * 128
     ring = slots * slot
-    vec = -(-(7 * sd + so) * 4 // 16) * 16  # the slices of the biases and LN affines
-    part = 2 * 128 * -(-max(sd, so) // 64) * rows // 2 * 4  # both warpgroups' partial sums
+    vec = -(-(7 * sd + pw) * 4 // 16) * 16  # the slices of the biases and LN affines
+    part = 2 * 128 * -(-max(sd, pw) // 64) * rows // 2 * 4  # both warpgroups' partial sums
     red = 2 * 2 * 4 * rows * 4  # row sums: [pass][warpgroup][warp][row]
     total = ring + qbufs * rows * d * 2 + 2 * cols * rows * 8 + red + rows * 8 + vec \
         + part + (2 * slots + BARRIERS) * 8
-    reach = max((kb - 1) * n * 128 + -(-n // 64) * TILE_BYTES for n, kb in ((sd, kbd), (so, kbo)))
+    reach = max((kb - 1) * n * 128 + -(-n // 64) * TILE_BYTES for n, kb in ((sd, kbd), (pw, kbo)))
     return 1024 + total + max(0, reach - slot - (total - ring))
 
 
@@ -201,10 +211,11 @@ def stage_cost_us(d: int, dout: int, plan: StagePlan) -> float:
     (REQUEST_US each plus their bytes) or its wgmmas, whichever is longer,
     plus its exchanges: four operands from the other blocks of its
     cluster over distributed shared memory, two LayerNorms' statistics, and
-    with one operand buffer two releases."""
+    with one operand buffer two releases. Wd's passes each cost a product."""
     sd, so = d // plan.cols, dout // plan.cols
+    pw = stage_pass(so, plan.rows)
     weights = mma = 0.0
-    for n, products in ((sd, 3), (so, 1)):
+    for n, products in ((sd, 3), (pw, -(-so // pw))):
         kb = chunk_tiles(n, d)
         chunks = products * d // 64 // kb
         weights += chunks * (REQUEST_US + kb * n * 128 / REQUEST_BYTES_PER_S * 1e6)
@@ -238,9 +249,10 @@ def stage_widths(d: int, dout: int):
     multiple of 8 where every row count has a plan, else of 64, else of
     128 (and d too, where a width above 2048 needs 16 slices of whole
     8-column units). The flagship's widths are their own. ValueError past
-    MAX_D."""
-    if not 1 <= d <= MAX_D or not 1 <= dout <= MAX_D:
-        raise ValueError(f"stage {d} -> {dout}: the kernel takes widths 1 to {MAX_D}")
+    MAX_D (d) or MAX_WIDTH (d_out)."""
+    if not 1 <= d <= MAX_D or not 1 <= dout <= MAX_WIDTH:
+        raise ValueError(f"stage {d} -> {dout}: the kernel takes d 1 to {MAX_D} and d_out 1 "
+                         f"to {MAX_WIDTH}")
     for unit in (64, 128):  # above 2048, whole 8-column units a slice of 16 need 128
         dk = _up(d, unit)
         for dok in (_up(dout, 8), _up(dout, 64), _up(dout, 128)):
@@ -258,7 +270,8 @@ def stage_plan(d: int, dout: int, rows: int = 16) -> StagePlan:
     columns [c sd, (c + 1) sd) of the d-wide products (sd = d / cols) and
     [c so, (c + 1) so) of the last (so = dout / cols): multiples of 8 (an
     exchange moves 16-byte units), at most 256 (a TMA box's lines), and at
-    most _units(rows) m64 tiles. Up to 128 rows a launch takes at most
+    most _units(rows) m64 tiles; where no split keeps Wd's slice to that,
+    Wd runs in passes of `stage_pass` rows. Up to 128 rows a launch takes at most
     WAVE_BLOCKS blocks where any plan fits them (a stage wider than 2048
     fits none at 128 rows); above, the 128-row plan repeats over more
     clusters.
@@ -283,6 +296,7 @@ def stage_plan(d: int, dout: int, rows: int = 16) -> StagePlan:
     if dout <= 0 or dout % 8:
         raise ValueError(f"d_out width {dout} must be a positive multiple of 8")
     _check_max("d", d, MAX_D)
+    _check_max("d_out", dout, MAX_WIDTH)
     if rows < 1:
         raise ValueError(f"rows {rows} must be positive")
     if rows > ROW_CHOICES[-1]:
@@ -300,24 +314,32 @@ def stage_plans(d: int, dout: int, rows: int):
     128) rows: each column split with each row count a block (at most as
     many as the rows need), the most ring slots that fit, two operand
     buffers where two slots still fit beside them; within WAVE_BLOCKS blocks
-    where any plan is."""
+    where any plan is. Where no split keeps Wd's slice within a block's m64
+    tiles, the plans whose Wd runs in passes (`stage_pass`)."""
+    return _stage_plans(d, dout, rows, False) or _stage_plans(d, dout, rows, True)
+
+
+def _stage_plans(d: int, dout: int, rows: int, passes: bool):
     plans, waves = [], []
     most = next((r for r in ROW_CHOICES if r >= rows), ROW_CHOICES[-1])
     for cols in range(1, MAX_CLUSTER + 1):
         if d % cols or dout % cols:
             continue
         sd, so = d // cols, dout // cols
-        if sd % 8 or so % 8 or max(sd, so) > MAX_SLICE:
+        if sd % 8 or so % 8 or sd > MAX_SLICE or (so > MAX_SLICE and not passes):
             continue
-        kbd, kbo = chunk_tiles(sd, d), chunk_tiles(so, d)
-        slot = max(kbd * sd, kbo * so) * 128
         for rb in ROW_CHOICES:
             tiles = -(-rows // rb)
-            if rb > most or -(-max(sd, so) // 64) > _units(rb):
+            if rb > most or -(-sd // 64) > _units(rb):
                 continue
+            pw = stage_pass(so, rb)
+            if (pw < so) != passes:  # Wd in passes only where the slice needs them
+                continue
+            kbd, kbo = chunk_tiles(sd, d), chunk_tiles(pw, d)
+            slot = max(kbd * sd, kbo * pw) * 128
             for qbufs in (2, 1):
                 fixed = _stage_smem(d, dout, cols, rb, qbufs, 0)
-                slots = min(MAX_SLOTS, 3 * d // 64 // kbd + d // 64 // kbo,
+                slots = min(MAX_SLOTS, 3 * d // 64 // kbd + -(-so // pw) * d // 64 // kbo,
                             (SMEM_LIMIT - fixed) // slot)
                 while slots >= 2 and _stage_smem(d, dout, cols, rb, qbufs, slots) > SMEM_LIMIT:
                     slots -= 1
@@ -369,9 +391,10 @@ def bind_stage(wb, bb, g1, b1, g2, b2, wv, bv, wo, bo, wd, bd, *,
                eps: float = LN_EPS):
     """`fused_stage` with its weights fixed: returns run(h, tc=None,
     row_add=None). CUDA weights are checked here, once, padded to the
-    kernel's widths (`pad_stage`: any d and d_out up to MAX_D), the plans
-    of the row counts up to 128 made and the tensor maps of their column
-    slices encoded (`run.maps`, held by `run`), so a call checks only its
+    kernel's widths (`pad_stage`: any d up to MAX_D, d_out up to
+    MAX_WIDTH), the plans of the row counts up to 128 made and the tensor
+    maps of their column slices (and Wd's passes) encoded (`run.maps`, held
+    by `run`), so a call checks only its
     activations and encodes nothing (a CUDA graph's capture stays valid).
     For CPU weights `run` is the plain twin."""
     weights = (wb, bb, g1, b1, g2, b2, wv, bv, wo, bo, wd, bd)
@@ -393,19 +416,22 @@ def bind_stage(wb, bb, g1, b1, g2, b2, wv, bv, wo, bo, wd, bd, *,
     d, dout = wb.shape[1], wd.shape[0]
     plans = {rows: stage_plan(d, dout, rows) for rows in ROW_CHOICES}
     encode = _build.load("latent_stage").fd_stage_maps
-    encode.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    encode.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     encode.restype = ctypes.c_int
     maps, buffers = {}, []
 
-    def encode_maps(cols: int) -> None:
+    def map_key(plan: StagePlan):  # a plan's column split, and Wd's rows a box
+        return plan.cols, stage_pass(dout // plan.cols, plan.rows)
+
+    def encode_maps(key) -> None:
         buf = ctypes.create_string_buffer(4 * MAP_BYTES + 64)
         at = -(-ctypes.addressof(buf) // 64) * 64  # a CUtensorMap is 64-byte aligned
         _build.check(encode(wb.data_ptr(), wv.data_ptr(), wo.data_ptr(), wd.data_ptr(),
-                            d, dout, cols, at), "the stage's tensor maps")
-        maps[cols] = at
+                            d, dout, *key, at), "the stage's tensor maps")
+        maps[key] = at
         buffers.append(buf)
-    for cols in sorted({plan.cols for plan in plans.values()}):
-        encode_maps(cols)
+    for key in sorted({map_key(plan) for plan in plans.values()}):
+        encode_maps(key)
     vecs = [v.data_ptr() for v in (bb, g1, b1, g2, b2, bv, bo, bd)]
     chosen = {}
 
@@ -429,9 +455,9 @@ def bind_stage(wb, bb, g1, b1, g2, b2, wv, bv, wo, bo, wd, bd, *,
         out = torch.empty((bsz, width_out), dtype=_F32, device=dev)
         if plan is None:
             plan = plan_for(bsz)
-        elif plan.cols not in maps:
-            encode_maps(plan.cols)
-        code = fn(maps[plan.cols], h.data_ptr(), _ptr(row_add), _ptr(tc), *vecs, out.data_ptr(),
+        elif map_key(plan) not in maps:
+            encode_maps(map_key(plan))
+        code = fn(maps[map_key(plan)], h.data_ptr(), _ptr(row_add), _ptr(tc), *vecs, out.data_ptr(),
                   bsz, d, dout, width, width_out, *plan, float(eps), _stream(dev))
         _build.check(code, "fused_stage")
         fused_stage.launches += 1
@@ -463,12 +489,11 @@ def bind_head(wt, bt, wc, bc, g, b, wf, bf, *, eps: float = LN_EPS):
     c_base=None, row_add=None, rows_add=None); wt/bt and wc/bc may be None
     when the calls pass no t_base or c_base. Weights are checked once, as in
     `bind_stage`, and padded with zeros (d_last and d_emb to multiples of
-    32, the latent to one of 8): any width up to MAX_D; a call with t_base
-    or c_base up to MAX_HEAD_D (its whole-row kernel keeps a row in shared
-    memory). A call with neither
-    base runs the column-tile kernel (csrc/latent_head.cu), a call with
-    either the whole-row kernel (csrc/latent_stage.cu::head_kernel). For CPU
-    weights `run` is the plain twin."""
+    32, the latent to one of 8): any width up to MAX_WIDTH. A call with
+    neither base runs the column-tile kernel (csrc/latent_head.cu), a call
+    with either the whole-row kernel (csrc/latent_stage.cu::head_kernel, its
+    rows in device memory of the call's own). For CPU weights `run` is the
+    plain twin."""
     if not wf.is_cuda:
         def plain(h, t_base=None, c_base=None, row_add=None, rows_add=None):
             return fused_head_plain(h, t_base, c_base, wt, bt, wc, bc, g, b, wf, bf,
@@ -479,7 +504,7 @@ def bind_head(wt, bt, wc, bc, g, b, wf, bf, *, eps: float = LN_EPS):
     latent, dl = wf.shape
     de = next((w.shape[1] for w in (wt, wc) if w is not None), dl)
     for name, n in (("d_last", dl), ("d_emb", de), ("latent", latent)):
-        _check_max(name, n, MAX_D)
+        _check_max(name, n, MAX_WIDTH)
     for w, bias, tag in ((wt, bt, "t"), (wc, bc, "c")):
         if w is not None:
             _check(f"w{tag}", w, (dl, de), _BF16, dev)
@@ -496,7 +521,7 @@ def bind_head(wt, bt, wc, bc, g, b, wf, bf, *, eps: float = LN_EPS):
     pads = [None if w is None else padded(w, shape) for w, shape in zip(weights, shapes)]
     ptrs = [_ptr(w) for w in pads]
     aligned = dl % 32 == 0  # else the kernels read the rows a float at a time
-    fn_rows = _fn("fd_head_launch", 14, 4)
+    fn_rows = _fn("fd_head_launch", 15, 4)
     fn_cols = _fn("fd_head_cols_launch", 8, 4, lib="latent_head")
 
     def run(h, t_base=None, c_base=None, row_add=None, rows_add=None):
@@ -509,16 +534,14 @@ def bind_head(wt, bt, wc, bc, g, b, wf, bf, *, eps: float = LN_EPS):
                 raise ValueError(f"{tag}_base given but no w{tag} bound")
             _check(f"{tag}_base", base, (bsz, de), _F32, dev, False)
         use_t, use_c = t_base is not None, c_base is not None
-        if (use_t or use_c) and max(dl, de, latent) > MAX_HEAD_D:
-            raise ValueError(f"d_last {dl}, d_emb {de}, latent {latent}: the head's form with "
-                             f"t_base or c_base takes widths up to {MAX_HEAD_D}")
         out = torch.empty((bsz, latent), dtype=_F32, device=dev)
         if use_t or use_c:
+            rows = torch.empty((_up(bsz, 16), dlp), dtype=_F32, device=dev)  # pre-LN, 16 a block
             code = fn_rows(h.data_ptr(), _ptr(row_add), _ptr(rows_add),
                            _ptr(t_base), ptrs[0] if use_t else None, ptrs[1] if use_t else None,
                            _ptr(c_base), ptrs[2] if use_c else None, ptrs[3] if use_c else None,
-                           *ptrs[4:], out.data_ptr(), bsz, dl, de, latent, float(eps),
-                           _stream(dev))
+                           *ptrs[4:], out.data_ptr(), rows.data_ptr(), bsz, dl, de, latent,
+                           float(eps), _stream(dev))
             _build.check(code, "fused_head (products)")
             fused_head.product_launches += 1
         else:

@@ -97,6 +97,12 @@ RAGGED_STAGES = [(8, 32, 64), (16, 64, 32), (13, 96, 200), (16, 200, 96), (128, 
 # widest one-stage net the JAX kernel holds, 4096, a 2112-wide stage.
 WIDE_STAGES = [(16, 512, 3456), (128, 3456, 512), (16, 2560, 2560), (128, 2601, 2601),
                (8, 4096, 4096), (16, 2112, 64), (16, 64, 2112)]
+# d_out past 4096: Wd's slice past a block's m64 tiles at every split, so in
+# column passes (the wide instances): the last stages of the lopsided nets
+# the JAX kernel holds (8 -> 25706, 512 -> 14900, 512 -> 5120) at both
+# buckets' rows, a ragged one, and at 64 and 128 rows (one m64 tile a pass).
+PASS_STAGES = [(16, 8, 25706), (128, 512, 14900), (16, 512, 5120), (128, 512, 5120),
+               (3, 48, 4200), (64, 64, 4104), (8, 2048, 6000)]
 # The sampler's row counts: the 8 and 64 buckets with CFG (16, 128), the
 # unguided v1 service's 8, 32 and 64.
 SAMPLER_ROWS = (8, 16, 32, 64, 128)
@@ -105,7 +111,7 @@ SAMPLER_ROWS = (8, 16, 32, 64, 128)
 @pytest.mark.parametrize("b,d,d_out", [(1, 64, 64), (13, 128, 256), (32, 256, 64)]
                          + [(b, d, o) for d, o in FLAGSHIP_STAGES
                             for b in sorted({1, 100, *SAMPLER_ROWS})]
-                         + OTHER_STAGES + RAGGED_STAGES + WIDE_STAGES)
+                         + OTHER_STAGES + RAGGED_STAGES + WIDE_STAGES + PASS_STAGES)
 def test_stage_kernel_matches_twin(gen, b, d, d_out):
     args = _stage_args(gen, b, d, d_out)
     row = _r(gen, d)
@@ -177,13 +183,18 @@ def test_every_flagship_stage_launch_runs_the_wgmma_kernel(gen, d, d_out, rows):
 
 @pytest.mark.parametrize("b,dl,de,lat", [(9, 64, 32, 128), (128, 256, 256, 256),
                                          (16, 1024, 33, 128), (9, 2048, 255, 254),
-                                         (5, 200, 97, 96), (17, 30, 7, 5)])
+                                         (5, 200, 97, 96), (17, 30, 7, 5),
+                                         (9, 2112, 2080, 2056), (17, 4500, 64, 96),
+                                         (5, 256, 33, 5000), (16, 25706, 64, 8),
+                                         (3, 64, 4200, 40)])
 def test_head_kernel_matches_twin(gen, b, dl, de, lat):
     """Every form of the head: with both base products, one of them, or
     none (the sampler's table form), with and without the adds. A call with
     either product runs the whole-row kernel and counts in
     fused_head.product_launches; a call with neither runs the column-tile
-    kernel; both count in fused_head.launches."""
+    kernel; both count in fused_head.launches. Past 2048 (d_last, d_emb or
+    latent) the product form keeps its rows in device memory, past 4096
+    (d_last) the table form runs K in passes."""
     w = dict(scale=0.1, dtype=torch.bfloat16)
     args = (_r(gen, b, dl), _r(gen, b, de), _r(gen, b, de), _r(gen, dl, de, **w),
             _r(gen, dl), _r(gen, dl, de, **w), _r(gen, dl), 1 + _r(gen, dl, scale=0.1),
@@ -301,6 +312,34 @@ def test_latent_proj_tiles_match_twin_and_repeat(gen, b, lat, hid, guided, with_
     assert torch.equal(h2, h) and (skip is None or torch.equal(skip2, skip))
 
 
+@pytest.mark.parametrize("guided", [False, True])
+@pytest.mark.parametrize("b,lat,hid,with_skip", [(8, 6000, 64, True), (3, 40000, 8, False),
+                                                 (8, 16384, 256, False),
+                                                 (8, 1047802, 8, False)])
+def test_latent_proj_past_4096_matches_twin_and_repeats(gen, b, lat, hid, with_skip, guided):
+    """The projection with L in as many passes of 2048 as it needs: the
+    lopsided nets' latents (up to the 1,047,802 the JAX kernel holds at the
+    8 bucket), with the v2 skip at 6000; a repeat bit-equal. The limit is
+    test_latent_proj_kernel_matches_twin's 1e-4 of the largest value up to
+    L = 4096, and grows past it as sqrt(L / 4096): both sides sum L exact
+    products in f32 in other orders, and such sums part by ~sqrt(L)
+    roundings (at 1,047,802 the card read 1.6e-4 of the largest value)."""
+    x, wl, bl, skip_w = _proj_case(gen, b, lat, hid, with_skip)
+    copies = 2 if guided else 1
+    run = bind_latent_proj(wl, bl, **skip_w)
+    before = latent_proj.launches
+    h, skip = run(x, copies)
+    assert latent_proj.launches == before + 1
+    ref_h, ref_skip = latent_proj_plain(x, wl, bl, copies=copies, **skip_w)
+    assert h.shape == (copies * b, hid)
+    rel = 1e-4 * max(1.0, (lat / 4096) ** 0.5)
+    assert float((h - ref_h).abs().max()) <= rel * float(ref_h.abs().max())
+    if with_skip:
+        assert float((skip - ref_skip).abs().max()) <= rel * float(ref_skip.abs().max())
+    h2, skip2 = run(x, copies)
+    assert torch.equal(h2, h) and (skip is None or torch.equal(skip2, skip))
+
+
 def _head_case(gen, rows, dl, lat, de=32):
     w = dict(scale=dl ** -0.5, dtype=torch.bfloat16)
     weights = dict(wt=_r(gen, dl, de, **w), bt=_r(gen, dl, scale=0.5),
@@ -314,7 +353,9 @@ def _head_case(gen, rows, dl, lat, de=32):
 @pytest.mark.parametrize("b,dl,lat", [(b, 256, 256) for b in STEP_BATCHES]
                          + [(3, 96, 40), (8, 512, 264), (64, 32, 8), (8, 1024, 256),
                             (64, 2048, 254), (3, 254, 254), (8, 200, 96), (5, 30, 7),
-                            (8, 3456, 256), (16, 2560, 2560), (3, 4095, 7), (64, 4096, 256)])
+                            (8, 3456, 256), (16, 2560, 2560), (3, 4095, 7), (64, 4096, 256),
+                            (8, 25706, 8), (8, 14900, 256), (3, 4200, 40), (64, 5120, 5120),
+                            (8, 8, 40000), (3, 4097, 7)])
 def test_head_table_form_tiles_match_twin_and_repeat(gen, b, dl, lat, guided):
     """The sampler's head (no base products; time row and condition rows as
     adds) on the column-tile kernel: 16 rows x 16 columns a block, at every
@@ -1919,3 +1960,56 @@ def test_native_jpeg_decoder_builds_on_this_machine(gen, tmp_path):
     finally:
         native._load = saved
     assert np.abs(native_ok - pil).mean() < 8.0
+
+
+# Lopsided nets past 4096 (the wide layout of the reverse-process kernel):
+# a last hidden width of 4200 under narrow stages, a v2 net whose latent and
+# last width are 5120, a latent of 6000 under stages of 64; (latent, hidden,
+# skip).
+WIDE_CASES = [(40, (48, 48, 4200), False), (5120, (256, 512, 5120), True),
+              (6000, (64, 64), False)]
+
+
+@pytest.mark.parametrize("batch", [8, 64])
+@pytest.mark.parametrize("guided", [True, False])
+@pytest.mark.parametrize("latent,hidden,skip", WIDE_CASES)
+def test_reverse_process_takes_the_wide_nets(gen, latent, hidden, skip, guided, batch):
+    """At each net of WIDE_CASES, both buckets, guided and not, with noise:
+    the wide layout's plan, 20 steps in one launch against the host loop
+    (whose stage, head and projection kernels run their passes past 4096)
+    within PROCESS_TOL, every left-out term more than twice the limit away,
+    a repeat bit-equal, one launch; 5 steps against the plain twins on the
+    card within the same limits."""
+    from flowerdiff_torch.kernels.full_sampler import bind_latent_proj, launch_counts
+
+    sampler = _width_sampler(latent, hidden, skip, guided, _PROCESS_STEPS)
+    cls = torch.arange(batch, device="cuda") % 11
+    inputs = _inputs(sampler, batch, cls, 51)
+    assert sampler.process.plan_for(batch, guided).wide
+    before = launch_counts()
+    got = _process(sampler, inputs)
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in after} == dict(
+        dict.fromkeys(after, 0), reverse_process=1)
+    ref = _host_loop(sampler, inputs)
+    tol = _held(got, ref, guided)
+    assert torch.equal(_process(sampler, inputs), got)
+    adds = list(inputs.stage_adds)
+    adds[-1] = torch.zeros_like(adds[-1])
+    dropped = {"noise": _host_loop(sampler, inputs, stochastic=False),
+               "the last stage's condition add": _host_loop(
+                   sampler, inputs._replace(stage_adds=tuple(adds))),
+               "the head's condition add": _host_loop(
+                   sampler, inputs._replace(final_add=torch.zeros_like(inputs.final_add)))}
+    if guided:
+        dropped["CFG"] = _host_loop(sampler, inputs, guidance_scale=1.0)
+        dropped["clip"] = _host_loop(sampler, inputs, clip_x0=None)
+    if skip:
+        wl, bl = sampler._prep["proj"].weights[:2]
+        dropped["skip"] = _host_loop(sampler, inputs,
+                                     prep=dict(sampler._prep, proj=bind_latent_proj(wl, bl)))
+    for term, other in dropped.items():
+        assert float((other - ref).abs().max()) > 2 * tol, term
+    short = _width_sampler(latent, hidden, skip, guided, 5)
+    inputs = _inputs(short, batch, cls, 52)
+    _held(_process(short, inputs), _plain_steps(short, inputs), guided)

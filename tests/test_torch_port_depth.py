@@ -168,10 +168,17 @@ def test_process_plan_takes_every_net_the_jax_kernel_holds(name, latent, hidden,
 
 def test_the_port_names_its_bound_past_4096():
     """A net the JAX kernel holds only because its other widths are narrow:
-    a last hidden width past MAX_WIDTH. The port refuses it, naming the bound."""
+    a last hidden width past 4096. The port takes it up to the JAX edge
+    (25,706 at the 8 bucket, on the wide layout); past MAX_WIDTH, which no
+    last width the JAX kernel holds at any batch reaches, it refuses one,
+    naming the bound."""
     assert jax_process_bytes(8, (8, 8, 6000), 8, T) <= VMEM
+    assert (jax_process_bytes(8, (8, 8, 25706), 8, T) <= VMEM
+            < jax_process_bytes(8, (8, 8, 25707), 8, T))
+    assert process_plan(8, (8, 8, 25706), False, 8, True).wide
+    assert jax_process_bytes(8, (8, 8, MAX_WIDTH + 1), 1, T) > VMEM
     with pytest.raises(ValueError, match=str(MAX_WIDTH)):
-        process_plan(8, (8, 8, 6000), False, 8, True)
+        process_plan(8, (8, 8, MAX_WIDTH + 1), False, 8, True)
 
 
 def test_streamed_vector_table_holds_each_blocks_slices_in_resident_order():

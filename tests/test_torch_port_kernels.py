@@ -406,7 +406,8 @@ def test_stage_ring_never_overwrites_a_chunk_being_read():
     assert _ring_faults(plan, 1024, 512, one_group_behind, arrivals=4) != []
 
 
-@pytest.mark.parametrize("d,d_out", [(96, 64), (2112, 512), (64, 4096), (256, 100),
+# (d_out past MAX_WIDTH: a d_out past 4096 now runs Wd in column passes)
+@pytest.mark.parametrize("d,d_out", [(96, 64), (2112, 512), (64, (1 << 22) + 8), (256, 100),
                                      (1024, 4), (0, 64)])
 def test_stage_plan_rejects_widths_the_kernel_cannot_take(d, d_out):
     with pytest.raises(ValueError):
