@@ -20,6 +20,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, List
 
+from flowerdiff_torch.utils import profiling
+
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
@@ -84,13 +86,17 @@ def build_all(names=SOURCES) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The ctypes handle of library `name`, built first if needed."""
+    """The ctypes handle of library `name`, built first if needed. A load
+    that is not already done is a span `kernels.load` (library, built)."""
     lib = _LIBS.get(name)
     if lib is None:
         path = _lib_path(name)
-        if not path.exists():
-            build_all([name])
-        lib = ctypes.CDLL(str(path))
+        with profiling.annotate("kernels.load", library=name) as span:
+            built = not path.exists()
+            if built:
+                build_all([name])
+            lib = ctypes.CDLL(str(path))
+            span.set(built=built)
         _LIBS[name] = lib
     return lib
 

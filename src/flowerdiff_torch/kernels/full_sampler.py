@@ -74,6 +74,7 @@ from flowerdiff_torch.kernels.latent_stage import (
     padded,
 )
 from flowerdiff_torch.models.latent_unet import ConditionalLatentDenoiser
+from flowerdiff_torch.utils import profiling
 
 _M32 = 0xFFFFFFFF
 _TWO_PI_F32 = float(np.float32(2.0 * math.pi))  # the kernel's f32 constant
@@ -314,6 +315,7 @@ latent_proj.launches = 0
 # The sampler
 
 @torch.no_grad()
+@profiling.spanned("sampler.prepare")
 def prepare_fused_sampler(model: ConditionalLatentDenoiser,
                           sched: DiffusionSchedule) -> Dict:
     """One-time prep on the model's device: the projection, stage and head
@@ -383,19 +385,23 @@ def draw_request(prep: Dict, batch: int, cond: torch.Tensor,
     """The per-request work before the step loop, on the model's device:
     x_init (drawn from the generator unless given), then the request's
     Philox key from the same generator, then the condition adds (as
-    `full_sampler.py:200-226` do outside their kernel). No host sync."""
+    `full_sampler.py:200-226` do outside their kernel). No host sync.
+    Spans: `sampler.draw` (x and the key), `sampler.cond_rows`."""
     model = prep["model"]
     dev = model.latent_proj.weight.device
-    cond = cond.to(dev)
-    color = None if color is None else color.to(dev)
-    if x_init is None:
-        x = torch.randn((batch, model.latent_dim), generator=generator, device=dev)
-    else:
-        x = x_init.to(device=dev, dtype=torch.float32).contiguous()
-    key = torch.randint(0, 2**31 - 1, (2,), generator=generator,
-                        device=generator.device if generator is not None else "cpu")
-    stage_adds, final_add = _cond_adds(prep, cond, color, guided)
-    return SamplerInputs(x, key_tensor(key, dev), tuple(stage_adds), final_add)
+    with profiling.annotate("sampler.draw"):
+        if x_init is None:
+            x = torch.randn((batch, model.latent_dim), generator=generator, device=dev)
+        else:
+            x = x_init.to(device=dev, dtype=torch.float32).contiguous()
+        key = torch.randint(0, 2**31 - 1, (2,), generator=generator,
+                            device=generator.device if generator is not None else "cpu")
+        key = key_tensor(key, dev)
+    with profiling.annotate("sampler.cond_rows", rows=batch * (2 if guided else 1)):
+        cond = cond.to(dev)
+        color = None if color is None else color.to(dev)
+        stage_adds, final_add = _cond_adds(prep, cond, color, guided)
+    return SamplerInputs(x, key, tuple(stage_adds), final_add)
 
 
 @torch.no_grad()
@@ -910,13 +916,17 @@ class ReverseProcess:
         return self._split[key]
 
     def plan_for(self, batch: int, guided: bool) -> ProcessPlan:
-        """The bound plan of a bucket call, bound at its first use."""
+        """The bound plan of a bucket call, bound at its first use (a span
+        `sampler.bind`: bucket, guided, whether maps were encoded)."""
         key = (batch, guided)
         plan = self.bound.get(key)
         if plan is None:
-            plan = process_plan(self.latent, self.hidden, self.skip, batch, guided)
-            if self.device.type == "cuda" and self._split_key(plan) not in self._split:
-                self._encode(self._split_key(plan))
+            with profiling.annotate("sampler.bind", bucket=batch, guided=guided) as span:
+                plan = process_plan(self.latent, self.hidden, self.skip, batch, guided)
+                encoded = self.device.type == "cuda" and self._split_key(plan) not in self._split
+                if encoded:
+                    self._encode(self._split_key(plan))
+                span.set(encoded=encoded)
             self.bound[key] = plan
         return plan
 
@@ -925,68 +935,72 @@ class ReverseProcess:
                  plan: Optional[ProcessPlan] = None) -> torch.Tensor:
         """x_0 of the request. `plan`: one of `process_plans(...)` in place
         of the bound one (a comparison's; its operands are padded and its
-        maps encoded at its first call where its column split is new)."""
+        maps encoded at its first call where its column split is new). The
+        whole call is a span `sampler.launch` (rows; on the card, whether
+        the plan is streamed or wide)."""
         kw = dict(stochastic=stochastic, clip_x0=clip_x0, guidance_scale=guidance_scale)
-        if self.device.type != "cuda":
-            return run_steps(self.prep, inputs, **kw)
         guided = guidance_scale is not None
         x = inputs.x
         batch, n = x.shape[0], len(self.hidden) - 1
         rows = batch * (2 if guided else 1)
-        want = ([("x", x, (batch, self.latent), torch.float32),
-                 ("key", inputs.key, (2,), torch.int32)]
-                + [(f"stage_adds[{i}]", a, (rows, self.hidden[i]), torch.float32)
-                   for i, a in enumerate(inputs.stage_adds)]
-                + [("final_add", inputs.final_add, (rows, self.hidden[n]), torch.float32)])
-        if len(inputs.stage_adds) != n:
-            raise ValueError(f"{len(inputs.stage_adds)} stage adds for {n} stages")
-        for name, v, shape, dtype in want:
-            if (tuple(v.shape) != shape or v.dtype != dtype or v.device != self.device
-                    or not v.is_contiguous() or v.data_ptr() % 16):
-                raise ValueError(f"{name}: expected a contiguous, 16-byte aligned {dtype} "
-                                 f"tensor of shape {shape} on {self.device}, got {v.dtype} "
-                                 f"{tuple(v.shape)} on {v.device}")
-        if plan is None:
-            plan = self.plan_for(batch, guided)
-        maps, ops, keep = (self._split.get(self._split_key(plan))
-                           or self._encode(self._split_key(plan)))
-        out = torch.empty_like(x)
-        bl, rw, tadd_f, g, b, bf = (None if v is None else v.data_ptr() for v in ops.fixed)
-        ptrs = [x.data_ptr(), out.data_ptr(), inputs.key.data_ptr(), self._coefs.data_ptr(), bl,
-                rw, tadd_f, inputs.final_add.data_ptr(), g, b, bf]
-        if plan.streamed:
-            # the condition adds' pointers in a table of this launch's own,
-            # copied on the launch's stream from pinned memory: a table
-            # shared by the binding could be overwritten by a launch on
-            # another stream while this one still reads it
-            sadds = torch.tensor([a.data_ptr() for a in inputs.stage_adds],
-                                 dtype=torch.int64).pin_memory()
-            sadds = sadds.to(self.device, non_blocking=True)
-            ptrs += [t.data_ptr() for t in keep] + [sadds.data_ptr()]
-            if plan.wide:
-                # the last stage's bd, and the launch's own scratch (rows of x,
-                # the skip, the head's, and the wide operands), allocated on
-                # its stream
-                scratch = torch.empty(process_scratch(ops.latent, ops.hidden, self.skip, plan,
-                                                      guided), dtype=torch.uint8,
-                                      device=self.device)
-                ptrs += [ops.stages[-1][1][7].data_ptr(), scratch.data_ptr()]
-        else:
-            for (tadd, vec), adds in zip(ops.stages, inputs.stage_adds):
-                ptrs += [tadd.data_ptr(), adds.data_ptr()] + [v.data_ptr() for v in vec]
-        ints = [n, batch, ops.latent, self.prep["n_steps"], int(guided),
-                int(clip_x0 is not None), int(stochastic), plan.clusters, plan.cols, plan.rows,
-                plan.qbufs, plan.slots, plan.smem, *ops.hidden, self.latent, *self.hidden,
-                int(plan.streamed), int(plan.wide)]
-        floats = [float(guidance_scale or 0.0), float(clip_x0 or 0.0), LN_EPS]
-        code = self._launch(None if plan.streamed else maps,
-                            (ctypes.c_void_p * len(ptrs))(*ptrs),
-                            (ctypes.c_int * len(ints))(*ints),
-                            (ctypes.c_float * len(floats))(*floats),
-                            torch.cuda.current_stream(self.device).cuda_stream)
-        _build.check(code, "reverse_process")
-        reverse_process.launches += 1
-        return out
+        with profiling.annotate("sampler.launch", rows=rows) as span:
+            if self.device.type != "cuda":
+                return run_steps(self.prep, inputs, **kw)
+            want = ([("x", x, (batch, self.latent), torch.float32),
+                     ("key", inputs.key, (2,), torch.int32)]
+                    + [(f"stage_adds[{i}]", a, (rows, self.hidden[i]), torch.float32)
+                       for i, a in enumerate(inputs.stage_adds)]
+                    + [("final_add", inputs.final_add, (rows, self.hidden[n]), torch.float32)])
+            if len(inputs.stage_adds) != n:
+                raise ValueError(f"{len(inputs.stage_adds)} stage adds for {n} stages")
+            for name, v, shape, dtype in want:
+                if (tuple(v.shape) != shape or v.dtype != dtype or v.device != self.device
+                        or not v.is_contiguous() or v.data_ptr() % 16):
+                    raise ValueError(f"{name}: expected a contiguous, 16-byte aligned {dtype} "
+                                     f"tensor of shape {shape} on {self.device}, got {v.dtype} "
+                                     f"{tuple(v.shape)} on {v.device}")
+            if plan is None:
+                plan = self.plan_for(batch, guided)
+            span.set(streamed=plan.streamed, wide=plan.wide)
+            maps, ops, keep = (self._split.get(self._split_key(plan))
+                               or self._encode(self._split_key(plan)))
+            out = torch.empty_like(x)
+            bl, rw, tadd_f, g, b, bf = (None if v is None else v.data_ptr() for v in ops.fixed)
+            ptrs = [x.data_ptr(), out.data_ptr(), inputs.key.data_ptr(), self._coefs.data_ptr(),
+                    bl, rw, tadd_f, inputs.final_add.data_ptr(), g, b, bf]
+            if plan.streamed:
+                # the condition adds' pointers in a table of this launch's own,
+                # copied on the launch's stream from pinned memory: a table
+                # shared by the binding could be overwritten by a launch on
+                # another stream while this one still reads it
+                sadds = torch.tensor([a.data_ptr() for a in inputs.stage_adds],
+                                     dtype=torch.int64).pin_memory()
+                sadds = sadds.to(self.device, non_blocking=True)
+                ptrs += [t.data_ptr() for t in keep] + [sadds.data_ptr()]
+                if plan.wide:
+                    # the last stage's bd, and the launch's own scratch (rows of
+                    # x, the skip, the head's, and the wide operands), allocated
+                    # on its stream
+                    scratch = torch.empty(process_scratch(ops.latent, ops.hidden, self.skip,
+                                                          plan, guided), dtype=torch.uint8,
+                                          device=self.device)
+                    ptrs += [ops.stages[-1][1][7].data_ptr(), scratch.data_ptr()]
+            else:
+                for (tadd, vec), adds in zip(ops.stages, inputs.stage_adds):
+                    ptrs += [tadd.data_ptr(), adds.data_ptr()] + [v.data_ptr() for v in vec]
+            ints = [n, batch, ops.latent, self.prep["n_steps"], int(guided),
+                    int(clip_x0 is not None), int(stochastic), plan.clusters, plan.cols,
+                    plan.rows, plan.qbufs, plan.slots, plan.smem, *ops.hidden, self.latent,
+                    *self.hidden, int(plan.streamed), int(plan.wide)]
+            floats = [float(guidance_scale or 0.0), float(clip_x0 or 0.0), LN_EPS]
+            code = self._launch(None if plan.streamed else maps,
+                                (ctypes.c_void_p * len(ptrs))(*ptrs),
+                                (ctypes.c_int * len(ints))(*ints),
+                                (ctypes.c_float * len(floats))(*floats),
+                                torch.cuda.current_stream(self.device).cuda_stream)
+            _build.check(code, "reverse_process")
+            reverse_process.launches += 1
+            return out
 
 
 def reverse_process(prep: Dict, inputs: SamplerInputs, **kw) -> torch.Tensor:

@@ -73,6 +73,7 @@ from flowerdiff_torch.diffusion.api import (
     NormalizedSampler,
 )
 from flowerdiff_torch.diffusion.schedule import DiffusionSchedule, linear_schedule
+from flowerdiff_torch.utils import profiling
 from flowerdiff_torch.utils.device import (
     derived_generator,
     deterministic_cudnn,
@@ -90,23 +91,26 @@ def quantize_uint8(img: torch.Tensor) -> torch.Tensor:
 def _to_host(out: torch.Tensor):
     """(host tensor, event or None): a card tensor's copy into pinned host
     memory enqueued without waiting, and the event that marks it done."""
-    if not out.is_cuda:
-        return out, None
-    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-    host.copy_(out, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record()
-    return host, done
+    with profiling.annotate("service.to_host", bytes=out.numel() * out.element_size()):
+        if not out.is_cuda:
+            return out, None
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
 
 
-def _fetcher(pending) -> Callable[[], np.ndarray]:
+def _fetcher(pending, call: Optional[int] = None) -> Callable[[], np.ndarray]:
     """fetch() over (host tensor, event, rows to keep) chunks: waits for each
-    in order, slices its padding off, concatenates."""
+    in order (a span `service.fetch` of the call `call` each), slices its
+    padding off, concatenates."""
     def fetch() -> np.ndarray:
         outs = []
-        for out, done, take in pending:
-            if done is not None:
-                done.synchronize()
+        for i, (out, done, take) in enumerate(pending):
+            with profiling.annotate("service.fetch", call=call, chunk=i):
+                if done is not None:
+                    done.synchronize()
             outs.append(out.numpy()[:take])
         return outs[0] if len(outs) == 1 else np.concatenate(outs)
 
@@ -114,6 +118,7 @@ def _fetcher(pending) -> Callable[[], np.ndarray]:
 
 
 class SamplingService:
+    @profiling.spanned("service.build")
     def __init__(
         self,
         model,
@@ -190,6 +195,7 @@ class SamplingService:
             return arr
         return np.concatenate([arr, np.zeros((target - n,) + arr.shape[1:], arr.dtype)])
 
+    @profiling.spanned("service.decode")
     def _decode(self, latents: torch.Tensor) -> torch.Tensor:
         with deterministic_cudnn(), torch.autocast(self.device.type, dtype=torch.bfloat16,
                                                    enabled=self.decode_bf16):
@@ -202,11 +208,14 @@ class SamplingService:
         """Run the live path once per bucket (default: all), host numpy
         classes in and images out, so that every kernel is built and, on
         the kernel path, every bucket's plan of the reverse-process kernel
-        bound (its tensor maps encoded) before live traffic."""
-        for b in buckets or self.buckets:
-            classes = np.zeros((b,), np.int64)
-            colors = np.zeros((b,), np.int64) if with_colors else None
-            self.sample(classes, seed, colors, decode=True)
+        bound (its tensor maps encoded) before live traffic. A span
+        `service.warmup` holds one `service.sample_async` a bucket."""
+        buckets = buckets or self.buckets
+        with profiling.annotate("service.warmup", buckets=tuple(buckets)):
+            for b in buckets:
+                classes = np.zeros((b,), np.int64)
+                colors = np.zeros((b,), np.int64) if with_colors else None
+                self.sample(classes, seed, colors, decode=True)
 
     def unwarmed(self) -> list:
         """The buckets whose live request would still bind a plan of the
@@ -228,31 +237,44 @@ class SamplingService:
         each chunk's padding off. Every chunk is issued before any is
         fetched: its sampler replay, decode and the copy of its result into
         pinned host memory (`non_blocking`) are all enqueued, so chunk i's
-        copy overlaps chunk i + 1's sampling. Arguments as `sample`."""
+        copy overlaps chunk i + 1's sampling. Arguments as `sample`.
+
+        Spans (utils/profiling.py): the call `service.sample_async` (its
+        call id, images, chunks), then a `service.chunk` a chunk (chunk,
+        bucket, take) over its copies in (`service.cond_copy`), the
+        generator (`sampler.draw`), the sampler's spans, the decode and the
+        copy out; its self time holds the denormalisation."""
         classes = np.asarray(classes, np.int64).reshape(-1)
         if colors is not None:
             colors = np.asarray(colors, np.int64).reshape(-1)
         if x_init is not None:
             x_init = np.asarray(x_init, np.float32)
         n = classes.shape[0]
+        plan = self.request_plan(n)
+        call = profiling.new_id()
         pending = []
         start = 0
-        with self.device_lock:
-            for i, b in enumerate(self.request_plan(n)):
+        with profiling.annotate("service.sample_async", call=call, images=n, chunks=len(plan)), \
+                self.device_lock:
+            for i, b in enumerate(plan):
                 take = min(b, n - start)
                 part = slice(start, start + take)
-                cond = [torch.from_numpy(self._pad(classes[part], b)).to(self.device)]
-                if colors is not None:
-                    cond.append(torch.from_numpy(self._pad(colors[part], b)).to(self.device))
-                x0 = None
-                if x_init is not None:
-                    x0 = torch.from_numpy(self._pad(x_init[part], b)).to(self.device)
-                lat = self.sampler.sample(b, *cond,
-                                          generator=derived_generator(self.device, seed, i),
-                                          x_init=x0, stochastic=stochastic)
-                pending.append((*_to_host(self._decode(lat) if decode else lat), take))
+                with profiling.annotate("service.chunk", chunk=i, bucket=b, take=take):
+                    with profiling.annotate("service.cond_copy"):
+                        cond = [torch.from_numpy(self._pad(classes[part], b)).to(self.device)]
+                        if colors is not None:
+                            cond.append(torch.from_numpy(self._pad(colors[part], b))
+                                        .to(self.device))
+                        x0 = None
+                        if x_init is not None:
+                            x0 = torch.from_numpy(self._pad(x_init[part], b)).to(self.device)
+                    with profiling.annotate("sampler.draw"):
+                        generator = derived_generator(self.device, seed, i)
+                    lat = self.sampler.sample(b, *cond, generator=generator, x_init=x0,
+                                              stochastic=stochastic)
+                    pending.append((*_to_host(self._decode(lat) if decode else lat), take))
                 start += take
-        return _fetcher(pending)
+        return _fetcher(pending, call)
 
     def sample(self, classes, seed: int = 0, colors=None, decode: bool = True,
                x_init=None, stochastic: bool = True) -> np.ndarray:

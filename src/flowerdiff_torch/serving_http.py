@@ -66,6 +66,7 @@ import numpy as np
 import torch
 
 from flowerdiff_torch.data.color_labels import COLOR_NAMES
+from flowerdiff_torch.utils import profiling
 from flowerdiff_torch.utils.device import derived_seed
 
 __all__ = ["CoalescingBatcher", "FlowerHTTPServer", "serve"]
@@ -73,7 +74,8 @@ __all__ = ["CoalescingBatcher", "FlowerHTTPServer", "serve"]
 
 @dataclass
 class _Pending:
-    """One enqueued request: per-row classes/colors plus a completion event."""
+    """One enqueued request: per-row classes/colors plus a completion event,
+    its id and its `batcher.queue` span."""
 
     classes: np.ndarray
     colors: Optional[np.ndarray]
@@ -81,6 +83,8 @@ class _Pending:
     done: threading.Event = field(default_factory=threading.Event)
     result: Optional[np.ndarray] = None
     error: Optional[BaseException] = None
+    id: int = field(default_factory=profiling.new_id)
+    queued: object = profiling.NOOP
 
     @property
     def kind(self):
@@ -105,6 +109,13 @@ class CoalescingBatcher:
 
     `autostart=False` runs no threads; call `drain_once()` by hand (tests
     use it to make coalescing deterministic).
+
+    Spans (utils/profiling.py), by request id: `batcher.request` (submit to
+    its return) and `batcher.queue` (until a window takes the request);
+    `batcher.window` (from its first queued request to the swap: requests,
+    images, held), `batcher.slot_wait` (each wait for a pipeline slot),
+    `batcher.dispatch` (the `sample_async` call: dispatch index, request
+    ids) and `batcher.finish` (the fetch and fan-out: dispatch index).
     """
 
     def __init__(self, service, seed: int, max_wait_ms: float = 5.0,
@@ -143,18 +154,20 @@ class CoalescingBatcher:
         )
         if item.colors is not None and item.colors.shape != item.classes.shape:
             raise ValueError("colors must match classes length")
-        with self._lock:
-            if self._stopped:
-                raise RuntimeError("batcher is stopped")
-            self._queue.append(item)
-            self.stats["requests"] += 1
-            self.stats["images"] += int(item.classes.shape[0])
-            self._lock.notify_all()
-        if not item.done.wait(timeout):
-            raise TimeoutError("sampling request timed out")
-        if item.error is not None:
-            raise item.error
-        return item.result
+        with profiling.annotate("batcher.request", request=item.id):
+            item.queued = profiling.annotate("batcher.queue", request=item.id)
+            with self._lock:
+                if self._stopped:
+                    raise RuntimeError("batcher is stopped")
+                self._queue.append(item)
+                self.stats["requests"] += 1
+                self.stats["images"] += int(item.classes.shape[0])
+                self._lock.notify_all()
+            if not item.done.wait(timeout):
+                raise TimeoutError("sampling request timed out")
+            if item.error is not None:
+                raise item.error
+            return item.result
 
     def next_seed(self) -> int:
         """A fresh seed off the server-lifetime counter (for work outside
@@ -188,27 +201,46 @@ class CoalescingBatcher:
                 self._lock.wait(timeout=0.1)
             if not self._queue:
                 return []
-            deadline = time.monotonic() + self.max_wait_ms / 1e3
-            hard_deadline = time.monotonic() + 2.0  # safety cap
-            while (sum(p.classes.shape[0] for p in self._queue) < self.max_batch
-                   and not self._stopped):
-                now = time.monotonic()
-                if self._completer is not None and self._inflight >= self.pipeline_depth:
-                    if now >= hard_deadline:
+            with profiling.annotate("batcher.window") as window:
+                deadline = time.monotonic() + self.max_wait_ms / 1e3
+                hard_deadline = time.monotonic() + 2.0  # safety cap
+                held, slot = False, None
+                while (sum(p.classes.shape[0] for p in self._queue) < self.max_batch
+                       and not self._stopped):
+                    now = time.monotonic()
+                    if self._completer is not None and self._inflight >= self.pipeline_depth:
+                        held = True
+                        slot = slot or profiling.annotate("batcher.slot_wait")
+                        if now >= hard_deadline:
+                            break
+                        self._lock.wait(timeout=0.05)
+                        continue
+                    if slot is not None:
+                        slot.close()
+                        slot = None
+                    remaining = deadline - now
+                    if remaining <= 0:
                         break
-                    self._lock.wait(timeout=0.05)
-                    continue
-                remaining = deadline - now
-                if remaining <= 0:
-                    break
-                self._lock.wait(timeout=remaining)
-            batch, self._queue = self._queue, []
+                    self._lock.wait(timeout=remaining)
+                if slot is not None:
+                    slot.close()
+                batch = self._take_queue()
+                window.set(requests=len(batch), images=sum(p.classes.shape[0] for p in batch),
+                           held=held)
             return batch
+
+    def _take_queue(self) -> list[_Pending]:
+        """Swap the queue out (under the lock), closing each request's
+        `batcher.queue` span."""
+        batch, self._queue = self._queue, []
+        for p in batch:
+            p.queued.close()
+        return batch
 
     def drain_once(self):
         """Process everything currently queued (test / manual mode)."""
         with self._lock:
-            batch, self._queue = self._queue, []
+            batch = self._take_queue()
         self._process(batch)
 
     def _run(self):
@@ -222,19 +254,23 @@ class CoalescingBatcher:
             self._process(batch, pipelined=self._completer is not None)
 
     def _dispatch_group(self, kind, items: list[_Pending]):
-        """Dispatch one merged group; returns a zero-argument fetch() or None
-        on a dispatch error (already surfaced to the callers)."""
+        """Dispatch one merged group; returns (a zero-argument fetch(), the
+        dispatch index) or None on a dispatch error (already surfaced to the
+        callers)."""
         has_colors, decode = kind
         classes = np.concatenate([p.classes for p in items])
         colors = np.concatenate([p.colors for p in items]) if has_colors else None
         with self._lock:
-            seed = derived_seed(self._seed, self._dispatch_counter)
+            index = self._dispatch_counter
+            seed = derived_seed(self._seed, index)
             self._dispatch_counter += 1
             self.stats["dispatches"] += 1
             self.stats["max_coalesced"] = max(self.stats["max_coalesced"], len(items))
             self._inflight += 1
         try:
-            return self.service.sample_async(classes, seed, colors, decode=decode)
+            with profiling.annotate("batcher.dispatch", dispatch=index,
+                                    requests=tuple(p.id for p in items)):
+                return self.service.sample_async(classes, seed, colors, decode=decode), index
         except BaseException as exc:  # surface device errors per caller
             self._window_done()
             self._fail_group(items, exc)
@@ -261,15 +297,16 @@ class CoalescingBatcher:
             start += n
             p.done.set()
 
-    def _finish(self, fetch, items: list[_Pending]):
-        try:
-            out = np.asarray(fetch())
-        except BaseException as exc:
+    def _finish(self, fetch, items: list[_Pending], index: int):
+        with profiling.annotate("batcher.finish", dispatch=index):
+            try:
+                out = np.asarray(fetch())
+            except BaseException as exc:
+                self._window_done()
+                self._fail_group(items, exc)
+                return
+            self._distribute(items, out)
             self._window_done()
-            self._fail_group(items, exc)
-            return
-        self._distribute(items, out)
-        self._window_done()
 
     def _complete_loop(self):
         """Fetch side of the double buffer: waits for a window's results and
@@ -285,13 +322,18 @@ class CoalescingBatcher:
         for item in batch:
             groups.setdefault(item.kind, []).append(item)
         for kind, items in groups.items():
-            fetch = self._dispatch_group(kind, items)
-            if fetch is None:
+            dispatched = self._dispatch_group(kind, items)
+            if dispatched is None:
                 continue
-            if pipelined:
-                self._completions.put((fetch, items))  # bounded: backpressure
-            else:
-                self._finish(fetch, items)
+            fetch, index = dispatched
+            if not pipelined:
+                self._finish(fetch, items, index)
+                continue
+            try:
+                self._completions.put_nowait((fetch, items, index))
+            except queue.Full:  # bounded: backpressure
+                with profiling.annotate("batcher.slot_wait"):
+                    self._completions.put((fetch, items, index))
 
 
 # ---------------------------------------------------------------------------

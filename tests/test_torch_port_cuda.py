@@ -1399,6 +1399,38 @@ def test_sample_async_equals_sample_on_the_card(gen, decode):
     assert not torch.backends.cudnn.deterministic  # the service set no global flag
 
 
+def test_each_kernel_launch_falls_inside_its_launch_span(gen, tmp_path):
+    """A request of three chunks under `profiling.trace`: the runtime call
+    that launched each reverse-process kernel starts inside a
+    `sampler.launch` span of the chrome trace (spans and device work on one
+    clock), one span a launch, each a child of its chunk's span."""
+    import json
+
+    import numpy as np
+
+    from flowerdiff_torch.utils import profiling
+
+    svc = _service(quantize_uint8=True)
+    svc.warmup()
+    with profiling.trace(str(tmp_path)):
+        svc.sample(np.arange(19) * 5 % 11, seed=3)
+    with open(tmp_path / "trace.json") as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = [e for e in events
+               if e.get("cat") == "kernel" and "process_kernel" in e.get("name", "")]
+    calls = {e["args"]["correlation"]: e for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and "correlation" in e.get("args", {})}
+    spans = [e for e in events if e.get("cat") == "flowerdiff" and e["name"] == "sampler.launch"]
+    chunks = {e["args"]["span"] for e in events
+              if e.get("cat") == "flowerdiff" and e["name"] == "service.chunk"}
+    assert len(kernels) == len(spans) == len(chunks) == 3
+    assert {s["args"]["parent"] for s in spans} == chunks
+    for k in kernels:
+        ts = calls[k["args"]["correlation"]]["ts"]
+        assert sum(s["ts"] <= ts <= s["ts"] + s["dur"] for s in spans) == 1
+
+
 @pytest.mark.parametrize("kind", ["ancestral", "ddim"])
 @pytest.mark.parametrize("quantize", [True, False])
 def test_identical_requests_are_bit_equal_on_the_card(gen, kind, quantize):
