@@ -928,14 +928,15 @@ def streamed_bit_equal(prep, process, skip, dev):
 
 def phase_process(prep, gen):
     """The reverse-process kernel (csrc/reverse_process.cu) at every bucket
-    the services launch here: the guided 8 and 64 (16 and 128 rows) and
-    phase_http's unguided 8, 32 and 64, v1 and v2: each bucket's plan
-    printed (clusters, blocks, rows, ring, shared memory, waves, the card's
-    active clusters, the tensor-map encodes of its binding); 20 steps
-    against the host loop of the step's kernels (`run_steps`) within
-    PROCESS_TOL with every left-out term more than twice the limit away, a
-    repeat bit-equal, no encode a launch; 5 steps against the plain twins on
-    the card. The same at each denoiser of WIDTHS, guided, at the 8 and 64
+    the services launch here: the guided 8 and 64 (16 and 128 rows),
+    phase_http's unguided 8, 32 and 64, and the ladder's unguided 256 and
+    guided 128 (11 clusters of 24 rows, one wave, the last cluster ragged),
+    v1 and v2: each bucket's plan printed (clusters, blocks, rows, ring,
+    shared memory, waves, the card's active clusters, the tensor-map
+    encodes of its binding); 20 steps against the host loop of the step's
+    kernels (`run_steps`) within PROCESS_TOL with every left-out term more
+    than twice the limit away, a repeat bit-equal, no encode a launch; 5
+    steps against the plain twins on the card. The same at each denoiser of WIDTHS, guided, at the 8 and 64
     buckets. Then a 1000-step guided call at both buckets timed between
     CUDA events beside the twins' 1000 steps at the 64 bucket and the
     bound, and at the tiny preset's widths and latent 254. The JSON row's
@@ -945,7 +946,11 @@ def phase_process(prep, gen):
            "source": "src/flowerdiff_torch/kernels/csrc/reverse_process.cu",
            "replaces": "src/flowerdiff/kernels/full_sampler.py:81", "max_abs_err": 0.0,
            "library_ms": None}
-    cases = [(8, True), (64, True), (8, False), (32, False), (64, False)]
+    cases = [(8, True), (64, True), (8, False), (32, False), (64, False), (256, False),
+             (128, True)]
+    # the 24-row buckets draw from a generator of their own, so the later
+    # cases and phases draw what they drew before them
+    one_wave_gen = torch.Generator(device=dev).manual_seed(25)
     for skip in (False, True):
         # biases of std 0.3, so that each condition add moves the result
         kw_model = dict(FLAGSHIP, global_skip=skip)
@@ -960,8 +965,8 @@ def phase_process(prep, gen):
                 if steps == 20 and not skip:
                     print_plan("reverse_process", plan, b, guided, process_map_encodes() - e0)
                 tag = f"reverse_process B={b} guided={guided} skip={skip} T={steps}"
-                err, tol, weakest, what = process_case(p, process, b, guided, steps, gen, tag,
-                                                       dev)
+                g = one_wave_gen if b * (2 if guided else 1) == 256 else gen
+                err, tol, weakest, what = process_case(p, process, b, guided, steps, g, tag, dev)
                 print(f"[kernels] {tag} against the {what}: max_abs_err {err:.3e} (tol "
                       f"{tol:.3e}; least move of a left-out term: {weakest}); repeat bit-equal")
                 row["max_abs_err"] = max(row["max_abs_err"], err)

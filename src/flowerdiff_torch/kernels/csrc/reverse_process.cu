@@ -130,6 +130,22 @@ constexpr int kWideChunk = 36864;             // a wide chunk's slot: weights an
 // m64 tiles of a block's widest slice at `rows` rows a cluster: the
 // instances hold at most 64 accumulators a thread (MT x rows / 2 x 2)
 __host__ __device__ inline int max_units(int rows) { return rows <= 16 ? 4 : 2; }
+// Rows a cluster that each layout has instances for (`instance`): the
+// resident layout's (24: 11 clusters of 8 blocks hold 256 rows in one wave,
+// where 16 of 16 rows take two), and the streamed and wide layouts'.
+// kernels/full_sampler.py mirrors them as PROCESS_ROWS and STREAMED_ROWS.
+constexpr int kResidentRows[] = {8, 16, 24, 32};
+constexpr int kStreamedRows[] = {8, 16, 32};
+template <int K>
+bool listed(const int (&list)[K], int rows) {
+  for (int r : list)
+    if (r == rows) return true;
+  return false;
+}
+// Whether the layout (streamed or wide, else resident) takes `rows`.
+bool rows_ok(int rows, bool streamed) {
+  return streamed ? listed(kStreamedRows, rows) : listed(kResidentRows, rows);
+}
 constexpr int kBars = 5;
 constexpr int kWideBars = kBars + 2;
 enum { kOp0 = 0, kOp1 = 1, kSt0 = 2, kSt1 = 3, kFree = 4, kReady0 = 5, kReady1 = 6 };
@@ -1102,6 +1118,7 @@ cudaError_t pick(size_t smem, const void** kernel) {
 // m64 tiles (2, or 4 at 8 and 16 rows) and, where `exact` (no width
 // padded) at 2 units, the instance with no padded case; `streamed`: the
 // streamed layout's instances; `wide`: the wide layout's (max_units(rows)).
+// Rows a cluster: kResidentRows and kStreamedRows.
 cudaError_t instance(int rows, int units, bool exact, bool streamed, bool wide, size_t smem,
                      const void** kernel) {
   if (wide) {
@@ -1117,10 +1134,12 @@ cudaError_t instance(int rows, int units, bool exact, bool streamed, bool wide, 
   } else if (units <= 2 && exact) {
     if (rows == 8) return pick<8, 2, true>(smem, kernel);
     if (rows == 16) return pick<16, 2, true>(smem, kernel);
+    if (rows == 24) return pick<24, 2, true>(smem, kernel);
     if (rows == 32) return pick<32, 2, true>(smem, kernel);
   } else if (units <= 2) {
     if (rows == 8) return pick<8, 2, false>(smem, kernel);
     if (rows == 16) return pick<16, 2, false>(smem, kernel);
+    if (rows == 24) return pick<24, 2, false>(smem, kernel);
     if (rows == 32) return pick<32, 2, false>(smem, kernel);
   } else if (units <= 4) {
     if (rows == 8) return pick<8, 4, false>(smem, kernel);
@@ -1153,7 +1172,7 @@ bool plan_ok(const int* dims, const int* wid, int n, int L, int lat, bool with_s
   for (int i = 0; wide && i < n; ++i)
     if (dims[i] / cols > 64 * max_units(rows)) return false;
   if (with_skip && (wid[n] != lat || dims[n] != L)) return false;
-  if (rows != 8 && rows != 16 && rows != 32) return false;
+  if (!rows_ok(rows, streamed)) return false;
   const int samples = guided ? rows / 2 : rows;
   if (clusters < 1 || (long long)clusters * samples < B) return false;
   if (qbufs < 1 || qbufs > 2 || slots < 2 || slots > kMaxSlots) return false;
@@ -1175,7 +1194,7 @@ bool plan_ok(const int* dims, const int* wid, int n, int L, int lat, bool with_s
 extern "C" int fd_process_maps(const void* const* weights, const int* dims, int n, int L,
                                int cols, int rows, void* maps) {
   if (n < 1 || n > kMaxStreamStages || cols < 1 || (uintptr_t)maps % 64 ||
-      (rows && rows != 8 && rows != 16 && rows != 32))
+      (rows && !rows_ok(rows, true)))
     return (int)cudaErrorInvalidValue;
   CUtensorMap* m = static_cast<CUtensorMap*>(maps);
   for (int i = 0; i < 2 + 4 * n; ++i) {

@@ -219,7 +219,7 @@ __device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t da, uin
       : "l"(da), "l"(db), "r"(1), "n"(kTA));
 }
 
-// d (64 x N, f32) += A (64 x 16) B (16 x N), N in {8, 16, 32, 64, 128}: as
+// d (64 x N, f32) += A (64 x 16) B (16 x N), N in {8, 16, 24, 32, 64, 128}: as
 // wgmma_m64n32k16, the thread's d[4j + 2h + e] = D[16w + g + 8h][8j + 2t + e]
 // for j < N / 8.
 template <int N>
@@ -249,6 +249,20 @@ struct Wgmma<16> {
         "{%0, %1, %2, %3, %4, %5, %6, %7}, "
         "%8, %9, p, 1, 1, %11, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(1), "n"(kTA));
+  }
+};
+
+template <>
+struct Wgmma<24> {
+  template <int kTA>
+  static __device__ __forceinline__ void run(float (&d)[12], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %14, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
+        "%12, %13, p, 1, 1, %15, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
         : "l"(da), "l"(db), "r"(1), "n"(kTA));
   }
 };

@@ -459,7 +459,10 @@ MAX_RESIDENT_STAGES = 8
 MAX_STAGES = 32768
 MAX_STAGE_WIDTH = 4096
 MAX_WIDTH = 1 << 22
-PROCESS_ROWS = (8, 16, 32)
+# Rows a cluster of the resident layout, and of the streamed and wide ones:
+# csrc/reverse_process.cu's kResidentRows and kStreamedRows
+PROCESS_ROWS = (8, 16, 24, 32)
+STREAMED_ROWS = (8, 16, 32)
 # A wide chunk's slot (weights and operand rows), bytes; the scratch's own
 # rate a block reads and writes at, for the cost model only (not measured:
 # the rows of x, the skip and the pre-LN head rows go through L1 and L2)
@@ -697,7 +700,7 @@ def _plans(latent: int, hidden, skip: bool, batch: int, guided: bool, streamed: 
     plans = []
     for cols in PROCESS_COLS:
         lat_p, hid_p = process_widths(latent, hidden, cols, wide)
-        for rows in PROCESS_ROWS:
+        for rows in STREAMED_ROWS if streamed else PROCESS_ROWS:
             if wide:
                 if max(hid_p[:-1]) // cols > 64 * max_units(rows):
                     continue
@@ -937,7 +940,7 @@ class ReverseProcess:
         of the bound one (a comparison's; its operands are padded and its
         maps encoded at its first call where its column split is new). The
         whole call is a span `sampler.launch` (rows; on the card, whether
-        the plan is streamed or wide)."""
+        the plan is streamed or wide, its waves and its rows a cluster)."""
         kw = dict(stochastic=stochastic, clip_x0=clip_x0, guidance_scale=guidance_scale)
         guided = guidance_scale is not None
         x = inputs.x
@@ -961,7 +964,8 @@ class ReverseProcess:
                                      f"{tuple(v.shape)} on {v.device}")
             if plan is None:
                 plan = self.plan_for(batch, guided)
-            span.set(streamed=plan.streamed, wide=plan.wide)
+            span.set(streamed=plan.streamed, wide=plan.wide, waves=plan.waves,
+                     cluster_rows=plan.rows)
             maps, ops, keep = (self._split.get(self._split_key(plan))
                                or self._encode(self._split_key(plan)))
             out = torch.empty_like(x)

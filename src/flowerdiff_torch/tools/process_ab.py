@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the flagship's 1000-step guided reverse-process call of several
-source trees on one CUDA card, in turns, so that two versions are compared
-on the same card in one run.
+"""Time the 1000-step reverse-process calls of the benchmark's buckets (the
+flagship's guided 8 and 64, v2's unguided 128 and 256) of several source
+trees on one CUDA card, in turns, so that two versions are compared on the
+same card in one run.
 
     python3 src/flowerdiff_torch/tools/process_ab.py [--rounds 2] TREE [TREE ...]
 
@@ -12,14 +13,16 @@ build/parent`). Round r runs the trees in order, the next round in reverse
 order (A B B A for two trees and two rounds), each in a fresh process that
 builds its own reverse-process library. A process binds the flagship
 denoiser (latent 256, hidden (256, 512, 1024, 512, 256), 102 classes,
-weights from seed 0, the same in every tree) to a 1000-step schedule, draws
-one guided request at each of the 8 and 64 buckets (CFG 7.0, x0 clip 3.0,
+weights from seed 0, the same in every tree) and the v2 one (the same
+widths and the global skip) to a 1000-step schedule, draws one request at
+each bucket (the flagship's guided, CFG 7.0; v2's unguided; x0 clip 3.0,
 step noise), and times five launches of `ReverseProcess` between CUDA
 events after one warm-up. Prints one JSON line a (tree, round): the times,
-the sum of x_0 at each bucket (equal sums: the same bits, as far as a sum
-shows), and ptxas's spill lines of the tree's reverse-process instances;
-then the mean a tree a bucket over the rounds, without the first timed
-launch of each process, and the card's name and power limit.
+the bound plan and the sum of x_0 at each bucket (equal sums: the same
+bits, as far as a sum shows), and ptxas's spill lines of the tree's
+reverse-process instances; then the mean a tree a bucket over the rounds,
+without the first timed launch of each process, and the card's name and
+power limit.
 """
 from __future__ import annotations
 
@@ -33,6 +36,10 @@ _PORT = Path(__file__).resolve().parents[1]
 _ROOT = _PORT.parents[1]
 FLAGSHIP = dict(latent_dim=256, hidden_dims=(256, 512, 1024, 512, 256), time_emb_dim=256,
                 num_classes=102, shared_cond_proj=True, global_skip=False)
+# (name, net, guidance scale, buckets)
+CASES = (("flagship", FLAGSHIP, 7.0, (8, 64)), ("v2", dict(FLAGSHIP, global_skip=True), None,
+                                                (128, 256)))
+KEYS = [f"{name}_{batch}" for name, _, _, buckets in CASES for batch in buckets]
 
 
 def child(tree: Path) -> None:
@@ -49,28 +56,31 @@ def child(tree: Path) -> None:
     from flowerdiff_torch.utils.weights import denoiser_from_params, init_numpy_params
 
     report = _build.build_all(["reverse_process"])["reverse_process"]
-    model = denoiser_from_params(init_numpy_params("denoiser", seed=0, **FLAGSHIP),
-                                 device="cuda", **FLAGSHIP)
-    prep = prepare_fused_sampler(model, linear_schedule(1000).to("cuda"))
-    process = ReverseProcess(prep)
-    gen = torch.Generator(device="cuda").manual_seed(0)
     out = {"tree": str(tree), "spills": [l.strip() for l in report.splitlines() if "spill" in l]}
-    kw = dict(stochastic=True, clip_x0=3.0, guidance_scale=7.0)
-    for batch in (8, 64):
-        inputs = draw_request(prep, batch, torch.arange(batch, device="cuda") % 102, None, gen,
-                              None, True)
-        x = process(inputs, **kw)
-        ms = []
-        for _ in range(5):
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            torch.cuda.synchronize()
-            start.record()
-            process(inputs, **kw)
-            end.record()
-            torch.cuda.synchronize()
-            ms.append(round(start.elapsed_time(end), 3))
-        out[f"ms_{batch}"] = ms
-        out[f"sum_{batch}"] = float(x.double().sum())
+    for name, net, scale, buckets in CASES:
+        model = denoiser_from_params(init_numpy_params("denoiser", seed=0, **net),
+                                     device="cuda", **net)
+        prep = prepare_fused_sampler(model, linear_schedule(1000).to("cuda"))
+        process = ReverseProcess(prep)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        kw = dict(stochastic=True, clip_x0=3.0, guidance_scale=scale)
+        for batch in buckets:
+            inputs = draw_request(prep, batch, torch.arange(batch, device="cuda") % 102, None,
+                                  gen, None, scale is not None)
+            x = process(inputs, **kw)
+            ms = []
+            for _ in range(5):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                torch.cuda.synchronize()
+                start.record()
+                process(inputs, **kw)
+                end.record()
+                torch.cuda.synchronize()
+                ms.append(round(start.elapsed_time(end), 3))
+            key = f"{name}_{batch}"
+            out[f"ms_{key}"] = ms
+            out[f"plan_{key}"] = list(process.bound[(batch, scale is not None)])
+            out[f"sum_{key}"] = float(x.double().sum())
     print(json.dumps(out), flush=True)
 
 
@@ -98,10 +108,10 @@ def main() -> int:
             line = out.stdout.strip().splitlines()[-1]
             print(f"[process_ab] round {rnd} {line}", flush=True)
             rec = json.loads(line)
-            for batch in (8, 64):
-                times.setdefault((str(tree), batch), []).extend(rec[f"ms_{batch}"][1:])
-    for (tree, batch), ms in times.items():
-        print(f"[process_ab] tree {tree} bucket {batch}: mean {sum(ms) / len(ms):.3f} ms "
+            for key in KEYS:
+                times.setdefault((str(tree), key), []).extend(rec[f"ms_{key}"][1:])
+    for (tree, key), ms in times.items():
+        print(f"[process_ab] tree {tree} bucket {key}: mean {sum(ms) / len(ms):.3f} ms "
               f"over {len(ms)} launches, min {min(ms):.3f}, max {max(ms):.3f}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()

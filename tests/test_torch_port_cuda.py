@@ -1153,10 +1153,12 @@ def test_reverse_process_carries_each_request(gen):
 
 def test_reverse_process_every_plan_forced(gen):
     """Every plan the kernel takes at the 64 bucket, guided, each with one
-    operand buffer too (the mbarrier that counts the blocks' releases), and
-    the unguided 8 bucket's: each within the limit of the host loop; a
-    bound plan's launches encode no tensor map; a plan claimed one wave fits
-    the card's cudaOccupancyMaxActiveClusters."""
+    operand buffer too (the mbarrier that counts the blocks' releases), the
+    unguided 8 bucket's, and the 24-row plans of the unguided 256 and the
+    guided 128 buckets: each within the limit of the host loop; a bound
+    plan's launches encode no tensor map; a plan claimed one wave fits the
+    card's cudaOccupancyMaxActiveClusters (11 clusters of 24 rows among
+    them)."""
     from flowerdiff_torch.kernels.full_sampler import (
         process_map_encodes,
         process_max_clusters,
@@ -1164,11 +1166,13 @@ def test_reverse_process_every_plan_forced(gen):
         process_smem,
     )
 
-    for guided, batch in ((True, 64), (False, 8)):
+    for guided, batch, rows in ((True, 64, None), (False, 8, None), (False, 256, 24),
+                                (True, 128, 24)):
         sampler = _process_sampler(True, guided)
         inputs = _inputs(sampler, batch, torch.arange(batch, device="cuda") % 102, 41)
         ref = _host_loop(sampler, inputs)
-        plans = process_plans(256, _PROCESS_NET["hidden_dims"], True, batch, guided)
+        plans = [p for p in process_plans(256, _PROCESS_NET["hidden_dims"], True, batch, guided)
+                 if rows in (None, p.rows)]
         for p in list(plans):
             if p.qbufs == 2:
                 smem = process_smem(256, _PROCESS_NET["hidden_dims"], True, p.cols, p.rows, 1,
@@ -1182,6 +1186,31 @@ def test_reverse_process_every_plan_forced(gen):
             assert process_map_encodes() == encodes, p
             if p.waves == 1:
                 assert p.clusters <= process_max_clusters(p), p
+
+
+@pytest.mark.parametrize("global_skip,guided,batch", [(True, False, 256), (False, True, 128),
+                                                      (True, False, 241)])
+def test_24_row_clusters_are_bit_equal_to_16_row_ones(gen, global_skip, guided, batch):
+    """v2's unguided 256 bucket and the flagship's guided 128 one on 11
+    clusters of 24 rows (one wave; the last cluster ragged: 256 = 10 x 24 +
+    16, 128 samples = 10 x 12 + 8, 241 = 10 x 24 + 1) against 16 clusters
+    of 16 rows at the same 8-block column split: rows never mix and each
+    element's sums follow the column split alone, so the same bits; both
+    within the limit of the host loop, 20 steps with noise."""
+    from flowerdiff_torch.kernels.full_sampler import process_plans
+
+    sampler = _process_sampler(global_skip, guided)
+    cls = (torch.arange(batch, device="cuda") * 7) % 102
+    inputs = _inputs(sampler, batch, cls, 43)
+    plans = process_plans(256, _PROCESS_NET["hidden_dims"], global_skip, batch, guided)
+    (p24,) = [p for p in plans if p.cols == 8 and p.rows == 24]
+    (p16,) = [p for p in plans if p.cols == 8 and p.rows == 16]
+    assert (p24.clusters, p24.waves) == (11, 1) and p16.waves == 2
+    assert sampler.process.plan_for(batch, guided) == p24
+    got = _process(sampler, inputs, plan=p24)
+    _held(got, _host_loop(sampler, inputs), guided)
+    assert torch.equal(_process(sampler, inputs, plan=p16), got)
+    assert torch.equal(_process(sampler, inputs), got)
 
 
 # Denoisers the JAX package samples with its kernel (whole arrays in VMEM,

@@ -37,19 +37,29 @@ from flowerdiff_torch.utils.weights import denoiser_from_params, init_numpy_para
 
 LATENT, HIDDEN = 256, (256, 512, 1024, 512, 256)  # the flagship's widths
 # The buckets the services launch: the flagship's (8, 64) guided, the v1
-# HTTP service's (1, 2, 4, 8, 16, 32, 64) unguided, and the ladder's 128.
-SERVICE_BATCHES = (1, 2, 4, 8, 16, 32, 64, 128)
+# HTTP service's (1, 2, 4, 8, 16, 32, 64) unguided, and the ladder's 128
+# and 256 (v2's online windows of ~190 images run at 256).
+SERVICE_BATCHES = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 
 
 @pytest.mark.parametrize("guided", [True, False])
 def test_process_plan_covers_every_row_once_and_keeps_cfg_pairs_in_a_cluster(guided):
-    for batch in range(1, 129 if guided else 257):
-        plan = process_plan(LATENT, HIDDEN, False, batch, guided)
+    """Every row once, no empty cluster, a guided sample's null row rows / 2
+    after its conditional one, the last cluster holding what is left: 256
+    unguided rows and 128 guided samples on 11 clusters of 24 rows, the
+    last ragged (256 = 10 x 24 + 16; 128 samples = 10 x 12 + 8)."""
+    for skip, batch in ((s, b) for s in (False, True) for b in range(1, 129 if guided else 257)):
+        plan = process_plan(LATENT, HIDDEN, skip, batch, guided)
         rows = process_rows(plan, batch, guided)
         assert len(rows) == plan.clusters and all(len(r) == plan.rows for r in rows)
         held = sorted(r for cluster in rows for r in cluster if r >= 0)
         assert held == list(range(batch * (2 if guided else 1))), (batch, plan)
         assert all(any(r >= 0 for r in cluster) for cluster in rows), "an empty cluster"
+        samples = plan.rows // 2 if guided else plan.rows
+        last = batch - (plan.clusters - 1) * samples
+        assert sum(r >= 0 for r in rows[-1]) == last * (2 if guided else 1), (batch, plan)
+        if batch * (2 if guided else 1) == 256:
+            assert (plan.clusters, plan.rows, last) == (11, 24, 8 if guided else 16), plan
         if guided:
             half = plan.rows // 2
             for cluster in rows:
@@ -84,7 +94,11 @@ def test_process_plan_fits_shared_memory_and_counts_its_waves(guided, skip):
             assert plan.waves == -(-plan.clusters // WAVE_CLUSTERS[plan.cols])
         chosen = process_plan(LATENT, HIDDEN, skip, batch, guided)
         assert chosen in plans
-        if batch in SERVICE_BATCHES and batch * (2 if guided else 1) <= 128:
+        # every bucket up to 256 rows unguided and 128 samples guided in one
+        # wave: 256 unguided rows or 128 guided samples on 24-row clusters
+        # (11 of 8 blocks), where 16-row ones take 16 clusters, one past the
+        # card's 15
+        if batch in SERVICE_BATCHES:
             assert chosen.waves == 1, (batch, chosen)
 
 
@@ -96,6 +110,42 @@ def test_process_smem_grows_with_each_region():
     assert process_smem(LATENT, HIDDEN, False, 16, 32, 2, 2) > base
     # the skip adds a product, not a region
     assert process_smem(LATENT, HIDDEN, True, 16, 16, 2, 2) == base
+
+
+def test_process_smem_at_24_rows_sums_its_regions():
+    """The v2 plan of 24-row clusters at 8 blocks, one operand buffer and
+    three ring slots, region by region as csrc/reverse_process.cu::
+    ProcessLayout lays them out (v2 and v1 alike: the skip adds a product,
+    not a region)."""
+    rows, cols, slots = 24, 8, 3
+    nvec = (LATENT + sum(7 * d + e for d, e in zip(HIDDEN, HIDDEN[1:])) + 2 * HIDDEN[-1]
+            + LATENT) // cols
+    regions = dict(ring=slots * 32768,  # a slot: a 32 KB chunk of the widest slice
+                   operand=rows * 1024 * 2,  # one buffer, the widest K
+                   stats=2 * cols * rows * 8, red=16 * rows * 4, mr=rows * 8,
+                   part=2 * 128 * 2 * (rows // 2) * 4,  # 2 m64 tiles, 12 values a thread
+                   vec=-(-nvec * 4 // 16) * 16, adds=rows * sum(HIDDEN) // cols * 4,
+                   x_eps_skip=3 * rows * LATENT // cols * 4, bars=(2 * slots + 5) * 8)
+    want = 1024 + sum(regions.values())
+    assert want == 227_608 <= SMEM_LIMIT
+    for skip in (True, False):
+        assert process_smem(LATENT, HIDDEN, skip, cols, rows, 1, slots) == want
+        # a second buffer does not fit beside two slots
+        assert process_smem(LATENT, HIDDEN, skip, cols, rows, 2, 2) == want + rows * 2048 - 32768 - 16
+        assert process_smem(LATENT, HIDDEN, skip, cols, rows, 2, 2) > SMEM_LIMIT
+
+
+@pytest.mark.parametrize("skip", [True, False])
+def test_process_plan_pins_each_cells_buckets(skip):
+    """The grid's 64-bucket guided call and the 128-row unguided one keep
+    16-row clusters, 8 of 8 blocks; 256 unguided rows and 128 guided
+    samples take 11 clusters of 24 rows, one wave, one operand buffer."""
+    sixteen = (8, 8, 16, 2, 3, 220_888, 1)
+    twenty_four = (11, 8, 24, 1, 3, 227_608, 1)
+    for batch, guided, want in ((64, True, sixteen), (128, False, sixteen),
+                                (256, False, twenty_four), (128, True, twenty_four)):
+        plan = process_plan(LATENT, HIDDEN, skip, batch, guided)
+        assert tuple(plan[:7]) == want and not plan.streamed and not plan.wide, (batch, guided)
 
 
 def test_process_plan_ranks_by_waves_and_cost():
