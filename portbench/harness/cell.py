@@ -1,9 +1,10 @@
 """One run of one cell: set-up, the window, the metrics, the output check.
 
-Set-up builds the service from the seed's weights, warms only the buckets
-the cell's traffic reaches, then offers the traffic; the window opens after
-the mix's lead-in. After the window the peak memory is read, the program is
-freed, and the reference recomputes the sampled requests.
+Set-up builds the service from the seed's weights (both the configuration's
+family's: `families/<family>.py`), warms only the buckets the cell's traffic
+reaches, then offers the traffic; the window opens after the mix's lead-in.
+After the window the peak memory is read, the program is freed, and the
+family's reference recomputes the sampled requests.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from portbench.harness import check, drive, port, traffic as tr, weights
+from portbench.harness import check, drive, port, spans, traffic as tr
 from portbench.harness.context import Context
 from portbench.reference.seeds import derived_seed
 
@@ -21,9 +22,10 @@ TOP = 10  # entries of each breakdown list
 
 
 def _breakdown(ctx: Context) -> Optional[Dict]:
-    """The device operations that took most time in the traced stretch, and
-    its longest idle gaps by what the host was doing (inside a
-    `sample_async` call or not)."""
+    """The device operations that took most time in the traced stretch, its
+    longest idle gaps by what the host was doing (inside a `sample_async`
+    call or not), and its idle time summed by the port's innermost span open
+    on the serving threads (`spans.idle_spans`; empty without spans)."""
     trace = ctx.trace
     if trace is None:
         return None
@@ -34,7 +36,8 @@ def _breakdown(ctx: Context) -> Optional[Dict]:
     gaps = sorted(((b - a, 0.5 * (a + b)) for a, b in trace.idle_gaps()), reverse=True)[:TOP]
     return {"device_ops": [[n, s] for n, s in ops],
             "idle_gaps": [["host in sample_async" if ctx.dispatch_at(mid) is not None
-                           else "host outside sample_async", length] for length, mid in gaps]}
+                           else "host outside sample_async", length] for length, mid in gaps],
+            "idle_spans": spans.idle_spans(trace, spans.recorded() or [], TOP)}
 
 
 class Prepared:
@@ -44,12 +47,13 @@ class Prepared:
     def __init__(self, spec, cell_name: str, seed: int, device):
         cell = spec.cell(cell_name)
         self.cfg = spec.config(cell["config"])
+        self.family = spec.family(self.cfg)
         self.mix = spec.traffic(cell["traffic"])
         self.seed, self.device = seed, device
         marks = [("start", time.perf_counter())]
-        params, stats = weights.make(self.cfg, seed, device)
+        params, stats = self.family.make(self.cfg, seed, device)
         marks.append(("weights", time.perf_counter()))
-        self.service = port.build_service(self.cfg, params, stats, device)
+        self.service = self.family.build_service(self.cfg, params, stats, device)
         del params, stats
         marks.append(("service", time.perf_counter()))
         if self.mix["loop"] == "open":
@@ -70,8 +74,9 @@ class Prepared:
         recorder: (run, recorder)."""
         mix = mix or self.mix
         rec = port.RecordingService(self.service)
+        conditions = self.family.conditions(self.cfg)
         if mix["loop"] == "closed":
-            return drive.closed_loop(rec, mix, self.seed, seconds, trace), rec
+            return drive.closed_loop(rec, mix, conditions, self.seed, seconds, trace), rec
         if mix["loop"] == "open":
             from flowerdiff_torch.serving_http import CoalescingBatcher
 
@@ -80,8 +85,7 @@ class Prepared:
                                         max_wait_ms=b["max_wait_ms"], max_batch=b["max_batch"],
                                         pipeline_depth=b["pipeline_depth"])
             try:
-                run_ = drive.open_loop(batcher, mix, self.cfg["denoiser"]["num_classes"],
-                                       self.seed, seconds, trace)
+                run_ = drive.open_loop(batcher, mix, conditions, self.seed, seconds, trace)
             finally:
                 batcher.stop()
             return run_, rec
@@ -96,12 +100,12 @@ def run(spec, cell_name: str, seed: int, seconds: float, trace: bool, device,
     too). `metric_names`: the metrics to read in place of the cell's."""
     prep = Prepared(spec, cell_name, seed, device)
     prep_begin, prep_timings, prep_end = prep.t_begin, prep.timings, time.perf_counter()
-    cfg, mix = prep.cfg, prep.mix
+    cfg, mix, family = prep.cfg, prep.mix, prep.family
     run_, rec = prep.drive(seconds, trace)
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
     setup_s = run_.w0 - t_start
     run_.read_trace()
-    ctx = Context(cfg, mix, run_, rec.dispatches, seconds, setup_s)
+    ctx = Context(cfg, mix, run_, rec.dispatches, seconds, setup_s, family)
     names = metric_names if metric_names is not None else \
         [m["name"] for m in spec.metrics(cell_name, trace)]
     metrics = {}
@@ -119,7 +123,7 @@ def run(spec, cell_name: str, seed: int, seconds: float, trace: bool, device,
     if device.type == "cuda":
         torch.cuda.empty_cache()
     window = run_.in_window()
-    verdict = check.check(cfg, mix, run_, ctx.dispatches, seed, device, control)
+    verdict = check.check(family, cfg, mix, run_, ctx.dispatches, seed, device, control)
     out = {"correct": verdict["correct"], "attempted": len(window),
            "failed": sum(1 for r in window if r.result is None), "metrics": metrics,
            "device": {"memory_peak_bytes": int(peak)}}

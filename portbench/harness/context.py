@@ -1,5 +1,6 @@
-"""What a metric's reader is given: the run's records, the configuration,
-the traffic mix, the profiled stretch; and the helpers they share."""
+"""What a metric's reader is given: the run's records, the configuration and
+its family's module, the traffic mix, the profiled stretch; and the helpers
+they share."""
 from __future__ import annotations
 
 from typing import List, Optional
@@ -13,8 +14,8 @@ def percentile(values: List[float], q: float) -> Optional[float]:
 
 class Context:
     def __init__(self, cfg: dict, traffic: dict, run, dispatches, seconds: float,
-                 setup_s: float):
-        self.cfg, self.traffic, self.run = cfg, traffic, run
+                 setup_s: float, family=None):
+        self.cfg, self.traffic, self.run, self.family = cfg, traffic, run, family
         self.dispatches, self.seconds, self.setup_s = dispatches, seconds, setup_s
 
     @property

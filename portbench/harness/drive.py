@@ -26,10 +26,11 @@ DRAIN_S = 60.0
 
 
 class Request:
-    __slots__ = ("index", "classes", "due", "t_send", "t_done", "result", "error")
+    __slots__ = ("index", "classes", "colors", "due", "t_send", "t_done", "result", "error")
 
-    def __init__(self, index: int, classes: np.ndarray, due: Optional[float] = None):
-        self.index, self.classes, self.due = index, classes, due
+    def __init__(self, index: int, classes: np.ndarray, due: Optional[float] = None,
+                 colors: Optional[np.ndarray] = None):
+        self.index, self.classes, self.colors, self.due = index, classes, colors, due
         self.t_send = self.t_done = None
         self.result: Optional[np.ndarray] = None
         self.error: Optional[str] = None
@@ -90,10 +91,12 @@ class _Tracer:
             self._thread.join()
 
 
-def closed_loop(service, traffic: dict, seed: int, seconds: float, trace: bool) -> Run:
+def closed_loop(service, traffic: dict, conditions: dict, seed: int, seconds: float,
+                trace: bool) -> Run:
     """One client keeping `in_flight` requests of the grid issued: request
-    i + 1 is dispatched before request i is fetched."""
-    classes = tr.grid_classes(traffic)
+    i + 1 is dispatched before request i is fetched. `conditions`: the
+    family's (`traffic.grid_request`)."""
+    classes, colors = tr.grid_request(traffic, conditions, seed)
     depth = int(traffic["in_flight"])
     run = Run()
     pending: deque = deque()
@@ -114,11 +117,11 @@ def closed_loop(service, traffic: dict, seed: int, seconds: float, trace: bool) 
     while True:
         if time.perf_counter() >= run.w1:
             break
-        r = Request(k, classes)
+        r = Request(k, classes, colors=colors)
         run.requests.append(r)
         r.t_send = time.perf_counter()
         try:
-            pending.append((r, service.sample_async(classes, derived_seed(seed, 1, k))))
+            pending.append((r, service.sample_async(classes, derived_seed(seed, 1, k), colors)))
         except Exception as exc:
             r.error, r.t_done = f"{type(exc).__name__}: {exc}", time.perf_counter()
         k += 1
@@ -130,12 +133,13 @@ def closed_loop(service, traffic: dict, seed: int, seconds: float, trace: bool) 
     return run
 
 
-def open_loop(batcher, traffic: dict, num_classes: int, seed: int, seconds: float,
+def open_loop(batcher, traffic: dict, conditions: dict, seed: int, seconds: float,
               trace: bool) -> Run:
-    """Arrivals on the mix's schedule, each handed at its due time to a free
-    client thread that blocks in `batcher.submit`."""
+    """Arrivals on the mix's schedule, each with the conditions the family
+    declares, handed at its due time to a free client thread that blocks in
+    `batcher.submit`."""
     lead = float(traffic["lead_s"])
-    plan = tr.open_schedule(traffic, num_classes, lead + seconds, seed)
+    plan = tr.open_schedule(traffic, conditions, lead + seconds, seed)
     run = Run()
     todo: queue.SimpleQueue = queue.SimpleQueue()
     done = threading.Semaphore(0)
@@ -147,7 +151,7 @@ def open_loop(batcher, traffic: dict, num_classes: int, seed: int, seconds: floa
                 return
             r.t_send = time.perf_counter()
             try:
-                r.result = np.array(batcher.submit(r.classes))  # a copy, the original dropped
+                r.result = np.array(batcher.submit(r.classes, r.colors))  # a copy, original dropped
             except Exception as exc:  # counted as failed
                 r.error = f"{type(exc).__name__}: {exc}"
             r.t_done = time.perf_counter()
@@ -171,7 +175,7 @@ def open_loop(batcher, traffic: dict, num_classes: int, seed: int, seconds: floa
                     break
                 wake = due if run.stats0 is not None else min(due, run.w0)
                 time.sleep(max(0.0, min(wake - now, 0.05)))
-            r = Request(i, p.classes, due)
+            r = Request(i, p.classes, due, p.colors)
             run.requests.append(r)
             todo.put(r)
         while True:

@@ -1,7 +1,8 @@
-"""The system under test: the port's `SamplingService`, built as
-`flowerdiff_torch/tools/serve.py::build_service` builds it for a user, but
-with the benchmark's seeded weights in place of a run directory, and a
-recorder around it.
+"""The system under test: the latent family's service, the port's
+`SamplingService` built as `flowerdiff_torch/tools/serve.py::build_service`
+builds it for a user but with the benchmark's seeded weights in place of a
+run directory (`families/latent.py` points here); and the recorder around
+any family's service.
 
 Every import of the port happens inside these functions, so importing the
 harness imports no part of it.
@@ -57,20 +58,22 @@ def build_service(cfg: dict, params: Dict[str, Dict[str, torch.Tensor]], stats, 
 
 
 class Dispatch:
-    """One call of `sample_async`: what it was asked, when, its chunks'
-    buckets and, once fetched, a copy of what it returned."""
-    __slots__ = ("index", "classes", "seed", "plan", "t_call", "t_issued", "out")
+    """One call of `sample_async`: what it was asked (classes, seed, colours
+    or None), when, its chunks' buckets and, once fetched, a copy of what it
+    returned."""
+    __slots__ = ("index", "classes", "colors", "seed", "plan", "t_call", "t_issued", "out")
 
-    def __init__(self, index, classes, seed, plan):
+    def __init__(self, index, classes, seed, plan, colors=None):
         self.index, self.classes, self.seed, self.plan = index, classes, seed, plan
+        self.colors = colors
         self.t_call = self.t_issued = None
         self.out: Optional[np.ndarray] = None
 
 
 class RecordingService:
     """The service as its callers see it, every `sample_async` recorded:
-    classes, seed, its chunks' buckets, the host times of the call, the
-    result. It computes nothing itself."""
+    classes, colours, seed, its chunks' buckets, the host times of the call,
+    the result. It computes nothing itself."""
 
     def __init__(self, service):
         self.service = service
@@ -80,9 +83,12 @@ class RecordingService:
 
     def sample_async(self, classes, seed=0, colors=None, decode=True, **kw):
         classes = np.asarray(classes, np.int64).reshape(-1)
+        if colors is not None:
+            colors = np.asarray(colors, np.int64).reshape(-1)
         plan = self.service.request_plan(classes.shape[0])
         with self._lock:
-            d = Dispatch(len(self.dispatches), classes.copy(), int(seed), plan)
+            d = Dispatch(len(self.dispatches), classes.copy(), int(seed), plan,
+                         None if colors is None else colors.copy())
             self.dispatches.append(d)
         d.t_call = time.perf_counter()
         fetch = self.service.sample_async(classes, seed, colors, decode=decode, **kw)

@@ -2,11 +2,15 @@
 
 `BENCHMARK.json` names the cells; a cell names a configuration (the file its
 entry gives, relative to BENCHMARK.json) and a traffic mix
-(`traffic/<traffic>.json`); a metric is read by `metrics/<name>.py` or, where
-that file is absent, by the reader of the part of its name before the first
-dot (`process_roofline.grid` -> `process_roofline.py`). Mixes and readers are
-looked up in `portbench/`, after any directories given first. A later change
-adds a configuration, a mix or a metric by adding files and entries.
+(`traffic/<traffic>.json`); a configuration names its model family
+(`"family"`, no default), whose module `families/<family>.py` makes the
+weights, builds the service, declares the conditions a request carries,
+recomputes answers and counts an image's operations (`families/__init__.py`);
+a metric is read by `metrics/<name>.py` or, where that file is absent, by the
+reader of the part of its name before the first dot (`process_roofline.grid`
+-> `process_roofline.py`). Families, mixes and readers are looked up in
+`portbench/`, after any directories given first. A later change adds a
+configuration, a family, a mix or a metric by adding files and entries.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ class Spec:
     def __init__(self, path: Optional[Path] = None, first: Sequence[Path] = ()):
         self.path = Path(path) if path else ROOT / "BENCHMARK.json"
         self.dirs = [Path(d) for d in first] + [BENCH]
+        self._modules: Dict[tuple, object] = {}
         with open(self.path) as f:
             self.data = json.load(f)
         self.configs = {c["name"]: c for c in self.data["configs"]}
@@ -44,6 +49,27 @@ class Spec:
     def _find(self, kind: str, name: str) -> Optional[Path]:
         return next((d / kind / name for d in self.dirs if (d / kind / name).exists()), None)
 
+    def _load(self, kind: str, name: str):
+        """The module `<kind>/<name>.py`, loaded once; None where absent."""
+        if (kind, name) not in self._modules:
+            path = self._find(kind, f"{name}.py")
+            mod = None
+            if path is not None:
+                spec = importlib.util.spec_from_file_location(f"portbench_{kind}_{name}", path)
+                mod = importlib.util.module_from_spec(spec)
+                spec.loader.exec_module(mod)
+            self._modules[kind, name] = mod
+        return self._modules[kind, name]
+
+    def family(self, cfg: dict):
+        """The module of the configuration's model family."""
+        if "family" not in cfg:
+            raise KeyError(f"configuration {cfg.get('name')!r} names no 'family'")
+        mod = self._load("families", cfg["family"])
+        if mod is None:
+            raise FileNotFoundError(f"no family {cfg['family']!r} under {self.dirs}")
+        return mod
+
     def traffic(self, name: str) -> dict:
         path = self._find("traffic", f"{name}.json")
         if path is None:
@@ -60,11 +86,8 @@ class Spec:
 
     def reader(self, metric: str) -> Callable:
         for name in (metric, metric.split(".")[0]):
-            path = self._find("metrics", f"{name}.py")
-            if path is not None:
-                spec = importlib.util.spec_from_file_location(f"portbench_metric_{name}", path)
-                mod = importlib.util.module_from_spec(spec)
-                spec.loader.exec_module(mod)
+            mod = self._load("metrics", name)
+            if mod is not None:
                 return mod.read
         raise FileNotFoundError(f"no reader for metric {metric!r} under {self.dirs}")
 

@@ -10,6 +10,11 @@ A traffic file (`portbench/traffic/<name>.json`) is data:
 - the request: `classes` "grid" (each of `class_ids` repeated `per_class`
   times: one fixed request) or "uniform" (`sizes`, each a request's image
   count, and classes uniform over the configuration's);
+- what else an image carries is the family's (`conditions`): each condition
+  it declares with a count is drawn uniform over that many values from the
+  seed, classes first, then colours (a grid's colours once, for the one
+  fixed request); a family that declares no colours draws exactly what a
+  mix drew before families, in the same order;
 - open loop: `rate_per_s` requests a second and `client_threads`;
 - `lead_s`: seconds of traffic before the window opens; `check_requests`: how
   many requests of the window the output check recomputes.
@@ -26,16 +31,20 @@ a block keep the exponential gaps' bursts.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 
 GAP_BLOCK = 50
 
 
+CONDITIONS = ("classes", "colors")  # the service's per-image arguments, in drawing order
+
+
 class Planned(NamedTuple):
     due: float  # seconds after the schedule's start (open loop)
     classes: np.ndarray
+    colors: Optional[np.ndarray] = None  # None where the family declares no colours
 
 
 def _rng(seed: int, tag: int) -> np.random.Generator:
@@ -46,6 +55,32 @@ def grid_classes(traffic: dict) -> np.ndarray:
     return np.repeat(np.asarray(traffic["class_ids"], np.int64), traffic["per_class"])
 
 
+def _declared(conditions: dict) -> dict:
+    unknown = set(conditions) - set(CONDITIONS)
+    if unknown or "classes" not in conditions:
+        raise ValueError(f"conditions {sorted(conditions)}: a family declares 'classes' "
+                         f"and may add 'colors', nothing else")
+    return conditions
+
+
+def _draw(conditions: dict, size: int, rng: np.random.Generator):
+    """(classes, colours) of a request of `size` images, drawn from `rng` in
+    that order: classes without a count are zeros, colours without one None."""
+    count = conditions["classes"]
+    classes = np.zeros((size,), np.int64) if count is None else rng.integers(0, int(count), size)
+    count = conditions.get("colors")
+    return classes, None if count is None else rng.integers(0, int(count), size)
+
+
+def grid_request(traffic: dict, conditions: dict, seed: int):
+    """(classes, colours) of the closed loop's one request: the grid's
+    classes and, where the family declares colours, colours drawn once from
+    the seed (None where it does not)."""
+    classes = grid_classes(traffic)
+    count = _declared(conditions).get("colors")
+    return classes, None if count is None else _rng(seed, 2).integers(0, int(count), len(classes))
+
+
 def request_sizes(traffic: dict) -> List[int]:
     """Every image count a request of this mix can have."""
     if traffic["classes"] == "grid":
@@ -53,8 +88,10 @@ def request_sizes(traffic: dict) -> List[int]:
     return sorted(set(traffic["sizes"]))
 
 
-def open_schedule(traffic: dict, num_classes: int, seconds: float, seed: int) -> List[Planned]:
-    """The arrivals of `seconds` of open-loop traffic (the lead-in included)."""
+def open_schedule(traffic: dict, conditions: dict, seconds: float, seed: int) -> List[Planned]:
+    """The arrivals of `seconds` of open-loop traffic (the lead-in included),
+    each with the conditions the family declares (`conditions`)."""
+    _declared(conditions)
     rate = float(traffic["rate_per_s"])
     n = max(1, int(round(rate * seconds)))
     rng = _rng(seed, 1)
@@ -67,7 +104,7 @@ def open_schedule(traffic: dict, num_classes: int, seconds: float, seed: int) ->
     for due, size in zip(t, sizes):
         if due >= seconds:
             break
-        out.append(Planned(float(due), rng.integers(0, num_classes, int(size))))
+        out.append(Planned(float(due), *_draw(conditions, int(size), rng)))
     return out
 
 

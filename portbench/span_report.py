@@ -107,7 +107,7 @@ def report(args, spec, device, profiling):
     lines = [{"setup_by_span": _by_name(setup.spans), "setup_dropped": setup.dropped}]
     run, rec = prep.drive(args.seconds, True)
     run.read_trace()
-    ctx = Context(prep.cfg, prep.mix, run, rec.dispatches, args.seconds, 0.0)
+    ctx = Context(prep.cfg, prep.mix, run, rec.dispatches, args.seconds, 0.0, prep.family)
     names = [m["name"] for m in spec.metrics(args.workload, True)]
     lines.append({"metrics": {n: spec.reader(n)(ctx) for n in names}})
     tr, got = ctx.trace, profiling.recorded()
@@ -154,7 +154,7 @@ def cost(args, spec, device, profiling):
     for on in [False, True, True, False] * args.cost:
         with profiling.record() if on else contextlib.nullcontext() as kept:
             run, rec = prep.drive(args.seconds, False)
-        ctx = Context(prep.cfg, prep.mix, run, rec.dispatches, args.seconds, 0.0)
+        ctx = Context(prep.cfg, prep.mix, run, rec.dispatches, args.seconds, 0.0, prep.family)
         line = {"recording": on, "spans": len(kept.spans) if on else 0}
         for name in ("images_per_s", "dispatch_ms.grid", "latency_p95_ms.online"):
             if name in [m["name"] for m in spec.metrics(args.workload, False)

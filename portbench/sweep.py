@@ -54,7 +54,7 @@ def main(argv=None) -> int:
     for rate in (float(r) for r in args.rates.split(",")):
         mix = dict(prep.mix, rate_per_s=rate)
         run, rec = prep.drive(args.seconds, False, mix)
-        ctx = Context(prep.cfg, mix, run, rec.dispatches, args.seconds, 0.0)
+        ctx = Context(prep.cfg, mix, run, rec.dispatches, args.seconds, 0.0, prep.family)
         window = sorted(ctx.window_requests(), key=lambda r: r.due)
         lat = [(r.t_done - r.due) * 1e3 for r in window if r.result is not None]
         third = max(1, len(lat) // 3)

@@ -13,7 +13,7 @@ from portbench.harness.spec import Spec
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["flagship.grid50", "v2.online"])
+@pytest.mark.parametrize("name", ["flagship.grid50", "v2.online", "flagship.online"])
 def test_control_fails_where_the_program_passes(card, name):
     res = cell.run(Spec(), name, 2**31 + 99, 3.0, False, card, time.perf_counter(),
                    metric_names=[], control=True)

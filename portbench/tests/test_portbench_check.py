@@ -18,7 +18,7 @@ import torch
 from portbench.harness import cell
 
 SEED = 2**31 + 4242
-CELLS = ("tiny_flagship.grid", "tiny_v2.online")
+CELLS = ("tiny_flagship.grid", "tiny_v2.online", "tiny_flagship.online")
 
 
 def _run(spec, name, control=False):
@@ -83,7 +83,7 @@ def _fan_out_shifted(monkeypatch):
 
 
 FAULTS = [(c, f) for c in CELLS for f in (_state_unchanged, _half_left_out, _answer_altered)]
-FAULTS.append(("tiny_v2.online", _fan_out_shifted))
+FAULTS += [(c, _fan_out_shifted) for c in CELLS if c.endswith(".online")]
 
 
 @pytest.mark.parametrize("name,fault", FAULTS, ids=[f"{c}-{f.__name__[1:]}" for c, f in FAULTS])

@@ -12,14 +12,14 @@ def _flat(plan):
 
 
 def test_same_seed_same_schedule():
-    a = tr.open_schedule(MIX, 102, 10.0, 2**31 + 77)
-    b = tr.open_schedule(MIX, 102, 10.0, 2**31 + 77)
+    a = tr.open_schedule(MIX, {"classes": 102}, 10.0, 2**31 + 77)
+    b = tr.open_schedule(MIX, {"classes": 102}, 10.0, 2**31 + 77)
     assert _flat(a) == _flat(b)
 
 
 def test_seeds_order_the_same_work():
-    a = tr.open_schedule(MIX, 102, 10.0, 5)
-    b = tr.open_schedule(MIX, 102, 10.0, 6)
+    a = tr.open_schedule(MIX, {"classes": 102}, 10.0, 5)
+    b = tr.open_schedule(MIX, {"classes": 102}, 10.0, 6)
     assert _flat(a) != _flat(b)
     sizes_a = sorted(len(p.classes) for p in a)
     sizes_b = sorted(len(p.classes) for p in b)
